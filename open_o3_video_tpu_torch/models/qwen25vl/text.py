@@ -1,0 +1,87 @@
+"""Qwen2.5-VL text decoder: GQA + M-RoPE, prefill and cached decode
+(counterpart of ``open_o3_video_tpu/models/qwen25vl/text.py``).
+
+Functions over a param dict. The KV cache is one stacked (L, B, T, Hkv, D)
+pair of tensors updated in place: ``cache["k"][layer]`` is already a
+contiguous view, which attention reads through its strides. The JAX
+package's ``stacked_layer`` plumbing, which exists because a Pallas call's
+operands must be whole buffers, therefore has no counterpart here.
+Causality follows buffer positions (``seq_positions``); M-RoPE positions only
+rotate q/k. Left-padded batches are masked through ``attn_valid``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ...ops.attention import causal_attention
+from ...ops.rope import apply_mrope, mrope_cos_sin
+from .config import TextConfig
+from .vision import rms_norm
+
+
+def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device=None) -> dict:
+    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
+                     cache, layer: int, cache_offset: int, impl: str):
+    B, S, _ = x.shape
+    q = (x @ p["q_w"] + p["q_b"]).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
+    k = (x @ p["k_w"] + p["k_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    v = (x @ p["v_w"] + p["v_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    q, k = apply_mrope(q, k, cos, sin)
+    if cache is not None:
+        ck, cv = cache["k"][layer], cache["v"][layer]  # (B, T, Hkv, D) views
+        ck[:, cache_offset:cache_offset + S] = k.to(ck.dtype)
+        cv[:, cache_offset:cache_offset + S] = v.to(cv.dtype)
+        T = ck.shape[1]
+        written = torch.arange(T, device=x.device)[None, :] < cache_offset + S
+        mask = written if kv_mask is None else kv_mask & written
+        out = causal_attention(q, ck, cv, q_positions=seq_positions, kv_mask=mask, impl=impl)
+    else:
+        out = causal_attention(q, k, v, q_positions=seq_positions, kv_mask=kv_mask, impl=impl)
+    return out.reshape(B, S, -1) @ p["o_w"]
+
+
+def text_forward(
+    params: dict,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,  # (B, S, D)
+    position_ids: torch.Tensor,  # (3, B, S) M-RoPE positions
+    *,
+    seq_positions: Optional[torch.Tensor] = None,  # (B, S); default arange + offset
+    attn_valid: Optional[torch.Tensor] = None,  # (B, T) bool slot validity
+    cache: Optional[dict] = None,
+    cache_offset: int = 0,
+    attn_impl: str = "auto",
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """Returns (hidden states (B, S, D) after the final norm, the cache,
+    updated in place)."""
+    B, S, _ = inputs_embeds.shape
+    if seq_positions is None:
+        seq_positions = torch.arange(S, device=inputs_embeds.device).expand(B, S) + cache_offset
+    cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
+    cos = cos.to(inputs_embeds.dtype)
+    sin = sin.to(inputs_embeds.dtype)
+    x = inputs_embeds
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
+        x = x + _attention_layer(layer, cfg, h, cos, sin, seq_positions, attn_valid,
+                                 cache, i, cache_offset, attn_impl)
+        h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
+        x = x + (F.silu(h @ layer["gate_w"]) * (h @ layer["up_w"])) @ layer["down_w"]
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
+
+
+def logits_from_hidden(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """Final hidden states -> vocabulary logits (float32)."""
+    return (hidden @ params["lm_head"]).float()

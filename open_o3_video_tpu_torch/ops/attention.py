@@ -1,0 +1,76 @@
+"""Attention entry points of the model (counterpart of
+``open_o3_video_tpu/ops/attention.py``).
+
+- ``causal_attention``: GQA decoder attention against a KV buffer. Prefill
+  (S > 8) runs K3 (``flash_attention``); short-query decode (S <= 8) runs a
+  plain grouped matmul, as the JAX package's XLA path does below the
+  long-context threshold. Keys are addressed by buffer index == position.
+- ``segment_attention``: bidirectional ViT attention over same-size segments
+  (K2, ``window_attention``).
+
+``impl="auto"`` launches the kernels for CUDA tensors and runs their plain
+versions for CPU tensors; ``impl="torch"`` runs the plain versions anywhere.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .flash_attention import flash_attention_gqa
+from .window_attention import window_attention
+
+# Decode against a buffer at least this long is the long-context slice: the
+# JAX package runs its stored-dtype decode kernel there (decode_attention.py).
+LONG_DECODE_T = 32768
+
+
+def _grouped_decode(q, k, v, mask):
+    """Exact-softmax grouped decode for S <= 8 query rows: the KV heads are
+    never repeated over the GQA group. mask (B, S, T). Rows with no valid
+    key return 0."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, S, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) / math.sqrt(D)
+    m = mask[:, None, None]
+    probs = torch.softmax(s.masked_fill(~m, float("-inf")), dim=-1)
+    probs = torch.where(m.any(-1, keepdim=True), probs, 0.0)
+    out = torch.einsum("bhgst,bthd->bshgd", probs.to(q.dtype).float(), v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def causal_attention(
+    q: torch.Tensor,  # (B, S, Hq, D)
+    k: torch.Tensor,  # (B, T, Hkv, D), e.g. a layer view of the stacked cache
+    v: torch.Tensor,
+    *,
+    q_positions: Optional[torch.Tensor] = None,  # (B, S) buffer positions
+    kv_mask: Optional[torch.Tensor] = None,  # (B, T) validity of cache slots
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Causal GQA attention: the query at position p sees valid keys t <= p.
+    Query rows with no visible key return 0 (they are never read)."""
+    B, S, Hq, D = q.shape
+    T = k.shape[1]
+    if q_positions is None:
+        q_positions = torch.arange(S, device=q.device).expand(B, S)
+    if kv_mask is None:
+        kv_mask = torch.ones((B, T), dtype=torch.bool, device=q.device)
+    if k.dtype != q.dtype:  # the cache may store another dtype than compute
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    if S > 8:
+        return flash_attention_gqa(q, k, v, q_positions, kv_mask, impl=impl)
+    if T >= LONG_DECODE_T:
+        raise NotImplementedError("long-context decode kernel: next slice")
+    t = torch.arange(T, device=q.device)
+    mask = (t[None, None, :] <= q_positions[:, :, None]) & kv_mask[:, None, :].bool()
+    return _grouped_decode(q, k, v, mask)
+
+
+def segment_attention(q, k, v, valid, impl: str = "auto"):
+    """Bidirectional attention within each segment. q/k/v (N, W, H, D);
+    valid (N, W) bool mask or int32 segment ids (0 = pad)."""
+    return window_attention(q, k, v, valid, impl=impl)

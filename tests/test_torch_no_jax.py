@@ -1,0 +1,66 @@
+"""Import guard: the port runs where neither JAX nor PIL is installed (the
+GPU machine has neither). A subprocess blocks both imports, imports every
+module of the port's serving slice, runs a tiny generate on the CPU, and
+checks that nothing of the JAX package was imported along the way."""
+
+import os
+import subprocess
+import sys
+
+from _torch_parity import REPO_ROOT
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None   # any `import jax` now raises ImportError
+sys.modules["PIL"] = None
+import importlib
+import numpy as np
+import torch
+
+MODULES = [
+    "open_o3_video_tpu_torch",
+    "open_o3_video_tpu_torch.ops.kernels",
+    "open_o3_video_tpu_torch.ops.preprocess",
+    "open_o3_video_tpu_torch.ops.rope",
+    "open_o3_video_tpu_torch.ops.sampling",
+    "open_o3_video_tpu_torch.ops.window_attention",
+    "open_o3_video_tpu_torch.ops.flash_attention",
+    "open_o3_video_tpu_torch.ops.attention",
+    "open_o3_video_tpu_torch.data.processor",
+    "open_o3_video_tpu_torch.models.qwen25vl",
+    "open_o3_video_tpu_torch.models.qwen25vl.config",
+    "open_o3_video_tpu_torch.models.qwen25vl.vision",
+    "open_o3_video_tpu_torch.models.qwen25vl.text",
+    "open_o3_video_tpu_torch.models.qwen25vl.model",
+    "open_o3_video_tpu_torch.models.qwen25vl.params",
+    "open_o3_video_tpu_torch.engine",
+]
+for m in MODULES:
+    importlib.import_module(m)
+
+from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
+from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
+from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params
+
+cfg = Qwen25VLConfig.tiny()
+proc = O3VideoProcessor(tokenizer=ByteTokenizer.for_config(cfg))
+imgs = list(np.random.default_rng(0).integers(0, 256, (2, 3, 56, 84), dtype=np.uint8))
+x = proc("<|vision_start|><|image_pad|><|vision_end|>" * 2 + "Why?", images=imgs)
+engine = InferenceEngine(params.init(cfg, 0, torch.device("cpu")), cfg)
+out = engine.generate([Request(x.input_ids, x.pixel_patches, x.grid_thw, cfg.image_token_id)],
+                      SamplingParams(max_tokens=4))
+assert 1 <= len(out[0]["token_ids"]) <= 4, out
+assert sys.modules["jax"] is None and sys.modules["PIL"] is None
+assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_and_generates_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO_ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout

@@ -1,0 +1,139 @@
+"""K1/K2 (ViT window attention): the port's plain versions against the JAX
+package's Pallas kernels (interpret mode) and XLA path on the CPU, and the
+CUDA kernels against the plain versions on the card."""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import ATOL_BF16, ATOL_OP, cuda_device, normal, packed_ids, rng
+
+from open_o3_video_tpu_torch.ops import window_attention as twa
+
+# (N, W, H, D, max windows per row): the slice's W = 64 and W = 128 packed
+# rows, and W = 448, a whole 18x24-patch frame (not a power of two).
+CASES = [(4, 64, 2, 16, 3), (3, 128, 2, 80, 2), (2, 448, 2, 16, 1)]
+
+
+def _rope_tables(r, n, w, d):
+    freqs = normal(r, n, w, d // 2, scale=3.0)
+    emb = np.concatenate([freqs, freqs], axis=-1)
+    return freqs, np.cos(emb).astype(np.float32), np.sin(emb).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,w,h,d,maxw", CASES)
+def test_window_attention_plain_matches_jax(n, w, h, d, maxw):
+    import jax.numpy as jnp
+
+    from open_o3_video_tpu.ops.attention import segment_attention
+    from open_o3_video_tpu.ops.window_attention import window_attention
+
+    r = rng(n * w + d)
+    q, k, v = (normal(r, n, w, h, d) for _ in range(3))
+    ids = packed_ids(r, n, w, maxw)
+    ours = twa.window_attention(*map(torch.from_numpy, (q, k, v, ids))).numpy()
+    pallas = np.asarray(window_attention(*map(jnp.asarray, (q, k, v, ids)), True))
+    xla = np.asarray(segment_attention(*map(jnp.asarray, (q, k, v, ids)), impl="xla"))
+    keep = ids != 0
+    np.testing.assert_allclose(ours[keep], pallas[keep], atol=ATOL_OP)
+    np.testing.assert_allclose(ours[keep], xla[keep], atol=ATOL_OP)
+    assert np.isfinite(ours).all()
+
+
+@pytest.mark.parametrize("n,w,h,d,maxw", CASES)
+def test_fused_window_attention_plain_matches_jax(n, w, h, d, maxw):
+    import jax.numpy as jnp
+
+    from open_o3_video_tpu.ops.attention import segment_attention
+    from open_o3_video_tpu.ops.rope import apply_rope_vision
+    from open_o3_video_tpu.ops.window_attention import fused_window_attention
+
+    r = rng(n * w + d + 1)
+    qkv = normal(r, n, w, 3 * h * d)
+    freqs, cos, sin = _rope_tables(r, n, w, d)
+    ids = packed_ids(r, n, w, maxw)
+    ours = twa.fused_window_attention(
+        *map(torch.from_numpy, (qkv, cos, sin, ids)), h
+    ).numpy()
+    pallas = np.asarray(fused_window_attention(
+        *map(jnp.asarray, (qkv, cos, sin, ids)), h, interpret=True
+    ))
+    x = jnp.asarray(qkv).reshape(n * w, 3, h, d)
+    qr, kr = apply_rope_vision(x[:, 0], x[:, 1], jnp.asarray(freqs.reshape(n * w, -1)))
+    xla = segment_attention(
+        qr.reshape(n, w, h, d), kr.reshape(n, w, h, d), x[:, 2].reshape(n, w, h, d),
+        jnp.asarray(ids), impl="xla",
+    )
+    xla = np.asarray(xla).reshape(n, w, h * d)
+    keep = ids != 0
+    np.testing.assert_allclose(ours[keep], pallas[keep], atol=ATOL_OP)
+    np.testing.assert_allclose(ours[keep], xla[keep], atol=ATOL_OP)
+    assert np.isfinite(ours).all()
+
+
+def test_pure_padding_row_gives_zero():
+    r = rng(3)
+    q, k, v = (torch.from_numpy(normal(r, 2, 64, 2, 16)) for _ in range(3))
+    ids = torch.zeros(2, 64, dtype=torch.int32)
+    ids[1, :10] = 1
+    out = twa.window_attention(q, k, v, ids)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+def test_impl_torch_is_the_plain_version():
+    r = rng(4)
+    q, k, v = (torch.from_numpy(normal(r, 2, 64, 2, 16)) for _ in range(3))
+    ids = torch.from_numpy(packed_ids(r, 2, 64))
+    assert torch.equal(
+        twa.window_attention(q, k, v, ids, impl="torch"),
+        twa.window_attention_torch(q, k, v, ids),
+    )
+    with pytest.raises(ValueError):
+        twa.window_attention(q, k, v, ids, impl="xla")
+
+
+# ---- on the card: kernel vs plain version, bf16 --------------------------
+
+CUDA_CASES = [
+    (112, 64, 16, 80, 3),  # the slice: 16 frames of 18x24 patches
+    (5, 128, 2, 80, 2),
+    (3, 100, 2, 80, 2),  # W off the 64-row tile
+    (2, 448, 4, 80, 1),
+    (3, 130, 2, 80, 2),
+]
+
+
+def _bf16(x, dev):
+    return torch.from_numpy(x).to(dev, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,h,d,maxw", CUDA_CASES)
+def test_window_attention_kernel_matches_plain(n, w, h, d, maxw):
+    dev = cuda_device()
+    r = rng(n + w + d)
+    q, k, v = (_bf16(normal(r, n, w, h, d), dev) for _ in range(3))
+    ids = torch.from_numpy(packed_ids(r, n, w, maxw)).to(dev)
+    out = twa.window_attention(q, k, v, ids)
+    ref = twa.window_attention_torch(q, k, v, ids)
+    torch.cuda.synchronize()
+    keep = ids != 0
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(), atol=ATOL_BF16, rtol=0)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,h,d,maxw", CUDA_CASES)
+def test_fused_window_attention_kernel_matches_plain(n, w, h, d, maxw):
+    dev = cuda_device()
+    r = rng(n + w + d + 1)
+    qkv = _bf16(normal(r, n, w, 3 * h * d), dev)
+    _, cos, sin = _rope_tables(r, n, w, d)
+    cos, sin = (torch.from_numpy(x).to(dev) for x in (cos, sin))
+    ids = torch.from_numpy(packed_ids(r, n, w, maxw)).to(dev)
+    out = twa.fused_window_attention(qkv, cos, sin, ids, h)
+    ref = twa.fused_window_attention_torch(qkv, cos, sin, ids, h)
+    torch.cuda.synchronize()
+    keep = ids != 0
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(), atol=ATOL_BF16, rtol=0)
+    assert torch.isfinite(out.float()).all()
