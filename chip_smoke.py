@@ -6,8 +6,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 flags;
   2. build the CUDA kernels from open_o3_video_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version at the serving slice's
-     shapes, bf16 on the card: max abs error vs a stated bound, and times
-     (CUDA events, warmup, median of 20, kernel and plain in turns);
+     shapes, bf16 on the card: max abs error vs a bound at the reference's
+     scale and relative L2 error vs a bound (faults planted in K4's output
+     must fail them), and times (CUDA events, warmup, median of 20, kernel
+     and plain in turns);
   4. the serving slice at the full width of Qwen2.5-VL-7B (random bf16
      weights drawn on the card from --seed): 2 requests of 16 synthetic
      252x336 frames, processor -> InferenceEngine.generate with the reference
@@ -19,7 +21,18 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      last-position prefill logits of the kernel path and of the plain bf16
      path (impl="torch"), each against a float32 reference (relative error
      and cosine; the kernel path may be at most SLICE_REL_RATIO further from
-     it), and identical tokens from two kernel-path runs.
+     it), and identical tokens from two kernel-path runs;
+  6. the long-context path (the reference's max_model_len=81920): one
+     text-only request per run through InferenceEngine.generate, greedy,
+     repetition penalty 1.05, 32 new tokens: (a) a 32736-token prompt with a
+     bf16 cache, (b) an 81888-token prompt with an fp8 e4m3 cache, prefilled
+     in 8192-token chunks; stage times, peak memory, and K3 and K4 launch
+     counts, which must be > 0 in each run;
+  7. the long-context numerics: one decode step's logits on (b)'s prefilled
+     fp8 cache with K4 (impl="auto") and with its plain version
+     (impl="torch"), within LONG_LOGITS_REL / LONG_LOGITS_COS of each other
+     and each against a float32 step (SLICE_REL_RATIO), and identical
+     tokens from two runs of (a).
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -39,7 +52,7 @@ import torch
 
 from open_o3_video_tpu_torch.data.processor import O3VideoProcessor
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
-from open_o3_video_tpu_torch.engine.engine import left_padded_rows
+from open_o3_video_tpu_torch.engine.engine import chunked_prefill, left_padded_rows
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
 from open_o3_video_tpu_torch.models.qwen25vl.model import (
     build_vision_row_index,
@@ -54,6 +67,7 @@ from open_o3_video_tpu_torch.models.qwen25vl.text import (
 )
 from open_o3_video_tpu_torch.models.qwen25vl.vision import compute_vision_spec
 from open_o3_video_tpu_torch.ops import kernels
+from open_o3_video_tpu_torch.ops import decode_attention as da
 from open_o3_video_tpu_torch.ops import flash_attention as fa
 from open_o3_video_tpu_torch.ops import window_attention as wa
 
@@ -75,16 +89,38 @@ QUESTIONS = ["What is the color of the bowling ball?", "What is the first scene 
 N_FRAMES, FRAME_H, FRAME_W, FPS = 16, 252, 336, 2.0
 MAX_TOKENS = 64
 
-# Kernel vs plain version, bf16 on the card, outputs of unit scale: one bf16
-# ulp at |x| < 2 is 2^-7; the kernel's summation order can also flip the
-# bf16 rounding of single probabilities. Bound on the max abs error:
+# Kernel vs plain version, bf16 on the card. At outputs of unit scale one
+# bf16 ulp at |x| < 2 is 2^-7, and the kernel's summation order can also flip
+# the bf16 rounding of single probabilities; the max abs error is bounded by
+# KERNEL_ATOL times the reference's scale, min(1, max|ref|). Attention over t
+# random keys gives outputs ~sqrt(e/t) (0.006 at t = 81888), so a bound at
+# unit scale would be as large as the output itself. The relative L2 error is
+# bounded too: one ulp flip moves an element by at most 2^-7 of itself, while
+# dropping n of t keys moves the output by ~sqrt(n/t) (decode_cases plants
+# such faults, which must fail).
 KERNEL_ATOL = 2e-2
+KERNEL_REL_L2 = 1e-2
 # Whole slice (numerics_phase): the kernel path's relative error against a
 # float32 reference may exceed the plain bf16 path's by at most this factor.
 # Both errors are dominated by the bf16 rounding the two paths share; their
 # own rounding differences add in quadrature, so equal accuracy gives a
 # ratio near 1, and a wrong kernel (errors of order 1) a ratio far above.
 SLICE_REL_RATIO = 1.25
+# Long-context numerics: K4 vs its plain version inside one full-width decode
+# step. Only K4 differs between the two runs, at one query position, so the
+# logits may differ by bf16 rounding carried through 28 layers; bounded by
+# the whole-prefill kernel/plain difference of the slice (4.5% in logits).
+# Both bf16 steps are also held to a float32 step on the same cache: the K4
+# step may be at most SLICE_REL_RATIO further from it than the plain one.
+LONG_LOGITS_REL = 0.05
+LONG_LOGITS_COS = 0.998
+
+# The long-context runs: (name, prompt tokens, cache dtype). T = prompt + 32
+# slots: 32768 and 81920 (the reference's max_model_len).
+LONG_RUNS = (("a", 32736, torch.bfloat16), ("b", 81888, torch.float8_e4m3fn))
+LONG_NEW_TOKENS = 32
+LONG_CHUNK = 8192  # the engine's long_prefill_chunk
+K4_TILE_KEYS = 64  # K4's key tile (kKeys in csrc/attention_tile.cuh)
 
 TPU_KERNELS = {
     "fused_window_attention": ("open_o3_video_tpu_torch/csrc/window_attention.cu",
@@ -93,7 +129,16 @@ TPU_KERNELS = {
                          "open_o3_video_tpu/ops/window_attention.py:112"),
     "flash_attention_gqa": ("open_o3_video_tpu_torch/csrc/flash_attention.cu",
                             "open_o3_video_tpu/ops/flash_attention.py:48"),
+    "decode_attention_gqa": ("open_o3_video_tpu_torch/csrc/decode_attention.cu",
+                             "open_o3_video_tpu/ops/decode_attention.py:103"),
 }
+# The kernels each main path must launch.
+SLICE_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa")
+LONG_KERNELS = ("flash_attention_gqa", "decode_attention_gqa")
+# A spin queued before each timed call (~2 ms at the H100's clock), so the
+# host has enqueued the call before its start event runs: the events then
+# time the call's device work, not the wrapper's Python.
+SPIN_CYCLES = 4_000_000
 
 
 def log(phase: str, **kv) -> None:
@@ -109,12 +154,17 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> list[float]:
+    """CUDA-event times of `fn`, each call behind a SPIN_CYCLES spin
+    (torch.cuda._sleep). The spin came in with K4: without it the events
+    also timed the wrapper's Python, so K1-K3 read 1-24% lower with it than
+    their earlier times in PERF.md."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -123,20 +173,33 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> list[float]:
     return out
 
 
+def agreement(out, ref, keep) -> dict:
+    """`out` against `ref` over the kept rows: max abs error, its bound
+    (KERNEL_ATOL at the reference's scale), relative L2 error, and whether
+    both are within their bounds."""
+    out, ref = out.float()[keep], ref.float()[keep]
+    err = (out - ref).abs().max().item()
+    bound = KERNEL_ATOL * min(1.0, ref.abs().max().item())
+    rel = ((out - ref).norm() / ref.norm()).item()
+    return {"max_abs_err": err, "bound": bound, "rel_l2": rel,
+            "ok": err <= bound and rel <= KERNEL_REL_L2}
+
+
 def compare(name, kernel_fn, plain_fn, keep, results):
-    """Max abs error over the kept rows, then times in turns (plain,
-    kernel, kernel, plain)."""
+    """The kernel's agreement with its plain version over the kept rows,
+    then times in turns (plain, kernel, kernel, plain)."""
     out, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise RuntimeError(f"{name}: non-finite kernel output")
-    err = (out.float() - ref.float())[keep].abs().max().item()
+    a = agreement(out, ref, keep)
+    err = a["max_abs_err"]
     p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
     ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-    log("kernels", name=name, shape=tuple(out.shape), max_abs_err=err, atol=KERNEL_ATOL,
-        ms=round(ms, 4), plain_ms=round(plain_ms, 4))
-    if not err <= KERNEL_ATOL:
-        raise RuntimeError(f"{name}: max abs error {err} > {KERNEL_ATOL}")
+    log("kernels", name=name, shape=tuple(out.shape), max_abs_err=err, bound=a["bound"],
+        rel_l2=a["rel_l2"], max_rel_l2=KERNEL_REL_L2, ms=round(ms, 4), plain_ms=round(plain_ms, 4))
+    if not a["ok"]:
+        raise RuntimeError(f"{name}: kernel vs plain {a}, max rel L2 {KERNEL_REL_L2}")
     prev = results.get(name)
     if prev is None:  # the first case of a kernel is its main-path shape
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
@@ -189,7 +252,106 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
             lambda: fa.flash_attention_gqa(q, k, vv, pos, valid),
             lambda: fa.flash_attention_gqa_torch(q, k, vv, pos, valid),
             valid[:, :S] != 0, results)
+    decode_cases(dev, cfg, gen, results)
+    long_chunk_case(dev, cfg, gen, results)
     return results
+
+
+def _layer_views(dev, gen, cfg, B, T, written, dtype):
+    """k/v as layer views of a stacked (2, 2, B, T, Hkv, D) cache in `dtype`:
+    random values in the first `written` slots, NaN garbage after them (the
+    kernel must never read it)."""
+    t = cfg.text
+    cache = torch.full((2, 2, B, T, t.num_key_value_heads, t.head_dim), float("nan"),
+                       dtype=torch.bfloat16, device=dev)
+    cache[:, :, :, :written] = torch.randn(cache[:, :, :, :written].shape, generator=gen,
+                                           device=dev).to(torch.bfloat16)
+    cache = cache.to(dtype)
+    return cache[0, 1], cache[1, 1]
+
+
+def decode_cases(dev, cfg, gen, results) -> None:
+    """K4 vs its plain version on the long-context path's decode shapes. The
+    plain version reads the written slots only: it multiplies masked values
+    by 0, and the garbage tail is NaN. The first case is K4's main-path row
+    (run (b)'s decode step)."""
+    t = cfg.text
+    # (B, S, T, last written position, stored dtype)
+    for B, S, T, last, dtype in ((1, 1, 81920, 81887, torch.float8_e4m3fn),
+                                 (1, 1, 32768, 32735, torch.bfloat16),
+                                 (2, 4, 40000, 39990, torch.float8_e4m3fn)):
+        k, v = _layer_views(dev, gen, cfg, B, T, last + 1, dtype)
+        q = torch.randn((B, S, t.num_attention_heads, t.head_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        pos = torch.arange(last - S + 1, last + 1, dtype=torch.int32, device=dev).repeat(B, 1)
+        valid = torch.zeros((B, T), dtype=torch.int32, device=dev)
+        valid[:, :last + 1] = 1
+        if B > 1:
+            valid[1, :1000] = 0  # a left-padded row
+            pos[1, 0] = -1  # a pad query row, which sees nothing
+        w = last + 1
+        compare("decode_attention_gqa",
+                lambda: da.decode_attention_gqa(q, k, v, pos, valid),
+                lambda: da.decode_attention_gqa_torch(q, k[:, :w], v[:, :w], pos, valid[:, :w]),
+                pos >= 0, results)
+        if T == 81920:
+            planted_faults(q, k[:, :w], v[:, :w], pos, valid[:, :w], T)
+        del k, v
+    torch.cuda.empty_cache()
+
+
+def planted_faults(q, k, v, pos, valid, T) -> None:
+    """The bound must reject a K4 that returns 0, drops one split of the key
+    range, or drops the last (partial) key tile. The faulty outputs are the
+    plain version with those keys masked, laid out as K4 splits a T-slot
+    buffer: da._splits splits of the K4_TILE_KEYS-key tiles of [0, w)."""
+    B, w, Hkv = k.shape[0], k.shape[1], k.shape[2]
+    ref = da.decode_attention_gqa_torch(q, k, v, pos, valid)
+    splits, tiles = da._splits(B, Hkv, T), -(-w // K4_TILE_KEYS)
+    mid = splits // 2
+    dropped = {"one split": (mid * tiles // splits, (mid + 1) * tiles // splits),
+               "last tile": (tiles - 1, tiles)}
+    faults = {"zero output": torch.zeros_like(ref)}
+    for fault, (t0, t1) in dropped.items():
+        masked = valid.clone()
+        masked[:, t0 * K4_TILE_KEYS:t1 * K4_TILE_KEYS] = 0
+        faults[f"{fault} dropped ({min(t1 * K4_TILE_KEYS, w) - t0 * K4_TILE_KEYS} of {w} keys)"] = (
+            da.decode_attention_gqa_torch(q, k, v, pos, masked))
+    for fault, out in faults.items():
+        a = agreement(out, ref, pos >= 0)
+        log("kernels", name="decode_attention_gqa", planted_fault=fault,
+            max_abs_err=a["max_abs_err"], bound=a["bound"], rel_l2=a["rel_l2"],
+            rejected=not a["ok"])
+        if a["ok"]:
+            raise RuntimeError(f"K4's bound does not reject a planted fault: {fault}")
+
+
+def long_chunk_case(dev, cfg, gen, results) -> None:
+    """K3 on the last prefill chunk of run (b): 8160 query rows at positions
+    73728..81887 against an 81920-slot cache. Compared on 64 of the rows
+    (the plain version at the whole chunk would need ~75 GB of f32 scores),
+    passed with their positions to both versions; the kernel is also timed
+    at the whole chunk."""
+    t = cfg.text
+    n, T = LONG_RUNS[1][1], LONG_RUNS[1][1] + LONG_NEW_TOKENS
+    c0 = (n - 1) // LONG_CHUNK * LONG_CHUNK
+    k, v = _layer_views(dev, gen, cfg, 1, T, T, torch.bfloat16)
+    q = torch.randn((1, n - c0, t.num_attention_heads, t.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.arange(c0, n, dtype=torch.int32, device=dev)[None]
+    valid = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    valid[:, :n] = 1
+    rows = torch.arange(0, n - c0, 128, device=dev)[:64]
+    qs, ps = q[:, rows].contiguous(), pos[:, rows].contiguous()
+    compare("flash_attention_gqa",
+            lambda: fa.flash_attention_gqa(qs, k, v, ps, valid),
+            lambda: fa.flash_attention_gqa_torch(qs, k, v, ps, valid),
+            ps >= 0, results)
+    full = statistics.median(time_ms(lambda: fa.flash_attention_gqa(q, k, v, pos, valid), reps=5))
+    log("kernels", name="flash_attention_gqa", case="long prefill chunk", shape=tuple(q.shape),
+        T=T, ms=round(full, 4))
+    del k, v
+    torch.cuda.empty_cache()
 
 
 def make_requests(proc, cfg, seed: int) -> list[Request]:
@@ -214,9 +376,9 @@ def make_requests(proc, cfg, seed: int) -> list[Request]:
     return reqs
 
 
-def slice_phase(engine, reqs, sampling) -> list[dict]:
+def slice_phase(engine, reqs, sampling) -> tuple[list[dict], dict]:
     """The main path, through the entry points a user calls. Returns the
-    outputs; every kernel's launch count must be > 0."""
+    outputs and the launch counts; every kernel's count must be > 0."""
     dev = engine.device
     engine.generate(reqs, SamplingParams(**{**vars(sampling), "max_tokens": 2}))  # warm-up
     engine.stage_seconds.clear()
@@ -228,7 +390,7 @@ def slice_phase(engine, reqs, sampling) -> list[dict]:
     t0 = time.perf_counter()
     outs = engine.generate(reqs, sampling)
     e2e = time.perf_counter() - t0
-    launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
+    launches = {name: kernels.LAUNCHES[name] for name in SLICE_KERNELS}
     st = engine.stage_seconds
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
     log("slice", requests=len(reqs), prompt_tokens=[o["num_prompt_tokens"] for o in outs],
@@ -245,7 +407,67 @@ def slice_phase(engine, reqs, sampling) -> list[dict]:
             raise RuntimeError("token id out of the vocabulary")
     if dev.type == "cuda" and not all(launches.values()):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
-    return outs
+    return outs, launches
+
+
+def long_request(n: int) -> Request:
+    """A text-only prompt of n tokens, made as the JAX bench's long-context
+    leg makes it (ids 100 + i % 500, ByteTokenizer byte ids)."""
+    return Request(input_ids=[100 + (i % 500) for i in range(n)])
+
+
+def long_sampling(seed: int) -> SamplingParams:
+    """The JAX bench's long-context leg: greedy, repetition penalty 1.05."""
+    return SamplingParams(temperature=0.0, repetition_penalty=1.05,
+                          max_tokens=LONG_NEW_TOKENS, seed=seed)
+
+
+def long_run(engine, n, sampling) -> tuple[list[int], dict]:
+    """One long-context request through InferenceEngine.generate: stage
+    times, peak memory and launch counts; K3 and K4 must both launch."""
+    engine.stage_seconds.clear()
+    engine.decode_steps = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate([long_request(n)], sampling)[0]
+    e2e = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES[name] for name in LONG_KERNELS}
+    st = engine.stage_seconds
+    log("longctx", prompt_tokens=out["num_prompt_tokens"], cache=str(engine.cache_dtype),
+        T=n + sampling.max_tokens, new_tokens=len(out["token_ids"]),
+        prefill_ms=round(1e3 * st["prefill"], 3),
+        prefill_tok_per_s=round(n / st["prefill"], 1),
+        decode_ms_per_token=round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
+        e2e_s=round(e2e, 3), peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    log("longctx", launches=launches)
+    vocab = engine.cfg.text.vocab_size
+    if not 1 <= len(out["token_ids"]) <= sampling.max_tokens:
+        raise RuntimeError(f"bad output length {len(out['token_ids'])}")
+    if not all(0 <= t < vocab for t in out["token_ids"]):
+        raise RuntimeError("token id out of the vocabulary")
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel of the long-context path never launched: {launches}")
+    return out["token_ids"], launches
+
+
+def long_phase(params, cfg, seed) -> tuple[dict, dict]:
+    """Runs (a) and (b), after a warm-up at (a)'s size. Returns each run's
+    tokens and launch counts."""
+    sampling = long_sampling(seed)
+    engines = {name: InferenceEngine(params, cfg, cache_dtype=dtype, long_prefill_chunk=LONG_CHUNK)
+               for name, _, dtype in LONG_RUNS}
+    engines["a"].generate([long_request(LONG_RUNS[0][1])],
+                          dataclasses.replace(sampling, max_tokens=2))
+    tokens, launches = {}, {}
+    t0 = time.perf_counter()
+    for name, n, _ in LONG_RUNS:
+        tokens[name], launches[name] = long_run(engines[name], n, sampling)
+    log("longctx", runs_seconds=round(time.perf_counter() - t0, 3),
+        first_token_ids={k: v[:8] for k, v in tokens.items()})
+    torch.cuda.empty_cache()
+    return tokens, launches
 
 
 def _agreement(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -316,6 +538,53 @@ def numerics_phase(params, cfg, reqs) -> None:
                                f"plain bf16 path ({rel_k} vs {rel_p})")
 
 
+def long_numerics_phase(params, cfg) -> None:
+    """K4 inside the full path: run (b)'s request prefilled by the kernel
+    path into a fresh fp8 cache, then one decode step's text_forward with
+    attn_impl "auto" (K4) and "torch" (its plain version), each on a copy of
+    the cache. A decode step runs no other kernel, so only K4 differs. Both
+    are also compared with the same step in float32 (the same weights in
+    f32, plain versions, the same fp8 cache)."""
+    _, n, dtype = LONG_RUNS[1]
+    T = n + LONG_NEW_TOKENS
+    dev = params["text"]["embed_tokens"].device
+    _, _, position_ids, next_pos = left_padded_rows(cfg, [long_request(n)], n)
+    ids = torch.tensor([long_request(n).input_ids], device=dev)
+    attn_valid = torch.zeros((1, T), dtype=torch.bool, device=dev)
+    attn_valid[:, :n + 1] = True
+    with torch.inference_mode():
+        cache = init_kv_cache(cfg.text, 1, T, dtype=dtype, device=dev)
+        hidden = chunked_prefill(params["text"], cfg.text, embed_tokens(params, ids),
+                                 torch.from_numpy(position_ids).to(dev), attn_valid, cache,
+                                 LONG_CHUNK)
+        token = logits_from_hidden(params["text"], hidden[:, -1]).argmax(-1)
+        logits = {}
+        for name, weights, impl in (("kernel", params, "auto"), ("plain", params, "torch"),
+                                    ("f32", {"text": _cast(params["text"], torch.float32)},
+                                     "torch")):
+            step_cache = {key: x.clone() for key, x in cache.items()}
+            h, _ = text_forward(
+                weights["text"], cfg.text, embed_tokens(weights, token[:, None]),
+                torch.from_numpy(next_pos).to(dev)[None, :, None].expand(3, 1, 1),
+                seq_positions=torch.full((1, 1), n, device=dev), attn_valid=attn_valid,
+                cache=step_cache, cache_offset=n, attn_impl=impl)
+            logits[name] = logits_from_hidden(weights["text"], h[:, 0])
+            del step_cache, weights
+    rel, cos = _agreement(logits["kernel"], logits["plain"])
+    rel_k, _ = _agreement(logits["kernel"], logits["f32"])
+    rel_p, _ = _agreement(logits["plain"], logits["f32"])
+    log("numerics", what="long-context decode step logits (fp8 cache, T=81920)",
+        kernel_vs_plain_rel=rel, kernel_vs_plain_cos=cos, max_rel=LONG_LOGITS_REL,
+        min_cos=LONG_LOGITS_COS, kernel_vs_f32_rel=rel_k, plain_vs_f32_rel=rel_p,
+        max_ratio=SLICE_REL_RATIO)
+    if not (torch.isfinite(logits["kernel"]).all() and rel <= LONG_LOGITS_REL
+            and cos >= LONG_LOGITS_COS and rel_k <= SLICE_REL_RATIO * rel_p):
+        raise RuntimeError(f"long-context decode: K4 vs plain logits rel {rel}, cos {cos}; "
+                           f"vs float32 {rel_k} (plain {rel_p})")
+    del cache
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -354,8 +623,7 @@ def main() -> None:
     engine = InferenceEngine(params, cfg)
     sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
                               max_tokens=MAX_TOKENS, seed=args.seed)
-    outs = slice_phase(engine, reqs, sampling)
-    launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
+    outs, launches = slice_phase(engine, reqs, sampling)
     log("slice", first_token_ids=[o["token_ids"][:8] for o in outs])
 
     numerics_phase(params, cfg, reqs)
@@ -364,6 +632,16 @@ def main() -> None:
     log("numerics", identical_tokens_across_runs=same)
     if not all(same):
         raise RuntimeError("two kernel-path runs gave different tokens")
+
+    long_tokens, long_launches = long_phase(params, cfg, args.seed)
+    long_numerics_phase(params, cfg)
+    again, _ = long_run(InferenceEngine(params, cfg, long_prefill_chunk=LONG_CHUNK),
+                        LONG_RUNS[0][1], long_sampling(args.seed))
+    log("numerics", identical_long_tokens_across_runs=again == long_tokens["a"])
+    if again != long_tokens["a"]:
+        raise RuntimeError("two runs of the 32736-token request gave different tokens")
+    # K4's main path is run (b), the 81920-slot fp8 one
+    launches["decode_attention_gqa"] = long_launches["b"]["decode_attention_gqa"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

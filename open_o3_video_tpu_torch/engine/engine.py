@@ -10,8 +10,16 @@ penalty over prompt and output (vLLM semantics). The returned dicts match
 the JAX engine's (``token_ids`` cut after the first EOS,
 ``num_prompt_tokens``).
 
-Not ported yet (later work): prefix caching, speculative decoding, chunked
-prefill, continuous admission, length buckets.
+Long context (the reference's ``max_model_len=81920``): a prompt of
+``long_prefill_threshold`` tokens or more prefills in ``long_prefill_chunk``
+-token chunks straight into the one cache, as the JAX engine's memory-driven
+chunking does; the cache may store ``torch.float8_e4m3fn``; decode against a
+buffer of 32768 slots or more runs K4 on the stored cache. A prompt longer
+than MAX_PROMPT_TOKENS raises. Length buckets are a TPU static-shape device
+and are not ported, so the last chunk may be shorter than the others.
+
+Not ported yet (later work): prefix caching, speculative decoding,
+continuous admission, chunked prefill interleaved with in-flight decodes.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ from ..models.qwen25vl.model import (
 )
 from ..models.qwen25vl.text import init_kv_cache, logits_from_hidden, text_forward
 from ..ops.sampling import sample_token
+
+# The JAX engine's largest prompt bucket, the reference's max_model_len.
+MAX_PROMPT_TOKENS = 81920
 
 
 @dataclasses.dataclass
@@ -89,6 +100,21 @@ def left_padded_rows(cfg: Qwen25VLConfig, requests: Sequence[Request], L: int):
     return ids, mask, position_ids, next_pos
 
 
+def chunked_prefill(params: dict, cfg, embeds: torch.Tensor, position_ids: torch.Tensor,
+                    attn_valid: torch.Tensor, cache: dict, chunk: int) -> torch.Tensor:
+    """Prefill ``embeds`` (n, L, D) into ``cache`` in chunks of ``chunk``
+    tokens (the last may be shorter), each chunk at ``cache_offset`` = its
+    first position, attending to the chunks before it through the cache.
+    Returns the last chunk's final hidden states."""
+    L = embeds.shape[1]
+    for c0 in range(0, L, chunk):
+        hidden, _ = text_forward(
+            params, cfg, embeds[:, c0:c0 + chunk], position_ids[:, :, c0:c0 + chunk],
+            attn_valid=attn_valid, cache=cache, cache_offset=c0,
+        )
+    return hidden
+
+
 class InferenceEngine:
     """Serves requests on the device that holds ``params``.
 
@@ -97,11 +123,17 @@ class InferenceEngine:
     counts decode forwards. Attention runs the CUDA kernels when the
     params lie on a CUDA device and their plain versions on the CPU."""
 
-    def __init__(self, params: dict, cfg: Qwen25VLConfig, *, cache_dtype=torch.bfloat16):
+    def __init__(self, params: dict, cfg: Qwen25VLConfig, *, cache_dtype=torch.bfloat16,
+                 long_prefill_threshold: int = 32768, long_prefill_chunk: int = 8192):
         self.params = params
         self.cfg = cfg
         self.device = params["text"]["embed_tokens"].device  # where the model lives
-        self.cache_dtype = cache_dtype
+        self.cache_dtype = cache_dtype  # bf16, f32 or torch.float8_e4m3fn
+        # Prompts this long or longer always prefill in chunks of this many
+        # tokens: a whole 80k-token prefill's MLP transients alone would be
+        # several GB.
+        self.long_prefill_threshold = long_prefill_threshold
+        self.long_prefill_chunk = long_prefill_chunk
         self.stage_seconds: collections.Counter = collections.Counter()
         self.decode_steps = 0
 
@@ -132,6 +164,8 @@ class InferenceEngine:
         cfg, dev = self.cfg, self.device
         n = len(requests)
         L = max(len(r.input_ids) for r in requests)
+        if L > MAX_PROMPT_TOKENS:
+            raise ValueError(f"prompt length {L} exceeds the limit of {MAX_PROMPT_TOKENS} tokens")
         T = L + sampling.max_tokens
         ids, mask, position_ids, next_pos = left_padded_rows(cfg, requests, L)
 
@@ -147,10 +181,10 @@ class InferenceEngine:
             cache = init_kv_cache(cfg.text, n, T, dtype=self.cache_dtype, device=dev)
             attn_valid = torch.zeros((n, T), dtype=torch.bool, device=dev)
             attn_valid[:, :L] = torch.from_numpy(mask).to(dev)
-            hidden, _ = text_forward(
-                self.params["text"], cfg.text, embeds, torch.from_numpy(position_ids).to(dev),
-                attn_valid=attn_valid, cache=cache, cache_offset=0,
-            )
+            chunk = self.long_prefill_chunk if L >= self.long_prefill_threshold else L
+            hidden = chunked_prefill(self.params["text"], cfg.text, embeds,
+                                     torch.from_numpy(position_ids).to(dev), attn_valid, cache,
+                                     chunk)
             logits = logits_from_hidden(self.params["text"], hidden[:, -1])
 
         rows = torch.arange(n, device=dev)

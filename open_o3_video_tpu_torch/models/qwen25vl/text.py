@@ -8,6 +8,11 @@ package's ``stacked_layer`` plumbing, which exists because a Pallas call's
 operands must be whole buffers, therefore has no counterpart here.
 Causality follows buffer positions (``seq_positions``); M-RoPE positions only
 rotate q/k. Left-padded batches are masked through ``attn_valid``.
+
+The cache stores bf16, f32 or fp8 e4m3 (``torch.float8_e4m3fn``, half the
+bytes of bf16). Attention receives the layer views in that stored dtype
+unchanged: long-context decode (K4) reads them as stored, and only the
+other paths cast the layer to the compute dtype (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -25,11 +30,33 @@ from .vision import rms_norm
 
 def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   device=None) -> dict:
+    """Zeroed stacked cache {"k", "v"} of (L, batch, max_len, Hkv, D) in
+    ``dtype`` (bf16, f32 or torch.float8_e4m3fn)."""
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+# The largest finite float8_e4m3fn value.
+E4M3_MAX = 448.0
+
+
+def write_cache(dst: torch.Tensor, x: torch.Tensor) -> None:
+    """Store new keys or values ``x`` into the cache slice ``dst``, cast to
+    the cache's dtype.
+
+    Into a float8_e4m3fn cache the write saturates: a value beyond 448 is
+    stored as +-448. Up to 448 in magnitude the bytes equal the JAX
+    package's ``astype(float8_e4m3fn)``; above 464 JAX stores NaN instead,
+    and so does torch's own cast in some versions and on some devices (on
+    the card, not on the CPU), hence the explicit clamp. Saturating is kept
+    on purpose: a NaN in the cache would poison every later step that reads
+    the slot."""
+    if dst.dtype == torch.float8_e4m3fn:
+        x = x.clamp(-E4M3_MAX, E4M3_MAX)
+    dst.copy_(x)
 
 
 def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
@@ -41,8 +68,8 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
     q, k = apply_mrope(q, k, cos, sin)
     if cache is not None:
         ck, cv = cache["k"][layer], cache["v"][layer]  # (B, T, Hkv, D) views
-        ck[:, cache_offset:cache_offset + S] = k.to(ck.dtype)
-        cv[:, cache_offset:cache_offset + S] = v.to(cv.dtype)
+        write_cache(ck[:, cache_offset:cache_offset + S], k)
+        write_cache(cv[:, cache_offset:cache_offset + S], v)
         T = ck.shape[1]
         written = torch.arange(T, device=x.device)[None, :] < cache_offset + S
         mask = written if kv_mask is None else kv_mask & written

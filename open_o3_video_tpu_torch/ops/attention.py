@@ -1,10 +1,13 @@
 """Attention entry points of the model (counterpart of
 ``open_o3_video_tpu/ops/attention.py``).
 
-- ``causal_attention``: GQA decoder attention against a KV buffer. Prefill
-  (S > 8) runs K3 (``flash_attention``); short-query decode (S <= 8) runs a
-  plain grouped matmul, as the JAX package's XLA path does below the
-  long-context threshold. Keys are addressed by buffer index == position.
+- ``causal_attention``: GQA decoder attention against a KV buffer, in the
+  JAX package's order. Decode (S <= 8) against a buffer of LONG_DECODE_T
+  slots or more runs K4 (``decode_attention``) on k/v in the cache's STORED
+  dtype; only then is the layer cast to the compute dtype, for prefill
+  (S > 8, K3 in ``flash_attention``) or for the plain grouped decode below
+  the long-context threshold (as the JAX package's XLA path). Keys are
+  addressed by buffer index == position.
 - ``segment_attention``: bidirectional ViT attention over same-size segments
   (K2, ``window_attention``).
 
@@ -19,11 +22,12 @@ from typing import Optional
 
 import torch
 
+from .decode_attention import decode_attention_gqa
 from .flash_attention import flash_attention_gqa
 from .window_attention import window_attention
 
-# Decode against a buffer at least this long is the long-context slice: the
-# JAX package runs its stored-dtype decode kernel there (decode_attention.py).
+# Decode against a buffer at least this long runs K4 on the stored-dtype
+# cache, as the JAX package does (its ops/attention.py LONG_DECODE_T).
 LONG_DECODE_T = 32768
 
 
@@ -59,12 +63,14 @@ def causal_attention(
         q_positions = torch.arange(S, device=q.device).expand(B, S)
     if kv_mask is None:
         kv_mask = torch.ones((B, T), dtype=torch.bool, device=q.device)
+    if S <= 8 and T >= LONG_DECODE_T:
+        # Before any cast: K4 streams the cache in its stored dtype, so a
+        # decode step never makes a whole-layer copy in the compute dtype.
+        return decode_attention_gqa(q, k, v, q_positions, kv_mask, impl=impl)
     if k.dtype != q.dtype:  # the cache may store another dtype than compute
         k, v = k.to(q.dtype), v.to(q.dtype)
     if S > 8:
         return flash_attention_gqa(q, k, v, q_positions, kv_mask, impl=impl)
-    if T >= LONG_DECODE_T:
-        raise NotImplementedError("long-context decode kernel: next slice")
     t = torch.arange(T, device=q.device)
     mask = (t[None, None, :] <= q_positions[:, :, None]) & kv_mask[:, None, :].bool()
     return _grouped_decode(q, k, v, mask)

@@ -1,0 +1,86 @@
+"""Long-context GQA decode attention: K4.
+
+Counterpart of ``open_o3_video_tpu/ops/decode_attention.py``. Layouts are
+the JAX package's: q (B, S <= 8, Hq, D) in the compute dtype; k/v (B, T,
+Hkv, D) in the cache's STORED dtype (bf16 or ``torch.float8_e4m3fn``), e.g.
+strided layer views of the stacked (L, B, T, Hkv, D) cache; q_positions
+(B, S); kv_valid (B, T). Key t is visible to a query iff ``t <= q_position``
+and ``kv_valid[b, t]``; a query with no visible key (e.g. q_position -1)
+returns 0.
+
+q is prescaled by D^-1/2 and rounded to its dtype, as for K3. The softmax is
+the fixed-m inference form: ``p = exp(min(s, 60))``, p cast to q's dtype
+before ``p @ v``, float32 accumulation, one division by l at the end.
+
+The JAX kernel's TPU workarounds have no counterpart: its bit-moving e4m3
+decode flushes denormals to zero and reads the NaN bytes as +-480, while
+here e4m3 converts exactly (``.float()`` in the plain version, Hopper's
+native conversion in the kernel), as the JAX package's exact path
+``_decode_attention_chunked`` does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .flash_attention import _prescale, flash_attention_gqa_torch
+
+# The stored dtypes K4 is built for.
+KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
+# The kernel holds all G * S query rows of one kv head in one 64-row CTA.
+MAX_ROWS = 64
+# Split-K: about this many CTAs over the card, and at least this many keys
+# per split.
+SPLIT_CTAS = 512
+MIN_SPLIT_KEYS = 256
+
+
+def decode_attention_gqa_torch(q, k, v, q_positions, kv_valid):
+    """Plain version of K4 on the whole layer at once: k/v converted to f32
+    exactly, f32 scores, p cast to q's dtype before the PV product. At S = 1
+    and T = 81920 the f32 scores of one batch row are ~9 MB. Returns
+    (B, S, Hq, D) in q's dtype."""
+    return flash_attention_gqa_torch(q, k, v, q_positions, kv_valid)
+
+
+def _splits(B: int, Hkv: int, T: int) -> int:
+    """Key-range splits per (batch row, kv head): fill the card, but give
+    each split at least MIN_SPLIT_KEYS slots. Depends on shapes only, so
+    the reduction order (and the result's bits) is the same on every run."""
+    return max(1, min(SPLIT_CTAS // (B * Hkv), -(-T // MIN_SPLIT_KEYS)))
+
+
+def decode_attention_gqa(q, k, v, q_positions, kv_valid, impl: str = "auto"):
+    """K4: GQA decode attention against a stored-dtype KV buffer. Returns
+    (B, S, Hq, D) in q's dtype."""
+    if not kernels.use_kernel(q, impl):
+        return decode_attention_gqa_torch(q, k, v, q_positions, kv_valid)
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    kernels.check_head_dim("decode_attention_gqa", D, kernels.TEXT_HEAD_DIM)
+    if Hq % Hkv or S * (Hq // Hkv) > MAX_ROWS:
+        raise ValueError(f"{Hq} query heads over {Hkv} kv heads at S={S}: the kernel holds at "
+                         f"most {MAX_ROWS} query rows per kv head")
+    if k.dtype != v.dtype:
+        raise TypeError(f"k and v must share a stored dtype, got {k.dtype} and {v.dtype}")
+    qs = _prescale(q).contiguous()
+    pos = q_positions.to(torch.int32).contiguous()
+    valid = kv_valid.to(torch.int32).contiguous()
+    kernels.check_tensor("q", qs, torch.bfloat16, (B, S, Hq, D))
+    kernels.check_tensor("q_positions", pos, torch.int32, (B, S))
+    kernels.check_tensor("kv_valid", valid, torch.int32, (B, T))
+    kernels.check_kv("k", k, (B, T, Hkv, D), KV_DTYPES)
+    kernels.check_kv("v", v, (B, T, Hkv, D), KV_DTYPES)
+    splits = _splits(B, Hkv, T)
+    rows = S * (Hq // Hkv)
+    part_acc = torch.empty((B, Hkv, splits, rows, D), dtype=torch.float32, device=q.device)
+    part_l = torch.empty((B, Hkv, splits, rows), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(qs)
+    kernels.launch(
+        "decode_attention_gqa", qs.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_l.data_ptr(),
+        B, S, T, Hq, Hkv, D, int(k.dtype == torch.float8_e4m3fn), splits,
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+    )
+    return out

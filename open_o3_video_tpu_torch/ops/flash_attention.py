@@ -8,7 +8,8 @@ Layout: q (B, S, Hq, D), k/v (B, T, Hkv, D), q_positions (B, S), kv_valid
 the JAX wrapper does, so the plain version matches JAX bit for bit in f32.
 
 Softmax is the fixed-m inference form of the TPU kernel: ``p = exp(min(s,
-60))``, ``out = (p cast to v's dtype) @ v / l``, float32 accumulation.
+60))``, ``out = (p cast to the compute dtype) @ v / l``, float32
+accumulation.
 
 k/v may be strided views of the stacked (L, B, T, Hkv, D) cache: the kernel
 reads them through their batch and token strides.
@@ -28,7 +29,9 @@ def _prescale(q):
 
 
 def flash_attention_gqa_torch(q, k, v, q_positions, kv_valid):
-    """Plain version of K3, grouped over the GQA heads (no KV repeat).
+    """Plain version of K3 (and of K4, ``decode_attention``), grouped over
+    the GQA heads (no KV repeat): k/v in any float dtype, fp8 included, are
+    converted to f32 exactly; p is cast to q's dtype before the PV product.
     Returns (B, S, Hq, D) in q's dtype."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -38,22 +41,9 @@ def flash_attention_gqa_torch(q, k, v, q_positions, kv_valid):
     mask = (t[None, None, :] <= q_positions[:, :, None]) & (kv_valid[:, None, :] != 0)
     p = torch.where(mask[:, None, None], torch.exp(torch.clamp(s, max=CLAMP)), 0.0)
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhgst,bthd->bhgsd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bhgst,bthd->bhgsd", p.to(q.dtype).float(), v.float())
     o = o / torch.where(l == 0.0, 1.0, l)
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
-
-
-def _check_kv(name, x, shape):
-    """k/v: CUDA bf16 (B, T, Hkv, D) with each token's (Hkv, D) block
-    contiguous; batch and token strides are free (a cache layer view)."""
-    if not x.is_cuda or x.dtype != torch.bfloat16 or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected CUDA bf16 {tuple(shape)}, got "
-                         f"{x.device} {x.dtype} {tuple(x.shape)}")
-    D, Hkv = shape[3], shape[2]
-    if x.stride(3) != 1 or x.stride(2) != D or x.stride(1) % 8 or x.stride(0) % 8:
-        raise ValueError(f"{name}: unsupported strides {x.stride()}")
-    if x.data_ptr() % 16 or x.stride(1) < Hkv * D:
-        raise ValueError(f"{name}: misaligned or overlapping token rows")
 
 
 def flash_attention_gqa(q, k, v, q_positions, kv_valid, impl: str = "auto"):
@@ -71,8 +61,8 @@ def flash_attention_gqa(q, k, v, q_positions, kv_valid, impl: str = "auto"):
     kernels.check_tensor("q", qs, torch.bfloat16, (B, S, Hq, D))
     kernels.check_tensor("q_positions", pos, torch.int32, (B, S))
     kernels.check_tensor("kv_valid", valid, torch.int32, (B, T))
-    _check_kv("k", k, (B, T, Hkv, D))
-    _check_kv("v", v, (B, T, Hkv, D))
+    kernels.check_kv("k", k, (B, T, Hkv, D), (torch.bfloat16,))
+    kernels.check_kv("v", v, (B, T, Hkv, D), (torch.bfloat16,))
     out = torch.empty_like(qs)
     kernels.launch(
         "flash_attention_gqa", qs.data_ptr(), k.data_ptr(), v.data_ptr(),

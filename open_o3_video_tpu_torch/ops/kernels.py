@@ -1,7 +1,8 @@
 """Build, load and launch-count the hand-written CUDA kernels in ``csrc/``.
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, then linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). The library lives under ``_build/``
 beside the package, in a directory keyed by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused.
@@ -29,7 +30,7 @@ BUILD_ROOT = PACKAGE_DIR / "_build"
 LIB_NAME = "libo3v_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "o3v_window_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "o3v_flash_attention_gqa": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _P,
+    ),
+    "o3v_decode_attention_gqa": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _LL, _LL, _LL, _LL, _P,
     ),
 }
 
@@ -75,20 +80,38 @@ def build_dir() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the keyed build directory (if not there yet)
-    and return the library's path. The compiler's output, including the
-    per-kernel register and spill report, is kept in ``build.log``."""
+    and return the library's path. Each source compiles in its own ``nvcc``,
+    all at once; the objects are then linked. The compilers' output,
+    including the per-kernel register and spill report, is kept in
+    ``build.log``."""
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(SOURCE_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    tag = os.getpid()
+    objs, jobs = [], []
+    for src in sorted(SOURCE_DIR.glob("*.cu")):
+        objs.append(str(out_dir / f"{src.stem}.{tag}.o"))
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{stderr[-4000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent builder never loads a partial file
     return lib
 
@@ -130,8 +153,24 @@ def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -
         raise ValueError(f"{name}: data pointer is misaligned")
 
 
+def check_kv(name: str, x: torch.Tensor, shape: tuple, dtypes: tuple) -> None:
+    """k/v of the decoder kernels: a CUDA (B, T, Hkv, D) tensor of one of
+    ``dtypes`` with each token's (Hkv, D) block contiguous; batch and token
+    strides are free (a layer view of the stacked cache) but must keep every
+    token row on a 16-byte boundary, since rows are loaded 16 bytes per
+    thread."""
+    if not x.is_cuda or x.dtype not in dtypes or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected CUDA {'/'.join(map(str, dtypes))} {tuple(shape)}, "
+                         f"got {x.device} {x.dtype} {tuple(x.shape)}")
+    D, Hkv, item = shape[3], shape[2], x.element_size()
+    if x.stride(3) != 1 or x.stride(2) != D or (x.stride(1) * item) % 16 or (x.stride(0) * item) % 16:
+        raise ValueError(f"{name}: unsupported strides {x.stride()}")
+    if x.data_ptr() % 16 or x.stride(1) < Hkv * D:
+        raise ValueError(f"{name}: misaligned or overlapping token rows")
+
+
 # The one head_dim each kernel is built for: 80 for the vision tower's K1 and
-# K2, 128 for the decoder's K3.
+# K2, 128 for the decoder's K3 and K4.
 VISION_HEAD_DIM = 80
 TEXT_HEAD_DIM = 128
 

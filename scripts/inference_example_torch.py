@@ -68,7 +68,8 @@ def main():
     parser.add_argument("--nframes", type=int, default=16)
     parser.add_argument("--max_tokens", type=int, default=2048)
     parser.add_argument("--kv_cache", choices=["bf16", "fp8"], default="bf16",
-                        help="KV cache dtype (the port has bf16 only)")
+                        help="KV cache dtype: bf16, or fp8 = torch.float8_e4m3fn (half the "
+                             "bytes; decode at 32768+ slots reads it as stored)")
     parser.add_argument("--tiny-demo", action="store_true",
                         help="run a small random-weight model (pipeline smoke test)")
     parser.add_argument("--greedy", action="store_true", help="temperature 0")
@@ -81,8 +82,6 @@ def main():
         "What is the first scene about?",
     ])
     args = parser.parse_args()
-    if args.kv_cache == "fp8":
-        parser.error("--kv_cache fp8: the port has no fp8 KV cache yet")
     if args.spec:
         parser.error("--spec: the port has no speculative decoding yet")
 
@@ -109,7 +108,8 @@ def main():
         processor = O3VideoProcessor.from_pretrained(args.model_path)
         max_tokens = args.max_tokens
 
-    engine = InferenceEngine(params, cfg, cache_dtype=torch.bfloat16)
+    cache_dtype = torch.float8_e4m3fn if args.kv_cache == "fp8" else torch.bfloat16
+    engine = InferenceEngine(params, cfg, cache_dtype=cache_dtype)
     sampling = SamplingParams(
         temperature=0.0 if args.greedy else 0.7, top_p=0.001,
         repetition_penalty=1.05, max_tokens=max_tokens, seed=args.seed,

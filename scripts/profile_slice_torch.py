@@ -1,10 +1,13 @@
 """Where the time goes in the PyTorch port's serving slice, on one GPU.
 
-    python3 scripts/profile_slice_torch.py [--max-tokens 16] [--trace PATH]
+    python3 scripts/profile_slice_torch.py [--max-tokens N] [--trace PATH] [--long a|b]
 
 Runs chip_smoke.py's full-width requests (Qwen2.5-VL-7B, random bf16
 weights, 16 frames each) through InferenceEngine.generate once to warm up,
-then once under torch.profiler. Per engine stage (vision, prefill, decode)
+then once under torch.profiler. ``--long a`` or ``--long b`` profiles one of
+chip_smoke.py's long-context runs instead (a: a 32736-token prompt with a
+bf16 cache; b: 81888 tokens with an fp8 cache, prefilled in 8192-token
+chunks), greedy, warmed up with a 2-token run of the same request. Per engine stage (vision, prefill, decode)
 it prints the wall time, the device busy time (sum of kernel durations
 inside the stage's range, one stream), the idle share, and the top kernels
 by device time. ``--trace PATH`` keeps the Chrome trace (tens of MB).
@@ -32,19 +35,32 @@ from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--max-tokens", type=int, default=16)
+    ap.add_argument("--max-tokens", type=int, default=None,
+                    help="new tokens (default 16; with --long, chip_smoke's 32, so that T "
+                         "reaches 32768 and decode runs K4)")
     ap.add_argument("--trace", default=None, help="where to keep the Chrome trace")
+    ap.add_argument("--long", choices=[name for name, _, _ in cs.LONG_RUNS], default=None,
+                    help="profile this long-context run of chip_smoke.py instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice_torch: needs a CUDA device")
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda")
     cfg = Qwen25VLConfig()
-    reqs = cs.make_requests(O3VideoProcessor(), cfg, seed=0)
-    engine = InferenceEngine(P.init(cfg, 0, dev), cfg)
-    sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
-                              max_tokens=args.max_tokens)
-    engine.generate(reqs, sampling)  # warm-up: kernel build, cuBLAS heuristics
+    if args.long:
+        _, n, cache_dtype = next(run for run in cs.LONG_RUNS if run[0] == args.long)
+        reqs = [cs.long_request(n)]
+        engine = InferenceEngine(P.init(cfg, 0, dev), cfg, cache_dtype=cache_dtype,
+                                 long_prefill_chunk=cs.LONG_CHUNK)
+        sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05,
+                                  max_tokens=args.max_tokens or cs.LONG_NEW_TOKENS)
+        engine.generate(reqs, SamplingParams(temperature=0.0, max_tokens=2))  # warm-up
+    else:
+        reqs = cs.make_requests(O3VideoProcessor(), cfg, seed=0)
+        engine = InferenceEngine(P.init(cfg, 0, dev), cfg)
+        sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
+                                  max_tokens=args.max_tokens or 16)
+        engine.generate(reqs, sampling)  # warm-up: kernel build, cuBLAS heuristics
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         engine.generate(reqs, sampling)

@@ -28,6 +28,21 @@ ATOL_MODEL = 1e-4
 # bf16 (2^-7 at |x| < 2), and the kernel's summation order can flip the bf16
 # rounding of an individual probability; 1e-2 covers one output ulp.
 ATOL_BF16 = 1e-2
+# The same at any output scale (attention over t random keys gives outputs
+# ~sqrt(e/t), 0.006 at t = 81888, where ATOL_BF16 would pass a zero output):
+# max abs error at most KERNEL_REL_MAX * min(1, max|ref|), relative L2 error
+# at most KERNEL_REL_L2. chip_smoke.py holds the kernels to the same bounds.
+KERNEL_REL_MAX = 2e-2
+KERNEL_REL_L2 = 1e-2
+
+
+def assert_kernel_close(out: torch.Tensor, ref: torch.Tensor) -> None:
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs().max().item()
+    bound = KERNEL_REL_MAX * min(1.0, ref.abs().max().item())
+    rel = ((out - ref).norm() / ref.norm()).item()
+    assert err <= bound and rel <= KERNEL_REL_L2, (
+        f"max abs error {err} (bound {bound}), relative L2 error {rel} (bound {KERNEL_REL_L2})")
 
 
 def cuda_device() -> torch.device:

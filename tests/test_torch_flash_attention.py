@@ -100,13 +100,6 @@ def test_decode_path_matches_jax_xla():
     np.testing.assert_allclose(ours, ref, atol=ATOL_OP)
 
 
-def test_long_context_decode_is_next_slice():
-    q = torch.zeros(1, 1, 4, 16)
-    k = torch.zeros(1, tattn.LONG_DECODE_T, 2, 16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tattn.causal_attention(q, k, k, q_positions=torch.zeros(1, 1, dtype=torch.int32))
-
-
 # ---- on the card: kernel vs plain version, bf16 --------------------------
 
 CUDA_CASES = [

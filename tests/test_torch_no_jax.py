@@ -1,6 +1,7 @@
 """Import guard: the port runs where neither JAX nor PIL is installed (the
 GPU machine has neither). A subprocess blocks both imports, imports every
-module of the port's serving slice, runs a tiny generate on the CPU, and
+module of the port's serving slice, runs a tiny generate on the CPU (with a
+bf16 cache, and with an fp8 cache through the long-context path), and
 checks that nothing of the JAX package was imported along the way."""
 
 import os
@@ -25,6 +26,7 @@ MODULES = [
     "open_o3_video_tpu_torch.ops.sampling",
     "open_o3_video_tpu_torch.ops.window_attention",
     "open_o3_video_tpu_torch.ops.flash_attention",
+    "open_o3_video_tpu_torch.ops.decode_attention",
     "open_o3_video_tpu_torch.ops.attention",
     "open_o3_video_tpu_torch.data.processor",
     "open_o3_video_tpu_torch.models.qwen25vl",
@@ -46,10 +48,18 @@ cfg = Qwen25VLConfig.tiny()
 proc = O3VideoProcessor(tokenizer=ByteTokenizer.for_config(cfg))
 imgs = list(np.random.default_rng(0).integers(0, 256, (2, 3, 56, 84), dtype=np.uint8))
 x = proc("<|vision_start|><|image_pad|><|vision_end|>" * 2 + "Why?", images=imgs)
-engine = InferenceEngine(params.init(cfg, 0, torch.device("cpu")), cfg)
-out = engine.generate([Request(x.input_ids, x.pixel_patches, x.grid_thw, cfg.image_token_id)],
-                      SamplingParams(max_tokens=4))
+weights = params.init(cfg, 0, torch.device("cpu"))
+req = Request(x.input_ids, x.pixel_patches, x.grid_thw, cfg.image_token_id)
+out = InferenceEngine(weights, cfg).generate([req], SamplingParams(max_tokens=4))
 assert 1 <= len(out[0]["token_ids"]) <= 4, out
+# the long-context path at a tiny size: fp8 cache, chunked prefill, and
+# decode through K4's route (its plain version on the CPU)
+from open_o3_video_tpu_torch.ops import attention
+attention.LONG_DECODE_T = 16
+engine = InferenceEngine(weights, cfg, cache_dtype=torch.float8_e4m3fn,
+                         long_prefill_threshold=8, long_prefill_chunk=5)
+out = engine.generate([req], SamplingParams(max_tokens=4))
+assert 1 <= len(out[0]["token_ids"]) <= 4 and len(req.input_ids) >= 16, out
 assert sys.modules["jax"] is None and sys.modules["PIL"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
 print("NO_JAX_OK")
