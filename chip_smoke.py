@@ -33,6 +33,20 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      (impl="torch"), within LONG_LOGITS_REL / LONG_LOGITS_COS of each other
      and each against a float32 step (SLICE_REL_RATIO), and identical
      tokens from two runs of (a).
+  8. the training kernels against their plain versions at the SFT slice's
+     shapes: the exact (training) modes of K1-K3, out and lse; K5 (dq; dk
+     and dv) and K6 (fused dqkv; the global blocks' dq; dk and dv), with
+     their bounds and the time of one PyTorch call computing the same
+     function; faults planted in K5's and K6's outputs must fail the bound;
+  9. the SFT slice: 3 full fine-tune steps of Qwen2.5-VL-7B through
+     make_train_step on one example of 16 synthetic frames (SFTConfig
+     defaults: AdamW lr 1e-6 after a global-norm clip at 1.0, remat), step
+     1 first repeated without its update under the profiler; per step the
+     seconds, loss, gradient norm and target tokens, the peak memory, and
+     each training kernel's launch count, which must be > 0;
+ 10. the training numerics at full width and 8 ViT blocks / 2 decoder
+     layers: loss and gradients of the kernel path and the plain bf16 path
+     against float32, per group (ViT, decoder, embedding and lm_head).
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -42,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -49,8 +64,10 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from open_o3_video_tpu_torch.data.processor import O3VideoProcessor
+from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
 from open_o3_video_tpu_torch.engine.engine import chunked_prefill, left_padded_rows
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
@@ -70,6 +87,8 @@ from open_o3_video_tpu_torch.ops import kernels
 from open_o3_video_tpu_torch.ops import decode_attention as da
 from open_o3_video_tpu_torch.ops import flash_attention as fa
 from open_o3_video_tpu_torch.ops import window_attention as wa
+from open_o3_video_tpu_torch.grounding.prompts import SFT_SYSTEM_PROMPT
+from open_o3_video_tpu_torch.train import SFTConfig, loss_and_grads, make_optimizer, make_train_step
 
 # The reference's system prompt for grounded free-form video QA
 # ("temporal-spatial free-form QA"), so the prompt has its real length.
@@ -131,10 +150,53 @@ TPU_KERNELS = {
                             "open_o3_video_tpu/ops/flash_attention.py:48"),
     "decode_attention_gqa": ("open_o3_video_tpu_torch/csrc/decode_attention.cu",
                              "open_o3_video_tpu/ops/decode_attention.py:103"),
+    # the training (exact) modes of K1-K3, and K5 and K6
+    "fused_window_attention_exact": ("open_o3_video_tpu_torch/csrc/window_attention.cu",
+                                     "open_o3_video_tpu/ops/window_attention.py:359"),
+    "window_attention_exact": ("open_o3_video_tpu_torch/csrc/window_attention.cu",
+                               "open_o3_video_tpu/ops/window_attention.py:112"),
+    "flash_attention_gqa_exact": ("open_o3_video_tpu_torch/csrc/flash_attention.cu",
+                                  "open_o3_video_tpu/ops/flash_attention.py:48"),
+    "flash_attention_gqa_bwd_dq": ("open_o3_video_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "open_o3_video_tpu/ops/flash_attention.py:246"),
+    "flash_attention_gqa_bwd_dkv": ("open_o3_video_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "open_o3_video_tpu/ops/flash_attention.py:295"),
+    "fused_window_attention_bwd": ("open_o3_video_tpu_torch/csrc/window_attention_bwd.cu",
+                                   "open_o3_video_tpu/ops/window_attention.py:406"),
+    "window_attention_bwd_dq": ("open_o3_video_tpu_torch/csrc/window_attention_bwd.cu",
+                                "open_o3_video_tpu/ops/window_attention.py:158"),
+    "window_attention_bwd_dkv": ("open_o3_video_tpu_torch/csrc/window_attention_bwd.cu",
+                                 "open_o3_video_tpu/ops/window_attention.py:158"),
 }
 # The kernels each main path must launch.
 SLICE_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa")
 LONG_KERNELS = ("flash_attention_gqa", "decode_attention_gqa")
+TRAIN_KERNELS = tuple(list(TPU_KERNELS)[4:])
+# The SFT slice: one grounded example over the serving slice's 16 frames,
+# with the reference's SFT system prompt and temporal frame prompt, and a
+# target of a few hundred bytes in the reference's answer format.
+SFT_TASK = "temporal-spatial free-form QA"
+SFT_QUESTION = "What happens to the bowling ball?"
+SFT_ANSWER = (
+    "<think>At the start a <obj>bowling ball</obj><box>[142,96,198,150]</box>at<t>0.5</t>s "
+    "leaves the bowler's hand and rolls down the lane. It hooks toward the head pin, and the "
+    "<obj>pins</obj><box>[120,20,230,88]</box>at<t>5.5</t>s scatter when it arrives.</think>\n"
+    "<answer>The bowling ball rolls down the lane and knocks the pins down.</answer>"
+)
+SFT_STEPS = 3
+# The training numerics phase: full width, depth cut to 8 ViT blocks (global
+# block 7 among them) and 2 decoder layers, so three models (kernel, plain
+# bf16, float32) fit beside each other on the card.
+NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS = 8, 2
+# Gradients of the kernel tests: dout at 0.1 keeps them under ~1, where one
+# bf16 ulp of reordered sums is within KERNEL_ATOL (at unit dout dk reaches
+# ~8, where one ulp is 2^-5).
+DOUT_SCALE = 0.1
+# Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): bf16 tensor cores and HBM3. The bound of a kernel is the larger of
+# its operations and its bytes at these rates.
+H100_BF16_FLOPS = 989e12
+H100_HBM_BYTES_PER_S = 3.35e12
 # A spin queued before each timed call (~2 ms at the H100's clock), so the
 # host has enqueued the call before its start event runs: the events then
 # time the call's device work, not the wrapper's Python.
@@ -174,10 +236,21 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> list[float]:
 
 
 def agreement(out, ref, keep) -> dict:
-    """`out` against `ref` over the kept rows: max abs error, its bound
-    (KERNEL_ATOL at the reference's scale), relative L2 error, and whether
-    both are within their bounds."""
-    out, ref = out.float()[keep], ref.float()[keep]
+    """`out` against `ref` over the kept rows (``keep`` None: all): max abs
+    error, its bound (KERNEL_ATOL at the reference's scale), relative L2
+    error, and whether both are within their bounds. Tuples of outputs (a
+    backward's dq, dk, dv) are held element by element, with a tuple of
+    masks; the worst element is reported."""
+    if isinstance(out, (tuple, list)):
+        keeps = keep if isinstance(keep, (tuple, list)) else (keep,) * len(out)
+        parts = [agreement(o, r, k) for o, r, k in zip(out, ref, keeps)]
+        worst = max(parts, key=lambda a: a["rel_l2"] / KERNEL_REL_L2
+                    + a["max_abs_err"] / max(a["bound"], 1e-30))
+        return {**worst, "ok": all(a["ok"] for a in parts),
+                "max_abs_err": max(a["max_abs_err"] for a in parts)}
+    out, ref = out.float(), ref.float()
+    if keep is not None:
+        out, ref = out[keep], ref[keep]
     err = (out - ref).abs().max().item()
     bound = KERNEL_ATOL * min(1.0, ref.abs().max().item())
     rel = ((out - ref).norm() / ref.norm()).item()
@@ -185,26 +258,85 @@ def agreement(out, ref, keep) -> dict:
             "ok": err <= bound and rel <= KERNEL_REL_L2}
 
 
-def compare(name, kernel_fn, plain_fn, keep, results):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(flops: float, moved: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations at
+    the bf16 dense peak and the bytes (each input read once, each output
+    written once) at the memory rate."""
+    t_ops, t_bytes = 1e3 * flops / H100_BF16_FLOPS, 1e3 * moved / H100_HBM_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def causal_pairs(pos, valid) -> int:
+    """Visible (query, key) pairs of a causal mask: key t <= position and
+    kv_valid[t], counted from this run's data."""
+    seen = torch.cumsum(valid.long(), dim=1)  # (B, T) valid keys at or before t
+    idx = pos.long().clamp(min=-1, max=valid.shape[1] - 1)
+    got = torch.gather(seen, 1, idx.clamp(min=0))
+    return int(torch.where(idx >= 0, got, 0).sum().item())
+
+
+def segment_pairs(ids) -> int:
+    """Visible (query, key) pairs of a segment mask (same nonzero id)."""
+    g = ids.long()
+    counts = torch.zeros((g.shape[0], int(g.max().item()) + 1), dtype=torch.long,
+                         device=g.device).scatter_add_(1, g, torch.ones_like(g))
+    return int((counts[:, 1:] ** 2).sum().item())
+
+
+def compare(name, kernel_fn, plain_fn, keep, results, *, flops=0.0, moved=0,
+            library_fn=None):
     """The kernel's agreement with its plain version over the kept rows,
-    then times in turns (plain, kernel, kernel, plain)."""
+    then times in turns (plain, kernel, kernel, plain), the bound from the
+    work (`flops`, `moved` bytes) and, where one PyTorch call computes the
+    same function, that call's time. The first case of a kernel is its
+    main-path shape and gives its row in the JSON line."""
     out, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
-    if not torch.isfinite(out.float()).all():
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    if not all(torch.isfinite(o.float()).all() for o in outs):
         raise RuntimeError(f"{name}: non-finite kernel output")
     a = agreement(out, ref, keep)
     err = a["max_abs_err"]
     p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
     ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-    log("kernels", name=name, shape=tuple(out.shape), max_abs_err=err, bound=a["bound"],
-        rel_l2=a["rel_l2"], max_rel_l2=KERNEL_REL_L2, ms=round(ms, 4), plain_ms=round(plain_ms, 4))
+    lib_ms = statistics.median(time_ms(library_fn)) if library_fn is not None else None
+    b_ms, b_by = bound_ms(flops, moved)
+    log("kernels", name=name, shape=tuple(outs[0].shape), max_abs_err=err, bound=a["bound"],
+        rel_l2=a["rel_l2"], max_rel_l2=KERNEL_REL_L2, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        bound_ms=round(b_ms, 4), bound_by=b_by,
+        library_ms=None if lib_ms is None else round(lib_ms, 4))
     if not a["ok"]:
         raise RuntimeError(f"{name}: kernel vs plain {a}, max rel L2 {KERNEL_REL_L2}")
     prev = results.get(name)
-    if prev is None:  # the first case of a kernel is its main-path shape
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    if prev is None:
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib_ms}
     else:
         prev["max_abs_err"] = max(prev["max_abs_err"], err)
+    return ref
+
+
+def sdpa_masked(q, k, v, mask):
+    """One PyTorch call computing masked attention (B, S, H, D) layout in,
+    for the library time: scaled_dot_product_attention with a boolean mask
+    (B, 1, S, T), GQA by enable_gqa."""
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          attn_mask=mask, enable_gqa=True)
+
+
+def causal_mask(pos, valid):
+    """(B, 1, S, T) boolean mask of the decoder's causal attention."""
+    t = torch.arange(valid.shape[1], device=valid.device)
+    return ((t[None, None, :] <= pos[:, :, None]) & (valid[:, None, :] != 0))[:, None]
+
+
+def segment_mask(ids):
+    g = ids.to(torch.int32)
+    return ((g[:, :, None] == g[:, None, :]) & (g[:, None, :] != 0))[:, None]
 
 
 def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
@@ -223,18 +355,28 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
         sin = torch.from_numpy(np.sin(emb).reshape(-1, w, v.head_dim)).to(dev)
         ids = torch.from_numpy(spec.padded_gids.reshape(-1, w)).to(dev)
         qkv = bf16(ids.shape[0], w, 3 * v.hidden_size)
+        out_bytes = qkv.numel() // 3 * 2
+        rq, rk, rv = wa._rope_qk(qkv, cos, sin, v.num_heads)
+        seg = segment_mask(ids)
         compare("fused_window_attention",
                 lambda: wa.fused_window_attention(qkv, cos, sin, ids, v.num_heads),
                 lambda: wa.fused_window_attention_torch(qkv, cos, sin, ids, v.num_heads),
-                ids != 0, results)
+                ids != 0, results,
+                flops=4 * segment_pairs(ids) * v.num_heads * v.head_dim,
+                moved=nbytes(qkv, cos, sin, ids) + out_bytes,
+                library_fn=lambda: sdpa_masked(rq, rk, rv, seg))
         if grid_hw == (18, 24):
             frame_ids = torch.from_numpy(
                 spec.padded_valid.reshape(-1, spec.frame_w).astype(np.int32)).to(dev)
             q, k, vv = (bf16(*frame_ids.shape, v.num_heads, v.head_dim) for _ in range(3))
+            fseg = segment_mask(frame_ids)
             compare("window_attention",
                     lambda: wa.window_attention(q, k, vv, frame_ids),
                     lambda: wa.window_attention_torch(q, k, vv, frame_ids),
-                    frame_ids != 0, results)
+                    frame_ids != 0, results,
+                    flops=4 * segment_pairs(frame_ids) * v.num_heads * v.head_dim,
+                    moved=nbytes(q, k, vv, frame_ids) + nbytes(q),
+                    library_fn=lambda: sdpa_masked(q, k, vv, fseg))
 
     t = cfg.text
     B, S = len(batch_rows), max(batch_rows)
@@ -248,10 +390,15 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
     valid = torch.zeros((B, t_total), dtype=torch.int32, device=dev)
     for b, n in enumerate(batch_rows):  # left padding, as the engine lays rows out
         valid[b, S - n:S] = 1
+    mask = causal_mask(pos, valid)
     compare("flash_attention_gqa",
             lambda: fa.flash_attention_gqa(q, k, vv, pos, valid),
             lambda: fa.flash_attention_gqa_torch(q, k, vv, pos, valid),
-            valid[:, :S] != 0, results)
+            valid[:, :S] != 0, results,
+            flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+            moved=nbytes(q, k, vv, pos, valid) + nbytes(q),
+            library_fn=lambda: sdpa_masked(q, k, vv, mask))
+    del cache
     decode_cases(dev, cfg, gen, results)
     long_chunk_case(dev, cfg, gen, results)
     return results
@@ -290,10 +437,16 @@ def decode_cases(dev, cfg, gen, results) -> None:
             valid[1, :1000] = 0  # a left-padded row
             pos[1, 0] = -1  # a pad query row, which sees nothing
         w = last + 1
+        kb, vb = k[:, :w].to(torch.bfloat16), v[:, :w].to(torch.bfloat16)  # SDPA takes no fp8
+        mask = causal_mask(pos, valid[:, :w])
         compare("decode_attention_gqa",
                 lambda: da.decode_attention_gqa(q, k, v, pos, valid),
                 lambda: da.decode_attention_gqa_torch(q, k[:, :w], v[:, :w], pos, valid[:, :w]),
-                pos >= 0, results)
+                pos >= 0, results,
+                flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+                moved=nbytes(q, k[:, :w], v[:, :w], pos, valid) + nbytes(q),
+                library_fn=lambda: sdpa_masked(q, kb, vb, mask))
+        del kb, vb
         if T == 81920:
             planted_faults(q, k[:, :w], v[:, :w], pos, valid[:, :w], T)
         del k, v
@@ -346,7 +499,9 @@ def long_chunk_case(dev, cfg, gen, results) -> None:
     compare("flash_attention_gqa",
             lambda: fa.flash_attention_gqa(qs, k, v, ps, valid),
             lambda: fa.flash_attention_gqa_torch(qs, k, v, ps, valid),
-            ps >= 0, results)
+            ps >= 0, results,
+            flops=4 * causal_pairs(ps, valid) * t.num_attention_heads * t.head_dim,
+            moved=nbytes(qs, k, v, ps, valid, qs))
     full = statistics.median(time_ms(lambda: fa.flash_attention_gqa(q, k, v, pos, valid), reps=5))
     log("kernels", name="flash_attention_gqa", case="long prefill chunk", shape=tuple(q.shape),
         T=T, ms=round(full, 4))
@@ -482,7 +637,7 @@ def _cast(tree, dtype):
         return {k: _cast(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_cast(v, dtype) for v in tree]
-    return tree.to(dtype)
+    return tree.detach().to(dtype)
 
 
 def _vision_and_logits(params, cfg, reqs, impl):
@@ -585,11 +740,296 @@ def long_numerics_phase(params, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- training ---------------------------------------------------------------
+
+
+def sft_batch(proc, cfg, seed: int) -> dict:
+    """The SFT slice's batch: one example over 16 synthetic frames through
+    the port's collate and pack (ByteTokenizer, labels masked)."""
+    frames = np.random.default_rng(seed + 1).integers(
+        0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
+    messages = [
+        {"role": "system", "content": [{"type": "text", "text": SFT_SYSTEM_PROMPT[SFT_TASK]}]},
+        {"role": "user", "content": [{"type": "video", "video": "synthetic"},
+                                     {"type": "text", "text": SFT_QUESTION}]},
+        {"role": "assistant", "content": [{"type": "text", "text": SFT_ANSWER}]},
+    ]
+    return pack_sft_batch([collate_sft_frames(messages, list(frames), FPS, proc, cfg)], cfg)
+
+
+def sdpa_fwd_bwd(q, k, v, dout, **kw):
+    """One PyTorch call's forward and backward of the same attention, for
+    the library time of a backward kernel: (B, S, H, D) layout in."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw).backward(dout.transpose(1, 2))
+
+
+def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
+    """The training kernels against their plain versions at the SFT slice's
+    shapes: the exact forwards of K1-K3 (out and lse), K5 (dq; dk, dv) and
+    K6 (fused dqkv; window dq; dk, dv). Faults planted in K5's and K6's
+    outputs must fail the bound."""
+    v, t = cfg.vision, cfg.text
+    H, D = v.num_heads, v.head_dim
+
+    def bf16(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    spec = compute_vision_spec([(1, 18, 24)] * N_FRAMES, v)
+    w = spec.win_w
+    emb = np.concatenate([spec.padded_freqs, spec.padded_freqs], -1)
+    cos = torch.from_numpy(np.cos(emb).reshape(-1, w, D)).to(dev)
+    sin = torch.from_numpy(np.sin(emb).reshape(-1, w, D)).to(dev)
+    ids = torch.from_numpy(spec.padded_gids.reshape(-1, w)).to(dev)
+    qkv = bf16(ids.shape[0], w, 3 * v.hidden_size)
+    do = bf16(ids.shape[0], w, v.hidden_size, scale=DOUT_SCALE)
+    do[ids == 0] = 0  # the tower never reads a pad row
+    pairs = segment_pairs(ids) * H * D
+    rq, rk, rv = wa._rope_qk(qkv, cos, sin, H)
+    seg = segment_mask(ids)
+    compare("fused_window_attention_exact",
+            lambda: wa.fused_window_attention_exact(qkv, cos, sin, ids, H),
+            lambda: wa.fused_window_attention_exact_torch(qkv, cos, sin, ids, H),
+            ids != 0, results, flops=4 * pairs,
+            moved=nbytes(qkv, cos, sin, ids) + nbytes(do),  # out has dout's shape
+            library_fn=lambda: sdpa_masked(rq, rk, rv, seg))
+    ref = compare("fused_window_attention_bwd",
+                  lambda: wa.fused_window_attention_bwd(qkv, cos, sin, ids, H, do),
+                  lambda: wa.fused_window_attention_bwd_torch(qkv, cos, sin, ids, H, do),
+                  None, results, flops=10 * pairs, moved=nbytes(qkv, cos, sin, ids, do, qkv),
+                  library_fn=lambda: sdpa_fwd_bwd(rq, rk, rv, do.view(*rq.shape), attn_mask=seg))
+    # fault: the rope transpose left out of dq and dk
+    q0, k0, v0 = wa._rope_qk(qkv, cos, sin, H)
+    no_rope = torch.stack(wa._window_bwd_f32(q0, k0, v0, ids, do.view(*q0.shape)), dim=2)
+    planted("fused_window_attention_bwd", "rope transpose left out",
+            no_rope.reshape(qkv.shape).to(qkv.dtype), ref, None)
+    del qkv, do, rq, rk, rv, q0, k0, v0, no_rope
+
+    frame_ids = torch.from_numpy(spec.padded_valid.reshape(-1, spec.frame_w).astype(np.int32)).to(dev)
+    q, k, vv = (bf16(*frame_ids.shape, H, D) for _ in range(3))
+    do = bf16(*frame_ids.shape, H, D, scale=DOUT_SCALE)
+    do[frame_ids == 0] = 0
+    fseg = segment_mask(frame_ids)
+    fpairs = segment_pairs(frame_ids) * H * D
+    valid_rows = (frame_ids != 0)[:, None, :].expand(-1, H, -1)
+    compare("window_attention_exact",
+            lambda: wa.window_attention_exact(q, k, vv, frame_ids),
+            lambda: wa.window_attention_exact_torch(q, k, vv, frame_ids),
+            (frame_ids != 0, valid_rows), results, flops=4 * fpairs,
+            moved=nbytes(q, k, vv, frame_ids, q) + 4 * q.numel() // D,
+            library_fn=lambda: sdpa_masked(q, k, vv, fseg))
+    out, lse = wa.window_attention_exact(q, k, vv, frame_ids)
+    ops = wa.bwd_operands(q, k, vv, frame_ids, out, lse, do)
+    ins = nbytes(*ops)
+    compare("window_attention_bwd_dq", lambda: wa.window_attention_bwd_dq(ops),
+            lambda: wa.window_attention_bwd_torch(q, k, vv, frame_ids, do)[0],
+            None, results, flops=6 * fpairs, moved=ins + nbytes(q),
+            library_fn=lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=fseg))
+    compare("window_attention_bwd_dkv", lambda: wa.window_attention_bwd_dkv(ops),
+            lambda: wa.window_attention_bwd_torch(q, k, vv, frame_ids, do)[1:],
+            None, results, flops=8 * fpairs, moved=ins + 2 * nbytes(q),
+            library_fn=lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=fseg))
+    del q, k, vv, do, out, lse, ops
+
+    # the decoder at the packed example's length, right-padded keys
+    L = batch["input_ids"].shape[1]
+    valid = torch.from_numpy(batch["attn_valid"].astype(np.int32)).to(dev)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None].contiguous()
+    q = bf16(1, L, t.num_attention_heads, t.head_dim)
+    k, vv = (bf16(1, L, t.num_key_value_heads, t.head_dim) for _ in range(2))
+    do = bf16(1, L, t.num_attention_heads, t.head_dim, scale=DOUT_SCALE)
+    cpairs = causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim
+    mask = causal_mask(pos, valid)
+    rows = valid != 0
+    compare("flash_attention_gqa_exact",
+            lambda: fa.flash_attention_gqa_exact(q, k, vv, pos, valid),
+            lambda: fa.flash_attention_gqa_exact_torch(q, k, vv, pos, valid),
+            (rows, rows[:, None, :].expand(-1, t.num_attention_heads, -1)), results,
+            flops=4 * cpairs, moved=nbytes(q, k, vv, pos, valid, q) + 4 * q.numel() // t.head_dim,
+            library_fn=lambda: sdpa_masked(q, k, vv, mask))
+    out, lse = fa.flash_attention_gqa_exact(q, k, vv, pos, valid)
+    ops = fa.bwd_operands(q, k, vv, pos, valid, out, lse, do)
+    ins = nbytes(*ops)
+    lib = lambda: sdpa_fwd_bwd(q, k, vv, do, is_causal=True)  # noqa: E731
+    compare("flash_attention_gqa_bwd_dq", lambda: fa.flash_attention_gqa_bwd_dq(ops),
+            lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[0],
+            None, results, flops=6 * cpairs, moved=ins + nbytes(q), library_fn=lib)
+    ref = compare("flash_attention_gqa_bwd_dkv", lambda: fa.flash_attention_gqa_bwd_dkv(ops),
+                  lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[1:],
+                  None, results, flops=8 * cpairs, moved=ins + nbytes(k, vv), library_fn=lib)
+    # fault: dk/dv summed over 6 of the 7 heads of each group
+    G = t.num_attention_heads // t.num_key_value_heads
+    dropped = do.clone()
+    dropped[:, :, G - 1::G] = 0
+    fault = fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, dropped)[1:]
+    planted("flash_attention_gqa_bwd_dkv", f"dk/dv over {G - 1} of {G} group heads", fault, ref,
+            None)
+    del q, k, vv, do, out, lse, ops, dropped, fault
+    torch.cuda.empty_cache()
+
+
+def planted(name, fault, out, ref, keep) -> None:
+    """A planted fault's output must fail the kernel bound."""
+    a = agreement(out, ref, keep)
+    log("kernels", name=name, planted_fault=fault, max_abs_err=a["max_abs_err"], bound=a["bound"],
+        rel_l2=a["rel_l2"], rejected=not a["ok"])
+    if a["ok"]:
+        raise RuntimeError(f"{name}: the bound does not reject a planted fault: {fault}")
+
+
+DEVICE_CLASSES = (("attention kernels (csrc/)", ("o3v",)),
+                  ("matmul", ("gemm", "cutlass", "nvjet", "xmma", "sm90_")),
+                  ("optimizer", ("adam",)))
+
+
+def device_breakdown(prof, wall_s: float) -> dict:
+    """Device time of a profiled run by kernel class, and the busy share of
+    the wall time (kernel time summed, so overlap would count twice)."""
+    by_class = {name: 0.0 for name, _ in DEVICE_CLASSES}
+    by_class["other"] = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        key = evt.key.lower()
+        cls = next((name for name, marks in DEVICE_CLASSES if any(m in key for m in marks)),
+                   "other")
+        by_class[cls] += ms
+    busy = sum(by_class.values())
+    return {"device_ms": {k: round(x, 3) for k, x in by_class.items()},
+            "busy_share": round(busy / (1e3 * wall_s), 4) if wall_s else None}
+
+
+def sft_phase(params, cfg, batch) -> dict:
+    """The SFT slice through make_train_step: SFT_STEPS full fine-tune steps
+    of Qwen2.5-VL-7B (AdamW at the SFTConfig defaults, remat on). Step 1's
+    loss and gradient norm are first computed without the update, under the
+    profiler (device time by kernel class), and must come out identical in
+    the step. Returns the launch counts of the training kernels over the
+    steps; each must be > 0."""
+    train_cfg = SFTConfig()
+    opt = make_optimizer(train_cfg)
+    P.trainable(params)
+    state = opt.init(params)
+    step = make_train_step(cfg, train_cfg, opt)
+    log("sft", tokens=int(batch["attn_valid"].sum()), padded_len=batch["input_ids"].shape[1],
+        target_tokens=int((batch["labels"][:, 1:] != -100).sum()),
+        patches=batch["pixel_patches"].shape[0], params=P.count(params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        first = loss_and_grads(params, cfg, train_cfg, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log("sft", profiled="forward+backward of step 1 without its update", seconds=round(wall, 3),
+        **device_breakdown(prof, wall))
+    del prof
+    for x in P.leaves(params):
+        x.grad = None
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    metrics = []
+    for i in range(SFT_STEPS):
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        m = {k: float(x) for k, x in m.items()}
+        metrics.append(m)
+        log("sft", step=i + 1, seconds=round(time.perf_counter() - t0, 3), loss=m["loss"],
+            grad_norm=m["grad_norm"], num_target_tokens=int(m["num_target_tokens"]))
+    launches = {name: kernels.LAUNCHES[name] for name in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("sft", launches_per_step={k: n / SFT_STEPS for k, n in launches.items()},
+        peak_mem_gib=round(peak, 3))
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        raise RuntimeError(f"non-finite loss or gradient norm: {metrics}")
+    same = (float(first["loss"]) == metrics[0]["loss"]
+            and float(first["grad_norm"]) == metrics[0]["grad_norm"])
+    log("sft", step1_repeat_loss=float(first["loss"]), step1_repeat_grad_norm=float(first["grad_norm"]),
+        identical=same)
+    if not same:
+        raise RuntimeError("step 1 repeated from the same params and state gave another result")
+    if not all(launches.values()):
+        raise RuntimeError(f"a training kernel never launched: {launches}")
+    return launches
+
+
+def _grad_groups(weights) -> dict:
+    """The trainable leaves by group: the ViT, the decoder layers (and the
+    final norm), the embedding and the lm_head."""
+    text = weights["text"]
+    return {
+        "vit": P.leaves(weights["visual"]),
+        "decoder": P.leaves(text["layers"]) + [text["final_norm"]],
+        "embed_lm_head": [text["embed_tokens"], text["lm_head"]],
+    }
+
+
+def _loss_and_grad_copies(weights, cfg, batch, impl) -> tuple[float, dict]:
+    """Loss and a copy of every gradient, by group; the leaves' grads are
+    then cleared for the next path."""
+    m = loss_and_grads(weights, cfg, SFTConfig(), batch, attn_impl=impl)
+    grads = {g: [x.grad.clone() for x in xs] for g, xs in _grad_groups(weights).items()}
+    for x in P.leaves(weights):
+        x.grad = None
+    return float(m["loss"]), grads
+
+
+def _agreement_sums(grads, ref, chunk: int = 1 << 26) -> tuple[float, float]:
+    """Relative L2 error and cosine of a list of gradients against a
+    reference list, summed in float64 over chunks of the flattened leaves
+    (the embedding's gradient alone has 545M elements)."""
+    diff = ref_sq = dot = own_sq = 0.0
+    for a, b in zip(grads, ref):
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), chunk):
+            x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+            diff += ((x - y) ** 2).sum().item()
+            ref_sq += (y * y).sum().item()
+            dot += (x * y).sum().item()
+            own_sq += (x * x).sum().item()
+    return float(np.sqrt(diff / ref_sq)), dot / float(np.sqrt(ref_sq * own_sq))
+
+
+def train_numerics_phase(params, cfg, batch) -> None:
+    """Training numerics at full width, depth cut to NUMERICS_VIT_DEPTH ViT
+    blocks and NUMERICS_TEXT_LAYERS decoder layers: the loss and gradients
+    of the kernel path and of the plain bf16 path (impl="torch"), each
+    against a float32 plain reference on the same weights. Per group, the
+    kernel path may be at most SLICE_REL_RATIO further from float32 than the
+    plain path."""
+    small_cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, depth=NUMERICS_VIT_DEPTH),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=NUMERICS_TEXT_LAYERS))
+    small = {"visual": {**params["visual"], "blocks": params["visual"]["blocks"][:NUMERICS_VIT_DEPTH]},
+             "text": {**params["text"], "layers": params["text"]["layers"][:NUMERICS_TEXT_LAYERS]}}
+    loss_k, grads_k = _loss_and_grad_copies(small, small_cfg, batch, "auto")
+    loss_p, grads_p = _loss_and_grad_copies(small, small_cfg, batch, "torch")
+    ref = P.trainable(_cast(small, torch.float32))
+    cfg32 = dataclasses.replace(small_cfg, dtype=torch.float32)
+    m = loss_and_grads(ref, cfg32, SFTConfig(), batch, attn_impl="torch")
+    loss_r, grads_r = float(m["loss"]), {g: [x.grad for x in xs] for g, xs in _grad_groups(ref).items()}
+    log("train_numerics", vit_blocks=NUMERICS_VIT_DEPTH, decoder_layers=NUMERICS_TEXT_LAYERS,
+        loss_kernel=loss_k, loss_plain=loss_p, loss_f32=loss_r)
+    for group in grads_r:
+        rel_k, cos_k = _agreement_sums(grads_k[group], grads_r[group])
+        rel_p, cos_p = _agreement_sums(grads_p[group], grads_r[group])
+        log("train_numerics", group=group, kernel_vs_f32_rel=rel_k, kernel_vs_f32_cos=cos_k,
+            plain_vs_f32_rel=rel_p, plain_vs_f32_cos=cos_p, max_ratio=SLICE_REL_RATIO)
+        if not rel_k <= SLICE_REL_RATIO * rel_p:
+            raise RuntimeError(f"{group} gradients: the kernel path is further from float32 than "
+                               f"the plain bf16 path ({rel_k} vs {rel_p})")
+    del ref, grads_k, grads_p, grads_r
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
     dev = torch.device("cuda")
@@ -643,6 +1083,20 @@ def main() -> None:
     # K4's main path is run (b), the 81920-slot fp8 one
     launches["decode_attention_gqa"] = long_launches["b"]["decode_attention_gqa"]
 
+    # the training slice, after the serving engines and caches are freed
+    del engine, again, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = sft_batch(proc, cfg, args.seed)
+    training_kernel_phase(dev, cfg, gen, batch, results)
+    t0 = time.perf_counter()
+    launches.update(sft_phase(params, cfg, batch))
+    gc.collect()  # the AdamW state
+    torch.cuda.empty_cache()
+    train_numerics_phase(params, cfg, batch)
+    log("sft", phases_seconds=round(time.perf_counter() - t0, 3))
+
+    log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}

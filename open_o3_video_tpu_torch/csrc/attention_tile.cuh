@@ -53,14 +53,16 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* lo, const bf16* hi) {
          (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
 }
 
-// Copy rows [r0, r0 + kKeys) of a strided bf16 matrix (row i at
-// src + i * row_stride, D contiguous values) into a shared tile, 16 bytes per
-// thread per step; rows at or past n_rows are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(Tile<D>& dst, const bf16* src,
-                                          long long row_stride, int r0, int n_rows) {
+// Copy `rows` rows [r0, r0 + rows) of a strided bf16 matrix (row i at
+// src + i * row_stride, D contiguous values) into a shared array of row pitch
+// D + kPad (a Tile by default), 16 bytes per thread per step over a block of
+// THREADS threads; rows at or past n_rows are zero-filled.
+template <int D, int THREADS = kThreads>
+__device__ __forceinline__ void load_tile(bf16 (*dst)[D + kPad], const bf16* src,
+                                          long long row_stride, int r0, int n_rows,
+                                          int rows = kKeys) {
   constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < kKeys * kVec; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kVec; i += THREADS) {
     const int r = i / kVec, c = (i % kVec) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < n_rows)
@@ -161,6 +163,152 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float (
           pack_bf16x2(acc[dt][2 * half] / denom, acc[dt][2 * half + 1] / denom);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Training (exact-softmax) building blocks, shared by the exact forwards and
+// the backward kernels.
+
+// The JAX package's finite mask value, -0.7 * FLT_MAX: exp(NEG_INF - m) is 0
+// for any finite m, and a fully masked row never produces inf - inf.
+constexpr float kNegInf = -0.7f * 3.402823466e38f;
+
+// Mask kinds. CAUSAL: the decoder (row tag = query position, -1 for a pad
+// query; key tag = kv validity). SEGMENT: the ViT's exact softmax (tags are
+// segment ids; a key past the row width has tag -1, a query row past it -2).
+// A pad query (id 0) sees no key, so its scores are all NEG_INF and the max-
+// subtracted softmax of the JAX kernels attends uniformly over the row's W
+// keys: modelled as score 0 on every key of the row.
+enum MaskKind { kCausal = 0, kSegment = 1 };
+
+template <int MODE>
+__device__ __forceinline__ bool visible(int row_tag, int key_tag, int key) {
+  if (MODE == kCausal) return key_tag != 0 && key <= row_tag;
+  return row_tag == 0 ? key_tag >= 0 : key_tag == row_tag;
+}
+
+template <int MODE>
+__device__ __forceinline__ float score(float s, int row_tag, float s_scale) {
+  return (MODE == kSegment && row_tag == 0) ? 0.f : s * s_scale;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// As load_tile, for one head's q or k slice rotated by the per-row cos/sin
+// tables (rows of D floats, row i at cos + i * D) in f32 and rounded to
+// bf16: y = x * cos + rotate_half(x) * sin, rotate_half([x1, x2]) =
+// [-x2, x1]. Explicit _rn intrinsics keep the compiler from contracting into
+// an FMA, so the rounding matches the plain version op for op.
+template <int D, int THREADS = kThreads>
+__device__ __forceinline__ void load_rope_tile(bf16 (*dst)[D + kPad], const bf16* src,
+                                               long long row_stride, const float* cos,
+                                               const float* sin, int r0, int n_rows,
+                                               int rows = kKeys) {
+  constexpr int kVec = D / 8, kHalf = D / 2;
+  for (int i = threadIdx.x; i < rows * kVec; i += THREADS) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n_rows) {
+      const bf16* row = src + (r0 + r) * row_stride;
+      const uint4 xv = *reinterpret_cast<const uint4*>(row + c);
+      const uint4 pv = *reinterpret_cast<const uint4*>(row + (c < kHalf ? c + kHalf : c - kHalf));
+      const float* cr = cos + static_cast<long long>(r0 + r) * D + c;
+      const float* sr = sin + static_cast<long long>(r0 + r) * D + c;
+      const bf16* x = reinterpret_cast<const bf16*>(&xv);
+      const bf16* partner = reinterpret_cast<const bf16*>(&pv);
+      bf16* y = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pj = __bfloat162float(partner[j]);
+        const float rot = c < kHalf ? -pj : pj;
+        y[j] = __float2bfloat16_rn(
+            __fadd_rn(__fmul_rn(__bfloat162float(x[j]), cr[j]), __fmul_rn(rot, sr[j])));
+      }
+    }
+    *reinterpret_cast<uint4*>(&dst[r][c]) = packed;
+  }
+}
+
+// s[nt] = A(16 rows of this warp) @ B^T over D, for NT n-tiles of 8 columns:
+// A rows come from a (row pitch D + kPad) shared array at row a_row0 (the
+// warp's 16 rows), B rows (the columns of s) from b at rows nt * 8 + g.
+template <int D, int NT>
+__device__ __forceinline__ void scores_smem(float (&s)[NT][4], bf16 (*a)[D + kPad],
+                                            int a_row0, bf16 (*b)[D + kPad]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t af[4] = {ld_u32(&a[a_row0 + g][kk * 16 + 2 * t]),
+                            ld_u32(&a[a_row0 + g + 8][kk * 16 + 2 * t]),
+                            ld_u32(&a[a_row0 + g][kk * 16 + 2 * t + 8]),
+                            ld_u32(&a[a_row0 + g + 8][kk * 16 + 2 * t + 8])};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const bf16* brow = &b[nt * 8 + g][kk * 16 + 2 * t];
+      mma_16816(s[nt], af, ld_u32(brow), ld_u32(brow + 8));
+    }
+  }
+}
+
+// acc += bf16(x) @ B, x the C fragments of a 16 x (8 * NT) block held by
+// this warp (NT even), B rows (the contraction index) from b, row pitch
+// D + kPad: the PV-style product.
+template <int D, int NT>
+__device__ __forceinline__ void accumulate_xb(float (&acc)[D / 8][4], const float (&x)[NT][4],
+                                              bf16 (*b)[D + kPad]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kt = 0; kt < NT / 2; ++kt) {
+    const uint32_t xa[4] = {pack_bf16x2(x[2 * kt][0], x[2 * kt][1]),
+                            pack_bf16x2(x[2 * kt][2], x[2 * kt][3]),
+                            pack_bf16x2(x[2 * kt + 1][0], x[2 * kt + 1][1]),
+                            pack_bf16x2(x[2 * kt + 1][2], x[2 * kt + 1][3])};
+    const int r = kt * 16 + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int col = dt * 8 + g;
+      mma_16816(acc[dt], xa, ld_pair(&b[r][col], &b[r + 1][col]),
+                ld_pair(&b[r + 8][col], &b[r + 9][col]));
+    }
+  }
+}
+
+// Store this warp's 16 x D f32 fragments times `scale` as bf16 rows:
+// out_row(i) points at tile row i's D outputs; rows >= n_rows are skipped.
+template <int D, typename RowPtr>
+__device__ __forceinline__ void store_frags(const float (&acc)[D / 8][4], float scale, int row0,
+                                            int n_rows, RowPtr out_row) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + g + 8 * half;
+    if (row >= n_rows) continue;
+    bf16* o = out_row(row);
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(o + dt * 8 + 2 * t) =
+          pack_bf16x2(acc[dt][2 * half] * scale, acc[dt][2 * half + 1] * scale);
+  }
+}
+
+// Launch helper for kernels that need more than 48 KB of shared memory.
+template <typename Kernel>
+__host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace o3v

@@ -132,11 +132,12 @@ def build_vision_row_index(
 
 
 def encode_vision(params: dict, cfg: Qwen25VLConfig, pixel_patches: torch.Tensor,
-                  grid_thw: np.ndarray, impl: str = "auto") -> torch.Tensor:
+                  grid_thw: np.ndarray, impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """Vision tower -> merged embeddings (S_patches / merge_unit, hidden)."""
     spec = compute_vision_spec([tuple(int(v) for v in g) for g in np.asarray(grid_thw)],
                                cfg.vision)
-    return vision_forward(params["visual"], pixel_patches, spec, cfg.vision, impl=impl)
+    return vision_forward(params["visual"], pixel_patches, spec, cfg.vision, impl=impl,
+                          remat=remat)
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -175,21 +176,35 @@ def forward(
     pixel_patches: Optional[torch.Tensor] = None,
     grid_thw: Optional[np.ndarray] = None,
     vision_token_id: Optional[int] = None,
+    vision_row_index: Optional[torch.Tensor] = None,
     attn_valid: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
     cache_offset: int = 0,
     seq_positions: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    remat: bool = False,
+    return_hidden: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """Full forward -> (logits (B, S, vocab) float32, the cache)."""
+    """Full forward -> (logits (B, S, vocab) float32, the cache).
+
+    ``vision_row_index`` (B, S) maps token slots to vision rows (-1 = text),
+    as ``pack_sft_batch`` builds it; without it the n-th placeholder takes
+    the n-th row. ``remat`` checkpoints every vision block and decoder
+    layer. ``return_hidden=True`` returns the final-norm hidden states
+    instead of logits, for callers that project only some positions."""
     embeds = embed_tokens(params, input_ids)
     if pixel_patches is not None:
-        vis = encode_vision(params, cfg, pixel_patches, grid_thw, impl=attn_impl)
-        tok = vision_token_id if vision_token_id is not None else cfg.image_token_id
-        embeds = merge_vision_embeddings(cfg, input_ids, embeds, vis, tok)
+        vis = encode_vision(params, cfg, pixel_patches, grid_thw, impl=attn_impl, remat=remat)
+        if vision_row_index is not None:
+            embeds = merge_vision_embeddings_by_index(embeds, vis, vision_row_index)
+        else:
+            tok = vision_token_id if vision_token_id is not None else cfg.image_token_id
+            embeds = merge_vision_embeddings(cfg, input_ids, embeds, vis, tok)
     hidden, cache = text_forward(
         params["text"], cfg.text, embeds, position_ids,
         seq_positions=seq_positions, attn_valid=attn_valid, cache=cache,
-        cache_offset=cache_offset, attn_impl=attn_impl,
+        cache_offset=cache_offset, attn_impl=attn_impl, remat=remat,
     )
+    if return_hidden:
+        return hidden, cache
     return logits_from_hidden(params["text"], hidden), cache

@@ -38,6 +38,36 @@ def from_jax_params(tree, cfg: Qwen25VLConfig, device) -> dict:
     return conv(tree)
 
 
+def to_jax_layout(tree):
+    """Inverse of :func:`from_jax_params`: a param (or gradient) dict of the
+    port as the JAX package's tree, leaves float32 numpy arrays in JAX's
+    (in, out) orientation, so the two can be compared leaf by leaf. Each
+    leaf is a copy: a later in-place update does not change it."""
+    if isinstance(tree, dict):
+        return {k: to_jax_layout(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_jax_layout(v) for v in tree]
+    return tree.detach().to(device="cpu", dtype=torch.float32, copy=True).numpy()
+
+
+def leaves(tree) -> list:
+    """The tensors of a param dict, in a fixed (depth-first, key) order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def trainable(tree) -> dict:
+    """Mark every floating-point leaf as requiring a gradient (a full fine-
+    tune); returns the same dict."""
+    for x in leaves(tree):
+        if x.is_floating_point():
+            x.requires_grad_(True)
+    return tree
+
+
 def init(cfg: Qwen25VLConfig, seed: int, device) -> dict:
     """Random normal(0.02) weights (the HF initializer scale), unit norms and
     zero biases, drawn on ``device`` from a seeded ``torch.Generator`` in

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import causal_attention
 from ...ops.rope import apply_mrope, mrope_cos_sin
@@ -90,25 +91,60 @@ def text_forward(
     cache: Optional[dict] = None,
     cache_offset: int = 0,
     attn_impl: str = "auto",
+    remat: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (hidden states (B, S, D) after the final norm, the cache,
-    updated in place)."""
+    updated in place).
+
+    ``remat=True`` recomputes each decoder layer in the backward pass
+    (``jax.checkpoint`` per layer in the JAX package; the reference's
+    gradient checkpointing). The checkpoint is non-reentrant, so its first
+    forward runs under autograd like the recompute, and attention picks its
+    exact training mode in both."""
     B, S, _ = inputs_embeds.shape
     if seq_positions is None:
         seq_positions = torch.arange(S, device=inputs_embeds.device).expand(B, S) + cache_offset
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
     cos = cos.to(inputs_embeds.dtype)
     sin = sin.to(inputs_embeds.dtype)
-    x = inputs_embeds
-    for i, layer in enumerate(params["layers"]):
+
+    def layer_fn(x, layer, i):
         h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
         x = x + _attention_layer(layer, cfg, h, cos, sin, seq_positions, attn_valid,
                                  cache, i, cache_offset, attn_impl)
         h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
-        x = x + (F.silu(h @ layer["gate_w"]) * (h @ layer["up_w"])) @ layer["down_w"]
+        return x + (F.silu(h @ layer["gate_w"]) * (h @ layer["up_w"])) @ layer["down_w"]
+
+    x = inputs_embeds
+    for i, layer in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(layer_fn, x, layer, i, use_reentrant=False)
+        else:
+            x = layer_fn(x, layer, i)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
 
 
 def logits_from_hidden(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """Final hidden states -> vocabulary logits (float32)."""
     return (hidden @ params["lm_head"]).float()
+
+
+def _token_logps(params: dict, hidden: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits_from_hidden(params, hidden), dim=-1)
+    return torch.gather(logp, -1, targets[..., None])[..., 0]
+
+
+def per_token_logps_from_hidden(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
+                                chunk: Optional[int] = None) -> torch.Tensor:
+    """log P(targets | hidden) (B, S) float32 without the full (B, S, vocab)
+    logits: with ``chunk`` < S the positions go through the lm_head
+    ``chunk`` at a time, each chunk checkpointed, so the backward recomputes
+    its logits from the hidden slice instead of keeping them (the JAX
+    package's scanned, rematerialized lm_head)."""
+    S = hidden.shape[1]
+    if chunk is None or S <= chunk:
+        return _token_logps(params, hidden, targets)
+    parts = [checkpoint(_token_logps, params, hidden[:, i:i + chunk], targets[:, i:i + chunk],
+                        use_reentrant=False)
+             for i in range(0, S, chunk)]
+    return torch.cat(parts, dim=1)

@@ -23,6 +23,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import segment_attention
 from ...ops.rope import apply_rope_vision, vision_pos_freqs
@@ -276,9 +277,14 @@ def _merger(m: dict, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
 
 
 def vision_forward(params: dict, patches: torch.Tensor, spec: VisionSpec,
-                   cfg: VisionConfig, impl: str = "auto") -> torch.Tensor:
+                   cfg: VisionConfig, impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """patches (S, patch_dim) -> merged embeddings (S / merge_unit, out_dim),
-    in the original (pre-permutation) merged order."""
+    in the original (pre-permutation) merged order. ``remat=True`` recomputes
+    each block in the backward pass (non-reentrant checkpoint), as HF's
+    gradient checkpointing does for the Qwen2.5-VL vision blocks. Without it
+    the 32 blocks would save ~0.5 GB each at 16 frames (reckoned from the
+    shapes), more than is left beside a full fine-tune's weights, grads and
+    AdamW state on one 80 GB card."""
     dev = patches.device
     x = patches.to(params["patch_embed"].dtype) @ params["patch_embed"]  # (S, hidden)
     # One gather applies the window permutation and pads every window row;
@@ -303,6 +309,10 @@ def vision_forward(params: dict, patches: torch.Tensor, spec: VisionSpec,
         full_seg = spec.full_seg_pad
     for i in range(cfg.depth):
         seg = full_seg if i in cfg.fullatt_block_indexes else win_seg
-        x = _block(params["blocks"][i], x, freqs, seg, cfg, impl)
+        if remat:
+            x = checkpoint(_block, params["blocks"][i], x, freqs, seg, cfg, impl,
+                           use_reentrant=False)
+        else:
+            x = _block(params["blocks"][i], x, freqs, seg, cfg, impl)
     h = _merger(params["merger"], x, cfg)
     return h[torch.from_numpy(spec.merged_out_index).to(dev).long()]

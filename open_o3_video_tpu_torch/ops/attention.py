@@ -11,6 +11,10 @@
 - ``segment_attention``: bidirectional ViT attention over same-size segments
   (K2, ``window_attention``).
 
+Under autograd (training: no cache, S > 8) K3 and K2 run their exact modes
+and their backward kernels (K5, K6) through ``torch.autograd.Function``s;
+inference calls keep the fixed-m forwards.
+
 ``impl="auto"`` launches the kernels for CUDA tensors and runs their plain
 versions for CPU tensors; ``impl="torch"`` runs the plain versions anywhere.
 """

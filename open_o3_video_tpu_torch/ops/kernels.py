@@ -7,8 +7,10 @@ headers, so a build takes seconds). The library lives under ``_build/``
 beside the package, in a directory keyed by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused.
 
-``LAUNCHES`` counts, per kernel, the launches made by its wrapper; callers
-reset it with :func:`reset_launches` to show which kernels a run went through.
+``LAUNCHES`` counts, per kernel entry point (the inference and the exact
+training modes of K1-K3 under their own names, K5 and K6 per kernel), the
+launches made by its wrapper; callers reset it with :func:`reset_launches`
+to show which kernels a run went through.
 """
 
 from __future__ import annotations
@@ -45,6 +47,16 @@ _SIGNATURES = {
     "o3v_flash_attention_gqa": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _P,
     ),
+    "o3v_fused_window_attention_exact": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "o3v_window_attention_exact": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "o3v_flash_attention_gqa_exact": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _P,
+    ),
+    "o3v_flash_attention_gqa_bwd_dq": (_P,) * 9 + (_I,) * 6 + (_P,),
+    "o3v_flash_attention_gqa_bwd_dkv": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "o3v_fused_window_attention_bwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    "o3v_window_attention_bwd_dq": (_P,) * 8 + (_I,) * 4 + (_F, _P),
+    "o3v_window_attention_bwd_dkv": (_P,) * 9 + (_I,) * 4 + (_F, _P),
     "o3v_decode_attention_gqa": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _LL, _LL, _LL, _LL, _P,

@@ -9,8 +9,10 @@ Sampling mirrors the reference: temperature 0.7, top_p 0.001, repetition
 penalty 1.05, max 2048 tokens, 16 frames. A video file is decoded with the
 JAX package's host decoder (PIL/cv2; it imports no JAX); without --video the
 frames are synthetic (16 frames of 252x336 from --seed). The checkpoint is
-read with safetensors. On a CUDA device the model runs in bf16 through the
-port's kernels; on the CPU through their plain versions.
+read with safetensors. The model runs on the card (--device cuda, the
+default) in bf16 through the port's kernels; with --device cpu in float32
+through their plain versions. Without a CUDA device it runs only when asked
+for the CPU.
 """
 
 import argparse
@@ -75,7 +77,8 @@ def main():
     parser.add_argument("--greedy", action="store_true", help="temperature 0")
     parser.add_argument("--spec", action="store_true",
                         help="speculative decoding (not in the port yet)")
-    parser.add_argument("--device", default=None, help="default: cuda if available, else cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu, where the kernels' plain versions run")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--questions", nargs="+", default=[
         "What is the color of the bowling ball?",
@@ -88,14 +91,16 @@ def main():
     import numpy as np
     import torch
 
-    from open_o3_video_tpu.grounding.prompts import SYSTEM_PROMPT
     from open_o3_video_tpu_torch.data.processor import (
         IMAGE_PAD, VIDEO_PAD, VISION_END, VISION_START, O3VideoProcessor,
     )
     from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
+    from open_o3_video_tpu_torch.grounding.prompts import SYSTEM_PROMPT
     from open_o3_video_tpu_torch.models.qwen25vl import params as P
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("no CUDA device here; pass --device cpu to run on the CPU")
     if args.tiny_demo:
         cfg = demo_config(torch.bfloat16 if device.type == "cuda" else torch.float32)
         params = P.init(cfg, args.seed, device)

@@ -57,7 +57,8 @@ def test_plain_matches_jax_kernel_bf16_cache(q_dtype, S, T):
     jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (k, v))
     theirs = np.asarray(decode_attention_gqa(jq, jk, jv, jnp.asarray(q_pos), jnp.asarray(valid),
                                              block_k=128, interpret=True).astype(jnp.float32))
-    tq = torch.from_numpy(np.asarray(jq.astype(jnp.float32))).to(getattr(torch, q_dtype))
+    # np.array copies: a tensor must own its memory, not alias a JAX buffer
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32))).to(getattr(torch, q_dtype))
     tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
     ours = tdec.decode_attention_gqa(tq, tk, tv, torch.from_numpy(q_pos),
                                      torch.from_numpy(valid)).float().numpy()
@@ -138,7 +139,7 @@ def test_long_decode_dispatch_sees_the_stored_dtype(monkeypatch, kv_dtype):
     kv_mask = np.arange(T)[None, :] < 222
     q_pos = np.full((B, S), T - 1, np.int32)
     jk, jv = (jnp.asarray(x).astype(getattr(jnp, kv_dtype)) for x in (k, v))
-    tk, tv = (torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(getattr(torch, kv_dtype))
+    tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(getattr(torch, kv_dtype))
               for x in (jk, jv))
     seen = []
 

@@ -172,3 +172,24 @@ def test_inference_example_tiny_demo_runs(kv_cache):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "[tiny-demo on cpu: 3 tokens generated" in proc.stdout
+
+
+def test_inference_example_refuses_the_cpu_unless_asked():
+    """Without --device the script runs on the card; where there is none it
+    exits with an error instead of falling back to the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    from _torch_parity import REPO_ROOT
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO_ROOT, "scripts", "inference_example_torch.py"),
+         "--tiny-demo", "--nframes", "2", "--max_tokens", "3"],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "--device cpu" in proc.stderr
+    assert "tokens generated" not in proc.stdout

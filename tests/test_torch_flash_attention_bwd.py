@@ -1,0 +1,170 @@
+"""K3's exact mode and K5 (the decoder's flash-attention backward): the
+port's plain versions against the JAX package's Pallas kernels (interpret
+mode, through ``jax.vjp``) and XLA path on the CPU, and the CUDA kernels
+against the plain versions on the card."""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import ATOL_OP, assert_kernel_close, cuda_device, normal, rng
+
+from open_o3_video_tpu_torch.ops import attention as tattn
+from open_o3_video_tpu_torch.ops import flash_attention as tfa
+
+# (B, S, T, Hq, Hkv, D): the decoder's head_dim and GQA group of 7, S and T
+# off the 64-row kernel tile and the 16-row JAX test tile.
+B, S, T, HQ, HKV, D = 2, 37, 45, 14, 2, 128
+
+
+def _inputs(seed, pad_row=True):
+    """Cache-shaped inputs; row 1 is left-padded by 5 and, with pad_row,
+    its first 3 queries carry position -1 (they see nothing)."""
+    r = rng(seed)
+    q, dout = normal(r, B, S, HQ, D), normal(r, B, S, HQ, D)
+    k, v = normal(r, B, T, HKV, D), normal(r, B, T, HKV, D)
+    q_pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    valid = np.zeros((B, T), np.int32)
+    valid[:, :S] = 1
+    if pad_row:
+        valid[1, :5] = 0
+        q_pos[1, :3] = -1
+    return q, k, v, q_pos, valid, dout
+
+
+def _jax_vjp(fn, q, k, v, dout):
+    import jax
+    import jax.numpy as jnp
+
+    out, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return (np.asarray(out), *map(np.asarray, vjp(jnp.asarray(dout))))
+
+
+def _port_grads(q, k, v, q_pos, valid, dout, impl="auto"):
+    qt, kt, vt = (torch.from_numpy(x.copy()).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention_gqa(qt, kt, vt, torch.from_numpy(q_pos), torch.from_numpy(valid),
+                                  impl=impl)
+    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dout))
+    return (out.detach().numpy(), *(g.numpy() for g in grads))
+
+
+def test_exact_forward_and_lse_match_jax_kernel():
+    import jax.numpy as jnp
+
+    from open_o3_video_tpu.ops.flash_attention import _fwd
+
+    q, k, v, q_pos, valid, _ = _inputs(0)
+    out, lse = tfa.flash_attention_gqa_exact(*map(torch.from_numpy, (q, k, v, q_pos, valid)))
+    jout, jlse = _fwd(*map(jnp.asarray, (q, k, v, q_pos, valid)), 16, 16, True,
+                      exact_softmax=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL_OP)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, :S, 0], rtol=1e-6, atol=ATOL_OP)
+    # the pad queries see nothing: output 0 and lse NEG_INF, in both
+    assert (out[1, :3] == 0).all() and (lse[1, :, :3] == tfa.NEG_INF).all()
+
+
+def test_backward_matches_jax_kernel_vjp():
+    from open_o3_video_tpu.ops.flash_attention import flash_attention_gqa
+
+    q, k, v, q_pos, valid, dout = _inputs(1)
+    theirs = _jax_vjp(lambda a, b, c: flash_attention_gqa(
+        a, b, c, q_pos, valid, block_q=16, block_k=16, interpret=True), q, k, v, dout)
+    ours = _port_grads(q, k, v, q_pos, valid, dout)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), ours, theirs):
+        np.testing.assert_allclose(a, b, atol=ATOL_OP, err_msg=name)
+    assert (ours[1][1, :3] == 0).all()  # no gradient into the pad queries
+
+
+def test_backward_matches_jax_xla_grads():
+    """Where every query sees a key, JAX's XLA attention differentiated by
+    autodiff gives the same gradients."""
+    from open_o3_video_tpu.ops.attention import causal_attention
+
+    q, k, v, q_pos, valid, dout = _inputs(2, pad_row=False)
+    theirs = _jax_vjp(lambda a, b, c: causal_attention(
+        a, b, c, q_positions=q_pos, kv_mask=valid != 0, impl="xla"), q, k, v, dout)
+    ours = _port_grads(q, k, v, q_pos, valid, dout)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), ours, theirs):
+        np.testing.assert_allclose(a, b, atol=ATOL_OP, err_msg=name)
+
+
+def test_plain_backward_equals_autograd_of_plain_forward_float64():
+    """The written-out backward is the derivative of the exact forward: in
+    float64 (no rounding casts) it equals torch.autograd through it."""
+    q, k, v, q_pos, valid, dout = (torch.from_numpy(x) for x in _inputs(3))
+    q, k, v, dout = (x.double() for x in (q, k, v, dout))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, lse = tfa.flash_attention_gqa_exact_torch(*leaves, q_pos, valid)
+    auto = torch.autograd.grad(out, leaves, dout)
+    plain = tfa.flash_attention_gqa_bwd_torch(q, k, v, q_pos, valid, out.detach(), lse.detach(),
+                                              dout)
+    for name, a, b in zip(("dq", "dk", "dv"), plain, auto):
+        torch.testing.assert_close(a, b, atol=1e-10, rtol=1e-10, msg=name)
+
+
+def test_inference_calls_keep_the_fixed_m_forward():
+    """Without autograd the dispatch runs the fixed-m forward; with it, the
+    exact one. Under the clamp the two agree to rounding."""
+    q, k, v, q_pos, valid, _ = (torch.from_numpy(x) for x in _inputs(4))
+    fixed = tattn.causal_attention(q, k, v, q_positions=q_pos, kv_mask=valid != 0)
+    assert torch.equal(fixed, tfa.flash_attention_gqa_torch(q, k, v, q_pos, valid))
+    qg = q.clone().requires_grad_()
+    exact = tattn.causal_attention(qg, k, v, q_positions=q_pos, kv_mask=valid != 0)
+    assert exact.grad_fn is not None
+    assert torch.equal(exact.detach(), tfa.flash_attention_gqa_exact_torch(q, k, v, q_pos, valid)[0])
+    torch.testing.assert_close(exact.detach(), fixed, atol=ATOL_OP, rtol=0)
+
+
+# ---- on the card: kernel vs plain version, bf16 --------------------------
+
+# (B, S, T, Hq, Hkv, left padding of row 1): the SFT slice's one packed
+# example (S = T, right-padded keys), and a small ragged case.
+CUDA_CASES = [(1, 3456, 3456, 28, 4, 0), (2, 77, 150, 14, 2, 9)]
+
+
+# dout at 0.1: gradients then stay under ~1 in magnitude, where one bf16 ulp
+# (the kernels sum in another order than the plain version) is within the
+# bound; at unit dout, dk/dv reach ~8, where one ulp is 2^-5.
+DOUT_SCALE = 0.1
+
+
+def _cuda_inputs(dev, B, S, T, Hq, Hkv, pad):
+    r = rng(S + T)
+    q = torch.from_numpy(normal(r, B, S, Hq, 128)).to(dev, torch.bfloat16)
+    do = torch.from_numpy(normal(r, B, S, Hq, 128, scale=DOUT_SCALE)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(normal(r, B, T, Hkv, 128)).to(dev, torch.bfloat16) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    valid = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    valid[:, :S - 50] = 1  # right padding, as pack_sft_batch lays rows out
+    if B > 1:
+        valid[1, :pad] = 0
+        pos[1, :2] = -1
+    return q, k, v, pos, valid, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,pad", CUDA_CASES)
+def test_exact_forward_kernel_matches_plain(B, S, T, Hq, Hkv, pad):
+    dev = cuda_device()
+    q, k, v, pos, valid, _ = _cuda_inputs(dev, B, S, T, Hq, Hkv, pad)
+    out, lse = tfa.flash_attention_gqa_exact(q, k, v, pos, valid)
+    ref, ref_lse = tfa.flash_attention_gqa_exact_torch(q, k, v, pos, valid)
+    torch.cuda.synchronize()
+    assert_kernel_close(out, ref)
+    seen = ref_lse > tfa.NEG_INF
+    torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
+    assert (lse[~seen] == tfa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,pad", CUDA_CASES)
+def test_backward_kernels_match_plain(B, S, T, Hq, Hkv, pad):
+    dev = cuda_device()
+    q, k, v, pos, valid, do = _cuda_inputs(dev, B, S, T, Hq, Hkv, pad)
+    out, lse = tfa.flash_attention_gqa_exact_torch(q, k, v, pos, valid)
+    got = tfa.flash_attention_gqa_bwd(q, k, v, pos, valid, out, lse, do)
+    ref = tfa.flash_attention_gqa_bwd_torch(q, k, v, pos, valid, out, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a.float()).all()
+        assert_kernel_close(a, b)

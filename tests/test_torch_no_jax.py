@@ -1,8 +1,9 @@
 """Import guard: the port runs where neither JAX nor PIL is installed (the
 GPU machine has neither). A subprocess blocks both imports, imports every
-module of the port's serving slice, runs a tiny generate on the CPU (with a
-bf16 cache, and with an fp8 cache through the long-context path), and
-checks that nothing of the JAX package was imported along the way."""
+module of the port, runs a tiny generate on the CPU (with a bf16 cache, and
+with an fp8 cache through the long-context path) and one tiny SFT train
+step, and checks that nothing of the JAX package was imported along the
+way."""
 
 import os
 import subprocess
@@ -36,6 +37,10 @@ MODULES = [
     "open_o3_video_tpu_torch.models.qwen25vl.model",
     "open_o3_video_tpu_torch.models.qwen25vl.params",
     "open_o3_video_tpu_torch.engine",
+    "open_o3_video_tpu_torch.grounding.prompts",
+    "open_o3_video_tpu_torch.data.sft_dataset",
+    "open_o3_video_tpu_torch.train",
+    "open_o3_video_tpu_torch.train.sft",
 ]
 for m in MODULES:
     importlib.import_module(m)
@@ -60,6 +65,20 @@ engine = InferenceEngine(weights, cfg, cache_dtype=torch.float8_e4m3fn,
                          long_prefill_threshold=8, long_prefill_chunk=5)
 out = engine.generate([req], SamplingParams(max_tokens=4))
 assert 1 <= len(out[0]["token_ids"]) <= 4 and len(req.input_ids) >= 16, out
+# one SFT step of the full fine-tune: vision and decoder backward, AdamW
+from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
+from open_o3_video_tpu_torch.train import SFTConfig, make_optimizer, make_train_step
+messages = [
+    {"role": "user", "content": [{"type": "video"}, {"type": "text", "text": "Why?"}]},
+    {"role": "assistant", "content": [{"type": "text", "text": "<answer>ok</answer>"}]},
+]
+batch = pack_sft_batch([collate_sft_frames(messages, imgs, 2.0, proc, cfg)], cfg)
+weights = params.trainable(weights)
+train_cfg = SFTConfig(learning_rate=1e-3)
+opt = make_optimizer(train_cfg)
+_, state, m = make_train_step(cfg, train_cfg, opt)(weights, opt.init(weights), batch)
+assert state["count"] == 1 and float(m["num_target_tokens"]) > 0, m
+assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
 assert sys.modules["jax"] is None and sys.modules["PIL"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
 print("NO_JAX_OK")

@@ -1,0 +1,152 @@
+"""K1/K2's exact modes and K6 (the ViT window-attention backward): the
+port's plain versions against the JAX package's Pallas kernels (interpret
+mode, through ``jax.vjp``) on the CPU, and the CUDA kernels against the
+plain versions on the card."""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import ATOL_OP, assert_kernel_close, cuda_device, normal, packed_ids, rng
+
+from open_o3_video_tpu_torch.ops import window_attention as twa
+
+# (N, W, H, D, max windows per row): the vision head_dim 80 at the packed
+# W = 64 rows, and a W = 80 whole-frame row (not a multiple of 64).
+CASES = [(4, 64, 2, 80, 3), (3, 80, 2, 80, 1)]
+
+
+def _rope_tables(r, n, w, d):
+    freqs = normal(r, n, w, d // 2, scale=3.0)
+    emb = np.concatenate([freqs, freqs], axis=-1)
+    return np.cos(emb).astype(np.float32), np.sin(emb).astype(np.float32)
+
+
+def _zero_pad_rows(dout, ids):
+    """The tower never reads a pad row's output, so its gradient is 0."""
+    dout = dout.copy()
+    dout[ids == 0] = 0
+    return dout
+
+
+@pytest.mark.parametrize("n,w,h,d,maxw", CASES)
+def test_window_backward_matches_jax_kernel_vjp(n, w, h, d, maxw):
+    import jax
+    import jax.numpy as jnp
+
+    from open_o3_video_tpu.ops.window_attention import window_attention
+
+    r = rng(n * w + d)
+    q, k, v, dout = (normal(r, n, w, h, d) for _ in range(4))
+    ids = packed_ids(r, n, w, maxw)
+    jout, vjp = jax.vjp(lambda a, b, c: window_attention(a, b, c, jnp.asarray(ids), True),
+                        *map(jnp.asarray, (q, k, v)))
+    theirs = [np.asarray(jout), *map(np.asarray, vjp(jnp.asarray(dout)))]
+    leaves = [torch.from_numpy(x.copy()).requires_grad_() for x in (q, k, v)]
+    out = twa.window_attention(*leaves, torch.from_numpy(ids))
+    ours = [out.detach().numpy(), *(g.numpy() for g in torch.autograd.grad(
+        out, leaves, torch.from_numpy(dout)))]
+    # pad rows included: with a finite NEG_INF both attend uniformly there
+    for name, a, b in zip(("out", "dq", "dk", "dv"), ours, theirs):
+        np.testing.assert_allclose(a, b, atol=ATOL_OP, err_msg=name)
+    lse = twa.window_attention_exact_torch(*map(torch.from_numpy, (q, k, v, ids)))[1]
+    assert torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("n,w,h,d,maxw", CASES)
+def test_fused_backward_matches_jax_kernel_vjp(n, w, h, d, maxw):
+    import jax
+    import jax.numpy as jnp
+
+    from open_o3_video_tpu.ops.window_attention import fused_window_attention
+
+    r = rng(n * w + d + 1)
+    qkv = normal(r, n, w, 3 * h * d)
+    cos, sin = _rope_tables(r, n, w, d)
+    ids = packed_ids(r, n, w, maxw)
+    dout = normal(r, n, w, h * d)
+    jc, js, ji = map(jnp.asarray, (cos, sin, ids))
+    jout, vjp = jax.vjp(lambda x: fused_window_attention(x, jc, js, ji, h, interpret=True),
+                        jnp.asarray(qkv))
+    (jd,) = vjp(jnp.asarray(dout))
+    x = torch.from_numpy(qkv.copy()).requires_grad_()
+    out = twa.fused_window_attention(x, *map(torch.from_numpy, (cos, sin, ids)), h)
+    (dx,) = torch.autograd.grad(out, x, torch.from_numpy(dout))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=ATOL_OP)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jd), atol=ATOL_OP)
+    # the tower's case, no gradient at pad rows: dqkv is finite and zero at
+    # every pad row
+    dz = twa.fused_window_attention_bwd_torch(
+        *map(torch.from_numpy, (qkv, cos, sin, ids)), h,
+        torch.from_numpy(_zero_pad_rows(dout, ids)))
+    assert torch.isfinite(dz).all()
+    assert (dz[torch.from_numpy(ids) == 0] == 0).all()
+
+
+def test_fused_equals_unfused_exact_path():
+    """K1's exact mode equals rope + K2's exact mode, forward and backward."""
+    n, w, h, d = 3, 64, 2, 80
+    r = rng(5)
+    qkv = torch.from_numpy(normal(r, n, w, 3 * h * d))
+    cos, sin = map(torch.from_numpy, _rope_tables(r, n, w, d))
+    ids = torch.from_numpy(packed_ids(r, n, w, 2))
+    a = twa.fused_window_attention_exact_torch(qkv, cos, sin, ids, h)
+    q, k, v = twa._rope_qk(qkv, cos, sin, h)
+    b = twa.window_attention_exact_torch(q, k, v, ids)[0].reshape(n, w, -1)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# ---- on the card: kernel vs plain version, bf16 --------------------------
+# dout at 0.1, so gradients stay under ~1, where one bf16 ulp is within the
+# bound (see test_torch_flash_attention_bwd.py).
+
+def _vision_inputs(dev, r, n, w, h):
+    d = 80
+    cos, sin = (torch.from_numpy(x).to(dev) for x in _rope_tables(r, n, w, d))
+    ids = torch.from_numpy(packed_ids(r, n, w, 2)).to(dev)
+    return cos, sin, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [64, 128])
+def test_fused_kernels_match_plain(w):
+    dev = cuda_device()
+    r = rng(w)
+    n, h = 40, 16
+    cos, sin, ids = _vision_inputs(dev, r, n, w, h)
+    qkv = torch.from_numpy(normal(r, n, w, 3 * h * 80)).to(dev, torch.bfloat16)
+    dout = torch.from_numpy(normal(r, n, w, h * 80, scale=0.1)).to(dev, torch.bfloat16)
+    dout[ids == 0] = 0
+    keep = ids != 0
+    out = twa.fused_window_attention_exact(qkv, cos, sin, ids, h)
+    ref = twa.fused_window_attention_exact_torch(qkv, cos, sin, ids, h)
+    got = twa.fused_window_attention_bwd(qkv, cos, sin, ids, h, dout)
+    want = twa.fused_window_attention_bwd_torch(qkv, cos, sin, ids, h, dout)
+    torch.cuda.synchronize()
+    assert_kernel_close(out[keep], ref[keep])
+    assert torch.isfinite(got.float()).all()
+    assert_kernel_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [448, 100])
+def test_window_kernels_match_plain(w):
+    dev = cuda_device()
+    r = rng(w + 1)
+    n, h = 6, 16
+    q, k, v = (torch.from_numpy(normal(r, n, w, h, 80)).to(dev, torch.bfloat16) for _ in range(3))
+    do = torch.from_numpy(normal(r, n, w, h, 80, scale=0.1)).to(dev, torch.bfloat16)
+    ids = torch.ones((n, w), dtype=torch.int32, device=dev)
+    ids[0, w - 30:] = 0  # a frame's padded tail
+    do[ids == 0] = 0
+    keep = ids != 0
+    out, lse = twa.window_attention_exact(q, k, v, ids)
+    ref, ref_lse = twa.window_attention_exact_torch(q, k, v, ids)
+    got = twa.window_attention_bwd(q, k, v, ids, out, lse, do)
+    want = twa.window_attention_bwd_torch(q, k, v, ids, do)
+    torch.cuda.synchronize()
+    assert_kernel_close(out[keep], ref[keep])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        assert_kernel_close(a, b)
