@@ -47,6 +47,27 @@ Phases (one line each; any failure raises and the exit code is non-zero):
  10. the training numerics at full width and 8 ViT blocks / 2 decoder
      layers: loss and gradients of the kernel path and the plain bf16 path
      against float32, per group (ViT, decoder, embedding and lm_head).
+ 11. K7, the int4 matmul, against its plain version (bf16, the bound of
+     phase 3) at the 7B decode and prefill gate_w, the 7B decode lm_head and
+     the 72B decode down_w, with the bound, the bf16 torch.matmul on the
+     dequantized weight and torch._weight_int4pack_mm on the same codes as
+     yardsticks; two planted faults (nibbles swapped, scales one group off)
+     must fail the bound. Then the K7a probes (stream, convert) and K7 at
+     the TPU scripts' shape, 3584->18944 at M=16, chained over 8 weights as
+     scripts/profile_int4_kernel_parts.py chains them;
+ 12. the 7B video slice with its decoder in int4 (quantize_params_int4 of
+     the phase-4 param dict, after phase 9's steps): phase 4's requests and
+     sampling through InferenceEngine.generate, stage times, weight and
+     peak GiB, K7 launches equal to 7 * 28 + 1 per forward, identical tokens
+     across two runs; the prefill logits of the K7 path and of the plain
+     int4 path each against float32 on the same int4 weights
+     (SLICE_REL_RATIO), and the int4-vs-bf16 distance as information;
+ 13. the judge: Qwen2.5-72B-Instruct at full width and depth (its published
+     config.json) in int4 on the card, drawn and quantized leaf by leaf,
+     EngineJudge.batch on 4 jobs with 16 new tokens, twice: init seconds,
+     weight and peak GiB, prefill ms, decode ms/token, the scores (-1 with
+     random weights), K7 launches equal to 7 * 80 + 1 per forward, and
+     identical scores across the two calls.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -70,6 +91,7 @@ from open_o3_video_tpu_torch.data.processor import O3VideoProcessor
 from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
 from open_o3_video_tpu_torch.engine.engine import chunked_prefill, left_padded_rows
+from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
 from open_o3_video_tpu_torch.models.qwen25vl.model import (
     build_vision_row_index,
@@ -86,6 +108,8 @@ from open_o3_video_tpu_torch.models.qwen25vl.vision import compute_vision_spec
 from open_o3_video_tpu_torch.ops import kernels
 from open_o3_video_tpu_torch.ops import decode_attention as da
 from open_o3_video_tpu_torch.ops import flash_attention as fa
+from open_o3_video_tpu_torch.ops import int4 as i4
+from open_o3_video_tpu_torch.ops import quant
 from open_o3_video_tpu_torch.ops import window_attention as wa
 from open_o3_video_tpu_torch.grounding.prompts import SFT_SYSTEM_PROMPT
 from open_o3_video_tpu_torch.train import SFTConfig, loss_and_grads, make_optimizer, make_train_step
@@ -167,11 +191,38 @@ TPU_KERNELS = {
                                 "open_o3_video_tpu/ops/window_attention.py:158"),
     "window_attention_bwd_dkv": ("open_o3_video_tpu_torch/csrc/window_attention_bwd.cu",
                                  "open_o3_video_tpu/ops/window_attention.py:158"),
+    # K7, and the K7a probes of the TPU profiling scripts
+    "int4_matmul": ("open_o3_video_tpu_torch/csrc/int4_matmul.cu",
+                    "open_o3_video_tpu/ops/int4.py:107"),
+    "int4_matmul_stream": ("open_o3_video_tpu_torch/csrc/int4_matmul.cu",
+                           "scripts/profile_int4_kernel_parts.py:61"),
+    "int4_matmul_convert": ("open_o3_video_tpu_torch/csrc/int4_matmul.cu",
+                            "scripts/profile_int4_kernel_parts.py:84"),
 }
 # The kernels each main path must launch.
 SLICE_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa")
 LONG_KERNELS = ("flash_attention_gqa", "decode_attention_gqa")
-TRAIN_KERNELS = tuple(list(TPU_KERNELS)[4:])
+TRAIN_KERNELS = tuple(list(TPU_KERNELS)[4:12])
+INT4_SLICE_KERNELS = SLICE_KERNELS + ("int4_matmul",)
+PROBE_KERNELS = ("int4_matmul_stream", "int4_matmul_convert", "int4_matmul")
+# K7 (phase 11): (case, M, K, N) at the main paths' shapes; the first gives
+# K7's row. M None: the 7B slice's prefill, its 2 rows of L tokens.
+INT4_CASES = (("7B decode gate_w", 2, 3584, 18944), ("7B prefill gate_w", None, 3584, 18944),
+              ("7B decode lm_head", 2, 3584, 152064), ("72B decode down_w", 4, 29568, 8192))
+# The K7a probes' shape and chain (scripts/profile_int4_kernel_parts.py:
+# 3584 -> 18944 at M = 16, a scan over distinct weights).
+PROBE_M, PROBE_K, PROBE_N, PROBE_CHAIN = 16, 3584, 18944, 8
+# Outputs of the int4 comparisons have std ~0.25 (weights scaled by
+# 1/sqrt(K)): below 2 one bf16 ulp is within KERNEL_ATOL.
+INT4_OUT_STD = 0.25
+# The judge (phase 13): the reference's eval_vstar.py judge, greedy.
+JUDGE_JOBS = (
+    ("What is the color of the bowling ball?", "It is red.", "The ball is red."),
+    ("What happens first?", "A man rolls a ball down the lane.", "A dog runs across a field."),
+    ("How many pins fall?", "All ten pins fall.", "Most of the pins fall down."),
+    ("Where is the bowler standing?", "At the foul line.", "Near the foul line of the lane."),
+)
+JUDGE_NEW_TOKENS = 16
 # The SFT slice: one grounded example over the serving slice's 16 frames,
 # with the reference's SFT system prompt and temporal frame prompt, and a
 # target of a few hundred bytes in the reference's answer format.
@@ -531,9 +582,9 @@ def make_requests(proc, cfg, seed: int) -> list[Request]:
     return reqs
 
 
-def slice_phase(engine, reqs, sampling) -> tuple[list[dict], dict]:
+def slice_phase(engine, reqs, sampling, names=SLICE_KERNELS) -> tuple[list[dict], dict]:
     """The main path, through the entry points a user calls. Returns the
-    outputs and the launch counts; every kernel's count must be > 0."""
+    outputs and the launch counts of ``names``; each must be > 0."""
     dev = engine.device
     engine.generate(reqs, SamplingParams(**{**vars(sampling), "max_tokens": 2}))  # warm-up
     engine.stage_seconds.clear()
@@ -545,7 +596,7 @@ def slice_phase(engine, reqs, sampling) -> tuple[list[dict], dict]:
     t0 = time.perf_counter()
     outs = engine.generate(reqs, sampling)
     e2e = time.perf_counter() - t0
-    launches = {name: kernels.LAUNCHES[name] for name in SLICE_KERNELS}
+    launches = {name: kernels.LAUNCHES[name] for name in names}
     st = engine.stage_seconds
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
     log("slice", requests=len(reqs), prompt_tokens=[o["num_prompt_tokens"] for o in outs],
@@ -633,10 +684,13 @@ def _agreement(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 
 
 def _cast(tree, dtype):
+    """The param dict in ``dtype``; an int4 weight is dequantized."""
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_cast(v, dtype) for v in tree]
+    if isinstance(tree, i4.Int4Linear):
+        return i4.dequantize(tree, dtype)
     return tree.detach().to(dtype)
 
 
@@ -665,7 +719,7 @@ def _vision_and_logits(params, cfg, reqs, impl):
             cache=init_kv_cache(cfg.text, len(reqs), L + MAX_TOKENS, dtype=cfg.dtype,
                                 device=dev),
         )
-        logits = logits_from_hidden(params["text"], hidden[:, -1])
+        logits = logits_from_hidden(params["text"], hidden[:, -1], impl)
     return vis.float(), logits.float()
 
 
@@ -1024,6 +1078,202 @@ def train_numerics_phase(params, cfg, batch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- int4 serving ------------------------------------------------------------
+
+
+def int4pack_yardstick(x, w):
+    """torch._weight_int4pack_mm on K7's codes: unsigned codes + 8 in its
+    own packing (N, K/2), bf16 scales, zero points 0, so it computes nearly
+    K7's function (bf16 scales, its own sums). Returns (call, note): call is
+    None where the card's torch lacks it or refuses these operands."""
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None, "torch has no _weight_int4pack_mm"
+    t = (i4.unpack(w.w_p) + 8).t().contiguous()  # (N, K) codes 1..15
+    packed = ((t[:, ::2] << 4) | t[:, 1::2]).to(torch.uint8)
+    del t
+    sz = torch.stack([w.scale, torch.zeros_like(w.scale)], dim=-1).to(torch.bfloat16).contiguous()
+    try:  # a yardstick only: the port never calls it
+        wp = torch._convert_weight_to_int4pack(packed, 8)
+        call = lambda: torch._weight_int4pack_mm(x, wp, i4.KERNEL_GROUP, sz)  # noqa: E731
+        call()
+    except (RuntimeError, TypeError) as e:
+        return None, f"refused: {str(e).splitlines()[0][:120]}"
+    return call, "ok"
+
+
+def int4_case(dev, gen, M, K, N) -> tuple:
+    """bf16 x (M, K) and a group-128 int4 weight (K, N), outputs std ~0.25."""
+    w = i4.quantize_weight_int4(torch.randn(K, N, generator=gen, device=dev) * (INT4_OUT_STD / K ** 0.5))
+    return torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16), w
+
+
+def int4_kernel_phase(dev, gen, prefill_rows, results) -> None:
+    """K7 against its plain version at the main paths' shapes (INT4_CASES),
+    with both yardsticks, and the planted faults at the first case."""
+    for case, M, K, N in INT4_CASES:
+        M = M or prefill_rows
+        x, w = int4_case(dev, gen, M, K, N)
+        wd = i4.dequantize(w, torch.bfloat16)
+        ref = compare("int4_matmul", lambda: i4.int4_matmul(x, w.w_p, w.scale, w.group),
+                      lambda: i4.int4_matmul_torch(x, w.w_p, w.scale, w.group), None, results,
+                      flops=2 * M * K * N, moved=K * N // 2 + 4 * N * K // 128 + 2 * M * K + 2 * M * N,
+                      library_fn=lambda: torch.matmul(x, wd))
+        del wd
+        call, note = int4pack_yardstick(x, w)
+        pack_ms = statistics.median(time_ms(call)) if call is not None else None
+        pack_rel = None if call is None else _agreement(call().float(), ref.float())[0]
+        log("kernels", name="int4_matmul", case=case, M=M, K=K, N=N, groups=K // w.group,
+            int4pack_ms=None if pack_ms is None else round(pack_ms, 4), int4pack=note,
+            int4pack_vs_plain_rel=pack_rel)
+        results["int4_matmul"].setdefault("int4pack_ms", pack_ms)
+        if case == INT4_CASES[0][0]:
+            p = w.w_p.to(torch.int32)
+            swapped = (((p & 0xF) << 4) | ((p >> 4) & 0xF)).to(torch.int8)
+            planted("int4_matmul", "nibbles swapped",
+                    i4.int4_matmul_torch(x, swapped, w.scale, w.group), ref, None)
+            planted("int4_matmul", "scales one group off",
+                    i4.int4_matmul_torch(x, w.w_p, torch.roll(w.scale, 1, 0), w.group), ref, None)
+        del x, w, ref, call
+        torch.cuda.empty_cache()
+
+
+def probe_phase(dev, gen, results) -> dict:
+    """The K7a probes and K7 at the TPU scripts' shape against their plain
+    versions, then their own path: each chained over PROBE_CHAIN distinct
+    weights as profile_int4_kernel_parts.py chains them (x <- tanh(x +
+    1e-3 * y[:, :K])), the counts reset before and read after. Returns the
+    probes' launch counts."""
+    M, K, N = PROBE_M, PROBE_K, PROBE_N
+    x, w = int4_case(dev, gen, M, K, N)
+    xr = x.float()
+    xs = (INT4_OUT_STD / (w.w_p.float().std().item() * (K / 2) ** 0.5) * xr).to(torch.bfloat16)
+    codes = i4.unpack(w.w_p)
+    xc = (INT4_OUT_STD / (codes.float().std().item() * K ** 0.5) * xr).to(torch.bfloat16)
+    packed_bf16, codes_bf16 = w.w_p.to(torch.bfloat16), codes.to(torch.bfloat16)
+    del codes
+    compare("int4_matmul_stream", lambda: i4.int4_matmul_stream(xs, w.w_p),
+            lambda: i4.int4_matmul_stream_torch(xs, w.w_p), None, results,
+            flops=2 * M * (K // 2) * N, moved=K * N // 2 + M * K + 2 * M * N,
+            library_fn=lambda: torch.matmul(xs[:, :K // 2], packed_bf16))
+    compare("int4_matmul_convert", lambda: i4.int4_matmul_convert(xc, w.w_p),
+            lambda: i4.int4_matmul_convert_torch(xc, w.w_p), None, results,
+            flops=2 * M * K * N, moved=K * N // 2 + 2 * M * K + 2 * M * N,
+            library_fn=lambda: torch.matmul(xc, codes_bf16))
+    compare("int4_matmul", lambda: i4.int4_matmul(x, w.w_p, w.scale, w.group),
+            lambda: i4.int4_matmul_torch(x, w.w_p, w.scale, w.group), None, results,
+            flops=2 * M * K * N, moved=K * N // 2 + 4 * N * K // 128 + 2 * M * K + 2 * M * N)
+    del packed_bf16, codes_bf16
+    ws = [w] + [int4_case(dev, gen, 1, K, N)[1] for _ in range(PROBE_CHAIN - 1)]
+    calls = {"int4_matmul_stream": lambda x, w: i4.int4_matmul_stream(x, w.w_p),
+             "int4_matmul_convert": lambda x, w: i4.int4_matmul_convert(x, w.w_p),
+             "int4_matmul": lambda x, w: i4.int4_matmul(x, w.w_p, w.scale, w.group)}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    chained = {}
+    for name, call in calls.items():
+        h = xs if name == "int4_matmul_stream" else x
+        t0 = time.perf_counter()
+        for wi in ws:
+            h = torch.tanh(h + call(h, wi)[:, :K] * 1e-3)
+        torch.cuda.synchronize()
+        chained[name] = round(1e3 * (time.perf_counter() - t0) / PROBE_CHAIN, 4)
+    launches = {name: kernels.LAUNCHES[name] for name in PROBE_KERNELS}
+    log("kernels", probe_chain=PROBE_CHAIN, ms_per_chained_call_host_clock=chained, launches=launches)
+    if not all(launches.values()):
+        raise RuntimeError(f"a probe never launched: {launches}")
+    del ws, x, xs, xc, w
+    torch.cuda.empty_cache()
+    return launches
+
+
+def forward_steps(engine) -> int:
+    """Forwards of the decoder in the engine's last generate: the prefill
+    (one forward below the long-prompt threshold) and each decode step."""
+    return 1 + engine.decode_steps
+
+
+def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
+    """The 7B video slice with its decoder in int4 through the same engine.
+    Returns the launch counts; K7 must launch 7 * layers + 1 times a forward."""
+    log("int4", weights_gib=round(quant.param_bytes(qparams) / 2**30, 3), params=P.count(qparams))
+    engine = InferenceEngine(qparams, cfg)
+    outs, launches = slice_phase(engine, reqs, sampling, INT4_SLICE_KERNELS)
+    per_forward = 7 * cfg.text.num_hidden_layers + 1
+    expected = per_forward * forward_steps(engine)
+    log("int4", first_token_ids=[o["token_ids"][:8] for o in outs], k7_launches=launches["int4_matmul"],
+        expected=expected, per_forward=per_forward)
+    if launches["int4_matmul"] != expected:
+        raise RuntimeError(f"K7 launched {launches['int4_matmul']} times, expected {expected}: "
+                           "a decoder matmul did not take the kernel")
+    again = engine.generate(reqs, sampling)
+    same = [a["token_ids"] == b["token_ids"] for a, b in zip(outs, again)]
+    log("int4", identical_tokens_across_runs=same)
+    if not all(same):
+        raise RuntimeError("two int4 runs gave different tokens")
+    del engine, again
+    kernel = _vision_and_logits(qparams, cfg, reqs, "auto")[1]
+    plain = _vision_and_logits(qparams, cfg, reqs, "torch")[1]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = _vision_and_logits(_cast(qparams, torch.float32), cfg32, reqs, "torch")[1]
+    torch.cuda.empty_cache()
+    rel_k, cos_k = _agreement(kernel, ref)
+    rel_p, cos_p = _agreement(plain, ref)
+    rel_b, cos_b = _agreement(kernel, bf16_logits)
+    log("numerics", what="int4 prefill logits", kernel_vs_f32_rel=rel_k, kernel_vs_f32_cos=cos_k,
+        plain_vs_f32_rel=rel_p, plain_vs_f32_cos=cos_p, max_ratio=SLICE_REL_RATIO,
+        int4_vs_bf16_rel=rel_b, int4_vs_bf16_cos=cos_b)
+    if not (torch.isfinite(kernel).all() and rel_k <= SLICE_REL_RATIO * rel_p):
+        raise RuntimeError(f"int4 logits: the K7 path is further from float32 than the plain int4 "
+                           f"path ({rel_k} vs {rel_p})")
+    return launches
+
+
+def judge_phase(dev, seed) -> dict:
+    """Qwen2.5-72B-Instruct in int4 on the card through EngineJudge.batch,
+    twice. Returns the K7 launch count of the first call."""
+    cfg = Qwen25VLConfig.from_hf_dict(QWEN25_72B_INSTRUCT_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = P.init(cfg, seed, dev, quantize_text="int4")
+    torch.cuda.synchronize()
+    log("judge", model="Qwen2.5-72B-Instruct", layers=cfg.text.num_hidden_layers,
+        hidden=cfg.text.hidden_size, params=P.count(params),
+        init_s=round(time.perf_counter() - t0, 3),
+        weights_gib=round(quant.param_bytes(params) / 2**30, 3),
+        init_peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    judge = EngineJudge(params, JUDGE_NEW_TOKENS, cfg=cfg, processor=O3VideoProcessor())
+    engine = judge.engine
+    engine.generate([judge._request(*JUDGE_JOBS[0])],
+                    dataclasses.replace(judge.sampling, max_tokens=2))  # warm-up
+    engine.stage_seconds.clear()
+    engine.decode_steps = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    scores = judge.batch(list(JUDGE_JOBS))
+    e2e = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["int4_matmul"]
+    expected = (7 * cfg.text.num_hidden_layers + 1) * forward_steps(engine)
+    st = engine.stage_seconds
+    log("judge", jobs=len(JUDGE_JOBS), prompt_tokens=[len(judge._request(*j).input_ids) for j in JUDGE_JOBS],
+        prefill_ms=round(1e3 * st["prefill"], 3),
+        decode_ms_per_token=round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
+        decode_steps=engine.decode_steps, e2e_s=round(e2e, 3),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), scores=scores,
+        k7_launches=launches, expected=expected)
+    if launches != expected or not launches:
+        raise RuntimeError(f"K7 launched {launches} times in the judge call, expected {expected}")
+    again = judge.batch(list(JUDGE_JOBS))
+    log("judge", identical_scores_across_calls=again == scores, scores_again=again)
+    if again != scores:
+        raise RuntimeError("two judge calls gave different scores")
+    del judge, engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1095,6 +1345,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_numerics_phase(params, cfg, batch)
     log("sft", phases_seconds=round(time.perf_counter() - t0, 3))
+
+    # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
+    t0 = time.perf_counter()
+    int4_kernel_phase(dev, gen, len(reqs) * max(rows), results)
+    probe_launches = probe_phase(dev, gen, results)
+    for name in ("int4_matmul_stream", "int4_matmul_convert"):  # their own path
+        launches[name] = probe_launches[name]
+    with torch.no_grad():
+        bf16_logits = _vision_and_logits(params, cfg, reqs, "auto")[1]
+        qparams = i4.quantize_params_int4(params)
+    del params  # the bf16 decoder; qparams shares the ViT, embedding, norms, biases
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["int4_matmul"] = int4_slice_phase(qparams, cfg, reqs, sampling,
+                                               bf16_logits)["int4_matmul"]
+    del qparams, bf16_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    judge_launches = judge_phase(dev, args.seed)
+    log("int4", phases_seconds=round(time.perf_counter() - t0, 3), judge_k7_launches=judge_launches)
 
     log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": [

@@ -6,7 +6,7 @@ The same dataclasses, fields and defaults as the JAX package, with
 deepstack, qk-norm, MoE) keep their fields so the two configs compare field
 by field, but the port implements only Qwen2.5-VL: a config that sets one
 to another family's value raises, and so does ``from_hf_dict`` for another
-family.
+vision family (a text-only ``"qwen2"`` file is read as JAX reads it).
 """
 
 from __future__ import annotations
@@ -122,13 +122,16 @@ class Qwen25VLConfig:
 
     @staticmethod
     def from_hf_dict(d: dict[str, Any], dtype=torch.bfloat16) -> "Qwen25VLConfig":
-        """An HF config.json of the Qwen2.5-VL family."""
+        """An HF config.json of the Qwen2.5-VL family, or, as the JAX
+        package's default branch reads it, of a text-only Qwen2 decoder
+        (``"qwen2"``: Qwen2.5-72B-Instruct, the judge), whose missing vision
+        fields take the defaults. Qwen2-VL and Qwen3-VL files raise."""
         v = d.get("vision_config", {})
         t = d.get("text_config", d)  # older files inline the text fields
         rope_scaling = t.get("rope_scaling") or d.get("rope_scaling") or {}
         model_type = d.get("model_type", "qwen2_5_vl")
         if (
-            model_type != "qwen2_5_vl"
+            model_type in ("qwen2_vl", "qwen3_vl", "qwen3_vl_moe")
             or v.get("deepstack_visual_indexes") is not None
             or v.get("embed_dim") is not None
         ):

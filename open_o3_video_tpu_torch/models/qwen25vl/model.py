@@ -207,4 +207,4 @@ def forward(
     )
     if return_hidden:
         return hidden, cache
-    return logits_from_hidden(params["text"], hidden), cache
+    return logits_from_hidden(params["text"], hidden, attn_impl), cache

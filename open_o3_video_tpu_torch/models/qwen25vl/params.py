@@ -14,26 +14,72 @@ text:
   layers[i]: input_norm, q_w/b, k_w/b, v_w/b, o_w, post_norm,
              gate_w, up_w, down_w
   final_norm, lm_head (D, vocab)
+
+With ``quantize_text`` the decoder's matmul weights and the lm_head are
+``ops.quant.QuantizedLinear`` (int8) or ``ops.int4.Int4Linear`` leaves,
+quantized one leaf at a time as they are drawn or read, so the model never
+exists in bf16 on the device. A text-only checkpoint (the Qwen2.5-72B
+judge) loads with ``visual`` None.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
 
+from ...ops.int4 import Int4Linear, quantize_weight_int4
+from ...ops.quant import (
+    QUANTIZED,
+    QuantizedLinear,
+    map_with_path,
+    quantize_weight,
+    stored_tensors,
+)
 from .config import Qwen25VLConfig
+
+# The decoder leaves quantize_text quantizes (JAX's _QUANT_TEXT_LEAVES).
+QUANT_TEXT_LEAVES = frozenset({"q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w", "lm_head"})
+
+
+def quantize_leaf(leaf: torch.Tensor, mode):
+    """int8 or int4 quantization of one (in, out) matmul weight, as JAX's
+    ``_quantize_leaf``: ``mode`` True or "int8" gives per-channel int8;
+    "int4" gives group-128 packed int4 where the in-dim divides 128, and
+    int8 where it does not. The caller drops the unquantized leaf."""
+    if mode not in (True, "int8", "int4"):
+        raise ValueError(f"quantize mode must be True, 'int8' or 'int4', got {mode!r}")
+    if mode == "int4" and leaf.shape[0] % 128 == 0:
+        return quantize_weight_int4(leaf, group=128)
+    return quantize_weight(leaf)
 
 
 def from_jax_params(tree, cfg: Qwen25VLConfig, device) -> dict:
     """The JAX package's param tree, leaves as numpy arrays in JAX's
-    (in, out) orientation, as the port's param dict in ``cfg.dtype``."""
+    (in, out) orientation, as the port's param dict in ``cfg.dtype``. JAX's
+    quantized leaves, recognised by their fields (``w_p``/``scale``/``group``
+    for int4, ``w_q``/``scale`` for int8), keep their int8 bytes and float32
+    scales."""
+
+    def tensor(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
 
     def conv(x):
+        if x is None:
+            return None
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=device, dtype=cfg.dtype)
+        if hasattr(x, "w_p"):
+            return Int4Linear(tensor(x.w_p, np.int8), tensor(x.scale, np.float32), x.group)
+        if hasattr(x, "w_q"):
+            return QuantizedLinear(tensor(x.w_q, np.int8), tensor(x.scale, np.float32))
+        if hasattr(x, "base") and hasattr(x, "a"):  # (a numpy array has .base too)
+            raise NotImplementedError("LoRA leaves are not ported yet")
+        return tensor(x, np.float32).to(cfg.dtype)
 
     return conv(tree)
 
@@ -51,33 +97,48 @@ def to_jax_layout(tree):
 
 
 def leaves(tree) -> list:
-    """The tensors of a param dict, in a fixed (depth-first, key) order."""
+    """The tensors of a param dict, in a fixed (depth-first, key) order; a
+    quantized weight contributes its packed tensor and its scale."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in tree for x in leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in leaves(v)]
-    return [tree]
+    return list(stored_tensors(tree))
 
 
 def trainable(tree) -> dict:
-    """Mark every floating-point leaf as requiring a gradient (a full fine-
-    tune); returns the same dict."""
-    for x in leaves(tree):
-        if x.is_floating_point():
+    """Mark every floating-point tensor leaf as requiring a gradient (a full
+    fine-tune); quantized weights stay frozen (K7 has no backward). Returns
+    the same dict."""
+
+    def mark(_, x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
             x.requires_grad_(True)
+
+    map_with_path(mark, tree)
     return tree
 
 
-def init(cfg: Qwen25VLConfig, seed: int, device) -> dict:
+def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False) -> dict:
     """Random normal(0.02) weights (the HF initializer scale), unit norms and
     zero biases, drawn on ``device`` from a seeded ``torch.Generator`` in
-    ``cfg.dtype``. It does not reproduce the JAX package's random bits."""
+    ``cfg.dtype``. It does not reproduce the JAX package's random bits.
+
+    ``quantize_text`` (False, True or "int8", "int4") quantizes each decoder
+    matmul weight and the lm_head as it is drawn (``quantize_leaf``), so the
+    bf16 draw of one leaf at a time is all that exists: a 72B decoder never
+    exists in bf16. The random draws are the same as without it."""
     v, t = cfg.vision, cfg.text
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def w(*shape):
         return torch.empty(shape, dtype=cfg.dtype, device=device).normal_(0.0, 0.02, generator=gen)
+
+    def tw(*shape):
+        return quantize_leaf(w(*shape), quantize_text) if quantize_text else w(*shape)
 
     def zeros(n):
         return torch.zeros(n, dtype=cfg.dtype, device=device)
@@ -118,17 +179,17 @@ def init(cfg: Qwen25VLConfig, seed: int, device) -> dict:
     layers = [
         {
             "input_norm": ones(t.hidden_size),
-            "q_w": w(t.hidden_size, q_dim),
+            "q_w": tw(t.hidden_size, q_dim),
             "q_b": zeros(q_dim),
-            "k_w": w(t.hidden_size, kv_dim),
+            "k_w": tw(t.hidden_size, kv_dim),
             "k_b": zeros(kv_dim),
-            "v_w": w(t.hidden_size, kv_dim),
+            "v_w": tw(t.hidden_size, kv_dim),
             "v_b": zeros(kv_dim),
-            "o_w": w(q_dim, t.hidden_size),
+            "o_w": tw(q_dim, t.hidden_size),
             "post_norm": ones(t.hidden_size),
-            "gate_w": w(t.hidden_size, t.intermediate_size),
-            "up_w": w(t.hidden_size, t.intermediate_size),
-            "down_w": w(t.intermediate_size, t.hidden_size),
+            "gate_w": tw(t.hidden_size, t.intermediate_size),
+            "up_w": tw(t.hidden_size, t.intermediate_size),
+            "down_w": tw(t.intermediate_size, t.hidden_size),
         }
         for _ in range(t.num_hidden_layers)
     ]
@@ -136,7 +197,7 @@ def init(cfg: Qwen25VLConfig, seed: int, device) -> dict:
         "embed_tokens": w(t.vocab_size, t.hidden_size),
         "layers": layers,
         "final_norm": ones(t.hidden_size),
-        "lm_head": w(t.hidden_size, t.vocab_size),
+        "lm_head": tw(t.hidden_size, t.vocab_size),
     }
     return {"visual": visual, "text": text}
 
@@ -178,17 +239,22 @@ _MERGER = {
 }
 
 
-def from_hf_state_dict(named, cfg: Qwen25VLConfig, device) -> dict:
+def from_hf_state_dict(named, cfg: Qwen25VLConfig, device, quantize_text=False) -> dict:
     """Param dict from (HF name, tensor) pairs of a Qwen2.5-VL checkpoint
     (``model.`` / ``model.language_model.`` / ``model.visual.`` prefixes
-    alike); a missing ``lm_head`` ties to the embedding."""
+    alike), or of a text-only Qwen2 one (``visual`` is then None); a
+    missing ``lm_head`` ties to the embedding. ``quantize_text`` quantizes
+    each decoder matmul weight and the lm_head as it streams in (JAX's
+    ``from_named_arrays``), so only one leaf at a time exists in bf16."""
     v, t = cfg.vision, cfg.text
     visual = {"blocks": [{} for _ in range(v.depth)], "merger": {}}
     text = {"layers": [{} for _ in range(t.num_hidden_layers)]}
+    seen_visual = False
 
-    def leaf(x, transpose=False):
+    def leaf(x, transpose=False, name=None):
         x = x.T if transpose else x
-        return x.to(device=device, dtype=cfg.dtype).contiguous()
+        x = x.to(device=device, dtype=cfg.dtype).contiguous()
+        return quantize_leaf(x, quantize_text) if quantize_text and name in QUANT_TEXT_LEAVES else x
 
     for key, x in named:
         for old, new in (("model.language_model.", "language_model."),
@@ -197,15 +263,16 @@ def from_hf_state_dict(named, cfg: Qwen25VLConfig, device) -> dict:
                 key = new + key[len(old):]
                 break
         parts = key.split(".")
+        seen_visual = seen_visual or key.startswith("visual.")
         if key == "language_model.embed_tokens.weight":
             text["embed_tokens"] = leaf(x)
         elif key == "language_model.norm.weight":
             text["final_norm"] = leaf(x)
         elif key == "lm_head.weight":
-            text["lm_head"] = leaf(x, True)
+            text["lm_head"] = leaf(x, True, "lm_head")
         elif key.startswith("language_model.layers.") and ".".join(parts[3:]) in _TEXT_LAYER:
             name, tr = _TEXT_LAYER[".".join(parts[3:])]
-            text["layers"][int(parts[2])][name] = leaf(x, tr)
+            text["layers"][int(parts[2])][name] = leaf(x, tr, name)
         elif key == "visual.patch_embed.proj.weight":  # Conv3d at full stride == linear
             visual["patch_embed"] = leaf(x.reshape(x.shape[0], -1), True)
         elif key.startswith("visual.blocks.") and ".".join(parts[3:]) in _VISION_BLOCK:
@@ -215,23 +282,55 @@ def from_hf_state_dict(named, cfg: Qwen25VLConfig, device) -> dict:
             name, tr = _MERGER[".".join(parts[2:])]
             visual["merger"][name] = leaf(x, tr)
     if "lm_head" not in text and "embed_tokens" in text:
-        text["lm_head"] = text["embed_tokens"].T.contiguous()
-    missing = [k for k in ("patch_embed",) if k not in visual]
-    missing += [f"text.{k}" for k in ("embed_tokens", "final_norm", "lm_head") if k not in text]
-    for where, tables, names in (("visual.blocks", visual["blocks"], _VISION_BLOCK),
-                                 ("text.layers", text["layers"], _TEXT_LAYER),
-                                 ("visual.merger", [visual["merger"]], _MERGER)):
-        for i, got in enumerate(tables):
+        text["lm_head"] = leaf(text["embed_tokens"], True, "lm_head")
+    missing = [f"text.{k}" for k in ("embed_tokens", "final_norm", "lm_head") if k not in text]
+    tables = [("text.layers", text["layers"], _TEXT_LAYER)]
+    if seen_visual:
+        missing += [k for k in ("patch_embed",) if k not in visual]
+        tables += [("visual.blocks", visual["blocks"], _VISION_BLOCK),
+                   ("visual.merger", [visual["merger"]], _MERGER)]
+    for where, rows, names in tables:
+        for i, got in enumerate(rows):
             missing += [f"{where}[{i}].{n}" for n, _ in names.values() if n not in got]
     if missing:
         raise ValueError(f"checkpoint is missing {len(missing)} parameters, e.g. {missing[:3]}")
-    return {"visual": visual, "text": text}
+    return {"visual": visual if seen_visual else None, "text": text}
+
+
+def load_pretrained(model_dir: str, device, cfg: Qwen25VLConfig | None = None,
+                    quantize_text=False) -> tuple[dict, Qwen25VLConfig]:
+    """(params, cfg) from an HF model directory of safetensors shards (in
+    the index file's order when there is one), read with safetensors' torch
+    loader and quantized as they stream in (see ``from_hf_state_dict``)."""
+    from safetensors import safe_open
+
+    if cfg is None:
+        cfg = Qwen25VLConfig.from_pretrained(model_dir)
+    index = os.path.join(model_dir, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+    else:
+        shards = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
+
+    def named():
+        for shard in shards:
+            with safe_open(os.path.join(model_dir, shard), framework="pt") as f:
+                for key in f.keys():
+                    yield key, f.get_tensor(key)
+
+    return from_hf_state_dict(named(), cfg, device, quantize_text=quantize_text), cfg
 
 
 def count(params) -> int:
-    """Number of parameters in a param dict."""
+    """Number of parameters in a param dict (a quantized weight counts the
+    entries of the matrix it stands for)."""
+    if params is None:
+        return 0
     if isinstance(params, dict):
         return sum(count(x) for x in params.values())
     if isinstance(params, list):
         return sum(count(x) for x in params)
+    if isinstance(params, QUANTIZED):
+        return int(np.prod(params.shape))
     return params.numel()

@@ -7,7 +7,10 @@ contiguous view, which attention reads through its strides. The JAX
 package's ``stacked_layer`` plumbing, which exists because a Pallas call's
 operands must be whole buffers, therefore has no counterpart here.
 Causality follows buffer positions (``seq_positions``); M-RoPE positions only
-rotate q/k. Left-padded batches are masked through ``attn_valid``.
+rotate q/k. Left-padded batches are masked through ``attn_valid``. Every
+matmul weight and the lm_head go through ``ops.quant.dense``, so a param
+dict with int8 or int4 weights (``params.init(quantize_text=...)``) serves
+through the same code; biases add after the quantized matmul.
 
 The cache stores bf16, f32 or fp8 e4m3 (``torch.float8_e4m3fn``, half the
 bytes of bf16). Attention receives the layer views in that stored dtype
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import causal_attention
+from ...ops.quant import dense
 from ...ops.rope import apply_mrope, mrope_cos_sin
 from .config import TextConfig
 from .vision import rms_norm
@@ -63,9 +67,9 @@ def write_cache(dst: torch.Tensor, x: torch.Tensor) -> None:
 def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
                      cache, layer: int, cache_offset: int, impl: str):
     B, S, _ = x.shape
-    q = (x @ p["q_w"] + p["q_b"]).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
-    k = (x @ p["k_w"] + p["k_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
-    v = (x @ p["v_w"] + p["v_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    q = (dense(x, p["q_w"], impl) + p["q_b"]).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
+    k = (dense(x, p["k_w"], impl) + p["k_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    v = (dense(x, p["v_w"], impl) + p["v_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
     q, k = apply_mrope(q, k, cos, sin)
     if cache is not None:
         ck, cv = cache["k"][layer], cache["v"][layer]  # (B, T, Hkv, D) views
@@ -77,7 +81,7 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
         out = causal_attention(q, ck, cv, q_positions=seq_positions, kv_mask=mask, impl=impl)
     else:
         out = causal_attention(q, k, v, q_positions=seq_positions, kv_mask=kv_mask, impl=impl)
-    return out.reshape(B, S, -1) @ p["o_w"]
+    return dense(out.reshape(B, S, -1), p["o_w"], impl)
 
 
 def text_forward(
@@ -96,6 +100,10 @@ def text_forward(
     """Returns (hidden states (B, S, D) after the final norm, the cache,
     updated in place).
 
+    ``attn_impl`` picks, for every kernel of the decoder (attention, and K7
+    where a matmul weight is int4), the kernel ("auto", on CUDA tensors) or
+    its plain version ("torch").
+
     ``remat=True`` recomputes each decoder layer in the backward pass
     (``jax.checkpoint`` per layer in the JAX package; the reference's
     gradient checkpointing). The checkpoint is non-reentrant, so its first
@@ -113,7 +121,8 @@ def text_forward(
         x = x + _attention_layer(layer, cfg, h, cos, sin, seq_positions, attn_valid,
                                  cache, i, cache_offset, attn_impl)
         h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
-        return x + (F.silu(h @ layer["gate_w"]) * (h @ layer["up_w"])) @ layer["down_w"]
+        act = F.silu(dense(h, layer["gate_w"], attn_impl)) * dense(h, layer["up_w"], attn_impl)
+        return x + dense(act, layer["down_w"], attn_impl)
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
@@ -124,9 +133,9 @@ def text_forward(
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
 
 
-def logits_from_hidden(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(params: dict, hidden: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Final hidden states -> vocabulary logits (float32)."""
-    return (hidden @ params["lm_head"]).float()
+    return dense(hidden, params["lm_head"], impl).float()
 
 
 def _token_logps(params: dict, hidden: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

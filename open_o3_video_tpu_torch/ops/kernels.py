@@ -8,8 +8,8 @@ beside the package, in a directory keyed by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused.
 
 ``LAUNCHES`` counts, per kernel entry point (the inference and the exact
-training modes of K1-K3 under their own names, K5 and K6 per kernel), the
-launches made by its wrapper; callers reset it with :func:`reset_launches`
+training modes of K1-K3 under their own names, K5 and K6 per kernel, K7 and
+its two K7a probes), the launches made by its wrapper; callers reset it with :func:`reset_launches`
 to show which kernels a run went through.
 """
 
@@ -61,6 +61,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _LL, _LL, _LL, _LL, _P,
     ),
+    "o3v_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "o3v_int4_matmul_stream": (_P, _P, _P, _I, _I, _I, _P),
+    "o3v_int4_matmul_convert": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

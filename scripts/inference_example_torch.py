@@ -6,45 +6,24 @@ Run: python scripts/inference_example_torch.py --model_path /path/to/checkpoint 
      python scripts/inference_example_torch.py --tiny-demo   # no checkpoint, no video
 
 Sampling mirrors the reference: temperature 0.7, top_p 0.001, repetition
-penalty 1.05, max 2048 tokens, 16 frames. A video file is decoded with the
-JAX package's host decoder (PIL/cv2; it imports no JAX); without --video the
-frames are synthetic (16 frames of 252x336 from --seed). The checkpoint is
-read with safetensors. The model runs on the card (--device cuda, the
-default) in bf16 through the port's kernels; with --device cpu in float32
-through their plain versions. Without a CUDA device it runs only when asked
-for the CPU.
+penalty 1.05, max 2048 tokens, 16 frames. A video file is decoded with
+OpenCV and resized by the port's PIL-parity bicubic
+(open_o3_video_tpu_torch/data/video.py); where cv2 is not installed the
+script exits with an error that says so. Without --video the frames are
+synthetic (16 frames of 252x336 from --seed). The checkpoint is read with
+safetensors; --load_in_int4 quantizes the decoder to group-128 int4 as it
+loads (or as it is drawn, with --tiny-demo), served through K7. The model
+runs on the card (--device cuda, the default) in bf16 through the port's
+kernels; with --device cpu in float32 through their plain versions. Without
+a CUDA device it runs only when asked for the CPU.
 """
 
 import argparse
 import dataclasses
-import json
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def load_pretrained(model_dir: str, device):
-    """(params, cfg) from an HF Qwen2.5-VL directory of safetensors shards."""
-    from safetensors import safe_open
-
-    from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
-
-    cfg = Qwen25VLConfig.from_pretrained(model_dir)
-    index = os.path.join(model_dir, "model.safetensors.index.json")
-    if os.path.exists(index):
-        with open(index) as f:
-            shards = sorted(set(json.load(f)["weight_map"].values()))
-    else:
-        shards = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
-
-    def named():
-        for shard in shards:
-            with safe_open(os.path.join(model_dir, shard), framework="pt") as f:
-                for key in f.keys():
-                    yield key, f.get_tensor(key)
-
-    return P.from_hf_state_dict(named(), cfg, device), cfg
 
 
 def demo_config(dtype):
@@ -75,6 +54,8 @@ def main():
     parser.add_argument("--tiny-demo", action="store_true",
                         help="run a small random-weight model (pipeline smoke test)")
     parser.add_argument("--greedy", action="store_true", help="temperature 0")
+    parser.add_argument("--load_in_int4", action="store_true",
+                        help="group-128 int4 decoder weights (K7 on the card)")
     parser.add_argument("--spec", action="store_true",
                         help="speculative decoding (not in the port yet)")
     parser.add_argument("--device", default="cuda",
@@ -101,15 +82,16 @@ def main():
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device here; pass --device cpu to run on the CPU")
+    quantize = "int4" if args.load_in_int4 else False
     if args.tiny_demo:
         cfg = demo_config(torch.bfloat16 if device.type == "cuda" else torch.float32)
-        params = P.init(cfg, args.seed, device)
+        params = P.init(cfg, args.seed, device, quantize_text=quantize)
         processor = O3VideoProcessor()
         max_tokens = min(args.max_tokens, 32)
     else:
         if not args.model_path:
             parser.error("--model_path required (or use --tiny-demo)")
-        params, cfg = load_pretrained(args.model_path, device)
+        params, cfg = P.load_pretrained(args.model_path, device, quantize_text=quantize)
         processor = O3VideoProcessor.from_pretrained(args.model_path)
         max_tokens = args.max_tokens
 
@@ -122,13 +104,12 @@ def main():
     system_message = SYSTEM_PROMPT["temporal-spatial free-form QA"]
 
     if args.video:
-        from open_o3_video_tpu.data.video import process_vision_info
+        from open_o3_video_tpu_torch.data.video import fetch_video
 
-        video_msg = {"type": "video", "video": args.video, "nframes": args.nframes}
-        _, video_inputs, video_kwargs = process_vision_info(
-            [{"role": "user", "content": [video_msg]}], return_video_kwargs=True
-        )
-        frames, fps = video_inputs[0], video_kwargs["fps"][0]
+        try:
+            frames, fps = fetch_video({"video": args.video, "nframes": args.nframes})
+        except ImportError as e:
+            parser.exit(2, f"--video: {e}\n")
     else:
         rng = np.random.default_rng(args.seed)
         frames = rng.integers(0, 256, size=(args.nframes, 3, 252, 336), dtype=np.uint8)

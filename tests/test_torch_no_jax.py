@@ -1,9 +1,9 @@
 """Import guard: the port runs where neither JAX nor PIL is installed (the
 GPU machine has neither). A subprocess blocks both imports, imports every
 module of the port, runs a tiny generate on the CPU (with a bf16 cache, and
-with an fp8 cache through the long-context path) and one tiny SFT train
-step, and checks that nothing of the JAX package was imported along the
-way."""
+with an fp8 cache through the long-context path), one tiny SFT train step,
+a generate with an int4 decoder (K7's plain version) and a judge call, and
+checks that nothing of the JAX package was imported along the way."""
 
 import os
 import subprocess
@@ -41,6 +41,12 @@ MODULES = [
     "open_o3_video_tpu_torch.data.sft_dataset",
     "open_o3_video_tpu_torch.train",
     "open_o3_video_tpu_torch.train.sft",
+    "open_o3_video_tpu_torch.ops.int4",
+    "open_o3_video_tpu_torch.ops.quant",
+    "open_o3_video_tpu_torch.ops.resize",
+    "open_o3_video_tpu_torch.data.video",
+    "open_o3_video_tpu_torch.eval",
+    "open_o3_video_tpu_torch.eval.judge",
 ]
 for m in MODULES:
     importlib.import_module(m)
@@ -79,6 +85,21 @@ opt = make_optimizer(train_cfg)
 _, state, m = make_train_step(cfg, train_cfg, opt)(weights, opt.init(weights), batch)
 assert state["count"] == 1 and float(m["num_target_tokens"]) > 0, m
 assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
+# int4 serving: a decoder of K7's shapes (hidden 256, heads of 128) drawn
+# into int4, a text-only generate, and the judge on the same weights
+import dataclasses
+from open_o3_video_tpu_torch.eval import EngineJudge
+from open_o3_video_tpu_torch.ops.int4 import Int4Linear
+qcfg = dataclasses.replace(cfg, text=dataclasses.replace(
+    cfg.text, hidden_size=256, num_attention_heads=2, num_key_value_heads=1,
+    intermediate_size=384, mrope_section=(16, 24, 24)))
+qweights = params.init(qcfg, 0, torch.device("cpu"), quantize_text="int4")
+assert isinstance(qweights["text"]["layers"][0]["down_w"], Int4Linear)
+out = InferenceEngine(qweights, qcfg).generate([Request(proc("Why?").input_ids)],
+                                               SamplingParams(max_tokens=3))
+assert 1 <= len(out[0]["token_ids"]) <= 3, out
+judge = EngineJudge(qweights, 2, cfg=qcfg, processor=proc)
+assert judge.batch([("What color?", "red", "blue")]) in ([-1], [0], [1], [2], [3])
 assert sys.modules["jax"] is None and sys.modules["PIL"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
 print("NO_JAX_OK")
