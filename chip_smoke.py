@@ -48,26 +48,31 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      layers: loss and gradients of the kernel path and the plain bf16 path
      against float32, per group (ViT, decoder, embedding and lm_head).
  11. K7, the int4 matmul, against its plain version (bf16, the bound of
-     phase 3) at the 7B decode and prefill gate_w, the 7B decode lm_head and
-     the 72B decode down_w, with the bound, the bf16 torch.matmul on the
-     dequantized weight and torch._weight_int4pack_mm on the same codes as
-     yardsticks; two planted faults (nibbles swapped, scales one group off)
-     must fail the bound. Then the K7a probes (stream, convert) and K7 at
-     the TPU scripts' shape, 3584->18944 at M=16, chained over 8 weights as
-     scripts/profile_int4_kernel_parts.py chains them;
+     phase 3) by the route its row count takes: decode (M <= 64, mma.sync)
+     at the 7B gate_w, the 7B lm_head and the 72B down_w; prefill (wgmma)
+     at the 7B gate_w and k_w and the 72B down_w (231 groups). Each with
+     the bound, the bf16 torch.matmul on the dequantized weight and
+     torch._weight_int4pack_mm on the same codes as yardsticks, and the
+     same bits from two calls; two planted faults (nibbles swapped, scales
+     one group off) must fail the bound. Then the K7a probes (stream,
+     convert) and K7 at the TPU scripts' shape, 3584->18944 at M=16, chained
+     over 8 weights as scripts/profile_int4_kernel_parts.py chains them;
  12. the 7B video slice with its decoder in int4 (quantize_params_int4 of
      the phase-4 param dict, after phase 9's steps): phase 4's requests and
      sampling through InferenceEngine.generate, stage times, weight and
-     peak GiB, K7 launches equal to 7 * 28 + 1 per forward, identical tokens
-     across two runs; the prefill logits of the K7 path and of the plain
-     int4 path each against float32 on the same int4 weights
-     (SLICE_REL_RATIO), and the int4-vs-bf16 distance as information;
+     peak GiB, K7 launches by route (the prefill's 7 * 28 decoder matmuls
+     on the wgmma route, its lm_head at the last positions and 7 * 28 + 1
+     per decode step on the mma.sync one), identical tokens across two
+     runs; the prefill logits of the K7 path and of the plain int4 path
+     each against float32 on the same int4 weights (SLICE_REL_RATIO), and
+     the int4-vs-bf16 distance as information;
  13. the judge: Qwen2.5-72B-Instruct at full width and depth (its published
      config.json) in int4 on the card, drawn and quantized leaf by leaf,
      EngineJudge.batch on 4 jobs with 16 new tokens, twice: init seconds,
      weight and peak GiB, prefill ms, decode ms/token, the scores (-1 with
-     random weights), K7 launches equal to 7 * 80 + 1 per forward, and
-     identical scores across the two calls.
+     random weights), K7 launches by route as in phase 12 (7 * 80 on the
+     wgmma route, then 1 + 7 * 80 + 1 per decode step), and identical
+     scores across the two calls.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -194,6 +199,8 @@ TPU_KERNELS = {
     # K7, and the K7a probes of the TPU profiling scripts
     "int4_matmul": ("open_o3_video_tpu_torch/csrc/int4_matmul.cu",
                     "open_o3_video_tpu/ops/int4.py:107"),
+    "int4_matmul_wgmma": ("open_o3_video_tpu_torch/csrc/int4_matmul_sm90.cu",
+                          "open_o3_video_tpu/ops/int4.py:107"),
     "int4_matmul_stream": ("open_o3_video_tpu_torch/csrc/int4_matmul.cu",
                            "scripts/profile_int4_kernel_parts.py:61"),
     "int4_matmul_convert": ("open_o3_video_tpu_torch/csrc/int4_matmul.cu",
@@ -203,12 +210,15 @@ TPU_KERNELS = {
 SLICE_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa")
 LONG_KERNELS = ("flash_attention_gqa", "decode_attention_gqa")
 TRAIN_KERNELS = tuple(list(TPU_KERNELS)[4:12])
-INT4_SLICE_KERNELS = SLICE_KERNELS + ("int4_matmul",)
+K7_ROUTES = ("int4_matmul", "int4_matmul_wgmma")  # decode, prefill (i4.kernel_route)
+INT4_SLICE_KERNELS = SLICE_KERNELS + K7_ROUTES
 PROBE_KERNELS = ("int4_matmul_stream", "int4_matmul_convert", "int4_matmul")
-# K7 (phase 11): (case, M, K, N) at the main paths' shapes; the first gives
-# K7's row. M None: the 7B slice's prefill, its 2 rows of L tokens.
+# K7 (phase 11): (case, M, K, N) at the main paths' shapes; the first case
+# of each route gives its row. M None: the 7B slice's prefill, its 2 rows of
+# L tokens; M 3984: the judge's prefill, 4 jobs of up to 996 tokens.
 INT4_CASES = (("7B decode gate_w", 2, 3584, 18944), ("7B prefill gate_w", None, 3584, 18944),
-              ("7B decode lm_head", 2, 3584, 152064), ("72B decode down_w", 4, 29568, 8192))
+              ("7B decode lm_head", 2, 3584, 152064), ("72B decode down_w", 4, 29568, 8192),
+              ("7B prefill k_w", None, 3584, 512), ("72B prefill down_w", 3984, 29568, 8192))
 # The K7a probes' shape and chain (scripts/profile_int4_kernel_parts.py:
 # 3584 -> 18944 at M = 16, a scan over distinct weights).
 PROBE_M, PROBE_K, PROBE_N, PROBE_CHAIN = 16, 3584, 18944, 8
@@ -1109,23 +1119,29 @@ def int4_case(dev, gen, M, K, N) -> tuple:
 
 def int4_kernel_phase(dev, gen, prefill_rows, results) -> None:
     """K7 against its plain version at the main paths' shapes (INT4_CASES),
-    with both yardsticks, and the planted faults at the first case."""
+    each by the route its row count takes, with both yardsticks, the same
+    bits from two calls, and the planted faults at the first case."""
     for case, M, K, N in INT4_CASES:
         M = M or prefill_rows
+        name = i4.kernel_route(M)
         x, w = int4_case(dev, gen, M, K, N)
         wd = i4.dequantize(w, torch.bfloat16)
-        ref = compare("int4_matmul", lambda: i4.int4_matmul(x, w.w_p, w.scale, w.group),
+        ref = compare(name, lambda: i4.int4_matmul(x, w.w_p, w.scale, w.group),
                       lambda: i4.int4_matmul_torch(x, w.w_p, w.scale, w.group), None, results,
                       flops=2 * M * K * N, moved=K * N // 2 + 4 * N * K // 128 + 2 * M * K + 2 * M * N,
                       library_fn=lambda: torch.matmul(x, wd))
         del wd
+        same = torch.equal(i4.int4_matmul(x, w.w_p, w.scale, w.group),
+                           i4.int4_matmul(x, w.w_p, w.scale, w.group))
         call, note = int4pack_yardstick(x, w)
         pack_ms = statistics.median(time_ms(call)) if call is not None else None
         pack_rel = None if call is None else _agreement(call().float(), ref.float())[0]
-        log("kernels", name="int4_matmul", case=case, M=M, K=K, N=N, groups=K // w.group,
+        log("kernels", name=name, case=case, M=M, K=K, N=N, groups=K // w.group,
             int4pack_ms=None if pack_ms is None else round(pack_ms, 4), int4pack=note,
-            int4pack_vs_plain_rel=pack_rel)
-        results["int4_matmul"].setdefault("int4pack_ms", pack_ms)
+            int4pack_vs_plain_rel=pack_rel, same_bits_twice=same)
+        if not same:
+            raise RuntimeError(f"{name} {case}: two calls gave different bits")
+        results[name].setdefault("int4pack_ms", pack_ms)
         if case == INT4_CASES[0][0]:
             p = w.w_p.to(torch.int32)
             swapped = (((p & 0xF) << 4) | ((p >> 4) & 0xF)).to(torch.int8)
@@ -1159,10 +1175,12 @@ def probe_phase(dev, gen, results) -> dict:
             lambda: i4.int4_matmul_convert_torch(xc, w.w_p), None, results,
             flops=2 * M * K * N, moved=K * N // 2 + 2 * M * K + 2 * M * N,
             library_fn=lambda: torch.matmul(xc, codes_bf16))
+    wd = i4.dequantize(w, torch.bfloat16)
     compare("int4_matmul", lambda: i4.int4_matmul(x, w.w_p, w.scale, w.group),
             lambda: i4.int4_matmul_torch(x, w.w_p, w.scale, w.group), None, results,
-            flops=2 * M * K * N, moved=K * N // 2 + 4 * N * K // 128 + 2 * M * K + 2 * M * N)
-    del packed_bf16, codes_bf16
+            flops=2 * M * K * N, moved=K * N // 2 + 4 * N * K // 128 + 2 * M * K + 2 * M * N,
+            library_fn=lambda: torch.matmul(x, wd))
+    del packed_bf16, codes_bf16, wd
     ws = [w] + [int4_case(dev, gen, 1, K, N)[1] for _ in range(PROBE_CHAIN - 1)]
     calls = {"int4_matmul_stream": lambda x, w: i4.int4_matmul_stream(x, w.w_p),
              "int4_matmul_convert": lambda x, w: i4.int4_matmul_convert(x, w.w_p),
@@ -1192,19 +1210,28 @@ def forward_steps(engine) -> int:
     return 1 + engine.decode_steps
 
 
+def k7_expected(engine, layers: int) -> dict:
+    """K7's launches by route in the engine's last generate: the prefill
+    forward's 7 * layers decoder matmuls on the wgmma route and its lm_head
+    at the last positions (M = batch) on the mma.sync one, then 7 * layers
+    + 1 per decode step on the mma.sync route."""
+    return {"int4_matmul": 1 + (7 * layers + 1) * engine.decode_steps,
+            "int4_matmul_wgmma": 7 * layers}
+
+
 def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
     """The 7B video slice with its decoder in int4 through the same engine.
-    Returns the launch counts; K7 must launch 7 * layers + 1 times a forward."""
+    Returns the launch counts; K7's must match k7_expected route by route."""
     log("int4", weights_gib=round(quant.param_bytes(qparams) / 2**30, 3), params=P.count(qparams))
     engine = InferenceEngine(qparams, cfg)
     outs, launches = slice_phase(engine, reqs, sampling, INT4_SLICE_KERNELS)
-    per_forward = 7 * cfg.text.num_hidden_layers + 1
-    expected = per_forward * forward_steps(engine)
-    log("int4", first_token_ids=[o["token_ids"][:8] for o in outs], k7_launches=launches["int4_matmul"],
-        expected=expected, per_forward=per_forward)
-    if launches["int4_matmul"] != expected:
-        raise RuntimeError(f"K7 launched {launches['int4_matmul']} times, expected {expected}: "
-                           "a decoder matmul did not take the kernel")
+    expected = k7_expected(engine, cfg.text.num_hidden_layers)
+    got = {name: launches[name] for name in K7_ROUTES}
+    log("int4", first_token_ids=[o["token_ids"][:8] for o in outs], k7_launches=got,
+        expected=expected, forwards=forward_steps(engine))
+    if got != expected:
+        raise RuntimeError(f"K7 launched {got} times by route, expected {expected}: "
+                           "a decoder matmul did not take its route")
     again = engine.generate(reqs, sampling)
     same = [a["token_ids"] == b["token_ids"] for a, b in zip(outs, again)]
     log("int4", identical_tokens_across_runs=same)
@@ -1230,7 +1257,7 @@ def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
 
 def judge_phase(dev, seed) -> dict:
     """Qwen2.5-72B-Instruct in int4 on the card through EngineJudge.batch,
-    twice. Returns the K7 launch count of the first call."""
+    twice. Returns K7's launch counts by route in the first call."""
     cfg = Qwen25VLConfig.from_hf_dict(QWEN25_72B_INSTRUCT_CONFIG)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1253,8 +1280,8 @@ def judge_phase(dev, seed) -> dict:
     t0 = time.perf_counter()
     scores = judge.batch(list(JUDGE_JOBS))
     e2e = time.perf_counter() - t0
-    launches = kernels.LAUNCHES["int4_matmul"]
-    expected = (7 * cfg.text.num_hidden_layers + 1) * forward_steps(engine)
+    launches = {name: kernels.LAUNCHES[name] for name in K7_ROUTES}
+    expected = k7_expected(engine, cfg.text.num_hidden_layers)
     st = engine.stage_seconds
     log("judge", jobs=len(JUDGE_JOBS), prompt_tokens=[len(judge._request(*j).input_ids) for j in JUDGE_JOBS],
         prefill_ms=round(1e3 * st["prefill"], 3),
@@ -1262,8 +1289,9 @@ def judge_phase(dev, seed) -> dict:
         decode_steps=engine.decode_steps, e2e_s=round(e2e, 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), scores=scores,
         k7_launches=launches, expected=expected)
-    if launches != expected or not launches:
-        raise RuntimeError(f"K7 launched {launches} times in the judge call, expected {expected}")
+    if launches != expected:
+        raise RuntimeError(f"K7 launched {launches} times by route in the judge call, "
+                           f"expected {expected}")
     again = judge.batch(list(JUDGE_JOBS))
     log("judge", identical_scores_across_calls=again == scores, scores_again=again)
     if again != scores:
@@ -1358,8 +1386,8 @@ def main() -> None:
     del params  # the bf16 decoder; qparams shares the ViT, embedding, norms, biases
     gc.collect()
     torch.cuda.empty_cache()
-    launches["int4_matmul"] = int4_slice_phase(qparams, cfg, reqs, sampling,
-                                               bf16_logits)["int4_matmul"]
+    int4_launches = int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits)
+    launches.update({name: int4_launches[name] for name in K7_ROUTES})
     del qparams, bf16_logits
     gc.collect()
     torch.cuda.empty_cache()

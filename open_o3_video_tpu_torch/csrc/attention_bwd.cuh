@@ -1,6 +1,8 @@
 // Backward of exact-softmax attention, FlashAttention-2 form, for Hopper
-// (sm_90a): the two kernels shared by K5 (decoder, causal GQA) and K6's
-// window backward (the ViT's 4 global blocks, segment ids over whole frames).
+// (sm_90a): the dq kernel shared by K5 (decoder, causal GQA) and K6's window
+// backward (the ViT's 4 global blocks, segment ids over whole frames), and
+// K6's dk/dv kernel (K5's causal dk/dv has its own pair of kernels in
+// flash_attention_bwd.cu).
 //
 // Both recompute p = exp(score - lse) from the forward's log-sum-exp, with
 // dp = dout @ v^T and delta = rowsum(dout * out) (computed by the caller):
@@ -14,8 +16,8 @@
 // directly): score = D^-1/2 q.k, dq_scale = dk_scale = D^-1/2; with the keys
 // tiled, the rowsum comes as delta, equal to it in exact arithmetic.
 //
-// Kernel 2 loops over every query head of its kv head's GQA group and over
-// the query tiles, so dk/dv are summed over the group in registers and each
+// Kernel 2 loops over every query head of its kv head's group (1 in K6) and
+// over the query tiles, so dk/dv are summed over the group in registers and each
 // CTA writes its own rows: deterministic, no atomics. Products are bf16
 // mma.sync with f32 accumulation; p and ds are rounded to bf16 as operands
 // (JAX rounds ds to bf16 in K5; K6's f32 products on the TPU run as bf16

@@ -188,13 +188,17 @@ def flash_attention_gqa_bwd_dq(ops):
 
 
 def flash_attention_gqa_bwd_dkv(ops):
-    """K5's dk/dv kernel on ``bwd_operands``: one CTA per (64-key tile, kv
-    head), looping over the group's heads, so dk/dv are reduced in-kernel
-    without atomics. Returns (dk, dv) (B, T, Hkv, D)."""
+    """K5's dk/dv on ``bwd_operands``, two kernels in one launch: one CTA
+    per (64-key tile, query head) writes that head's float32 dk and dv to a
+    workspace (2, B, T, Hq, D), then each kv head's group is summed in head
+    order and rounded to bf16 (deterministic, no atomics). Returns (dk, dv)
+    (B, T, Hkv, D)."""
     B, S, Hq, T, Hkv, D = _bwd_dims(ops)
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    ws = torch.empty((2, B, T, Hq, D), dtype=torch.float32, device=dk.device)
+    kernels.check_tensor("dk/dv workspace", ws, torch.float32, (2, B, T, Hq, D))
     kernels.launch("flash_attention_gqa_bwd_dkv", *(x.data_ptr() for x in ops), dk.data_ptr(),
-                   dv.data_ptr(), B, S, T, Hq, Hkv, D)
+                   dv.data_ptr(), ws.data_ptr(), B, S, T, Hq, Hkv, D)
     return dk, dv
 
 

@@ -14,7 +14,10 @@ rounded to bf16, per-group bf16 products summed in f32 and scaled in f32, the
 result rounded to bf16 and then cast to x's dtype. On a CUDA tensor that is
 K7 (``csrc/int4_matmul.cu``, built for groups of 128 rows); on the CPU, or
 with ``impl="torch"``, its plain version. Other shapes take JAX's fallback on
-every device: ``x @ dequantize(w, x.dtype)``.
+every device: ``x @ dequantize(w, x.dtype)``. K7 has two routes for the
+same function, chosen by the row count (``kernel_route``): decode (M <= 64)
+on ``csrc/int4_matmul.cu``'s mma.sync kernel, prefill on
+``csrc/int4_matmul_sm90.cu``'s wgmma kernel.
 
 K7 has no backward (JAX's Pallas call has none either; LoRA dequantizes the
 base before training), so the kernel route raises under autograd rather
@@ -36,6 +39,10 @@ from . import kernels
 # The one group size K7 is built for (the JAX package's default, and the
 # only one its quantizers use for the 7B and 72B models).
 KERNEL_GROUP = 128
+# From this many rows K7 takes its wgmma route: a 128-row tile then does
+# useful work on at least half its rows, and the decode shapes (M <= 16 at
+# the slice's batch sizes) keep the mma.sync route's 16-64-row tiles.
+WGMMA_MIN_ROWS = 65
 
 
 class Int4Linear:
@@ -123,18 +130,28 @@ def _operands(name, x2, w_p, scale=None):
     return xb, torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
 
 
+def kernel_route(M: int) -> str:
+    """K7's entry point for M rows: the mma.sync route (``int4_matmul``,
+    ``csrc/int4_matmul.cu``) up to WGMMA_MIN_ROWS - 1 rows, decode; the
+    warp-specialised wgmma route (``int4_matmul_wgmma``,
+    ``csrc/int4_matmul_sm90.cu``, 128-row tiles) from there on, prefill."""
+    return "int4_matmul_wgmma" if M >= WGMMA_MIN_ROWS else "int4_matmul"
+
+
 def int4_matmul(x2: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor, group: int,
                 impl: str = "auto") -> torch.Tensor:
-    """K7: (M, K) @ the packed (K/2, N) weight, bf16 out."""
+    """K7: (M, K) @ the packed (K/2, N) weight, bf16 out, by the route
+    ``kernel_route(M)`` picks."""
     if not kernels.use_kernel(x2, impl):
         return int4_matmul_torch(x2, w_p, scale, group)
     if group != KERNEL_GROUP:
         raise ValueError(f"int4_matmul: group {group} not built; the kernel is built for "
                          f"{KERNEL_GROUP}")
-    xb, out = _operands("int4_matmul", x2, w_p, scale)
+    name = kernel_route(x2.shape[0])
+    xb, out = _operands(name, x2, w_p, scale)
     M, K = xb.shape
-    kernels.launch("int4_matmul", xb.data_ptr(), w_p.data_ptr(), scale.data_ptr(),
-                   out.data_ptr(), M, K, w_p.shape[1], group)
+    kernels.launch(name, xb.data_ptr(), w_p.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
+                   w_p.shape[1], group)
     return out
 
 

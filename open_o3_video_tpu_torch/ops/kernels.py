@@ -8,8 +8,9 @@ beside the package, in a directory keyed by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused.
 
 ``LAUNCHES`` counts, per kernel entry point (the inference and the exact
-training modes of K1-K3 under their own names, K5 and K6 per kernel, K7 and
-its two K7a probes), the launches made by its wrapper; callers reset it with :func:`reset_launches`
+training modes of K1-K3 under their own names, K5 and K6 per kernel, K7's
+decode and prefill routes, and its two K7a probes), the launches made by its
+wrapper; callers reset it with :func:`reset_launches`
 to show which kernels a run went through.
 """
 
@@ -53,7 +54,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _P,
     ),
     "o3v_flash_attention_gqa_bwd_dq": (_P,) * 9 + (_I,) * 6 + (_P,),
-    "o3v_flash_attention_gqa_bwd_dkv": (_P,) * 10 + (_I,) * 6 + (_P,),
+    "o3v_flash_attention_gqa_bwd_dkv": (_P,) * 11 + (_I,) * 6 + (_P,),
     "o3v_fused_window_attention_bwd": (_P,) * 6 + (_I,) * 4 + (_F, _P),
     "o3v_window_attention_bwd_dq": (_P,) * 8 + (_I,) * 4 + (_F, _P),
     "o3v_window_attention_bwd_dkv": (_P,) * 9 + (_I,) * 4 + (_F, _P),
@@ -62,6 +63,7 @@ _SIGNATURES = {
         _LL, _LL, _LL, _LL, _P,
     ),
     "o3v_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "o3v_int4_matmul_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "o3v_int4_matmul_stream": (_P, _P, _P, _I, _I, _I, _P),
     "o3v_int4_matmul_convert": (_P, _P, _P, _I, _I, _I, _P),
 }

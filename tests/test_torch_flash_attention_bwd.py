@@ -115,11 +115,34 @@ def test_inference_calls_keep_the_fixed_m_forward():
     torch.testing.assert_close(exact.detach(), fixed, atol=ATOL_OP, rtol=0)
 
 
+def test_dkv_wrapper_passes_a_float32_workspace(monkeypatch):
+    """K5's dk/dv wrapper allocates the per-head float32 partials (2, B, T,
+    Hq, D) and hands them to its one launch (stubbed here)."""
+    from open_o3_video_tpu_torch.ops import kernels
+
+    checked, launched = [], []
+    monkeypatch.setattr(kernels, "check_tensor", lambda name, x, *rest: checked.append((name, x)))
+    monkeypatch.setattr(kernels, "launch", lambda name, *args: launched.append((name, args)))
+    bf = torch.bfloat16
+    ops = (torch.zeros(B, S, HQ, D, dtype=bf), torch.zeros(B, T, HKV, D, dtype=bf),
+           torch.zeros(B, T, HKV, D, dtype=bf), torch.zeros(B, S, HQ, D, dtype=bf),
+           torch.zeros(B, HQ, S), torch.zeros(B, HQ, S), torch.zeros(B, S, dtype=torch.int32),
+           torch.ones(B, T, dtype=torch.int32))
+    dk, dv = tfa.flash_attention_gqa_bwd_dkv(ops)
+    ws = [x for name, x in checked if "workspace" in name]
+    assert len(ws) == 1 and ws[0].dtype == torch.float32
+    assert tuple(ws[0].shape) == (2, B, T, HQ, D)
+    assert len(launched) == 1 and launched[0][0] == "flash_attention_gqa_bwd_dkv"
+    assert ws[0].data_ptr() in launched[0][1]
+    assert dk.shape == dv.shape == (B, T, HKV, D) and dk.dtype == bf
+
+
 # ---- on the card: kernel vs plain version, bf16 --------------------------
 
 # (B, S, T, Hq, Hkv, left padding of row 1): the SFT slice's one packed
-# example (S = T, right-padded keys), and a small ragged case.
-CUDA_CASES = [(1, 3456, 3456, 28, 4, 0), (2, 77, 150, 14, 2, 9)]
+# example (S = T, right-padded keys), a small ragged case, and the 7B's 7
+# heads per kv head with T off the 64-key tile (row 1's first positions -1).
+CUDA_CASES = [(1, 3456, 3456, 28, 4, 0), (2, 77, 150, 14, 2, 9), (2, 200, 213, 28, 4, 13)]
 
 
 # dout at 0.1: gradients then stay under ~1 in magnitude, where one bf16 ulp
@@ -168,3 +191,6 @@ def test_backward_kernels_match_plain(B, S, T, Hq, Hkv, pad):
     for a, b in zip(got, ref):
         assert torch.isfinite(a.float()).all()
         assert_kernel_close(a, b)
+    # dk/dv: per-head partials summed in a fixed order, no atomics
+    again = tfa.flash_attention_gqa_bwd(q, k, v, pos, valid, out, lse, do)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])

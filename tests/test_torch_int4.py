@@ -130,25 +130,57 @@ def test_quantize_params_int4_matches_jax():
     assert isinstance(ours["visual"]["blocks"][0]["qkv_w"], torch.Tensor)
 
 
+@pytest.mark.parametrize("M,route", [(1, "int4_matmul"), (64, "int4_matmul"),
+                                     (65, "int4_matmul_wgmma"), (5878, "int4_matmul_wgmma")])
+def test_kernel_route_by_rows(M, route):
+    """Decode row counts keep the mma.sync entry point, prefill ones (the 7B
+    slice's 2 x 2939 rows) take the wgmma one."""
+    assert T.kernel_route(M) == route
+
+
+@pytest.mark.parametrize("M", [64, 65])
+def test_int4_matmul_launches_the_route_it_picks(monkeypatch, M):
+    """The wrapper launches exactly the entry point ``kernel_route`` names,
+    once, with K7's operands (the launch itself is stubbed here)."""
+    from open_o3_video_tpu_torch.ops import kernels
+
+    launched = []
+    monkeypatch.setattr(kernels, "use_kernel", lambda x, impl: True)
+    monkeypatch.setattr(kernels, "check_tensor", lambda *args: None)
+    monkeypatch.setattr(kernels, "launch", lambda name, *args: launched.append((name, args)))
+    w = T.quantize_weight_int4(torch.randn(256, 128))
+    out = T.int4_matmul(torch.randn(M, 256), w.w_p, w.scale, w.group)
+    assert out.shape == (M, 128) and out.dtype == torch.bfloat16
+    assert [name for name, _ in launched] == [T.kernel_route(M)]
+    assert launched[0][1][4:] == (M, 256, 128, 128)
+
+
 # ---- on the card --------------------------------------------------------------
 
 
 # (M, K, N): decode rows (one 16-row tile), a 2-tile M, a prefill-sized M
 # with a ragged last tile, and an odd group count (3) as the 72B down_w's 231.
+# Then the wgmma route: its first row counts (65, 128), 7 groups (odd) at
+# M = 1000 with 3 column tiles, and the 72B down_w's 231 groups at a small M.
 # Inputs are scaled so outputs have std ~0.25: below 2, one bf16 ulp flipped
 # by the summation order stays within the bound of assert_kernel_close.
-CARD_SHAPES = [(2, 512, 256), (20, 256, 384), (300, 384, 512), (4, 384, 128)]
+CARD_SHAPES = [(2, 512, 256), (20, 256, 384), (300, 384, 512), (4, 384, 128),
+               (65, 256, 256), (128, 384, 128), (1000, 896, 384), (80, 29568, 256)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", CARD_SHAPES)
 def test_int4_kernel_matches_plain(M, K, N):
+    from open_o3_video_tpu_torch.ops import kernels
+
     dev = cuda_device()
     gen = torch.Generator(device=dev).manual_seed(M + K + N)
     w = T.quantize_weight_int4(0.25 / K ** 0.5 * torch.randn(K, N, generator=gen, device=dev))
     x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    kernels.reset_launches()
     out = T.int4_matmul(x, w.w_p, w.scale, w.group)
     torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {T.kernel_route(M): 1}
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
     assert_kernel_close(out, T.int4_matmul_torch(x, w.w_p, w.scale, w.group))
     # no atomics, a fixed summation order: the same bits twice
