@@ -9,7 +9,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      shapes, bf16 on the card: max abs error vs a bound at the reference's
      scale and relative L2 error vs a bound (faults planted in K4's output
      must fail them), and times (CUDA events, warmup, median of 20, kernel
-     and plain in turns);
+     and plain in turns); K2 also at frames of 32x32 patches (W = 1024,
+     past its resident limit: K and V stream);
   4. the serving slice at the full width of Qwen2.5-VL-7B (random bf16
      weights drawn on the card from --seed): 2 requests of 16 synthetic
      252x336 frames, processor -> InferenceEngine.generate with the reference
@@ -34,7 +35,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      and each against a float32 step (SLICE_REL_RATIO), and identical
      tokens from two runs of (a).
   8. the training kernels against their plain versions at the SFT slice's
-     shapes: the exact (training) modes of K1-K3, out and lse; K5 (dq; dk
+     shapes: the exact (training) modes of K1-K3, out and lse (K2's also at
+     W = 1024); K5 (dq; dk
      and dv) and K6 (fused dqkv; the global blocks' dq; dk and dv), with
      their bounds and the time of one PyTorch call computing the same
      function; faults planted in K5's and K6's outputs must fail the bound;
@@ -48,9 +50,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      layers: loss and gradients of the kernel path and the plain bf16 path
      against float32, per group (ViT, decoder, embedding and lm_head).
  11. K7, the int4 matmul, against its plain version (bf16, the bound of
-     phase 3) by the route its row count takes: decode (M <= 64, mma.sync)
-     at the 7B gate_w, the 7B lm_head and the 72B down_w; prefill (wgmma)
-     at the 7B gate_w and k_w and the 72B down_w (231 groups). Each with
+     phase 3) by the route its row count takes: decode (M <= 64, split-K)
+     at the 7B gate_w, lm_head, k_w (N = 512) and down_w (K = 18944) and the
+     72B down_w (231 groups), k_w and gate_w; prefill (wgmma) at the 7B
+     gate_w and k_w and the 72B down_w (231 groups). Each with
      the bound, the bf16 torch.matmul on the dequantized weight and
      torch._weight_int4pack_mm on the same codes as yardsticks, and the
      same bits from two calls; two planted faults (nibbles swapped, scales
@@ -218,6 +221,8 @@ PROBE_KERNELS = ("int4_matmul_stream", "int4_matmul_convert", "int4_matmul")
 # L tokens; M 3984: the judge's prefill, 4 jobs of up to 996 tokens.
 INT4_CASES = (("7B decode gate_w", 2, 3584, 18944), ("7B prefill gate_w", None, 3584, 18944),
               ("7B decode lm_head", 2, 3584, 152064), ("72B decode down_w", 4, 29568, 8192),
+              ("7B decode k_w", 2, 3584, 512), ("7B decode down_w", 2, 18944, 3584),
+              ("72B decode k_w", 4, 8192, 1024), ("72B decode gate_w", 4, 8192, 29568),
               ("7B prefill k_w", None, 3584, 512), ("72B prefill down_w", 3984, 29568, 8192))
 # The K7a probes' shape and chain (scripts/profile_int4_kernel_parts.py:
 # 3584 -> 18944 at M = 16, a scan over distinct weights).
@@ -400,6 +405,23 @@ def segment_mask(ids):
     return ((g[:, :, None] == g[:, None, :]) & (g[:, None, :] != 0))[:, None]
 
 
+# K2's frames: the slice's 18x24 patches (W = 448, its K/V resident) and
+# 32x32 (W = 1024, a 448x448 frame, streamed); the first gives K2's row.
+K2_FRAME_GRIDS = ((18, 24), (32, 32))
+
+
+def frame_inputs(dev, gen, v, grid_hw, scale=1.0):
+    """Segment ids (N_FRAMES, W) of whole frames of grid_hw patches and
+    random bf16 q, k, v and dout (dout at `scale`, 0 at pad rows)."""
+    spec = compute_vision_spec([(1, *grid_hw)] * N_FRAMES, v)
+    ids = torch.from_numpy(spec.padded_valid.reshape(-1, spec.frame_w).astype(np.int32)).to(dev)
+    q, k, vv, do = (torch.randn((*ids.shape, v.num_heads, v.head_dim), generator=gen, device=dev)
+                    for _ in range(4))
+    do = (scale * do).to(torch.bfloat16)
+    do[ids == 0] = 0  # the tower never reads a pad row
+    return ids, q.to(torch.bfloat16), k.to(torch.bfloat16), vv.to(torch.bfloat16), do
+
+
 def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
     v = cfg.vision
@@ -426,18 +448,17 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
                 flops=4 * segment_pairs(ids) * v.num_heads * v.head_dim,
                 moved=nbytes(qkv, cos, sin, ids) + out_bytes,
                 library_fn=lambda: sdpa_masked(rq, rk, rv, seg))
-        if grid_hw == (18, 24):
-            frame_ids = torch.from_numpy(
-                spec.padded_valid.reshape(-1, spec.frame_w).astype(np.int32)).to(dev)
-            q, k, vv = (bf16(*frame_ids.shape, v.num_heads, v.head_dim) for _ in range(3))
-            fseg = segment_mask(frame_ids)
-            compare("window_attention",
-                    lambda: wa.window_attention(q, k, vv, frame_ids),
-                    lambda: wa.window_attention_torch(q, k, vv, frame_ids),
-                    frame_ids != 0, results,
-                    flops=4 * segment_pairs(frame_ids) * v.num_heads * v.head_dim,
-                    moved=nbytes(q, k, vv, frame_ids) + nbytes(q),
-                    library_fn=lambda: sdpa_masked(q, k, vv, fseg))
+    for grid_hw in K2_FRAME_GRIDS:
+        frame_ids, q, k, vv, _ = frame_inputs(dev, gen, v, grid_hw)
+        fseg = segment_mask(frame_ids)
+        compare("window_attention",
+                lambda: wa.window_attention(q, k, vv, frame_ids),
+                lambda: wa.window_attention_torch(q, k, vv, frame_ids),
+                frame_ids != 0, results,
+                flops=4 * segment_pairs(frame_ids) * v.num_heads * v.head_dim,
+                moved=nbytes(q, k, vv, frame_ids) + nbytes(q),
+                library_fn=lambda: sdpa_masked(q, k, vv, fseg))
+        del q, k, vv, fseg
 
     t = cfg.text
     B, S = len(batch_rows), max(batch_rows)
@@ -869,19 +890,25 @@ def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
             no_rope.reshape(qkv.shape).to(qkv.dtype), ref, None)
     del qkv, do, rq, rk, rv, q0, k0, v0, no_rope
 
-    frame_ids = torch.from_numpy(spec.padded_valid.reshape(-1, spec.frame_w).astype(np.int32)).to(dev)
-    q, k, vv = (bf16(*frame_ids.shape, H, D) for _ in range(3))
-    do = bf16(*frame_ids.shape, H, D, scale=DOUT_SCALE)
-    do[frame_ids == 0] = 0
+    slice_frames = None
+    for grid_hw in K2_FRAME_GRIDS:
+        frame_ids, q, k, vv, do = case = frame_inputs(dev, gen, v, grid_hw, DOUT_SCALE)
+        if slice_frames is None:  # the slice's frames, for K6 below
+            slice_frames = case
+        fseg = segment_mask(frame_ids)
+        valid_rows = (frame_ids != 0)[:, None, :].expand(-1, H, -1)
+        compare("window_attention_exact",
+                lambda: wa.window_attention_exact(q, k, vv, frame_ids),
+                lambda: wa.window_attention_exact_torch(q, k, vv, frame_ids),
+                (frame_ids != 0, valid_rows), results,
+                flops=4 * segment_pairs(frame_ids) * H * D,
+                moved=nbytes(q, k, vv, frame_ids, q) + 4 * q.numel() // D,
+                library_fn=lambda: sdpa_masked(q, k, vv, fseg))
+        del case, q, k, vv, do, fseg
+    frame_ids, q, k, vv, do = slice_frames
+    del slice_frames
     fseg = segment_mask(frame_ids)
     fpairs = segment_pairs(frame_ids) * H * D
-    valid_rows = (frame_ids != 0)[:, None, :].expand(-1, H, -1)
-    compare("window_attention_exact",
-            lambda: wa.window_attention_exact(q, k, vv, frame_ids),
-            lambda: wa.window_attention_exact_torch(q, k, vv, frame_ids),
-            (frame_ids != 0, valid_rows), results, flops=4 * fpairs,
-            moved=nbytes(q, k, vv, frame_ids, q) + 4 * q.numel() // D,
-            library_fn=lambda: sdpa_masked(q, k, vv, fseg))
     out, lse = wa.window_attention_exact(q, k, vv, frame_ids)
     ops = wa.bwd_operands(q, k, vv, frame_ids, out, lse, do)
     ins = nbytes(*ops)

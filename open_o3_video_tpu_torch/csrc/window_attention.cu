@@ -9,21 +9,47 @@
 // where ids_q == ids_k != 0 (several packed edge windows share a row), and
 // writes (N, W, H*D) bf16 at lane offset h*D: the layout the output
 // projection reads. Nothing but qkv in and attn out touches device memory.
+// At W = 64 it does about 33 FLOP per byte of qkv read, far under the ~295
+// FLOP/byte at which bf16 tensor cores become the limit, so it is bound by
+// device-memory bytes; one CTA per (64-row query tile, head, row), mma.sync
+// bf16 tiles, scores in registers.
 //
 // K2 window_attention replaces ops/window_attention.py _fwd_kernel (the 4
-// global blocks, over whole frames). Same masked attention on q/k/v
-// (N, W, H, D) bf16, no rope. The TPU kernel holds the whole W x W score tile
-// and falls back to XLA past a size limit; here the keys stream through
-// shared memory in 64-row tiles, and with the fixed-m softmax no rescale is
-// needed, so every width W runs.
-//
-// What bounds them on the H100: at the slice's shapes they move little and
-// compute little. K1 at W = 64 does about 33 FLOP per byte of qkv read, far
-// under the ~295 FLOP/byte at which bf16 tensor cores become the limit, so it
-// is bound by device-memory bytes; the design reads qkv exactly once, fuses
-// the rope, and keeps scores in registers. K2 at W = 448 re-reads each
-// frame's K/V once per 64-row query tile, from L2 (a frame's K/V is ~1.8 MB).
-// One CTA per (query tile, head, row); mma.sync bf16 tiles, no TMA or wgmma.
+// global blocks, over whole frames: W = 448, 432 valid, at 18x24 patches).
+// Same masked attention on q/k/v (N, W, H, D) bf16, no rope. The TPU kernel
+// holds the whole W x W score tile and falls back to XLA past a size limit;
+// here every width W runs. A frame-head's K and V are read once and kept:
+// - A CTA serves one (frame, head) with 14 consumer warps of 16 query rows
+//   each (the 28 strips of W = 448 in two rounds) and a producer warp (two
+//   CTAs per frame-head, each loading K/V for half the rows, ran slower). Its frame-head's K and V (2 x 448 x 80 bf16 at W = 448)
+//   stay resident in dynamic shared memory, loaded once by TMA in 64-key
+//   tiles, one mbarrier per tile, so the first tile's products start while
+//   later tiles land. Each warp walks its query rows against the resident
+//   tiles; no __syncthreads after the start.
+// - The exact mode's first pass (max and sum) waits for the K tiles only,
+//   and its second (p / l -> bf16 -> PV) reads the same tiles: K and V leave
+//   device memory once.
+// - Tiles are rows of D + 8 = 88 bf16 (176 bytes), so the ldmatrix loads of
+//   the mma.sync fragments are conflict-free: the TMA box is 88 columns wide
+//   from the head's first column and brings 8 columns of the next head (or
+//   zeros past the last) that nothing reads. Rows past W are zero-filled by
+//   the TMA and masked by their key tags.
+// - With K/V resident the time is the warps' own: the products, the
+//   exponentials and their latency. So a warp takes a tile in two 32-key
+//   halves, unrolled so that one half's exponentials overlap the other's
+//   products within the 136 registers that 15 warps allow, reads K and V
+//   fragments by ldmatrix (x4: two n-tiles at once; V transposed), keeps
+//   scores in log2 units (one multiply before ex2.approx) and its key tags
+//   in registers.
+// - Past 10 tiles (W > 640) K and V do not fit; the same kernel then streams
+//   them through a ring of 8 tile slots that the producer refills as the
+//   consumer warps free them, each CTA covering 8 strips of 16 query rows.
+//   The exact mode then reads K twice.
+// At the slice's shapes the products and the exponentials set the time (~60
+// MFLOP and ~0.19M exponentials per frame-head, against ~0.29 MB of q, k, v
+// and out); the exact mode's two passes compute the scores and exponentials
+// twice. wgmma is later work.
+#include "async_copy.cuh"
 #include "attention_tile.cuh"
 
 namespace o3v {
@@ -64,41 +90,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   bf16* ob = out + static_cast<long long>(n) * w * hd + h * D;
   store_rows<D>(acc, l, q0, w, [&](int row) { return ob + static_cast<long long>(row) * hd; });
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    window_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const int* __restrict__ ids,
-                            bf16* __restrict__ out, int w, int heads, float scale) {
-  __shared__ __align__(16) Tile<D> sk;
-  __shared__ __align__(16) Tile<D> sv;
-  __shared__ int skey[kKeys];
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, n = blockIdx.z;
-  const long long row_stride = static_cast<long long>(heads) * D;
-  const long long off = static_cast<long long>(n) * w * row_stride + h * D;
-  const int* id = ids + static_cast<long long>(n) * w;
-
-  load_tile<D>(sk, q + off, row_stride, q0, w);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  load_q_frags<D>(qa, sk);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = q0 + warp * 16 + (lane >> 2);
-  const int row_tag[2] = {r < w ? id[r] : 0, r + 8 < w ? id[r + 8] : 0};
-
-  float acc[D / 8][4] = {};
-  float l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < w; k0 += kKeys) {
-    __syncthreads();
-    load_tile<D>(sk, k + off, row_stride, k0, w);
-    load_tile<D>(sv, v + off, row_stride, k0, w);
-    if (threadIdx.x < kKeys) skey[threadIdx.x] = k0 + threadIdx.x < w ? id[k0 + threadIdx.x] : 0;
-    __syncthreads();
-    attend_tile<D, false>(qa, sk, sv, skey, k0, row_tag, scale, acc, l);
-  }
-  bf16* ob = out + off;
-  store_rows<D>(acc, l, q0, w, [&](int row) { return ob + row * row_stride; });
 }
 
 // Exact mode (training): the JAX kernels with exact=True, p = exp(s - m) / l
@@ -220,42 +211,285 @@ __global__ void __launch_bounds__(kThreads)
                  [&](int row) { return ob + static_cast<long long>(row) * hd; });
 }
 
+// ---- K2: a frame-head's K and V resident in shared memory ------------------
+
+constexpr int kWWarps = 14;                    // consumer warps, 16 query rows each
+constexpr int kWThreads = 32 * (kWWarps + 1);  // and one producer warp
+constexpr int kRing = 8;                       // tile slots when K and V stream
+constexpr int kSmemMax = 232448;               // all a block may have
+constexpr int kAlign = 128;                    // TMA destinations: 128-byte aligned
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    window_attention_exact_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, const int* __restrict__ ids,
-                                  bf16* __restrict__ out, float* __restrict__ lse, int w,
-                                  int heads, float scale) {
-  __shared__ __align__(16) Tile<D> sk;
-  __shared__ __align__(16) Tile<D> sv;
-  __shared__ int skey[kKeys];
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, n = blockIdx.z;
+constexpr int kTileBytes = static_cast<int>(sizeof(Tile<D>));
+
+// Shared memory of a K2 CTA: `slots` K tiles, `slots` V tiles, the key tags
+// of all `tiles` tiles, and 2 * slots mbarriers (resident: K and V of each
+// tile; streaming: full and empty of each slot), after the alignment slack.
+template <int D>
+constexpr int window_smem(int tiles, int slots) {
+  return kAlign + 2 * slots * kTileBytes<D> + tiles * kKeys * 4 + 2 * slots * 8;
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8. TRANS: each matrix transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(async::smem_u32(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(async::smem_u32(p)));
+}
+
+constexpr int kHalf = kKeys / 2;  // keys per step: a tile in two halves
+constexpr int kHalfN = kHalf / 8;  // 8-key n-tiles of a half
+constexpr float kLog2e = 1.4426950408889634f;
+
+// s = q (this warp's 16 rows) @ K^T over keys k0 .. k0 + 31 of a tile: the K
+// fragments of two 8-key n-tiles and one 16-wide d-step per ldmatrix.
+template <int D>
+__device__ __forceinline__ void k2_scores(float (&s)[kHalfN][4], const uint32_t (&qa)[D / 16][4],
+                                          const Tile<D>& sk, int k0) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < kHalfN; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < kHalfN / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4<false>(b, &sk[k0 + (2 * np + (mat >> 1)) * 8 + r][kk * 16 + (mat & 1) * 8]);
+      mma_16816(s[2 * np], qa[kk], b[0], b[1]);
+      mma_16816(s[2 * np + 1], qa[kk], b[2], b[3]);
+    }
+}
+
+// acc += bf16(p) @ V over keys k0 .. k0 + 31: the V fragments of two 8-wide
+// d-tiles and one 16-key step per transposed ldmatrix.
+template <int D>
+__device__ __forceinline__ void k2_pv(float (&acc)[D / 8][4], const float (&p)[kHalfN][4],
+                                      const Tile<D>& sv, int k0) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kt = 0; kt < kHalfN / 2; ++kt) {
+    const uint32_t pa[4] = {pack_bf16x2(p[2 * kt][0], p[2 * kt][1]),
+                            pack_bf16x2(p[2 * kt][2], p[2 * kt][3]),
+                            pack_bf16x2(p[2 * kt + 1][0], p[2 * kt + 1][1]),
+                            pack_bf16x2(p[2 * kt + 1][2], p[2 * kt + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4<true>(b, &sv[k0 + kt * 16 + (mat & 1) * 8 + r][(2 * dp + (mat >> 1)) * 8]);
+      mma_16816(acc[2 * dp], pa, b[0], b[1]);
+      mma_16816(acc[2 * dp + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// This thread's key tags of a half: columns 8 nt + 2t + (e & 1) from stag.
+__device__ __forceinline__ void k2_tags(int2 (&tag)[kHalfN], const int* stag) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < kHalfN; ++nt) tag[nt] = *reinterpret_cast<const int2*>(stag + nt * 8 + 2 * t);
+}
+
+// 2^x by the SFU (ex2.approx, relative error ~2^-22, far under the bf16
+// rounding of p that follows; results below 2^-126 flush to 0).
+__device__ __forceinline__ float k2_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Query rows [16 strip, 16 strip + 16) of (frame n, head h): a strip per warp
+// at a time. RESIDENT: all n_tiles K/V tiles were loaded once (barrier tile
+// for K, n_tiles + tile for V, each completing once). Otherwise: load i of
+// the producer's sequence (tiles 0..n_tiles-1 once, twice in exact mode: K
+// alone, then K and V) sits in slot i % ring, on barrier slot (full) and
+// ring + slot (empty, one arrive per consumer warp).
+template <int D, bool EXACT, bool RESIDENT>
+__global__ void __launch_bounds__(kWThreads, 1)
+    window_attention_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const bf16* __restrict__ q, const int* __restrict__ ids,
+                                bf16* __restrict__ out, float* __restrict__ lse, int w, int heads,
+                                float scale, int n_tiles, int ring) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = async::smem_u32(smem_raw);
+  const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
+  uint8_t* gbase = smem_raw + (base - raw);
+  Tile<D>* sk = reinterpret_cast<Tile<D>*>(gbase);
+  Tile<D>* sv = sk + ring;
+  int* stag = reinterpret_cast<int*>(sv + ring);
+  const uint32_t bars = base + 2 * ring * kTileBytes<D> + n_tiles * kKeys * 4;
+  auto bar = [&](int i) { return bars + 8 * i; };
+
+  const int h = blockIdx.y, n = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strips = (w + 15) / 16;
+  // this CTA's strips: all of the frame-head's (resident), or kWWarps
+  const int first = RESIDENT ? 0 : blockIdx.x * kWWarps;
+  const int last = RESIDENT ? strips : min(strips, first + kWWarps);
+  const int* id = ids + static_cast<long long>(n) * w;
+  for (int i = threadIdx.x; i < n_tiles * kKeys; i += kWThreads) stag[i] = i < w ? id[i] : (EXACT ? -1 : 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ring; ++i) {
+      async::mbar_init(bar(i), 1);
+      async::mbar_init(bar(ring + i), RESIDENT ? 1 : min(kWWarps, last - first));
+    }
+    async::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int loads = (EXACT ? 2 : 1) * n_tiles;
+  if (warp == kWWarps) {  // ---- producer: TMA loads of 64-key tiles --------
+    if (lane != 0) return;
+    for (int i = 0; i < (RESIDENT ? 2 * n_tiles : loads); ++i) {
+      int tile, slot;
+      bool with_k = true, with_v = true;
+      uint32_t b;
+      if constexpr (RESIDENT) {  // exact mode: all K tiles first, its first pass needs no V
+        with_k = EXACT ? i < n_tiles : (i & 1) == 0;
+        with_v = !with_k;
+        tile = slot = EXACT ? i % n_tiles : i / 2;
+        b = bar(with_k ? tile : n_tiles + tile);
+      } else {
+        tile = i % n_tiles;
+        slot = i % ring;
+        with_v = !EXACT || i >= n_tiles;
+        b = bar(slot);
+        if (i >= ring) async::mbar_wait(bar(ring + slot), (i / ring - 1) & 1);
+      }
+      async::mbar_expect_tx(b, (with_k + with_v) * kTileBytes<D>);
+      if (with_k) async::tma_load_3d(async::smem_u32(sk + slot), &tm_k, b, h * D, tile * kKeys, n);
+      if (with_v) async::tma_load_3d(async::smem_u32(sv + slot), &tm_v, b, h * D, tile * kKeys, n);
+    }
+    return;
+  }
+
+  // ---- consumers ---------------------------------------------------------
+  // load i of the sequence: wait for its K (and V) and return its slot
+  auto acquire = [&](int i, bool need_v) {
+    const int tile = i % n_tiles;
+    if constexpr (RESIDENT) {
+      async::mbar_wait(bar(tile), 0);
+      if (need_v) async::mbar_wait(bar(n_tiles + tile), 0);
+      return tile;
+    } else {
+      async::mbar_wait(bar(i % ring), (i / ring) & 1);
+      return i % ring;
+    }
+  };
+  auto release = [&](int slot) {
+    if constexpr (!RESIDENT) {
+      __syncwarp();
+      if (lane == 0) async::mbar_arrive(bar(ring + slot));
+    }
+  };
+  const int g = lane >> 2, t = lane & 3;
   const long long row_stride = static_cast<long long>(heads) * D;
   const long long off = static_cast<long long>(n) * w * row_stride + h * D;
-  const int* id = ids + static_cast<long long>(n) * w;
-
-  load_tile<D>(sk, q + off, row_stride, q0, w);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  load_q_frags<D>(qa, sk);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = q0 + warp * 16 + (lane >> 2);
-  const int row_tag[2] = {r < w ? id[r] : -2, r + 8 < w ? id[r + 8] : -2};
-
-  float acc[D / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  window_exact_rows<D>(qa, sk, sv, skey, w, row_tag, scale, acc, m, l, [&](int k0) {
-    load_tile<D>(sk, k + off, row_stride, k0, w);
-    load_tile<D>(sv, v + off, row_stride, k0, w);
-    if (threadIdx.x < kKeys) skey[threadIdx.x] = k0 + threadIdx.x < w ? id[k0 + threadIdx.x] : -1;
-  });
-  bf16* ob = out + off;
-  store_frags<D>(acc, 1.f, q0 + warp * 16, w, [&](int row) { return ob + row * row_stride; });
-  if ((lane & 3) == 0) {
-    float* lb = lse + (static_cast<long long>(n) * heads + h) * w;
+  for (int strip = first + warp; strip < last; strip += kWWarps) {
+    const int r = strip * 16 + g;
+    uint32_t qa[D / 16][4];
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
-      if (r + 8 * half < w) lb[r + 8 * half] = m[half] + logf(l[half]);
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = r + 8 * (j & 1);
+        qa[kk][j] = row < w ? __ldg(reinterpret_cast<const unsigned*>(
+                                  q + off + row * row_stride + kk * 16 + 2 * t + 8 * (j >> 1)))
+                            : 0u;
+      }
+    const int row_tag[2] = {r < w ? stag[r] : (EXACT ? -2 : 0), r + 8 < w ? stag[r + 8] : (EXACT ? -2 : 0)};
+    float acc[D / 8][4] = {};
+    bf16* ob = out + off;
+    float s[kHalfN][4];
+    int2 tag[kHalfN];
+    const float scale2 = scale * kLog2e;  // scores in log2 units: exp(x) = 2^(x log2 e)
+    if constexpr (!EXACT) {  // p = exp(min(s, 60)) where the ids match
+      const bool row_ok[2] = {row_tag[0] != 0, row_tag[1] != 0};
+      float l[2] = {0.f, 0.f};
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int slot = acquire(kt, true);
+#pragma unroll
+        for (int k0 = 0; k0 < kKeys; k0 += kHalf) {
+          k2_scores<D>(s, qa, sk[slot], k0);
+          k2_tags(tag, stag + kt * kKeys + k0);
+#pragma unroll
+          for (int nt = 0; nt < kHalfN; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int half = e >> 1, key = e & 1 ? tag[nt].y : tag[nt].x;
+              const float p = row_ok[half] && key == row_tag[half]
+                                  ? k2_exp2(fminf(s[nt][e] * scale2, kClamp * kLog2e)) : 0.f;
+              l[half] += p;
+              s[nt][e] = p;
+            }
+          k2_pv<D>(acc, s, sv[slot], k0);
+        }
+        release(slot);
+      }
+      // store_rows counts rows from 16 * warp
+      store_rows<D>(acc, l, (strip - warp) * 16, w, [&](int row) { return ob + row * row_stride; });
+    } else {  // pass 0: max m and sum l; pass 1: exp(s - m) / l -> bf16 -> PV
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, inv_l[2];
+      for (int i = 0; i < loads; ++i) {
+        const bool pass1 = i >= n_tiles;
+        const int kt = i % n_tiles;
+        const int slot = acquire(i, pass1);
+#pragma unroll
+        for (int k0 = 0; k0 < kKeys; k0 += kHalf) {
+          k2_scores<D>(s, qa, sk[slot], k0);
+          k2_tags(tag, stag + kt * kKeys + k0);
+          float tmax[2] = {kNegInf, kNegInf};
+#pragma unroll
+          for (int nt = 0; nt < kHalfN; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int half = e >> 1, key = e & 1 ? tag[nt].y : tag[nt].x;
+              s[nt][e] = visible<kSegment>(row_tag[half], key, 0)
+                             ? score<kSegment>(s[nt][e], row_tag[half], scale2) : kNegInf;
+              tmax[half] = fmaxf(tmax[half], s[nt][e]);
+            }
+          if (!pass1) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const float m_new = fmaxf(m[half], quad_max(tmax[half]));
+              l[half] *= k2_exp2(m[half] - m_new);
+              m[half] = m_new;
+            }
+#pragma unroll
+            for (int nt = 0; nt < kHalfN; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (s[nt][e] != kNegInf) l[e >> 1] += k2_exp2(s[nt][e] - m[e >> 1]);
+          } else {
+#pragma unroll
+            for (int nt = 0; nt < kHalfN; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[nt][e] = s[nt][e] != kNegInf ? k2_exp2(s[nt][e] - m[e >> 1]) * inv_l[e >> 1] : 0.f;
+            k2_pv<D>(acc, s, sv[slot], k0);
+          }
+        }
+        if (i == n_tiles - 1)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            l[half] = quad_sum(l[half]);
+            inv_l[half] = 1.f / l[half];
+          }
+        release(slot);
+      }
+      store_frags<D>(acc, 1.f, strip * 16, w, [&](int row) { return ob + row * row_stride; });
+      if (t == 0) {
+        float* lb = lse + (static_cast<long long>(n) * heads + h) * w;
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          if (r + 8 * half < w) lb[r + 8 * half] = (m[half] + log2f(l[half])) / kLog2e;
+      }
+    }
   }
 }
 
@@ -271,17 +505,6 @@ cudaError_t launch_fused(const void* qkv, const void* cos, const void* sin, cons
 }
 
 template <int D>
-cudaError_t launch_window(const void* q, const void* k, const void* v, const void* ids, void* out,
-                          int n, int w, int heads, float scale, cudaStream_t stream) {
-  const dim3 grid((w + kRows - 1) / kRows, heads, n);
-  window_attention_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(ids), static_cast<bf16*>(out), w, heads, scale);
-  return cudaGetLastError();
-}
-
-
-template <int D>
 cudaError_t launch_fused_exact(const void* qkv, const void* cos, const void* sin, const void* ids,
                                void* out, int n, int w, int heads, float scale,
                                cudaStream_t stream) {
@@ -293,22 +516,55 @@ cudaError_t launch_fused_exact(const void* qkv, const void* cos, const void* sin
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_window_exact(const void* q, const void* k, const void* v, const void* ids,
-                                void* out, void* lse, int n, int w, int heads, float scale,
-                                cudaStream_t stream) {
-  const dim3 grid((w + kRows - 1) / kRows, heads, n);
-  window_attention_exact_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(ids), static_cast<bf16*>(out), static_cast<float*>(lse), w, heads,
-      scale);
+// K2's launch: the tensor maps of k and v (dims {H*D, W, N}, 88-column
+// boxes of 64 keys), then the resident kernel where the frame-head's tiles
+// fit (one CTA per frame-head), else the streaming one.
+template <int D, bool EXACT>
+cudaError_t launch_window_tma(const void* q, const void* k, const void* v, const void* ids, void* out,
+                              void* lse, int n, int w, int heads, float scale, cudaStream_t stream) {
+  const async::EncodeTiled encode = async::encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm[2];
+  const void* src[2] = {k, v};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * D, static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint32_t box[3] = {D + kPad, kKeys, 1}, unit[3] = {1, 1, 1};
+  for (int i = 0; i < 2; ++i)
+    if (encode(&tm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(src[i]), dims, strides,
+               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  if (w < 1) return cudaErrorInvalidValue;
+  static bool smem_set = false;  // the attribute is per function; set it once
+  if (!smem_set) {
+    cudaError_t err = allow_smem(window_attention_tma_kernel<D, EXACT, true>, kSmemMax);
+    if (err == cudaSuccess) err = allow_smem(window_attention_tma_kernel<D, EXACT, false>, kSmemMax);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int tiles = (w + kKeys - 1) / kKeys, strips = (w + 15) / 16;
+  const bool resident = window_smem<D>(tiles, tiles) <= kSmemMax;
+  int ring = tiles, ctas = 1;
+  if (!resident) {
+    ring = kRing;
+    while (ring > 2 && window_smem<D>(tiles, ring) > kSmemMax) --ring;
+    if (window_smem<D>(tiles, ring) > kSmemMax) return cudaErrorInvalidValue;  // W past ~14000
+    ctas = (strips + kWWarps - 1) / kWWarps;
+  }
+  const int smem = window_smem<D>(tiles, ring);
+  auto kernel = resident ? window_attention_tma_kernel<D, EXACT, true>
+                         : window_attention_tma_kernel<D, EXACT, false>;
+  kernel<<<dim3(ctas, heads, n), kWThreads, smem, stream>>>(
+      tm[0], tm[1], static_cast<const bf16*>(q), static_cast<const int*>(ids), static_cast<bf16*>(out),
+      static_cast<float*>(lse), w, heads, scale, tiles, ring);
   return cudaGetLastError();
 }
 
 }  // namespace o3v
 
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError()
-// after the launch: 0 on success. Both are built for the vision tower's
+// after the launch: 0 on success. All are built for the vision tower's
 // head_dim of 80 only.
 extern "C" int o3v_fused_window_attention(const void* qkv, const void* cos, const void* sin,
                                           const void* ids, void* out, int n, int w, int heads,
@@ -318,12 +574,14 @@ extern "C" int o3v_fused_window_attention(const void* qkv, const void* cos, cons
                                static_cast<cudaStream_t>(stream));
 }
 
+// K2 keeps a frame-head's K and V in shared memory where they fit (W <=
+// 640); wider frames stream them.
 extern "C" int o3v_window_attention(const void* q, const void* k, const void* v, const void* ids,
                                     void* out, int n, int w, int heads, int head_dim, float scale,
                                     void* stream) {
   if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  return o3v::launch_window<80>(q, k, v, ids, out, n, w, heads, scale,
-                                static_cast<cudaStream_t>(stream));
+  return o3v::launch_window_tma<80, false>(q, k, v, ids, out, nullptr, n, w, heads, scale,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // Exact modes (training). window_attention_exact also writes lse (N, H, W)
@@ -341,6 +599,6 @@ extern "C" int o3v_window_attention_exact(const void* q, const void* k, const vo
                                           const void* ids, void* out, void* lse, int n, int w,
                                           int heads, int head_dim, float scale, void* stream) {
   if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  return o3v::launch_window_exact<80>(q, k, v, ids, out, lse, n, w, heads, scale,
-                                      static_cast<cudaStream_t>(stream));
+  return o3v::launch_window_tma<80, true>(q, k, v, ids, out, lse, n, w, heads, scale,
+                                          static_cast<cudaStream_t>(stream));
 }

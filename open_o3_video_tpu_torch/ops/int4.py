@@ -16,8 +16,13 @@ K7 (``csrc/int4_matmul.cu``, built for groups of 128 rows); on the CPU, or
 with ``impl="torch"``, its plain version. Other shapes take JAX's fallback on
 every device: ``x @ dequantize(w, x.dtype)``. K7 has two routes for the
 same function, chosen by the row count (``kernel_route``): decode (M <= 64)
-on ``csrc/int4_matmul.cu``'s mma.sync kernel, prefill on
-``csrc/int4_matmul_sm90.cu``'s wgmma kernel.
+on ``csrc/int4_matmul.cu``'s split-K kernel, prefill on
+``csrc/int4_matmul_sm90.cu``'s wgmma kernel. The decode route's column tile
+and split count come from ``decode_plan``; with more than one split the
+wrapper allocates the float32 workspace of the splits' partials, and the
+last split of each column tile to finish sums them in split order, counted
+on a per-device buffer of zeros that the kernel leaves zeroed (so calls
+on one device go through one stream at a time, as the port runs them).
 
 K7 has no backward (JAX's Pallas call has none either; LoRA dequantizes the
 base before training), so the kernel route raises under autograd rather
@@ -30,6 +35,7 @@ profiling scripts' probes of K7's parts; nothing on a model path calls them.
 
 from __future__ import annotations
 
+import functools
 import re
 
 import torch
@@ -41,8 +47,12 @@ from . import kernels
 KERNEL_GROUP = 128
 # From this many rows K7 takes its wgmma route: a 128-row tile then does
 # useful work on at least half its rows, and the decode shapes (M <= 16 at
-# the slice's batch sizes) keep the mma.sync route's 16-64-row tiles.
+# the slice's batch sizes) keep the decode route's 8-64-row tiles.
 WGMMA_MIN_ROWS = 65
+# The decode route's column tiles, widest first, and the CTAs per SM its
+# plan aims for (enough bytes in flight on every SM).
+DECODE_BLOCK_NS = (128, 64, 32)
+DECODE_CTAS_PER_SM = 2
 
 
 class Int4Linear:
@@ -130,9 +140,67 @@ def _operands(name, x2, w_p, scale=None):
     return xb, torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
 
 
+def split_bounds(groups: int, splits: int) -> list[tuple[int, int]]:
+    """The quant groups [start, end) of each split of the decode route, in
+    split order: split s takes [s * groups // splits, (s + 1) * groups //
+    splits), as ``csrc/int4_matmul.cu:split_begin`` computes it."""
+    return [(s * groups // splits, (s + 1) * groups // splits) for s in range(splits)]
+
+
+@functools.cache
+def decode_plan(M: int, K: int, N: int, sms: int,
+                block_ns: tuple = DECODE_BLOCK_NS) -> tuple[int, int]:
+    """(block_n, splits) of the decode route for an (M, K) x (K, N) call on
+    a card of ``sms`` SMs: the widest column tile whose tiles, split over
+    the quant groups (at least one group a split), reach DECODE_CTAS_PER_SM
+    CTAs on each SM, with the fewest splits that do; where no tile reaches
+    it, the narrowest tile with every group a split of its own."""
+    if not 1 <= M < WGMMA_MIN_ROWS:
+        raise ValueError(f"decode_plan: {M} rows; the decode route takes 1..{WGMMA_MIN_ROWS - 1}")
+    groups = K // KERNEL_GROUP
+    target = DECODE_CTAS_PER_SM * sms
+    for block_n in block_ns:
+        tiles = N // block_n
+        splits = min(groups, -(-target // tiles))
+        if tiles * splits >= target:
+            break
+    return block_n, splits
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_COUNTERS: dict = {}
+
+
+def _split_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """The decode route's int32 counters, one per column tile: zeros kept
+    across calls (each call's last CTA resets its tile's), grown as needed."""
+    counters = _COUNTERS.get(device)
+    if counters is None or counters.numel() < tiles:
+        counters = _COUNTERS[device] = torch.zeros(tiles, dtype=torch.int32, device=device)
+    return counters
+
+
+def _plan_args(xb: torch.Tensor, N: int, block_ns: tuple = DECODE_BLOCK_NS) -> tuple:
+    """The decode route's launch arguments after ``out``: the workspace
+    (splits, M, N) float32 and the counters (0 and 0 for one split), then
+    after M, K, N (and the group) block_n and splits. Returns (pointers,
+    (block_n, splits), tensors to keep alive until the launch)."""
+    M, K = xb.shape
+    block_n, splits = decode_plan(M, K, N, sm_count(xb.device.index), block_ns)
+    if splits == 1:
+        return (0, 0), (block_n, splits), ()
+    ws = torch.empty((splits, M, N), dtype=torch.float32, device=xb.device)
+    counters = _split_counters(xb.device, N // block_n)
+    return (ws.data_ptr(), counters.data_ptr()), (block_n, splits), (ws, counters)
+
+
 def kernel_route(M: int) -> str:
-    """K7's entry point for M rows: the mma.sync route (``int4_matmul``,
-    ``csrc/int4_matmul.cu``) up to WGMMA_MIN_ROWS - 1 rows, decode; the
+    """K7's entry point for M rows: the split-K decode route
+    (``int4_matmul``, ``csrc/int4_matmul.cu``) up to WGMMA_MIN_ROWS - 1 rows; the
     warp-specialised wgmma route (``int4_matmul_wgmma``,
     ``csrc/int4_matmul_sm90.cu``, 128-row tiles) from there on, prefill."""
     return "int4_matmul_wgmma" if M >= WGMMA_MIN_ROWS else "int4_matmul"
@@ -149,9 +217,14 @@ def int4_matmul(x2: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor, group:
                          f"{KERNEL_GROUP}")
     name = kernel_route(x2.shape[0])
     xb, out = _operands(name, x2, w_p, scale)
-    M, K = xb.shape
-    kernels.launch(name, xb.data_ptr(), w_p.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
-                   w_p.shape[1], group)
+    (M, K), N = xb.shape, w_p.shape[1]
+    if name == "int4_matmul_wgmma":
+        kernels.launch(name, xb.data_ptr(), w_p.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
+                       N, group)
+        return out
+    ptrs, plan, _keep = _plan_args(xb, N)
+    kernels.launch(name, xb.data_ptr(), w_p.data_ptr(), scale.data_ptr(), out.data_ptr(), *ptrs,
+                   M, K, N, group, *plan)
     return out
 
 
@@ -187,13 +260,10 @@ def int4_matmul_convert_torch(x2: torch.Tensor, w_p: torch.Tensor) -> torch.Tens
 
 def int4_matmul_stream(x2: torch.Tensor, w_p: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """K7a stream (``make_stream`` of scripts/profile_int4_kernel_parts.py):
-    K7's loads and products without the unpack or the scales."""
+    K7's decode-route loads and products without the unpack or the scales."""
     if not kernels.use_kernel(x2, impl):
         return int4_matmul_stream_torch(x2, w_p)
-    xb, out = _operands("int4_matmul_stream", x2, w_p)
-    kernels.launch("int4_matmul_stream", xb.data_ptr(), w_p.data_ptr(), out.data_ptr(),
-                   *xb.shape, w_p.shape[1])
-    return out
+    return _probe("int4_matmul_stream", x2, w_p)
 
 
 def int4_matmul_convert(x2: torch.Tensor, w_p: torch.Tensor, impl: str = "auto") -> torch.Tensor:
@@ -201,9 +271,16 @@ def int4_matmul_convert(x2: torch.Tensor, w_p: torch.Tensor, impl: str = "auto")
     scripts/profile_int4_pallas.py): K7 without the scales."""
     if not kernels.use_kernel(x2, impl):
         return int4_matmul_convert_torch(x2, w_p)
-    xb, out = _operands("int4_matmul_convert", x2, w_p)
-    kernels.launch("int4_matmul_convert", xb.data_ptr(), w_p.data_ptr(), out.data_ptr(),
-                   *xb.shape, w_p.shape[1])
+    return _probe("int4_matmul_convert", x2, w_p)
+
+
+def _probe(name: str, x2: torch.Tensor, w_p: torch.Tensor) -> torch.Tensor:
+    """A K7a probe: a mode of the decode route's kernel, on 128-column tiles
+    and the decode plan's splits (up to 64 rows)."""
+    xb, out = _operands(name, x2, w_p)
+    (M, K), N = xb.shape, w_p.shape[1]
+    ptrs, (_, splits), _keep = _plan_args(xb, N, block_ns=(128,))
+    kernels.launch(name, xb.data_ptr(), w_p.data_ptr(), out.data_ptr(), *ptrs, M, K, N, splits)
     return out
 
 

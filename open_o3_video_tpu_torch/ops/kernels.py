@@ -62,10 +62,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _LL, _LL, _LL, _LL, _P,
     ),
-    "o3v_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "o3v_int4_matmul": (_P,) * 6 + (_I,) * 6 + (_P,),
     "o3v_int4_matmul_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "o3v_int4_matmul_stream": (_P, _P, _P, _I, _I, _I, _P),
-    "o3v_int4_matmul_convert": (_P, _P, _P, _I, _I, _I, _P),
+    "o3v_int4_matmul_stream": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "o3v_int4_matmul_convert": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 
 

@@ -14,7 +14,9 @@ chunks), greedy, warmed up with a 2-token run of the same request.
 in int4, EngineJudge's 4 jobs, 16 new tokens. Per engine stage (vision, prefill, decode)
 it prints the wall time, the device busy time (sum of kernel durations
 inside the stage's range, one stream), the idle share, and the top kernels
-by device time. ``--trace PATH`` keeps the Chrome trace (tens of MB).
+by device time; with an int4 decoder also K7's device time (its kernels,
+decode and prefill routes) in the stage and, for decode, per step.
+``--trace PATH`` keeps the Chrome trace (tens of MB).
 """
 
 from __future__ import annotations
@@ -37,6 +39,11 @@ from open_o3_video_tpu_torch.data.processor import O3VideoProcessor  # noqa: E40
 from open_o3_video_tpu_torch.engine import InferenceEngine, SamplingParams  # noqa: E402
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge  # noqa: E402
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P  # noqa: E402
+
+
+# K7's kernels by their namespaces in csrc/: int4mm (the decode route and
+# its split sum), int4wg (the prefill route)
+K7_NAMESPACES = ("int4mm", "int4wg")
 
 
 def main() -> None:
@@ -80,6 +87,7 @@ def main() -> None:
                                   max_tokens=args.max_tokens or 16)
         engine.generate(reqs, sampling)  # warm-up: kernel build, cuBLAS heuristics
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    engine.decode_steps = 0
     with torch.profiler.profile(activities=acts) as prof:
         engine.generate(reqs, sampling)
     with tempfile.TemporaryDirectory() as tmp:
@@ -100,6 +108,11 @@ def main() -> None:
             by_name[k["name"][:90]] += k["dur"]
         print(f"[{st['name']}] wall_ms={st['dur'] / 1e3:.3f} busy_ms={busy / 1e3:.3f} "
               f"idle_share={1 - busy / st['dur']:.3f} launches={len(inside)}", flush=True)
+        k7 = sum(k["dur"] for k in inside if any(ns in k["name"] for ns in K7_NAMESPACES))
+        if k7:
+            steps = engine.decode_steps if st["name"] == "engine.decode" else 1
+            print(f"    K7 {k7 / 1e3:.3f} ms ({100 * k7 / max(busy, 1):.1f}%), "
+                  f"{k7 / 1e3 / max(steps, 1):.3f} ms per step over {steps}", flush=True)
         for name, dur in by_name.most_common(8):
             print(f"    {dur / 1e3:9.3f} ms {100 * dur / max(busy, 1):5.1f}%  {name}")
 

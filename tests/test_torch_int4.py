@@ -141,30 +141,84 @@ def test_kernel_route_by_rows(M, route):
 @pytest.mark.parametrize("M", [64, 65])
 def test_int4_matmul_launches_the_route_it_picks(monkeypatch, M):
     """The wrapper launches exactly the entry point ``kernel_route`` names,
-    once, with K7's operands (the launch itself is stubbed here)."""
+    once, with K7's operands (the launch itself is stubbed here): the decode
+    route with its plan and, for more than one split, a float32 workspace
+    of (splits, M, N) and the zeroed counters of its column tiles."""
     from open_o3_video_tpu_torch.ops import kernels
 
     launched = []
     monkeypatch.setattr(kernels, "use_kernel", lambda x, impl: True)
     monkeypatch.setattr(kernels, "check_tensor", lambda *args: None)
     monkeypatch.setattr(kernels, "launch", lambda name, *args: launched.append((name, args)))
+    monkeypatch.setattr(T, "sm_count", lambda index: 132)
     w = T.quantize_weight_int4(torch.randn(256, 128))
     out = T.int4_matmul(torch.randn(M, 256), w.w_p, w.scale, w.group)
     assert out.shape == (M, 128) and out.dtype == torch.bfloat16
     assert [name for name, _ in launched] == [T.kernel_route(M)]
-    assert launched[0][1][4:] == (M, 256, 128, 128)
+    if T.kernel_route(M) == "int4_matmul_wgmma":
+        assert launched[0][1][4:] == (M, 256, 128, 128)
+    else:
+        block_n, splits = T.decode_plan(M, 256, 128, 132)
+        assert splits > 1 and launched[0][1][4] != 0 and launched[0][1][5] != 0
+        assert launched[0][1][6:] == (M, 256, 128, 128, block_n, splits)
+        assert T._split_counters(torch.device("cpu"), 128 // block_n).eq(0).all()
+
+
+# The decode matmuls of both models (M = their decode batch): q/o share
+# q_w's shape, v_w k_w's, up_w gate_w's.
+DECODE_SHAPES = {
+    "7B k_w": (2, 3584, 512), "7B q_w": (2, 3584, 3584), "7B gate_w": (2, 3584, 18944),
+    "7B down_w": (2, 18944, 3584), "7B lm_head": (2, 3584, 152064),
+    "72B k_w": (4, 8192, 1024), "72B q_w": (4, 8192, 8192), "72B gate_w": (4, 8192, 29568),
+    "72B down_w": (4, 29568, 8192),
+}
+
+
+@pytest.mark.parametrize("name", list(DECODE_SHAPES))
+def test_decode_plan_reaches_the_cta_target(name):
+    """On an H100's 132 SMs every decode shape of both models gets at least
+    DECODE_CTAS_PER_SM CTAs on each SM, and its splits cover the groups."""
+    M, K, N = DECODE_SHAPES[name]
+    block_n, splits = T.decode_plan(M, K, N, 132)
+    assert block_n in T.DECODE_BLOCK_NS and N % block_n == 0
+    assert 1 <= splits <= K // T.KERNEL_GROUP
+    assert (N // block_n) * splits >= T.DECODE_CTAS_PER_SM * 132
+
+
+@pytest.mark.parametrize("groups,splits", [(2, 1), (28, 10), (28, 17), (28, 28), (64, 33),
+                                           (148, 10), (231, 5)])
+def test_split_bounds_cover_every_group_once_in_order(groups, splits):
+    bounds = T.split_bounds(groups, splits)
+    assert len(bounds) == splits
+    assert [g for start, end in bounds for g in range(start, end)] == list(range(groups))
+    assert all(start < end for start, end in bounds)  # no split is empty
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))  # ascending, contiguous
+
+
+@pytest.mark.parametrize("K,N", [(256, 128), (3584, 512), (29568, 8192), (3584, 152064)])
+def test_decode_plan_for_every_decode_row_count(K, N):
+    for M in range(1, T.WGMMA_MIN_ROWS):
+        block_n, splits = T.decode_plan(M, K, N, 132)
+        assert block_n in T.DECODE_BLOCK_NS and N % block_n == 0
+        assert 1 <= splits <= K // T.KERNEL_GROUP
+    with pytest.raises(ValueError, match="decode route"):
+        T.decode_plan(T.WGMMA_MIN_ROWS, K, N, 132)
 
 
 # ---- on the card --------------------------------------------------------------
 
 
-# (M, K, N): decode rows (one 16-row tile), a 2-tile M, a prefill-sized M
-# with a ragged last tile, and an odd group count (3) as the 72B down_w's 231.
-# Then the wgmma route: its first row counts (65, 128), 7 groups (odd) at
-# M = 1000 with 3 column tiles, and the 72B down_w's 231 groups at a small M.
-# Inputs are scaled so outputs have std ~0.25: below 2, one bf16 ulp flipped
-# by the summation order stays within the bound of assert_kernel_close.
+# (M, K, N): the decode route at decode rows, at M = 20 (a 32-row tile) and
+# M = 64, with an odd group count (3) as the 72B down_w's 231, at the narrow N
+# of the 7B and 72B k_w (32- and 128-column tiles, up to one group a split)
+# and the long K of the 7B down_w (148 groups over its splits); a
+# prefill-sized M with a ragged last tile. Then the wgmma route: its first
+# row counts (65, 128), 7 groups (odd) at M = 1000 with 3 column tiles, and
+# the 72B down_w's 231 groups at a small M. Inputs are scaled so outputs have
+# std ~0.25: below 2, one bf16 ulp flipped by the summation order stays
+# within the bound of assert_kernel_close.
 CARD_SHAPES = [(2, 512, 256), (20, 256, 384), (300, 384, 512), (4, 384, 128),
+               (2, 3584, 512), (4, 8192, 1024), (2, 18944, 384), (64, 512, 256),
                (65, 256, 256), (128, 384, 128), (1000, 896, 384), (80, 29568, 256)]
 
 

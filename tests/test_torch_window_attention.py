@@ -100,6 +100,8 @@ CUDA_CASES = [
     (3, 100, 2, 80, 2),  # W off the 64-row tile
     (2, 448, 4, 80, 1),
     (3, 130, 2, 80, 2),
+    (2, 700, 2, 80, 2),  # past K2's resident limit (640): K and V stream
+    (2, 1024, 4, 80, 1),  # a whole frame of 32x32 patches
 ]
 
 

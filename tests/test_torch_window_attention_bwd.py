@@ -129,7 +129,7 @@ def test_fused_kernels_match_plain(w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [448, 100])
+@pytest.mark.parametrize("w", [448, 100, 1024])
 def test_window_kernels_match_plain(w):
     dev = cuda_device()
     r = rng(w + 1)
