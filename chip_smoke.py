@@ -10,7 +10,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      scale and relative L2 error vs a bound (faults planted in K4's output
      must fail them), and times (CUDA events, warmup, median of 20, kernel
      and plain in turns); K2 also at frames of 32x32 patches (W = 1024,
-     past its resident limit: K and V stream);
+     past its resident limit: K and V stream); K3 also at the 72B judge's
+     prefill (64/8 heads) and on run (b)'s last prefill chunk (8160 rows
+     against 81920 slots: 64 rows compared, the whole chunk timed beside
+     its bound and SDPA);
   4. the serving slice at the full width of Qwen2.5-VL-7B (random bf16
      weights drawn on the card from --seed): 2 requests of 16 synthetic
      252x336 frames, processor -> InferenceEngine.generate with the reference
@@ -36,7 +39,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      tokens from two runs of (a).
   8. the training kernels against their plain versions at the SFT slice's
      shapes: the exact (training) modes of K1-K3, out and lse (K2's also at
-     W = 1024); K5 (dq; dk
+     W = 1024, K3's also at 64/8 heads); K5 (dq; dk
      and dv) and K6 (fused dqkv; the global blocks' dq; dk and dv), with
      their bounds and the time of one PyTorch call computing the same
      function; faults planted in K5's and K6's outputs must fail the bound;
@@ -171,7 +174,7 @@ LONG_LOGITS_COS = 0.998
 LONG_RUNS = (("a", 32736, torch.bfloat16), ("b", 81888, torch.float8_e4m3fn))
 LONG_NEW_TOKENS = 32
 LONG_CHUNK = 8192  # the engine's long_prefill_chunk
-K4_TILE_KEYS = 64  # K4's key tile (kKeys in csrc/attention_tile.cuh)
+K4_TILE_KEYS = da.TILE_KEYS  # K4's key tile (kTile in csrc/decode_attention.cu)
 
 TPU_KERNELS = {
     "fused_window_attention": ("open_o3_video_tpu_torch/csrc/window_attention.cu",
@@ -238,6 +241,9 @@ JUDGE_JOBS = (
     ("Where is the bowler standing?", "At the foul line.", "Near the foul line of the lane."),
 )
 JUDGE_NEW_TOKENS = 16
+# The judge's prompts in ByteTokenizer tokens (phase 13 prints them), for K3
+# at the judge's prefill shape in phase 3.
+JUDGE_PROMPT_ROWS = (982, 990, 991, 996)
 # The SFT slice: one grounded example over the serving slice's 16 frames,
 # with the reference's SFT system prompt and temporal frame prompt, and a
 # target of a few hundred bytes in the reference's answer format.
@@ -354,7 +360,7 @@ def segment_pairs(ids) -> int:
 
 
 def compare(name, kernel_fn, plain_fn, keep, results, *, flops=0.0, moved=0,
-            library_fn=None):
+            library_fn=None, case=None):
     """The kernel's agreement with its plain version over the kept rows,
     then times in turns (plain, kernel, kernel, plain), the bound from the
     work (`flops`, `moved` bytes) and, where one PyTorch call computes the
@@ -371,7 +377,8 @@ def compare(name, kernel_fn, plain_fn, keep, results, *, flops=0.0, moved=0,
     ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
     lib_ms = statistics.median(time_ms(library_fn)) if library_fn is not None else None
     b_ms, b_by = bound_ms(flops, moved)
-    log("kernels", name=name, shape=tuple(outs[0].shape), max_abs_err=err, bound=a["bound"],
+    log("kernels", name=name, **({} if case is None else {"case": case}),
+        shape=tuple(outs[0].shape), max_abs_err=err, bound=a["bound"],
         rel_l2=a["rel_l2"], max_rel_l2=KERNEL_REL_L2, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
         bound_ms=round(b_ms, 4), bound_by=b_by,
         library_ms=None if lib_ms is None else round(lib_ms, 4))
@@ -481,9 +488,37 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
             moved=nbytes(q, k, vv, pos, valid) + nbytes(q),
             library_fn=lambda: sdpa_masked(q, k, vv, mask))
     del cache
+    judge_prefill_case(dev, gen, results)
     decode_cases(dev, cfg, gen, results)
     long_chunk_case(dev, cfg, gen, results)
     return results
+
+
+def judge_prefill_case(dev, gen, results) -> None:
+    """K3 at the judge's prefill (phase 13): JUDGE_PROMPT_ROWS tokens,
+    left-padded into one batch, a cache of L + JUDGE_NEW_TOKENS slots,
+    Qwen2.5-72B's 64/8 heads of 128 (a GQA group of 8)."""
+    t = Qwen25VLConfig.from_hf_dict(QWEN25_72B_INSTRUCT_CONFIG).text
+    B, S = len(JUDGE_PROMPT_ROWS), max(JUDGE_PROMPT_ROWS)
+    T = S + JUDGE_NEW_TOKENS
+    q = torch.randn((B, S, t.num_attention_heads, t.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    cache = torch.randn((2, 2, B, T, t.num_key_value_heads, t.head_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    k, v = cache[0, 1], cache[1, 1]  # layer views of a stacked cache
+    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    valid = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    for b, n in enumerate(JUDGE_PROMPT_ROWS):
+        valid[b, S - n:S] = 1
+    mask = causal_mask(pos, valid)
+    compare("flash_attention_gqa",
+            lambda: fa.flash_attention_gqa(q, k, v, pos, valid),
+            lambda: fa.flash_attention_gqa_torch(q, k, v, pos, valid),
+            valid[:, :S] != 0, results, case="judge prefill, 64/8 heads",
+            flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+            moved=nbytes(q, k, v, pos, valid) + nbytes(q),
+            library_fn=lambda: sdpa_masked(q, k, v, mask))
+    del cache, mask
 
 
 def _layer_views(dev, gen, cfg, B, T, written, dtype):
@@ -539,12 +574,12 @@ def planted_faults(q, k, v, pos, valid, T) -> None:
     """The bound must reject a K4 that returns 0, drops one split of the key
     range, or drops the last (partial) key tile. The faulty outputs are the
     plain version with those keys masked, laid out as K4 splits a T-slot
-    buffer: da._splits splits of the K4_TILE_KEYS-key tiles of [0, w)."""
+    buffer: da.split_tiles of the K4_TILE_KEYS-key tiles of [0, w) over
+    da._splits splits."""
     B, w, Hkv = k.shape[0], k.shape[1], k.shape[2]
     ref = da.decode_attention_gqa_torch(q, k, v, pos, valid)
     splits, tiles = da._splits(B, Hkv, T), -(-w // K4_TILE_KEYS)
-    mid = splits // 2
-    dropped = {"one split": (mid * tiles // splits, (mid + 1) * tiles // splits),
+    dropped = {"one split": da.split_tiles(tiles, splits)[splits // 2],
                "last tile": (tiles - 1, tiles)}
     faults = {"zero output": torch.zeros_like(ref)}
     for fault, (t0, t1) in dropped.items():
@@ -565,8 +600,9 @@ def long_chunk_case(dev, cfg, gen, results) -> None:
     """K3 on the last prefill chunk of run (b): 8160 query rows at positions
     73728..81887 against an 81920-slot cache. Compared on 64 of the rows
     (the plain version at the whole chunk would need ~75 GB of f32 scores),
-    passed with their positions to both versions; the kernel is also timed
-    at the whole chunk."""
+    passed with their positions to both versions; then timed at the whole
+    chunk, with its bound (the causal pairs and bytes of the whole chunk)
+    and SDPA on the whole chunk with its boolean mask."""
     t = cfg.text
     n, T = LONG_RUNS[1][1], LONG_RUNS[1][1] + LONG_NEW_TOKENS
     c0 = (n - 1) // LONG_CHUNK * LONG_CHUNK
@@ -581,13 +617,23 @@ def long_chunk_case(dev, cfg, gen, results) -> None:
     compare("flash_attention_gqa",
             lambda: fa.flash_attention_gqa(qs, k, v, ps, valid),
             lambda: fa.flash_attention_gqa_torch(qs, k, v, ps, valid),
-            ps >= 0, results,
+            ps >= 0, results, case="long prefill chunk, 64 of its rows",
             flops=4 * causal_pairs(ps, valid) * t.num_attention_heads * t.head_dim,
             moved=nbytes(qs, k, v, ps, valid, qs))
     full = statistics.median(time_ms(lambda: fa.flash_attention_gqa(q, k, v, pos, valid), reps=5))
+    b_ms, b_by = bound_ms(4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+                          nbytes(q, k, v, pos, valid, q))
+    mask = causal_mask(pos, valid)
+    try:  # a yardstick only
+        lib = statistics.median(time_ms(lambda: sdpa_masked(q, k, v, mask), reps=3, warmup=1))
+    except torch.OutOfMemoryError:
+        lib = None
     log("kernels", name="flash_attention_gqa", case="long prefill chunk", shape=tuple(q.shape),
-        T=T, ms=round(full, 4))
-    del k, v
+        T=T, ms=round(full, 4), bound_ms=round(b_ms, 4), bound_by=b_by,
+        library_ms=None if lib is None else round(lib, 4),
+        tflops=round(4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim
+                     / full / 1e9, 1))
+    del k, v, q, mask
     torch.cuda.empty_cache()
 
 
@@ -938,6 +984,7 @@ def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
             (rows, rows[:, None, :].expand(-1, t.num_attention_heads, -1)), results,
             flops=4 * cpairs, moved=nbytes(q, k, vv, pos, valid, q) + 4 * q.numel() // t.head_dim,
             library_fn=lambda: sdpa_masked(q, k, vv, mask))
+    exact_group8_case(dev, gen, results)
     out, lse = fa.flash_attention_gqa_exact(q, k, vv, pos, valid)
     ops = fa.bwd_operands(q, k, vv, pos, valid, out, lse, do)
     ins = nbytes(*ops)
@@ -957,6 +1004,28 @@ def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
             None)
     del q, k, vv, do, out, lse, ops, dropped, fault
     torch.cuda.empty_cache()
+
+
+def exact_group8_case(dev, gen, results) -> None:
+    """K3's exact mode (out and lse) at a GQA group of 8, Qwen2.5-72B's
+    64/8 heads, on 1024 tokens with the last 40 keys right-padded."""
+    Hq, Hkv, D, L = 64, 8, 128, 1024
+    q = torch.randn((1, L, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, L, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None]
+    valid = torch.ones((1, L), dtype=torch.int32, device=dev)
+    valid[:, L - 40:] = 0
+    rows = valid != 0
+    mask = causal_mask(pos, valid)
+    compare("flash_attention_gqa_exact",
+            lambda: fa.flash_attention_gqa_exact(q, k, v, pos, valid),
+            lambda: fa.flash_attention_gqa_exact_torch(q, k, v, pos, valid),
+            (rows, rows[:, None, :].expand(-1, Hq, -1)), results, case="64/8 heads",
+            flops=4 * causal_pairs(pos, valid) * Hq * D,
+            moved=nbytes(q, k, v, pos, valid, q) + 4 * q.numel() // D,
+            library_fn=lambda: sdpa_masked(q, k, v, mask))
+    del q, k, v, mask
 
 
 def planted(name, fault, out, ref, keep) -> None:

@@ -1,8 +1,9 @@
 // Hopper's asynchronous copies with mbarriers, shared by K2's whole-frame
-// attention (TMA tiles of K and V) and K7's decode route (TMA tiles of packed
+// attention and K3's prefill (TMA tiles of K and V), K4's decode (TMA tiles
+// of the stored cache) and both of K7's routes (TMA tiles of x and packed
 // weights, bulk copies of x rows and scales): the barrier primitives, the
 // TMA and bulk loads, and cuTensorMapEncodeTiled fetched through the runtime
-// (no link against libcuda). int4_matmul_sm90.cu keeps its own copies of the same primitives.
+// (no link against libcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums
@@ -34,9 +35,11 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// Wait for the phase of this parity to complete. A pipeline fault would spin
-// forever; after 2^26 polls (over a second; a sound wait takes microseconds)
-// the kernel traps instead, so the fault surfaces as a CUDA error.
+// Wait for the phase of this parity to complete. The loop lives inside the
+// asm, so the compiler sees no divergent branch around a wgmma that follows.
+// A pipeline fault would spin forever; after 2^26 polls (over a second; a
+// sound wait takes microseconds) the kernel traps instead, so the fault
+// surfaces as a CUDA error.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
       "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
@@ -60,6 +63,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of a 4D tensor map into shared memory, counted in bytes on `bar`.
+// Out-of-range elements are zero-filled.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -106,6 +120,21 @@ inline EncodeTiled encoder() {
     fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A 4D tensor map (dims innermost first; byte strides of dims 1..3; unit
+// element strides; zero fill past the edges). False where the encoder is
+// missing or refuses the description (e.g. a stride that is not a
+// multiple of 16 bytes).
+inline bool encode_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                      const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                      const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace async

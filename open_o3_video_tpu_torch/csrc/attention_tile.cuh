@@ -1,6 +1,6 @@
-// Shared building blocks of the three attention kernels (window, fused
-// rope+window, causal GQA flash): a 64-query-row CTA of four warps walks the
-// keys in 64-row tiles staged in shared memory, and computes
+// Shared building blocks of the attention kernels: K1's fused rope+window
+// attention (and parts of K2, K5 and K6) runs a 64-query-row CTA of four warps
+// that walks the keys in 64-row tiles staged in shared memory, and computes
 //
 //     p = exp(min(s, 60))   (0 where masked)      l += sum(p)
 //     acc += bf16(p) @ v                           out = acc / (l == 0 ? 1 : l)
@@ -53,6 +53,23 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* lo, const bf16* hi) {
          (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
 }
 
+// Four 8x8 b16 matrices from shared memory; lane i gives the shared-space
+// address of row i % 8 of matrix i / 8. TRANS: each matrix transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  ldsm_x4<TRANS>(r, static_cast<uint32_t>(__cvta_generic_to_shared(p)));
+}
+
 // Copy `rows` rows [r0, r0 + rows) of a strided bf16 matrix (row i at
 // src + i * row_stride, D contiguous values) into a shared array of row pitch
 // D + kPad (a Tile by default), 16 bytes per thread per step over a block of
@@ -85,14 +102,13 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 16][4], const Ti
   }
 }
 
-// One key tile for this warp's 16 query rows. Each thread owns rows g and
-// g + 8 (half 0 and 1) of the warp's slice. The mask is
-//   CAUSAL:  key_tag[c] != 0 && k0 + c <= row_tag[half]     (kv validity, position)
-//   else:    key_tag[c] != 0 && key_tag[c] == row_tag[half] (segment ids)
-// s is multiplied by `scale` (1.0 for the prescaled causal kernel, exact).
-template <int D, bool CAUSAL>
+// One key tile for this warp's 16 query rows (K1). Each thread owns rows g
+// and g + 8 (half 0 and 1) of the warp's slice. A key is visible where its
+// segment id is that of the row: key_tag[c] != 0 && key_tag[c] ==
+// row_tag[half]. s is multiplied by `scale`.
+template <int D>
 __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], const Tile<D>& sk,
-                                            const Tile<D>& sv, const int* key_tag, int k0,
+                                            const Tile<D>& sv, const int* key_tag,
                                             const int (&row_tag)[2], float scale,
                                             float (&acc)[D / 8][4], float (&l)[2]) {
   const int lane = threadIdx.x & 31;
@@ -115,8 +131,7 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
       const int c = nt * 8 + 2 * t + (e & 1);
       const int half = e >> 1;
       const int tag = key_tag[c];
-      const bool ok = CAUSAL ? (tag != 0 && k0 + c <= row_tag[half])
-                             : (tag != 0 && tag == row_tag[half]);
+      const bool ok = tag != 0 && tag == row_tag[half];
       const float p = ok ? expf(fminf(s[nt][e] * scale, kClamp)) : 0.f;
       l[half] += p;
       s[nt][e] = p;

@@ -42,15 +42,22 @@
 // What holds it back now (PERF.md): the conversion's traffic through shared
 // memory beside the TMA writes and the wgmma reads; see
 // scripts/exp_int4_wgmma_variants.py.
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "async_copy.cuh"
+#include "wgmma.cuh"
 
 namespace o3v {
 namespace int4wg {
 
 using bf16 = __nv_bfloat16;
+using async::bulk_load;
+using async::mbar_arrive;
+using async::mbar_expect_tx;
+using async::mbar_init;
+using async::mbar_wait;
+using async::smem_u32;
+using async::tma_load_2d;
 
 constexpr int kGroup = 128;                      // input rows per quant group = one stage
 constexpr int kBM = 128, kBN = 128;              // output tile
@@ -73,112 +80,6 @@ constexpr int kBarOffset = kSOffset + kRawStages * kSBytes;
 constexpr int kLayoutBytes = kBarOffset + (3 * kRawStages + 2 * kBStages) * 8;
 constexpr int kSmem = 232448;                    // all a block may have: the slack aligns the base
 static_assert(kLayoutBytes <= kSmem, "shared memory layout");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait for the phase of this parity to complete. The loop lives inside the
-// asm, so the compiler sees no divergent branch around the wgmma that
-// follows. A pipeline fault would spin forever; after 2^26 polls (over a
-// second; a sound wait takes microseconds) the kernel traps instead, so the
-// fault surfaces as a CUDA error.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 67108864;\n"
-      "@p bra LAB_WAIT;\n"
-      "trap;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile in the 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), base 1024-aligned.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses of an accumulator across the
-// asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128 f32, this thread's 64) = (accumulate ? d : 0) + A @ B; A and B
-// K-major bf16 from shared memory.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 
 // Bytes i of a packed word p and of p >> 4 (selected into halves 0 and 2 by
 // the caller's prmt) -> the bf16x2 {low nibble, high nibble}: each nibble
@@ -267,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(bready(b), 128 * kProducers);
       mbar_init(bfree(b), 128 * kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    async::mbar_fence_init();
   }
   __syncthreads();
 
@@ -317,16 +218,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(full(r), (g / kRawStages) & 1);
       mbar_wait(bready(b), (g / kBStages) & 1);
       asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-      wgmma_fence();
+      wg::fence();
 #pragma unroll
       for (int kk = 0; kk < kGroup / 16; ++kk) {
         const uint32_t koff = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
-        wgmma_m64n128k16(p, sw128_desc(xs(r) + a_off + koff), sw128_desc(bs(b) + koff), kk > 0);
+        wg::m64n128k16(p, wg::sw128_desc(xs(r) + a_off + koff), wg::sw128_desc(bs(b) + koff), kk > 0);
       }
-      wgmma_commit();
+      wg::commit();
       if (wg == 0 || g + 1 < n_groups) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-      wgmma_wait<0>();
-      fence_regs(p);
+      wg::wait<0>();
+      wg::fence_regs(p);
       mbar_arrive(bfree(b));
       // the group's products times its scales, added to the sum in group order
       const float* sc = reinterpret_cast<const float*>(gbase + (ss(r) - base)) + 2 * t;
@@ -357,34 +258,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 cudaError_t launch(const void* x, const void* wp, const void* scale, void* out, int M, int K, int N,
                    cudaStream_t stream) {
   if (M < 1 || K % kGroup != 0 || N % kBN != 0) return cudaErrorInvalidValue;
-  const EncodeTiled encode = encoder();
+  const async::EncodeTiled encode = async::encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   static bool smem_set = false;
   if (!smem_set) {

@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<D>(sv, base + 2 * hd, row_stride, k0, w);
     if (threadIdx.x < kKeys) skey[threadIdx.x] = k0 + threadIdx.x < w ? id[k0 + threadIdx.x] : 0;
     __syncthreads();
-    attend_tile<D, false>(qa, sk, sv, skey, k0, row_tag, scale, acc, l);
+    attend_tile<D>(qa, sk, sv, skey, row_tag, scale, acc, l);
   }
   bf16* ob = out + static_cast<long long>(n) * w * hd + h * D;
   store_rows<D>(acc, l, q0, w, [&](int row) { return ob + static_cast<long long>(row) * hd; });
@@ -228,18 +228,6 @@ constexpr int kTileBytes = static_cast<int>(sizeof(Tile<D>));
 template <int D>
 constexpr int window_smem(int tiles, int slots) {
   return kAlign + 2 * slots * kTileBytes<D> + tiles * kKeys * 4 + 2 * slots * 8;
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8. TRANS: each matrix transposed.
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  if constexpr (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(async::smem_u32(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(async::smem_u32(p)));
 }
 
 constexpr int kHalf = kKeys / 2;  // keys per step: a tile in two halves

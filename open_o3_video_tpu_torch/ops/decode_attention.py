@@ -28,11 +28,15 @@ from .flash_attention import _prescale, flash_attention_gqa_torch
 
 # The stored dtypes K4 is built for.
 KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
-# The kernel holds all G * S query rows of one kv head in one 64-row CTA.
+# The kernel holds all G * S query rows of one kv head in one CTA.
 MAX_ROWS = 64
-# Split-K: about this many CTAs over the card, and at least this many keys
-# per split.
-SPLIT_CTAS = 512
+# Its key tile (kTile in csrc/decode_attention.cu): the unit of the split
+# plan and of the ring.
+TILE_KEYS = 64
+# Split-K: about this many CTAs over the card (two per SM of an H100's 132,
+# as many as K4's registers let an SM hold: one wave), and at least this
+# many keys per split.
+SPLIT_CTAS = 264
 MIN_SPLIT_KEYS = 256
 
 
@@ -49,6 +53,13 @@ def _splits(B: int, Hkv: int, T: int) -> int:
     each split at least MIN_SPLIT_KEYS slots. Depends on shapes only, so
     the reduction order (and the result's bits) is the same on every run."""
     return max(1, min(SPLIT_CTAS // (B * Hkv), -(-T // MIN_SPLIT_KEYS)))
+
+
+def split_tiles(n_tiles: int, splits: int) -> list[tuple[int, int]]:
+    """The key tiles [tile0, tile1) of each split, as the kernel divides the
+    n_tiles tiles of [0, max_pos] (``csrc/decode_attention.cu``); the splits
+    are summed in this order."""
+    return [(i * n_tiles // splits, (i + 1) * n_tiles // splits) for i in range(splits)]
 
 
 def decode_attention_gqa(q, k, v, q_positions, kv_valid, impl: str = "auto"):

@@ -30,6 +30,8 @@ from . import kernels
 
 CLAMP = 60.0
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
+# K3's CTA: 128 query rows of one head (two warpgroups of 64).
+CTA_ROWS = 128
 
 
 def _prescale(q):
@@ -127,6 +129,15 @@ def _kernel_operands(name, q, k, v, q_positions, kv_valid):
     kernels.check_kv("k", k, (B, T, Hkv, D), (torch.bfloat16,))
     kernels.check_kv("v", v, (B, T, Hkv, D), (torch.bfloat16,))
     return qs, pos, valid
+
+
+def cta_plan(B: int, S: int, Hq: int) -> list[tuple[int, int, int]]:
+    """K3's static schedule, as ``csrc/flash_attention.cu:cta_work`` computes
+    it: per CTA in launch order, its (batch row, head, first query row). The
+    last query tiles, which see the most keys, come first."""
+    n_qt, units = -(-S // CTA_ROWS), B * Hq
+    return [(*divmod(idx % units, Hq), (n_qt - 1 - idx // units) * CTA_ROWS)
+            for idx in range(n_qt * units)]
 
 
 def _fixed_m(q, k, v, q_positions, kv_valid):

@@ -14,8 +14,8 @@ chunks), greedy, warmed up with a 2-token run of the same request.
 in int4, EngineJudge's 4 jobs, 16 new tokens. Per engine stage (vision, prefill, decode)
 it prints the wall time, the device busy time (sum of kernel durations
 inside the stage's range, one stream), the idle share, and the top kernels
-by device time; with an int4 decoder also K7's device time (its kernels,
-decode and prefill routes) in the stage and, for decode, per step.
+by device time, and the device time of K3, K4 and K7 (each kernel
+family's kernels) in the stage and, for decode, per step.
 ``--trace PATH`` keeps the Chrome trace (tens of MB).
 """
 
@@ -41,9 +41,10 @@ from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, Engin
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P  # noqa: E402
 
 
-# K7's kernels by their namespaces in csrc/: int4mm (the decode route and
-# its split sum), int4wg (the prefill route)
-K7_NAMESPACES = ("int4mm", "int4wg")
+# Kernel families by their namespaces in csrc/: K3 (k3, the prefill
+# attention), K4 (k4, decode attention and its split sum), K7 (int4mm, the
+# decode route and its split sum; int4wg, the prefill route)
+FAMILIES = {"K3": ("k3::",), "K4": ("k4::",), "K7": ("int4mm", "int4wg")}
 
 
 def main() -> None:
@@ -108,11 +109,12 @@ def main() -> None:
             by_name[k["name"][:90]] += k["dur"]
         print(f"[{st['name']}] wall_ms={st['dur'] / 1e3:.3f} busy_ms={busy / 1e3:.3f} "
               f"idle_share={1 - busy / st['dur']:.3f} launches={len(inside)}", flush=True)
-        k7 = sum(k["dur"] for k in inside if any(ns in k["name"] for ns in K7_NAMESPACES))
-        if k7:
-            steps = engine.decode_steps if st["name"] == "engine.decode" else 1
-            print(f"    K7 {k7 / 1e3:.3f} ms ({100 * k7 / max(busy, 1):.1f}%), "
-                  f"{k7 / 1e3 / max(steps, 1):.3f} ms per step over {steps}", flush=True)
+        steps = engine.decode_steps if st["name"] == "engine.decode" else 1
+        for family, marks in FAMILIES.items():
+            dur = sum(k["dur"] for k in inside if any(ns in k["name"] for ns in marks))
+            if dur:
+                print(f"    {family} {dur / 1e3:.3f} ms ({100 * dur / max(busy, 1):.1f}%), "
+                      f"{dur / 1e3 / max(steps, 1):.3f} ms per step over {steps}", flush=True)
         for name, dur in by_name.most_common(8):
             print(f"    {dur / 1e3:9.3f} ms {100 * dur / max(busy, 1):5.1f}%  {name}")
 

@@ -227,7 +227,7 @@ def test_fp8_cache_write_saturates_where_jax_gives_nan():
 
 # ---- the bound the card's K4 is held to -------------------------------------
 
-TILE_KEYS = 64  # K4's key tile (kKeys in csrc/attention_tile.cuh)
+TILE_KEYS = tdec.TILE_KEYS  # K4's key tile (kTile in csrc/decode_attention.cu)
 
 
 @pytest.mark.parametrize("variant", ["keys reordered", "zero output", "one split dropped",
@@ -247,8 +247,7 @@ def test_kernel_bound_passes_rounding_and_rejects_dropped_keys(variant):
     valid = torch.ones((B, w), dtype=torch.int32)
     ref = tdec.decode_attention_gqa_torch(q, k, v, pos, valid)
     splits, tiles = tdec._splits(B, Hkv, T), -(-w // TILE_KEYS)
-    mid = splits // 2
-    dropped = {"one split dropped": (mid * tiles // splits, (mid + 1) * tiles // splits),
+    dropped = {"one split dropped": tdec.split_tiles(tiles, splits)[splits // 2],
                "last tile dropped": (tiles - 1, tiles)}
     if variant == "keys reordered":
         perm = torch.from_numpy(r.permutation(w))
@@ -267,6 +266,21 @@ def test_kernel_bound_passes_rounding_and_rejects_dropped_keys(variant):
             assert_kernel_close(out, ref)
 
 
+@pytest.mark.parametrize("B,Hkv,T,last", [(1, 4, 81920, 81887), (2, 4, 33000, 32990),
+                                          (3, 1, 1000, 997), (1, 8, 300, 5), (4, 8, 40000, 990)])
+def test_k4_split_plan_covers_each_key_tile_once_in_order(B, Hkv, T, last):
+    """The splits depend on shapes only, stay within SPLIT_CTAS CTAs, and
+    split_tiles gives every 64-key tile of [0, last] to exactly one split,
+    in order (the order the combine sums them in)."""
+    splits = tdec._splits(B, Hkv, T)
+    assert 1 <= splits and (splits == 1 or splits * B * Hkv <= tdec.SPLIT_CTAS)
+    assert splits <= -(-T // tdec.MIN_SPLIT_KEYS)
+    n_tiles = -(-(last + 1) // tdec.TILE_KEYS)
+    plan = tdec.split_tiles(n_tiles, splits)
+    assert len(plan) == splits
+    assert [t for t0, t1 in plan for t in range(t0, t1)] == list(range(n_tiles))
+
+
 # ---- on the card: kernel vs plain version ----------------------------------
 
 # (B, S, T, Hq, Hkv, q_pos of row 0, stored dtype): the chip_smoke shapes, and
@@ -277,6 +291,8 @@ CUDA_CASES = [
     (2, 4, 33000, 28, 4, 32990, "float8_e4m3fn"),
     (2, 3, 333, 14, 2, 300, "bfloat16"),
     (3, 8, 1000, 8, 1, 997, "float8_e4m3fn"),
+    (1, 1, 40000, 64, 8, 39990, "float8_e4m3fn"),  # the 72B judge's 64/8 heads
+    (2, 1, 5000, 64, 8, 4321, "bfloat16"),
 ]
 
 

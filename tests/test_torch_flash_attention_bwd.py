@@ -142,7 +142,8 @@ def test_dkv_wrapper_passes_a_float32_workspace(monkeypatch):
 # (B, S, T, Hq, Hkv, left padding of row 1): the SFT slice's one packed
 # example (S = T, right-padded keys), a small ragged case, and the 7B's 7
 # heads per kv head with T off the 64-key tile (row 1's first positions -1).
-CUDA_CASES = [(1, 3456, 3456, 28, 4, 0), (2, 77, 150, 14, 2, 9), (2, 200, 213, 28, 4, 13)]
+CUDA_CASES = [(1, 3456, 3456, 28, 4, 0), (2, 77, 150, 14, 2, 9), (2, 200, 213, 28, 4, 13),
+              (2, 700, 720, 16, 2, 21)]  # the last: a GQA group of 8
 
 
 # dout at 0.1: gradients then stay under ~1 in magnitude, where one bf16 ulp
@@ -165,11 +166,7 @@ def _cuda_inputs(dev, B, S, T, Hq, Hkv, pad):
     return q, k, v, pos, valid, do
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,T,Hq,Hkv,pad", CUDA_CASES)
-def test_exact_forward_kernel_matches_plain(B, S, T, Hq, Hkv, pad):
-    dev = cuda_device()
-    q, k, v, pos, valid, _ = _cuda_inputs(dev, B, S, T, Hq, Hkv, pad)
+def _assert_exact_close(q, k, v, pos, valid):
     out, lse = tfa.flash_attention_gqa_exact(q, k, v, pos, valid)
     ref, ref_lse = tfa.flash_attention_gqa_exact_torch(q, k, v, pos, valid)
     torch.cuda.synchronize()
@@ -177,6 +174,31 @@ def test_exact_forward_kernel_matches_plain(B, S, T, Hq, Hkv, pad):
     seen = ref_lse > tfa.NEG_INF
     torch.testing.assert_close(lse[seen], ref_lse[seen], atol=1e-3, rtol=0)
     assert (lse[~seen] == tfa.NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,pad", CUDA_CASES)
+def test_exact_forward_kernel_matches_plain(B, S, T, Hq, Hkv, pad):
+    dev = cuda_device()
+    _assert_exact_close(*_cuda_inputs(dev, B, S, T, Hq, Hkv, pad)[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,Hq,Hkv,start,holes", [(512, 20480, 28, 4, 20000, False),
+                                                     (128, 4096, 28, 4, 4096, False),
+                                                     (200, 2048, 16, 2, 1900, True)])
+def test_exact_forward_kernel_matches_plain_on_a_chunk(S, T, Hq, Hkv, start, holes):
+    """The long-chunk-like case, all tiles interior, every tile masked (as
+    in test_torch_flash_attention.py), with lse."""
+    dev = cuda_device()
+    q = torch.from_numpy(normal(rng(S), 1, S, Hq, 128)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(normal(rng(T + i), 1, T, Hkv, 128)).to(dev, torch.bfloat16)
+            for i in range(2))
+    pos = torch.arange(start, start + S, dtype=torch.int32, device=dev)[None]
+    valid = torch.ones((1, T), dtype=torch.int32, device=dev)
+    if holes:
+        valid[:, 77::128] = 0
+    _assert_exact_close(q, k, v, pos, valid)
 
 
 @pytest.mark.cuda
