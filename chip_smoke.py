@@ -7,13 +7,14 @@ Phases (one line each; any failure raises and the exit code is non-zero):
   2. build the CUDA kernels from open_o3_video_tpu_torch/csrc (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version at the serving slice's
      shapes, bf16 on the card: max abs error vs a bound at the reference's
-     scale and relative L2 error vs a bound (faults planted in K4's output
-     must fail them), and times (CUDA events, warmup, median of 20, kernel
-     and plain in turns); K2 also at frames of 32x32 patches (W = 1024,
-     past its resident limit: K and V stream); K3 also at the 72B judge's
-     prefill (64/8 heads) and on run (b)'s last prefill chunk (8160 rows
-     against 81920 slots: 64 rows compared, the whole chunk timed beside
-     its bound and SDPA);
+     scale and relative L2 error vs a bound (faults planted in K1's and
+     K4's outputs must fail them), and times (CUDA events, warmup, median
+     of 20, kernel and plain in turns); K1 at W = 64 (16 frames of 18x24
+     patches, its row) and W = 128 (18x26); K2 also at frames of 32x32
+     patches (W = 1024, past its resident limit: K and V stream); K3 also
+     at the 72B judge's prefill (64/8 heads) and on run (b)'s last prefill
+     chunk (8160 rows against 81920 slots: 64 rows compared, the whole
+     chunk timed beside its bound and SDPA);
   4. the serving slice at the full width of Qwen2.5-VL-7B (random bf16
      weights drawn on the card from --seed): 2 requests of 16 synthetic
      252x336 frames, processor -> InferenceEngine.generate with the reference
@@ -38,9 +39,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      and each against a float32 step (SLICE_REL_RATIO), and identical
      tokens from two runs of (a).
   8. the training kernels against their plain versions at the SFT slice's
-     shapes: the exact (training) modes of K1-K3, out and lse (K2's also at
-     W = 1024, K3's also at 64/8 heads); K5 (dq; dk
-     and dv) and K6 (fused dqkv; the global blocks' dq; dk and dv), with
+     shapes: the exact (training) modes of K1-K3, out and lse (K1's also at
+     W = 128, K2's also at W = 1024, K3's also at 64/8 heads); K5 (dq; dk
+     and dv) and K6 (fused dqkv, also at W = 128; the global blocks' dq; dk
+     and dv), with
      their bounds and the time of one PyTorch call computing the same
      function; faults planted in K5's and K6's outputs must fail the bound;
   9. the SFT slice: 3 full fine-tune steps of Qwen2.5-VL-7B through
@@ -77,8 +79,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      EngineJudge.batch on 4 jobs with 16 new tokens, twice: init seconds,
      weight and peak GiB, prefill ms, decode ms/token, the scores (-1 with
      random weights), K7 launches by route as in phase 12 (7 * 80 on the
-     wgmma route, then 1 + 7 * 80 + 1 per decode step), and identical
-     scores across the two calls.
+     wgmma route, then 1 + 7 * 80 + 1 per decode step), K3's launches in
+     the call (its prefill), and identical scores across the two calls.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -412,6 +414,26 @@ def segment_mask(ids):
     return ((g[:, :, None] == g[:, None, :]) & (g[:, None, :] != 0))[:, None]
 
 
+# K1's and K6's packed window rows: 16 frames of 18x24 patches (W = 64,
+# the slice and the SFT step; its case gives the kernels' rows) and of 18x26
+# (W = 128, two windows a row).
+WINDOW_ROW_GRIDS = ((18, 24), (18, 26))
+
+
+def window_row_inputs(dev, gen, v, grid_hw):
+    """The tower's packed window rows over N_FRAMES frames of grid_hw
+    patches: segment ids (N, W), the rope tables cos, sin (N, W, D) float32
+    and a random bf16 qkv projection (N, W, 3 * hidden)."""
+    spec = compute_vision_spec([(1, *grid_hw)] * N_FRAMES, v)
+    w = spec.win_w
+    emb = np.concatenate([spec.padded_freqs, spec.padded_freqs], -1)
+    cos = torch.from_numpy(np.cos(emb).reshape(-1, w, v.head_dim)).to(dev)
+    sin = torch.from_numpy(np.sin(emb).reshape(-1, w, v.head_dim)).to(dev)
+    ids = torch.from_numpy(spec.padded_gids.reshape(-1, w)).to(dev)
+    qkv = torch.randn((ids.shape[0], w, 3 * v.hidden_size), generator=gen, device=dev)
+    return ids, cos, sin, qkv.to(torch.bfloat16)
+
+
 # K2's frames: the slice's 18x24 patches (W = 448, its K/V resident) and
 # 32x32 (W = 1024, a 448x448 frame, streamed); the first gives K2's row.
 K2_FRAME_GRIDS = ((18, 24), (32, 32))
@@ -437,24 +459,23 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    for grid_hw in ((18, 24), (18, 26)):  # W = 64 (the slice), W = 128 (packed rows)
-        spec = compute_vision_spec([(1, *grid_hw)] * N_FRAMES, v)
-        w = spec.win_w
-        emb = np.concatenate([spec.padded_freqs, spec.padded_freqs], -1)
-        cos = torch.from_numpy(np.cos(emb).reshape(-1, w, v.head_dim)).to(dev)
-        sin = torch.from_numpy(np.sin(emb).reshape(-1, w, v.head_dim)).to(dev)
-        ids = torch.from_numpy(spec.padded_gids.reshape(-1, w)).to(dev)
-        qkv = bf16(ids.shape[0], w, 3 * v.hidden_size)
+    for grid_hw in WINDOW_ROW_GRIDS:
+        ids, cos, sin, qkv = window_row_inputs(dev, gen, v, grid_hw)
         out_bytes = qkv.numel() // 3 * 2
         rq, rk, rv = wa._rope_qk(qkv, cos, sin, v.num_heads)
         seg = segment_mask(ids)
-        compare("fused_window_attention",
-                lambda: wa.fused_window_attention(qkv, cos, sin, ids, v.num_heads),
-                lambda: wa.fused_window_attention_torch(qkv, cos, sin, ids, v.num_heads),
-                ids != 0, results,
-                flops=4 * segment_pairs(ids) * v.num_heads * v.head_dim,
-                moved=nbytes(qkv, cos, sin, ids) + out_bytes,
-                library_fn=lambda: sdpa_masked(rq, rk, rv, seg))
+        ref = compare("fused_window_attention",
+                      lambda: wa.fused_window_attention(qkv, cos, sin, ids, v.num_heads),
+                      lambda: wa.fused_window_attention_torch(qkv, cos, sin, ids, v.num_heads),
+                      ids != 0, results,
+                      flops=4 * segment_pairs(ids) * v.num_heads * v.head_dim,
+                      moved=nbytes(qkv, cos, sin, ids) + out_bytes,
+                      library_fn=lambda: sdpa_masked(rq, rk, rv, seg), case=f"W = {ids.shape[1]}")
+        if grid_hw == WINDOW_ROW_GRIDS[0]:  # fault: the rope on k left out
+            raw_k = qkv.view(*rq.shape[:2], 3, *rq.shape[2:])[:, :, 1]
+            planted("fused_window_attention", "rope on k left out",
+                    wa.window_attention_torch(rq, raw_k, rv, ids).reshape(ref.shape), ref, ids != 0)
+        del qkv, rq, rk, rv, seg, ref
     for grid_hw in K2_FRAME_GRIDS:
         frame_ids, q, k, vv, _ = frame_inputs(dev, gen, v, grid_hw)
         fseg = segment_mask(frame_ids)
@@ -906,35 +927,32 @@ def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
     def bf16(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
 
-    spec = compute_vision_spec([(1, 18, 24)] * N_FRAMES, v)
-    w = spec.win_w
-    emb = np.concatenate([spec.padded_freqs, spec.padded_freqs], -1)
-    cos = torch.from_numpy(np.cos(emb).reshape(-1, w, D)).to(dev)
-    sin = torch.from_numpy(np.sin(emb).reshape(-1, w, D)).to(dev)
-    ids = torch.from_numpy(spec.padded_gids.reshape(-1, w)).to(dev)
-    qkv = bf16(ids.shape[0], w, 3 * v.hidden_size)
-    do = bf16(ids.shape[0], w, v.hidden_size, scale=DOUT_SCALE)
-    do[ids == 0] = 0  # the tower never reads a pad row
-    pairs = segment_pairs(ids) * H * D
-    rq, rk, rv = wa._rope_qk(qkv, cos, sin, H)
-    seg = segment_mask(ids)
-    compare("fused_window_attention_exact",
-            lambda: wa.fused_window_attention_exact(qkv, cos, sin, ids, H),
-            lambda: wa.fused_window_attention_exact_torch(qkv, cos, sin, ids, H),
-            ids != 0, results, flops=4 * pairs,
-            moved=nbytes(qkv, cos, sin, ids) + nbytes(do),  # out has dout's shape
-            library_fn=lambda: sdpa_masked(rq, rk, rv, seg))
-    ref = compare("fused_window_attention_bwd",
-                  lambda: wa.fused_window_attention_bwd(qkv, cos, sin, ids, H, do),
-                  lambda: wa.fused_window_attention_bwd_torch(qkv, cos, sin, ids, H, do),
-                  None, results, flops=10 * pairs, moved=nbytes(qkv, cos, sin, ids, do, qkv),
-                  library_fn=lambda: sdpa_fwd_bwd(rq, rk, rv, do.view(*rq.shape), attn_mask=seg))
-    # fault: the rope transpose left out of dq and dk
-    q0, k0, v0 = wa._rope_qk(qkv, cos, sin, H)
-    no_rope = torch.stack(wa._window_bwd_f32(q0, k0, v0, ids, do.view(*q0.shape)), dim=2)
-    planted("fused_window_attention_bwd", "rope transpose left out",
-            no_rope.reshape(qkv.shape).to(qkv.dtype), ref, None)
-    del qkv, do, rq, rk, rv, q0, k0, v0, no_rope
+    for grid_hw in WINDOW_ROW_GRIDS:
+        ids, cos, sin, qkv = window_row_inputs(dev, gen, v, grid_hw)
+        do = bf16(*qkv.shape[:2], v.hidden_size, scale=DOUT_SCALE)
+        do[ids == 0] = 0  # the tower never reads a pad row
+        pairs = segment_pairs(ids) * H * D
+        rq, rk, rv = wa._rope_qk(qkv, cos, sin, H)
+        seg = segment_mask(ids)
+        case = f"W = {ids.shape[1]}"
+        compare("fused_window_attention_exact",
+                lambda: wa.fused_window_attention_exact(qkv, cos, sin, ids, H),
+                lambda: wa.fused_window_attention_exact_torch(qkv, cos, sin, ids, H),
+                ids != 0, results, flops=4 * pairs,
+                moved=nbytes(qkv, cos, sin, ids) + nbytes(do),  # out has dout's shape
+                library_fn=lambda: sdpa_masked(rq, rk, rv, seg), case=case)
+        ref = compare("fused_window_attention_bwd",
+                      lambda: wa.fused_window_attention_bwd(qkv, cos, sin, ids, H, do),
+                      lambda: wa.fused_window_attention_bwd_torch(qkv, cos, sin, ids, H, do),
+                      None, results, flops=10 * pairs, moved=nbytes(qkv, cos, sin, ids, do, qkv),
+                      library_fn=lambda: sdpa_fwd_bwd(rq, rk, rv, do.view(*rq.shape), attn_mask=seg),
+                      case=case)
+        if grid_hw == WINDOW_ROW_GRIDS[0]:  # fault: the rope transpose left out of dq and dk
+            no_rope = torch.stack(wa._window_bwd_f32(rq, rk, rv, ids, do.view(*rq.shape)), dim=2)
+            planted("fused_window_attention_bwd", "rope transpose left out",
+                    no_rope.reshape(qkv.shape).to(qkv.dtype), ref, None)
+            del no_rope
+        del qkv, do, rq, rk, rv, seg, ref
 
     slice_frames = None
     for grid_hw in K2_FRAME_GRIDS:
@@ -1377,6 +1395,7 @@ def judge_phase(dev, seed) -> dict:
     scores = judge.batch(list(JUDGE_JOBS))
     e2e = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in K7_ROUTES}
+    k3_launches = kernels.LAUNCHES["flash_attention_gqa"]
     expected = k7_expected(engine, cfg.text.num_hidden_layers)
     st = engine.stage_seconds
     log("judge", jobs=len(JUDGE_JOBS), prompt_tokens=[len(judge._request(*j).input_ids) for j in JUDGE_JOBS],
@@ -1384,7 +1403,7 @@ def judge_phase(dev, seed) -> dict:
         decode_ms_per_token=round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
         decode_steps=engine.decode_steps, e2e_s=round(e2e, 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), scores=scores,
-        k7_launches=launches, expected=expected)
+        k7_launches=launches, expected=expected, k3_launches=k3_launches)
     if launches != expected:
         raise RuntimeError(f"K7 launched {launches} times by route in the judge call, "
                            f"expected {expected}")

@@ -1,6 +1,7 @@
-// Shared building blocks of the attention kernels: K1's fused rope+window
-// attention (and parts of K2, K5 and K6) runs a 64-query-row CTA of four warps
-// that walks the keys in 64-row tiles staged in shared memory, and computes
+// Shared building blocks of the attention kernels: K1's general route (row
+// widths other than 64 and 128; parts serve K2, K5, K6 and K1's row
+// kernels) runs a 64-query-row CTA of four warps that walks the keys in
+// 64-row tiles staged in shared memory, and computes
 //
 //     p = exp(min(s, 60))   (0 where masked)      l += sum(p)
 //     acc += bf16(p) @ v                           out = acc / (l == 0 ? 1 : l)
@@ -222,13 +223,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 // bf16: y = x * cos + rotate_half(x) * sin, rotate_half([x1, x2]) =
 // [-x2, x1]. Explicit _rn intrinsics keep the compiler from contracting into
 // an FMA, so the rounding matches the plain version op for op.
-template <int D, int THREADS = kThreads>
+template <int D>
 __device__ __forceinline__ void load_rope_tile(bf16 (*dst)[D + kPad], const bf16* src,
                                                long long row_stride, const float* cos,
-                                               const float* sin, int r0, int n_rows,
-                                               int rows = kKeys) {
+                                               const float* sin, int r0, int n_rows) {
   constexpr int kVec = D / 8, kHalf = D / 2;
-  for (int i = threadIdx.x; i < rows * kVec; i += THREADS) {
+  for (int i = threadIdx.x; i < kKeys * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 8;
     uint4 packed = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < n_rows) {
@@ -318,6 +318,8 @@ __device__ __forceinline__ void store_frags(const float (&acc)[D / 8][4], float 
           pack_bf16x2(acc[dt][2 * half] * scale, acc[dt][2 * half + 1] * scale);
   }
 }
+
+constexpr int kSmemMax = 232448;  // the dynamic shared memory a block may have (H100)
 
 // Launch helper for kernels that need more than 48 KB of shared memory.
 template <typename Kernel>

@@ -4,15 +4,24 @@
 // K1 fused_window_attention replaces open_o3_video_tpu/ops/window_attention.py
 // _fused_fwd_kernel (the 28 windowed blocks of the Qwen2.5-VL tower). It reads
 // the raw qkv projection (N, W, 3*H*D) bf16 once, applies the 2D rotary
-// embedding to q and k in f32 (cos/sin (N, W, D) f32) and rounds them to bf16
-// as it stages them in shared memory, runs masked bidirectional attention
-// where ids_q == ids_k != 0 (several packed edge windows share a row), and
-// writes (N, W, H*D) bf16 at lane offset h*D: the layout the output
-// projection reads. Nothing but qkv in and attn out touches device memory.
-// At W = 64 it does about 33 FLOP per byte of qkv read, far under the ~295
-// FLOP/byte at which bf16 tensor cores become the limit, so it is bound by
-// device-memory bytes; one CTA per (64-row query tile, head, row), mma.sync
-// bf16 tiles, scores in registers.
+// embedding to q and k in f32 (cos/sin (N, W, D) f32) and rounds them to bf16,
+// runs masked bidirectional attention where ids_q == ids_k != 0 (several
+// packed edge windows share a row), and writes (N, W, H*D) bf16 at lane
+// offset h*D: the layout the output projection reads. Nothing but qkv, the
+// tables and ids in and attn out touches device memory. At W = 64 it does
+// about 33 FLOP per byte of qkv read, far under the ~295 FLOP/byte at which
+// bf16 tensor cores become the limit, so it is bound by device-memory bytes,
+// and a design that waits on each load in turn is bound by their latency.
+// - At the packed row widths (W = 64 and 128) a CTA takes one head of one
+//   row (window_row.cuh), its q, k, v slabs coming by TMA, with no wait
+//   between the loads. Each warp holds its 16 query rows against all W
+//   keys in registers, ropes its own positions of q (straight into its A
+//   fragments) and k (written back for the other warps) with the row's
+//   cos/sin read at those positions, and in exact mode forms p = exp(s -
+//   m) / l in one pass, the whole row's scores being in hand.
+// - Other widths take the general route: one CTA per (64-row query tile,
+//   head, row), keys in 64-row tiles, rope applied as the tiles are staged,
+//   exact mode in two passes.
 //
 // K2 window_attention replaces ops/window_attention.py _fwd_kernel (the 4
 // global blocks, over whole frames: W = 448, 432 valid, at 18x24 patches).
@@ -51,6 +60,7 @@
 // twice. wgmma is later work.
 #include "async_copy.cuh"
 #include "attention_tile.cuh"
+#include "window_row.cuh"
 
 namespace o3v {
 
@@ -211,12 +221,99 @@ __global__ void __launch_bounds__(kThreads)
                  [&](int row) { return ob + static_cast<long long>(row) * hd; });
 }
 
+// ---- K1 at the packed row widths (W = 64, 128): see window_row.cuh -------
+
+// One head of one row, its q, k, v slabs landed (sl[0..2]) and this
+// thread's cos/sin in hand: k is roped in place for the other warps, this
+// warp's 16 query rows attend to all W keys, and the head's lanes of the
+// output row (`ob`, row stride hd) are written.
+template <int D, int W, bool EXACT>
+__device__ __forceinline__ void fused_row_head(row::Slab<D, W>* sl, const float2 (&c)[2][D / 8],
+                                               const float2 (&s)[2][D / 8], const int* tag,
+                                               bf16* ob, int hd, float scale) {
+  const int g = (threadIdx.x & 31) >> 2, r0 = (threadIdx.x >> 5) * 16;
+  uint32_t qa[D / 16][4];
+  {
+    float2 x[2][D / 8];
+    row::read_own<D, W>(x, sl[0], r0);
+    row::rope<D>(x, c, s);
+    row::own_to_a<D>(qa, x);
+    row::read_own<D, W>(x, sl[1], r0);
+    row::rope<D>(x, c, s);
+    row::write_own<D, W>(sl[1], x, r0);
+  }
+  __syncthreads();  // every warp's rows of k roped
+  const int row_tag[2] = {tag[r0 + g], tag[r0 + g + 8]};
+  float p[W / 8][4];
+  row::scores<D, W>(p, qa, sl[1]);
+  float acc[D / 8][4] = {};
+  auto out_row = [&](int r) { return ob + static_cast<long long>(r) * hd; };
+  if constexpr (EXACT) {
+    row::exact_softmax<W>(p, tag, row_tag, scale);
+    row::times_slab<D, W>(acc, p, sl[2]);
+  } else {  // p = exp(min(s, 60)) where the ids match
+    const float scale2 = scale * row::kLog2e;
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < W / 8; ++nt) {
+      const int2 kt = row::key_tags(tag, nt);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1, key = e & 1 ? kt.y : kt.x;
+        p[nt][e] = row_tag[half] != 0 && key == row_tag[half]
+                       ? row::exp2_approx(fminf(p[nt][e] * scale2, kClamp * row::kLog2e)) : 0.f;
+        l[half] += p[nt][e];
+      }
+    }
+    row::times_slab<D, W>(acc, p, sl[2]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // acc / l, 0 where l == 0 (acc is 0 there)
+      l[half] = quad_sum(l[half]);
+      const float inv = l[half] == 0.f ? 1.f : 1.f / l[half];
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        acc[dt][2 * half] *= inv;
+        acc[dt][2 * half + 1] *= inv;
+      }
+    }
+  }
+  store_frags<D>(acc, 1.f, r0, W, out_row);
+}
+
+// A CTA per (row n, head h): blockIdx.x = n * heads + h. The head's q, k, v
+// slabs come by TMA on one mbarrier while each thread reads its cos/sin.
+template <int D, int W, bool EXACT>
+__global__ void __launch_bounds__(2 * W, row::k1_min_ctas(W))
+    fused_window_rows_kernel(const __grid_constant__ CUtensorMap tm_qkv,
+                             const float* __restrict__ cos, const float* __restrict__ sin,
+                             const int* __restrict__ ids, bf16* __restrict__ out, int heads,
+                             float scale) {
+  static_assert(D + kPad == row::kBoxCols, "the TMA box is built for D = 80");
+  extern __shared__ uint8_t smem_raw[];
+  row::Slab<D, W>* slab = row::slabs<D, W>(smem_raw);  // q, k, v
+  int* tag = reinterpret_cast<int*>(slab + 3);
+  const uint32_t bar = async::smem_u32(tag + W);
+  const int n = blockIdx.x / heads, h = blockIdx.x % heads, hd = heads * D;
+  const long long row0 = static_cast<long long>(n) * W;
+  row::begin<W>(tag, ids + row0, bar);
+  if (threadIdx.x == 0) {
+    async::mbar_expect_tx(bar, 3 * row::kSlabBytes<D, W>);
+    for (int part = 0; part < 3; ++part)
+      async::tma_load_2d(async::smem_u32(slab + part), &tm_qkv, bar, part * hd + h * D, n * W);
+  }
+  float2 c[2][D / 8], s[2][D / 8];
+  const int r0 = (threadIdx.x >> 5) * 16;
+  row::load_tab<D>(c, cos + row0 * D, r0);
+  row::load_tab<D>(s, sin + row0 * D, r0);
+  async::mbar_wait(bar, 0);
+  fused_row_head<D, W, EXACT>(slab, c, s, tag, out + row0 * hd + h * D, hd, scale);
+}
+
 // ---- K2: a frame-head's K and V resident in shared memory ------------------
 
 constexpr int kWWarps = 14;                    // consumer warps, 16 query rows each
 constexpr int kWThreads = 32 * (kWWarps + 1);  // and one producer warp
 constexpr int kRing = 8;                       // tile slots when K and V stream
-constexpr int kSmemMax = 232448;               // all a block may have
 constexpr int kAlign = 128;                    // TMA destinations: 128-byte aligned
 
 template <int D>
@@ -504,6 +601,20 @@ cudaError_t launch_fused_exact(const void* qkv, const void* cos, const void* sin
   return cudaGetLastError();
 }
 
+// K1 at W = 64 or 128: one tensor map over qkv as (N * W, 3 * H * D), a
+// CTA per (row, head).
+template <int D, int W, bool EXACT>
+cudaError_t launch_fused_rows(const void* qkv, const void* cos, const void* sin, const void* ids,
+                              void* out, int n, int heads, float scale, cudaStream_t stream) {
+  CUtensorMap tm;
+  if (!row::encode_rows(&tm, qkv, static_cast<long long>(n) * W, 3LL * heads * D, W))
+    return cudaErrorInvalidValue;
+  return row::launch<fused_window_rows_kernel<D, W, EXACT>, W>(
+      n * heads, row::smem_bytes<D, W>(3, 0), stream, tm, static_cast<const float*>(cos),
+      static_cast<const float*>(sin), static_cast<const int*>(ids), static_cast<bf16*>(out), heads,
+      scale);
+}
+
 // K2's launch: the tensor maps of k and v (dims {H*D, W, N}, 88-column
 // boxes of 64 keys), then the resident kernel where the frame-head's tiles
 // fit (one CTA per frame-head), else the streaming one.
@@ -553,13 +664,16 @@ cudaError_t launch_window_tma(const void* q, const void* k, const void* v, const
 
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after the launch: 0 on success. All are built for the vision tower's
-// head_dim of 80 only.
+// head_dim of 80 only. K1 takes the row kernel at W = 64 and 128, the
+// general route at other widths.
 extern "C" int o3v_fused_window_attention(const void* qkv, const void* cos, const void* sin,
                                           const void* ids, void* out, int n, int w, int heads,
                                           int head_dim, float scale, void* stream) {
   if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  return o3v::launch_fused<80>(qkv, cos, sin, ids, out, n, w, heads, scale,
-                               static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w == 64) return o3v::launch_fused_rows<80, 64, false>(qkv, cos, sin, ids, out, n, heads, scale, s);
+  if (w == 128) return o3v::launch_fused_rows<80, 128, false>(qkv, cos, sin, ids, out, n, heads, scale, s);
+  return o3v::launch_fused<80>(qkv, cos, sin, ids, out, n, w, heads, scale, s);
 }
 
 // K2 keeps a frame-head's K and V in shared memory where they fit (W <=
@@ -579,8 +693,10 @@ extern "C" int o3v_fused_window_attention_exact(const void* qkv, const void* cos
                                                 int n, int w, int heads, int head_dim,
                                                 float scale, void* stream) {
   if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  return o3v::launch_fused_exact<80>(qkv, cos, sin, ids, out, n, w, heads, scale,
-                                     static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w == 64) return o3v::launch_fused_rows<80, 64, true>(qkv, cos, sin, ids, out, n, heads, scale, s);
+  if (w == 128) return o3v::launch_fused_rows<80, 128, true>(qkv, cos, sin, ids, out, n, heads, scale, s);
+  return o3v::launch_fused_exact<80>(qkv, cos, sin, ids, out, n, w, heads, scale, s);
 }
 
 extern "C" int o3v_window_attention_exact(const void* q, const void* k, const void* v,

@@ -43,6 +43,13 @@ CLAMP = 60.0
 FUSED_BWD_WIDTHS = (64, 128)
 
 
+def row_items(n: int, heads: int) -> list[tuple[int, int]]:
+    """The (row, head) item of each CTA of K1's and K6's row kernels (W = 64
+    and 128; ``csrc/window_row.cuh``), in launch order, as they decode
+    ``blockIdx.x``: one head of one row a CTA."""
+    return [(b // heads, b % heads) for b in range(n * heads)]
+
+
 def _segment_mask(valid):
     g = valid.to(torch.int32)
     return ((g[:, :, None] == g[:, None, :]) & (g[:, None, :] != 0))[:, None]

@@ -14,8 +14,8 @@ chunks), greedy, warmed up with a 2-token run of the same request.
 in int4, EngineJudge's 4 jobs, 16 new tokens. Per engine stage (vision, prefill, decode)
 it prints the wall time, the device busy time (sum of kernel durations
 inside the stage's range, one stream), the idle share, and the top kernels
-by device time, and the device time of K3, K4 and K7 (each kernel
-family's kernels) in the stage and, for decode, per step.
+by device time, and the device time of K1, K2, K3, K4 and K7 (each
+kernel family's kernels) in the stage and, for decode, per step.
 ``--trace PATH`` keeps the Chrome trace (tens of MB).
 """
 
@@ -41,10 +41,13 @@ from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, Engin
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P  # noqa: E402
 
 
-# Kernel families by their namespaces in csrc/: K3 (k3, the prefill
-# attention), K4 (k4, decode attention and its split sum), K7 (int4mm, the
-# decode route and its split sum; int4wg, the prefill route)
-FAMILIES = {"K3": ("k3::",), "K4": ("k4::",), "K7": ("int4mm", "int4wg")}
+# Kernel families by their names or namespaces in csrc/: K1 (the row
+# kernels at W = 64 and 128, the general route elsewhere), K2 (whole
+# frames), K3 (k3, the prefill attention), K4 (k4, decode attention and its
+# split sum), K7 (int4mm, the decode route and its split sum; int4wg, the
+# prefill route)
+FAMILIES = {"K1": ("fused_window_rows", "fused_window_attention"), "K2": ("window_attention_tma",),
+            "K3": ("k3::",), "K4": ("k4::",), "K7": ("int4mm", "int4wg")}
 
 
 def main() -> None:

@@ -75,6 +75,23 @@ def packed_ids(r: np.random.Generator, n: int, w: int, max_windows: int = 3) -> 
     return ids
 
 
+def row_ids(r: np.random.Generator, n: int, w: int, kind: int | str) -> np.ndarray:
+    """(n, w) segment ids for the window kernels' tests: ``kind`` an int
+    (packed_ids with up to that many windows a row), "pads" (every row pure
+    padding) or "four" (every row four windows of random sizes, then
+    padding)."""
+    if isinstance(kind, int):
+        return packed_ids(r, n, w, kind)
+    ids = np.zeros((n, w), np.int32)
+    if kind == "four":
+        for i in range(n):
+            start = 0
+            for j, end in enumerate(np.sort(r.choice(np.arange(1, w), size=4, replace=False))):
+                ids[i, start:end] = j + 1
+                start = end
+    return ids
+
+
 def tiny_configs():
     """(JAX config, port config): Qwen25VLConfig.tiny() in f32, both sides."""
     from open_o3_video_tpu.models.qwen25vl import Qwen25VLConfig as JaxConfig

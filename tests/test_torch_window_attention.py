@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import ATOL_BF16, ATOL_OP, cuda_device, normal, packed_ids, rng
+from _torch_parity import ATOL_BF16, ATOL_OP, cuda_device, normal, packed_ids, rng, row_ids
 
 from open_o3_video_tpu_torch.ops import window_attention as twa
 
@@ -92,6 +92,18 @@ def test_impl_torch_is_the_plain_version():
         twa.window_attention(q, k, v, ids, impl="xla")
 
 
+# ---- K1's and K6's grid at the packed row widths (csrc/window_row.cuh) ---
+
+
+@pytest.mark.parametrize("n,heads", [(112, 16), (64, 16), (7, 6), (5, 3), (1, 1)])
+def test_row_items_cover_each_row_and_head_once_in_order(n, heads):
+    """The row kernels' n * heads CTAs take every (row, head) item once,
+    row by row, heads in order: at the slice's N = 112 rows of W = 64 and 64
+    rows of W = 128 (16 heads), and at row and head counts that are not
+    powers of two."""
+    assert twa.row_items(n, heads) == [(row, h) for row in range(n) for h in range(heads)]
+
+
 # ---- on the card: kernel vs plain version, bf16 --------------------------
 
 CUDA_CASES = [
@@ -102,6 +114,16 @@ CUDA_CASES = [
     (3, 130, 2, 80, 2),
     (2, 700, 2, 80, 2),  # past K2's resident limit (640): K and V stream
     (2, 1024, 4, 80, 1),  # a whole frame of 32x32 patches
+]
+
+# K1's row kernels (W = 64 and 128) besides CUDA_CASES' (N, W, H, D, ids:
+# max windows per row, "pads" or "four"); in every case the last head's v
+# box runs past the row's end (the TMA fills it with zeros).
+FUSED_CUDA_CASES = CUDA_CASES + [
+    (64, 128, 16, 80, 3),  # 16 frames of 18x26 patches
+    (5, 64, 3, 80, 3), (5, 128, 3, 80, 3),
+    (3, 64, 16, 80, "pads"), (3, 128, 16, 80, "pads"),  # rows of pads only
+    (4, 64, 16, 80, "four"), (4, 128, 16, 80, "four"),  # four packed windows a row
 ]
 
 
@@ -125,17 +147,18 @@ def test_window_attention_kernel_matches_plain(n, w, h, d, maxw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,w,h,d,maxw", CUDA_CASES)
-def test_fused_window_attention_kernel_matches_plain(n, w, h, d, maxw):
+@pytest.mark.parametrize("n,w,h,d,kind", FUSED_CUDA_CASES)
+def test_fused_window_attention_kernel_matches_plain(n, w, h, d, kind):
     dev = cuda_device()
     r = rng(n + w + d + 1)
     qkv = _bf16(normal(r, n, w, 3 * h * d), dev)
     _, cos, sin = _rope_tables(r, n, w, d)
     cos, sin = (torch.from_numpy(x).to(dev) for x in (cos, sin))
-    ids = torch.from_numpy(packed_ids(r, n, w, maxw)).to(dev)
+    ids = torch.from_numpy(row_ids(r, n, w, kind)).to(dev)
     out = twa.fused_window_attention(qkv, cos, sin, ids, h)
     ref = twa.fused_window_attention_torch(qkv, cos, sin, ids, h)
     torch.cuda.synchronize()
     keep = ids != 0
     torch.testing.assert_close(out[keep].float(), ref[keep].float(), atol=ATOL_BF16, rtol=0)
     assert torch.isfinite(out.float()).all()
+    assert torch.equal(out[~keep], torch.zeros_like(out[~keep]))  # a pad row gives 0

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import ATOL_OP, assert_kernel_close, cuda_device, normal, packed_ids, rng
+from _torch_parity import (ATOL_OP, assert_kernel_close, cuda_device, normal, packed_ids, rng,
+                           row_ids)
 
 from open_o3_video_tpu_torch.ops import window_attention as twa
 
@@ -100,32 +101,48 @@ def test_fused_equals_unfused_exact_path():
 # dout at 0.1, so gradients stay under ~1, where one bf16 ulp is within the
 # bound (see test_torch_flash_attention_bwd.py).
 
-def _vision_inputs(dev, r, n, w, h):
+def _vision_inputs(dev, r, n, w, h, kind=2):
     d = 80
     cos, sin = (torch.from_numpy(x).to(dev) for x in _rope_tables(r, n, w, d))
-    ids = torch.from_numpy(packed_ids(r, n, w, 2)).to(dev)
+    ids = torch.from_numpy(row_ids(r, n, w, kind)).to(dev)
     return cos, sin, ids
 
 
+# K1's exact mode and K6's fused backward, the row kernels: (N, W, H, ids:
+# max windows per row, "pads" or "four"). In every case the last head's v
+# and dout boxes run past the row's end (the TMA fills them with zeros).
+FUSED_CUDA_CASES = [
+    (40, 64, 16, 2), (40, 128, 16, 2),
+    (112, 64, 16, 3),  # the SFT step: 16 frames of 18x24 patches
+    (64, 128, 16, 3),  # 16 frames of 18x26
+    (5, 64, 3, 3), (5, 128, 3, 3),
+    (3, 64, 16, "pads"), (3, 128, 16, "pads"),  # rows of pads only
+    (4, 64, 16, "four"), (4, 128, 16, "four"),  # four packed windows a row
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [64, 128])
-def test_fused_kernels_match_plain(w):
+@pytest.mark.parametrize("n,w,h,kind", FUSED_CUDA_CASES)
+def test_fused_kernels_match_plain(n, w, h, kind):
+    """Every row compared (a pad row attends uniformly in exact mode), dout
+    kept at pad rows so that a row of pads only has a gradient too."""
     dev = cuda_device()
-    r = rng(w)
-    n, h = 40, 16
-    cos, sin, ids = _vision_inputs(dev, r, n, w, h)
+    r = rng(n * w + h)
+    cos, sin, ids = _vision_inputs(dev, r, n, w, h, kind)
     qkv = torch.from_numpy(normal(r, n, w, 3 * h * 80)).to(dev, torch.bfloat16)
     dout = torch.from_numpy(normal(r, n, w, h * 80, scale=0.1)).to(dev, torch.bfloat16)
-    dout[ids == 0] = 0
-    keep = ids != 0
     out = twa.fused_window_attention_exact(qkv, cos, sin, ids, h)
     ref = twa.fused_window_attention_exact_torch(qkv, cos, sin, ids, h)
     got = twa.fused_window_attention_bwd(qkv, cos, sin, ids, h, dout)
     want = twa.fused_window_attention_bwd_torch(qkv, cos, sin, ids, h, dout)
     torch.cuda.synchronize()
-    assert_kernel_close(out[keep], ref[keep])
-    assert torch.isfinite(got.float()).all()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(got.float()).all()
+    assert_kernel_close(out, ref)
     assert_kernel_close(got, want)
+    hd = h * 80
+    for part in range(3):  # the last head's dq, dk, dv
+        cols = slice(part * hd + hd - 80, part * hd + hd)
+        assert_kernel_close(got[..., cols], want[..., cols])
 
 
 @pytest.mark.cuda
