@@ -42,9 +42,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      shapes: the exact (training) modes of K1-K3, out and lse (K1's also at
      W = 128, K2's also at W = 1024, K3's also at 64/8 heads); K5 (dq; dk
      and dv) and K6 (fused dqkv, also at W = 128; the global blocks' dq; dk
-     and dv), with
-     their bounds and the time of one PyTorch call computing the same
-     function; faults planted in K5's and K6's outputs must fail the bound;
+     and dv), with their bounds and the time of one PyTorch call computing
+     the same function; four planted faults must fail the bound (K5: dq from
+     delta = 0, dk/dv over 6 of the 7 group heads; K6: the rope transpose
+     left out, frame 0's segment mask ignored in dk/dv);
   9. the SFT slice: 3 full fine-tune steps of Qwen2.5-VL-7B through
      make_train_step on one example of 16 synthetic frames (SFTConfig
      defaults: AdamW lr 1e-6 after a global-norm clip at 1.0, remat), step
@@ -92,6 +93,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -919,8 +921,8 @@ def sdpa_fwd_bwd(q, k, v, dout, **kw):
 def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
     """The training kernels against their plain versions at the SFT slice's
     shapes: the exact forwards of K1-K3 (out and lse), K5 (dq; dk, dv) and
-    K6 (fused dqkv; window dq; dk, dv). Faults planted in K5's and K6's
-    outputs must fail the bound."""
+    K6 (fused dqkv; window dq; dk, dv). Faults planted in K5's dq and dk/dv
+    and in K6's fused and window dk/dv outputs must fail the bound."""
     v, t = cfg.vision, cfg.text
     H, D = v.num_heads, v.head_dim
 
@@ -980,11 +982,16 @@ def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
             lambda: wa.window_attention_bwd_torch(q, k, vv, frame_ids, do)[0],
             None, results, flops=6 * fpairs, moved=ins + nbytes(q),
             library_fn=lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=fseg))
-    compare("window_attention_bwd_dkv", lambda: wa.window_attention_bwd_dkv(ops),
-            lambda: wa.window_attention_bwd_torch(q, k, vv, frame_ids, do)[1:],
-            None, results, flops=8 * fpairs, moved=ins + 2 * nbytes(q),
-            library_fn=lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=fseg))
-    del q, k, vv, do, out, lse, ops
+    ref = compare("window_attention_bwd_dkv", lambda: wa.window_attention_bwd_dkv(ops),
+                  lambda: wa.window_attention_bwd_torch(q, k, vv, frame_ids, do)[1:],
+                  None, results, flops=8 * fpairs, moved=ins + 2 * nbytes(q),
+                  library_fn=lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=fseg))
+    # fault: frame 0's segment mask ignored (its padded tail seen as keys)
+    ignored = frame_ids.clone()
+    ignored[0] = 1
+    planted("window_attention_bwd_dkv", "frame 0's segment mask ignored",
+            wa.window_attention_bwd_torch(q, k, vv, ignored, do)[1:], ref, None)
+    del q, k, vv, do, out, lse, ops, ref, ignored
 
     # the decoder at the packed example's length, right-padded keys
     L = batch["input_ids"].shape[1]
@@ -1007,9 +1014,13 @@ def training_kernel_phase(dev, cfg, gen, batch, results) -> None:
     ops = fa.bwd_operands(q, k, vv, pos, valid, out, lse, do)
     ins = nbytes(*ops)
     lib = lambda: sdpa_fwd_bwd(q, k, vv, do, is_causal=True)  # noqa: E731
-    compare("flash_attention_gqa_bwd_dq", lambda: fa.flash_attention_gqa_bwd_dq(ops),
-            lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[0],
-            None, results, flops=6 * cpairs, moved=ins + nbytes(q), library_fn=lib)
+    ref = compare("flash_attention_gqa_bwd_dq", lambda: fa.flash_attention_gqa_bwd_dq(ops),
+                  lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[0],
+                  None, results, flops=6 * cpairs, moved=ins + nbytes(q), library_fn=lib)
+    # fault: dq from delta = 0 (out = 0 gives delta = rowsum(dout * out) = 0)
+    planted("flash_attention_gqa_bwd_dq", "dq from delta = 0",
+            fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, torch.zeros_like(out), lse,
+                                             do)[0], ref, None)
     ref = compare("flash_attention_gqa_bwd_dkv", lambda: fa.flash_attention_gqa_bwd_dkv(ops),
                   lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[1:],
                   None, results, flops=8 * cpairs, moved=ins + nbytes(k, vv), library_fn=lib)
@@ -1061,10 +1072,12 @@ DEVICE_CLASSES = (("attention kernels (csrc/)", ("o3v",)),
 
 
 def device_breakdown(prof, wall_s: float) -> dict:
-    """Device time of a profiled run by kernel class, and the busy share of
-    the wall time (kernel time summed, so overlap would count twice)."""
+    """Device time of a profiled run by kernel class, the busy share of the
+    wall time (kernel time summed, so overlap would count twice), and the
+    attention kernels' time by kernel function."""
     by_class = {name: 0.0 for name, _ in DEVICE_CLASSES}
     by_class["other"] = 0.0
+    attention: dict = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1073,9 +1086,14 @@ def device_breakdown(prof, wall_s: float) -> dict:
         cls = next((name for name, marks in DEVICE_CLASSES if any(m in key for m in marks)),
                    "other")
         by_class[cls] += ms
+        if cls == DEVICE_CLASSES[0][0]:
+            fn = re.search(r"(\w+_kernel(?:<[^>]*>)?)", evt.key)
+            name = fn.group(1) if fn else evt.key[:48]
+            attention[name] = attention.get(name, 0.0) + ms
     busy = sum(by_class.values())
     return {"device_ms": {k: round(x, 3) for k, x in by_class.items()},
-            "busy_share": round(busy / (1e3 * wall_s), 4) if wall_s else None}
+            "busy_share": round(busy / (1e3 * wall_s), 4) if wall_s else None,
+            "attention_ms": {k: round(x, 3) for k, x in sorted(attention.items())}}
 
 
 def sft_phase(params, cfg, batch) -> dict:

@@ -39,7 +39,8 @@
 //   never loaded; a warpgroup skips the products of tiles past its own.
 // - Query tiles run longest first (the last tiles, which see the most keys,
 //   get the lowest block indices): a static order, so the result's bits do
-//   not depend on timing.
+//   not depend on timing. The CTA, its order and its producer are
+//   causal_cta.cuh's, shared with K5's dq.
 // - exp2 with log2(e) folded in (the 60 clamp is applied in natural-log
 //   units before the fold), by the SFU's ex2.approx.
 // - A CTA holds 128 query rows of one head; the GQA group's heads find each
@@ -47,21 +48,15 @@
 //   feeding both, also feed 128 rows per tile and ran slower: PERF.md.)
 #include <climits>
 
-#include "async_copy.cuh"
-#include "attention_tile.cuh"
+#include "causal_cta.cuh"
 #include "wgmma.cuh"
 
 namespace o3v {
 namespace k3 {
 
-constexpr int kD = 128;                 // head_dim, the decoder's
-constexpr int kWgRows = 64;             // query rows per consumer warpgroup
+using namespace causal;
 constexpr int kKeyTile = 128;           // keys per ring slot
 constexpr int kStages = 3;              // ring slots
-constexpr int kThreads3 = 384;          // producer + two consumer warpgroups
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kHalfBox = 64 * 2;        // bytes of a 64-column box row
-constexpr int kQBox = kWgRows * kHalfBox;         // 8 KB: 64 rows, 64 columns
 constexpr int kQBytes = 2 * 2 * kQBox;            // two warpgroups, two halves
 constexpr int kKVBox = kKeyTile * kHalfBox;       // 16 KB: 128 keys, 64 columns
 constexpr int kKVBytes = 2 * kKVBox;              // one K (or V) tile
@@ -74,32 +69,10 @@ constexpr int kBarOff = kPosOff + 2 * kWgRows * 4;
 constexpr int kLayout = kBarOff + (1 + 2 * kStages) * 8;
 constexpr int kSmem = kLayout + 1024;             // slack to align the base to 1024
 static_assert(kSmem <= 232448, "shared memory layout");
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The CTA's work: blockIdx.x -> (batch row, head, first of its 128 query
-// rows). Query tiles are taken from the last: all (b, head) units of the
-// last tile first.
-struct Work {
-  int b, head, row0;
-};
-
-__device__ __forceinline__ Work cta_work(int s_len, int hq) {
-  const int n_qt = (s_len + 2 * kWgRows - 1) / (2 * kWgRows);
-  const int units = gridDim.x / n_qt;
-  const int unit = blockIdx.x % units;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / units;
-  return {unit / hq, unit % hq, qt * 2 * kWgRows};
-}
-
 template <bool EXACT>
-__global__ void __launch_bounds__(kThreads3, 1)
+__global__ void __launch_bounds__(kCtaThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                  const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v,
@@ -153,42 +126,8 @@ __global__ void __launch_bounds__(kThreads3, 1)
           async::tma_load_4d(base + (2 * c + h) * kQBox, &tm_q, q_full, h * 64, w.head,
                              w.row0 + c * kWgRows, w.b);
     }
-    const int hk = w.head / group;
-    const int* valid = kv_valid + static_cast<long long>(w.b) * t_len;
-    constexpr int kPer = kKeyTile / 32;  // keys per lane
-    // kv_valid of a tile, this lane's keys; the next tile's is read while
-    // this one's slot is awaited
-    auto read_valid = [&](int j, bool (&ok)[kPer]) {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int key = j * kKeyTile + lane * kPer + i;
-        ok[i] = key < t_len && valid[key] != 0;
-      }
-    };
-    bool cur[kPer], nxt[kPer];
-    if (n_tiles > 0) read_valid(0, cur);
-    for (int j = 0; j < n_tiles; ++j) {
-      const int st = j % kStages, k0 = j * kKeyTile;
-      if (j + 1 < n_tiles) read_valid(j + 1, nxt);
-      if (j >= kStages) async::mbar_wait(empty(st), (j / kStages - 1) & 1);
-      bool all = true;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        tags[st * kKeyTile + lane * kPer + i] = cur[i];
-        all = all && cur[i];
-        cur[i] = nxt[i];
-      }
-      all = __all_sync(0xffffffffu, all);
-      if (lane == 0) flags[st] = all;
-      __syncwarp();
-      if (lane == 0) {
-        async::mbar_expect_tx(full(st), 2 * kKVBytes);
-        for (int h = 0; h < 2; ++h) {
-          async::tma_load_4d(k_slot(st) + h * kKVBox, &tm_k, full(st), h * 64, hk, k0, w.b);
-          async::tma_load_4d(v_slot(st) + h * kKVBox, &tm_v, full(st), h * 64, hk, k0, w.b);
-        }
-      }
-    }
+    produce_kv<kKeyTile, kStages>(&tm_k, &tm_v, w, w.head / group, kv_valid, t_len, n_tiles,
+                                  k_slot(0), v_slot(0), full(0), empty(0), tags, flags, lane);
     return;
   }
 
@@ -391,7 +330,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_po
   }
   const int group = hq / hkv;
   const int n_qt = (s_len + 2 * kWgRows - 1) / (2 * kWgRows);
-  flash_attention_wgmma_kernel<EXACT><<<n_qt * b * hq, kThreads3, kSmem, stream>>>(
+  flash_attention_wgmma_kernel<EXACT><<<n_qt * b * hq, kCtaThreads, kSmem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<const int*>(q_pos), static_cast<const int*>(kv_valid),
       static_cast<bf16*>(out), static_cast<float*>(lse), s_len, t_len, hq, group);
   return cudaGetLastError();

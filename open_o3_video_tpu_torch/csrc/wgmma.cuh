@@ -1,8 +1,9 @@
 // Hopper's warpgroup matrix multiply (wgmma, sm_90a), shared by K7's prefill
-// route (int4_matmul_sm90.cu) and K3 (flash_attention.cu): shared-memory
-// descriptors of tiles in the 128-byte swizzle that TMA writes, the
-// fence/commit/wait of the asynchronous products, and the two m64n128k16
-// bf16 products (A from shared memory, or from registers).
+// route (int4_matmul_sm90.cu), K3 (flash_attention.cu) and K5's dq
+// (flash_attention_bwd.cu): shared-memory descriptors of tiles in the
+// 128-byte swizzle that TMA writes, the fence/commit/wait of the
+// asynchronous products, the two m64n128k16 bf16 products (A from shared
+// memory, or from registers) and m64n64k16 (both from shared memory).
 #pragma once
 
 #include <stdint.h>
@@ -100,8 +101,32 @@ __device__ __forceinline__ void m64n128k16_rs_mn(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define O3V_WG_D32                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),           \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),   \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),             \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),             \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define O3V_WG_R32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "          \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+
+// As m64n128k16 with N = 64: d (64 x 64 f32, this thread's 32), d[4 nt + j]
+// at row 16 warp + lane/4 + 8 (j >> 1), column 8 nt + 2 (lane % 4) + (j & 1).
+__device__ __forceinline__ void m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " O3V_WG_R32
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : O3V_WG_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef O3V_WG_D64
 #undef O3V_WG_R64
+#undef O3V_WG_D32
+#undef O3V_WG_R32
 
 }  // namespace wg
 }  // namespace o3v

@@ -24,7 +24,8 @@
 //   exact mode in two passes.
 //
 // K2 window_attention replaces ops/window_attention.py _fwd_kernel (the 4
-// global blocks, over whole frames: W = 448, 432 valid, at 18x24 patches).
+// global blocks, over whole frames: W = 448, 432 valid, at 18x24 patches;
+// the tiles and products of window_frame.cuh).
 // Same masked attention on q/k/v (N, W, H, D) bf16, no rope. The TPU kernel
 // holds the whole W x W score tile and falls back to XLA past a size limit;
 // here every width W runs. A frame-head's K and V are read once and kept:
@@ -60,6 +61,7 @@
 // twice. wgmma is later work.
 #include "async_copy.cuh"
 #include "attention_tile.cuh"
+#include "window_frame.cuh"
 #include "window_row.cuh"
 
 namespace o3v {
@@ -313,79 +315,6 @@ __global__ void __launch_bounds__(2 * W, row::k1_min_ctas(W))
 
 constexpr int kWWarps = 14;                    // consumer warps, 16 query rows each
 constexpr int kWThreads = 32 * (kWWarps + 1);  // and one producer warp
-constexpr int kRing = 8;                       // tile slots when K and V stream
-constexpr int kAlign = 128;                    // TMA destinations: 128-byte aligned
-
-template <int D>
-constexpr int kTileBytes = static_cast<int>(sizeof(Tile<D>));
-
-// Shared memory of a K2 CTA: `slots` K tiles, `slots` V tiles, the key tags
-// of all `tiles` tiles, and 2 * slots mbarriers (resident: K and V of each
-// tile; streaming: full and empty of each slot), after the alignment slack.
-template <int D>
-constexpr int window_smem(int tiles, int slots) {
-  return kAlign + 2 * slots * kTileBytes<D> + tiles * kKeys * 4 + 2 * slots * 8;
-}
-
-constexpr int kHalf = kKeys / 2;  // keys per step: a tile in two halves
-constexpr int kHalfN = kHalf / 8;  // 8-key n-tiles of a half
-constexpr float kLog2e = 1.4426950408889634f;
-
-// s = q (this warp's 16 rows) @ K^T over keys k0 .. k0 + 31 of a tile: the K
-// fragments of two 8-key n-tiles and one 16-wide d-step per ldmatrix.
-template <int D>
-__device__ __forceinline__ void k2_scores(float (&s)[kHalfN][4], const uint32_t (&qa)[D / 16][4],
-                                          const Tile<D>& sk, int k0) {
-  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int nt = 0; nt < kHalfN; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int np = 0; np < kHalfN / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4<false>(b, &sk[k0 + (2 * np + (mat >> 1)) * 8 + r][kk * 16 + (mat & 1) * 8]);
-      mma_16816(s[2 * np], qa[kk], b[0], b[1]);
-      mma_16816(s[2 * np + 1], qa[kk], b[2], b[3]);
-    }
-}
-
-// acc += bf16(p) @ V over keys k0 .. k0 + 31: the V fragments of two 8-wide
-// d-tiles and one 16-key step per transposed ldmatrix.
-template <int D>
-__device__ __forceinline__ void k2_pv(float (&acc)[D / 8][4], const float (&p)[kHalfN][4],
-                                      const Tile<D>& sv, int k0) {
-  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kt = 0; kt < kHalfN / 2; ++kt) {
-    const uint32_t pa[4] = {pack_bf16x2(p[2 * kt][0], p[2 * kt][1]),
-                            pack_bf16x2(p[2 * kt][2], p[2 * kt][3]),
-                            pack_bf16x2(p[2 * kt + 1][0], p[2 * kt + 1][1]),
-                            pack_bf16x2(p[2 * kt + 1][2], p[2 * kt + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4<true>(b, &sv[k0 + kt * 16 + (mat & 1) * 8 + r][(2 * dp + (mat >> 1)) * 8]);
-      mma_16816(acc[2 * dp], pa, b[0], b[1]);
-      mma_16816(acc[2 * dp + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// This thread's key tags of a half: columns 8 nt + 2t + (e & 1) from stag.
-__device__ __forceinline__ void k2_tags(int2 (&tag)[kHalfN], const int* stag) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < kHalfN; ++nt) tag[nt] = *reinterpret_cast<const int2*>(stag + nt * 8 + 2 * t);
-}
-
-// 2^x by the SFU (ex2.approx, relative error ~2^-22, far under the bf16
-// rounding of p that follows; results below 2^-126 flush to 0).
-__device__ __forceinline__ float k2_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Query rows [16 strip, 16 strip + 16) of (frame n, head h): a strip per warp
 // at a time. RESIDENT: all n_tiles K/V tiles were loaded once (barrier tile
@@ -402,12 +331,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
                                 float scale, int n_tiles, int ring) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = async::smem_u32(smem_raw);
-  const uint32_t base = (raw + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
+  const uint32_t base = (raw + frame::kAlign - 1) & ~static_cast<uint32_t>(frame::kAlign - 1);
   uint8_t* gbase = smem_raw + (base - raw);
   Tile<D>* sk = reinterpret_cast<Tile<D>*>(gbase);
   Tile<D>* sv = sk + ring;
   int* stag = reinterpret_cast<int*>(sv + ring);
-  const uint32_t bars = base + 2 * ring * kTileBytes<D> + n_tiles * kKeys * 4;
+  const uint32_t bars = base + 2 * ring * frame::kTileBytes<D> + n_tiles * kKeys * 4;
   auto bar = [&](int i) { return bars + 8 * i; };
 
   const int h = blockIdx.y, n = blockIdx.z;
@@ -446,7 +375,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
         b = bar(slot);
         if (i >= ring) async::mbar_wait(bar(ring + slot), (i / ring - 1) & 1);
       }
-      async::mbar_expect_tx(b, (with_k + with_v) * kTileBytes<D>);
+      async::mbar_expect_tx(b, (with_k + with_v) * frame::kTileBytes<D>);
       if (with_k) async::tma_load_3d(async::smem_u32(sk + slot), &tm_k, b, h * D, tile * kKeys, n);
       if (with_v) async::tma_load_3d(async::smem_u32(sv + slot), &tm_v, b, h * D, tile * kKeys, n);
     }
@@ -478,41 +407,33 @@ __global__ void __launch_bounds__(kWThreads, 1)
   for (int strip = first + warp; strip < last; strip += kWWarps) {
     const int r = strip * 16 + g;
     uint32_t qa[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = r + 8 * (j & 1);
-        qa[kk][j] = row < w ? __ldg(reinterpret_cast<const unsigned*>(
-                                  q + off + row * row_stride + kk * 16 + 2 * t + 8 * (j >> 1)))
-                            : 0u;
-      }
+    frame::a_frags<D>(qa, q + off, row_stride, r, w);
     const int row_tag[2] = {r < w ? stag[r] : (EXACT ? -2 : 0), r + 8 < w ? stag[r + 8] : (EXACT ? -2 : 0)};
     float acc[D / 8][4] = {};
     bf16* ob = out + off;
-    float s[kHalfN][4];
-    int2 tag[kHalfN];
-    const float scale2 = scale * kLog2e;  // scores in log2 units: exp(x) = 2^(x log2 e)
+    float s[frame::kHalfN][4];
+    int2 tag[frame::kHalfN];
+    const float scale2 = scale * frame::kLog2e;  // scores in log2 units: exp(x) = 2^(x log2 e)
     if constexpr (!EXACT) {  // p = exp(min(s, 60)) where the ids match
       const bool row_ok[2] = {row_tag[0] != 0, row_tag[1] != 0};
       float l[2] = {0.f, 0.f};
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int slot = acquire(kt, true);
 #pragma unroll
-        for (int k0 = 0; k0 < kKeys; k0 += kHalf) {
-          k2_scores<D>(s, qa, sk[slot], k0);
-          k2_tags(tag, stag + kt * kKeys + k0);
+        for (int k0 = 0; k0 < kKeys; k0 += frame::kHalf) {
+          frame::scores<D>(s, qa, sk[slot], k0);
+          frame::pairs(tag, stag + kt * kKeys + k0);
 #pragma unroll
-          for (int nt = 0; nt < kHalfN; ++nt)
+          for (int nt = 0; nt < frame::kHalfN; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int half = e >> 1, key = e & 1 ? tag[nt].y : tag[nt].x;
               const float p = row_ok[half] && key == row_tag[half]
-                                  ? k2_exp2(fminf(s[nt][e] * scale2, kClamp * kLog2e)) : 0.f;
+                                  ? frame::ex2(fminf(s[nt][e] * scale2, kClamp * frame::kLog2e)) : 0.f;
               l[half] += p;
               s[nt][e] = p;
             }
-          k2_pv<D>(acc, s, sv[slot], k0);
+          frame::pv<D>(acc, s, sv[slot], k0);
         }
         release(slot);
       }
@@ -525,12 +446,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
         const int kt = i % n_tiles;
         const int slot = acquire(i, pass1);
 #pragma unroll
-        for (int k0 = 0; k0 < kKeys; k0 += kHalf) {
-          k2_scores<D>(s, qa, sk[slot], k0);
-          k2_tags(tag, stag + kt * kKeys + k0);
+        for (int k0 = 0; k0 < kKeys; k0 += frame::kHalf) {
+          frame::scores<D>(s, qa, sk[slot], k0);
+          frame::pairs(tag, stag + kt * kKeys + k0);
           float tmax[2] = {kNegInf, kNegInf};
 #pragma unroll
-          for (int nt = 0; nt < kHalfN; ++nt)
+          for (int nt = 0; nt < frame::kHalfN; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int half = e >> 1, key = e & 1 ? tag[nt].y : tag[nt].x;
@@ -542,21 +463,21 @@ __global__ void __launch_bounds__(kWThreads, 1)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
               const float m_new = fmaxf(m[half], quad_max(tmax[half]));
-              l[half] *= k2_exp2(m[half] - m_new);
+              l[half] *= frame::ex2(m[half] - m_new);
               m[half] = m_new;
             }
 #pragma unroll
-            for (int nt = 0; nt < kHalfN; ++nt)
+            for (int nt = 0; nt < frame::kHalfN; ++nt)
 #pragma unroll
               for (int e = 0; e < 4; ++e)
-                if (s[nt][e] != kNegInf) l[e >> 1] += k2_exp2(s[nt][e] - m[e >> 1]);
+                if (s[nt][e] != kNegInf) l[e >> 1] += frame::ex2(s[nt][e] - m[e >> 1]);
           } else {
 #pragma unroll
-            for (int nt = 0; nt < kHalfN; ++nt)
+            for (int nt = 0; nt < frame::kHalfN; ++nt)
 #pragma unroll
               for (int e = 0; e < 4; ++e)
-                s[nt][e] = s[nt][e] != kNegInf ? k2_exp2(s[nt][e] - m[e >> 1]) * inv_l[e >> 1] : 0.f;
-            k2_pv<D>(acc, s, sv[slot], k0);
+                s[nt][e] = s[nt][e] != kNegInf ? frame::ex2(s[nt][e] - m[e >> 1]) * inv_l[e >> 1] : 0.f;
+            frame::pv<D>(acc, s, sv[slot], k0);
           }
         }
         if (i == n_tiles - 1)
@@ -572,7 +493,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
         float* lb = lse + (static_cast<long long>(n) * heads + h) * w;
 #pragma unroll
         for (int half = 0; half < 2; ++half)
-          if (r + 8 * half < w) lb[r + 8 * half] = (m[half] + log2f(l[half])) / kLog2e;
+          if (r + 8 * half < w) lb[r + 8 * half] = (m[half] + log2f(l[half])) / frame::kLog2e;
       }
     }
   }
@@ -621,20 +542,10 @@ cudaError_t launch_fused_rows(const void* qkv, const void* cos, const void* sin,
 template <int D, bool EXACT>
 cudaError_t launch_window_tma(const void* q, const void* k, const void* v, const void* ids, void* out,
                               void* lse, int n, int w, int heads, float scale, cudaStream_t stream) {
-  const async::EncodeTiled encode = async::encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  CUtensorMap tm[2];
-  const void* src[2] = {k, v};
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * D, static_cast<cuuint64_t>(w),
-                              static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
-  const cuuint32_t box[3] = {D + kPad, kKeys, 1}, unit[3] = {1, 1, 1};
-  for (int i = 0; i < 2; ++i)
-    if (encode(&tm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(src[i]), dims, strides,
-               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return cudaErrorInvalidValue;
   if (w < 1) return cudaErrorInvalidValue;
+  CUtensorMap tm[2];
+  if (!frame::encode<D>(&tm[0], k, n, w, heads) || !frame::encode<D>(&tm[1], v, n, w, heads))
+    return cudaErrorInvalidValue;
   static bool smem_set = false;  // the attribute is per function; set it once
   if (!smem_set) {
     cudaError_t err = allow_smem(window_attention_tma_kernel<D, EXACT, true>, kSmemMax);
@@ -642,21 +553,13 @@ cudaError_t launch_window_tma(const void* q, const void* k, const void* v, const
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  const int tiles = (w + kKeys - 1) / kKeys, strips = (w + 15) / 16;
-  const bool resident = window_smem<D>(tiles, tiles) <= kSmemMax;
-  int ring = tiles, ctas = 1;
-  if (!resident) {
-    ring = kRing;
-    while (ring > 2 && window_smem<D>(tiles, ring) > kSmemMax) --ring;
-    if (window_smem<D>(tiles, ring) > kSmemMax) return cudaErrorInvalidValue;  // W past ~14000
-    ctas = (strips + kWWarps - 1) / kWWarps;
-  }
-  const int smem = window_smem<D>(tiles, ring);
-  auto kernel = resident ? window_attention_tma_kernel<D, EXACT, true>
-                         : window_attention_tma_kernel<D, EXACT, false>;
-  kernel<<<dim3(ctas, heads, n), kWThreads, smem, stream>>>(
+  const frame::Plan pl = frame::plan<D>(w, kWWarps, 1);
+  if (pl.smem == 0) return cudaErrorInvalidValue;  // W past ~14000
+  auto kernel = pl.resident ? window_attention_tma_kernel<D, EXACT, true>
+                            : window_attention_tma_kernel<D, EXACT, false>;
+  kernel<<<dim3(pl.ctas, heads, n), kWThreads, pl.smem, stream>>>(
       tm[0], tm[1], static_cast<const bf16*>(q), static_cast<const int*>(ids), static_cast<bf16*>(out),
-      static_cast<float*>(lse), w, heads, scale, tiles, ring);
+      static_cast<float*>(lse), w, heads, scale, pl.tiles, pl.ring);
   return cudaGetLastError();
 }
 

@@ -29,11 +29,42 @@
 //   through L1: no f32 staging, no table reads per element.
 //
 // window_attention_bwd_{dq,dkv} replace _bwd_kernel (the 4 global blocks,
-// W = 448 whole frames): attention_bwd.cuh's kernels in segment mode, with
-// the keys tiled, so rowsum(dp * p) comes as delta = rowsum(dout * out) and
-// p from the forward's lse (FlashAttention-2 form). They re-read each
-// frame's tiles from L2 per query or key tile.
-#include "attention_bwd.cuh"
+// whole frames: W = 448, 432 valid, at 18x24 patches; 16 heads of 80),
+// which returns dq, dk and dv from one pallas_call; here two kernels. They
+// take the keys in 64-row tiles, so rowsum(dp * p) comes as delta =
+// rowsum(dout * out) (the caller's) with p = exp(s - lse) from the
+// forward's lse (FlashAttention-2 form), in log2 units by ex2.approx:
+//     ds = p * (dp - delta)      dq = D^-1/2 * bf16(ds) @ k
+//     dk = D^-1/2 * bf16(ds)^T @ q                  dv = bf16(p)^T @ dout
+// with s = D^-1/2 q.k, and a pad row (id 0) scoring 0 on every key of its
+// frame (the uniform softmax of JAX's all-NEG_INF row).
+//
+// What bounds them on the H100: device-memory bytes, by a little. Per
+// frame-head at the slice's frames dq's three products are ~90 MFLOP and
+// dk/dv's four ~120 against ~0.36 and ~0.43 MB of inputs and outputs: ~250
+// FLOP per byte, just under the ~295 at which bf16 tensor cores become the
+// limit (bounds of 0.028 and 0.023 ms for dq), and mma.sync runs below
+// wgmma's rate, so the products are about as tight a limit. So each input
+// crosses device memory once and the products never wait on a load in
+// turn. The design is K2's (window_frame.cuh): one CTA per (frame, head), a
+// producer warp loading by TMA, the frame-head's two slices resident in
+// shared memory, consumer warps of 16 rows each with their own rows'
+// fragments from device memory.
+// - dq: K and V resident; each warp takes 16 query rows (q and dout A
+//   fragments), forms s and dp against every resident key, p from lse and
+//   ds from delta in registers, and dq += ds @ K: K2's exact second pass
+//   plus one product.
+// - dk, dv: q and dout resident, with the frame's query tags, lse and
+//   delta; each warp takes 16 key rows (k and v A fragments) and forms the
+//   transposed blocks s^T = k q^T and dp^T = v dout^T, then dv += p^T @
+//   dout and dk += ds^T @ q.
+// A frame past the resident limit (dq: W > 640; dk/dv, whose per-row words
+// are three: W > 576) streams the same way through a ring. mma.sync stays:
+// the work is bytes-bound, and an 80-column row does not fit the 128-byte
+// swizzle of wgmma's operands. Up to four accumulators of 16 x 80 and two
+// operand fragments a thread keep a CTA to 7 (dk/dv) or 8 (dq) consumer
+// warps, where K2 has 14.
+#include "window_frame.cuh"
 #include "window_row.cuh"
 
 namespace o3v {
@@ -189,22 +220,229 @@ cudaError_t launch_fused_bwd(const void* qkv, const void* cos, const void* sin, 
       static_cast<bf16*>(dqkv), heads, scale);
 }
 
-BwdArgs segment_args(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, const void* ids, int w, int heads,
-                     float scale) {
-  BwdArgs a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.q_tag = static_cast<const int*>(ids);
-  a.k_tag = static_cast<const int*>(ids);
-  a.s_len = a.t_len = w;
-  a.hq = a.hkv = heads;
-  a.s_scale = a.dq_scale = a.dk_scale = scale;
-  return a;
+// ---- the global blocks: a frame-head per CTA --------------------------------
+
+// Consumer warps a CTA, 16 rows (queries or keys) each, beside one producer
+// warp. An SM's registers are split over its 4 sub-partitions, so a CTA of
+// 8 warps may give a thread up to 255 registers and one of 9 to 12 warps
+// 168. dk/dv's four accumulators and two operand fragments take 248: 7
+// consumer warps, no spills, the slice's 28 strips in 4 rounds, where 10
+// spilled and ran 17% slower. dq fits in 168: 8 consumer warps
+// (scripts/exp_k5_k6g_plans.py, PERF.md).
+__host__ __device__ constexpr int frame_warps(bool dkv) { return dkv ? 7 : 8; }
+__host__ __device__ constexpr int frame_threads(bool dkv) { return 32 * (frame_warps(dkv) + 1); }
+
+// 4-byte words per frame row in shared memory: the key tags (dq), or the
+// query rows' tags, lse in log2 units and delta (dk, dv).
+__host__ __device__ constexpr int row_words(bool dkv) { return dkv ? 3 : 1; }
+
+struct FrameBwd {
+  const bf16 *q, *k, *v, *dout;  // (N, W, H, D)
+  const float *lse, *delta;      // (N, H, W)
+  const int* ids;                // (N, W) segment ids
+  bf16 *dq, *dk, *dv;            // (N, W, H, D)
+  int w, heads, n_tiles, ring;
+  float scale;                   // D^-1/2
+};
+
+// DKV false: dq, with K and V (tm_a, tm_b) resident or streamed; true: dk
+// and dv, with q and dout. RESIDENT: tile i in slot i on barrier i, each
+// completing once; otherwise load i in slot i % ring on barrier slot (full)
+// and ring + slot (empty, one arrive per consumer warp).
+template <int D, bool DKV, bool RESIDENT>
+__global__ void __launch_bounds__(frame_threads(DKV), 1)
+    window_bwd_frame_kernel(const __grid_constant__ CUtensorMap tm_a,
+                            const __grid_constant__ CUtensorMap tm_b, FrameBwd f) {
+  constexpr int kWarps = frame_warps(DKV), kThreadsF = frame_threads(DKV);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = async::smem_u32(smem_raw);
+  const uint32_t base = (raw + frame::kAlign - 1) & ~static_cast<uint32_t>(frame::kAlign - 1);
+  Tile<D>* sa = reinterpret_cast<Tile<D>*>(smem_raw + (base - raw));  // K, or q
+  Tile<D>* sb = sa + f.ring;                                           // V, or dout
+  const int rows = f.n_tiles * kKeys;
+  int* stag = reinterpret_cast<int*>(sb + f.ring);
+  float* slse = reinterpret_cast<float*>(stag + rows);  // dk/dv only
+  float* sdelta = slse + rows;
+  const uint32_t bars = base + 2 * f.ring * frame::kTileBytes<D> + row_words(DKV) * rows * 4;
+  auto bar = [&](int i) { return bars + 8 * i; };
+
+  const int h = blockIdx.y, n = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strips = (f.w + 15) / 16;
+  // this CTA's strips: all of the frame-head's (resident), or kWarps
+  const int first = RESIDENT ? 0 : blockIdx.x * kWarps;
+  const int last = RESIDENT ? strips : min(strips, first + kWarps);
+  const int* id = f.ids + static_cast<long long>(n) * f.w;
+  const long long stat = (static_cast<long long>(n) * f.heads + h) * f.w;
+  for (int i = threadIdx.x; i < rows; i += kThreadsF) {
+    const bool in = i < f.w;
+    if constexpr (DKV) {  // query rows; -2 past the frame sees no key
+      stag[i] = in ? id[i] : -2;
+      slse[i] = in ? f.lse[stat + i] * frame::kLog2e : 0.f;
+      sdelta[i] = in ? f.delta[stat + i] : 0.f;
+    } else {  // keys; -1 past the frame is seen by no row
+      stag[i] = in ? id[i] : -1;
+    }
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < f.ring; ++i) {
+      async::mbar_init(bar(i), 1);
+      async::mbar_init(bar(f.ring + i), RESIDENT ? 1 : min(kWarps, last - first));
+    }
+    async::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {  // ---- producer: TMA loads of 64-row tiles of both slices
+    if (lane == 0)
+      for (int i = 0; i < f.n_tiles; ++i) {
+        const int slot = RESIDENT ? i : i % f.ring;
+        if (!RESIDENT && i >= f.ring) async::mbar_wait(bar(f.ring + slot), (i / f.ring - 1) & 1);
+        async::mbar_expect_tx(bar(slot), 2 * frame::kTileBytes<D>);
+        async::tma_load_3d(async::smem_u32(sa + slot), &tm_a, bar(slot), h * D, i * kKeys, n);
+        async::tma_load_3d(async::smem_u32(sb + slot), &tm_b, bar(slot), h * D, i * kKeys, n);
+      }
+    return;
+  }
+
+  // ---- consumers ---------------------------------------------------------
+  auto acquire = [&](int i) {  // tile i landed: its slot
+    const int slot = RESIDENT ? i : i % f.ring;
+    async::mbar_wait(bar(slot), RESIDENT ? 0 : (i / f.ring) & 1);
+    return slot;
+  };
+  auto release = [&](int slot) {
+    if constexpr (!RESIDENT) {
+      __syncwarp();
+      if (lane == 0) async::mbar_arrive(bar(f.ring + slot));
+    }
+  };
+  const int g = lane >> 2;
+  const long long row_stride = static_cast<long long>(f.heads) * D;
+  const long long off = static_cast<long long>(n) * f.w * row_stride + h * D;
+  const float scale2 = f.scale * frame::kLog2e;  // scores in log2 units
+  auto out_row = [&](bf16* out) { return [=](int row) { return out + off + row * row_stride; }; };
+  float s[frame::kHalfN][4], dp[frame::kHalfN][4];
+  for (int strip = first + warp; strip < last; strip += kWarps) {
+    const int r = strip * 16 + g;  // this thread's rows r and r + 8
+    uint32_t xa[D / 16][4], ya[D / 16][4];  // q and dout (dq), or k and v (dk/dv)
+    frame::a_frags<D>(xa, (DKV ? f.k : f.q) + off, row_stride, r, f.w);
+    frame::a_frags<D>(ya, (DKV ? f.v : f.dout) + off, row_stride, r, f.w);
+    if constexpr (!DKV) {
+      const int row_tag[2] = {r < f.w ? stag[r] : -2, r + 8 < f.w ? stag[r + 8] : -2};
+      float lse2[2], dlt[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const bool in = r + 8 * half < f.w;
+        lse2[half] = in ? f.lse[stat + r + 8 * half] * frame::kLog2e : 0.f;
+        dlt[half] = in ? f.delta[stat + r + 8 * half] : 0.f;
+      }
+      float acc[D / 8][4] = {};
+      for (int kt = 0; kt < f.n_tiles; ++kt) {
+        const int slot = acquire(kt);
+#pragma unroll
+        for (int k0 = 0; k0 < kKeys; k0 += frame::kHalf) {
+          frame::scores<D>(s, xa, sa[slot], k0);
+          frame::scores<D>(dp, ya, sb[slot], k0);
+          int2 tag[frame::kHalfN];
+          frame::pairs(tag, stag + kt * kKeys + k0);
+#pragma unroll
+          for (int nt = 0; nt < frame::kHalfN; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int half = e >> 1, key = e & 1 ? tag[nt].y : tag[nt].x;
+              const float p =
+                  visible<kSegment>(row_tag[half], key, 0)
+                      ? frame::ex2(score<kSegment>(s[nt][e], row_tag[half], scale2) - lse2[half])
+                      : 0.f;
+              s[nt][e] = p * (dp[nt][e] - dlt[half]);
+            }
+          frame::pv<D>(acc, s, sa[slot], k0);  // dq += ds @ K
+        }
+        release(slot);
+      }
+      store_frags<D>(acc, f.scale, strip * 16, f.w, out_row(f.dq));
+    } else {
+      const int key_tag[2] = {r < f.w ? stag[r] : -1, r + 8 < f.w ? stag[r + 8] : -1};
+      float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+      for (int qt = 0; qt < f.n_tiles; ++qt) {
+        const int slot = acquire(qt);
+#pragma unroll
+        for (int i0 = 0; i0 < kKeys; i0 += frame::kHalf) {
+          frame::scores<D>(s, xa, sa[slot], i0);  // s^T = k q^T
+          frame::scores<D>(dp, ya, sb[slot], i0);  // dp^T = v dout^T
+          const int c0 = qt * kKeys + i0;
+          int2 tag[frame::kHalfN];
+          float2 lse2[frame::kHalfN], dlt[frame::kHalfN];
+          frame::pairs(tag, stag + c0);
+          frame::pairs(lse2, slse + c0);
+          frame::pairs(dlt, sdelta + c0);
+#pragma unroll
+          for (int nt = 0; nt < frame::kHalfN; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool y = e & 1;
+              const int row_tag = y ? tag[nt].y : tag[nt].x;
+              const float p = visible<kSegment>(row_tag, key_tag[e >> 1], 0)
+                                  ? frame::ex2(score<kSegment>(s[nt][e], row_tag, scale2) -
+                                               (y ? lse2[nt].y : lse2[nt].x))
+                                  : 0.f;
+              s[nt][e] = p;
+              dp[nt][e] = p * (dp[nt][e] - (y ? dlt[nt].y : dlt[nt].x));
+            }
+          frame::pv<D>(dv, s, sb[slot], i0);   // dv += p^T @ dout
+          frame::pv<D>(dk, dp, sa[slot], i0);  // dk += ds^T @ q
+        }
+        release(slot);
+      }
+      store_frags<D>(dk, f.scale, strip * 16, f.w, out_row(f.dk));
+      store_frags<D>(dv, 1.f, strip * 16, f.w, out_row(f.dv));
+    }
+  }
+}
+
+// The tensor maps of the two slices a CTA keeps (dims {H*D, W, N}, 88-column
+// boxes of 64 rows), then the resident kernel where they fit (one CTA per
+// frame-head), else the streaming one.
+template <int D, bool DKV>
+cudaError_t launch_frame_bwd(const FrameBwd& args, int n, cudaStream_t stream) {
+  if (args.w < 1 || n < 1 || args.heads < 1) return cudaErrorInvalidValue;
+  CUtensorMap tm[2];
+  if (!frame::encode<D>(&tm[0], DKV ? args.q : args.k, n, args.w, args.heads) ||
+      !frame::encode<D>(&tm[1], DKV ? args.dout : args.v, n, args.w, args.heads))
+    return cudaErrorInvalidValue;
+  static bool smem_set = false;  // the attribute is per function; set it once
+  if (!smem_set) {
+    cudaError_t err = allow_smem(window_bwd_frame_kernel<D, DKV, true>, kSmemMax);
+    if (err == cudaSuccess) err = allow_smem(window_bwd_frame_kernel<D, DKV, false>, kSmemMax);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const frame::Plan pl = frame::plan<D>(args.w, frame_warps(DKV), row_words(DKV));
+  if (pl.smem == 0) return cudaErrorInvalidValue;
+  FrameBwd f = args;
+  f.n_tiles = pl.tiles;
+  f.ring = pl.ring;
+  auto kernel = pl.resident ? window_bwd_frame_kernel<D, DKV, true>
+                            : window_bwd_frame_kernel<D, DKV, false>;
+  kernel<<<dim3(pl.ctas, args.heads, n), frame_threads(DKV), pl.smem, stream>>>(tm[0], tm[1], f);
+  return cudaGetLastError();
+}
+
+FrameBwd frame_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                    const void* delta, const void* ids, int w, int heads, float scale) {
+  FrameBwd f{};
+  f.q = static_cast<const bf16*>(q);
+  f.k = static_cast<const bf16*>(k);
+  f.v = static_cast<const bf16*>(v);
+  f.dout = static_cast<const bf16*>(dout);
+  f.lse = static_cast<const float*>(lse);
+  f.delta = static_cast<const float*>(delta);
+  f.ids = static_cast<const int*>(ids);
+  f.w = w;
+  f.heads = heads;
+  f.scale = scale;
+  return f;
 }
 
 }  // namespace o3v
@@ -230,9 +468,9 @@ extern "C" int o3v_window_attention_bwd_dq(const void* q, const void* k, const v
                                            const void* ids, void* dq, int n, int w, int heads,
                                            int head_dim, float scale, void* stream) {
   if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  o3v::BwdArgs a = o3v::segment_args(q, k, v, dout, lse, delta, ids, w, heads, scale);
-  a.dq = static_cast<o3v::bf16*>(dq);
-  return o3v::launch_bwd_dq<80, o3v::kSegment>(a, n, static_cast<cudaStream_t>(stream));
+  o3v::FrameBwd f = o3v::frame_args(q, k, v, dout, lse, delta, ids, w, heads, scale);
+  f.dq = static_cast<o3v::bf16*>(dq);
+  return o3v::launch_frame_bwd<80, false>(f, n, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int o3v_window_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -240,8 +478,8 @@ extern "C" int o3v_window_attention_bwd_dkv(const void* q, const void* k, const 
                                             const void* ids, void* dk, void* dv, int n, int w,
                                             int heads, int head_dim, float scale, void* stream) {
   if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  o3v::BwdArgs a = o3v::segment_args(q, k, v, dout, lse, delta, ids, w, heads, scale);
-  a.dk = static_cast<o3v::bf16*>(dk);
-  a.dv = static_cast<o3v::bf16*>(dv);
-  return o3v::launch_bwd_dkv<80, o3v::kSegment>(a, n, static_cast<cudaStream_t>(stream));
+  o3v::FrameBwd f = o3v::frame_args(q, k, v, dout, lse, delta, ids, w, heads, scale);
+  f.dk = static_cast<o3v::bf16*>(dk);
+  f.dv = static_cast<o3v::bf16*>(dv);
+  return o3v::launch_frame_bwd<80, true>(f, n, static_cast<cudaStream_t>(stream));
 }

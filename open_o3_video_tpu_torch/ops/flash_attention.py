@@ -30,7 +30,7 @@ from . import kernels
 
 CLAMP = 60.0
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
-# K3's CTA: 128 query rows of one head (two warpgroups of 64).
+# The CTA of K3 and of K5's dq: 128 query rows of one head (two warpgroups of 64).
 CTA_ROWS = 128
 
 
@@ -132,9 +132,10 @@ def _kernel_operands(name, q, k, v, q_positions, kv_valid):
 
 
 def cta_plan(B: int, S: int, Hq: int) -> list[tuple[int, int, int]]:
-    """K3's static schedule, as ``csrc/flash_attention.cu:cta_work`` computes
-    it: per CTA in launch order, its (batch row, head, first query row). The
-    last query tiles, which see the most keys, come first."""
+    """The static schedule of K3 and of K5's dq kernel, as
+    ``csrc/causal_cta.cuh:cta_work`` computes it: per CTA in launch order,
+    its (batch row, head, first query row). The last query tiles, which see
+    the most keys, come first."""
     n_qt, units = -(-S // CTA_ROWS), B * Hq
     return [(*divmod(idx % units, Hq), (n_qt - 1 - idx // units) * CTA_ROWS)
             for idx in range(n_qt * units)]
@@ -189,8 +190,8 @@ def _bwd_dims(ops):
 
 
 def flash_attention_gqa_bwd_dq(ops):
-    """K5's dq kernel on ``bwd_operands``: one CTA per (64-row query tile,
-    q head). Returns dq (B, S, Hq, D)."""
+    """K5's dq kernel on ``bwd_operands``: one CTA per 128 query rows of
+    one head, in ``cta_plan``'s order. Returns dq (B, S, Hq, D)."""
     B, S, Hq, T, Hkv, D = _bwd_dims(ops)
     dq = torch.empty_like(ops[0])
     kernels.launch("flash_attention_gqa_bwd_dq", *(x.data_ptr() for x in ops), dq.data_ptr(),

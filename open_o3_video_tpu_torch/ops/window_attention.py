@@ -205,7 +205,7 @@ def window_attention_exact(q, k, v, valid, impl: str = "auto"):
 
 def bwd_operands(q, k, v, valid, out, lse, dout):
     """K6's window-backward kernel operands (q, k, v, dout, lse, delta,
-    ids). The kernels take the keys in 64-row tiles, so rowsum(dp * p) comes
+    ids). The kernels take a frame in 64-row tiles, so rowsum(dp * p) comes
     in FlashAttention-2 form, as ``delta = rowsum(dout * out)`` (a torch
     reduction) with p recomputed from the forward's lse; the plain version
     follows JAX's formula."""
@@ -219,7 +219,8 @@ def bwd_operands(q, k, v, valid, out, lse, dout):
 
 
 def window_attention_bwd_dq(ops):
-    """K6's window dq kernel on ``bwd_operands``. Returns dq (N, W, H, D)."""
+    """K6's window dq kernel on ``bwd_operands``: one CTA per (frame, head),
+    the frame-head's K and V in shared memory. Returns dq (N, W, H, D)."""
     n, w, h, d = ops[0].shape
     dq = torch.empty_like(ops[0])
     kernels.launch("window_attention_bwd_dq", *(x.data_ptr() for x in ops), dq.data_ptr(),
@@ -228,7 +229,8 @@ def window_attention_bwd_dq(ops):
 
 
 def window_attention_bwd_dkv(ops):
-    """K6's window dk/dv kernel on ``bwd_operands``. Returns (dk, dv)."""
+    """K6's window dk/dv kernel on ``bwd_operands``: one CTA per (frame,
+    head), the frame-head's q and dout in shared memory. Returns (dk, dv)."""
     n, w, h, d = ops[0].shape
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
     kernels.launch("window_attention_bwd_dkv", *(x.data_ptr() for x in ops), dk.data_ptr(),

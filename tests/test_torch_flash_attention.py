@@ -116,6 +116,23 @@ def test_k3_schedule_covers_each_query_row_and_head_once(B, S, Hq):
     assert first == sorted(first, reverse=True)
 
 
+@pytest.mark.parametrize("source", ["flash_attention.cu", "flash_attention_bwd.cu"])
+def test_cta_plan_rows_match_the_kernels(source):
+    """cta_plan mirrors the CTA order of K3 and of K5's dq kernel, both from
+    csrc/causal_cta.cuh: two consumer warpgroups of kWgRows query rows a
+    CTA, the last (longest) query tiles first."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(tfa.__file__).parents[1] / "csrc"
+    assert '#include "causal_cta.cuh"' in (csrc / source).read_text()
+    assert "cta_work(s_len, hq)" in (csrc / source).read_text()
+    header = (csrc / "causal_cta.cuh").read_text()
+    rows = re.findall(r"constexpr int kWgRows = (\d+);", header)
+    assert len(rows) == 1 and 2 * int(rows[0]) == tfa.CTA_ROWS
+    assert "const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / units;" in header
+
+
 # ---- on the card: kernel vs plain version, bf16 --------------------------
 
 CUDA_CASES = [

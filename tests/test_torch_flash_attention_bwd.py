@@ -152,11 +152,25 @@ CUDA_CASES = [(1, 3456, 3456, 28, 4, 0), (2, 77, 150, 14, 2, 9), (2, 200, 213, 2
 DOUT_SCALE = 0.1
 
 
-def _cuda_inputs(dev, B, S, T, Hq, Hkv, pad):
+def _cuda_inputs(dev, B, S, T, Hq, Hkv, pad, layout="pad"):
+    """layout "pad": positions 0..S-1, the first T - 50 keys valid, row 1
+    left-padded by `pad` with its first 2 queries at -1. "offset": a chunk
+    at the end of T (S < T), its positions with a hole every 37 rows and -1
+    every 53rd row, row 1's in descending order, invalid keys every 128
+    from 77 and row 1's last `pad` keys right-padded."""
     r = rng(S + T)
     q = torch.from_numpy(normal(r, B, S, Hq, 128)).to(dev, torch.bfloat16)
     do = torch.from_numpy(normal(r, B, S, Hq, 128, scale=DOUT_SCALE)).to(dev, torch.bfloat16)
     k, v = (torch.from_numpy(normal(r, B, T, Hkv, 128)).to(dev, torch.bfloat16) for _ in range(2))
+    if layout == "offset":
+        i = torch.arange(S, dtype=torch.int32, device=dev)
+        pos = (T - S - S // 37 + i + i // 37).repeat(B, 1)
+        pos[:, ::53] = -1
+        pos[1] = pos[1].flip(0)
+        valid = torch.ones((B, T), dtype=torch.int32, device=dev)
+        valid[:, 77::128] = 0
+        valid[1, T - pad:] = 0
+        return q, k, v, pos.contiguous(), valid, do
     pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
     valid = torch.zeros((B, T), dtype=torch.int32, device=dev)
     valid[:, :S - 50] = 1  # right padding, as pack_sft_batch lays rows out
@@ -201,11 +215,20 @@ def test_exact_forward_kernel_matches_plain_on_a_chunk(S, T, Hq, Hkv, start, hol
     _assert_exact_close(q, k, v, pos, valid)
 
 
+# The backward adds the edges of K5's dq (128 query rows of one head a CTA):
+# the SFT shape (S = 3136, not a multiple of 128), a GQA group of 8 (64/8
+# heads), and chunks at the end of T with holes, -1 rows, positions in
+# descending order and right-padded keys.
+BWD_CUDA_CASES = [(*c, "pad") for c in CUDA_CASES] + [
+    (1, 3136, 3136, 28, 4, 0, "pad"), (2, 300, 300, 64, 8, 7, "pad"),
+    (2, 300, 700, 28, 4, 20, "offset"), (2, 200, 1000, 64, 8, 40, "offset")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,T,Hq,Hkv,pad", CUDA_CASES)
-def test_backward_kernels_match_plain(B, S, T, Hq, Hkv, pad):
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,pad,layout", BWD_CUDA_CASES)
+def test_backward_kernels_match_plain(B, S, T, Hq, Hkv, pad, layout):
     dev = cuda_device()
-    q, k, v, pos, valid, do = _cuda_inputs(dev, B, S, T, Hq, Hkv, pad)
+    q, k, v, pos, valid, do = _cuda_inputs(dev, B, S, T, Hq, Hkv, pad, layout)
     out, lse = tfa.flash_attention_gqa_exact_torch(q, k, v, pos, valid)
     got = tfa.flash_attention_gqa_bwd(q, k, v, pos, valid, out, lse, do)
     ref = tfa.flash_attention_gqa_bwd_torch(q, k, v, pos, valid, out, lse, do)

@@ -146,7 +146,9 @@ def test_fused_kernels_match_plain(n, w, h, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [448, 100, 1024])
+# 448: the slice's frames; 576 and 640: the largest frames that K6's dk/dv
+# and dq (and K2) keep resident; 704 and 1024 stream; 100: one ragged tile.
+@pytest.mark.parametrize("w", [448, 100, 1024, 576, 640, 704])
 def test_window_kernels_match_plain(w):
     dev = cuda_device()
     r = rng(w + 1)
