@@ -82,6 +82,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      random weights), K7 launches by route as in phase 12 (7 * 80 on the
      wgmma route, then 1 + 7 * 80 + 1 per decode step), K3's launches in
      the call (its prefill), and identical scores across the two calls.
+ 14. GSPO (after phase 10, before phase 11; run_grpo_video.sh under
+     --use_peft): the phase-4 7B weights frozen, LoRA adapters (rank 16,
+     alpha 32, q_proj/v_proj) from --seed, GSPOConfig defaults (G = 4, 768
+     completion tokens, beta 0.04, clip 5.0, lr 1e-6) on one
+     "temporal-spatial free-form QA" example (the slice's 16 frames and one
+     keyframe through rl_sample_from_frames), row r of each group scored as
+     the r-th of four canned grounded traces (random weights write text no
+     reward scores; the real text's rewards are printed too). Step 1, a
+     checkpoint, step 2; step 1's checkpoint restored and step 2 again: the
+     same tokens, rewards, loss and kl. Per step the stage seconds, lengths,
+     loss, kl, rewards, peak GiB and every kernel's launches (K1, K2, K3 in
+     both modes and K5 > 0); B moved off 0, the base bit for bit unchanged,
+     no sample degraded and vision in the reference logps. Then the GSPO
+     numerics at 8 ViT blocks / 2 decoder layers (policy logps and adapter
+     gradients of the kernel and plain bf16 paths against float32,
+     SLICE_REL_RATIO), and one full fine-tune step at full width, 8 ViT
+     blocks and 4 decoder layers, against a frozen reference copy (K6 and
+     the exact modes of K1 and K2 must launch).
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -94,6 +112,7 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import time
@@ -126,8 +145,13 @@ from open_o3_video_tpu_torch.ops import flash_attention as fa
 from open_o3_video_tpu_torch.ops import int4 as i4
 from open_o3_video_tpu_torch.ops import quant
 from open_o3_video_tpu_torch.ops import window_attention as wa
+from open_o3_video_tpu_torch.data.rl_dataset import rl_sample_from_frames
 from open_o3_video_tpu_torch.grounding.prompts import SFT_SYSTEM_PROMPT
+from open_o3_video_tpu_torch.grounding.rewards import REWARD_REGISTRY, sum_rewards
 from open_o3_video_tpu_torch.train import SFTConfig, loss_and_grads, make_optimizer, make_train_step
+from open_o3_video_tpu_torch.train import checkpoint as CKPT
+from open_o3_video_tpu_torch.train.gspo import GSPOConfig, GSPOTrainer, gspo_loss, completion_logps
+from open_o3_video_tpu_torch.train.lora import LoraConfig, adapter_leaves, apply_adapters
 
 # The reference's system prompt for grounded free-form video QA
 # ("temporal-spatial free-form QA"), so the prompt has its real length.
@@ -268,6 +292,44 @@ NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS = 8, 2
 # bf16 ulp of reordered sums is within KERNEL_ATOL (at unit dout dk reaches
 # ~8, where one ulp is 2^-5).
 DOUT_SCALE = 0.1
+# The GSPO slice (run_grpo_video.sh under --use_peft: LoRA rank 16, alpha 32
+# on q_proj/v_proj; GSPOConfig defaults: G = 4, 768 completion tokens, beta
+# 0.04, clip 5.0, lr 1e-6): one "temporal-spatial free-form QA" example in
+# the RL data's format over the slice's 16 frames and one keyframe.
+GSPO_EXAMPLE = {
+    "task": "temporal-spatial free-form QA",
+    "source": "STR_plm_rdcap",
+    "video_path": "synthetic.mp4",
+    "question": "What happens to the bowling ball after it leaves the bowler's hand?",
+    "answer": "The bowling ball rolls down the lane and knocks the pins down.",
+    "key_frames": [{"time": 3.0, "idx": 0, "path": "synthetic_kf_0.jpg"}],
+    "key_items": {"0": {"bowling ball": [[0.42, 0.38, 0.59, 0.6]]}},
+}
+# Random weights give text that no reward scores, so row r of each group is
+# scored as the r-th of these traces, of falling quality: the seven rewards
+# differ within the group and the advantages are not zero.
+GSPO_TRACES = (
+    "<think>The <obj>bowling ball</obj><box>[141,96,198,151]</box>at<t>3.0</t>s rolls "
+    "toward the pins and they fall at <t>6.5</t>s.</think>\n<answer>The bowling ball rolls "
+    "down the lane and knocks the pins down.</answer>",
+    "<think>A <obj>bowling ball</obj><box>[20,30,90,110]</box>at<t>1.0</t>s is thrown."
+    "</think>\n<answer>The ball rolls down the lane.</answer>",
+    "<think>Someone is bowling.</think>\n<answer>A man walks away.</answer>",
+    "the pins <answer>nothing",
+)
+GSPO_MAX_STEPS = 2  # step_percent = (global_step + 1) / GSPO_MAX_STEPS
+GSPO_CKPT_DIR = "checkpoints/chip_smoke_gspo"  # in the checkout (gitignored), removed after
+# The kernels the GSPO step must launch (PEFT: vision frozen, so K1 and K2
+# run their inference modes; the update's decoder runs K3 exact and K5).
+GSPO_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa",
+                "flash_attention_gqa_exact", "flash_attention_gqa_bwd_dq",
+                "flash_attention_gqa_bwd_dkv")
+# The full fine-tune branch: full width, depth cut so the trained copy, its
+# gradients and AdamW state and the frozen reference fit beside the 7B base.
+FT_VIT_DEPTH, FT_TEXT_LAYERS = 8, 4
+FT_KERNELS = GSPO_KERNELS + ("fused_window_attention_exact", "window_attention_exact",
+                             "fused_window_attention_bwd", "window_attention_bwd_dq",
+                             "window_attention_bwd_dkv")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores and HBM3. The bound of a kernel is the larger of
 # its operations and its bytes at these rates.
@@ -1220,6 +1282,237 @@ def train_numerics_phase(params, cfg, batch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- GSPO ---------------------------------------------------------------------
+
+
+def gspo_sample(proc, seed: int) -> dict:
+    """GSPO_EXAMPLE through rl_sample_from_frames: 16 synthetic 252x336
+    frames at 2 fps and one synthetic keyframe, interleaved by its time."""
+    rng = np.random.default_rng(seed + 2)
+    frames = rng.integers(0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
+    keyframe = rng.integers(0, 256, size=(3, FRAME_H, FRAME_W), dtype=np.uint8)
+    return rl_sample_from_frames(GSPO_EXAMPLE, proc, list(frames), FPS, [keyframe])
+
+
+class CannedTraces:
+    """The trainer's detokenize: row r of a group reads as GSPO_TRACES[r];
+    the ByteTokenizer text of each call is kept in ``real``."""
+
+    def __init__(self, proc):
+        self.proc, self.calls, self.real = proc, 0, []
+
+    def __call__(self, ids):
+        self.real.append(self.proc.decode(ids))
+        text = GSPO_TRACES[self.calls % len(GSPO_TRACES)]
+        self.calls += 1
+        return text
+
+
+def _sub(tree, vit_depth, text_layers):
+    return {"visual": {**tree["visual"], "blocks": tree["visual"]["blocks"][:vit_depth]},
+            "text": {**tree["text"], "layers": tree["text"]["layers"][:text_layers]}}
+
+
+def _cut_cfg(cfg, vit_depth, text_layers):
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, depth=vit_depth),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=text_layers))
+
+
+def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
+    """One GSPOTrainer.step with the launch counts set to 0 just before it:
+    stage seconds, completion lengths, loss, kl, rewards, peak GiB and each
+    kernel's launches (those of ``required`` must be > 0)."""
+    trainer.timer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = trainer.step(sample, global_step=step, max_steps=GSPO_MAX_STEPS)
+    seconds = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
+    last = trainer.last_step
+    stages = {k: v["total_s"] for k, v in trainer.timer.report().items()}
+    log("gspo", run=tag, step=step + 1, seconds=round(seconds, 3), stage_seconds=stages,
+        prompt_tokens=len(sample["input_ids"]), padded_prompt=last["batch"]["prompt_length"],
+        completion_lengths=[len(ids) for ids in last["completion_ids"]],
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        use_vision=last["use_vision"], degraded=last["n_degraded"])
+    log("gspo", run=tag, step=step + 1, loss=m["loss"], kl=m["kl"], reward=m["reward"],
+        advantages=last["advantages"].tolist(),
+        rewards={k.split("/")[1]: v for k, v in m.items() if k.startswith("rewards/")})
+    log("gspo", run=tag, step=step + 1, launches=launches)
+    if not (np.isfinite(m["loss"]) and np.isfinite(m["kl"])):
+        raise RuntimeError(f"GSPO {tag}: non-finite loss or kl: {m}")
+    if last["n_degraded"] or not last["use_vision"]:
+        raise RuntimeError(f"GSPO {tag}: the sample degraded or the reference logps fell back "
+                           "to text-only")
+    if not np.any(last["advantages"]):
+        raise RuntimeError(f"GSPO {tag}: every advantage is 0")
+    missing = [name for name in required if not launches[name]]
+    if missing:
+        raise RuntimeError(f"GSPO {tag}: a kernel of the path never launched: {missing}")
+    return {"metrics": m, "tokens": [list(t) for t in last["completion_ids"]],
+            "rewards": last["rewards_per_func"].copy(), "launches": launches}
+
+
+def gspo_phase(params, cfg, proc, seed: int) -> tuple[GSPOTrainer, dict, dict]:
+    """GSPO under PEFT on the full 7B (frozen; adapters from --seed): step 1,
+    a checkpoint, step 2; then the step-1 checkpoint restored and step 2
+    again, which must give the same tokens, rewards, loss and kl. The
+    adapters' B must move off 0 and every base weight stay bit for bit.
+    Returns the trainer, the sample and step 1's launch counts."""
+    for x in P.leaves(params):
+        x.requires_grad_(False)
+    base = [x.to("cpu", copy=True) for x in P.leaves(params)]  # on the host: no device peak
+    sample = gspo_sample(proc, seed)
+    detok = CannedTraces(proc)
+    lora = LoraConfig(seed=seed)
+    trainer = GSPOTrainer(params, None, cfg, GSPOConfig(), detokenize=detok, lora=lora,
+                          seed=seed)
+    log("gspo", mode="PEFT", lora_rank=lora.rank, lora_alpha=lora.alpha,
+        targets=list(lora.target_modules), adapter_params=sum(x.numel() for x in
+                                                              adapter_leaves(trainer.adapters)),
+        base_params=P.count(params), config=dataclasses.asdict(trainer.cfg),
+        images=len(sample["grid_thw"]), patches=sample["pixel_patches"].shape[0])
+    first = gspo_step(trainer, sample, 0, "peft", GSPO_KERNELS)
+    real = detok.real[-len(first["tokens"]):]
+    per_func, total = sum_rewards(
+        [[{"role": "assistant", "content": t}] for t in real], list(REWARD_REGISTRY.values()),
+        **{k: [v] * len(real) for k, v in {**sample["reward_kwargs"], "step_percent": 0.5}.items()})
+    log("gspo", real_text_bytes=[len(t) for t in real], real_text_head=[ascii(t[:24]) for t in real],
+        real_text_rewards=total.tolist())
+    ckpt_dir = GSPO_CKPT_DIR
+    state = {"params": trainer.adapters, "opt_state": trainer.opt_state,
+             "meta": {"step": 1, "seed": trainer.seed}}
+    t0 = time.perf_counter()
+    path = CKPT.save_checkpoint(ckpt_dir, 1, state)
+    log("gspo", checkpoint=path, save_seconds=round(time.perf_counter() - t0, 3))
+    second = gspo_step(trainer, sample, 1, "peft", GSPO_KERNELS)
+    restored, step = CKPT.restore_checkpoint(ckpt_dir, 1, target=state)
+    trainer.opt_state = restored["opt_state"]
+    again = gspo_step(trainer, sample, 1, "peft, step 2 after restoring step 1", GSPO_KERNELS)
+    same = {"tokens": again["tokens"] == second["tokens"],
+            "rewards": bool(np.array_equal(again["rewards"], second["rewards"])),
+            "loss": again["metrics"]["loss"] == second["metrics"]["loss"],
+            "kl": again["metrics"]["kl"] == second["metrics"]["kl"]}
+    shutil.rmtree(ckpt_dir)
+    log("gspo", restored_step=step, identical_step2=same)
+    if not all(same.values()):
+        raise RuntimeError(f"step 2 after restoring step 1's checkpoint differs: {same}")
+    b_max = max(ab["b"].abs().max().item() for layer in trainer.adapters["layers"]
+                for ab in layer.values())
+    unchanged = all(torch.equal(x.cpu(), y) for x, y in zip(P.leaves(params), base))
+    log("gspo", adapters_b_max_abs=b_max, base_bit_for_bit_unchanged=unchanged,
+        safetensors_package=_has_safetensors())
+    del base
+    if not b_max > 0:
+        raise RuntimeError("the adapters' B did not move off 0")
+    if not unchanged:
+        raise RuntimeError("a base weight changed under PEFT")
+    return trainer, sample, first["launches"]
+
+
+def _has_safetensors() -> bool:
+    try:
+        import safetensors  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def gspo_full_phase(params, cfg, proc, sample, seed: int) -> dict:
+    """The full fine-tune branch at full width and FT_VIT_DEPTH ViT blocks /
+    FT_TEXT_LAYERS decoder layers: a trained copy of those weights against
+    the frozen originals as ``ref_params``, one GSPOTrainer step. Every
+    training kernel, K6 among them, must launch."""
+    small_cfg = _cut_cfg(cfg, FT_VIT_DEPTH, FT_TEXT_LAYERS)
+    ref = _sub(params, FT_VIT_DEPTH, FT_TEXT_LAYERS)
+    trained = _clone(ref)
+    trainer = GSPOTrainer(trained, ref, small_cfg, GSPOConfig(), detokenize=CannedTraces(proc),
+                          seed=seed)
+    log("gspo", mode="full fine-tune", vit_blocks=FT_VIT_DEPTH, decoder_layers=FT_TEXT_LAYERS,
+        trained_params=sum(x.numel() for x in trainer.trained_leaves()))
+    out = gspo_step(trainer, sample, 0, "full fine-tune", FT_KERNELS)
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(P.leaves(trained), P.leaves(ref)))
+    log("gspo", run="full fine-tune", leaves_moved=moved, leaves=len(P.leaves(trained)))
+    if not moved:
+        raise RuntimeError("the full fine-tune step moved no weight")
+    del trainer, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.detach().clone()
+
+
+def _gspo_loss_and_grads(params, adapters, scale, cfg, batch, impl, dtype):
+    """The GSPO loss, policy logps and adapter gradients of one path: the
+    reference logps recomputed by the same path without grad."""
+    b = {k: batch[k] for k in ("pixel_patches", "grid_thw", "vision_token_id", "vision_row_index")}
+    common = (batch["input_ids"], batch["position_ids"], batch["attn_valid"])
+    Lp = batch["prompt_length"]
+    with torch.no_grad():
+        ref = completion_logps(params, cfg, *common, Lp, **b, logp_chunk=256, attn_impl=impl)
+    ad = {"layers": [{n: {k: x.detach().to(dtype).requires_grad_(True) for k, x in ab.items()}
+                      for n, ab in layer.items()} for layer in adapters["layers"]]}
+    loss, aux = gspo_loss(apply_adapters(params, ad, scale), cfg, GSPOConfig(),
+                          *common, batch["completion_mask"], Lp, ref, batch["advantages"], **b,
+                          remat=True, logp_chunk=256, attn_impl=impl)
+    loss.backward()
+    leaves = adapter_leaves(ad)
+    grads = {"a": [x.grad for x in leaves[0::2]], "b": [x.grad for x in leaves[1::2]]}
+    return float(loss.detach()), aux["policy_logps"].detach().float(), grads
+
+
+def gspo_numerics_phase(params, cfg, trainer) -> None:
+    """GSPO numerics at full width, NUMERICS_VIT_DEPTH ViT blocks and
+    NUMERICS_TEXT_LAYERS decoder layers, on the last step's packed batch and
+    the trained adapters of those layers: the policy logps and the adapter
+    gradients (A and B) of the kernel path and of the plain bf16 path, each
+    against float32. The kernel path may be at most SLICE_REL_RATIO further
+    from float32 than the plain path."""
+    small_cfg = _cut_cfg(cfg, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS)
+    small = _sub(params, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS)
+    adapters = {"layers": trainer.adapters["layers"][:NUMERICS_TEXT_LAYERS]}
+    batch = trainer.last_step["batch"]
+    scale = trainer.lora.scale
+    loss_k, logps_k, grads_k = _gspo_loss_and_grads(small, adapters, scale, small_cfg, batch,
+                                                    "auto", torch.bfloat16)
+    loss_p, logps_p, grads_p = _gspo_loss_and_grads(small, adapters, scale, small_cfg, batch,
+                                                    "torch", torch.bfloat16)
+    cfg32 = dataclasses.replace(small_cfg, dtype=torch.float32)
+    small32 = _cast(small, torch.float32)
+    loss_r, logps_r, grads_r = _gspo_loss_and_grads(small32, adapters, scale, cfg32, batch,
+                                                    "torch", torch.float32)
+    log("gspo_numerics", vit_blocks=NUMERICS_VIT_DEPTH, decoder_layers=NUMERICS_TEXT_LAYERS,
+        loss_kernel=loss_k, loss_plain=loss_p, loss_f32=loss_r)
+    rel_k, cos_k = _agreement(logps_k, logps_r)
+    rel_p, cos_p = _agreement(logps_p, logps_r)
+    checks = [("policy logps", rel_k, rel_p)]
+    log("gspo_numerics", what="policy logps", kernel_vs_f32_rel=rel_k, kernel_vs_f32_cos=cos_k,
+        plain_vs_f32_rel=rel_p, plain_vs_f32_cos=cos_p, max_ratio=SLICE_REL_RATIO)
+    for group in grads_r:
+        rel_k, cos_k = _agreement_sums(grads_k[group], grads_r[group])
+        rel_p, cos_p = _agreement_sums(grads_p[group], grads_r[group])
+        checks.append((f"adapter {group} gradients", rel_k, rel_p))
+        log("gspo_numerics", what=f"adapter {group} gradients", kernel_vs_f32_rel=rel_k,
+            kernel_vs_f32_cos=cos_k, plain_vs_f32_rel=rel_p, plain_vs_f32_cos=cos_p,
+            max_ratio=SLICE_REL_RATIO)
+    del small32, grads_k, grads_p, grads_r
+    torch.cuda.empty_cache()
+    for what, rel_k, rel_p in checks:
+        if not (np.isfinite(rel_k) and rel_k <= SLICE_REL_RATIO * rel_p):
+            raise RuntimeError(f"GSPO {what}: the kernel path is further from float32 than the "
+                               f"plain bf16 path ({rel_k} vs {rel_p})")
+
+
 # ---- int4 serving ------------------------------------------------------------
 
 
@@ -1506,6 +1799,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_numerics_phase(params, cfg, batch)
     log("sft", phases_seconds=round(time.perf_counter() - t0, 3))
+
+    # GSPO: PEFT on the frozen 7B, its numerics, then the full fine-tune branch
+    t0 = time.perf_counter()
+    trainer, gsample, gspo_launches = gspo_phase(params, cfg, proc, args.seed)
+    gspo_numerics_phase(params, cfg, trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft_launches = gspo_full_phase(params, cfg, proc, gsample, args.seed)
+    log("gspo", phases_seconds=round(time.perf_counter() - t0, 3),
+        launches_per_step={"peft": gspo_launches, "full fine-tune": ft_launches})
 
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()

@@ -8,7 +8,10 @@ imports PIL).
 - ``sample_indices``: ``linspace(0, total - 1, nframes).round()``;
 - ``trim_window``: ``video_start``/``video_end`` as an inclusive pts range;
 - ``fetch_video``: decode a file with OpenCV (imported when called), then
-  the PIL-parity bicubic resize of ``ops/resize.py`` instead of PIL.
+  the PIL-parity bicubic resize of ``ops/resize.py`` instead of PIL;
+- ``read_image`` / ``fetch_image``: an image file (a keyframe, a GQA image)
+  read with OpenCV as PIL's ``convert("RGB")`` gives it, resized the same
+  way (PIL's ``Image.resize`` default for RGB is bicubic).
 
 OpenCV is the only reader here (the JAX package's native libav decoder is
 not ported). Where cv2 is missing, ``fetch_video`` raises an ImportError
@@ -190,3 +193,50 @@ def fetch_video(ele: dict, image_factor: int = IMAGE_FACTOR) -> tuple[np.ndarray
         h, w = smart_resize(height, width, factor=image_factor, min_pixels=min_pixels,
                             max_pixels=max_pixels)
     return resize_frames(torch.from_numpy(video), h, w).numpy(), sample_fps
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("reading an image file needs OpenCV (cv2), which is not installed") from e
+    return cv2
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as HWC uint8 RGB, as PIL's ``to_rgb`` makes it: gray
+    repeated over the channels, RGBA flattened onto white (PIL's paste
+    blend, rounded as its ``BLEND`` macro rounds)."""
+    cv2 = _cv2()
+    if path.startswith("file://"):
+        path = path[7:]
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise IOError(f"cv2 failed to read image: {path}")
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: only 8-bit images are read, got {img.dtype}")
+    if img.ndim == 2:
+        return np.repeat(img[:, :, None], 3, axis=2)
+    if img.shape[2] == 4:
+        rgb = img[:, :, 2::-1].astype(np.int32)
+        alpha = img[:, :, 3:].astype(np.int32)
+        tmp = 255 * (255 - alpha) + rgb * alpha + 128
+        return ((tmp + (tmp >> 8)) >> 8).astype(np.uint8)
+    return np.ascontiguousarray(img[:, :, ::-1])
+
+
+def resize_image(img_hwc: np.ndarray, height: int, width: int) -> np.ndarray:
+    """HWC uint8 -> CHW uint8 at (height, width), the PIL-parity bicubic."""
+    chw = torch.from_numpy(np.ascontiguousarray(img_hwc.transpose(2, 0, 1)))[None]
+    return resize_frames(chw, height, width)[0].to(torch.uint8).numpy()
+
+
+def fetch_image(ele: dict, size_factor: int = IMAGE_FACTOR) -> np.ndarray:
+    """Read and smart-resize one image file (``ele["image"]``, a path, and
+    optional ``min_pixels``/``max_pixels``) as the JAX package's
+    ``fetch_image`` does: CHW uint8 RGB."""
+    img = read_image(ele["image"])
+    h, w = smart_resize(img.shape[0], img.shape[1], factor=size_factor,
+                        min_pixels=ele.get("min_pixels", MIN_PIXELS),
+                        max_pixels=ele.get("max_pixels", MAX_PIXELS))
+    return resize_image(img, h, w)

@@ -18,8 +18,14 @@ buffer of 32768 slots or more runs K4 on the stored cache. A prompt longer
 than MAX_PROMPT_TOKENS raises. Length buckets are a TPU static-shape device
 and are not ported, so the last chunk may be shorter than the others.
 
+GSPO rollouts (``train/gspo.py``) serve params whose targeted decoder
+leaves are ``LoraLinear`` (the matmuls go through ``ops.quant.dense``), pass
+the G copies of one ``Request`` so its vision runs once, and call
+``release_memory`` after each rollout.
+
 Not ported yet (later work): prefix caching, speculative decoding,
-continuous admission, chunked prefill interleaved with in-flight decodes.
+continuous admission, chunked prefill interleaved with in-flight decodes,
+the B x G rollout mode.
 """
 
 from __future__ import annotations
@@ -136,6 +142,14 @@ class InferenceEngine:
         self.long_prefill_chunk = long_prefill_chunk
         self.stage_seconds: collections.Counter = collections.Counter()
         self.decode_steps = 0
+
+    def release_memory(self) -> None:
+        """Free what a generate left behind. The engine keeps no cache
+        between calls (each allocates its own), so this only returns the
+        caching allocator's free blocks on the card to the device, as the
+        JAX engine drops its KV arenas before a training update."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     @contextlib.contextmanager
     def _stage(self, name: str):

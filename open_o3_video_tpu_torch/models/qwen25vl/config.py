@@ -183,6 +183,50 @@ class Qwen25VLConfig:
         with open(os.path.join(model_dir, "config.json")) as f:
             return Qwen25VLConfig.from_hf_dict(json.load(f), dtype=dtype)
 
+    def to_hf_dict(self) -> dict[str, Any]:
+        """HF-convention config.json payload (inverse of ``from_hf_dict``),
+        the JAX package's ``to_hf_dict`` for Qwen2.5-VL, so an exported
+        directory is self-describing."""
+        v, t = self.vision, self.text
+        return {
+            "model_type": self.model_type,
+            "architectures": ["Qwen2_5_VLForConditionalGeneration"],
+            "vision_config": {
+                "depth": v.depth,
+                "hidden_size": v.hidden_size,
+                "intermediate_size": v.intermediate_size,
+                "num_heads": v.num_heads,
+                "in_channels": v.in_channels,
+                "patch_size": v.patch_size,
+                "spatial_merge_size": v.spatial_merge_size,
+                "temporal_patch_size": v.temporal_patch_size,
+                "window_size": v.window_size,
+                "fullatt_block_indexes": list(v.fullatt_block_indexes),
+                "out_hidden_size": v.out_hidden_size,
+                "tokens_per_second": v.tokens_per_second,
+            },
+            "text_config": {
+                "vocab_size": t.vocab_size,
+                "hidden_size": t.hidden_size,
+                "intermediate_size": t.intermediate_size,
+                "num_hidden_layers": t.num_hidden_layers,
+                "num_attention_heads": t.num_attention_heads,
+                "num_key_value_heads": t.num_key_value_heads,
+                "rms_norm_eps": t.rms_norm_eps,
+                "rope_theta": t.rope_theta,
+                "rope_scaling": {"type": "mrope", "mrope_section": list(t.mrope_section)},
+                "tie_word_embeddings": t.tie_word_embeddings,
+                "max_position_embeddings": t.max_position_embeddings,
+            },
+            "image_token_id": self.image_token_id,
+            "video_token_id": self.video_token_id,
+            "vision_start_token_id": self.vision_start_token_id,
+            "vision_end_token_id": self.vision_end_token_id,
+            "bos_token_id": self.bos_token_id,
+            "eos_token_id": self.eos_token_id,
+            "pad_token_id": self.pad_token_id,
+        }
+
     @staticmethod
     def tiny(dtype=torch.float32) -> "Qwen25VLConfig":
         """Small random-init config for tests and CPU parity checks."""

@@ -131,6 +131,21 @@ def build_vision_row_index(
     return idx
 
 
+class VisionInputError(ValueError):
+    """Vision tensors that disagree with each other (patches against their
+    grids). GSPO's reference-logps step degrades such a sample to text-only
+    (the reference's degraded recompute); any other error propagates. A
+    row index past the vision table is clamped, as in the JAX package."""
+
+
+def check_vision_inputs(cfg: Qwen25VLConfig, n_patches: int, grid_thw) -> None:
+    """Raise VisionInputError unless ``n_patches`` equals the grids' patch
+    count (host integers: no device sync)."""
+    expected = int(np.asarray(grid_thw).prod(axis=1).sum())
+    if n_patches != expected:
+        raise VisionInputError(f"{n_patches} patches for grids of {expected}")
+
+
 def encode_vision(params: dict, cfg: Qwen25VLConfig, pixel_patches: torch.Tensor,
                   grid_thw: np.ndarray, impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """Vision tower -> merged embeddings (S_patches / merge_unit, hidden)."""
@@ -191,9 +206,11 @@ def forward(
     as ``pack_sft_batch`` builds it; without it the n-th placeholder takes
     the n-th row. ``remat`` checkpoints every vision block and decoder
     layer. ``return_hidden=True`` returns the final-norm hidden states
-    instead of logits, for callers that project only some positions."""
+    instead of logits, for callers that project only some positions.
+    Patches that disagree with ``grid_thw`` raise VisionInputError."""
     embeds = embed_tokens(params, input_ids)
     if pixel_patches is not None:
+        check_vision_inputs(cfg, pixel_patches.shape[0], grid_thw)
         vis = encode_vision(params, cfg, pixel_patches, grid_thw, impl=attn_impl, remat=remat)
         if vision_row_index is not None:
             embeds = merge_vision_embeddings_by_index(embeds, vis, vision_row_index)

@@ -33,6 +33,7 @@ import torch
 from ...ops.int4 import Int4Linear, quantize_weight_int4
 from ...ops.quant import (
     QUANTIZED,
+    LoraLinear,
     QuantizedLinear,
     map_with_path,
     quantize_weight,
@@ -61,7 +62,8 @@ def from_jax_params(tree, cfg: Qwen25VLConfig, device) -> dict:
     (in, out) orientation, as the port's param dict in ``cfg.dtype``. JAX's
     quantized leaves, recognised by their fields (``w_p``/``scale``/``group``
     for int4, ``w_q``/``scale`` for int8), keep their int8 bytes and float32
-    scales."""
+    scales; its ``LoraLinear`` leaves (``base``/``a``/``b``/``scale``) become
+    the port's, their adapters in ``cfg.dtype``."""
 
     def tensor(x, dtype):
         return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
@@ -78,10 +80,21 @@ def from_jax_params(tree, cfg: Qwen25VLConfig, device) -> dict:
         if hasattr(x, "w_q"):
             return QuantizedLinear(tensor(x.w_q, np.int8), tensor(x.scale, np.float32))
         if hasattr(x, "base") and hasattr(x, "a"):  # (a numpy array has .base too)
-            raise NotImplementedError("LoRA leaves are not ported yet")
+            return LoraLinear(conv(x.base), conv(x.a), conv(x.b), float(np.asarray(x.scale)))
         return tensor(x, np.float32).to(cfg.dtype)
 
     return conv(tree)
+
+
+def adapters_from_jax(tree, device, dtype=torch.float32) -> dict:
+    """The JAX package's adapter tree (``train/lora.py:init_adapters``),
+    leaves as numpy arrays, as the port's adapters in ``dtype``, trainable."""
+    return {"layers": [
+        {name: {k: torch.from_numpy(np.array(ab[k], dtype=np.float32)).to(device, dtype)
+                .requires_grad_(True) for k in ("a", "b")}
+         for name, ab in layer.items()}
+        for layer in tree["layers"]
+    ]}
 
 
 def to_jax_layout(tree):
@@ -320,6 +333,62 @@ def load_pretrained(model_dir: str, device, cfg: Qwen25VLConfig | None = None,
                     yield key, f.get_tensor(key)
 
     return from_hf_state_dict(named(), cfg, device, quantize_text=quantize_text), cfg
+
+
+def hf_named_tensors(params: dict, cfg: Qwen25VLConfig):
+    """(HF name, tensor) pairs of a plain param dict, in the HF layout
+    (output-major matmul weights, the patch embedding as its Conv3d), the
+    names and order of the JAX package's ``save_safetensors``. The inverse
+    of ``from_hf_state_dict``; tensors are views, copied by the caller."""
+    t = params["text"]
+    yield "model.embed_tokens.weight", t["embed_tokens"]
+    yield "model.norm.weight", t["final_norm"]
+    yield "lm_head.weight", t["lm_head"].T
+    for i, layer in enumerate(t["layers"]):
+        for suffix, (name, tr) in _TEXT_LAYER.items():
+            yield f"model.layers.{i}.{suffix}", layer[name].T if tr else layer[name]
+    vis = params.get("visual")
+    if vis is None:
+        return
+    v = cfg.vision
+    yield "visual.patch_embed.proj.weight", vis["patch_embed"].T.reshape(
+        v.hidden_size, v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size)
+    for i, block in enumerate(vis["blocks"]):
+        for suffix, (name, tr) in _VISION_BLOCK.items():
+            yield f"visual.blocks.{i}.{suffix}", block[name].T if tr else block[name]
+    for suffix, (name, tr) in _MERGER.items():
+        yield f"visual.merger.{suffix}", vis["merger"][name].T if tr else vis["merger"][name]
+
+
+_SAFETENSORS_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}
+
+
+def save_safetensors(params: dict, cfg: Qwen25VLConfig, out_path: str, dtype=None) -> None:
+    """Write a plain param dict as one HF-convention safetensors file, in
+    the format itself (no ``safetensors`` package): an 8-byte little-endian
+    header length, the JSON header (name -> dtype, shape, byte offsets),
+    padded with spaces to 8 bytes, then each tensor's raw little-endian
+    bytes. Each tensor keeps its dtype unless ``dtype`` is given (the JAX
+    package's export writes float32). One tensor at a time is copied to the
+    host."""
+    tensors = list(hf_named_tensors(params, cfg))
+    header, offset = {}, 0
+    for name, x in tensors:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name}: export needs plain tensors (merge or dequantize first)")
+        out_dtype = dtype or x.dtype
+        n = x.numel() * torch.finfo(out_dtype).bits // 8
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[out_dtype], "shape": list(x.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(out_path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for _, x in tensors:
+            x = x.detach().to(device="cpu", dtype=dtype or x.dtype).contiguous()
+            f.write(x.view(torch.uint8).numpy().tobytes())
 
 
 def count(params) -> int:

@@ -7,10 +7,11 @@ gives x times the int8 weight in x's dtype, summed in float32, times the
 scale, cast to x's dtype (JAX's XLA path, so a torch matmul here; it runs
 in float32 because torch has no bf16 matmul with a float32 result on every
 version, and that keeps JAX's single rounding); an ``Int4Linear`` goes to
-``int4.int4_dense`` (K7). Anything else raises.
+``int4.int4_dense`` (K7); a ``LoraLinear`` (a frozen base, itself any of
+the above, plus a trainable low-rank delta, ``train/lora.py``) gives
+``dense(x, base) + ((x @ a) @ b) * scale``. Anything else raises.
 
-Not ported yet: w8a8 (``a8_acts``, ROADMAP M6) and ``LoraLinear`` (with
-``train/lora.py``).
+Not ported yet: w8a8 (``a8_acts``, ROADMAP M6).
 """
 
 from __future__ import annotations
@@ -40,13 +41,36 @@ class QuantizedLinear:
 QUANTIZED = (QuantizedLinear, Int4Linear)
 
 
+class LoraLinear:
+    """Frozen base matmul + trainable low-rank delta, used via ``dense``
+    (JAX's ``LoraLinear``). ``base`` is an (in, out) tensor or a quantized
+    weight (QLoRA: an int8 base and bf16 adapters); ``a`` (in, rank), ``b``
+    (rank, out); ``scale`` = alpha / rank, a Python float."""
+
+    def __init__(self, base, a: torch.Tensor, b: torch.Tensor, scale: float):
+        self.base = base
+        self.a = a
+        self.b = b
+        self.scale = scale
+
+    @property
+    def shape(self):
+        return tuple(self.base.shape)
+
+    def __repr__(self):
+        return f"LoraLinear(shape={self.shape}, rank={self.a.shape[-1]})"
+
+
 def stored_tensors(w) -> tuple:
     """The tensors a weight is stored in: its int8 bytes and scale if
-    quantized, else the tensor itself."""
+    quantized, a LoRA weight's base tensors and adapters, else the tensor
+    itself."""
     if isinstance(w, QuantizedLinear):
         return (w.w_q, w.scale)
     if isinstance(w, Int4Linear):
         return (w.w_p, w.scale)
+    if isinstance(w, LoraLinear):
+        return stored_tensors(w.base) + (w.a, w.b)
     return (w,)
 
 
@@ -63,10 +87,17 @@ def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
 
 
 def dense(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
-    """x @ w for a plain tensor, a QuantizedLinear or an Int4Linear (whose
-    kernel route ``impl`` picks, as for the attention kernels)."""
+    """x @ w for a plain tensor, a QuantizedLinear, an Int4Linear (whose
+    kernel route ``impl`` picks, as for the attention kernels) or a
+    LoraLinear: its base's product plus the delta, with ``a`` and ``b`` cast
+    to x's dtype and the scale rounded to it, as JAX's ``jnp.asarray(scale,
+    x.dtype)``."""
     if isinstance(w, torch.Tensor):
         return x @ w
+    if isinstance(w, LoraLinear):
+        delta = (x @ w.a.to(x.dtype)) @ w.b.to(x.dtype)
+        scale = torch.tensor(w.scale, dtype=x.dtype).item()
+        return dense(x, w.base, impl) + delta * scale
     if isinstance(w, Int4Linear):
         return int4_dense(x, w, impl=impl)
     if isinstance(w, QuantizedLinear):

@@ -1,5 +1,7 @@
 """Training: the SFT step (full fine-tune) of the JAX package's
-``train/sft.py``."""
+``train/sft.py``; GSPO (``gspo``), LoRA (``lora``), checkpoints
+(``checkpoint``) and the GSPO entry point (``grpo_main``) are modules of
+their own."""
 
 from .sft import (
     IGNORE_INDEX,

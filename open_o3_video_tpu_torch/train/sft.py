@@ -72,16 +72,24 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
 
 
 class ClipAdamW:
-    """``optax.chain(clip_by_global_norm(max), adamw(lr, b1, b2, eps=1e-8,
-    wd))`` over the trainable leaves of a param dict, in place. AdamW is
-    ``torch.optim.AdamW``, fused on the card (optax is plain XLA, not a
-    kernel of the JAX package)."""
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(lr, b1, b2,
+    eps=1e-8, weight_decay))`` over a list of trainable tensors, or over the
+    trainable leaves of a param dict, in place. The hyperparameters are the
+    config's fields (``SFTConfig``'s; GSPO gives its own: a clip at 5.0 and
+    optax's default weight decay of 1e-4). AdamW is ``torch.optim.AdamW``,
+    fused on the card (optax is plain XLA, not a kernel of the JAX
+    package)."""
 
     def __init__(self, cfg: SFTConfig):
         self.cfg = cfg
 
-    def init(self, params: dict) -> dict:
-        leaves = [x for x in P.leaves(params) if x.requires_grad]
+    def init(self, params) -> dict:
+        """State over ``params``: a list of tensors (each trained), or a
+        param dict (its leaves with ``requires_grad``)."""
+        if isinstance(params, (list, tuple)):
+            leaves = list(params)
+        else:
+            leaves = [x for x in P.leaves(params) if x.requires_grad]
         fused = all(x.is_cuda for x in leaves)
         adamw = torch.optim.AdamW(
             leaves, lr=learning_rate(self.cfg, 0), betas=(self.cfg.adam_b1, self.cfg.adam_b2),

@@ -1,7 +1,7 @@
 """Where the time goes in the PyTorch port's serving slice, on one GPU.
 
     python3 scripts/profile_slice_torch.py [--max-tokens N] [--trace PATH]
-                                           [--long a|b | --int4 | --judge]
+                                           [--long a|b | --int4 | --judge | --gspo]
 
 Runs chip_smoke.py's full-width requests (Qwen2.5-VL-7B, random bf16
 weights, 16 frames each) through InferenceEngine.generate once to warm up,
@@ -11,7 +11,11 @@ bf16 cache; b: 81888 tokens with an fp8 cache, prefilled in 8192-token
 chunks), greedy, warmed up with a 2-token run of the same request.
 ``--int4`` serves the video slice with its decoder in group-128 int4 (K7);
 ``--judge`` profiles chip_smoke.py's judge call instead: Qwen2.5-72B-Instruct
-in int4, EngineJudge's 4 jobs, 16 new tokens. Per engine stage (vision, prefill, decode)
+in int4, EngineJudge's 4 jobs, 16 new tokens. ``--gspo`` profiles one step
+of chip_smoke.py's GSPO phase (PEFT on the 7B, its sample and canned
+traces; rollouts of --max-tokens, default 128, tokens a row, after a
+warm-up step of the same size), its trainer stages (rollout, reward,
+ref_logps, update) beside the engine's. Per engine stage (vision, prefill, decode)
 it prints the wall time, the device busy time (sum of kernel durations
 inside the stage's range, one stream), the idle share, and the top kernels
 by device time, and the device time of K1, K2, K3, K4 and K7 (each
@@ -45,9 +49,12 @@ from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P 
 # kernels at W = 64 and 128, the general route elsewhere), K2 (whole
 # frames), K3 (k3, the prefill attention), K4 (k4, decode attention and its
 # split sum), K7 (int4mm, the decode route and its split sum; int4wg, the
-# prefill route)
+# prefill route), and the backward kernels of the training steps: K5 (dq;
+# dk/dv per head and its group sum) and K6 (fused rows; whole frames)
 FAMILIES = {"K1": ("fused_window_rows", "fused_window_attention"), "K2": ("window_attention_tma",),
-            "K3": ("k3::",), "K4": ("k4::",), "K7": ("int4mm", "int4wg")}
+            "K3": ("k3::",), "K4": ("k4::",), "K7": ("int4mm", "int4wg"),
+            "K5": ("causal_dq_kernel", "causal_dkv_partial_kernel", "dkv_group_sum_kernel"),
+            "K6": ("fused_window_bwd_rows_kernel", "window_bwd_frame_kernel")}
 
 
 def main() -> None:
@@ -61,13 +68,30 @@ def main() -> None:
     ap.add_argument("--int4", action="store_true", help="the decoder in group-128 int4 (K7)")
     ap.add_argument("--judge", action="store_true",
                     help="profile chip_smoke.py's 72B int4 judge call instead")
+    ap.add_argument("--gspo", action="store_true",
+                    help="profile one GSPO step (PEFT, chip_smoke.py's sample) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice_torch: needs a CUDA device")
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda")
     cfg = Qwen25VLConfig()
-    if args.judge:
+    run = None
+    if args.gspo:
+        from open_o3_video_tpu_torch.train.gspo import GSPOConfig, GSPOTrainer
+        from open_o3_video_tpu_torch.train.lora import LoraConfig
+
+        proc = O3VideoProcessor()
+        sample = cs.gspo_sample(proc, 0)
+        trainer = GSPOTrainer(P.init(cfg, 0, dev), None, cfg,
+                              GSPOConfig(max_completion_length=args.max_tokens or 128),
+                              detokenize=cs.CannedTraces(proc), lora=LoraConfig(seed=0))
+        engine = trainer.engine
+        trainer.step(sample, global_step=0, max_steps=cs.GSPO_MAX_STEPS)  # warm-up
+
+        def run():
+            trainer.step(sample, global_step=1, max_steps=cs.GSPO_MAX_STEPS)
+    elif args.judge:
         cfg = Qwen25VLConfig.from_hf_dict(QWEN25_72B_INSTRUCT_CONFIG)
         judge = EngineJudge(P.init(cfg, 0, dev, quantize_text="int4"), cs.JUDGE_NEW_TOKENS,
                             cfg=cfg, processor=O3VideoProcessor())
@@ -93,15 +117,18 @@ def main() -> None:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     engine.decode_steps = 0
     with torch.profiler.profile(activities=acts) as prof:
-        engine.generate(reqs, sampling)
+        if run is not None:
+            run()
+        else:
+            engine.generate(reqs, sampling)
     with tempfile.TemporaryDirectory() as tmp:
         path = args.trace or os.path.join(tmp, "slice_trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    stages = [e for e in events
-              if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("engine.")]
+    stages = [e for e in events if e.get("cat") == "user_annotation"
+              and str(e.get("name", "")).startswith(("engine.", "stage."))]
     print(f"kernels={len(kernels)} stages={[s['name'] for s in stages]}", flush=True)
     for st in stages:
         t0, t1 = st["ts"], st["ts"] + st["dur"]

@@ -1,9 +1,11 @@
 """Import guard: the port runs where neither JAX nor PIL is installed (the
-GPU machine has neither). A subprocess blocks both imports, imports every
-module of the port, runs a tiny generate on the CPU (with a bf16 cache, and
-with an fp8 cache through the long-context path), one tiny SFT train step,
-a generate with an int4 decoder (K7's plain version) and a judge call, and
-checks that nothing of the JAX package was imported along the way."""
+GPU machine has neither, nor rouge_score or nltk). A subprocess blocks those
+imports, imports every module of the port, runs a tiny generate on the CPU
+(with a bf16 cache, and with an fp8 cache through the long-context path),
+one tiny SFT train step, a generate with an int4 decoder (K7's plain
+version), a judge call and one tiny PEFT GSPO step on a free-form example
+(its ROUGE reward scored), and checks that nothing of the JAX package was
+imported along the way."""
 
 import os
 import subprocess
@@ -15,6 +17,8 @@ SCRIPT = r"""
 import sys
 sys.modules["jax"] = None   # any `import jax` now raises ImportError
 sys.modules["PIL"] = None
+sys.modules["rouge_score"] = None
+sys.modules["nltk"] = None
 import importlib
 import numpy as np
 import torch
@@ -47,6 +51,20 @@ MODULES = [
     "open_o3_video_tpu_torch.data.video",
     "open_o3_video_tpu_torch.eval",
     "open_o3_video_tpu_torch.eval.judge",
+    "open_o3_video_tpu_torch.utils",
+    "open_o3_video_tpu_torch.utils.metrics",
+    "open_o3_video_tpu_torch.utils.profiling",
+    "open_o3_video_tpu_torch.grounding.iou",
+    "open_o3_video_tpu_torch.grounding.coords",
+    "open_o3_video_tpu_torch.grounding.tags",
+    "open_o3_video_tpu_torch.grounding.rouge",
+    "open_o3_video_tpu_torch.grounding.rewards",
+    "open_o3_video_tpu_torch.data.media_roots",
+    "open_o3_video_tpu_torch.data.rl_dataset",
+    "open_o3_video_tpu_torch.train.lora",
+    "open_o3_video_tpu_torch.train.gspo",
+    "open_o3_video_tpu_torch.train.checkpoint",
+    "open_o3_video_tpu_torch.train.grpo_main",
 ]
 for m in MODULES:
     importlib.import_module(m)
@@ -100,7 +118,27 @@ out = InferenceEngine(qweights, qcfg).generate([Request(proc("Why?").input_ids)]
 assert 1 <= len(out[0]["token_ids"]) <= 3, out
 judge = EngineJudge(qweights, 2, cfg=qcfg, processor=proc)
 assert judge.batch([("What color?", "red", "blue")]) in ([-1], [0], [1], [2], [3])
+# one PEFT GSPO step: a free-form example through rl_sample_from_frames, the
+# seven rewards (ROUGE among them) on canned traces, the update
+from open_o3_video_tpu_torch.data.rl_dataset import rl_sample_from_frames
+from open_o3_video_tpu_torch.train.gspo import GSPOConfig, GSPOTrainer
+from open_o3_video_tpu_torch.train.lora import LoraConfig
+gcfg = dataclasses.replace(cfg, vision_start_token_id=300, vision_end_token_id=301,
+                           image_token_id=303, video_token_id=304)
+gproc = O3VideoProcessor(tokenizer=ByteTokenizer.for_config(gcfg))
+example = {"task": "temporal-spatial free-form QA", "question": "What rolls?",
+           "answer": "the red ball rolls", "key_frames": [{"time": 0.0, "idx": 0}],
+           "key_items": {"0": {"ball": [[0.1, 0.1, 0.5, 0.5]]}}}
+sample = rl_sample_from_frames(example, gproc, imgs, 2.0, [imgs[0]])
+traces = iter(["<think>a <obj>ball</obj><box>[5,5,40,30]</box>at<t>0.0</t>s</think>"
+               "<answer>the red balls rolled</answer>", "<answer>a cup</answer>", "x", "y"])
+trainer = GSPOTrainer(params.init(gcfg, 0, torch.device("cpu")), None, gcfg,
+                      GSPOConfig(max_completion_length=4), detokenize=lambda ids: next(traces),
+                      lora=LoraConfig(rank=2))
+m = trainer.step(sample, global_step=0, max_steps=1)
+assert trainer.last_step["use_vision"] and 0 < m["rewards/ans_acc_reward"] < 1, m
 assert sys.modules["jax"] is None and sys.modules["PIL"] is None
+assert sys.modules["rouge_score"] is None and sys.modules["nltk"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
 print("NO_JAX_OK")
 """
