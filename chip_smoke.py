@@ -20,13 +20,21 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      252x336 frames, processor -> InferenceEngine.generate with the reference
      sampling (temperature 0.7, top_p 0.001, repetition penalty 1.05) for 64
      new tokens; stage times, peak memory, and each kernel's launch count,
-     which must be > 0;
+     which must be > 0. Every phase decodes graphed, the engine's default:
+     one decode step captured as a CUDA graph per generate call and
+     replayed, segments of up to 64 steps, one readback each;
   5. the slice's numerics on the engine's prefill layout (the requests as
      one left-padded batch, a cache of L + 64 slots): vision embeddings and
      last-position prefill logits of the kernel path and of the plain bf16
      path (impl="torch"), each against a float32 reference (relative error
      and cosine; the kernel path may be at most SLICE_REL_RATIO further from
-     it), and identical tokens from two kernel-path runs;
+     it); the same requests decoded eagerly (decode_graph=False) must give
+     the graphed run's tokens (every decoding path below is held so, with
+     ms/token of both, the speedup, the capture ms, wasted steps and host
+     launches per step); then the early-stop check: a copy of the config
+     whose EOS is the token that an eager greedy run emits at step 5,
+     eager and graphed stopping at the same token, wasting fewer steps
+     than a segment (at most the done flags' lag, DONE_LAG - 1);
   6. the long-context path (the reference's max_model_len=81920): one
      text-only request per run through InferenceEngine.generate, greedy,
      repetition penalty 1.05, 32 new tokens: (a) a 32736-token prompt with a
@@ -36,8 +44,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
   7. the long-context numerics: one decode step's logits on (b)'s prefilled
      fp8 cache with K4 (impl="auto") and with its plain version
      (impl="torch"), within LONG_LOGITS_REL / LONG_LOGITS_COS of each other
-     and each against a float32 step (SLICE_REL_RATIO), and identical
-     tokens from two runs of (a).
+     and each against a float32 step (SLICE_REL_RATIO); then (a) and (b)
+     again, decoding eagerly: the same tokens as the graphed runs.
   8. the training kernels against their plain versions at the SFT slice's
      shapes: the exact (training) modes of K1-K3, out and lse (K1's also at
      W = 128, K2's also at W = 1024, K3's also at 64/8 heads); K5 (dq; dk
@@ -71,17 +79,20 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      sampling through InferenceEngine.generate, stage times, weight and
      peak GiB, K7 launches by route (the prefill's 7 * 28 decoder matmuls
      on the wgmma route, its lm_head at the last positions and 7 * 28 + 1
-     per decode step on the mma.sync one), identical tokens across two
-     runs; the prefill logits of the K7 path and of the plain int4 path
-     each against float32 on the same int4 weights (SLICE_REL_RATIO), and
-     the int4-vs-bf16 distance as information;
+     per decode step that ran on the mma.sync one), the same requests
+     decoded eagerly giving the same tokens; the prefill logits of the K7
+     path and of the plain int4 path each against float32 on the same int4
+     weights (SLICE_REL_RATIO), and the int4-vs-bf16 distance as
+     information;
  13. the judge: Qwen2.5-72B-Instruct at full width and depth (its published
      config.json) in int4 on the card, drawn and quantized leaf by leaf,
-     EngineJudge.batch on 4 jobs with 16 new tokens, twice: init seconds,
+     EngineJudge.batch on 4 jobs with 16 new tokens, twice (the second
+     call decoding eagerly, which must give the same tokens): init seconds,
      weight and peak GiB, prefill ms, decode ms/token, the scores (-1 with
      random weights), K7 launches by route as in phase 12 (7 * 80 on the
-     wgmma route, then 1 + 7 * 80 + 1 per decode step), K3's launches in
-     the call (its prefill), and identical scores across the two calls.
+     wgmma route, then 1 + 7 * 80 + 1 per decode step that ran), K3's
+     launches in the call (its prefill), and identical scores across the
+     two calls.
  14. GSPO (after phase 10, before phase 11; run_grpo_video.sh under
      --use_peft): the phase-4 7B weights frozen, LoRA adapters (rank 16,
      alpha 32, q_proj/v_proj) from --seed, GSPOConfig defaults (G = 4, 768
@@ -92,9 +103,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      reward scores; the real text's rewards are printed too). Step 1, a
      checkpoint, step 2; step 1's checkpoint restored and step 2 again: the
      same tokens, rewards, loss and kl. Per step the stage seconds, lengths,
-     loss, kl, rewards, peak GiB and every kernel's launches (K1, K2, K3 in
-     both modes and K5 > 0); B moved off 0, the base bit for bit unchanged,
-     no sample degraded and vision in the reference logps. Then the GSPO
+     loss, kl, rewards, peak GiB, the rollout's decode ms/token and every
+     kernel's launches (K1, K2, K3 in both modes and K5 > 0); B moved off
+     0, the base bit for bit unchanged, no sample degraded and vision in
+     the reference logps. Then one rollout of the trained policy at 128
+     tokens a row, graphed and eager: the same tokens. Then the GSPO
      numerics at 8 ViT blocks / 2 decoder layers (policy logps and adapter
      gradients of the kernel and plain bf16 paths against float32,
      SLICE_REL_RATIO), and one full fine-tune step at full width, 8 ViT
@@ -108,6 +121,7 @@ result is printed.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
@@ -124,7 +138,7 @@ import torch.nn.functional as F
 from open_o3_video_tpu_torch.data.processor import O3VideoProcessor
 from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
-from open_o3_video_tpu_torch.engine.engine import chunked_prefill, left_padded_rows
+from open_o3_video_tpu_torch.engine.engine import DONE_LAG, chunked_prefill, left_padded_rows
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
 from open_o3_video_tpu_torch.models.qwen25vl.model import (
@@ -330,6 +344,12 @@ FT_VIT_DEPTH, FT_TEXT_LAYERS = 8, 4
 FT_KERNELS = GSPO_KERNELS + ("fused_window_attention_exact", "window_attention_exact",
                              "fused_window_attention_bwd", "window_attention_bwd_dq",
                              "window_attention_bwd_dkv")
+# Decode, graphed (the engine's default) against eager (decode_graph=False),
+# on every decoding path: the tokens must be equal. The GSPO rollout is held
+# at this many completion tokens a row; the early-stop check's EOS is the
+# token the eager greedy run emits at step EARLY_STOP_STEP.
+GSPO_CHECK_TOKENS = 128
+EARLY_STOP_STEP = 5
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores and HBM3. The bound of a kernel is the larger of
 # its operations and its bytes at these rates.
@@ -744,19 +764,72 @@ def make_requests(proc, cfg, seed: int) -> list[Request]:
     return reqs
 
 
-def slice_phase(engine, reqs, sampling, names=SLICE_KERNELS) -> tuple[list[dict], dict]:
+def decode_run(engine, call):
+    """``call()`` (a generate through ``engine``, or an entry point over
+    it) with the engine's decode counters and the launch counts set to 0
+    just before. Returns its result and the decode's numbers: ms per token
+    (the decode stage over the steps that emitted a token; the capture is
+    its own stage), capture ms, steps, wasted steps (enqueued after every
+    row finished), and the kernel launches made inside the decode loops
+    (``kernels.LAUNCHES``, which counts a replayed graph's kernels once per
+    replay) in all and per step that ran."""
+    engine.stage_seconds.clear()
+    engine.decode_steps = engine.decode_steps_wasted = 0
+    decode_launches: collections.Counter = collections.Counter()
+    real = engine._decode
+
+    def counted(*args, **kw):
+        before = collections.Counter(kernels.LAUNCHES)
+        out = real(*args, **kw)
+        decode_launches.update(collections.Counter(kernels.LAUNCHES) - before)
+        return out
+
+    engine._decode = counted
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        out = call()
+    finally:
+        del engine._decode
+    st, ran = engine.stage_seconds, engine.decode_steps + engine.decode_steps_wasted
+    return out, {"ms_per_token": round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
+                 "capture_ms": round(1e3 * st["decode_capture"], 3),
+                 "steps": engine.decode_steps, "wasted": engine.decode_steps_wasted,
+                 "launches": dict(decode_launches),
+                 "launches_per_step": round(sum(decode_launches.values()) / max(ran, 1), 3)}
+
+
+def decode_pair(path: str, graph: dict, eager: dict, graph_tokens, eager_tokens) -> None:
+    """A path's graphed decode held against its eager one: ms per token of
+    both, the speedup, the capture, wasted steps, and host launches per step
+    (eager: the hand-written kernels' launches; graphed: one graph launch a
+    step after the eager first). The tokens and the decode's kernel launch
+    counts must be equal."""
+    same = graph_tokens == eager_tokens
+    log("decode", path=path, graph_ms_per_token=graph["ms_per_token"],
+        eager_ms_per_token=eager["ms_per_token"],
+        speedup=round(eager["ms_per_token"] / max(graph["ms_per_token"], 1e-9), 3),
+        capture_ms=graph["capture_ms"], steps=graph["steps"],
+        wasted_steps={"graph": graph["wasted"], "eager": eager["wasted"]},
+        host_launches_per_step={"eager": eager["launches_per_step"], "graph": 1},
+        decode_kernel_launches=graph["launches"], identical_tokens=same)
+    if not same:
+        raise RuntimeError(f"{path}: the graphed decode's tokens differ from the eager decode's")
+    if graph["launches"] != eager["launches"] or graph["steps"] != eager["steps"]:
+        raise RuntimeError(f"{path}: graphed and eager decode counted different launches or "
+                           f"steps: {graph} vs {eager}")
+
+
+def slice_phase(engine, reqs, sampling, names=SLICE_KERNELS) -> tuple[list[dict], dict, dict]:
     """The main path, through the entry points a user calls. Returns the
-    outputs and the launch counts of ``names``; each must be > 0."""
+    outputs, the launch counts of ``names`` (each must be > 0) and the
+    decode's numbers (``decode_run``)."""
     dev = engine.device
     engine.generate(reqs, SamplingParams(**{**vars(sampling), "max_tokens": 2}))  # warm-up
-    engine.stage_seconds.clear()
-    engine.decode_steps = 0
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    outs = engine.generate(reqs, sampling)
+    outs, decode = decode_run(engine, lambda: engine.generate(reqs, sampling))
     e2e = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in names}
     st = engine.stage_seconds
@@ -764,7 +837,7 @@ def slice_phase(engine, reqs, sampling, names=SLICE_KERNELS) -> tuple[list[dict]
     log("slice", requests=len(reqs), prompt_tokens=[o["num_prompt_tokens"] for o in outs],
         new_tokens=[len(o["token_ids"]) for o in outs],
         vision_ms=round(1e3 * st["vision"], 3), prefill_ms=round(1e3 * st["prefill"], 3),
-        decode_ms_per_token=round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
+        decode_ms_per_token=decode["ms_per_token"], decode_capture_ms=decode["capture_ms"],
         e2e_s=round(e2e, 3), peak_mem_gib=round(peak, 3))
     log("slice", launches=launches)
     vocab = engine.cfg.text.vocab_size
@@ -775,7 +848,42 @@ def slice_phase(engine, reqs, sampling, names=SLICE_KERNELS) -> tuple[list[dict]
             raise RuntimeError("token id out of the vocabulary")
     if dev.type == "cuda" and not all(launches.values()):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
-    return outs, launches
+    return outs, launches, decode
+
+
+def eager_pair(path: str, params, cfg, reqs, sampling, graph_outs, graph: dict,
+               **engine_kw) -> list[dict]:
+    """The same requests through an engine that decodes eagerly, held
+    against the graphed run's outputs and numbers (``decode_pair``)."""
+    engine = InferenceEngine(params, cfg, decode_graph=False, **engine_kw)
+    outs, eager = decode_run(engine, lambda: engine.generate(reqs, sampling))
+    decode_pair(path, graph, eager, [o["token_ids"] for o in graph_outs],
+                [o["token_ids"] for o in outs])
+    return outs
+
+
+def early_stop_check(params, cfg, req) -> None:
+    """A copy of the config whose EOS is the token that an eager greedy run
+    emits at step EARLY_STOP_STEP: the eager and the graphed decode must stop
+    at the same token, with at most DONE_LAG - 1 steps (and fewer than a
+    segment) run after it."""
+    sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=MAX_TOKENS)
+    first = InferenceEngine(params, cfg, decode_graph=False).generate([req], sampling)[0]
+    eos = first["token_ids"][EARLY_STOP_STEP]
+    stop_cfg = dataclasses.replace(cfg, eos_token_id=eos)
+    runs = {}
+    for graphed in (True, False):
+        engine = InferenceEngine(params, stop_cfg, decode_graph=graphed)
+        runs[graphed] = decode_run(engine, lambda: engine.generate([req], sampling)[0])
+    (g_out, graph), (e_out, eager) = runs[True], runs[False]
+    log("decode", path="early stop", eos=eos, stopped_after=len(g_out["token_ids"]),
+        decode_segment=engine.decode_segment)
+    decode_pair("early stop", graph, eager, g_out["token_ids"], e_out["token_ids"])
+    if g_out["token_ids"][-1] != eos or len(g_out["token_ids"]) > EARLY_STOP_STEP + 1:
+        raise RuntimeError(f"the early-stop run did not stop at its EOS {eos}: {g_out}")
+    if not graph["wasted"] < min(engine.decode_segment, DONE_LAG):
+        raise RuntimeError(f"{graph['wasted']} wasted steps: more than the {DONE_LAG - 1} "
+                           "the done flags' lag allows")
 
 
 def long_request(n: int) -> Request:
@@ -790,24 +898,22 @@ def long_sampling(seed: int) -> SamplingParams:
                           max_tokens=LONG_NEW_TOKENS, seed=seed)
 
 
-def long_run(engine, n, sampling) -> tuple[list[int], dict]:
+def long_run(engine, n, sampling) -> tuple[list[int], dict, dict]:
     """One long-context request through InferenceEngine.generate: stage
-    times, peak memory and launch counts; K3 and K4 must both launch."""
-    engine.stage_seconds.clear()
-    engine.decode_steps = 0
+    times, peak memory and launch counts; K3 and K4 must both launch.
+    Returns the tokens, the launch counts and the decode's numbers."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
     t0 = time.perf_counter()
-    out = engine.generate([long_request(n)], sampling)[0]
+    out, decode = decode_run(engine, lambda: engine.generate([long_request(n)], sampling)[0])
     e2e = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in LONG_KERNELS}
     st = engine.stage_seconds
     log("longctx", prompt_tokens=out["num_prompt_tokens"], cache=str(engine.cache_dtype),
         T=n + sampling.max_tokens, new_tokens=len(out["token_ids"]),
-        prefill_ms=round(1e3 * st["prefill"], 3),
+        decode_graph=engine.decode_graph, prefill_ms=round(1e3 * st["prefill"], 3),
         prefill_tok_per_s=round(n / st["prefill"], 1),
-        decode_ms_per_token=round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
+        decode_ms_per_token=decode["ms_per_token"], decode_capture_ms=decode["capture_ms"],
         e2e_s=round(e2e, 3), peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     log("longctx", launches=launches)
     vocab = engine.cfg.text.vocab_size
@@ -817,25 +923,25 @@ def long_run(engine, n, sampling) -> tuple[list[int], dict]:
         raise RuntimeError("token id out of the vocabulary")
     if not all(launches.values()):
         raise RuntimeError(f"a kernel of the long-context path never launched: {launches}")
-    return out["token_ids"], launches
+    return out["token_ids"], launches, decode
 
 
-def long_phase(params, cfg, seed) -> tuple[dict, dict]:
+def long_phase(params, cfg, seed) -> tuple[dict, dict, dict]:
     """Runs (a) and (b), after a warm-up at (a)'s size. Returns each run's
-    tokens and launch counts."""
+    tokens, launch counts and decode numbers."""
     sampling = long_sampling(seed)
     engines = {name: InferenceEngine(params, cfg, cache_dtype=dtype, long_prefill_chunk=LONG_CHUNK)
                for name, _, dtype in LONG_RUNS}
     engines["a"].generate([long_request(LONG_RUNS[0][1])],
                           dataclasses.replace(sampling, max_tokens=2))
-    tokens, launches = {}, {}
+    tokens, launches, decode = {}, {}, {}
     t0 = time.perf_counter()
     for name, n, _ in LONG_RUNS:
-        tokens[name], launches[name] = long_run(engines[name], n, sampling)
+        tokens[name], launches[name], decode[name] = long_run(engines[name], n, sampling)
     log("longctx", runs_seconds=round(time.perf_counter() - t0, 3),
         first_token_ids={k: v[:8] for k, v in tokens.items()})
     torch.cuda.empty_cache()
-    return tokens, launches
+    return tokens, launches, decode
 
 
 def _agreement(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -1326,9 +1432,9 @@ def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
     trainer.timer.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
     t0 = time.perf_counter()
-    m = trainer.step(sample, global_step=step, max_steps=GSPO_MAX_STEPS)
+    m, decode = decode_run(trainer.engine, lambda: trainer.step(sample, global_step=step,
+                                                                max_steps=GSPO_MAX_STEPS))
     seconds = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
     last = trainer.last_step
@@ -1337,7 +1443,9 @@ def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
         prompt_tokens=len(sample["input_ids"]), padded_prompt=last["batch"]["prompt_length"],
         completion_lengths=[len(ids) for ids in last["completion_ids"]],
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
-        use_vision=last["use_vision"], degraded=last["n_degraded"])
+        use_vision=last["use_vision"], degraded=last["n_degraded"],
+        rollout_decode_ms_per_token=decode["ms_per_token"], decode_capture_ms=decode["capture_ms"],
+        decode_steps=decode["steps"], wasted_steps=decode["wasted"])
     log("gspo", run=tag, step=step + 1, loss=m["loss"], kl=m["kl"], reward=m["reward"],
         advantages=last["advantages"].tolist(),
         rewards={k.split("/")[1]: v for k, v in m.items() if k.startswith("rewards/")})
@@ -1411,6 +1519,25 @@ def gspo_phase(params, cfg, proc, seed: int) -> tuple[GSPOTrainer, dict, dict]:
     if not unchanged:
         raise RuntimeError("a base weight changed under PEFT")
     return trainer, sample, first["launches"]
+
+
+def gspo_rollout_pair(trainer, sample) -> None:
+    """One rollout as the GSPO step makes it (the trainer's policy, the base
+    with its current adapters grafted on; its sampling and seed; G copies of
+    the sample), at GSPO_CHECK_TOKENS tokens a row, graphed and eager: the
+    tokens must be equal."""
+    cfg = trainer.cfg
+    req = Request(input_ids=list(sample["input_ids"]), pixel_patches=sample["pixel_patches"],
+                  grid_thw=sample["grid_thw"], vision_token_id=sample.get("vision_token_id"))
+    reqs = [req] * cfg.num_generations
+    sampling = SamplingParams(temperature=cfg.temperature, top_p=cfg.top_p, repetition_penalty=1.0,
+                              max_tokens=GSPO_CHECK_TOKENS, seed=trainer.seed)
+    policy = trainer.policy_params()
+    engine = InferenceEngine(policy, trainer.model_cfg)
+    outs, graph = decode_run(engine, lambda: engine.generate(reqs, sampling))
+    eager_pair("GSPO rollout", policy, trainer.model_cfg, reqs, sampling, outs, graph)
+    del engine, policy
+    torch.cuda.empty_cache()
 
 
 def _has_safetensors() -> bool:
@@ -1631,16 +1758,17 @@ def probe_phase(dev, gen, results) -> dict:
 
 def forward_steps(engine) -> int:
     """Forwards of the decoder in the engine's last generate: the prefill
-    (one forward below the long-prompt threshold) and each decode step."""
-    return 1 + engine.decode_steps
+    (one forward below the long-prompt threshold) and each decode step that
+    ran, wasted ones included (a replayed step counts its kernels)."""
+    return 1 + engine.decode_steps + engine.decode_steps_wasted
 
 
 def k7_expected(engine, layers: int) -> dict:
     """K7's launches by route in the engine's last generate: the prefill
     forward's 7 * layers decoder matmuls on the wgmma route and its lm_head
     at the last positions (M = batch) on the mma.sync one, then 7 * layers
-    + 1 per decode step on the mma.sync route."""
-    return {"int4_matmul": 1 + (7 * layers + 1) * engine.decode_steps,
+    + 1 per decode step that ran on the mma.sync route."""
+    return {"int4_matmul": 1 + (7 * layers + 1) * (forward_steps(engine) - 1),
             "int4_matmul_wgmma": 7 * layers}
 
 
@@ -1649,7 +1777,7 @@ def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
     Returns the launch counts; K7's must match k7_expected route by route."""
     log("int4", weights_gib=round(quant.param_bytes(qparams) / 2**30, 3), params=P.count(qparams))
     engine = InferenceEngine(qparams, cfg)
-    outs, launches = slice_phase(engine, reqs, sampling, INT4_SLICE_KERNELS)
+    outs, launches, decode = slice_phase(engine, reqs, sampling, INT4_SLICE_KERNELS)
     expected = k7_expected(engine, cfg.text.num_hidden_layers)
     got = {name: launches[name] for name in K7_ROUTES}
     log("int4", first_token_ids=[o["token_ids"][:8] for o in outs], k7_launches=got,
@@ -1657,12 +1785,8 @@ def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
     if got != expected:
         raise RuntimeError(f"K7 launched {got} times by route, expected {expected}: "
                            "a decoder matmul did not take its route")
-    again = engine.generate(reqs, sampling)
-    same = [a["token_ids"] == b["token_ids"] for a, b in zip(outs, again)]
-    log("int4", identical_tokens_across_runs=same)
-    if not all(same):
-        raise RuntimeError("two int4 runs gave different tokens")
-    del engine, again
+    eager_pair("int4 slice", qparams, cfg, reqs, sampling, outs, decode)
+    del engine
     kernel = _vision_and_logits(qparams, cfg, reqs, "auto")[1]
     plain = _vision_and_logits(qparams, cfg, reqs, "torch")[1]
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1697,13 +1821,19 @@ def judge_phase(dev, seed) -> dict:
     engine = judge.engine
     engine.generate([judge._request(*JUDGE_JOBS[0])],
                     dataclasses.replace(judge.sampling, max_tokens=2))  # warm-up
-    engine.stage_seconds.clear()
-    engine.decode_steps = 0
+    tokens = []  # each judge call's token ids, for the graphed/eager comparison
+    generate = engine.generate
+
+    def recorded(*args, **kw):
+        outs = generate(*args, **kw)
+        tokens.append([o["token_ids"] for o in outs])
+        return outs
+
+    engine.generate = recorded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
     t0 = time.perf_counter()
-    scores = judge.batch(list(JUDGE_JOBS))
+    scores, decode = decode_run(engine, lambda: judge.batch(list(JUDGE_JOBS)))
     e2e = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in K7_ROUTES}
     k3_launches = kernels.LAUNCHES["flash_attention_gqa"]
@@ -1711,14 +1841,16 @@ def judge_phase(dev, seed) -> dict:
     st = engine.stage_seconds
     log("judge", jobs=len(JUDGE_JOBS), prompt_tokens=[len(judge._request(*j).input_ids) for j in JUDGE_JOBS],
         prefill_ms=round(1e3 * st["prefill"], 3),
-        decode_ms_per_token=round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
+        decode_ms_per_token=decode["ms_per_token"], decode_capture_ms=decode["capture_ms"],
         decode_steps=engine.decode_steps, e2e_s=round(e2e, 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), scores=scores,
         k7_launches=launches, expected=expected, k3_launches=k3_launches)
     if launches != expected:
         raise RuntimeError(f"K7 launched {launches} times by route in the judge call, "
                            f"expected {expected}")
-    again = judge.batch(list(JUDGE_JOBS))
+    engine.decode_graph = False  # the second call decodes eagerly: the reference
+    again, eager = decode_run(engine, lambda: judge.batch(list(JUDGE_JOBS)))
+    decode_pair("judge", decode, eager, tokens[0], tokens[1])
     log("judge", identical_scores_across_calls=again == scores, scores_again=again)
     if again != scores:
         raise RuntimeError("two judge calls gave different scores")
@@ -1767,28 +1899,27 @@ def main() -> None:
     engine = InferenceEngine(params, cfg)
     sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
                               max_tokens=MAX_TOKENS, seed=args.seed)
-    outs, launches = slice_phase(engine, reqs, sampling)
+    outs, launches, decode = slice_phase(engine, reqs, sampling)
     log("slice", first_token_ids=[o["token_ids"][:8] for o in outs])
 
     numerics_phase(params, cfg, reqs)
-    again = engine.generate(reqs, sampling)
-    same = [a["token_ids"] == b["token_ids"] for a, b in zip(outs, again)]
-    log("numerics", identical_tokens_across_runs=same)
-    if not all(same):
-        raise RuntimeError("two kernel-path runs gave different tokens")
+    eager_pair("video slice", params, cfg, reqs, sampling, outs, decode)
+    early_stop_check(params, cfg, reqs[0])
 
-    long_tokens, long_launches = long_phase(params, cfg, args.seed)
+    long_tokens, long_launches, long_decode = long_phase(params, cfg, args.seed)
     long_numerics_phase(params, cfg)
-    again, _ = long_run(InferenceEngine(params, cfg, long_prefill_chunk=LONG_CHUNK),
-                        LONG_RUNS[0][1], long_sampling(args.seed))
-    log("numerics", identical_long_tokens_across_runs=again == long_tokens["a"])
-    if again != long_tokens["a"]:
-        raise RuntimeError("two runs of the 32736-token request gave different tokens")
+    for name, n, dtype in LONG_RUNS:  # each run again, decoding eagerly
+        eager = InferenceEngine(params, cfg, cache_dtype=dtype, long_prefill_chunk=LONG_CHUNK,
+                                decode_graph=False)
+        again, _, eager_decode = long_run(eager, n, long_sampling(args.seed))
+        decode_pair(f"run ({name})", long_decode[name], eager_decode, long_tokens[name], again)
+        del eager
+        torch.cuda.empty_cache()
     # K4's main path is run (b), the 81920-slot fp8 one
     launches["decode_attention_gqa"] = long_launches["b"]["decode_attention_gqa"]
 
     # the training slice, after the serving engines and caches are freed
-    del engine, again, outs
+    del engine, outs
     gc.collect()
     torch.cuda.empty_cache()
     batch = sft_batch(proc, cfg, args.seed)
@@ -1803,6 +1934,7 @@ def main() -> None:
     # GSPO: PEFT on the frozen 7B, its numerics, then the full fine-tune branch
     t0 = time.perf_counter()
     trainer, gsample, gspo_launches = gspo_phase(params, cfg, proc, args.seed)
+    gspo_rollout_pair(trainer, gsample)
     gspo_numerics_phase(params, cfg, trainer)
     del trainer
     gc.collect()

@@ -18,10 +18,28 @@ buffer of 32768 slots or more runs K4 on the stored cache. A prompt longer
 than MAX_PROMPT_TOKENS raises. Length buckets are a TPU static-shape device
 and are not ported, so the last chunk may be shorter than the others.
 
+Decode runs in segments, as the JAX engine's fused ``_segment_impl`` does:
+the loop's state (the last token, the write column, M-RoPE positions, slot
+validity, the seen mask, done flags, the token budget and the output
+buffers) lives in device tensors that each step updates in place, EOS and
+the budget are decided on the device, and the host enqueues up to
+``decode_segment`` steps, then reads the segment's tokens (and
+log-probabilities), the done flags and the budgets back in one fetch. On a
+CUDA device the step is captured once per ``generate`` call as a
+``torch.cuda.CUDAGraph`` after one eager step, and replayed for every later
+step; the graph and its memory pool are dropped before the call returns.
+The host stops enqueuing steps once it sees every row done, through a
+pinned copy of the done flags that lags one step (``DONE_LAG``), so the
+device never waits on it; the steps enqueued after every row finished are
+harmless (no live row writes a valid slot) and are counted in
+``decode_steps_wasted``. On the CPU the same step runs eagerly, with the
+same segments and the same lag.
+
 GSPO rollouts (``train/gspo.py``) serve params whose targeted decoder
 leaves are ``LoraLinear`` (the matmuls go through ``ops.quant.dense``), pass
 the G copies of one ``Request`` so its vision runs once, and call
-``release_memory`` after each rollout.
+``release_memory`` after each rollout. The graph is captured anew in each
+call, so adapters grafted onto the params per call are what it replays.
 
 Not ported yet (later work): prefix caching, speculative decoding,
 continuous admission, chunked prefill interleaved with in-flight decodes,
@@ -48,6 +66,7 @@ from ..models.qwen25vl.model import (
     merge_vision_embeddings_by_index,
 )
 from ..models.qwen25vl.text import init_kv_cache, logits_from_hidden, text_forward
+from ..ops import kernels
 from ..ops.sampling import sample_token
 
 # The JAX engine's largest prompt bucket, the reference's max_model_len.
@@ -121,16 +140,88 @@ def chunked_prefill(params: dict, cfg, embeds: torch.Tensor, position_ids: torch
     return hidden
 
 
+@dataclasses.dataclass
+class DecodeState:
+    """The decode loop's state, in device tensors that every step updates in
+    place (a CUDA graph replays the step on these very tensors). ``col`` is
+    the buffer column the next step writes (0-d int64); step j (1-based)
+    writes column ``first_col + j - 1`` and emits ``toks[:, j]``; ``toks[:,
+    0]`` holds the prefill's token."""
+
+    token: torch.Tensor  # (n,) the last sampled token, not yet fed
+    col: torch.Tensor  # () write column of the next step
+    mrope_cur: torch.Tensor  # (n,) M-RoPE position of ``token``
+    attn_valid: torch.Tensor  # (n, T) slot validity
+    seen: torch.Tensor  # (n, V) tokens of the prompt and the output
+    done: torch.Tensor  # (n,) bool
+    remaining: torch.Tensor  # (n,) token budget left after ``token``
+    toks: torch.Tensor  # (n, max_tokens) emitted ids, pad after a row's end
+    lps: torch.Tensor  # (n, max_tokens) float32 log-probabilities, 0 after
+    cache: dict
+    gen: torch.Generator
+    first_col: int
+
+
+def _token_logp(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """log_softmax(logits)[row, token] per row, on the raw logits (before
+    the penalty, temperature and top-p), as the JAX engine takes it."""
+    return torch.log_softmax(logits, dim=-1).gather(1, token[:, None])[:, 0]
+
+
+# Steps by which the host's view of "every row is done" lags the last step
+# it enqueued: it reads the done flag of step s - DONE_LAG + 1 after
+# enqueuing step s, so at most DONE_LAG - 1 steps run after the last row
+# finished, and on the card the device always has DONE_LAG - 1 steps queued
+# while the host waits.
+DONE_LAG = 2
+
+
+class _DoneFlags:
+    """Whether every row is done, DONE_LAG - 1 steps late and without a
+    readback of its own: after each step a copy of ``done.all()`` into a
+    ring of host flags (pinned, and an event recorded after it, on the
+    card); then the flag of the step DONE_LAG - 1 back, on the card once
+    its event has completed."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.flags = torch.zeros(DONE_LAG, dtype=torch.bool, pin_memory=self.cuda)
+        self.events = [torch.cuda.Event() for _ in range(DONE_LAG)] if self.cuda else []
+
+    def after(self, step: int, done: torch.Tensor) -> bool:
+        """Called once step ``step`` (counted from 1) is enqueued."""
+        self.flags[step % DONE_LAG].copy_(done.all(), non_blocking=True)
+        if self.cuda:
+            self.events[step % DONE_LAG].record()
+        if step < DONE_LAG:
+            return False
+        back = (step + 1) % DONE_LAG  # the slot of step - DONE_LAG + 1
+        if self.cuda:
+            self.events[back].synchronize()
+        return bool(self.flags[back])
+
+
 class InferenceEngine:
     """Serves requests on the device that holds ``params``.
 
     ``stage_seconds`` accumulates wall time per stage (vision, prefill,
-    decode) across calls, each ended by a device sync; ``decode_steps``
-    counts decode forwards. Attention runs the CUDA kernels when the
-    params lie on a CUDA device and their plain versions on the CPU."""
+    decode, and decode_capture, which decode leaves out) across calls, each
+    ended by a device sync; ``decode_steps`` counts the decode steps that
+    emitted a token for some row and ``decode_steps_wasted`` those enqueued
+    after every row had finished. Attention runs the CUDA kernels when the
+    params lie on a CUDA device and their plain versions on the CPU.
+
+    ``decode_segment`` is the number of decode steps between two readbacks
+    of the tokens (JAX's default, 64); the host also stops enqueuing steps
+    DONE_LAG - 1 steps after every row finished. ``decode_graph=False``
+    runs every decode step eagerly on the card too: a reference for tests
+    of the graph, never a fallback."""
 
     def __init__(self, params: dict, cfg: Qwen25VLConfig, *, cache_dtype=torch.bfloat16,
-                 long_prefill_threshold: int = 32768, long_prefill_chunk: int = 8192):
+                 long_prefill_threshold: int = 32768, long_prefill_chunk: int = 8192,
+                 decode_segment: int = 64, decode_graph: bool = True):
+        if decode_segment < 1:
+            raise ValueError(f"decode_segment must be >= 1, got {decode_segment}")
         self.params = params
         self.cfg = cfg
         self.device = params["text"]["embed_tokens"].device  # where the model lives
@@ -140,13 +231,17 @@ class InferenceEngine:
         # several GB.
         self.long_prefill_threshold = long_prefill_threshold
         self.long_prefill_chunk = long_prefill_chunk
+        self.decode_segment = decode_segment
+        self.decode_graph = decode_graph
         self.stage_seconds: collections.Counter = collections.Counter()
         self.decode_steps = 0
+        self.decode_steps_wasted = 0
+        self._stream = None  # the side stream decode runs on (a capture needs one)
 
     def release_memory(self) -> None:
-        """Free what a generate left behind. The engine keeps no cache
-        between calls (each allocates its own), so this only returns the
-        caching allocator's free blocks on the card to the device, as the
+        """Free what a generate left behind. The engine keeps no cache or
+        graph between calls (each allocates its own), so this only returns
+        the caching allocator's free blocks on the card to the device, as the
         JAX engine drops its KV arenas before a training update."""
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -166,10 +261,12 @@ class InferenceEngine:
         self.stage_seconds[name] += time.perf_counter() - t0
 
     @torch.inference_mode()
-    def generate(self, requests: Sequence[Request],
-                 sampling: Optional[SamplingParams] = None) -> list[dict[str, Any]]:
+    def generate(self, requests: Sequence[Request], sampling: Optional[SamplingParams] = None,
+                 return_logprobs: bool = False) -> list[dict[str, Any]]:
         """One dict per request, in input order: {"token_ids": list[int],
-        "num_prompt_tokens": int}."""
+        "num_prompt_tokens": int, and with ``return_logprobs`` "logprobs":
+        each emitted token's log-probability under the raw logits}, cut
+        after the first EOS as the JAX engine's ``finalize`` cuts them."""
         sampling = sampling or SamplingParams()
         for r in requests:
             for name in _UNSUPPORTED:
@@ -201,57 +298,165 @@ class InferenceEngine:
                                      chunk)
             logits = logits_from_hidden(self.params["text"], hidden[:, -1])
 
-        rows = torch.arange(n, device=dev)
         seen_np = np.zeros((n, cfg.text.vocab_size), dtype=bool)
         for i in range(n):
             seen_np[i, ids[i][mask[i]]] = True
         seen = torch.from_numpy(seen_np).to(dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(sampling.seed)
-
-        def sample(lg):
-            return sample_token(
-                gen, lg, temperature=sampling.temperature, top_p=sampling.top_p,
-                seen_mask=seen, repetition_penalty=sampling.repetition_penalty,
-            )
-
-        token = sample(logits)
-        seen[rows, token] = True
-        emitted = [[t] for t in token.tolist()]
-        done = (token == cfg.eos_token_id) | (sampling.max_tokens <= 1)
-        remaining = torch.full((n,), sampling.max_tokens - 1, device=dev)
-        mrope_cur = torch.from_numpy(next_pos).to(dev)
+        token = self._sample(gen, logits, seen, sampling)
+        seen.scatter_(1, token[:, None], True)
+        toks = torch.full((n, sampling.max_tokens), cfg.pad_token_id, dtype=torch.long, device=dev)
+        toks[:, 0] = token
+        lps = torch.zeros((n, sampling.max_tokens), dtype=torch.float32, device=dev)
+        lps[:, 0] = _token_logp(logits, token)
+        st = DecodeState(
+            token=token, col=torch.tensor(L, device=dev),
+            mrope_cur=torch.from_numpy(next_pos).to(dev), attn_valid=attn_valid, seen=seen,
+            done=(token == cfg.eos_token_id) | (sampling.max_tokens <= 1),
+            remaining=torch.full((n,), sampling.max_tokens - 1, device=dev), toks=toks, lps=lps,
+            cache=cache, gen=gen, first_col=L,
+        )
         with self._stage("decode"):
-            for step in range(sampling.max_tokens - 1):
-                if bool(done.all()):
-                    break
-                col = L + step
-                live = ~done
-                attn_valid[:, col] = live
-                hidden, _ = text_forward(
-                    self.params["text"], cfg.text, embed_tokens(self.params, token[:, None]),
-                    mrope_cur[None, :, None].expand(3, n, 1),
-                    seq_positions=torch.full((n, 1), col, device=dev),
-                    attn_valid=attn_valid, cache=cache, cache_offset=col,
-                )
-                nxt = sample(logits_from_hidden(self.params["text"], hidden[:, 0]))
-                nxt = torch.where(done, cfg.pad_token_id, nxt)
-                seen[rows, nxt] = True
-                for i, (t, alive) in enumerate(zip(nxt.tolist(), live.tolist())):
-                    if alive:
-                        emitted[i].append(t)
-                remaining = remaining - live.long()
-                done = done | (nxt == cfg.eos_token_id) | (remaining <= 0)
-                mrope_cur = torch.where(done, mrope_cur, mrope_cur + 1)
-                token = nxt
-                self.decode_steps += 1
+            emitted, lp_acc, capture_s = self._decode(st, sampling)
+        self.stage_seconds["decode"] -= capture_s
+        self.stage_seconds["decode_capture"] += capture_s
 
         out = []
-        for r, row in zip(requests, emitted):
+        for r, row, lp in zip(requests, emitted, lp_acc):
             if cfg.eos_token_id in row:
-                row = row[: row.index(cfg.eos_token_id) + 1]
+                cut = row.index(cfg.eos_token_id) + 1
+                row, lp = row[:cut], lp[:cut]
             out.append({"token_ids": row, "num_prompt_tokens": len(r.input_ids)})
+            if return_logprobs:
+                out[-1]["logprobs"] = lp
         return out
+
+    def _decode(self, st: DecodeState, sampling: SamplingParams):
+        """The decode loop: segments of up to ``decode_segment`` steps, each
+        followed by one readback and the harvest of JAX's ``_run_group``,
+        until every row is done or the budget is spent. Returns each row's
+        tokens and log-probabilities and the seconds of the capture."""
+        n, max_tokens = st.toks.shape
+        emitted = [[] for _ in range(n)]
+        lp_acc = [[] for _ in range(n)]
+        graphed = self.device.type == "cuda" and self.decode_graph
+        step, harvested, seg_steps, capture_s = 0, 0, 0, 0.0
+        graph = captured = None
+        all_done = _DoneFlags(self.device)
+        with self._decode_stream():
+            while True:
+                toks_h, lps_h, remaining_h, done_h = self._fetch(
+                    st.toks[:, harvested:step + 1], st.lps[:, harvested:step + 1], st.remaining,
+                    st.done)
+                live_steps = 0
+                for i in range(n):
+                    new = max_tokens - int(remaining_h[i]) - len(emitted[i])
+                    emitted[i].extend(int(t) for t in toks_h[i, :new])
+                    lp_acc[i].extend(float(x) for x in lps_h[i, :new])
+                    live_steps = max(live_steps, new)
+                if harvested:  # the first fetch harvests the prefill's token
+                    self.decode_steps += live_steps
+                    self.decode_steps_wasted += seg_steps - live_steps
+                harvested = step + 1
+                if done_h.all() or step == max_tokens - 1:
+                    break
+                seg_start = step
+                for _ in range(min(self.decode_segment, max_tokens - 1 - step)):
+                    if graph is not None:
+                        graph.replay()
+                        kernels.LAUNCHES.update(captured)
+                    else:
+                        self._decode_step(st, sampling)
+                    step += 1
+                    if graphed and graph is None and step < max_tokens - 1:
+                        t0 = time.perf_counter()
+                        graph, captured = self._capture(st, sampling)
+                        capture_s += time.perf_counter() - t0
+                    if all_done.after(step, st.done):
+                        break
+                seg_steps = step - seg_start
+            del graph  # with its memory pool, before the call returns
+        return emitted, lp_acc, capture_s
+
+    @contextlib.contextmanager
+    def _decode_stream(self):
+        """On the card, decode runs on a side stream of the engine's own: a
+        capture cannot run on the default stream, and the eager step before
+        it must initialise the same stream's cuBLAS workspace."""
+        if self.device.type != "cuda":
+            yield
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            yield
+        main.wait_stream(self._stream)
+
+    def _capture(self, st: DecodeState, sampling: SamplingParams):
+        """Capture one decode step as a CUDA graph on the decode stream,
+        after an eager step made every lazy initialisation (the kernel
+        library, K7's counters and plans, cuBLAS's handle and workspace).
+        The sampler's generator is registered with the graph, so each replay
+        advances its offset as an eager step does. A capture records the
+        step's kernels without running them: their launch counts are taken
+        back out of ``kernels.LAUNCHES`` and returned, for the caller to add
+        once per replay. A failed capture raises."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(st.gen)
+        before = collections.Counter(kernels.LAUNCHES)
+        with torch.profiler.record_function("engine.decode_capture"), \
+                torch.cuda.graph(graph, stream=torch.cuda.current_stream(self.device)):
+            self._decode_step(st, sampling)
+        captured = kernels.LAUNCHES - before
+        kernels.LAUNCHES.subtract(captured)
+        return graph, captured
+
+    def _fetch(self, *tensors) -> list[np.ndarray]:
+        """One host readback of several device tensors: each copied without
+        blocking, then one sync."""
+        if self.device.type != "cuda":
+            return [t.numpy() for t in tensors]
+        host = [t.to("cpu", non_blocking=True) for t in tensors]
+        torch.cuda.current_stream(self.device).synchronize()
+        return [h.numpy() for h in host]
+
+    def _sample(self, gen, logits, seen, sampling: SamplingParams) -> torch.Tensor:
+        return sample_token(
+            gen, logits, temperature=sampling.temperature, top_p=sampling.top_p,
+            seen_mask=seen, repetition_penalty=sampling.repetition_penalty,
+        )
+
+    def _decode_step(self, st: DecodeState, sampling: SamplingParams) -> None:
+        """One decode step for every row, as the body of JAX's
+        ``_segment_impl``: it reads nothing back to the host and writes only
+        into ``st``'s tensors, so a CUDA graph can replay it. Done rows feed
+        pad, write no valid slot and emit pad with log-probability 0."""
+        cfg = self.cfg
+        n = st.token.shape[0]
+        live = ~st.done
+        at = st.col.reshape(1)
+        st.attn_valid.index_copy_(1, at, live[:, None])
+        hidden, _ = text_forward(
+            self.params["text"], cfg.text, embed_tokens(self.params, st.token[:, None]),
+            st.mrope_cur[None, :, None].expand(3, n, 1), seq_positions=st.col.expand(n, 1),
+            attn_valid=st.attn_valid, cache=st.cache, cache_offset=st.col,
+        )
+        logits = logits_from_hidden(self.params["text"], hidden[:, 0])
+        nxt = self._sample(st.gen, logits, st.seen, sampling)
+        lp = _token_logp(logits, nxt)
+        nxt = torch.where(st.done, cfg.pad_token_id, nxt)
+        st.seen.scatter_(1, nxt[:, None], True)
+        out_at = at - (st.first_col - 1)
+        st.toks.index_copy_(1, out_at, nxt[:, None])
+        st.lps.index_copy_(1, out_at, torch.where(st.done, 0.0, lp)[:, None])
+        st.remaining.sub_(live.long())
+        st.done.logical_or_((nxt == cfg.eos_token_id) | (st.remaining <= 0))
+        st.mrope_cur.add_((~st.done).long())
+        st.token.copy_(nxt)
+        st.col.add_(1)
 
     def _encode_vision(self, requests: Sequence[Request], ids: np.ndarray):
         """One tower pass per distinct pixel array (requests passing the same

@@ -64,8 +64,22 @@ def write_cache(dst: torch.Tensor, x: torch.Tensor) -> None:
     dst.copy_(x)
 
 
+def write_cache_at(layer: torch.Tensor, x: torch.Tensor, col: torch.Tensor) -> None:
+    """``write_cache`` of one token's keys or values ``x`` (B, 1, Hkv, D)
+    into the layer view ``layer`` (B, T, Hkv, D) at the token column held on
+    the device in ``col`` (a 0-d or (1,) int64 tensor): an ``index_copy_``,
+    so no value is read back to the host and a CUDA graph can replay the
+    write at a column that moves. The stored bytes equal the slice write's.
+    ``index_copy_`` has no float8 kernel, so an fp8 cache is written through
+    uint8 views of both sides after the same clamp and cast."""
+    if layer.dtype == torch.float8_e4m3fn:
+        x = x.clamp(-E4M3_MAX, E4M3_MAX).to(layer.dtype)
+        layer, x = layer.view(torch.uint8), x.view(torch.uint8)
+    layer.index_copy_(1, col.reshape(1), x.to(layer.dtype))
+
+
 def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
-                     cache, layer: int, cache_offset: int, impl: str):
+                     cache, layer: int, cache_offset, impl: str):
     B, S, _ = x.shape
     q = (dense(x, p["q_w"], impl) + p["q_b"]).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
     k = (dense(x, p["k_w"], impl) + p["k_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
@@ -73,8 +87,12 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
     q, k = apply_mrope(q, k, cos, sin)
     if cache is not None:
         ck, cv = cache["k"][layer], cache["v"][layer]  # (B, T, Hkv, D) views
-        write_cache(ck[:, cache_offset:cache_offset + S], k)
-        write_cache(cv[:, cache_offset:cache_offset + S], v)
+        if isinstance(cache_offset, torch.Tensor):  # decode at a column on the device
+            write_cache_at(ck, k, cache_offset)
+            write_cache_at(cv, v, cache_offset)
+        else:
+            write_cache(ck[:, cache_offset:cache_offset + S], k)
+            write_cache(cv[:, cache_offset:cache_offset + S], v)
         T = ck.shape[1]
         written = torch.arange(T, device=x.device)[None, :] < cache_offset + S
         mask = written if kv_mask is None else kv_mask & written
@@ -93,12 +111,17 @@ def text_forward(
     seq_positions: Optional[torch.Tensor] = None,  # (B, S); default arange + offset
     attn_valid: Optional[torch.Tensor] = None,  # (B, T) bool slot validity
     cache: Optional[dict] = None,
-    cache_offset: int = 0,
+    cache_offset: int | torch.Tensor = 0,
     attn_impl: str = "auto",
     remat: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (hidden states (B, S, D) after the final norm, the cache,
     updated in place).
+
+    ``cache_offset`` is the buffer column of the first new token: a Python
+    int, or, for a decode step (S = 1, ``seq_positions`` given), a 0-d or
+    (1,) int64 tensor on the device, so the step reads nothing back to the
+    host and a CUDA graph can replay it.
 
     ``attn_impl`` picks, for every kernel of the decoder (attention, and K7
     where a matmul weight is int4), the kernel ("auto", on CUDA tensors) or

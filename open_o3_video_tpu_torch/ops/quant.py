@@ -16,6 +16,7 @@ Not ported yet: w8a8 (``a8_acts``, ROADMAP M6).
 
 from __future__ import annotations
 
+import functools
 import re
 
 import torch
@@ -86,6 +87,14 @@ def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
     return QuantizedLinear(w_q, scale)
 
 
+@functools.cache
+def rounded_scale(scale: float, dtype: torch.dtype) -> float:
+    """``scale`` rounded to ``dtype`` once, as a Python float (JAX's
+    ``jnp.asarray(scale, x.dtype)``), so ``dense`` makes no host tensor per
+    call."""
+    return torch.tensor(scale, dtype=dtype).item()
+
+
 def dense(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
     """x @ w for a plain tensor, a QuantizedLinear, an Int4Linear (whose
     kernel route ``impl`` picks, as for the attention kernels) or a
@@ -96,8 +105,7 @@ def dense(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
         return x @ w
     if isinstance(w, LoraLinear):
         delta = (x @ w.a.to(x.dtype)) @ w.b.to(x.dtype)
-        scale = torch.tensor(w.scale, dtype=x.dtype).item()
-        return dense(x, w.base, impl) + delta * scale
+        return dense(x, w.base, impl) + delta * rounded_scale(w.scale, x.dtype)
     if isinstance(w, Int4Linear):
         return int4_dense(x, w, impl=impl)
     if isinstance(w, QuantizedLinear):

@@ -45,7 +45,11 @@ def sample_token(
     repetition_penalty: float = 1.0,
 ) -> torch.Tensor:
     """Next token ids (B,). temperature == 0 is greedy argmax (first index
-    among ties); otherwise a categorical draw from ``generator``."""
+    among ties); otherwise a categorical draw from ``generator``: the
+    exponential race argmax(p / q), q ~ Exp(1), which is the one-sample path
+    of ``torch.multinomial`` (the same draws at the same generator state)
+    without its checks of the probabilities, so no value is read back to the
+    host and a CUDA graph can hold the draw."""
     if seen_mask is not None and repetition_penalty != 1.0:
         logits = apply_repetition_penalty(logits, seen_mask, repetition_penalty)
     if temperature == 0.0:
@@ -54,4 +58,5 @@ def sample_token(
     if top_p < 1.0:
         logits = top_p_filter(logits, top_p)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)

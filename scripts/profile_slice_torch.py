@@ -21,6 +21,14 @@ inside the stage's range, one stream), the idle share, and the top kernels
 by device time, and the device time of K1, K2, K3, K4 and K7 (each
 kernel family's kernels) in the stage and, for decode, per step.
 ``--trace PATH`` keeps the Chrome trace (tens of MB).
+
+Decode runs graphed (the engine's default: one step captured as a CUDA
+graph, then replayed) unless ``--eager`` is given. For the decode stage the
+script also prints the host's launches per decode step: the CUDA runtime
+and driver calls that launch work (``cudaLaunchKernel`` and its kin, and
+``cudaGraphLaunch``) inside the stage, over the steps that ran; the
+capture's own range (``engine.decode_capture``) is left out of the decode
+stage's wall time and idle share.
 """
 
 from __future__ import annotations
@@ -70,6 +78,8 @@ def main() -> None:
                     help="profile chip_smoke.py's 72B int4 judge call instead")
     ap.add_argument("--gspo", action="store_true",
                     help="profile one GSPO step (PEFT, chip_smoke.py's sample) instead")
+    ap.add_argument("--eager", action="store_true",
+                    help="decode eagerly (the engine's decode_graph=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice_torch: needs a CUDA device")
@@ -87,6 +97,7 @@ def main() -> None:
                               GSPOConfig(max_completion_length=args.max_tokens or 128),
                               detokenize=cs.CannedTraces(proc), lora=LoraConfig(seed=0))
         engine = trainer.engine
+        engine.decode_graph = not args.eager
         trainer.step(sample, global_step=0, max_steps=cs.GSPO_MAX_STEPS)  # warm-up
 
         def run():
@@ -96,6 +107,7 @@ def main() -> None:
         judge = EngineJudge(P.init(cfg, 0, dev, quantize_text="int4"), cs.JUDGE_NEW_TOKENS,
                             cfg=cfg, processor=O3VideoProcessor())
         engine, reqs = judge.engine, [judge._request(*job) for job in cs.JUDGE_JOBS]
+        engine.decode_graph = not args.eager
         sampling = dataclasses.replace(judge.sampling,
                                        max_tokens=args.max_tokens or cs.JUDGE_NEW_TOKENS)
         engine.generate(reqs, dataclasses.replace(sampling, max_tokens=2))  # warm-up
@@ -103,19 +115,19 @@ def main() -> None:
         _, n, cache_dtype = next(run for run in cs.LONG_RUNS if run[0] == args.long)
         reqs = [cs.long_request(n)]
         engine = InferenceEngine(P.init(cfg, 0, dev), cfg, cache_dtype=cache_dtype,
-                                 long_prefill_chunk=cs.LONG_CHUNK)
+                                 long_prefill_chunk=cs.LONG_CHUNK, decode_graph=not args.eager)
         sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05,
                                   max_tokens=args.max_tokens or cs.LONG_NEW_TOKENS)
         engine.generate(reqs, SamplingParams(temperature=0.0, max_tokens=2))  # warm-up
     else:
         reqs = cs.make_requests(O3VideoProcessor(), cfg, seed=0)
         engine = InferenceEngine(P.init(cfg, 0, dev, quantize_text="int4" if args.int4 else False),
-                                 cfg)
+                                 cfg, decode_graph=not args.eager)
         sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
                                   max_tokens=args.max_tokens or 16)
         engine.generate(reqs, sampling)  # warm-up: kernel build, cuBLAS heuristics
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    engine.decode_steps = 0
+    engine.decode_steps = engine.decode_steps_wasted = 0
     with torch.profiler.profile(activities=acts) as prof:
         if run is not None:
             run()
@@ -127,19 +139,34 @@ def main() -> None:
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    host_launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                     and "Launch" in str(e.get("name", ""))]
     stages = [e for e in events if e.get("cat") == "user_annotation"
               and str(e.get("name", "")).startswith(("engine.", "stage."))]
-    print(f"kernels={len(kernels)} stages={[s['name'] for s in stages]}", flush=True)
+    captures = [e for e in stages if e["name"] == "engine.decode_capture"]
+    print(f"kernels={len(kernels)} stages={[s['name'] for s in stages]} "
+          f"decode_graph={engine.decode_graph}", flush=True)
     for st in stages:
         t0, t1 = st["ts"], st["ts"] + st["dur"]
         inside = [k for k in kernels if t0 <= k["ts"] < t1]
         busy = sum(k["dur"] for k in inside)
+        wall = st["dur"]
+        if st["name"] == "engine.decode":
+            wall -= sum(c["dur"] for c in captures if t0 <= c["ts"] < t1)
         by_name: collections.Counter = collections.Counter()
         for k in inside:
             by_name[k["name"][:90]] += k["dur"]
-        print(f"[{st['name']}] wall_ms={st['dur'] / 1e3:.3f} busy_ms={busy / 1e3:.3f} "
-              f"idle_share={1 - busy / st['dur']:.3f} launches={len(inside)}", flush=True)
-        steps = engine.decode_steps if st["name"] == "engine.decode" else 1
+        print(f"[{st['name']}] wall_ms={wall / 1e3:.3f} busy_ms={busy / 1e3:.3f} "
+              f"idle_share={1 - busy / wall:.3f} launches={len(inside)}", flush=True)
+        ran = engine.decode_steps + engine.decode_steps_wasted
+        steps = ran if st["name"] == "engine.decode" else 1
+        if st["name"] == "engine.decode":
+            calls = collections.Counter(
+                e["name"] for e in host_launches if t0 <= e["ts"] < t1
+                and not any(c["ts"] <= e["ts"] < c["ts"] + c["dur"] for c in captures))
+            print(f"    host launches {sum(calls.values())} over {ran} steps "
+                  f"({engine.decode_steps} useful, {engine.decode_steps_wasted} wasted): "
+                  f"{sum(calls.values()) / max(ran, 1):.1f} a step; {dict(calls)}", flush=True)
         for family, marks in FAMILIES.items():
             dur = sum(k["dur"] for k in inside if any(ns in k["name"] for ns in marks))
             if dur:

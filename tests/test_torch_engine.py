@@ -1,17 +1,27 @@
 """The port's engine against the JAX package's, same tiny weights, on the
-CPU: greedy token ids for two requests at once (4 frames + text, and a
-shorter text-only prompt), repetition penalty 1.05, 16 new tokens, f32; and
-the long-context path (chunked prefill, decode through K4's route) with an
-f32 and an fp8 cache."""
+CPU: greedy token ids and log-probabilities for two requests at once (4
+frames + text, and a shorter text-only prompt), repetition penalty 1.05, 16
+new tokens, f32, in decode segments of several lengths and with an EOS
+inside a segment; the decode step's cache write at a column on the device;
+and the long-context path (chunked prefill, decode through K4's route) with
+an f32 and an fp8 cache. On the card: the graphed decode against the eager
+one."""
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import frames, model_pair, rng
+from _torch_parity import ATOL_MODEL, cuda_device, frames, model_pair, normal, rng
 
 from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
+from open_o3_video_tpu_torch.engine.engine import DONE_LAG
+from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig
+from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+from open_o3_video_tpu_torch.models.qwen25vl.text import write_cache, write_cache_at
 
 
 def _requests(cfg):
@@ -24,31 +34,105 @@ def _requests(cfg):
     return [(x.input_ids, x.pixel_patches, x.grid_thw), (text_only.input_ids, None, None)]
 
 
-def test_greedy_tokens_match_jax_engine():
+def _port_requests(cfg):
+    return [Request(i, p, g, cfg.image_token_id if p is not None else None)
+            for i, p, g in _requests(cfg)]
+
+
+# Greedy, with the reference's penalty. f32 KV caches on both sides: a bf16
+# cache would round k/v computed in two summation orders, and a near-tie
+# could then flip an argmax.
+GREEDY = dict(temperature=0.0, repetition_penalty=1.05, max_tokens=16)
+
+
+@functools.cache
+def _jax_greedy(eos=None, n_requests=2):
+    """The JAX engine's greedy outputs (with logprobs) for the first
+    ``n_requests`` of ``_requests``, its tiny config's EOS id replaced by
+    ``eos`` if given."""
     import jax.numpy as jnp
 
     from open_o3_video_tpu.engine import InferenceEngine as JaxEngine
     from open_o3_video_tpu.engine import Request as JaxRequest
     from open_o3_video_tpu.engine import SamplingParams as JaxSampling
 
-    jcfg, jparams, tcfg, tparams = model_pair(0)
-    reqs = _requests(tcfg)
-    sampling = dict(temperature=0.0, repetition_penalty=1.05, max_tokens=16)
-    # f32 KV caches on both sides: a bf16 cache would round k/v computed in
-    # two summation orders, and a near-tie could then flip an argmax.
-    ours = InferenceEngine(tparams, tcfg, cache_dtype=torch.float32).generate(
-        [Request(i, p, g, tcfg.image_token_id if p is not None else None) for i, p, g in reqs],
-        SamplingParams(**sampling),
-    )
-    theirs = JaxEngine(jparams, jcfg, prompt_buckets=(128,), cache_dtype=jnp.float32).generate(
+    jcfg, jparams, _, _ = model_pair(0)
+    reqs = _requests(jcfg)[:n_requests]  # tokenized with the config's own special ids
+    if eos is not None:
+        jcfg = dataclasses.replace(jcfg, eos_token_id=eos)
+    return JaxEngine(jparams, jcfg, prompt_buckets=(128,), cache_dtype=jnp.float32).generate(
         [JaxRequest(i, p, g, jcfg.image_token_id if p is not None else None) for i, p, g in reqs],
-        JaxSampling(**sampling),
+        JaxSampling(**GREEDY), return_logprobs=True,
     )
-    assert len(reqs[0][0]) != len(reqs[1][0])
+
+
+def _assert_same_as_jax(ours, theirs):
     for o, t in zip(ours, theirs):
         assert o["num_prompt_tokens"] == t["num_prompt_tokens"]
         assert o["token_ids"] == [int(x) for x in t["token_ids"]]
+        np.testing.assert_allclose(o["logprobs"], t["logprobs"], atol=ATOL_MODEL)
+
+
+@pytest.mark.parametrize("decode_segment", [1, 3, 64])
+def test_greedy_tokens_match_jax_engine(decode_segment):
+    """Two requests of different lengths, 16 new tokens, in decode segments
+    of 1, 3 and 64 steps (one readback each): the tokens and their
+    log-probabilities equal the JAX engine's."""
+    _, _, tcfg, tparams = model_pair(0)
+    engine = InferenceEngine(tparams, tcfg, cache_dtype=torch.float32,
+                             decode_segment=decode_segment)
+    ours = engine.generate(_port_requests(tcfg), SamplingParams(**GREEDY), return_logprobs=True)
+    theirs = _jax_greedy()
+    assert len(_requests(tcfg)[0][0]) != len(_requests(tcfg)[1][0])
+    _assert_same_as_jax(ours, theirs)
+    for o in ours:
         assert 1 <= len(o["token_ids"]) <= 16
+    steps = max(len(o["token_ids"]) for o in ours) - 1
+    assert engine.decode_steps == steps and engine.decode_steps_wasted == 0
+
+
+@pytest.mark.parametrize("n_requests", [1, 2])
+@pytest.mark.parametrize("decode_segment", [3, 4, 64])
+def test_eos_inside_a_segment_matches_jax_engine(decode_segment, n_requests):
+    """The tiny config's EOS set to the token that greedy decoding emits at
+    step 4 for the first request: the rows stop where the JAX engine's stop,
+    the tokens and log-probabilities (cut after the EOS) equal its, and the
+    steps enqueued after every row finished stay under one segment. Alone,
+    the first request stops at step 4: the host reads that DONE_LAG - 1
+    steps later, so that many steps are wasted, unless the segment ends at
+    step 4 (segments of 4), whose readback stops the loop with none wasted."""
+    _, _, tcfg, tparams = model_pair(0)
+    eos = int(_jax_greedy()[0]["token_ids"][4])
+    engine = InferenceEngine(tparams, dataclasses.replace(tcfg, eos_token_id=eos),
+                             cache_dtype=torch.float32, decode_segment=decode_segment)
+    ours = engine.generate(_port_requests(tcfg)[:n_requests], SamplingParams(**GREEDY),
+                           return_logprobs=True)
+    theirs = _jax_greedy(eos, n_requests)
+    _assert_same_as_jax(ours, theirs)
+    assert ours[0]["token_ids"][-1] == eos and len(ours[0]["token_ids"]) <= 5
+    assert all(len(o["logprobs"]) == len(o["token_ids"]) for o in ours)
+    assert engine.decode_steps == max(len(o["token_ids"]) for o in ours) - 1
+    assert engine.decode_steps_wasted < decode_segment
+    if n_requests == 1:
+        lag = DONE_LAG - 1
+        assert engine.decode_steps_wasted == {3: lag, 4: 0, 64: lag}[decode_segment]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float8_e4m3fn"])
+def test_cache_write_at_a_device_column_matches_the_slice_write(dtype):
+    """A decode step's write at a column held in a tensor (index_copy_, on
+    uint8 views for fp8) stores the same bytes as the slice write at that
+    column, values beyond +-448 included, and leaves the rest untouched."""
+    B, T, Hkv, D, col = 2, 12, 2, 16, 7
+    r = rng(4)
+    x = torch.from_numpy(normal(r, B, 1, Hkv, D, scale=200.0)).to(torch.bfloat16)
+    x[0, 0, 0, :4] = torch.tensor([1000.0, -1000.0, 448.0, 465.0])
+    before = torch.from_numpy(normal(r, B, T, Hkv, D)).to(getattr(torch, dtype))
+    by_slice, by_index = before.clone(), before.clone()
+    write_cache(by_slice[:, col:col + 1], x)
+    write_cache_at(by_index, x, torch.tensor(col))
+    assert torch.equal(by_slice.view(torch.uint8), by_index.view(torch.uint8))
+    assert not torch.equal(by_slice.view(torch.uint8), before.view(torch.uint8))
 
 
 # fp8 cache: both engines store the same e4m3 bytes unless a k/v value sits
@@ -193,3 +277,64 @@ def test_inference_example_refuses_the_cpu_unless_asked():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "--device cpu" in proc.stderr
     assert "tokens generated" not in proc.stdout
+
+
+def _card_config():
+    """The tiny config with its decoder widened to the head_dim the kernels
+    are built for (128: 2 query heads over 1 kv head), bf16."""
+    cfg = Qwen25VLConfig.tiny(torch.bfloat16)
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, hidden_size=256, intermediate_size=512, num_attention_heads=2,
+        num_key_value_heads=1, mrope_section=(16, 24, 24)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16", "int4", "fp8-k4"])
+def test_decode_graph_matches_eager_on_the_card(monkeypatch, case):
+    """A small model on the card, two text-only requests, decode segments of
+    5: the graphed decode (one step captured, then replayed) gives the eager
+    decode's tokens and log-probabilities, greedy and sampled at one seed,
+    and the same kernel launch counts; with the EOS moved to the first
+    row's greedy token at step 3, both stop there alone, at most DONE_LAG -
+    1 steps late. "int4": the decoder in int4 (K7 on both routes); "fp8-k4":
+    an fp8 cache with LONG_DECODE_T lowered so that every decode step runs
+    K4."""
+    from open_o3_video_tpu_torch.ops import attention as tattn
+    from open_o3_video_tpu_torch.ops import kernels
+
+    dev = cuda_device()
+    cfg = _card_config()
+    params = TP.init(cfg, 0, dev, quantize_text="int4" if case == "int4" else False)
+    cache_dtype = torch.float8_e4m3fn if case == "fp8-k4" else torch.bfloat16
+    if case == "fp8-k4":
+        monkeypatch.setattr(tattn, "LONG_DECODE_T", 64)
+    r = rng(7)
+    reqs = [Request(r.integers(5, 400, size=n).tolist()) for n in (40, 27)]
+    for sampling in (SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=24),
+                     SamplingParams(temperature=0.7, top_p=0.9, repetition_penalty=1.05,
+                                    max_tokens=24, seed=3)):
+        outs, launches, steps = {}, {}, {}
+        for graph in (True, False):
+            engine = InferenceEngine(params, cfg, cache_dtype=cache_dtype, decode_segment=5,
+                                     decode_graph=graph)
+            kernels.reset_launches()
+            outs[graph] = engine.generate(reqs, sampling, return_logprobs=True)
+            launches[graph] = dict(kernels.LAUNCHES)
+            steps[graph] = (engine.decode_steps, engine.decode_steps_wasted)
+        assert outs[True] == outs[False]
+        assert launches[True] == launches[False] and steps[True] == steps[False]
+        assert steps[True][0] > 0 and all(launches[True].values())
+        if case == "int4":
+            assert launches[True]["int4_matmul"] > 0 and launches[True]["int4_matmul_wgmma"] > 0
+        if case == "fp8-k4":
+            assert launches[True]["decode_attention_gqa"] == 2 * sum(steps[True])
+        if sampling.temperature == 0.0:
+            eos = outs[False][0]["token_ids"][3]
+    stop_cfg = dataclasses.replace(cfg, eos_token_id=eos)
+    stopped = {}
+    for graph in (True, False):
+        engine = InferenceEngine(params, stop_cfg, cache_dtype=cache_dtype, decode_graph=graph)
+        stopped[graph] = engine.generate(reqs[:1], SamplingParams(
+            temperature=0.0, repetition_penalty=1.05, max_tokens=24))[0]["token_ids"]
+        assert engine.decode_steps_wasted <= DONE_LAG - 1
+    assert stopped[True] == stopped[False] and stopped[True][-1] == eos

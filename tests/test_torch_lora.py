@@ -55,6 +55,27 @@ def test_dense_lora_matches_jax(base, dtype):
         np.testing.assert_allclose(got, want, atol=2 ** -7 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_lora_rounds_the_scale_once(monkeypatch, dtype):
+    """dense on a LoraLinear gives the bits of the per-call rounding it
+    replaced (a host tensor of the scale in x's dtype, read back), and once
+    the rounding is cached, a call makes no host tensor."""
+    r = rng(1)
+    tdt = getattr(torch, dtype)
+    x, w = _t(normal(r, 5, 16)).to(tdt), _t(normal(r, 16, 12, scale=0.3)).to(tdt)
+    a, b = _t(normal(r, 16, 4, scale=0.5)).to(tdt), _t(normal(r, 4, 12, scale=0.5)).to(tdt)
+    scale = 2.0 / 3.0  # rounds differently in bf16 and f32
+    want = x @ w + ((x @ a) @ b) * torch.tensor(scale, dtype=tdt).item()
+    lw = LoraLinear(w, a, b, scale)
+    assert torch.equal(dense(x, lw), want)
+
+    def no_host_tensor(*args, **kw):
+        raise AssertionError("dense made a host tensor")
+
+    monkeypatch.setattr(torch, "tensor", no_host_tensor)
+    assert torch.equal(dense(x, lw), want)
+
+
 def test_hf_target_names_normalize():
     assert TL.LoraConfig.normalize_targets(["q_proj", "v_proj"]) == ("q_w", "v_w")
     assert TL.LoraConfig.normalize_targets(["q_w", "down_proj"]) == ("q_w", "down_w")

@@ -1,5 +1,6 @@
 """Sampling: the port's repetition penalty and top-p mask equal the JAX
-package's on the same logits."""
+package's on the same logits, and its draw equals ``torch.multinomial``'s at
+the same generator state."""
 
 import numpy as np
 import pytest
@@ -61,3 +62,23 @@ def test_sample_token_greedy_and_nucleus():
                                repetition_penalty=1.05)
     assert torch.equal(drawn[[0, 2, 3]], greedy[[0, 2, 3]])
     assert drawn[1].item() in (7, 11)
+
+
+@pytest.mark.parametrize("top_p", [1.0, 0.6])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_draw_equals_multinomial(seed, top_p):
+    """sample_token's exponential race draws what torch.multinomial draws
+    from the same probabilities at the same generator state (its one-sample
+    path), with and without the top-p mask."""
+    x = torch.from_numpy(_logits_with_ties(10 + seed))
+    seen = torch.from_numpy(rng(seed).random(x.shape) < 0.2)
+    kw = dict(temperature=0.7, top_p=top_p, seen_mask=seen, repetition_penalty=1.05)
+    logits = tsamp.apply_repetition_penalty(x, seen, 1.05) / 0.7
+    if top_p < 1.0:
+        logits = tsamp.top_p_filter(logits, top_p)
+    probs = torch.softmax(logits, dim=-1)
+    for draw in range(3):
+        state = 100 * seed + draw
+        want = torch.multinomial(probs, 1, generator=torch.Generator().manual_seed(state))
+        got = tsamp.sample_token(torch.Generator().manual_seed(state), x, **kw)
+        assert torch.equal(got, want[:, 0])
