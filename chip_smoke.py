@@ -22,7 +22,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      new tokens; stage times, peak memory, and each kernel's launch count,
      which must be > 0. Every phase decodes graphed, the engine's default:
      one decode step captured as a CUDA graph per generate call and
-     replayed, segments of up to 64 steps, one readback each;
+     replayed, the tokens read back once at the end;
   5. the slice's numerics on the engine's prefill layout (the requests as
      one left-padded batch, a cache of L + 64 slots): vision embeddings and
      last-position prefill logits of the kernel path and of the plain bf16
@@ -30,11 +30,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      and cosine; the kernel path may be at most SLICE_REL_RATIO further from
      it); the same requests decoded eagerly (decode_graph=False) must give
      the graphed run's tokens (every decoding path below is held so, with
-     ms/token of both, the speedup, the capture ms, wasted steps and host
-     launches per step); then the early-stop check: a copy of the config
-     whose EOS is the token that an eager greedy run emits at step 5,
-     eager and graphed stopping at the same token, wasting fewer steps
-     than a segment (at most the done flags' lag, DONE_LAG - 1);
+     ms/token of both, the capture included, the speedup, the capture ms,
+     wasted steps and kernel launches per step); then the early-stop
+     check: a copy of the config whose EOS is the token that an eager
+     greedy run emits at step 5, eager and graphed stopping at the same
+     token, wasting at most the done flags' lag, DONE_LAG - 1 steps;
   6. the long-context path (the reference's max_model_len=81920): one
      text-only request per run through InferenceEngine.generate, greedy,
      repetition penalty 1.05, 32 new tokens: (a) a 32736-token prompt with a
@@ -768,11 +768,12 @@ def decode_run(engine, call):
     """``call()`` (a generate through ``engine``, or an entry point over
     it) with the engine's decode counters and the launch counts set to 0
     just before. Returns its result and the decode's numbers: ms per token
-    (the decode stage over the steps that emitted a token; the capture is
-    its own stage), capture ms, steps, wasted steps (enqueued after every
-    row finished), and the kernel launches made inside the decode loops
-    (``kernels.LAUNCHES``, which counts a replayed graph's kernels once per
-    replay) in all and per step that ran."""
+    (the whole decode stage, the capture included, over the steps that
+    emitted a token), capture ms (a part of it), steps, wasted steps
+    (enqueued after every row finished), and the hand-written kernels'
+    launches made inside the decode loops (``kernels.LAUNCHES``, which
+    counts a replayed graph's kernels once per replay) in all and per step
+    that ran."""
     engine.stage_seconds.clear()
     engine.decode_steps = engine.decode_steps_wasted = 0
     decode_launches: collections.Counter = collections.Counter()
@@ -801,17 +802,16 @@ def decode_run(engine, call):
 
 def decode_pair(path: str, graph: dict, eager: dict, graph_tokens, eager_tokens) -> None:
     """A path's graphed decode held against its eager one: ms per token of
-    both, the speedup, the capture, wasted steps, and host launches per step
-    (eager: the hand-written kernels' launches; graphed: one graph launch a
-    step after the eager first). The tokens and the decode's kernel launch
-    counts must be equal."""
+    both, the speedup, the capture, wasted steps, and the hand-written
+    kernels' launches per step (the same for both: the tokens and the
+    decode's kernel launch counts must be equal)."""
     same = graph_tokens == eager_tokens
     log("decode", path=path, graph_ms_per_token=graph["ms_per_token"],
         eager_ms_per_token=eager["ms_per_token"],
         speedup=round(eager["ms_per_token"] / max(graph["ms_per_token"], 1e-9), 3),
         capture_ms=graph["capture_ms"], steps=graph["steps"],
         wasted_steps={"graph": graph["wasted"], "eager": eager["wasted"]},
-        host_launches_per_step={"eager": eager["launches_per_step"], "graph": 1},
+        kernel_launches_per_step=graph["launches_per_step"],
         decode_kernel_launches=graph["launches"], identical_tokens=same)
     if not same:
         raise RuntimeError(f"{path}: the graphed decode's tokens differ from the eager decode's")
@@ -865,8 +865,7 @@ def eager_pair(path: str, params, cfg, reqs, sampling, graph_outs, graph: dict,
 def early_stop_check(params, cfg, req) -> None:
     """A copy of the config whose EOS is the token that an eager greedy run
     emits at step EARLY_STOP_STEP: the eager and the graphed decode must stop
-    at the same token, with at most DONE_LAG - 1 steps (and fewer than a
-    segment) run after it."""
+    at the same token, with at most DONE_LAG - 1 steps run after it."""
     sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=MAX_TOKENS)
     first = InferenceEngine(params, cfg, decode_graph=False).generate([req], sampling)[0]
     eos = first["token_ids"][EARLY_STOP_STEP]
@@ -876,12 +875,11 @@ def early_stop_check(params, cfg, req) -> None:
         engine = InferenceEngine(params, stop_cfg, decode_graph=graphed)
         runs[graphed] = decode_run(engine, lambda: engine.generate([req], sampling)[0])
     (g_out, graph), (e_out, eager) = runs[True], runs[False]
-    log("decode", path="early stop", eos=eos, stopped_after=len(g_out["token_ids"]),
-        decode_segment=engine.decode_segment)
+    log("decode", path="early stop", eos=eos, stopped_after=len(g_out["token_ids"]))
     decode_pair("early stop", graph, eager, g_out["token_ids"], e_out["token_ids"])
     if g_out["token_ids"][-1] != eos or len(g_out["token_ids"]) > EARLY_STOP_STEP + 1:
         raise RuntimeError(f"the early-stop run did not stop at its EOS {eos}: {g_out}")
-    if not graph["wasted"] < min(engine.decode_segment, DONE_LAG):
+    if graph["wasted"] > DONE_LAG - 1:
         raise RuntimeError(f"{graph['wasted']} wasted steps: more than the {DONE_LAG - 1} "
                            "the done flags' lag allows")
 

@@ -18,22 +18,20 @@ buffer of 32768 slots or more runs K4 on the stored cache. A prompt longer
 than MAX_PROMPT_TOKENS raises. Length buckets are a TPU static-shape device
 and are not ported, so the last chunk may be shorter than the others.
 
-Decode runs in segments, as the JAX engine's fused ``_segment_impl`` does:
-the loop's state (the last token, the write column, M-RoPE positions, slot
-validity, the seen mask, done flags, the token budget and the output
-buffers) lives in device tensors that each step updates in place, EOS and
-the budget are decided on the device, and the host enqueues up to
-``decode_segment`` steps, then reads the segment's tokens (and
-log-probabilities), the done flags and the budgets back in one fetch. On a
-CUDA device the step is captured once per ``generate`` call as a
-``torch.cuda.CUDAGraph`` after one eager step, and replayed for every later
-step; the graph and its memory pool are dropped before the call returns.
-The host stops enqueuing steps once it sees every row done, through a
-pinned copy of the done flags that lags one step (``DONE_LAG``), so the
-device never waits on it; the steps enqueued after every row finished are
-harmless (no live row writes a valid slot) and are counted in
-``decode_steps_wasted``. On the CPU the same step runs eagerly, with the
-same segments and the same lag.
+Decode follows the JAX engine's fused ``_segment_impl``: the loop's state
+(the last token, the write column, M-RoPE positions, slot validity, the
+seen mask, done flags, the token budget and the output buffers) lives in
+device tensors that each step updates in place, and EOS and the budget are
+decided on the device. On a CUDA device the step is captured once per
+``generate`` call as a ``torch.cuda.CUDAGraph`` after one eager step, and
+replayed for every later step; the graph and its memory pool are dropped
+before the call returns. The host stops enqueuing steps once it sees every
+row done, through a pinned copy of the done flags that lags one step
+(``DONE_LAG``), so the device never waits on it; the steps enqueued after
+every row finished are harmless (no live row writes a valid slot) and are
+counted in ``decode_steps_wasted``. The tokens, log-probabilities and
+budgets are then read back in one fetch. On the CPU the same step runs
+eagerly, with the same stop.
 
 GSPO rollouts (``train/gspo.py``) serve params whose targeted decoder
 leaves are ``LoraLinear`` (the matmuls go through ``ops.quant.dense``), pass
@@ -189,39 +187,38 @@ class _DoneFlags:
         self.events = [torch.cuda.Event() for _ in range(DONE_LAG)] if self.cuda else []
 
     def after(self, step: int, done: torch.Tensor) -> bool:
-        """Called once step ``step`` (counted from 1) is enqueued."""
-        self.flags[step % DONE_LAG].copy_(done.all(), non_blocking=True)
+        """Called once step ``step`` is enqueued (step 0: the prefill's
+        token)."""
+        slot = step % DONE_LAG
+        self.flags[slot].copy_(done.all(), non_blocking=True)
         if self.cuda:
-            self.events[step % DONE_LAG].record()
-        if step < DONE_LAG:
+            self.events[slot].record()
+        back = step - DONE_LAG + 1
+        if back < 0:
             return False
-        back = (step + 1) % DONE_LAG  # the slot of step - DONE_LAG + 1
+        slot = back % DONE_LAG
         if self.cuda:
-            self.events[back].synchronize()
-        return bool(self.flags[back])
+            self.events[slot].synchronize()
+        return bool(self.flags[slot])
 
 
 class InferenceEngine:
     """Serves requests on the device that holds ``params``.
 
     ``stage_seconds`` accumulates wall time per stage (vision, prefill,
-    decode, and decode_capture, which decode leaves out) across calls, each
-    ended by a device sync; ``decode_steps`` counts the decode steps that
-    emitted a token for some row and ``decode_steps_wasted`` those enqueued
-    after every row had finished. Attention runs the CUDA kernels when the
-    params lie on a CUDA device and their plain versions on the CPU.
+    decode, and decode_capture, the part of decode spent capturing the
+    graph) across calls, each ended by a device sync; ``decode_steps``
+    counts the decode steps that emitted a token for some row and
+    ``decode_steps_wasted`` those enqueued after every row had finished.
+    Attention runs the CUDA kernels when the params lie on a CUDA device
+    and their plain versions on the CPU.
 
-    ``decode_segment`` is the number of decode steps between two readbacks
-    of the tokens (JAX's default, 64); the host also stops enqueuing steps
-    DONE_LAG - 1 steps after every row finished. ``decode_graph=False``
-    runs every decode step eagerly on the card too: a reference for tests
-    of the graph, never a fallback."""
+    ``decode_graph=False`` runs every decode step eagerly on the card too:
+    a reference for tests of the graph, never a fallback."""
 
     def __init__(self, params: dict, cfg: Qwen25VLConfig, *, cache_dtype=torch.bfloat16,
                  long_prefill_threshold: int = 32768, long_prefill_chunk: int = 8192,
-                 decode_segment: int = 64, decode_graph: bool = True):
-        if decode_segment < 1:
-            raise ValueError(f"decode_segment must be >= 1, got {decode_segment}")
+                 decode_graph: bool = True):
         self.params = params
         self.cfg = cfg
         self.device = params["text"]["embed_tokens"].device  # where the model lives
@@ -231,7 +228,6 @@ class InferenceEngine:
         # several GB.
         self.long_prefill_threshold = long_prefill_threshold
         self.long_prefill_chunk = long_prefill_chunk
-        self.decode_segment = decode_segment
         self.decode_graph = decode_graph
         self.stage_seconds: collections.Counter = collections.Counter()
         self.decode_steps = 0
@@ -318,9 +314,7 @@ class InferenceEngine:
             cache=cache, gen=gen, first_col=L,
         )
         with self._stage("decode"):
-            emitted, lp_acc, capture_s = self._decode(st, sampling)
-        self.stage_seconds["decode"] -= capture_s
-        self.stage_seconds["decode_capture"] += capture_s
+            emitted, lp_acc = self._decode(st, sampling)
 
         out = []
         for r, row, lp in zip(requests, emitted, lp_acc):
@@ -333,51 +327,38 @@ class InferenceEngine:
         return out
 
     def _decode(self, st: DecodeState, sampling: SamplingParams):
-        """The decode loop: segments of up to ``decode_segment`` steps, each
-        followed by one readback and the harvest of JAX's ``_run_group``,
-        until every row is done or the budget is spent. Returns each row's
-        tokens and log-probabilities and the seconds of the capture."""
-        n, max_tokens = st.toks.shape
-        emitted = [[] for _ in range(n)]
-        lp_acc = [[] for _ in range(n)]
+        """The decode loop: one step after another until the done flags
+        show every row done or the budget is spent, then one readback of
+        the tokens, log-probabilities and budgets; each row keeps the
+        tokens its budget paid for. Returns each row's tokens and
+        log-probabilities."""
+        max_tokens = st.toks.shape[1]
         graphed = self.device.type == "cuda" and self.decode_graph
-        step, harvested, seg_steps, capture_s = 0, 0, 0, 0.0
         graph = captured = None
         all_done = _DoneFlags(self.device)
+        step = 0
         with self._decode_stream():
-            while True:
-                toks_h, lps_h, remaining_h, done_h = self._fetch(
-                    st.toks[:, harvested:step + 1], st.lps[:, harvested:step + 1], st.remaining,
-                    st.done)
-                live_steps = 0
-                for i in range(n):
-                    new = max_tokens - int(remaining_h[i]) - len(emitted[i])
-                    emitted[i].extend(int(t) for t in toks_h[i, :new])
-                    lp_acc[i].extend(float(x) for x in lps_h[i, :new])
-                    live_steps = max(live_steps, new)
-                if harvested:  # the first fetch harvests the prefill's token
-                    self.decode_steps += live_steps
-                    self.decode_steps_wasted += seg_steps - live_steps
-                harvested = step + 1
-                if done_h.all() or step == max_tokens - 1:
-                    break
-                seg_start = step
-                for _ in range(min(self.decode_segment, max_tokens - 1 - step)):
-                    if graph is not None:
-                        graph.replay()
-                        kernels.LAUNCHES.update(captured)
-                    else:
-                        self._decode_step(st, sampling)
-                    step += 1
-                    if graphed and graph is None and step < max_tokens - 1:
-                        t0 = time.perf_counter()
-                        graph, captured = self._capture(st, sampling)
-                        capture_s += time.perf_counter() - t0
-                    if all_done.after(step, st.done):
-                        break
-                seg_steps = step - seg_start
+            stop = all_done.after(step, st.done)
+            while not stop and step < max_tokens - 1:
+                if graph is not None:
+                    graph.replay()
+                    kernels.LAUNCHES.update(captured)
+                else:
+                    self._decode_step(st, sampling)
+                step += 1
+                stop = all_done.after(step, st.done)
+                if graphed and graph is None and not stop and step < max_tokens - 1:
+                    t0 = time.perf_counter()
+                    graph, captured = self._capture(st, sampling)
+                    self.stage_seconds["decode_capture"] += time.perf_counter() - t0
+            toks_h, lps_h, remaining_h = self._fetch(
+                st.toks[:, :step + 1], st.lps[:, :step + 1], st.remaining)
             del graph  # with its memory pool, before the call returns
-        return emitted, lp_acc, capture_s
+        counts = [max_tokens - int(left) for left in remaining_h]
+        self.decode_steps += max(counts) - 1
+        self.decode_steps_wasted += step - (max(counts) - 1)
+        return ([[int(t) for t in row[:c]] for row, c in zip(toks_h, counts)],
+                [[float(x) for x in row[:c]] for row, c in zip(lps_h, counts)])
 
     @contextlib.contextmanager
     def _decode_stream(self):
@@ -400,16 +381,21 @@ class InferenceEngine:
         after an eager step made every lazy initialisation (the kernel
         library, K7's counters and plans, cuBLAS's handle and workspace).
         The sampler's generator is registered with the graph, so each replay
-        advances its offset as an eager step does. A capture records the
-        step's kernels without running them: their launch counts are taken
-        back out of ``kernels.LAUNCHES`` and returned, for the caller to add
-        once per replay. A failed capture raises."""
+        advances its offset as an eager step does. ``capture_begin`` is
+        called directly: ``torch.cuda.graph`` would first sync the device
+        and empty the allocator's cache, on every generate call. A capture
+        records the step's kernels without running them: their launch
+        counts are taken back out of ``kernels.LAUNCHES`` and returned, for
+        the caller to add once per replay. A failed capture raises."""
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(st.gen)
         before = collections.Counter(kernels.LAUNCHES)
-        with torch.profiler.record_function("engine.decode_capture"), \
-                torch.cuda.graph(graph, stream=torch.cuda.current_stream(self.device)):
-            self._decode_step(st, sampling)
+        with torch.profiler.record_function("engine.decode_capture"):
+            graph.capture_begin()
+            try:
+                self._decode_step(st, sampling)
+            finally:
+                graph.capture_end()
         captured = kernels.LAUNCHES - before
         kernels.LAUNCHES.subtract(captured)
         return graph, captured

@@ -47,9 +47,11 @@ def sample_token(
     """Next token ids (B,). temperature == 0 is greedy argmax (first index
     among ties); otherwise a categorical draw from ``generator``: the
     exponential race argmax(p / q), q ~ Exp(1), which is the one-sample path
-    of ``torch.multinomial`` (the same draws at the same generator state)
-    without its checks of the probabilities, so no value is read back to the
-    host and a CUDA graph can hold the draw."""
+    of ``torch.multinomial`` (the same draws at the same generator state).
+    Its check of the probabilities (no inf, NaN or negative value) is made
+    on the device, so no value is read back to the host and a CUDA graph
+    can hold the draw: a failed check raises on the CPU and is a
+    device-side assert on the card."""
     if seen_mask is not None and repetition_penalty != 1.0:
         logits = apply_repetition_penalty(logits, seen_mask, repetition_penalty)
     if temperature == 0.0:
@@ -58,5 +60,6 @@ def sample_token(
     if top_p < 1.0:
         logits = top_p_filter(logits, top_p)
     probs = torch.softmax(logits, dim=-1)
+    torch._assert_async((probs.max() < float("inf")) & (probs.min() >= 0))
     q = torch.empty_like(probs).exponential_(1, generator=generator)
     return torch.argmax(probs / q, dim=-1)

@@ -26,9 +26,10 @@ Decode runs graphed (the engine's default: one step captured as a CUDA
 graph, then replayed) unless ``--eager`` is given. For the decode stage the
 script also prints the host's launches per decode step: the CUDA runtime
 and driver calls that launch work (``cudaLaunchKernel`` and its kin, and
-``cudaGraphLaunch``) inside the stage, over the steps that ran; the
-capture's own range (``engine.decode_capture``) is left out of the decode
-stage's wall time and idle share.
+``cudaGraphLaunch``) inside the stage, over the steps that ran. The
+capture's range (``engine.decode_capture``) lies inside the decode stage
+and counts in its wall time, idle share and launches; its own line gives
+its share.
 """
 
 from __future__ import annotations
@@ -151,8 +152,6 @@ def main() -> None:
         inside = [k for k in kernels if t0 <= k["ts"] < t1]
         busy = sum(k["dur"] for k in inside)
         wall = st["dur"]
-        if st["name"] == "engine.decode":
-            wall -= sum(c["dur"] for c in captures if t0 <= c["ts"] < t1)
         by_name: collections.Counter = collections.Counter()
         for k in inside:
             by_name[k["name"][:90]] += k["dur"]
@@ -161,12 +160,14 @@ def main() -> None:
         ran = engine.decode_steps + engine.decode_steps_wasted
         steps = ran if st["name"] == "engine.decode" else 1
         if st["name"] == "engine.decode":
-            calls = collections.Counter(
-                e["name"] for e in host_launches if t0 <= e["ts"] < t1
-                and not any(c["ts"] <= e["ts"] < c["ts"] + c["dur"] for c in captures))
+            inside_launches = [e for e in host_launches if t0 <= e["ts"] < t1]
+            calls = collections.Counter(e["name"] for e in inside_launches)
+            in_capture = sum(any(c["ts"] <= e["ts"] < c["ts"] + c["dur"] for c in captures)
+                             for e in inside_launches)
             print(f"    host launches {sum(calls.values())} over {ran} steps "
                   f"({engine.decode_steps} useful, {engine.decode_steps_wasted} wasted): "
-                  f"{sum(calls.values()) / max(ran, 1):.1f} a step; {dict(calls)}", flush=True)
+                  f"{sum(calls.values()) / max(ran, 1):.1f} a step, {in_capture} of them "
+                  f"recorded by the capture; {dict(calls)}", flush=True)
         for family, marks in FAMILIES.items():
             dur = sum(k["dur"] for k in inside if any(ns in k["name"] for ns in marks))
             if dur:

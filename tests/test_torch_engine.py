@@ -1,8 +1,8 @@
 """The port's engine against the JAX package's, same tiny weights, on the
 CPU: greedy token ids and log-probabilities for two requests at once (4
 frames + text, and a shorter text-only prompt), repetition penalty 1.05, 16
-new tokens, f32, in decode segments of several lengths and with an EOS
-inside a segment; the decode step's cache write at a column on the device;
+new tokens, f32, at several budgets and with an EOS inside the decode
+run; the decode step's cache write at a column on the device;
 and the long-context path (chunked prefill, decode through K4's route) with
 an f32 and an fp8 cache. On the card: the graphed decode against the eager
 one."""
@@ -73,49 +73,51 @@ def _assert_same_as_jax(ours, theirs):
         np.testing.assert_allclose(o["logprobs"], t["logprobs"], atol=ATOL_MODEL)
 
 
-@pytest.mark.parametrize("decode_segment", [1, 3, 64])
-def test_greedy_tokens_match_jax_engine(decode_segment):
-    """Two requests of different lengths, 16 new tokens, in decode segments
-    of 1, 3 and 64 steps (one readback each): the tokens and their
-    log-probabilities equal the JAX engine's."""
+@pytest.mark.parametrize("max_tokens", [1, 2, 16])
+def test_greedy_tokens_match_jax_engine(max_tokens):
+    """Two requests of different lengths, a budget of 1 (no decode step),
+    2 (one) and 16 new tokens: the tokens and their log-probabilities equal
+    the first ``max_tokens`` of the JAX engine's 16, and no step is
+    wasted."""
     _, _, tcfg, tparams = model_pair(0)
-    engine = InferenceEngine(tparams, tcfg, cache_dtype=torch.float32,
-                             decode_segment=decode_segment)
-    ours = engine.generate(_port_requests(tcfg), SamplingParams(**GREEDY), return_logprobs=True)
-    theirs = _jax_greedy()
+    engine = InferenceEngine(tparams, tcfg, cache_dtype=torch.float32)
+    ours = engine.generate(_port_requests(tcfg), SamplingParams(**{**GREEDY,
+                                                                   "max_tokens": max_tokens}),
+                           return_logprobs=True)
+    theirs = [{**t, "token_ids": t["token_ids"][:max_tokens], "logprobs": t["logprobs"][:max_tokens]}
+              for t in _jax_greedy()]
     assert len(_requests(tcfg)[0][0]) != len(_requests(tcfg)[1][0])
     _assert_same_as_jax(ours, theirs)
     for o in ours:
-        assert 1 <= len(o["token_ids"]) <= 16
+        assert 1 <= len(o["token_ids"]) <= max_tokens
     steps = max(len(o["token_ids"]) for o in ours) - 1
     assert engine.decode_steps == steps and engine.decode_steps_wasted == 0
 
 
 @pytest.mark.parametrize("n_requests", [1, 2])
-@pytest.mark.parametrize("decode_segment", [3, 4, 64])
-def test_eos_inside_a_segment_matches_jax_engine(decode_segment, n_requests):
+@pytest.mark.parametrize("eos_step", [0, 4])
+def test_eos_inside_a_segment_matches_jax_engine(eos_step, n_requests):
     """The tiny config's EOS set to the token that greedy decoding emits at
-    step 4 for the first request: the rows stop where the JAX engine's stop,
-    the tokens and log-probabilities (cut after the EOS) equal its, and the
-    steps enqueued after every row finished stay under one segment. Alone,
-    the first request stops at step 4: the host reads that DONE_LAG - 1
-    steps later, so that many steps are wasted, unless the segment ends at
-    step 4 (segments of 4), whose readback stops the loop with none wasted."""
+    step ``eos_step`` for the first request (step 0: the prefill's token):
+    the rows stop where the JAX engine's stop, the tokens and
+    log-probabilities (cut after the EOS) equal its, and at most DONE_LAG -
+    1 steps run after every row finished. Alone, the first request wastes
+    exactly that many: the host reads its done flag DONE_LAG - 1 steps
+    late."""
     _, _, tcfg, tparams = model_pair(0)
-    eos = int(_jax_greedy()[0]["token_ids"][4])
+    eos = int(_jax_greedy()[0]["token_ids"][eos_step])
     engine = InferenceEngine(tparams, dataclasses.replace(tcfg, eos_token_id=eos),
-                             cache_dtype=torch.float32, decode_segment=decode_segment)
+                             cache_dtype=torch.float32)
     ours = engine.generate(_port_requests(tcfg)[:n_requests], SamplingParams(**GREEDY),
                            return_logprobs=True)
     theirs = _jax_greedy(eos, n_requests)
     _assert_same_as_jax(ours, theirs)
-    assert ours[0]["token_ids"][-1] == eos and len(ours[0]["token_ids"]) <= 5
+    assert ours[0]["token_ids"][-1] == eos and len(ours[0]["token_ids"]) <= eos_step + 1
     assert all(len(o["logprobs"]) == len(o["token_ids"]) for o in ours)
     assert engine.decode_steps == max(len(o["token_ids"]) for o in ours) - 1
-    assert engine.decode_steps_wasted < decode_segment
+    assert engine.decode_steps_wasted <= DONE_LAG - 1
     if n_requests == 1:
-        lag = DONE_LAG - 1
-        assert engine.decode_steps_wasted == {3: lag, 4: 0, 64: lag}[decode_segment]
+        assert engine.decode_steps_wasted == DONE_LAG - 1
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float8_e4m3fn"])
@@ -291,10 +293,10 @@ def _card_config():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16", "int4", "fp8-k4"])
 def test_decode_graph_matches_eager_on_the_card(monkeypatch, case):
-    """A small model on the card, two text-only requests, decode segments of
-    5: the graphed decode (one step captured, then replayed) gives the eager
-    decode's tokens and log-probabilities, greedy and sampled at one seed,
-    and the same kernel launch counts; with the EOS moved to the first
+    """A small model on the card, two text-only requests: the graphed
+    decode (one step captured, then replayed) gives the eager decode's
+    tokens and log-probabilities, greedy and sampled at one seed, and the
+    same kernel launch counts; with the EOS moved to the first
     row's greedy token at step 3, both stop there alone, at most DONE_LAG -
     1 steps late. "int4": the decoder in int4 (K7 on both routes); "fp8-k4":
     an fp8 cache with LONG_DECODE_T lowered so that every decode step runs
@@ -315,8 +317,7 @@ def test_decode_graph_matches_eager_on_the_card(monkeypatch, case):
                                     max_tokens=24, seed=3)):
         outs, launches, steps = {}, {}, {}
         for graph in (True, False):
-            engine = InferenceEngine(params, cfg, cache_dtype=cache_dtype, decode_segment=5,
-                                     decode_graph=graph)
+            engine = InferenceEngine(params, cfg, cache_dtype=cache_dtype, decode_graph=graph)
             kernels.reset_launches()
             outs[graph] = engine.generate(reqs, sampling, return_logprobs=True)
             launches[graph] = dict(kernels.LAUNCHES)

@@ -82,3 +82,19 @@ def test_draw_equals_multinomial(seed, top_p):
         want = torch.multinomial(probs, 1, generator=torch.Generator().manual_seed(state))
         got = tsamp.sample_token(torch.Generator().manual_seed(state), x, **kw)
         assert torch.equal(got, want[:, 0])
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("top_p", [1.0, 0.6])
+def test_draw_refuses_what_multinomial_refuses(top_p, bad):
+    """A NaN or inf among the logits makes the draw raise, as it makes
+    torch.multinomial raise, instead of quietly giving a token."""
+    x = torch.from_numpy(_logits_with_ties(5))
+    x[2, 3] = bad
+    logits = x / 0.7
+    if top_p < 1.0:
+        logits = tsamp.top_p_filter(logits, top_p)
+    with pytest.raises(RuntimeError):
+        torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=torch.Generator())
+    with pytest.raises(RuntimeError):
+        tsamp.sample_token(torch.Generator().manual_seed(0), x, temperature=0.7, top_p=top_p)
