@@ -113,6 +113,27 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      SLICE_REL_RATIO), and one full fine-tune step at full width, 8 ViT
      blocks and 4 decoder layers, against a frozen reference copy (K6 and
      the exact modes of K1 and K2 must launch).
+ 15. the SFT app (after phase 14, before phase 11): [media] probes g++, the
+     libavformat, libavcodec, libavutil and libswscale headers and libraries
+     and cv2, and prints the readers the port will use for videos and images
+     (decided by the probe before anything is read). With a video reader: a
+     raw AVI (32 frames of 252x336 at 16 fps) and a PNG keyframe written
+     without an encoder (data/raw_media.py) in the reference's layout, read
+     back exactly by every reader present (the native decoder built first,
+     its build and decode times printed, when libav is there), fetch_video at
+     16 frames. Then 3 PEFT SFT steps of the frozen 7B through
+     make_lora_train_step (sft_main's default adapters: LoRA rank 16, alpha
+     32 on q_proj/v_proj) on collate_sft_batch of the temporal-spatial
+     example over those files (without a reader: collate_sft_frames on
+     phase 9's synthetic frames): per step the seconds, loss, gradient norm,
+     target tokens and peak GiB, the last step's device time by kernel
+     class under the profiler; K1 and K2 in their inference modes, K3
+     exact and K5 launched, K6 not; B moved off 0 and the base bit for bit
+     unchanged. Then (with a reader) sft_main.main end to end under
+     --use_peft on phase 10's cut of the model written as a checkpoint
+     directory, over a two-example json (temporal-spatial, General video QA
+     MCQ): run A 2 steps, run B 1 step, run C resuming B to 2; C's step 2
+     loss and merged export must equal A's bit for bit.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -122,9 +143,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
+import filecmp
 import gc
+import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -135,8 +160,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from open_o3_video_tpu_torch.data import video as TV
 from open_o3_video_tpu_torch.data.processor import O3VideoProcessor
-from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
+from open_o3_video_tpu_torch.data.raw_media import write_png, write_raw_avi
+from open_o3_video_tpu_torch.data.sft_dataset import (
+    collate_sft_batch,
+    collate_sft_frames,
+    pack_sft_batch,
+    prepare_sft_example,
+)
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
 from open_o3_video_tpu_torch.engine.engine import DONE_LAG, chunked_prefill, left_padded_rows
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
@@ -162,10 +194,23 @@ from open_o3_video_tpu_torch.ops import window_attention as wa
 from open_o3_video_tpu_torch.data.rl_dataset import rl_sample_from_frames
 from open_o3_video_tpu_torch.grounding.prompts import SFT_SYSTEM_PROMPT
 from open_o3_video_tpu_torch.grounding.rewards import REWARD_REGISTRY, sum_rewards
-from open_o3_video_tpu_torch.train import SFTConfig, loss_and_grads, make_optimizer, make_train_step
+from open_o3_video_tpu_torch.native import video_decoder
+from open_o3_video_tpu_torch.train import (
+    SFTConfig,
+    loss_and_grads,
+    make_lora_train_step,
+    make_optimizer,
+    make_train_step,
+)
 from open_o3_video_tpu_torch.train import checkpoint as CKPT
+from open_o3_video_tpu_torch.train import sft_main
 from open_o3_video_tpu_torch.train.gspo import GSPOConfig, GSPOTrainer, gspo_loss, completion_logps
-from open_o3_video_tpu_torch.train.lora import LoraConfig, adapter_leaves, apply_adapters
+from open_o3_video_tpu_torch.train.lora import (
+    LoraConfig,
+    adapter_leaves,
+    apply_adapters,
+    init_adapters,
+)
 
 # The reference's system prompt for grounded free-form video QA
 # ("temporal-spatial free-form QA"), so the prompt has its real length.
@@ -350,6 +395,32 @@ FT_KERNELS = GSPO_KERNELS + ("fused_window_attention_exact", "window_attention_e
 # token the eager greedy run emits at step EARLY_STOP_STEP.
 GSPO_CHECK_TOKENS = 128
 EARLY_STOP_STEP = 5
+# The SFT app (phase 15): a raw AVI of 32 frames of 252x336 at 16 fps and a
+# PNG keyframe, written without an encoder, in the reference's media layout;
+# a two-example STGR-CoT json (temporal-spatial with the keyframe, General
+# video QA MCQ) read at 16 frames a video. The PEFT step is sft_main's
+# default adapters (LoRA rank 16, alpha 32 on q_proj/v_proj) over the frozen
+# 7B; sft_main runs at phase 10's cut of the model.
+SFT_APP_DIR = "checkpoints/chip_smoke_sft_app"  # in the checkout (gitignored), removed after
+SFT_APP_FRAMES, SFT_APP_FPS, SFT_APP_NFRAMES = 32, 16.0, 16
+SFT_APP_EXAMPLES = [
+    {"task": "temporal-spatial free-form QA", "source": "STR_plm_rdcap", "video_path": "clip.avi",
+     "question": SFT_QUESTION,
+     "reasoning_process": "A <obj>bowling ball</obj><box>[0.42,0.38,0.59,0.6]</box>at<t>1.0</t>s "
+                          "rolls down the lane toward the pins.",
+     "answer": "The bowling ball rolls down the lane and knocks the pins down.",
+     "key_frames": [{"time": 1.0, "idx": 0, "path": "kf0.png"}]},
+    {"task": "General video QA MCQ", "source": "videor1_mcq", "video_path": "clip.avi",
+     "question": "What rolls down the lane? A. a bowling ball B. a cup C. a dog D. nothing",
+     "reasoning_process": "A heavy round ball rolls toward the pins.", "answer": "A"},
+]
+SFT_APP_STEPS = 3
+# PEFT: the frozen tower runs K1 and K2's inference modes, the decoder K3's
+# exact mode and K5; no ViT backward, so K6 (and K1/K2's exact modes) never.
+SFT_PEFT_KERNELS = GSPO_KERNELS[:2] + GSPO_KERNELS[3:]
+SFT_PEFT_ABSENT = ("fused_window_attention_exact", "window_attention_exact",
+                   "fused_window_attention_bwd", "window_attention_bwd_dq",
+                   "window_attention_bwd_dkv")
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores and HBM3. The bound of a kernel is the larger of
 # its operations and its bytes at these rates.
@@ -1638,6 +1709,243 @@ def gspo_numerics_phase(params, cfg, trainer) -> None:
                                f"plain bf16 path ({rel_k} vs {rel_p})")
 
 
+# ---- the SFT app -------------------------------------------------------------
+
+
+def media_phase() -> dict:
+    """15a: what the machine offers for reading media, decided before
+    anything is read: g++ and the libav headers and libraries (with their
+    paths), cv2, and the readers the port will use for videos and images."""
+    found = video_decoder.probe_libav()
+    missing = video_decoder.missing()
+    has_cv2 = TV._has_cv2()
+    native = not missing
+    media = {
+        "native": native, "cv2": has_cv2,
+        "video_reader": TV.FORCE_VIDEO_READER or ("native" if native else
+                                                  "cv2" if has_cv2 else None),
+        "image_reader": "cv2" if has_cv2 else "native" if native else None,
+    }
+    log("media", gpp=found["g++"], headers=found["headers"], libraries=found["libraries"])
+    log("media", libav="present" if native else f"absent (missing {missing})", cv2=has_cv2,
+        video_reader=media["video_reader"], image_reader=media["image_reader"],
+        decoder="builds at first use" if native else "not built: nothing can be installed")
+    return media
+
+
+def sft_app_data(seed: int, media: dict) -> str:
+    """15b: the AVI and the PNG keyframe in the reference's layout under
+    SFT_APP_DIR, the dataset json beside them; each lossless file read back
+    by every reader present must give the written pixels, and fetch_video
+    must give SFT_APP_NFRAMES frames at smart_resize's size. Returns the
+    data root."""
+    rng = np.random.default_rng(seed + 5)
+    frames = rng.integers(0, 256, size=(SFT_APP_FRAMES, FRAME_H, FRAME_W, 3), dtype=np.uint8)
+    keyframe = rng.integers(0, 256, size=(FRAME_H, FRAME_W, 3), dtype=np.uint8)
+    data = f"{SFT_APP_DIR}/data"
+    avis = [f"{data}/videos/stgr/plm/videos/clip.avi", f"{data}/videos/videor1/clip.avi"]
+    png = f"{data}/videos/stgr/plm/kfs/kf0.png"
+    for path in avis + [png]:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    for path in avis:
+        write_raw_avi(path, frames, SFT_APP_FPS)
+    write_png(png, keyframe)
+    log("media", wrote=avis + [png], avi_mb=round(os.path.getsize(avis[0]) / 2**20, 3),
+        write_s=round(time.perf_counter() - t0, 3))
+    with open(f"{SFT_APP_DIR}/sft.json", "w") as f:
+        json.dump(SFT_APP_EXAMPLES, f)
+    exact = {}
+    if media["native"]:
+        t0 = time.perf_counter()
+        lib = video_decoder.build()
+        log("media", decoder_build_s=round(time.perf_counter() - t0, 3), library=str(lib))
+        meta = video_decoder.probe(avis[0])
+        t0 = time.perf_counter()
+        got = video_decoder.decode_frames(avis[0], np.arange(SFT_APP_FRAMES))
+        decode_s = time.perf_counter() - t0
+        exact["native avi"] = bool(np.array_equal(got, frames))
+        exact["native png"] = bool(np.array_equal(TV._read_image_native(png), keyframe))
+        log("media", probe=vars(meta), decode_32_frames_ms=round(1e3 * decode_s, 3))
+    if media["cv2"]:
+        import cv2
+
+        cap = cv2.VideoCapture(avis[0])
+        got = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            got.append(frame[:, :, ::-1])
+        cap.release()
+        exact["cv2 avi"] = len(got) == SFT_APP_FRAMES and bool(np.array_equal(np.stack(got), frames))
+        exact["cv2 png"] = bool(np.array_equal(TV.read_image(png), keyframe))
+    t0 = time.perf_counter()
+    video, fps = TV.fetch_video({"video": avis[0], "nframes": SFT_APP_NFRAMES})
+    fetch_s = time.perf_counter() - t0
+    h, w = TV.smart_resize(FRAME_H, FRAME_W, min_pixels=TV.VIDEO_MIN_PIXELS, max_pixels=max(
+        min(TV.VIDEO_MAX_PIXELS, TV.VIDEO_TOTAL_PIXELS / SFT_APP_NFRAMES * TV.FRAME_FACTOR),
+        int(TV.VIDEO_MIN_PIXELS * 1.05)))
+    log("media", exact=exact, reader=TV.get_video_reader_backend(),
+        fetch_video_shape=list(video.shape), sample_fps=fps, fetch_video_ms=round(1e3 * fetch_s, 3))
+    if not all(exact.values()):
+        raise RuntimeError(f"a lossless file did not read back exactly: {exact}")
+    if video.shape != (SFT_APP_NFRAMES, 3, h, w) or not np.isfinite(video).all():
+        raise RuntimeError(f"fetch_video gave {video.shape}, expected {(SFT_APP_NFRAMES, 3, h, w)}")
+    return data
+
+
+def sft_peft_phase(params, cfg, batch, seed: int, source: str) -> dict:
+    """15c: SFT_APP_STEPS PEFT steps of make_lora_train_step on the frozen 7B
+    (sft_main's default adapters from --seed; SFTConfig defaults; the last
+    step under the profiler: device time by kernel class, busy share), the
+    launch counts set to 0 just before and read just after: K1 and K2 in
+    their inference modes, K3 exact and K5 launched, K6 not. The adapters'
+    B must move off 0 and the base stay bit for bit."""
+    for x in P.leaves(params):
+        x.requires_grad_(False)
+    # A copy of the base on the card (~10 ms, where a host copy and its
+    # check take ~16 s); its bytes are resident through the steps, and
+    # allocated bytes add, so the steps' peak is the peak less the copy.
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    base = [x.clone() for x in P.leaves(params)]
+    torch.cuda.synchronize()
+    copy_bytes = torch.cuda.memory_allocated() - held
+    copy_s = time.perf_counter() - t0
+    lora = LoraConfig(seed=seed)
+    train_cfg = SFTConfig()
+    adapters = init_adapters(params, lora, dtype=torch.bfloat16)
+    opt = make_optimizer(train_cfg)
+    state = opt.init(adapter_leaves(adapters))
+    step = make_lora_train_step(cfg, train_cfg, opt, lora.scale)
+    log("sft_app", mode="PEFT", input=source, lora_rank=lora.rank, lora_alpha=lora.alpha,
+        targets=list(lora.target_modules),
+        adapter_params=sum(x.numel() for x in adapter_leaves(adapters)),
+        tokens=int(batch["attn_valid"].sum()), images=len(batch["grid_thw"]),
+        patches=batch["pixel_patches"].shape[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for i in range(SFT_APP_STEPS):
+        last = i == SFT_APP_STEPS - 1  # the last step runs under the profiler
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        prof = torch.profiler.profile(activities=activities) if last else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with prof:
+            _, state, m = step(adapters, state, batch, params)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if last:
+            log("sft_app", profiled=f"step {i + 1}", **device_breakdown(prof, wall))
+        log("sft_app", step=i + 1, seconds=round(wall, 3),
+            loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+            num_target_tokens=int(m["num_target_tokens"]),
+            peak_mem_gib=round((torch.cuda.max_memory_allocated() - copy_bytes) / 2**30, 3))
+        if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
+            raise RuntimeError(f"PEFT SFT step {i + 1}: non-finite loss or gradient norm")
+    launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
+    log("sft_app", launches_per_step={k: n / SFT_APP_STEPS for k, n in launches.items() if n})
+    missing = [name for name in SFT_PEFT_KERNELS if not launches[name]]
+    extra = [name for name in SFT_PEFT_ABSENT if launches[name]]
+    if missing or extra:
+        raise RuntimeError(f"PEFT SFT launches: never launched {missing}, launched {extra}")
+    b_max = max(ab["b"].abs().max().item() for layer in adapters["layers"]
+                for ab in layer.values())
+    t0 = time.perf_counter()
+    unchanged = all(torch.equal(x, y) for x, y in zip(P.leaves(params), base))
+    log("sft_app", adapters_b_max_abs=b_max, base_bit_for_bit_unchanged=unchanged,
+        base_copy_gib=round(copy_bytes / 2**30, 3), base_copy_s=round(copy_s, 3),
+        base_check_s=round(time.perf_counter() - t0, 3))
+    del base, adapters, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not b_max > 0:
+        raise RuntimeError("the adapters' B did not move off 0")
+    if not unchanged:
+        raise RuntimeError("a base weight changed under PEFT")
+    return launches
+
+
+def _sft_main_run(tag: str, args: list[str]) -> dict:
+    """One sft_main.main call: its seconds, peak GiB, the metrics lines it
+    printed (by step) and the seconds between them."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sft_main.main(args)
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith('{"step"')]
+    steps = {x["step"]: x for x in lines}
+    times = [x["time"] for x in lines]
+    log("sft_main", run=tag, seconds=round(seconds, 3),
+        step_seconds=[round(b - a, 3) for a, b in zip(times, times[1:])],
+        losses={k: v["loss"] for k, v in steps.items()},
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    return steps
+
+
+def sft_main_phase(params, cfg, data: str) -> None:
+    """15d: sft_main.main end to end on phase 10's cut of the model (full
+    width, NUMERICS_VIT_DEPTH ViT blocks, NUMERICS_TEXT_LAYERS decoder
+    layers) written as a checkpoint directory (no tokenizer files), --use_peft
+    with its default adapters: run A 2 steps with a checkpoint each step, run
+    B 1 step, run C resuming B to 2 steps. C's step 2 loss and its merged
+    export must equal A's bit for bit."""
+    small_cfg = _cut_cfg(cfg, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS)
+    model = f"{SFT_APP_DIR}/model"
+    t0 = time.perf_counter()
+    CKPT.export_safetensors(_sub(params, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS), small_cfg,
+                            model)
+    log("sft_main", model=model, vit_blocks=NUMERICS_VIT_DEPTH,
+        decoder_layers=NUMERICS_TEXT_LAYERS,
+        gib=round(os.path.getsize(f"{model}/model.safetensors") / 2**30, 3),
+        write_s=round(time.perf_counter() - t0, 3))
+    common = ["--model_name_or_path", model, "--dataset_name", f"{SFT_APP_DIR}/sft.json",
+              "--data_root", data, "--nframes", str(SFT_APP_NFRAMES), "--use_peft"]
+    a = _sft_main_run("A: 2 steps, a checkpoint each", common + [
+        "--output_dir", f"{SFT_APP_DIR}/a", "--max_steps", "2", "--save_steps", "1"])
+    _sft_main_run("B: 1 step", common + ["--output_dir", f"{SFT_APP_DIR}/b", "--max_steps", "1"])
+    c = _sft_main_run("C: B resumed to 2 steps", common + [
+        "--output_dir", f"{SFT_APP_DIR}/b", "--max_steps", "2",
+        "--resume_from_checkpoint", f"{SFT_APP_DIR}/b"])
+    same = {"step 2 loss": a[2]["loss"] == c[2]["loss"],
+            "step 2 grad norm": a[2]["grad_norm"] == c[2]["grad_norm"],
+            "merged export": filecmp.cmp(f"{SFT_APP_DIR}/a/model.safetensors",
+                                         f"{SFT_APP_DIR}/b/model.safetensors", shallow=False)}
+    log("sft_main", resumed_equals_straight=same)
+    if not all(same.values()):
+        raise RuntimeError(f"sft_main resumed from step 1 differs from 2 steps straight: {same}")
+
+
+def sft_app_phase(params, cfg, proc, seed: int) -> dict:
+    """Phase 15: [media], then (with a reader) the files and their reads,
+    the PEFT SFT step on the 7B over collate_sft_batch of the
+    temporal-spatial example (else over phase 9's synthetic frames), then
+    sft_main end to end (with a reader). Returns the PEFT step's launches."""
+    media = media_phase()
+    shutil.rmtree(SFT_APP_DIR, ignore_errors=True)
+    try:
+        if media["video_reader"]:
+            data = sft_app_data(seed, media)
+            t0 = time.perf_counter()
+            example = prepare_sft_example(SFT_APP_EXAMPLES[0], data)
+            batch = collate_sft_batch([example], proc, cfg, data, nframes=SFT_APP_NFRAMES)
+            source = f"collate_sft_batch: the AVI and the PNG keyframe ({media['video_reader']})"
+            log("sft_app", collate_s=round(time.perf_counter() - t0, 3))
+        else:
+            log("media", skipped="15b and 15d: no reader for video files on this machine")
+            batch, source = sft_batch(proc, cfg, seed), "collate_sft_frames: synthetic frames"
+        launches = sft_peft_phase(params, cfg, batch, seed, source)
+        if media["video_reader"]:
+            sft_main_phase(params, cfg, data)
+    finally:
+        shutil.rmtree(SFT_APP_DIR, ignore_errors=True)
+    return launches
+
+
 # ---- int4 serving ------------------------------------------------------------
 
 
@@ -1941,6 +2249,11 @@ def main() -> None:
     log("gspo", phases_seconds=round(time.perf_counter() - t0, 3),
         launches_per_step={"peft": gspo_launches, "full fine-tune": ft_launches})
 
+    # the SFT app: media, the PEFT SFT step of the 7B, sft_main end to end
+    t0 = time.perf_counter()
+    sft_app_phase(params, cfg, proc, args.seed)
+    log("sft_app", phases_seconds=round(time.perf_counter() - t0, 3))
+
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()
     int4_kernel_phase(dev, gen, len(reqs) * max(rows), results)
@@ -1962,6 +2275,7 @@ def main() -> None:
     log("int4", phases_seconds=round(time.perf_counter() - t0, 3), judge_k7_launches=judge_launches)
 
     log("total", seconds=round(time.perf_counter() - t_start, 3))
+    print(card_line(), flush=True)  # again, so that the output's tail holds it
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}

@@ -6,11 +6,10 @@
 - ``rl_sample_from_frames``: the part after decoding, for the video tasks:
   the frame prompt with timestamps, the ground-truth keyframes interleaved
   for the temporal-spatial task, tokenization, the reward columns;
-- ``prepare_rl_sample``: resolves the media, reads the video (``data/video.py``,
-  OpenCV) and the keyframes or the image (OpenCV, resized by the PIL-parity
-  bicubic instead of PIL), then the above. Where cv2 is missing it raises an
-  ImportError that says so; the card's machine has no cv2, so its smoke run
-  feeds ``rl_sample_from_frames`` synthetic frames.
+- ``prepare_rl_sample``: resolves the media, reads the video and the
+  keyframes or the image with ``data/video.py``'s readers (the native libav
+  decoder or OpenCV; resized by the PIL-parity bicubic instead of PIL), then
+  the above. With neither reader it raises an ImportError that says so.
 """
 
 from __future__ import annotations
@@ -85,9 +84,9 @@ def _sample(processor, prompt_text: str, images, reward_kwargs: dict) -> dict[st
     }
 
 
-def _load_keyframes(example, data_root, size_wh) -> list[np.ndarray]:
+def load_keyframes(example, data_root, size_wh) -> list[np.ndarray]:
     """Keyframe images resized to the video frame size (W, H), CHW uint8
-    (grpo_trainer.py:503-513)."""
+    (grpo_trainer.py:503-513; the SFT collate's too, sft_multi_task.py)."""
     root = keyframe_root(example, data_root)
     w, h = size_wh
     return [resize_image(read_image(os.path.join(root, kf["path"])), h, w)
@@ -152,6 +151,6 @@ def prepare_rl_sample(
     T, _, H, W = video.shape
     keyframes = None
     if example.get("task") == "temporal-spatial free-form QA":
-        keyframes = _load_keyframes(example, data_root, (W, H))
+        keyframes = load_keyframes(example, data_root, (W, H))
     return rl_sample_from_frames(example, processor, [video[i] for i in range(T)], sample_fps,
                                  keyframes)

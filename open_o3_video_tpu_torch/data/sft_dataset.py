@@ -1,21 +1,41 @@
-"""SFT batches: labels masked as the reference masks them, and several
-examples packed into one right-padded batch (counterpart of part of
-``open_o3_video_tpu/data/sft_dataset.py``, which imports PIL and JAX).
+"""SFT dataset: per-task message building and the collate paths
+(counterpart of ``open_o3_video_tpu/data/sft_dataset.py``, which imports PIL
+and JAX).
 
-``collate_sft_frames`` is the part of the JAX ``collate_sft`` after the
-media fetch, for the temporal / general video QA tasks: it takes the chat
-messages and the already decoded frames with their sampling rate. Decoding
-a video file waits for a port of ``data/video.py``.
+Rebuilds the reference's prepare_dataset + collate_fn (sft_multi_task.py):
+
+- visual QA: image grounding with the box text rescaled to the resized image;
+- temporal-spatial free-form QA: the ground-truth keyframes interleaved with
+  the frames by time, Gemini boxes rewritten to pixels;
+- temporal QA / General video QA: the timestamped frame prompt.
+
+Targets are ``<think>...</think>\\n<answer>...</answer>``; labels mask pad and
+visual tokens. ``collate_sft_frames`` is the temporal / general branch after
+the media fetch (it takes decoded frames), which ``collate_sft`` calls;
+media are read by ``data/video.py`` (the native libav decoder or OpenCV) and
+resized by the PIL-parity bicubic of ``ops/resize.py``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+import copy
+import json
+import os
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
-from ..grounding.prompts import VISION_PLACEHOLDER, frame_prompt_sft_temporal
+from ..grounding.coords import resize_boxes_in_text, rewrite_gemini_boxes_in_text
+from ..grounding.prompts import (
+    SFT_SYSTEM_PROMPT,
+    VISION_PLACEHOLDER,
+    frame_prompt_sft_temporal,
+    interleave_keyframes,
+)
 from ..models.qwen25vl.model import build_vision_row_index, get_rope_index
+from .media_roots import media_roots
+from .rl_dataset import load_keyframes
+from .video import fetch_image, fetch_video
 
 VISUAL_TOKEN_IDS = (151655,)  # Qwen2.5-VL masks the image-pad token
 IGNORE_INDEX = -100
@@ -34,21 +54,55 @@ def visual_mask_ids(model_cfg) -> tuple[int, ...]:
     return (getattr(model_cfg, "image_token_id", None) or VISUAL_TOKEN_IDS[0],)
 
 
-def collate_sft_frames(
-    messages: list[dict[str, Any]],
-    frames: Sequence[np.ndarray],
-    fps: float,
-    processor,
-    model_cfg,
-) -> dict[str, Any]:
-    """One example (system, user with a video, assistant target) and its
-    decoded frames (CHW uint8) -> a train-step batch of one row: the video
-    placeholder becomes the SFT temporal frame prompt (one image per frame),
-    labels mask pad and visual tokens, M-RoPE positions from the grids."""
-    text = processor.apply_chat_template(messages, add_generation_prompt=False)
-    text = text.replace(VISION_PLACEHOLDER, frame_prompt_sft_temporal(len(frames), fps))
-    proc = processor(text, images=list(frames))
+def load_sft_dataset(path: str) -> list[dict[str, Any]]:
+    with open(path) as f:
+        if path.endswith(".jsonl"):
+            return [json.loads(line) for line in f if line.strip()]
+        return json.load(f)
 
+
+def prepare_sft_example(example: dict[str, Any], data_root: str) -> dict[str, Any]:
+    """Attach the chat messages with the assistant target
+    (sft_multi_task.py:56-204)."""
+    task = example["task"]
+    roots = media_roots(data_root)
+    target = ("<think>" + example["reasoning_process"] + "</think>\n<answer>" + example["answer"]
+              + "</answer>")
+
+    def wrap(media, question_text):
+        return [
+            {"role": "system", "content": [{"type": "text", "text": SFT_SYSTEM_PROMPT[task]}]},
+            {"role": "user", "content": [media, {"type": "text", "text": question_text}]},
+            {"role": "assistant", "content": [{"type": "text", "text": target}]},
+        ]
+
+    if task == "visual QA":
+        media = {"type": "image", "image": os.path.join(roots["treevgr"], example["image_path"])}
+        messages = wrap(media, example["question"])
+        return {"messages": messages, "image_size": example["image_size"], "task": task,
+                "source": example["source"], "key_frames": []}
+    if task == "temporal-spatial free-form QA":
+        root = roots["str_plm"] if example["source"] == "STR_plm_rdcap" else roots["str"]
+        media = {"type": "video", "video": os.path.join(root, example["video_path"])}
+        messages = wrap(media, example["question"])
+        return {"messages": messages, "key_frames": example["key_frames"], "task": task,
+                "source": example["source"], "image_size": []}
+    if task == "temporal QA":
+        media = {"type": "video", "video": os.path.join(roots["tvg"], example["video_path"])}
+        messages = wrap(media, "Question: " + example["question"])
+        return {"messages": messages, "task": task, "source": example["source"],
+                "key_frames": [], "image_size": []}
+    if task in ("General video QA MCQ", "General video QA Free-form"):
+        media = {"type": "video", "video": os.path.join(roots["videor1"], example["video_path"])}
+        messages = wrap(media, "Question: " + example["question"])
+        return {"messages": messages, "task": task, "source": example["source"],
+                "key_frames": [], "image_size": []}
+    raise ValueError(f"Unknown task: {task}")
+
+
+def _single_row(proc, processor, model_cfg) -> dict[str, Any]:
+    """A processed example -> a train-step batch of one row: labels with pad
+    and visual tokens masked, M-RoPE positions from the grids."""
     input_ids = np.asarray([proc.input_ids])
     labels = input_ids.copy()
     pad_id = getattr(processor.tokenizer, "pad_token_id", None)
@@ -66,6 +120,69 @@ def collate_sft_frames(
         "grid_thw": proc.grid_thw,
         "vision_token_id": model_cfg.image_token_id,
     }
+
+
+def collate_sft_frames(
+    messages: list[dict[str, Any]],
+    frames: Sequence[np.ndarray],
+    fps: float,
+    processor,
+    model_cfg,
+) -> dict[str, Any]:
+    """One example (system, user with a video, assistant target) and its
+    decoded frames (CHW) -> a train-step batch of one row: the video
+    placeholder becomes the SFT temporal frame prompt (one image per frame).
+    The temporal QA / General video QA branch of ``collate_sft``."""
+    text = processor.apply_chat_template(messages, add_generation_prompt=False)
+    text = text.replace(VISION_PLACEHOLDER, frame_prompt_sft_temporal(len(frames), fps))
+    return _single_row(processor(text, images=list(frames)), processor, model_cfg)
+
+
+def collate_sft(
+    example: dict[str, Any],
+    processor,
+    model_cfg,
+    data_root: str,
+    *,
+    nframes: Optional[int] = None,
+) -> dict[str, Any]:
+    """One prepared example -> a train-step batch of one row (the
+    reference's bs = 1, sft_multi_task.py:294), its media read from
+    ``data_root``."""
+    example = copy.deepcopy(example)
+    messages = example["messages"]
+    task = example["task"]
+    video_ele = image_ele = None
+    for msg in messages:
+        if isinstance(msg["content"], list):
+            for ele in msg["content"]:
+                if ele.get("type") == "video":
+                    video_ele = dict(ele)
+                elif ele.get("type") == "image":
+                    image_ele = dict(ele)
+
+    if task == "visual QA":
+        text = processor.apply_chat_template(messages, add_generation_prompt=False)
+        img = fetch_image(image_ele)  # CHW
+        text = resize_boxes_in_text(text, example["image_size"], [img.shape[2], img.shape[1]])
+        return _single_row(processor(text, images=[img]), processor, model_cfg)
+
+    if nframes is not None:
+        video_ele["nframes"] = nframes
+    video, fps = fetch_video(video_ele)
+    T, _, H, W = video.shape
+    frames = [video[i] for i in range(T)]
+    if task != "temporal-spatial free-form QA":  # temporal QA / General video QA
+        return collate_sft_frames(messages, frames, fps, processor, model_cfg)
+    kf_frames = load_keyframes(example, data_root, (W, H))
+    kf_times = [kf["time"] for kf in example["key_frames"]]
+    plan, frame_prompt = interleave_keyframes(T, fps, kf_times, round_kf_display=False,
+                                              append_total_line=False)
+    images = [frames[i] if kind == "video" else kf_frames[i] for kind, i in plan]
+    text = processor.apply_chat_template(messages, add_generation_prompt=False)
+    text = text.replace(VISION_PLACEHOLDER, frame_prompt)
+    text = rewrite_gemini_boxes_in_text(text, (W, H))
+    return _single_row(processor(text, images=images), processor, model_cfg)
 
 
 def pack_sft_batch(
@@ -113,3 +230,18 @@ def pack_sft_batch(
         batch["vision_token_id"] = tok
         batch["vision_row_index"] = build_vision_row_index(ids, tok, offsets)
     return batch
+
+
+def collate_sft_batch(
+    examples: list[dict[str, Any]],
+    processor,
+    model_cfg,
+    data_root: str,
+    *,
+    nframes: Optional[int] = None,
+    pad_multiple: int = 64,
+) -> dict[str, Any]:
+    """B prepared examples -> one padded batch (see ``pack_sft_batch``)."""
+    singles = [collate_sft(ex, processor, model_cfg, data_root, nframes=nframes)
+               for ex in examples]
+    return pack_sft_batch(singles, model_cfg, pad_multiple=pad_multiple)

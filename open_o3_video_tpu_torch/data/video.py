@@ -7,26 +7,39 @@ imports PIL).
   FRAME_FACTOR and clamped;
 - ``sample_indices``: ``linspace(0, total - 1, nframes).round()``;
 - ``trim_window``: ``video_start``/``video_end`` as an inclusive pts range;
-- ``fetch_video``: decode a file with OpenCV (imported when called), then
-  the PIL-parity bicubic resize of ``ops/resize.py`` instead of PIL;
+- ``fetch_video``: decode a file with the selected reader, then the
+  PIL-parity bicubic resize of ``ops/resize.py`` instead of PIL;
 - ``read_image`` / ``fetch_image``: an image file (a keyframe, a GQA image)
-  read with OpenCV as PIL's ``convert("RGB")`` gives it, resized the same
-  way (PIL's ``Image.resize`` default for RGB is bicubic).
+  read as PIL's ``convert("RGB")`` gives it, resized the same way (PIL's
+  ``Image.resize`` default for RGB is bicubic).
 
-OpenCV is the only reader here (the JAX package's native libav decoder is
-not ported). Where cv2 is missing, ``fetch_video`` raises an ImportError
-that says so.
+Video readers, as the JAX package selects them: ``native``, the C++ libav
+decoder of ``native/video_decoder.py`` (built at first use), when it is
+available, else ``cv2`` (OpenCV, imported when called);
+``FORCE_VIDEO_READER`` overrides the choice, which is printed once. A failed
+native read is retried with cv2 when cv2 can be imported; otherwise its
+error propagates as it is. Images are read with cv2 when it can be imported,
+else with the native decoder at the image's own size (frame 0): exact for
+PNG (RGB or gray; an RGBA PNG loses its alpha instead of being flattened
+onto white), close to but not equal to PIL for JPEG (chroma upsampling).
+With neither reader, reading raises an ImportError that says what is
+missing.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 import math
 import os
+import sys
 
 import numpy as np
 import torch
 
 from ..ops.resize import resize_frames
+
+logger = logging.getLogger(__name__)
 
 # Constants (reference: vision_process.py:25-42)
 IMAGE_FACTOR = 28
@@ -177,10 +190,72 @@ def _read_video_cv2(ele: dict) -> tuple[np.ndarray, float]:
     return video, nframes / max(window, 1e-6) * video_fps
 
 
+def _read_video_native(ele: dict) -> tuple[np.ndarray, float]:
+    """C++ libav decoder: decodes only the sampled frames (TCHW uint8 RGB,
+    sample fps)."""
+    from ..native import video_decoder
+
+    video_path = ele["video"]
+    if video_path.startswith("file://"):
+        video_path = video_path[7:]
+    meta = video_decoder.probe(video_path)
+    total_frames, video_fps = meta.num_frames, meta.fps
+    start_idx, window = trim_window(ele, total_frames, video_fps)
+    nframes = smart_nframes(ele, total_frames=window, video_fps=video_fps)
+    idx = sample_indices(window, nframes) + start_idx
+    video = video_decoder.decode_frames(video_path, idx)  # THWC uint8 RGB
+    video = np.ascontiguousarray(video.transpose(0, 3, 1, 2))
+    return video, nframes / max(window, 1e-6) * video_fps
+
+
+VIDEO_READER_BACKENDS = {
+    "native": _read_video_native,
+    "cv2": _read_video_cv2,
+}
+
+FORCE_VIDEO_READER = os.getenv("FORCE_VIDEO_READER", None)
+
+
+def _has_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+@functools.lru_cache(maxsize=1)
+def get_video_reader_backend() -> str:
+    """``FORCE_VIDEO_READER`` when set, else ``native`` when the libav
+    decoder is available (a failed build raises), else ``cv2``; printed once
+    (with what the native decoder lacks, when it is not used)."""
+    from ..native import video_decoder
+
+    if FORCE_VIDEO_READER is not None:
+        if FORCE_VIDEO_READER not in VIDEO_READER_BACKENDS:
+            raise RuntimeError(f"FORCE_VIDEO_READER={FORCE_VIDEO_READER!r}: expected one of "
+                               f"{sorted(VIDEO_READER_BACKENDS)}")
+        backend, why = FORCE_VIDEO_READER, " (FORCE_VIDEO_READER)"
+    elif video_decoder.available():
+        backend, why = "native", ""
+    else:
+        backend, why = "cv2", f" (native decoder unavailable: missing {video_decoder.missing()})"
+    print(f"open_o3_video_tpu_torch using {backend} to read video{why}.", file=sys.stderr)
+    return backend
+
+
 def fetch_video(ele: dict, image_factor: int = IMAGE_FACTOR) -> tuple[np.ndarray, float]:
     """Decode, sample and resize one video file: (float32 TCHW frames at the
-    model's resolution, sample fps)."""
-    video, sample_fps = _read_video_cv2(ele)
+    model's resolution, sample fps). A native read that fails on the file
+    (OSError, ValueError) is retried with cv2 when cv2 can be imported."""
+    backend = get_video_reader_backend()
+    try:
+        video, sample_fps = VIDEO_READER_BACKENDS[backend](ele)
+    except (OSError, ValueError) as e:
+        if backend == "cv2" or not _has_cv2():
+            raise
+        logger.warning(f"video reader backend {backend} error, falling back to cv2, msg: {e}")
+        video, sample_fps = VIDEO_READER_BACKENDS["cv2"](ele)
     nframes, _, height, width = video.shape
     min_pixels = ele.get("min_pixels", VIDEO_MIN_PIXELS)
     total_pixels = ele.get("total_pixels", VIDEO_TOTAL_PIXELS)
@@ -195,21 +270,30 @@ def fetch_video(ele: dict, image_factor: int = IMAGE_FACTOR) -> tuple[np.ndarray
     return resize_frames(torch.from_numpy(video), h, w).numpy(), sample_fps
 
 
-def _cv2():
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("reading an image file needs OpenCV (cv2), which is not installed") from e
-    return cv2
+def _read_image_native(path: str) -> np.ndarray:
+    """An image file through the libav decoder: frame 0 at the image's own
+    size (``probe`` counts 0 frames for a PNG, so its count is not used)."""
+    from ..native import video_decoder
+
+    if not video_decoder.available():
+        raise ImportError("reading an image file needs OpenCV (cv2) or the native libav decoder; "
+                          f"cv2 is not installed and the decoder lacks {video_decoder.missing()}")
+    meta = video_decoder.probe(path)
+    return video_decoder.decode_frames_scaled(path, [0], meta.width, meta.height,
+                                              bicubic=False)[0]
 
 
 def read_image(path: str) -> np.ndarray:
     """An image file as HWC uint8 RGB, as PIL's ``to_rgb`` makes it: gray
     repeated over the channels, RGBA flattened onto white (PIL's paste
-    blend, rounded as its ``BLEND`` macro rounds)."""
-    cv2 = _cv2()
+    blend, rounded as its ``BLEND`` macro rounds). Read with cv2, or without
+    it with the native decoder (see the module docstring)."""
     if path.startswith("file://"):
         path = path[7:]
+    try:
+        import cv2
+    except ImportError:
+        return _read_image_native(path)
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise IOError(f"cv2 failed to read image: {path}")

@@ -1,13 +1,14 @@
-"""Training: the SFT step (full fine-tune) of the JAX package's
-``train/sft.py``; GSPO (``gspo``), LoRA (``lora``), checkpoints
-(``checkpoint``) and the GSPO entry point (``grpo_main``) are modules of
-their own."""
+"""Training: the SFT steps (full fine-tune and PEFT) of the JAX package's
+``train/sft.py``; the SFT entry point (``sft_main``), GSPO (``gspo``), LoRA
+(``lora``), checkpoints (``checkpoint``) and the GSPO entry point
+(``grpo_main``) are modules of their own."""
 
 from .sft import (
     IGNORE_INDEX,
     ClipAdamW,
     SFTConfig,
     loss_and_grads,
+    make_lora_train_step,
     make_optimizer,
     make_train_step,
     mask_labels,
@@ -19,6 +20,7 @@ __all__ = [
     "ClipAdamW",
     "SFTConfig",
     "loss_and_grads",
+    "make_lora_train_step",
     "make_optimizer",
     "make_train_step",
     "mask_labels",

@@ -24,6 +24,8 @@ from __future__ import annotations
 import argparse
 import os
 
+from .launch import check_one_device, train_device
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="GSPO RL training (PyTorch)")
@@ -75,26 +77,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_one_device(args) -> None:
-    """Refuse a mesh or a multi-process launch: the port trains on one
-    device. A fsdp of -1 (all devices) is one device here."""
-    if args.mesh_data != 1 or args.mesh_tensor != 1 or args.mesh_fsdp not in (-1, 1):
-        raise SystemExit(f"grpo_main: a mesh (data={args.mesh_data}, fsdp={args.mesh_fsdp}, "
-                         f"tensor={args.mesh_tensor}) is not ported yet; run on one device")
-    if args.coordinator_address or (args.num_processes or 1) > 1 or (args.process_id or 0) != 0:
-        raise SystemExit("grpo_main: multi-process training is not ported yet; run one process")
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _check_one_device(args)
+    check_one_device(args, "grpo_main")
     os.environ.setdefault("WANDB_MODE", "offline")
-
-    import torch
-
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("grpo_main: no CUDA device; pass --device cpu to train on the CPU")
-    device = torch.device(args.device)
+    device = train_device(args, "grpo_main")
 
     from ..data.processor import O3VideoProcessor
     from ..data.rl_dataset import load_rl_dataset, prepare_rl_sample

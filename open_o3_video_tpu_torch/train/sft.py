@@ -3,7 +3,8 @@
 
 A full fine-tune of every weight with the reference recipe: AdamW at lr 1e-6
 after a global-norm clip at 1.0, bf16 weights, gradient checkpointing, one
-sample per step. The optimizer reproduces the JAX package's
+sample per step (``make_train_step``); or PEFT, LoRA adapters over the frozen
+base (``make_lora_train_step``). The optimizer reproduces the JAX package's
 ``optax.chain(clip_by_global_norm, adamw)``: the clip leaves the gradients
 as they are when their global norm is below the maximum, else divides them
 by the norm and multiplies by the maximum (not ``clip_grad_norm_``'s
@@ -180,6 +181,36 @@ def make_train_step(model_cfg: Qwen25VLConfig, train_cfg: SFTConfig, optimizer: 
         with torch.no_grad():
             optimizer.update(opt_state, metrics["grad_norm"])
         return params, opt_state, metrics
+
+    return train_step
+
+
+def make_lora_train_step(model_cfg: Qwen25VLConfig, train_cfg: SFTConfig,
+                         optimizer: ClipAdamW, lora_scale: float, attn_impl: str = "auto"):
+    """(adapters, opt_state, batch, base_params) -> (adapters, opt_state,
+    metrics), the PEFT step (the reference's peft_config,
+    sft_multi_task.py:479): the base is frozen (``requires_grad`` off on
+    every leaf, so no base-sized gradient or optimizer state exists), the
+    loss is taken through the base with the adapters grafted on
+    (``lora.apply_adapters``), and ``optimizer`` updates the adapters only.
+    ``opt_state`` is ``optimizer.init(lora.adapter_leaves(adapters))``.
+    Adapters and state are updated in place."""
+    from .lora import adapter_leaves, apply_adapters
+
+    def train_step(adapters, opt_state, batch, base_params):
+        for x in P.leaves(base_params):
+            x.requires_grad_(False)
+        leaves = adapter_leaves(adapters)
+        for x in leaves:
+            x.grad = None
+        loss, aux = sft_loss(apply_adapters(base_params, adapters, lora_scale), model_cfg, batch,
+                             remat=train_cfg.gradient_checkpointing,
+                             logp_chunk=train_cfg.logp_chunk, attn_impl=attn_impl)
+        loss.backward()
+        metrics = {**aux, "grad_norm": global_norm([x.grad for x in leaves])}
+        with torch.no_grad():
+            optimizer.update(opt_state, metrics["grad_norm"])
+        return adapters, opt_state, metrics
 
     return train_step
 

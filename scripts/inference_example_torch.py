@@ -7,9 +7,10 @@ Run: python scripts/inference_example_torch.py --model_path /path/to/checkpoint 
 
 Sampling mirrors the reference: temperature 0.7, top_p 0.001, repetition
 penalty 1.05, max 2048 tokens, 16 frames. A video file is decoded with
-OpenCV and resized by the port's PIL-parity bicubic
-(open_o3_video_tpu_torch/data/video.py); where cv2 is not installed the
-script exits with an error that says so. Without --video the frames are
+the port's native libav decoder, or OpenCV where that is not available, and
+resized by the port's PIL-parity bicubic
+(open_o3_video_tpu_torch/data/video.py); with neither reader the script
+exits with an error that says so. Without --video the frames are
 synthetic (16 frames of 252x336 from --seed). The checkpoint is read with
 safetensors; --load_in_int4 quantizes the decoder to group-128 int4 as it
 loads (or as it is drawn, with --tiny-demo), served through K7. The model

@@ -129,3 +129,56 @@ def model_pair(seed: int = 0):
 def frames(r: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:
     """n synthetic uint8 CHW frames."""
     return r.integers(0, 256, size=(n, 3, h, w), dtype=np.uint8)
+
+
+def _reset_video_reader() -> None:
+    from open_o3_video_tpu_torch.data import video
+
+    video.get_video_reader_backend.cache_clear()
+
+
+@pytest.fixture
+def no_video_reader(monkeypatch):
+    """Neither of the port's readers: cv2 blocked and the native decoder
+    reported as missing its libav headers (the reader choice is re-made
+    before and after the test)."""
+    from open_o3_video_tpu_torch.native import video_decoder
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setattr(video_decoder, "missing", lambda: ["libavformat/avformat.h"])
+    _reset_video_reader()
+    yield
+    _reset_video_reader()
+
+
+@pytest.fixture
+def port_reader(monkeypatch):
+    """Sets the port's video reader: ``port_reader("native" | "cv2")`` (as
+    FORCE_VIDEO_READER does), re-made after the test. "native" skips where
+    the libav decoder cannot be built."""
+    from open_o3_video_tpu_torch.data import video
+    from open_o3_video_tpu_torch.native import video_decoder
+
+    def force(name):
+        if name == "native" and video_decoder.missing():
+            pytest.skip(f"the native decoder needs {video_decoder.missing()}")
+        monkeypatch.setattr(video, "FORCE_VIDEO_READER", name)
+        _reset_video_reader()
+
+    yield force
+    _reset_video_reader()
+
+
+@pytest.fixture
+def jax_reader(monkeypatch):
+    """Sets the JAX package's video reader: ``jax_reader("native" | "cv2")``
+    (skips "native" where its decoder is not built and cannot be)."""
+    from open_o3_video_tpu.data import video as JV
+
+    def force(name):
+        if name == "native" and not JV.is_native_available():
+            pytest.skip("the JAX package's native decoder is not available")
+        monkeypatch.setattr(JV, "get_video_reader_backend", lambda: name)
+        return JV
+
+    return force

@@ -3,9 +3,11 @@ GPU machine has neither, nor rouge_score or nltk). A subprocess blocks those
 imports, imports every module of the port, runs a tiny generate on the CPU
 (with a bf16 cache, and with an fp8 cache through the long-context path),
 one tiny SFT train step, a generate with an int4 decoder (K7's plain
-version), a judge call and one tiny PEFT GSPO step on a free-form example
-(its ROUGE reward scored), and checks that nothing of the JAX package was
-imported along the way."""
+version), a judge call, one tiny PEFT GSPO step on a free-form example (its
+ROUGE reward scored), and the SFT app's data path (a raw AVI and a PNG
+keyframe read by the port's reader, ``collate_sft_batch``) with one PEFT SFT
+step, and checks that nothing of the JAX package was imported along the
+way."""
 
 import os
 import subprocess
@@ -65,6 +67,11 @@ MODULES = [
     "open_o3_video_tpu_torch.train.gspo",
     "open_o3_video_tpu_torch.train.checkpoint",
     "open_o3_video_tpu_torch.train.grpo_main",
+    "open_o3_video_tpu_torch.train.launch",
+    "open_o3_video_tpu_torch.train.sft_main",
+    "open_o3_video_tpu_torch.native",
+    "open_o3_video_tpu_torch.native.video_decoder",
+    "open_o3_video_tpu_torch.data.raw_media",
 ]
 for m in MODULES:
     importlib.import_module(m)
@@ -137,6 +144,36 @@ trainer = GSPOTrainer(params.init(gcfg, 0, torch.device("cpu")), None, gcfg,
                       lora=LoraConfig(rank=2))
 m = trainer.step(sample, global_step=0, max_steps=1)
 assert trainer.last_step["use_vision"] and 0 < m["rewards/ans_acc_reward"] < 1, m
+# the SFT app's data path: a temporal-spatial example over a raw AVI and a PNG
+# keyframe written without an encoder, read by the port's reader, collated
+# and packed, then one PEFT SFT step
+import json, os, tempfile
+from open_o3_video_tpu_torch.data.raw_media import write_png, write_raw_avi
+from open_o3_video_tpu_torch.data.sft_dataset import (collate_sft_batch, load_sft_dataset,
+                                                      prepare_sft_example)
+from open_o3_video_tpu_torch.train import make_lora_train_step
+from open_o3_video_tpu_torch.train.lora import adapter_leaves, init_adapters
+with tempfile.TemporaryDirectory() as root:
+    for sub in ("videos/stgr/plm/videos", "videos/stgr/plm/kfs"):
+        os.makedirs(os.path.join(root, sub))
+    rgb = np.random.default_rng(1).integers(0, 256, (4, 28, 56, 3), dtype=np.uint8)
+    write_raw_avi(os.path.join(root, "videos/stgr/plm/videos/clip.avi"), rgb, 2.0)
+    write_png(os.path.join(root, "videos/stgr/plm/kfs/kf.png"), rgb[1])
+    with open(os.path.join(root, "sft.json"), "w") as f:
+        json.dump([{"task": "temporal-spatial free-form QA", "source": "STR_plm_rdcap",
+                    "video_path": "clip.avi", "question": "What rolls?",
+                    "reasoning_process": "a <obj>ball</obj><box>[0.1,0.2,0.5,0.8]</box>",
+                    "answer": "a ball", "key_frames": [{"time": 0.5, "idx": 0, "path": "kf.png"}]}],
+                  f)
+    prepared = [prepare_sft_example(ex, root) for ex in load_sft_dataset(os.path.join(root, "sft.json"))]
+    sft_batch = collate_sft_batch(prepared, proc, cfg, root, nframes=2)
+assert len(sft_batch["grid_thw"]) == 3, sft_batch["grid_thw"]  # 2 frames and the keyframe
+base = params.init(cfg, 0, torch.device("cpu"))
+adapters = init_adapters(base, LoraConfig(rank=2), dtype=torch.float32)
+opt = make_optimizer(SFTConfig(learning_rate=1e-3))
+state = opt.init(adapter_leaves(adapters))
+_, state, m = make_lora_train_step(cfg, SFTConfig(), opt, 2.0)(adapters, state, sft_batch, base)
+assert state["count"] == 1 and torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
 assert sys.modules["jax"] is None and sys.modules["PIL"] is None
 assert sys.modules["rouge_score"] is None and sys.modules["nltk"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]

@@ -18,12 +18,11 @@ image written with OpenCV under ``tmp_path`` in the reference's media layout.
 import copy
 import json
 import os
-import sys
 
 import numpy as np
 import pytest
 
-from _torch_parity import rng
+from _torch_parity import no_video_reader, rng  # noqa: F401
 
 from open_o3_video_tpu_torch.data import rl_dataset as TD
 from open_o3_video_tpu_torch.data import video as TV
@@ -181,8 +180,8 @@ def test_images_read_as_pil_reads_them(data_root, tmp_path):
         assert np.abs(ours.astype(int) - pil.astype(int)).max() <= 1
 
 
-def test_prepare_without_cv2_says_so(data_root, monkeypatch):
-    monkeypatch.setitem(sys.modules, "cv2", None)
+def test_prepare_without_cv2_says_so(data_root, no_video_reader):
+    """Neither cv2 nor the native decoder: an ImportError naming cv2."""
     for example in (EXAMPLES[1], EXAMPLES[3]):
         with pytest.raises(ImportError, match="cv2"):
             TD.prepare_rl_sample(example, O3VideoProcessor(), data_root, nframes=4)

@@ -2,7 +2,8 @@
 ops/resize.py) against the JAX package's data/video.py: the reading plan
 (frame count, indices, trim window, sample fps, resized size), the decoded
 frames, and the bicubic resize within one LSB of PIL's; and the inference
-script's --video, which reads with OpenCV or exits naming what is missing.
+script's --video, which reads with the native decoder or OpenCV or exits
+naming what is missing.
 """
 
 import os
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import REPO_ROOT, frames, rng
+from _torch_parity import REPO_ROOT, frames, no_video_reader, rng  # noqa: F401
 
 from open_o3_video_tpu_torch.data import video as TV
 from open_o3_video_tpu_torch.ops.resize import resize_frames
@@ -108,27 +109,37 @@ def test_resize_within_one_lsb_of_pil(src, dst, kind):
     assert np.abs(ours - theirs).max() <= 1.0
 
 
-def test_fetch_video_names_a_missing_reader(monkeypatch):
-    monkeypatch.setitem(sys.modules, "cv2", None)
+def test_fetch_video_names_a_missing_reader(no_video_reader):
     with pytest.raises(ImportError, match="cv2"):
         TV.fetch_video({"video": "any.mp4", "nframes": 4})
 
 
-# Runs a script (argv[1]) with cv2 importable or blocked (argv[2]; the card's
-# machine has no cv2), then says whether the JAX package was imported.
+# Runs a script (argv[1]) with cv2 importable, blocked, or blocked with the
+# native decoder reported as missing its libav too (argv[2]), then says
+# whether the JAX package was imported.
 RUN_SCRIPT = (
     "import runpy, sys\n"
     "script, mode = sys.argv.pop(1), sys.argv.pop(1)\n"
     "sys.argv[0] = script\n"
-    "if mode == 'blocked':\n"
+    "if mode in ('blocked', 'none'):\n"
     "    sys.modules['cv2'] = None\n"
+    "if mode == 'none':\n"
+    "    import open_o3_video_tpu_torch.native.video_decoder as vd\n"
+    "    vd.missing = lambda: ['libavformat/avformat.h']\n"
     "runpy.run_path(script, run_name='__main__')\n"
     "print('JAX package imported:', any(m.split('.')[0] == 'open_o3_video_tpu' for m in sys.modules))\n"
 )
 
 
-@pytest.mark.parametrize("cv2", ["present", "blocked"])
+@pytest.mark.parametrize("cv2", ["present", "blocked", "none"])
 def test_inference_example_reads_a_video_with_the_port(cv2, synthetic_video):
+    """cv2 present: OpenCV or the native decoder reads the video; cv2
+    blocked: the native decoder does; neither reader: the script exits
+    naming them."""
+    from open_o3_video_tpu_torch.native import video_decoder
+
+    if cv2 == "blocked" and video_decoder.missing():
+        pytest.skip(f"the native decoder needs {video_decoder.missing()}")
     script = os.path.join(REPO_ROOT, "scripts", "inference_example_torch.py")
     proc = subprocess.run(
         [sys.executable, "-c", RUN_SCRIPT, script, cv2, "--tiny-demo", "--device", "cpu",
@@ -136,7 +147,7 @@ def test_inference_example_reads_a_video_with_the_port(cv2, synthetic_video):
         cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=REPO_ROOT),
     )
-    if cv2 == "present":
+    if cv2 != "none":
         assert proc.returncode == 0, proc.stderr[-3000:]
         assert "[tiny-demo on cpu: 2 tokens generated" in proc.stdout
         assert "JAX package imported: False" in proc.stdout
