@@ -134,6 +134,27 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      directory, over a two-example json (temporal-spatial, General video QA
      MCQ): run A 2 steps, run B 1 step, run C resuming B to 2; C's step 2
      loss and merged export must equal A's bit for bit.
+ 16. eval (16a after phase 15, before phase 11, on the phase-4 weights; 16b
+     after phase 13): two lossless AVIs of 640x360 frames written without
+     an encoder (20 s at 1 fps; 32 s at 2 fps); vstar.evaluate through the
+     port's QwenVLEngine (configs/eval/vstar.yaml, max_tokens cut to 64) on
+     3 items in V-STAR's layout, item_batch 2, one naming a missing video,
+     which must land in *_errors.json: 16 frames an item as images resized
+     to 336x588 (K2 at W = 1008), waves of at most 8 requests (seconds,
+     tower passes, stage seconds, peak GiB; K1, K2 and K3 launched);
+     evaluate again decoding eagerly and item 0's wave again graphed: each
+     wave's token ids equal, every row 64 tokens or ended by EOS (a
+     [decode] line); tvgbench.evaluate on 3 queries, one a chunk (duration
+     probed by the port's reader), graphed then eagerly: each chunk's
+     token ids equal;
+     evaluate_mcq_items_batched on a VideoMME-style item (video_mme.yaml:
+     64 frames, N = 2, confidence_voting) and run_images_scorer_batch on
+     the crops of a canned grounded trace (ratings in {-1, 0, 1, 2}); the
+     eval CLI (`vstar --device cuda`) in a subprocess on phase 10's cut
+     written as a checkpoint directory: the same items and keys. 16b: the
+     72B int4 judge of phase 13 scores the V-STAR results through
+     evaluate_json (empty answers filled with a canned one, counted): the
+     overall block (acc, mAM, mLGM) and K7's launches on both routes.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -154,6 +175,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -421,6 +443,35 @@ SFT_PEFT_KERNELS = GSPO_KERNELS[:2] + GSPO_KERNELS[3:]
 SFT_PEFT_ABSENT = ("fused_window_attention_exact", "window_attention_exact",
                    "fused_window_attention_bwd", "window_attention_bwd_dq",
                    "window_attention_bwd_dkv")
+# The eval path (phase 16): the reference's eval_all.sh (V-STAR inference,
+# then the Qwen2.5-72B judge), TVGBench and the MCQ core with TTS, through
+# the port's QwenVLEngine. A lossless AVI of 640x360 frames, 20 s at 1 fps:
+# V-STAR and TVGBench take 16 of them as images, resized to 336x588 (24x42
+# patches: K2 at W = 1008). A second one, 32 s at 2 fps, gives the
+# VideoMME-style item its 64 frames at video_mme.yaml's pixels.
+EVAL_DIR = "checkpoints/chip_smoke_eval"  # in the checkout (gitignored), removed after
+EVAL_H, EVAL_W, EVAL_SECONDS, EVAL_FPS = 360, 640, 20, 1.0
+MCQ_SECONDS, MCQ_FPS = 32, 2.0
+# vstar.yaml's 2048 new tokens cut to this: random weights never emit EOS.
+EVAL_MAX_TOKENS = 64
+EVAL_ITEM_BATCH = 2
+EVAL_KERNELS = SLICE_KERNELS
+TVG_QUERIES = ("the bowling ball rolls down the lane", "the pins fall", "the bowler walks back")
+MCQ_QUESTION = ("What rolls down the lane?\nA. a bowling ball\nB. a cup\nC. a dog\nD. nothing\n"
+                "Answer with the option's letter.")
+MCQ_OPTIONS = ["A. a bowling ball", "B. a cup", "C. a dog", "D. nothing"]
+# One grounded trace over the MCQ item's frames (224x420 at 2 fps), as the
+# model would write it: its evidence crops go to run_images_scorer_batch,
+# which random weights never reach through the harness (they write no
+# <answer>).
+TTS_TRACE = ("<think>The <obj>bowling ball</obj><box>[100,60,220,160]</box>at<t>2.0</t>s "
+             "rolls toward the <obj>pins</obj><box>[300,20,410,120]</box>at<t>10.5</t>s, and the "
+             "<obj>lane</obj><box>[0,100,420,224]</box>at<t>20.0</t>s is empty after.</think>"
+             "<answer>A</answer>")
+# Random weights decode to ids above the byte range, which the ByteTokenizer
+# drops, so a VQA answer may come out empty and would not reach the judge:
+# 16b scores 16a's results file with each empty answer_vqa replaced by this.
+JUDGE_FILL_ANSWER = "A bowling ball rolls down the lane."
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores and HBM3. The bound of a kernel is the larger of
 # its operations and its bytes at these rates.
@@ -1946,6 +1997,332 @@ def sft_app_phase(params, cfg, proc, seed: int) -> dict:
     return launches
 
 
+# ---- eval ----------------------------------------------------------------------
+
+
+def _vstar_item(idx: int, path: str) -> dict:
+    """An item in V-STAR's annotation layout over the eval AVI."""
+    return {"vid": f"item{idx}", "video_path": path, "domain": "sports",
+            "question": "What is the color of the bowling ball?",
+            "temporal_question": "When does the bowling ball reach the pins?",
+            "spatial_question": "Where is the bowling ball?",
+            "spatial_question_2": "Where is the bowling ball when it hits the pins?",
+            "answer": "The bowling ball is red.", "timestamps": [4.0, 9.0],
+            "frame_count": int(EVAL_SECONDS * EVAL_FPS), "fps": EVAL_FPS,
+            "width": EVAL_W, "height": EVAL_H,
+            "bboxes": [{"timestamp": 5, "xmin": 250, "ymin": 120, "xmax": 330, "ymax": 200},
+                       {"timestamp": 8, "xmin": 420, "ymin": 90, "xmax": 480, "ymax": 150}]}
+
+
+def eval_data(seed: int) -> dict:
+    """16a.1: the two AVIs (written without an encoder), V-STAR's 3-item
+    annotation file (two items over the AVI, one naming a missing video)
+    and TVGBench's (three queries over the AVI, no duration: it is probed)."""
+    rng = np.random.default_rng(seed + 16)
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    os.makedirs(f"{EVAL_DIR}/videos")
+    avi, mcq_avi = f"{EVAL_DIR}/videos/bowling.avi", f"{EVAL_DIR}/videos/mcq.avi"
+    t0 = time.perf_counter()
+    n = int(EVAL_SECONDS * EVAL_FPS)
+    write_raw_avi(avi, rng.integers(0, 256, size=(n, EVAL_H, EVAL_W, 3), dtype=np.uint8), EVAL_FPS)
+    n_mcq = int(MCQ_SECONDS * MCQ_FPS)
+    write_raw_avi(mcq_avi, rng.integers(0, 256, size=(n_mcq, EVAL_H, EVAL_W, 3), dtype=np.uint8),
+                  MCQ_FPS)
+    anno = [_vstar_item(0, avi), _vstar_item(1, f"{EVAL_DIR}/videos/missing.avi"),
+            _vstar_item(2, avi)]
+    with open(f"{EVAL_DIR}/vstar.json", "w") as f:
+        json.dump(anno, f)
+    with open(f"{EVAL_DIR}/tvgbench.json", "w") as f:
+        json.dump([{"video": "bowling.avi", "query": q, "timestamps": [4.0, 9.0]}
+                   for q in TVG_QUERIES], f)
+    log("eval", wrote=[avi, mcq_avi], frames=[n, n_mcq], size=f"{EVAL_W}x{EVAL_H}",
+        mb=[round(os.path.getsize(x) / 2**20, 3) for x in (avi, mcq_avi)],
+        write_s=round(time.perf_counter() - t0, 3))
+    return {"avi": avi, "mcq_avi": mcq_avi, "anno": anno}
+
+
+def eval_config(name: str) -> dict:
+    """configs/eval/<name> as the CLI reads it, max_tokens cut to
+    EVAL_MAX_TOKENS (printed)."""
+    from open_o3_video_tpu_torch.eval import cli
+
+    kwargs = cli.read_flat_yaml(f"configs/eval/{name}")
+    log("eval", config=name, max_tokens=f"{kwargs['max_tokens']} cut to {EVAL_MAX_TOKENS}",
+        **{k: v for k, v in kwargs.items() if k != "max_tokens"})
+    return {**kwargs, "max_tokens": EVAL_MAX_TOKENS}
+
+
+def _waves_line(model, since: int) -> dict:
+    waves = model.waves[since:]
+    return {"waves": len(waves), "requests_per_wave": [w["requests"] for w in waves],
+            "tower_passes_per_wave": [w["tower_passes"] for w in waves],
+            "seconds_per_wave": [round(w["seconds"], 3) for w in waves],
+            "stage_seconds_per_wave": [{k: round(v, 3) for k, v in w["stage_seconds"].items()}
+                                       for w in waves]}
+
+
+@contextlib.contextmanager
+def recording(engine):
+    """The token ids of every ``engine.generate`` call (a wave) made while
+    the block runs, one list of rows per call."""
+    calls: list[list[list[int]]] = []
+    generate = engine.generate
+
+    def recorded(*args, **kw):
+        outs = generate(*args, **kw)
+        calls.append([o["token_ids"] for o in outs])
+        return outs
+
+    engine.generate = recorded
+    try:
+        yield calls
+    finally:
+        del engine.generate
+
+
+def check_rows(path: str, calls, budget: int, eos: int) -> int:
+    """Every row of ``calls`` holds tokens and ran to ``budget`` or to an
+    EOS, so that a graphed/eager comparison of them compares real tokens.
+    Returns the number of rows."""
+    rows = [row for call in calls for row in call]
+    short = [len(r) for r in rows if not r or (len(r) != budget and r[-1] != eos)]
+    if not rows or short:
+        raise RuntimeError(f"{path}: {len(rows)} rows, of which {len(short)} neither ran to "
+                           f"the budget of {budget} nor ended in EOS: lengths {short}")
+    return len(rows)
+
+
+def vstar_phase(params, cfg, data) -> tuple[object, str, list]:
+    """16a.2-3: vstar.evaluate with item_batch EVAL_ITEM_BATCH (the launch
+    counts set to 0 just before, read just after: K1, K2 and K3 > 0), the
+    missing video recorded in *_errors.json; evaluate again decoding
+    eagerly, and item 0's wave again graphed: each wave's token ids equal
+    those of the graphed evaluate, every row EVAL_MAX_TOKENS long. Returns
+    the model, the results file and the V-STAR launch counts."""
+    from open_o3_video_tpu_torch.eval import QwenVLEngine, vstar
+
+    model = QwenVLEngine(params, rt_shape=True, cfg=cfg, processor=O3VideoProcessor(),
+                         **eval_config("vstar.yaml"))
+    engine = model.engine
+    out = f"{EVAL_DIR}/vstar_results.json"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(engine) as graph_tokens:
+        results, graph = decode_run(engine, lambda: vstar.evaluate(
+            f"{EVAL_DIR}/vstar.json", f"{EVAL_DIR}/videos", model, out, item_batch=EVAL_ITEM_BATCH))
+    seconds = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES[name] for name in EVAL_KERNELS}
+    with open(f"{EVAL_DIR}/vstar_results_errors.json") as f:
+        errors = json.load(f)
+    log("eval", bench="vstar", items=len(data["anno"]), item_batch=EVAL_ITEM_BATCH,
+        results=len(results), errors=errors, seconds=round(seconds, 3), **_waves_line(model, 0),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), launches=launches)
+    inputs, size = vstar.prepare_item_inputs(data["anno"][0], data["avi"], model)
+    log("eval", bench="vstar", frame_size=size, prompt_tokens={
+        k: len(model._request_from_raw(x).input_ids) for k, x in inputs.items()})
+    log("eval", bench="vstar", answer_vqa_chars=[len(r["answer_vqa"]) for r in results],
+        answer_temporal=[r["answer_temporal"] for r in results],
+        answer_spatial=[r["answer_spatial"] for r in results])
+    if [r["vid"] for r in results] != ["item0", "item2"] or [e["vid"] for e in errors] != ["item1"]:
+        raise RuntimeError(f"V-STAR: expected items 0 and 2 scored and item 1 recorded, got "
+                           f"{[r['vid'] for r in results]} and {errors}")
+    if not all(launches.values()):
+        raise RuntimeError(f"V-STAR: a kernel of the path never launched: {launches}")
+    if any(w["requests"] > model.max_slots for w in model.waves):
+        raise RuntimeError(f"a wave exceeded {model.max_slots} requests: {model.waves}")
+    rows = check_rows("vstar evaluate", graph_tokens, EVAL_MAX_TOKENS, cfg.eos_token_id)
+
+    engine.decode_graph = False  # evaluate again, decoding eagerly: the reference
+    with recording(engine) as eager_tokens:
+        again, eager = decode_run(engine, lambda: vstar.evaluate(
+            f"{EVAL_DIR}/vstar.json", f"{EVAL_DIR}/videos", model,
+            f"{EVAL_DIR}/vstar_results_eager.json", item_batch=EVAL_ITEM_BATCH))
+    engine.decode_graph = True
+    log("eval", bench="vstar", rows=rows, waves_compared=len(graph_tokens),
+        eager_results_equal=again == results)
+    decode_pair("vstar evaluate", graph, eager, graph_tokens, eager_tokens)
+    if again != results:
+        raise RuntimeError("V-STAR: the eager evaluate's results differ from the graphed one's")
+
+    item = dict(data["anno"][0], original_index=0)
+    with recording(engine) as wave_tokens:  # item 0's wave again, without the prefetch thread
+        vstar.process_items_batched([item], f"{EVAL_DIR}/videos", model)
+    same = wave_tokens == eager_tokens[:1] == graph_tokens[:1]
+    log("eval", bench="vstar", item0_wave_again_equals_eager_and_evaluate=same)
+    if not same:
+        raise RuntimeError("V-STAR: item 0's wave run again graphed gave other tokens than in "
+                           "the eager and the graphed evaluate")
+    return model, out, launches
+
+
+def tvgbench_phase(model) -> None:
+    """16a.4: tvgbench.evaluate over the AVI (durations probed by the reader
+    the port picked), one item a chunk, so that each chunk's host work and
+    upload run on the prefetch thread while the engine captures and
+    replays the previous one; then again decoding eagerly: each chunk's
+    token ids equal, every row EVAL_MAX_TOKENS long."""
+    from open_o3_video_tpu_torch.eval import tvgbench
+
+    t0 = time.perf_counter()
+    duration = tvgbench.probe_duration(f"{EVAL_DIR}/videos/bowling.avi")
+    log("eval", bench="tvgbench", reader=TV.get_video_reader_backend(), duration_s=duration,
+        probe_ms=round(1e3 * (time.perf_counter() - t0), 3))
+    runs = {}
+    for graphed in (True, False):
+        model.engine.decode_graph = graphed
+        since = len(model.waves)
+        out = f"{EVAL_DIR}/tvgbench_{'graph' if graphed else 'eager'}.json"
+        t0 = time.perf_counter()
+        with recording(model.engine) as calls:
+            scores, decode = decode_run(model.engine, lambda: tvgbench.evaluate(
+                f"{EVAL_DIR}/tvgbench.json", f"{EVAL_DIR}/videos", model, out, item_batch=1))
+        with open(out) as f:
+            written = json.load(f)
+        runs[graphed] = calls, decode, [r["prediction_raw"] for r in written["results"]]
+        log("eval", bench="tvgbench", decode="graph" if graphed else "eager", chunks=len(calls),
+            seconds=round(time.perf_counter() - t0, 3), scores=scores, **_waves_line(model, since))
+        if written["errors"] or len(written["results"]) != len(TVG_QUERIES):
+            raise RuntimeError(f"TVGBench: {len(written['results'])} results, errors "
+                               f"{written['errors']}")
+    model.engine.decode_graph = True
+    (graph_tokens, graph, graph_raw), (eager_tokens, eager, eager_raw) = runs[True], runs[False]
+    check_rows("tvgbench", graph_tokens, EVAL_MAX_TOKENS, model.cfg.eos_token_id)
+    if len(graph_tokens) != len(TVG_QUERIES):
+        raise RuntimeError(f"TVGBench: {len(graph_tokens)} engine calls, expected one a chunk")
+    decode_pair("tvgbench", graph, eager, graph_tokens, eager_tokens)
+    if graph_raw != eager_raw:
+        raise RuntimeError("TVGBench: the graphed run's predictions differ from the eager run's")
+    if duration != EVAL_SECONDS:
+        raise RuntimeError(f"TVGBench: the probe read {duration} s, expected {EVAL_SECONDS}")
+
+
+def mcq_phase(params, cfg, data) -> None:
+    """16a.5: evaluate_mcq_items_batched on one VideoMME-style item
+    (video_mme.yaml's pixels and 64 frames, N = 2, confidence_voting), then
+    run_images_scorer_batch on the crops tts.extract_and_crop makes from
+    TTS_TRACE over the item's frames: ratings in {-1, 0, 1, 2}."""
+    from open_o3_video_tpu_torch.eval import QwenVLEngine, evaluate_mcq_items_batched, tts
+    from open_o3_video_tpu_torch.grounding.tags import parse_evidence_patterns
+
+    model = QwenVLEngine(params, rt_shape=True, cfg=cfg, processor=O3VideoProcessor(),
+                         **eval_config("video_mme.yaml"))
+    spec = {"video_path": data["mcq_avi"], "text_input": MCQ_QUESTION, "image": None,
+            "doc": {"question": MCQ_QUESTION, "options": MCQ_OPTIONS}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepared = model.prepare_paths_batch([(spec["video_path"], spec["text_input"], None)])
+    prep_s = time.perf_counter() - t0
+    _, frames, fps, shape = prepared[0]
+    t0 = time.perf_counter()
+    out = evaluate_mcq_items_batched(model, [spec], N=2, vote="confidence_voting",
+                                     prepared=prepared)[0]
+    seconds = time.perf_counter() - t0
+    log("eval", bench="mcq", frames=list(frames.shape), sample_fps=fps, frame_shape=shape,
+        prompt_tokens=len(prepared[0][0].input_ids), prepare_s=round(prep_s, 3),
+        seconds=round(seconds, 3), pred=out["pred"], choice_score=out["choice_score"],
+        path_chars=[len(p) for p in out["paths"]], **_waves_line(model, 0))
+    crops = tts.extract_and_crop(frames, fps, parse_evidence_patterns(TTS_TRACE))
+    msgs = tts.build_image_scorer_msgs(crops, MCQ_QUESTION)
+    t0 = time.perf_counter()
+    ratings = model.run_images_scorer_batch([(msgs, crops), (msgs, crops)])
+    log("eval", bench="tts", crops=[list(c.shape) for c in crops], ratings=ratings,
+        weights=[tts.relevance_mapping(r) for r in ratings],
+        seconds=round(time.perf_counter() - t0, 3))
+    if len(out["paths"]) != 2 or frames.shape[0] != 64 or len(crops) != 3:
+        raise RuntimeError(f"MCQ: {len(out['paths'])} paths, {frames.shape[0]} frames, "
+                           f"{len(crops)} crops")
+    if not all(r in (-1, 0, 1, 2) for r in ratings):
+        raise RuntimeError(f"TTS ratings outside {{-1, 0, 1, 2}}: {ratings}")
+
+
+def eval_cli_phase(params, cfg, results_file: str) -> None:
+    """16a.6: `python -m open_o3_video_tpu_torch.eval.cli vstar --device cuda`
+    in a subprocess on phase 10's cut of the model written as a checkpoint
+    directory (no tokenizer files), with vstar.yaml cut as in 16a.2. Its
+    results file must hold the same items with the same keys as 16a.2's."""
+    small_cfg = _cut_cfg(cfg, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS)
+    model = f"{EVAL_DIR}/model"
+    t0 = time.perf_counter()
+    CKPT.export_safetensors(_sub(params, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS), small_cfg, model)
+    write_s = time.perf_counter() - t0
+    with open(f"{EVAL_DIR}/vstar_cut.yaml", "w") as f:
+        f.write("".join(f"{k}: {v}\n" for k, v in eval_config("vstar.yaml").items()))
+    out = f"{EVAL_DIR}/cli_results.json"
+    cmd = [sys.executable, "-m", "open_o3_video_tpu_torch.eval.cli", "vstar", "--model_path", model,
+           "--config", f"{EVAL_DIR}/vstar_cut.yaml", "--anno", f"{EVAL_DIR}/vstar.json",
+           "--video_folder", f"{EVAL_DIR}/videos", "--output", out,
+           "--item_batch", str(EVAL_ITEM_BATCH), "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    tail = [x for x in proc.stdout.splitlines() if x.startswith(("[eval]", "V-STAR", "1 items"))]
+    log("eval", bench="cli", cmd=" ".join(cmd[1:]), rc=proc.returncode, seconds=round(seconds, 3),
+        checkpoint_write_s=round(write_s, 3), lines=tail)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the eval CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    with open(results_file) as f:
+        ref = json.load(f)
+    same = ([r["vid"] for r in got] == [r["vid"] for r in ref]
+            and [sorted(r) for r in got] == [sorted(r) for r in ref])
+    log("eval", bench="cli", same_items_and_keys=same, items=[r["vid"] for r in got])
+    if not same:
+        raise RuntimeError("the CLI's results file differs in items or keys from evaluate's")
+
+
+def eval_phase(params, cfg, seed: int) -> tuple[str, dict]:
+    """Phase 16a on the 7B: the data, V-STAR, TVGBench, the MCQ item with
+    TTS scoring, the CLI. Returns the V-STAR results file (for 16b) and
+    V-STAR's launch counts."""
+    data = eval_data(seed)
+    model, results_file, launches = vstar_phase(params, cfg, data)
+    tvgbench_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    mcq_phase(params, cfg, data)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eval_cli_phase(params, cfg, results_file)
+    return results_file, launches
+
+
+def judge_eval_phase(judge, results_file: str) -> None:
+    """16b: judge.evaluate_json on 16a's V-STAR results file (each empty
+    answer_vqa filled with JUDGE_FILL_ANSWER, counted), the launch counts
+    set to 0 just before: the overall block and K7's launches, > 0 on both
+    routes."""
+    from open_o3_video_tpu_torch.eval import evaluate_json
+
+    with open(results_file) as f:
+        items = json.load(f)
+    filled = sum(not it["answer_vqa"] for it in items)
+    for it in items:
+        it["answer_vqa"] = it["answer_vqa"] or JUDGE_FILL_ANSWER
+    scored = f"{EVAL_DIR}/vstar_results_judged.json"
+    with open(scored, "w") as f:
+        json.dump(items, f)
+    lines: list[str] = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = evaluate_json(scored, judge, log=lines.append)
+    torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in K7_ROUTES}
+    overall = stats["overall"]
+    log("eval", bench="vstar-judge", items=len(items), answers_filled=filled,
+        seconds=round(time.perf_counter() - t0, 3),
+        vqa_scores=[it.get("VQA_score") for it in stats["scored_items"]],
+        acc=overall["acc"], mAM=overall["mAM"], mLGM=overall["mLGM"],
+        avg_all_rating=overall["avg_all_rating"], k7_launches=launches)
+    log("eval", bench="vstar-judge", overall_block=lines[:12])
+    if not all(launches.values()):
+        raise RuntimeError(f"the judge's evaluate_json did not launch K7 on both routes: {launches}")
+    if not all(np.isfinite(overall[k]) for k in ("acc", "mAM", "mLGM")):
+        raise RuntimeError(f"evaluate_json gave non-finite composites: {overall}")
+
+
 # ---- int4 serving ------------------------------------------------------------
 
 
@@ -2110,9 +2487,10 @@ def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
     return launches
 
 
-def judge_phase(dev, seed) -> dict:
+def judge_phase(dev, seed, results_file: str) -> dict:
     """Qwen2.5-72B-Instruct in int4 on the card through EngineJudge.batch,
-    twice. Returns K7's launch counts by route in the first call."""
+    twice, then (16b) evaluate_json on ``results_file``. Returns K7's launch
+    counts by route in the first call."""
     cfg = Qwen25VLConfig.from_hf_dict(QWEN25_72B_INSTRUCT_CONFIG)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2123,23 +2501,16 @@ def judge_phase(dev, seed) -> dict:
         init_s=round(time.perf_counter() - t0, 3),
         weights_gib=round(quant.param_bytes(params) / 2**30, 3),
         init_peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
-    judge = EngineJudge(params, JUDGE_NEW_TOKENS, cfg=cfg, processor=O3VideoProcessor())
+    judge = EngineJudge(params, max_new_tokens=JUDGE_NEW_TOKENS, cfg=cfg,
+                        processor=O3VideoProcessor())
     engine = judge.engine
     engine.generate([judge._request(*JUDGE_JOBS[0])],
                     dataclasses.replace(judge.sampling, max_tokens=2))  # warm-up
-    tokens = []  # each judge call's token ids, for the graphed/eager comparison
-    generate = engine.generate
-
-    def recorded(*args, **kw):
-        outs = generate(*args, **kw)
-        tokens.append([o["token_ids"] for o in outs])
-        return outs
-
-    engine.generate = recorded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    scores, decode = decode_run(engine, lambda: judge.batch(list(JUDGE_JOBS)))
+    with recording(engine) as graph_tokens:  # for the graphed/eager comparison
+        scores, decode = decode_run(engine, lambda: judge.batch(list(JUDGE_JOBS)))
     e2e = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in K7_ROUTES}
     k3_launches = kernels.LAUNCHES["flash_attention_gqa"]
@@ -2155,11 +2526,14 @@ def judge_phase(dev, seed) -> dict:
         raise RuntimeError(f"K7 launched {launches} times by route in the judge call, "
                            f"expected {expected}")
     engine.decode_graph = False  # the second call decodes eagerly: the reference
-    again, eager = decode_run(engine, lambda: judge.batch(list(JUDGE_JOBS)))
-    decode_pair("judge", decode, eager, tokens[0], tokens[1])
+    with recording(engine) as eager_tokens:
+        again, eager = decode_run(engine, lambda: judge.batch(list(JUDGE_JOBS)))
+    decode_pair("judge", decode, eager, graph_tokens, eager_tokens)
     log("judge", identical_scores_across_calls=again == scores, scores_again=again)
     if again != scores:
         raise RuntimeError("two judge calls gave different scores")
+    engine.decode_graph = True
+    judge_eval_phase(judge, results_file)
     del judge, engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2254,6 +2628,17 @@ def main() -> None:
     sft_app_phase(params, cfg, proc, args.seed)
     log("sft_app", phases_seconds=round(time.perf_counter() - t0, 3))
 
+    # eval: V-STAR, TVGBench, the MCQ core with TTS and the CLI on the 7B
+    t0 = time.perf_counter()
+    try:
+        results_file, eval_launches = eval_phase(params, cfg, args.seed)
+    except BaseException:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("eval", phases_seconds=round(time.perf_counter() - t0, 3), launches=eval_launches)
+
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()
     int4_kernel_phase(dev, gen, len(reqs) * max(rows), results)
@@ -2271,7 +2656,10 @@ def main() -> None:
     del qparams, bf16_logits
     gc.collect()
     torch.cuda.empty_cache()
-    judge_launches = judge_phase(dev, args.seed)
+    try:
+        judge_launches = judge_phase(dev, args.seed, results_file)
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
     log("int4", phases_seconds=round(time.perf_counter() - t0, 3), judge_k7_launches=judge_launches)
 
     log("total", seconds=round(time.perf_counter() - t_start, 3))

@@ -203,10 +203,18 @@ class O3VideoProcessor:
             grid_thw=np.asarray(grids, dtype=np.int64),
         )
 
-    def __call__(self, text: str, images: Optional[Sequence[Any]] = None) -> ProcessedInputs:
+    def __call__(self, text: str, images: Optional[Sequence[Any]] = None,
+                 precomputed_vision: Optional[ProcessedInputs] = None) -> ProcessedInputs:
         """Expand each <|image_pad|> to t*h*w / merge_size^2 tokens of its
-        image (single frames CHW / 1xCHW, or frame stacks TCHW) and tokenize."""
-        vision = self.process_images(images) if images else None
+        image (single frames CHW / 1xCHW, or frame stacks TCHW) and tokenize.
+        ``precomputed_vision`` (from :meth:`process_images`) skips the
+        patchify and is reused as it is: the result holds the very same
+        ``pixel_patches`` object, so the engine, which encodes one tower pass
+        per distinct patch object, encodes requests over the same frames
+        once."""
+        vision = precomputed_vision
+        if vision is None and images:
+            vision = self.process_images(images)
 
         if vision is not None:
             merge_unit = self.merge_size**2

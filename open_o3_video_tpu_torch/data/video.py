@@ -10,8 +10,11 @@ imports PIL).
 - ``fetch_video``: decode a file with the selected reader, then the
   PIL-parity bicubic resize of ``ops/resize.py`` instead of PIL;
 - ``read_image`` / ``fetch_image``: an image file (a keyframe, a GQA image)
-  read as PIL's ``convert("RGB")`` gives it, resized the same way (PIL's
-  ``Image.resize`` default for RGB is bicubic).
+  read as PIL's ``convert("RGB")`` gives it, or an HWC uint8 frame already
+  in memory, resized the same way (PIL's ``Image.resize`` default for RGB
+  is bicubic);
+- ``process_vision_info``: the images and videos of chat messages, as the
+  eval harnesses pass them.
 
 Video readers, as the JAX package selects them: ``native``, the C++ libav
 decoder of ``native/video_decoder.py`` (built at first use), when it is
@@ -316,11 +319,66 @@ def resize_image(img_hwc: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def fetch_image(ele: dict, size_factor: int = IMAGE_FACTOR) -> np.ndarray:
-    """Read and smart-resize one image file (``ele["image"]``, a path, and
-    optional ``min_pixels``/``max_pixels``) as the JAX package's
-    ``fetch_image`` does: CHW uint8 RGB."""
-    img = read_image(ele["image"])
-    h, w = smart_resize(img.shape[0], img.shape[1], factor=size_factor,
-                        min_pixels=ele.get("min_pixels", MIN_PIXELS),
-                        max_pixels=ele.get("max_pixels", MAX_PIXELS))
+    """Smart-resize one image as the JAX package's ``fetch_image`` does:
+    ``ele["image"]`` (or ``ele["image_url"]``) is a file path or an
+    in-memory HWC uint8 RGB frame; ``resized_height``/``resized_width`` or
+    ``min_pixels``/``max_pixels`` set the size. Returns CHW uint8 RGB."""
+    image = ele.get("image", ele.get("image_url"))
+    if isinstance(image, np.ndarray):
+        if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+            raise ValueError(f"an in-memory image must be HWC uint8 RGB, got {image.dtype} "
+                             f"{image.shape}")
+        img = image
+    elif isinstance(image, str):
+        if image.startswith(("http://", "https://")):
+            raise ValueError("remote image URLs are not supported")
+        img = read_image(image)
+    else:
+        raise ValueError(f"an image is a file path or an HWC uint8 array, got {type(image)}")
+    if "resized_height" in ele and "resized_width" in ele:
+        h, w = smart_resize(ele["resized_height"], ele["resized_width"], factor=size_factor)
+    else:
+        h, w = smart_resize(img.shape[0], img.shape[1], factor=size_factor,
+                            min_pixels=ele.get("min_pixels", MIN_PIXELS),
+                            max_pixels=ele.get("max_pixels", MAX_PIXELS))
     return resize_image(img, h, w)
+
+
+def extract_vision_info(conversations) -> list[dict]:
+    """The image and video content elements of one conversation or a batch
+    of them, in order."""
+    vision_infos = []
+    if isinstance(conversations[0], dict):
+        conversations = [conversations]
+    for conversation in conversations:
+        for message in conversation:
+            if isinstance(message["content"], list):
+                for ele in message["content"]:
+                    if ("image" in ele or "image_url" in ele or "video" in ele
+                            or ele.get("type") in ("image", "image_url", "video")):
+                        vision_infos.append(ele)
+    return vision_infos
+
+
+def process_vision_info(conversations, return_video_kwargs: bool = False):
+    """(images, videos[, {"fps": [...]}]) of a batch of conversations, as the
+    JAX package's ``process_vision_info`` gives them: each image CHW uint8
+    (``fetch_image``), each video float32 TCHW at the model's resolution with
+    its sample fps (``fetch_video``, from a file path); None for an empty
+    list."""
+    images, videos, fps = [], [], []
+    for ele in extract_vision_info(conversations):
+        if "image" in ele or "image_url" in ele:
+            images.append(fetch_image(ele))
+        elif "video" in ele:
+            if not isinstance(ele["video"], str):
+                raise ValueError(f"a video is a file path, got {type(ele['video'])}")
+            video, sample_fps = fetch_video(ele)
+            videos.append(video)
+            fps.append(sample_fps)
+        else:
+            raise ValueError("image, image_url or video should in content.")
+    images, videos = images or None, videos or None
+    if return_video_kwargs:
+        return images, videos, {"fps": fps}
+    return images, videos

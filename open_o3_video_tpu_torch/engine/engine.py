@@ -49,6 +49,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any, Optional, Sequence
 
@@ -85,7 +86,7 @@ class SamplingParams:
 @dataclasses.dataclass
 class Request:
     input_ids: Sequence[int]
-    pixel_patches: Optional[np.ndarray] = None  # (S_patches, patch_dim)
+    pixel_patches: Optional[np.ndarray] = None  # (S_patches, patch_dim), or on the device
     grid_thw: Optional[np.ndarray] = None  # (num, 3)
     vision_token_id: Optional[int] = None
     # Fields of the JAX engine's Request that this engine does not serve
@@ -233,6 +234,10 @@ class InferenceEngine:
         self.decode_steps = 0
         self.decode_steps_wasted = 0
         self._stream = None  # the side stream decode runs on (a capture needs one)
+        # Held by a capture and by prestage_patches: under the default
+        # (global) capture mode, a copy or an allocation that another thread
+        # makes while a graph is being captured is illegal.
+        self._capture_lock = threading.Lock()
 
     def release_memory(self) -> None:
         """Free what a generate left behind. The engine keeps no cache or
@@ -390,7 +395,7 @@ class InferenceEngine:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(st.gen)
         before = collections.Counter(kernels.LAUNCHES)
-        with torch.profiler.record_function("engine.decode_capture"):
+        with torch.profiler.record_function("engine.decode_capture"), self._capture_lock:
             graph.capture_begin()
             try:
                 self._decode_step(st, sampling)
@@ -444,10 +449,20 @@ class InferenceEngine:
         st.token.copy_(nxt)
         st.col.add_(1)
 
+    def prestage_patches(self, patches_list: Sequence) -> list:
+        """Upload host patch arrays to the engine's device ahead of
+        ``generate`` (from a harness's prefetch thread, while another call
+        runs); ``None`` and tensors pass through. The uploads wait for a
+        decode capture in progress, and a capture waits for them."""
+        with self._capture_lock:
+            return [None if p is None else torch.as_tensor(p, device=self.device)
+                    for p in patches_list]
+
     def _encode_vision(self, requests: Sequence[Request], ids: np.ndarray):
         """One tower pass per distinct pixel array (requests passing the same
-        array share its encoding) -> ((n, L) row index into the concatenated
-        vision table, the table), or (None, None) without vision."""
+        array, or the same tensor from ``prestage_patches``, share its
+        encoding) -> ((n, L) row index into the concatenated vision table,
+        the table), or (None, None) without vision."""
         tables, offsets, tokens, at = [], [], [], {}
         total = 0
         for r in requests:
@@ -456,7 +471,7 @@ class InferenceEngine:
                 tokens.append(None)
                 continue
             if id(r.pixel_patches) not in at:
-                patches = torch.from_numpy(np.asarray(r.pixel_patches)).to(self.device)
+                patches = torch.as_tensor(r.pixel_patches, device=self.device)
                 vis = encode_vision(self.params, self.cfg, patches, np.asarray(r.grid_thw))
                 at[id(r.pixel_patches)] = total
                 tables.append(vis)

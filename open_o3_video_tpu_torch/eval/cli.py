@@ -1,0 +1,182 @@
+"""Evaluation CLI of the port (counterpart of ``open_o3_video_tpu/eval/cli.py``,
+with its flags and defaults):
+
+  python -m open_o3_video_tpu_torch.eval.cli vstar --model_path ... --anno ... --video_folder ...
+  python -m open_o3_video_tpu_torch.eval.cli vstar-judge --result_file ... --model_path <judge>
+  python -m open_o3_video_tpu_torch.eval.cli tvgbench --model_path ... --anno ... --video_folder ...
+
+``--device`` (default ``cuda``) picks the card; the CPU runs only when asked
+for (``--device cpu``). ``videomme``, ``worldsense`` and ``videommmu`` are
+accepted and refused: their dataloaders are not ported yet (ROADMAP M7,
+second half). ``--mesh_tensor``/``--mesh_data`` above 1 are refused (M8).
+``--config`` is read as the flat ``key: scalar`` form that every
+``configs/eval/*.yaml`` holds (``read_flat_yaml``, no PyYAML), which
+refuses anything else.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+
+import torch
+
+DEFAULT_CONFIGS = {
+    # reference: eval/config/*.yaml
+    "vstar": {"temperature": 0.0, "max_tokens": 2048, "video_max_pixels": 2097152, "video_max_frames": 16},
+    "tvgbench": {"temperature": 0.0, "max_tokens": 2048, "video_max_pixels": 2097152, "video_max_frames": 16},
+    "videomme": {"temperature": 0.0, "max_tokens": 8192, "video_max_pixels": 262144, "video_max_frames": 64},
+    "worldsense": {"temperature": 0.0, "max_tokens": 8192, "video_max_pixels": 262144, "video_max_frames": 64},
+    "videommmu": {"temperature": 0.0, "max_tokens": 8192, "video_max_pixels": 262144, "video_max_frames": 64},
+}
+NOT_PORTED = ("videomme", "worldsense", "videommmu")
+
+# The scalars a flat config may hold, each read as yaml.safe_load reads it;
+# any other value (YAML 1.1's yes/no/on/off, .inf, 1_000, flow or block
+# forms, escapes) is refused rather than read differently.
+_NULL = ("", "~", "null")
+_BOOLS = {"true": True, "True": True, "TRUE": True, "false": False, "False": False, "FALSE": False}
+_YAML11_WORDS = {"yes", "no", "on", "off", "null"}
+_INT = re.compile(r"[-+]?(0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"[-+]?[0-9]+\.[0-9]*([eE][-+][0-9]+)?$")
+_PLAIN = re.compile(r"[A-Za-z][A-Za-z0-9_./-]*$")
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?:\s+(.*))?$")
+
+
+def _scalar(text: str, where: str):
+    if text in _NULL:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text):
+        return float(text)
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"" and not set(text[1:-1]) & set("'\"\\"):
+        return text[1:-1]
+    if _PLAIN.match(text) and text.lower() not in _YAML11_WORDS:
+        return text
+    raise ValueError(f"{where}: {text!r} is not an int, float, bool, null or plain string")
+
+
+def read_flat_yaml(path: str) -> dict:
+    """A yaml file of ``key: scalar`` lines (comments and blank lines
+    allowed), each value read as ``yaml.safe_load`` reads it; anything else
+    (nesting, lists, anchors, block scalars, other scalar forms) raises
+    ValueError."""
+    out = {}
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            body = line.rstrip("\n").rstrip()
+            if not body.strip() or body.lstrip().startswith("#"):
+                continue
+            m = _KEY.match(body)
+            if m is None or m.group(1) in out:
+                raise ValueError(f"{path}:{n}: not a flat 'key: scalar' line: {body!r}")
+            value = (m.group(2) or "").strip()
+            if value[:1] not in ("'", '"'):
+                value = re.split(r"\s#", value, maxsplit=1)[0].strip()  # a trailing comment
+            out[m.group(1)] = _scalar(value, f"{path}:{n}")
+    return out
+
+
+def load_model_kwargs(args, bench: str) -> dict:
+    kwargs = dict(DEFAULT_CONFIGS[bench])
+    if args.config and os.path.exists(args.config):
+        kwargs.update(read_flat_yaml(args.config))
+    return kwargs
+
+
+def build_model(args, bench: str):
+    from .model_engine import QwenVLEngine
+
+    kwargs = load_model_kwargs(args, bench)
+    if args.load_in_int8:
+        kwargs["load_in_int8"] = True
+    if args.load_in_int4:
+        kwargs["load_in_int4"] = True
+    return QwenVLEngine(args.model_path, rt_shape=True, device=args.device, **kwargs)
+
+
+def check_args(args) -> None:
+    """Refuse what the port does not serve, before anything loads."""
+    if args.benchmark in NOT_PORTED:
+        raise SystemExit(f"{args.benchmark}: not ported yet (ROADMAP M7, second half)")
+    if args.mesh_tensor > 1 or args.mesh_data > 1:
+        raise SystemExit("--mesh_tensor/--mesh_data above 1: a device mesh is not ported yet "
+                         "(ROADMAP M8)")
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("eval: no CUDA device; pass --device cpu to evaluate on the CPU")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Benchmark evaluation")
+    parser.add_argument("benchmark", choices=["vstar", "vstar-judge", "videomme", "worldsense", "videommmu", "tvgbench"])
+    parser.add_argument("--model_path", required=True)
+    parser.add_argument("--config", default=None, help="yaml overriding model kwargs")
+    parser.add_argument("--anno", default=None, help="V-STAR annotation json")
+    parser.add_argument("--video_folder", default=None)
+    parser.add_argument("--data_dir", default=None)
+    parser.add_argument("--asr_dir", default=None)
+    parser.add_argument("--output", default=None)
+    parser.add_argument("--result_file", default=None, help="for vstar-judge")
+    parser.add_argument(
+        "--load_in_int8", action="store_true",
+        help="quantize the decoder's weights to int8 as they load",
+    )
+    parser.add_argument(
+        "--load_in_int4", action="store_true",
+        help="quantize the decoder's weights to group-128 int4 as they load (K7; the 72B "
+             "judge in ~40 GB on one card)",
+    )
+    parser.add_argument("--N", type=int, default=1)
+    parser.add_argument("--vote", default="majority_voting",
+                        choices=["majority_voting", "confidence_voting"])
+    parser.add_argument("--think_mode", type=lambda s: s.lower() != "false", default=True)
+    parser.add_argument("--add_asr", type=lambda s: s.lower() != "false", default=None)
+    parser.add_argument("--limit", type=int, default=None)
+    parser.add_argument("--mesh_tensor", type=int, default=1)
+    parser.add_argument("--mesh_data", type=int, default=1,
+                        help="data-parallel eval fleet width (refused above 1: ROADMAP M8)")
+    parser.add_argument("--slots_per_chip", type=int, default=8)
+    parser.add_argument(
+        "--item_batch", type=int, default=4,
+        help="items evaluated together through the engine (each engine call is "
+        "item_batch x N requests, in waves of 8)",
+    )
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default) or cpu, which runs only when asked for")
+    args = parser.parse_args(argv)
+    check_args(args)
+
+    if args.benchmark == "vstar":
+        from . import vstar
+
+        model = build_model(args, "vstar")
+        vstar.evaluate(
+            args.anno, args.video_folder, model,
+            args.output or "vstar_results.json",
+            think_mode=args.think_mode, limit=args.limit,
+            item_batch=args.item_batch,
+        )
+    elif args.benchmark == "vstar-judge":
+        from .judge import EngineJudge, evaluate_json
+
+        judge = EngineJudge(args.model_path, load_in_int8=args.load_in_int8,
+                            load_in_int4=args.load_in_int4, device=args.device)
+        evaluate_json(args.result_file, judge)
+    elif args.benchmark == "tvgbench":
+        from . import tvgbench
+
+        model = build_model(args, "tvgbench")
+        tvgbench.evaluate(
+            args.anno, args.video_folder, model,
+            args.output or "tvgbench_results.json",
+            think_mode=args.think_mode, limit=args.limit,
+            item_batch=args.item_batch,
+        )
+
+
+if __name__ == "__main__":
+    main()

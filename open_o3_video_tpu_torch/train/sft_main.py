@@ -32,10 +32,9 @@ from __future__ import annotations
 import argparse
 import os
 
+from ..data import DATA_ERRORS
 from .launch import check_one_device, train_device
 
-# The collate errors that mean "this batch's data is bad": skipped.
-DATA_ERRORS = (OSError, ValueError, KeyError)
 # safetensors dtype names -> torch dtype names
 _STORED_DTYPES = {"F32": "float32", "BF16": "bfloat16", "F16": "float16", "F64": "float64"}
 

@@ -105,8 +105,9 @@ def main() -> None:
             trainer.step(sample, global_step=1, max_steps=cs.GSPO_MAX_STEPS)
     elif args.judge:
         cfg = Qwen25VLConfig.from_hf_dict(QWEN25_72B_INSTRUCT_CONFIG)
-        judge = EngineJudge(P.init(cfg, 0, dev, quantize_text="int4"), cs.JUDGE_NEW_TOKENS,
-                            cfg=cfg, processor=O3VideoProcessor())
+        judge = EngineJudge(P.init(cfg, 0, dev, quantize_text="int4"),
+                            max_new_tokens=cs.JUDGE_NEW_TOKENS, cfg=cfg,
+                            processor=O3VideoProcessor())
         engine, reqs = judge.engine, [judge._request(*job) for job in cs.JUDGE_JOBS]
         engine.decode_graph = not args.eager
         sampling = dataclasses.replace(judge.sampling,

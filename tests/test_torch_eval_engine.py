@@ -1,0 +1,319 @@
+"""The port's eval path against the JAX package's on the same tiny weights
+(``_torch_parity.model_pair``), on the CPU: each package's ``QwenVLEngine``
+(f32 caches, greedy, repetition penalty 1.05, 8 new tokens) under its own
+harnesses: ``inference_wo_process_batch``, ``vstar.evaluate`` over raw AVIs
+(56x84 frames: no resize runs, so both packages see the same pixels) with a
+missing video, ``generate_paths_batch`` with N = 2, ``run_images_scorer_batch``,
+``tvgbench.evaluate`` and ``evaluate_mcq_items_batched`` under both votes.
+Tolerance: equal texts, scores and parsed fields. The tiny model writes no
+``<answer>``, so the voting arithmetic is held with a scripted model, as
+``tests/test_eval_e2e.py`` does. Then the port alone: waves of ``max_slots``
+(the texts of one engine call, each item's video encoded once per wave), a
+device error planted in ``engine.generate`` propagating out of every
+harness, the refused knobs, and the CLI's refusals. The JAX runs happen once,
+in a module-scoped fixture."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import model_pair, rng
+
+from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
+from open_o3_video_tpu_torch.data.raw_media import write_raw_avi
+from open_o3_video_tpu_torch.engine import engine as engine_module
+from open_o3_video_tpu_torch.eval import cli, mcq_harness, tts, tvgbench, vstar
+from open_o3_video_tpu_torch.eval.model_engine import QwenVLEngine
+
+MODEL_KW = dict(temperature=0.0, max_tokens=8, video_max_frames=2, cache_dtype="f32")
+QUESTION_BLOCK = "<|vision_start|><|image_pad|><|vision_end|>"
+
+
+def _vstar_item(idx, path):
+    return {"vid": f"item{idx}", "video_path": path, "question": "What is the object?",
+            "temporal_question": "When does it appear?", "spatial_question": "Where is it?",
+            "spatial_question_2": "Where is it exactly?", "timestamps": [1.0, 3.0],
+            "frame_count": 4, "fps": 1.0, "width": 168, "height": 112, "domain": "test",
+            "answer": "a ball",
+            "bboxes": [{"timestamp": 1, "xmin": 10, "ymin": 10, "xmax": 60, "ymax": 40}]}
+
+
+@pytest.fixture(scope="module")
+def media(tmp_path_factory):
+    """small.avi: 4 frames of 56x84 at 1 fps (V-STAR, TVGBench: frames as
+    images at their own size); wide.avi: 4 frames of 280x364 at 2 fps (MCQ:
+    a video within fetch_video's pixel budget, so not resized); the
+    annotation files; raw inputs; scorer crops; MCQ specs."""
+    d = tmp_path_factory.mktemp("eval_media")
+    r = rng(11)
+    small, wide = str(d / "small.avi"), str(d / "wide.avi")
+    write_raw_avi(small, r.integers(0, 256, (4, 56, 84, 3), dtype=np.uint8), 1.0)
+    write_raw_avi(wide, r.integers(0, 256, (4, 280, 364, 3), dtype=np.uint8), 2.0)
+    (d / "vstar.json").write_text(json.dumps(
+        [_vstar_item(0, small), _vstar_item(1, str(d / "missing.avi")), _vstar_item(2, small)]))
+    (d / "tvg.json").write_text(json.dumps([
+        {"video": "small.avi", "query": "the ball rolls", "timestamps": [0.5, 2.0], "duration": 4.0},
+        {"video": "missing.avi", "query": "x", "timestamps": [0.0, 1.0], "duration": 1.0},
+        {"video": small, "query": "a dog appears", "timestamps": [2.0, 3.5], "duration": 4.0}]))
+    frames = list(r.integers(0, 256, (2, 3, 56, 84), dtype=np.uint8))
+    raw = [{"prompt": f"<|im_start|>user\n{QUESTION_BLOCK * 2}What moves?<|im_end|>\n"
+                      "<|im_start|>assistant\n", "multi_modal_data": {"image": frames}},
+           {"prompt": "<|im_start|>user\nHello there<|im_end|>\n<|im_start|>assistant\n",
+            "multi_modal_data": {}},
+           {"prompt": f"<|im_start|>user\n{QUESTION_BLOCK * 2}Why?<|im_end|>\n"
+                      "<|im_start|>assistant\n", "multi_modal_data": {"image": frames}}]
+    crops = tts.extract_and_crop(frames, 1.0, [{"t_sec": 0.0, "box_xyxy": [4, 4, 40, 30]},
+                                               {"t_sec": 1.0, "box_xyxy": [20, 10, 84, 56]}])
+    specs = [{"video_path": wide, "text_input": "Which? A. ball B. cup C. dog D. none", "image": None,
+              "doc": {"question": "Which?", "options": ["A. ball", "B. cup", "C. dog", "D. none"]}},
+             {"video_path": wide, "text_input": "What first? A. x B. y", "image": None,
+              "doc": {"question": "What first?", "options": ["A. x", "B. y"]}, "choices": ("A", "B")}]
+    return {"dir": str(d), "small": small, "wide": wide, "raw": raw, "crops": crops, "specs": specs}
+
+
+def _port_model(**kw):
+    _, _, tcfg, tparams = model_pair(0)
+    return QwenVLEngine(tparams, rt_shape=True, cfg=tcfg,
+                        processor=O3VideoProcessor(tokenizer=ByteTokenizer.for_config(tcfg)),
+                        **{**MODEL_KW, **kw})
+
+
+def _run_all(model, vs, tg, media, out: str) -> dict:
+    """Every harness call the tests compare, through one package's model
+    and harness modules."""
+    d = media["dir"]
+    got = {"raw": model.inference_wo_process_batch([dict(x) for x in media["raw"]])}
+    got["vstar"] = vs.evaluate(f"{d}/vstar.json", d, model, f"{out}_vstar.json", item_batch=2)
+    with open(f"{out}_vstar_errors.json") as f:
+        got["vstar_errors"] = json.load(f)
+    items = [media["specs"][0], media["specs"][1]]
+    got["paths"] = [(o, shape) for o, _, _, shape in model.generate_paths_batch(
+        [(s["video_path"], s["text_input"], s["image"]) for s in items], 2)]
+    got["scores"] = model.run_images_scorer_batch(
+        [(tts.build_image_scorer_msgs(c, "What moves?"), c)
+         for c in (media["crops"], media["crops"][:1])])
+    got["tvg"] = tg.evaluate(f"{d}/tvg.json", d, model, f"{out}_tvg.json", item_batch=2)
+    with open(f"{out}_tvg.json") as f:
+        got["tvg_file"] = json.load(f)
+    return got
+
+
+@pytest.fixture(scope="module")
+def jax_runs(media, tmp_path_factory):
+    """The JAX package's QwenVLEngine and harnesses on the same weights, run
+    once: every call of ``_run_all``, and the MCQ harness under both votes."""
+    from open_o3_video_tpu.data.processor import ByteTokenizer as JaxTokenizer
+    from open_o3_video_tpu.data.processor import O3VideoProcessor as JaxProcessor
+    from open_o3_video_tpu.eval import mcq_harness as JH
+    from open_o3_video_tpu.eval import tvgbench as JG
+    from open_o3_video_tpu.eval import vstar as JV
+    from open_o3_video_tpu.eval.model_engine import QwenVLEngine as JaxEngine
+
+    jcfg, jparams, _, _ = model_pair(0)
+    model = JaxEngine(jparams, rt_shape=True, cfg=jcfg,
+                      processor=JaxProcessor(tokenizer=JaxTokenizer.for_config(jcfg)),
+                      prompt_buckets=(2048,), **MODEL_KW)
+    got = _run_all(model, JV, JG, media, str(tmp_path_factory.mktemp("jax") / "out"))
+    for vote in ("majority_voting", "confidence_voting"):
+        got[vote] = JH.evaluate_mcq_items_batched(model, media["specs"], N=2, vote=vote)
+    return got
+
+
+@pytest.fixture(scope="module")
+def port_runs(media, tmp_path_factory):
+    model = _port_model()
+    got = _run_all(model, vstar, tvgbench, media, str(tmp_path_factory.mktemp("port") / "out"))
+    for vote in ("majority_voting", "confidence_voting"):
+        got[vote] = mcq_harness.evaluate_mcq_items_batched(model, media["specs"], N=2, vote=vote)
+    return got
+
+
+@pytest.mark.parametrize("key", ["raw", "vstar", "vstar_errors", "paths", "scores", "tvg", "tvg_file",
+                                 "majority_voting", "confidence_voting"])
+def test_eval_path_matches_jax(jax_runs, port_runs, key):
+    """inference_wo_process_batch texts; vstar.evaluate's results (raw
+    texts and parsed fields, annotation order) and its errors file (the
+    missing video recorded); generate_paths_batch's N = 2 texts and frame
+    shapes (w, h); run_images_scorer_batch's ratings; tvgbench.evaluate's
+    scores and file; evaluate_mcq_items_batched under both votes."""
+    ours, theirs = port_runs[key], jax_runs[key]
+    if key in ("paths",):
+        theirs = [(list(o), tuple(int(x) for x in s)) for o, s in theirs]
+        ours = [(list(o), tuple(int(x) for x in s)) for o, s in ours]
+    if key in ("majority_voting", "confidence_voting"):
+        for o, t in zip(ours, theirs, strict=True):
+            assert tuple(o.pop("frame_shape")) == tuple(t.pop("frame_shape"))
+    assert ours == theirs
+    if key == "vstar":
+        assert [r["original_index"] for r in ours] == [0, 2]
+        assert all(r["answer_vqa"] for r in ours)
+    if key == "vstar_errors":
+        assert ours == [{"vid": "item1", "error": "video not found"}]
+    if key == "scores":
+        assert all(s in (-1, 0, 1, 2) for s in ours)
+    if key == "tvg":
+        assert ours["num_items"] == 2
+
+
+def test_process_items_batched_matches_the_evaluate_run(jax_runs, media):
+    """vstar.process_items_batched on the two readable items gives the
+    results JAX's evaluate wrote for them."""
+    items = json.loads(open(os.path.join(media["dir"], "vstar.json")).read())
+    for i, item in enumerate(items):
+        item["original_index"] = i
+    got = vstar.process_items_batched([items[0], items[2]], media["dir"], _port_model())
+    assert got == jax_runs["vstar"]
+
+
+class ScriptedModel:
+    """Grounded traces with a scripted answer per path, and scripted
+    evidence ratings: the voting arithmetic the tiny model cannot reach."""
+
+    video_max_frames = 4
+
+    def __init__(self, answers, ratings):
+        self.answers, self.ratings, self.calls = list(answers), list(ratings), 0
+
+    def __call__(self, video_paths, queries, query_image):
+        ans = self.answers[self.calls % len(self.answers)]
+        self.calls += 1
+        text = ("<think>I see the <obj>ball</obj><box>[10,10,60,60]</box>at<t>1.0</t>s"
+                f"</think><answer>{ans}</answer>") if ans != "none" else "no answer tag"
+        frames = np.zeros((4, 3, 56, 84), dtype=np.uint8)
+        return [text], frames, 1.0, (84, 56)
+
+    def run_images_scorer(self, msgs, images):
+        return self.ratings.pop(0) if self.ratings else -1
+
+
+@pytest.mark.parametrize("vote", ["majority_voting", "confidence_voting"])
+@pytest.mark.parametrize("answers,ratings", [(["A", "B", "B"], [2, 0, 0]), (["C", "none", "C", "A"],
+                                                                             [1, 2, 1, 2])])
+def test_mcq_voting_matches_jax_with_a_scripted_model(vote, answers, ratings):
+    from open_o3_video_tpu.eval import mcq_harness as JH
+
+    spec = {"video_path": "v.avi", "text_input": "Q?", "image": None,
+            "doc": {"question": "Q?", "options": ["A. a", "B. b", "C. c", "D. d"]}}
+    ours = mcq_harness.evaluate_mcq_items_batched(ScriptedModel(answers, ratings), [spec] * 2,
+                                                  N=len(answers), vote=vote)
+    theirs = JH.evaluate_mcq_items_batched(ScriptedModel(answers, ratings), [spec] * 2,
+                                           N=len(answers), vote=vote)
+    assert ours == theirs
+    assert sum(ours[0]["choice_score"].values()) > 0
+
+
+def test_waves_give_the_texts_of_one_call(media, monkeypatch):
+    """With max_slots = 4, the 10 queries of two V-STAR items run in waves
+    of 4, 4 and 2 and give the texts of one engine call of all 10; each wave
+    encodes each item's video once."""
+    model = _port_model(max_slots=4)
+    items = json.loads(open(os.path.join(media["dir"], "vstar.json")).read())
+    inputs = []
+    for item in (items[0], items[2]):
+        prepared, _ = vstar.prepare_item_inputs(item, item["video_path"], model)
+        inputs += [prepared[k] for k in vstar.QUERY_KEYS]
+    vis_memo: dict = {}
+    reqs = [model._request_from_raw(x, vis_memo) for x in inputs]
+    one_call = [model.processor.decode(o["token_ids"])
+                for o in model.engine.generate(reqs, model.sampling)]
+    passes = []
+    real = engine_module.encode_vision
+
+    def counted(*args, **kw):
+        passes.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(engine_module, "encode_vision", counted)
+    assert model.inference_wo_process_batch(inputs) == one_call
+    assert [w["requests"] for w in model.waves] == [4, 4, 2]
+    assert [w["tower_passes"] for w in model.waves] == [1, 2, 1]
+    assert len(passes) == 4
+
+
+@pytest.mark.parametrize("sizes,slots,expected", [
+    ([5, 5], 8, [8, 2]), ([5, 5], 4, [4, 4, 2]), ([2, 2, 2, 2, 2], 8, [8, 2]), ([3, 3, 3], 8, [8, 1]),
+    ([1] * 9, 8, [8, 1]), ([3, 6], 8, [8, 1]), ([9], 8, [8, 1])])
+def test_split_waves(sizes, slots, expected):
+    """Waves are full, in order: requests sharing one patch array (an
+    item's queries) are split where a wave fills."""
+    from open_o3_video_tpu_torch.engine import Request
+    from open_o3_video_tpu_torch.eval.waves import split_waves
+
+    reqs = []
+    for n in sizes:
+        patches = np.zeros((4, 8))
+        reqs += [Request([1], patches, np.array([[1, 2, 2]])) for _ in range(n)]
+    waves = split_waves(reqs, slots)
+    assert [len(w) for w in waves] == expected
+    assert [r for w in waves for r in w] == reqs
+
+
+def _planted(model, monkeypatch):
+    def fail(*args, **kw):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(model.engine, "generate", fail)
+
+
+def test_a_device_error_propagates_out_of_every_harness(media, monkeypatch, tmp_path):
+    """A RuntimeError raised by engine.generate (as a failed kernel launch
+    or an out-of-memory error raises) is not recorded as a failed item: it
+    propagates out of vstar.evaluate, tvgbench.evaluate (no per-item retry)
+    and iter_mcq_item_batches."""
+    model = _port_model()
+    _planted(model, monkeypatch)
+    d = media["dir"]
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        vstar.evaluate(f"{d}/vstar.json", d, model, str(tmp_path / "v.json"), item_batch=2)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        tvgbench.evaluate(f"{d}/tvg.json", d, model, str(tmp_path / "t.json"), item_batch=2)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        list(mcq_harness.iter_mcq_item_batches(model, media["specs"], 1, N=2))
+    assert not (tmp_path / "v.json").exists() and not (tmp_path / "t.json").exists()
+
+
+def test_a_missing_video_is_a_data_error_in_the_mcq_iterator(media):
+    """iter_mcq_item_batches yields a chunk whose video is missing as its
+    exception (OSError from the reader), for the caller's per-item
+    fallback, and goes on with the next chunk."""
+    model = _port_model()
+    bad = {**media["specs"][0], "video_path": os.path.join(media["dir"], "missing.avi")}
+    got = list(mcq_harness.iter_mcq_item_batches(model, [bad, media["specs"][1]], 1, N=1))
+    assert isinstance(got[0][1], OSError)
+    assert isinstance(got[1][1], list) and len(got[1][1]) == 1
+
+
+@pytest.mark.parametrize("knob", [{"prefix_cache_min": 256}, {"spec_decode": True},
+                                  {"decode_segment": 64}, {"a8_prefill": True}, {"max_kv_gb": 4.0},
+                                  {"prompt_buckets": (512,)}, {"quantize_vision": True},
+                                  {"mesh": object()}, {"batch_axis": "data"}])
+def test_unserved_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="M8" if set(knob) & {"mesh", "batch_axis"} else "M6"):
+        _port_model(**knob)
+
+
+def test_served_knobs_pass_through():
+    model = _port_model(cache_dtype="bf16", long_prefill_threshold=64, long_prefill_chunk=32,
+                        quantize_vision=False)
+    assert model.engine.cache_dtype == torch.bfloat16
+    assert (model.engine.long_prefill_threshold, model.engine.long_prefill_chunk) == (64, 32)
+    assert model.max_slots == 8 and model.sampling.repetition_penalty == 1.05
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["vstar", "--model_path", "m"], "--device cpu"),
+    (["tvgbench", "--model_path", "m"], "--device cpu"),
+    (["vstar-judge", "--model_path", "m", "--result_file", "r.json"], "--device cpu"),
+    (["videomme", "--model_path", "m", "--device", "cpu"], "M7"),
+    (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_tensor", "8"], "M8"),
+    (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_data", "2"], "M8")])
+def test_cli_refusals(monkeypatch, argv, message):
+    """The CLI refuses the CPU unless --device cpu is given (no card: as
+    here), the benchmarks not ported yet, and a mesh, before loading."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cli, "build_model", lambda *a: pytest.fail("a model was built"))
+    with pytest.raises(SystemExit, match=message):
+        cli.main(argv)

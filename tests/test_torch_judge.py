@@ -75,7 +75,7 @@ def test_batch_scores_and_tokens_match_jax_judge():
     theirs = JaxJudge(jparams, max_new_tokens=4, cfg=jcfg,
                       processor=JaxProcessor(tokenizer=JaxTokenizer.for_config(jcfg)))
     theirs.engine = JaxEngine(jparams, jcfg, prompt_buckets=(1024,), cache_dtype=jnp.float32)
-    ours = TJ.EngineJudge(tparams, 4, cfg=tcfg,
+    ours = TJ.EngineJudge(tparams, max_new_tokens=4, cfg=tcfg,
                           processor=O3VideoProcessor(tokenizer=ByteTokenizer.for_config(tcfg)))
     ours.engine = InferenceEngine(tparams, tcfg, cache_dtype=torch.float32)
     reqs = [ours._request(*job) for job in JOBS]
@@ -85,6 +85,30 @@ def test_batch_scores_and_tokens_match_jax_judge():
     jax_tokens = theirs.engine.generate([theirs._request(*job) for job in JOBS], theirs.sampling)
     assert tokens == [[int(t) for t in o["token_ids"]] for o in jax_tokens]
     assert ours.sampling.temperature == 0.0 and ours.sampling.repetition_penalty == 1.0
+
+
+def test_batch_runs_in_waves_of_the_jax_engines_slots():
+    """batch over 9 jobs makes two engine calls, of 8 and 1 jobs, and gives
+    the scores of one call per job."""
+    from _torch_parity import model_pair
+
+    from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
+
+    _, _, tcfg, tparams = model_pair(0)
+    judge = TJ.EngineJudge(tparams, max_new_tokens=1, cfg=tcfg,
+                           processor=O3VideoProcessor(tokenizer=ByteTokenizer.for_config(tcfg)))
+    jobs = [(f"Question {i}?", "red", "blue" * (i % 3)) for i in range(9)]
+    calls = []
+    generate = judge.engine.generate
+
+    def recorded(reqs, sampling):
+        calls.append(len(reqs))
+        return generate(reqs, sampling)
+
+    judge.engine.generate = recorded
+    scores = judge.batch(jobs)
+    assert calls == [8, 1]
+    assert scores == [judge(*job) for job in jobs]
 
 
 def test_mesh_raises_until_ported():
@@ -131,7 +155,7 @@ def test_judge_loads_a_text_only_checkpoint_in_int4(tmp_path):
             p + "mlp.up_proj.weight": w(f, d), p + "mlp.down_proj.weight": w(d, f)})
     save_file(tensors, str(tmp_path / "model.safetensors"))
     tokenizer = ByteTokenizer.for_config(Qwen25VLConfig.from_hf_dict(hf))
-    judge = TJ.EngineJudge(str(tmp_path), 2, load_in_int4=True, device="cpu",
+    judge = TJ.EngineJudge(str(tmp_path), max_new_tokens=2, load_in_int4=True, device="cpu",
                            processor=O3VideoProcessor(tokenizer=tokenizer))
     params = judge.engine.params
     layer = params["text"]["layers"][1]

@@ -6,8 +6,9 @@ one tiny SFT train step, a generate with an int4 decoder (K7's plain
 version), a judge call, one tiny PEFT GSPO step on a free-form example (its
 ROUGE reward scored), and the SFT app's data path (a raw AVI and a PNG
 keyframe read by the port's reader, ``collate_sft_batch``) with one PEFT SFT
-step, and checks that nothing of the JAX package was imported along the
-way."""
+step, V-STAR over a raw AVI through the port's ``QwenVLEngine`` and the
+judge's ``evaluate_json`` on its results, and checks that nothing of the JAX
+package was imported along the way."""
 
 import os
 import subprocess
@@ -72,6 +73,15 @@ MODULES = [
     "open_o3_video_tpu_torch.native",
     "open_o3_video_tpu_torch.native.video_decoder",
     "open_o3_video_tpu_torch.data.raw_media",
+    "open_o3_video_tpu_torch.eval.metrics_vstar",
+    "open_o3_video_tpu_torch.eval.mcq",
+    "open_o3_video_tpu_torch.eval.tts",
+    "open_o3_video_tpu_torch.eval.mcq_harness",
+    "open_o3_video_tpu_torch.eval.model_engine",
+    "open_o3_video_tpu_torch.eval.waves",
+    "open_o3_video_tpu_torch.eval.vstar",
+    "open_o3_video_tpu_torch.eval.tvgbench",
+    "open_o3_video_tpu_torch.eval.cli",
 ]
 for m in MODULES:
     importlib.import_module(m)
@@ -123,7 +133,7 @@ assert isinstance(qweights["text"]["layers"][0]["down_w"], Int4Linear)
 out = InferenceEngine(qweights, qcfg).generate([Request(proc("Why?").input_ids)],
                                                SamplingParams(max_tokens=3))
 assert 1 <= len(out[0]["token_ids"]) <= 3, out
-judge = EngineJudge(qweights, 2, cfg=qcfg, processor=proc)
+judge = EngineJudge(qweights, max_new_tokens=2, cfg=qcfg, processor=proc)
 assert judge.batch([("What color?", "red", "blue")]) in ([-1], [0], [1], [2], [3])
 # one PEFT GSPO step: a free-form example through rl_sample_from_frames, the
 # seven rewards (ROUGE among them) on canned traces, the update
@@ -174,6 +184,26 @@ opt = make_optimizer(SFTConfig(learning_rate=1e-3))
 state = opt.init(adapter_leaves(adapters))
 _, state, m = make_lora_train_step(cfg, SFTConfig(), opt, 2.0)(adapters, state, sft_batch, base)
 assert state["count"] == 1 and torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
+# the eval path: V-STAR over a raw AVI through QwenVLEngine (frames by cv2),
+# then the judge's evaluate_json on its results file with the int4 judge
+from open_o3_video_tpu_torch.eval import QwenVLEngine, evaluate_json
+from open_o3_video_tpu_torch.eval import vstar
+with tempfile.TemporaryDirectory() as root:
+    write_raw_avi(os.path.join(root, "v.avi"), rgb[:2], 1.0)
+    item = {"vid": "v", "video_path": os.path.join(root, "v.avi"), "question": "What rolls?",
+            "temporal_question": "When?", "spatial_question": "Where?",
+            "spatial_question_2": "Where exactly?", "timestamps": [0.0, 1.0], "frame_count": 2,
+            "fps": 1.0, "width": 56, "height": 28, "answer": "a ball",
+            "bboxes": [{"timestamp": 0, "xmin": 1, "ymin": 1, "xmax": 9, "ymax": 9}]}
+    with open(os.path.join(root, "anno.json"), "w") as f:
+        json.dump([item], f)
+    model = QwenVLEngine(params.init(cfg, 0, torch.device("cpu")), cfg=cfg, processor=proc,
+                         max_tokens=2, video_max_frames=2)
+    out = os.path.join(root, "vstar_results.json")
+    results = vstar.evaluate(os.path.join(root, "anno.json"), root, model, out)
+    assert len(results) == 1 and "answer_spatial_pre_2" in results[0], results
+    stats = evaluate_json(out, judge, log=lambda s: None)
+    assert "mAM" in stats["overall"] and len(stats["scored_items"]) == 1, stats
 assert sys.modules["jax"] is None and sys.modules["PIL"] is None
 assert sys.modules["rouge_score"] is None and sys.modules["nltk"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
