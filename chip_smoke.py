@@ -151,7 +151,19 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      64 frames, N = 2, confidence_voting) and run_images_scorer_batch on
      the crops of a canned grounded trace (ratings in {-1, 0, 1, 2}); the
      eval CLI (`vstar --device cuda`) in a subprocess on phase 10's cut
-     written as a checkpoint directory: the same items and keys. 16b: the
+     written as a checkpoint directory: the same items and keys. 16c (after
+     the MCQ item, before the CLI): [tables] (pandas and pyarrow, which the
+     dataloaders read with); VideoMME (3 items, one ASR transcript),
+     WorldSense (3 items, one video truncated: recorded in its errors file;
+     the score xlsx read back) and VideoMMMU (one item per split, the
+     Adaptation item with a PNG query image) over synthetic datasets in
+     their layouts, 64-frame 640x360 AVIs named <id>.mp4, each harness
+     through a QwenVLEngine at its own yaml (max_tokens cut to 64),
+     item_batch 2: every item in its results file, K1, K2 and K3 launches
+     per wave (28 and 4 per tower pass, 28 per prefill), the Adaptation
+     request one grid entry longer than the frames alone; VideoMMMU again
+     eagerly: each wave's token ids equal; then the CLI step runs
+     `videommmu --device cuda` too: the same items and keys. 16b: the
      72B int4 judge of phase 13 scores the V-STAR results through
      evaluate_json (empty answers filled with a canned one, counted): the
      overall block (acc, mAM, mLGM) and K7's launches on both routes.
@@ -168,6 +180,7 @@ import contextlib
 import dataclasses
 import filecmp
 import gc
+import importlib
 import io
 import json
 import os
@@ -472,6 +485,45 @@ TTS_TRACE = ("<think>The <obj>bowling ball</obj><box>[100,60,220,160]</box>at<t>
 # drops, so a VQA answer may come out empty and would not reach the judge:
 # 16b scores 16a's results file with each empty answer_vqa replaced by this.
 JUDGE_FILL_ANSWER = "A bowling ball rolls down the lane."
+# Phase 16c: the VideoMME, WorldSense and VideoMMMU harnesses over
+# synthetic datasets in each benchmark's layout under BENCH_DIR (the tables
+# written with pandas), each video a lossless AVI of 64 frames of 640x360
+# (32 s at 2 fps: video_max_frames' 64) named <id>.mp4, as the dataloaders
+# require (FFmpeg reads the container, whatever the suffix).
+BENCH_DIR = f"{EVAL_DIR}/benchmarks"
+BENCH_CONFIGS = {"videomme": "video_mme.yaml", "worldsense": "world_sense.yaml",
+                 "videommmu": "video_mmmu.yaml"}
+BENCH_MME = [  # (videoID, duration, domain, sub_category, task_type, question, options, answer)
+    ("mme_a", "short", "Sports Competition", "Other Sports", "Object Recognition",
+     "What rolls down the lane?", ["A. a bowling ball", "B. a cup", "C. a dog", "D. nothing"], "A"),
+    ("mme_b", "medium", "Sports Competition", "Other Sports", "Counting Problem",
+     "How many pins fall?", ["A. 3", "B. 5", "C. 7", "D. 10"], "D"),
+    ("mme_c", "long", "Life Record", "Daily Life", "Temporal Reasoning",
+     "What happens after the throw?", ["A. the pins fall", "B. it rains", "C. a song plays",
+                                       "D. nothing"], "A")]
+BENCH_MME_ASR = {"mme_a": "and here comes the throw, a strike!"}
+BENCH_WS = [  # (video, question, candidates, answer, duration, domain, sub_category,
+    #            task_domain, task_type, audio_class)
+    ("ws_a", "What sound follows the throw?", ["A. a crash of pins", "B. a bell", "C. rain",
+                                               "D. silence"], "A", "<1min", "Sports",
+     "Other Sports", "Recognition", "Audio Recognition", ["Event"]),
+    ("ws_b", "Who cheers?", ["A. the bowler", "B. the crowd", "C. nobody", "D. a child"], "B",
+     "1-2min", "Sports", "Other Sports", "Understanding", "Human Interaction",
+     ["Speech", "Event"]),
+    ("ws_c", "How many throws are there?", ["A. one", "B. two", "C. three", "D. four"], "B",
+     "2-4min", "Sports", "Other Sports", "Reasoning", "Action Counting", ["Event"])]
+BENCH_WS_TRUNCATED = "ws_b"  # cut to its first 4096 bytes: no whole frame, a data error
+BENCH_MMMU = {  # category -> (id, storage dir, question, options, answer, question_type)
+    "Perception": ("test_Physics_1", "Science", "Which law does the lecture state first?",
+                   ["Newton's first law", "Ohm's law", "Hooke's law", "Snell's law"], "A",
+                   "multiple-choice"),
+    "Comprehension": ("test_Math_2", "Science", "What is 17 + 25, as the slide computes it?",
+                      [], "42", "open"),
+    "Adaptation": ("test_Computer_Science_3", "Engineering",
+                   "Which traversal visits the tree in the image in the order shown?",
+                   ["A. preorder", "B. inorder", "C. postorder", "D. level order", "E. none"],
+                   "B", "multiple-choice")}
+BENCH_IMAGE_H, BENCH_IMAGE_W = 224, 336  # the Adaptation item's PNG
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): bf16 tensor cores and HBM3. The bound of a kernel is the larger of
 # its operations and its bytes at these rates.
@@ -2062,15 +2114,26 @@ def _waves_line(model, since: int) -> dict:
 
 
 @contextlib.contextmanager
-def recording(engine):
+def recording(engine, waves: list | None = None):
     """The token ids of every ``engine.generate`` call (a wave) made while
-    the block runs, one list of rows per call."""
+    the block runs, one list of rows per call. Where ``waves`` is a list,
+    each call also appends its EVAL_KERNELS launches (the counts set to 0
+    just before the call, read just after) and each request's grid_thw
+    entries."""
     calls: list[list[list[int]]] = []
     generate = engine.generate
 
-    def recorded(*args, **kw):
-        outs = generate(*args, **kw)
+    def recorded(requests, *args, **kw):
+        if waves is not None:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+        outs = generate(requests, *args, **kw)
         calls.append([o["token_ids"] for o in outs])
+        if waves is not None:
+            torch.cuda.synchronize()
+            waves.append({"launches": {n: kernels.LAUNCHES[n] for n in EVAL_KERNELS},
+                          "grid_entries": [0 if r.grid_thw is None else len(r.grid_thw)
+                                           for r in requests]})
         return outs
 
     engine.generate = recorded
@@ -2236,45 +2299,269 @@ def mcq_phase(params, cfg, data) -> None:
         raise RuntimeError(f"TTS ratings outside {{-1, 0, 1, 2}}: {ratings}")
 
 
-def eval_cli_phase(params, cfg, results_file: str) -> None:
-    """16a.6: `python -m open_o3_video_tpu_torch.eval.cli vstar --device cuda`
-    in a subprocess on phase 10's cut of the model written as a checkpoint
-    directory (no tokenizer files), with vstar.yaml cut as in 16a.2. Its
-    results file must hold the same items with the same keys as 16a.2's."""
+def tables_probe() -> dict:
+    """16c.1 [tables]: pandas and pyarrow, which the dataloaders read their
+    tables with (route (a): no reader of the port's own); a missing one
+    fails the phase."""
+    found = {}
+    for name in ("pandas", "pyarrow"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError as e:
+            found[name] = f"absent ({e})"
+    log("tables", **found, reader="pandas (read_parquet, read_csv sep='\\t')")
+    if any(v.startswith("absent") for v in found.values()):
+        raise RuntimeError(f"the dataloaders read their tables with pandas and pyarrow: {found}")
+    return found
+
+
+def _bench_video(path: str, rng) -> None:
+    n = int(MCQ_SECONDS * MCQ_FPS)
+    write_raw_avi(path, rng.integers(0, 256, size=(n, EVAL_H, EVAL_W, 3), dtype=np.uint8), MCQ_FPS)
+
+
+def bench_data(seed: int) -> dict:
+    """16c.2: the three datasets under BENCH_DIR in their benchmarks'
+    layouts: VideoMME's parquet, videos under data/ and one ASR transcript;
+    WorldSense's TSV (candidates and audio classes as python-list literals)
+    with BENCH_WS_TRUNCATED's video cut short; VideoMMMU's three parquet
+    splits, the Adaptation item's image struct holding a PNG written by
+    data/raw_media.py. Returns the data directories."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed + 163)
+    t0 = time.perf_counter()
+    mme, ws, mmmu = (f"{BENCH_DIR}/{b}" for b in ("videomme", "worldsense", "videommmu"))
+    for d in (f"{mme}/videomme", f"{mme}/data", f"{mme}/asr", f"{ws}/asr"):
+        os.makedirs(d, exist_ok=True)
+    pd.DataFrame([{"video_id": f"{i:03d}", "duration": dur, "domain": dom, "sub_category": sub,
+                   "url": "", "videoID": vid, "question_id": f"{i:03d}-1", "task_type": task,
+                   "question": q, "options": opts, "answer": ans}
+                  for i, (vid, dur, dom, sub, task, q, opts, ans) in enumerate(BENCH_MME)]
+                 ).to_parquet(f"{mme}/videomme/test-00000-of-00001.parquet")
+    for vid, *_ in BENCH_MME:
+        _bench_video(f"{mme}/data/{vid}.mp4", rng)
+    for vid, text in BENCH_MME_ASR.items():
+        with open(f"{mme}/asr/{vid}.mp4.txt", "w", encoding="utf-8") as f:
+            f.write(text)
+    pd.DataFrame([{"index": i, "video": vid, "question": q, "candidates": str(c), "answer": a,
+                   "duration": dur, "domain": dom, "sub_category": sub, "task_domain": td,
+                   "task_type": tt, "audio_class": str(ac)}
+                  for i, (vid, q, c, a, dur, dom, sub, td, tt, ac) in enumerate(BENCH_WS)]
+                 ).to_csv(f"{ws}/WorldSense.tsv", sep="\t", index=False)
+    for vid, *_ in BENCH_WS:
+        _bench_video(f"{ws}/{vid}.mp4", rng)
+    with open(f"{ws}/{BENCH_WS_TRUNCATED}.mp4", "r+b") as f:
+        f.truncate(4096)
+    png = f"{BENCH_DIR}/query.png"
+    write_png(png, rng.integers(0, 256, size=(BENCH_IMAGE_H, BENCH_IMAGE_W, 3), dtype=np.uint8))
+    with open(png, "rb") as f:
+        image = {"bytes": f.read(), "path": "query.png"}
+    for category, (vid, sub_dir, q, opts, ans, qtype) in BENCH_MMMU.items():
+        os.makedirs(f"{mmmu}/{category}", exist_ok=True)
+        os.makedirs(f"{mmmu}/{sub_dir}", exist_ok=True)
+        row = {"id": vid, "question": q, "options": opts, "answer": ans, "question_type": qtype}
+        if category == "Adaptation":
+            row["image"] = image
+        pd.DataFrame([row]).to_parquet(f"{mmmu}/{category}/test-00000-of-00001.parquet")
+        _bench_video(f"{mmmu}/{sub_dir}/{vid}.mp4", rng)
+    log("bench", wrote=len(BENCH_MME) + len(BENCH_WS) + len(BENCH_MMMU), kind="AVI as .mp4",
+        frames=int(MCQ_SECONDS * MCQ_FPS), size=f"{EVAL_W}x{EVAL_H}",
+        truncated=f"{BENCH_WS_TRUNCATED}.mp4 (4096 bytes)", image=f"{BENCH_IMAGE_W}x{BENCH_IMAGE_H} PNG",
+        write_s=round(time.perf_counter() - t0, 3))
+    return {"videomme": mme, "worldsense": ws, "videommmu": mmmu}
+
+
+def _check_waves(bench: str, model, waves: list, cfg) -> list[dict]:
+    """Each wave's launches (set to 0 just before it, read just after): K1
+    once per window block and K2 once per global block of each tower pass,
+    K3 once per decoder layer of its one prefill."""
+    vis, layers = cfg.vision, cfg.text.num_hidden_layers
+    glob = len(vis.fullatt_block_indexes)
+    per_wave = []
+    for record, wave in zip(model.waves, waves, strict=True):
+        p = record["tower_passes"]
+        want = {"fused_window_attention": (vis.depth - glob) * p, "window_attention": glob * p,
+                "flash_attention_gqa": layers}
+        per_wave.append({"requests": record["requests"], "tower_passes": p,
+                         "launches": wave["launches"]})
+        if wave["launches"] != want:
+            raise RuntimeError(f"{bench}: a wave of {p} tower passes launched {wave['launches']}, "
+                               f"expected {want}")
+    return per_wave
+
+
+def bench_run(bench: str, model, data_dir: str, out: str, **kw):
+    """One harness's evaluate through ``model`` with each wave recorded
+    (token ids, launches, grid entries); returns (the recorded calls and
+    waves, the decode's numbers, seconds)."""
+    from open_o3_video_tpu_torch.eval import videomme, videommmu, worldsense
+
+    harness = {"videomme": videomme, "worldsense": worldsense, "videommmu": videommmu}[bench]
+    waves: list = []
+    t0 = time.perf_counter()
+    with recording(model.engine, waves) as calls:
+        _, decode = decode_run(model.engine, lambda: harness.evaluate(
+            model, data_dir, out, item_batch=EVAL_ITEM_BATCH, **kw))
+    return calls, waves, decode, time.perf_counter() - t0
+
+
+def benchmarks_phase(params, cfg, seed: int) -> dict:
+    """Phase 16c: [tables], the datasets, then videomme.evaluate (N = 1, the
+    ASR prepended), worldsense.evaluate (the truncated video in
+    <prefix>_errors.json; the score xlsx read back) and videommmu.evaluate
+    (an MCQ and an open-ended item in one chunk, then the Adaptation item
+    with its image), each through a QwenVLEngine at its own yaml
+    (max_tokens cut to EVAL_MAX_TOKENS), item_batch EVAL_ITEM_BATCH: every
+    item in the results, K1/K2/K3 per wave as _check_waves says; VideoMMMU
+    again decoding eagerly: each wave's token ids equal, every row
+    EVAL_MAX_TOKENS long or ended by EOS. Returns VideoMMMU's data
+    directory and results file, for the CLI step."""
+    from open_o3_video_tpu_torch.eval import QwenVLEngine
+    from open_o3_video_tpu_torch.utils.xlsx import read_xlsx
+
+    t_phase = time.perf_counter()
+    tables = tables_probe()
+    dirs = bench_data(seed)
+    files = {"videomme": f"{BENCH_DIR}/videomme_results.json",
+             "worldsense": f"{BENCH_DIR}/worldsense",
+             "videommmu": f"{BENCH_DIR}/videommmu_results.json"}
+    kw = {"videomme": {"add_asr": True, "asr_dir": f"{dirs['videomme']}/asr"},
+          "worldsense": {"asr_dir": f"{dirs['worldsense']}/asr"}, "videommmu": {}}
+    for bench, config in BENCH_CONFIGS.items():
+        model = QwenVLEngine(params, rt_shape=True, cfg=cfg, processor=O3VideoProcessor(),
+                             **eval_config(config))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls, waves, graph, seconds = bench_run(bench, model, dirs[bench], files[bench],
+                                                 **kw[bench])
+        per_wave = _check_waves(bench, model, waves, cfg)
+        rows = check_rows(bench, calls, EVAL_MAX_TOKENS, cfg.eos_token_id)
+        if bench == "worldsense":
+            with open(f"{files[bench]}_score.json") as f:
+                results = json.load(f)
+            with open(f"{files[bench]}_errors.json") as f:
+                errors = json.load(f)
+            xlsx = read_xlsx(f"{files[bench]}_score.xlsx")
+            with open(f"{files[bench]}_rating.json") as f:
+                overall = json.load(f)["overall"]["overall"]
+            items = [r["video"] for r in results]
+            ok = (items == [v[0] for v in BENCH_WS if v[0] != BENCH_WS_TRUNCATED]
+                  and [e["video"] for e in errors] == [BENCH_WS_TRUNCATED]
+                  and errors[0]["error"].startswith("OSError(")
+                  and [r["video"] for r in xlsx] == items)
+            extra = {"errors": [e["error"][:80] for e in errors], "xlsx_rows": len(xlsx),
+                     "rating_overall": overall}
+        else:
+            with open(files[bench]) as f:
+                written = json.load(f)
+            results, errors = written["results"], written["errors"]
+            key = "question_id" if bench == "videomme" else "id"
+            items = [r[key] for r in results]
+            want = ([f"{i:03d}-1" for i in range(len(BENCH_MME))] if bench == "videomme"
+                    else [v[0] for v in BENCH_MMMU.values()])
+            ok = items == want and errors == []
+            extra = {"overall": written["overall"],
+                     "preds": [r.get("pred_answer", r.get("parsed_pred")) for r in results]}
+        log("bench", bench=bench, config=config, items=items, item_batch=EVAL_ITEM_BATCH,
+            seconds=round(seconds, 3), rows=rows, per_wave=per_wave,
+            grid_entries_per_wave=[w["grid_entries"] for w in waves], **extra,
+            **_waves_line(model, 0), decode_ms_per_token=graph["ms_per_token"],
+            peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+        if not ok:
+            raise RuntimeError(f"{bench}: the results hold {items} with errors {errors}")
+        if bench == "videommmu":
+            # the Adaptation item (the last wave's one request) carries its image's rows
+            mcq_entries, image_entries = waves[0]["grid_entries"][0], waves[-1]["grid_entries"][0]
+            log("bench", bench=bench, grid_entries={"Perception": mcq_entries,
+                                                    "Adaptation": image_entries})
+            if image_entries != mcq_entries + 1:
+                raise RuntimeError(f"VideoMMMU: the Adaptation request has {image_entries} grid "
+                                   f"entries, the frames alone {mcq_entries}")
+            model.engine.decode_graph = False  # again, decoding eagerly: the reference
+            eager_calls, _, eager, eager_s = bench_run(
+                bench, model, dirs[bench], f"{BENCH_DIR}/videommmu_results_eager.json")
+            model.engine.decode_graph = True
+            with open(f"{BENCH_DIR}/videommmu_results_eager.json") as f:
+                same_file = json.load(f) == written
+            log("bench", bench=bench, decode="eager", seconds=round(eager_s, 3),
+                waves_compared=len(calls), eager_results_equal=same_file)
+            decode_pair("videommmu evaluate", graph, eager, calls, eager_calls)
+            if not same_file:
+                raise RuntimeError("VideoMMMU: the eager evaluate's results differ from the "
+                                   "graphed one's")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("bench", phase_seconds=round(time.perf_counter() - t_phase, 3), tables=tables)
+    return {"data_dir": dirs["videommmu"], "results": files["videommmu"]}
+
+
+def _cli_run(tag: str, args: list[str], out: str, write_s: float) -> dict:
+    """`python -m open_o3_video_tpu_torch.eval.cli <args> --device cuda` in a
+    subprocess; its results file."""
+    cmd = [sys.executable, "-m", "open_o3_video_tpu_torch.eval.cli", *args, "--output", out,
+           "--item_batch", str(EVAL_ITEM_BATCH), "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    tail = [x for x in proc.stdout.splitlines()
+            if x.startswith(("[eval]", "V-STAR", "VideoMMMU", "1 items"))]
+    log("eval", bench=f"cli {tag}", cmd=" ".join(cmd[1:]), rc=proc.returncode,
+        seconds=round(seconds, 3), checkpoint_write_s=round(write_s, 3), lines=tail)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the eval CLI ({tag}) failed ({proc.returncode}): "
+                           f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def eval_cli_phase(params, cfg, results_file: str, bench: dict) -> None:
+    """16a.6 and 16c's CLI step: `python -m open_o3_video_tpu_torch.eval.cli
+    vstar --device cuda`, then `videommmu --device cuda`, each in a
+    subprocess on phase 10's cut of the model written as a checkpoint
+    directory (no tokenizer files), with vstar.yaml and video_mmmu.yaml cut
+    as in 16a.2 and 16c. Each results file must hold the same items with the
+    same keys as evaluate's (16a.2's V-STAR file, 16c's VideoMMMU file)."""
     small_cfg = _cut_cfg(cfg, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS)
     model = f"{EVAL_DIR}/model"
     t0 = time.perf_counter()
     CKPT.export_safetensors(_sub(params, NUMERICS_VIT_DEPTH, NUMERICS_TEXT_LAYERS), small_cfg, model)
     write_s = time.perf_counter() - t0
-    with open(f"{EVAL_DIR}/vstar_cut.yaml", "w") as f:
-        f.write("".join(f"{k}: {v}\n" for k, v in eval_config("vstar.yaml").items()))
-    out = f"{EVAL_DIR}/cli_results.json"
-    cmd = [sys.executable, "-m", "open_o3_video_tpu_torch.eval.cli", "vstar", "--model_path", model,
-           "--config", f"{EVAL_DIR}/vstar_cut.yaml", "--anno", f"{EVAL_DIR}/vstar.json",
-           "--video_folder", f"{EVAL_DIR}/videos", "--output", out,
-           "--item_batch", str(EVAL_ITEM_BATCH), "--device", "cuda"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    tail = [x for x in proc.stdout.splitlines() if x.startswith(("[eval]", "V-STAR", "1 items"))]
-    log("eval", bench="cli", cmd=" ".join(cmd[1:]), rc=proc.returncode, seconds=round(seconds, 3),
-        checkpoint_write_s=round(write_s, 3), lines=tail)
-    if proc.returncode != 0:
-        raise RuntimeError(f"the eval CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
-    with open(out) as f:
-        got = json.load(f)
+    for name in ("vstar.yaml", "video_mmmu.yaml"):
+        with open(f"{EVAL_DIR}/cut_{name}", "w") as f:
+            f.write("".join(f"{k}: {v}\n" for k, v in eval_config(name).items()))
+    got = _cli_run("vstar", ["vstar", "--model_path", model, "--config", f"{EVAL_DIR}/cut_vstar.yaml",
+                             "--anno", f"{EVAL_DIR}/vstar.json", "--video_folder",
+                             f"{EVAL_DIR}/videos"], f"{EVAL_DIR}/cli_results.json", write_s)
     with open(results_file) as f:
         ref = json.load(f)
     same = ([r["vid"] for r in got] == [r["vid"] for r in ref]
             and [sorted(r) for r in got] == [sorted(r) for r in ref])
-    log("eval", bench="cli", same_items_and_keys=same, items=[r["vid"] for r in got])
+    log("eval", bench="cli vstar", same_items_and_keys=same, items=[r["vid"] for r in got])
     if not same:
         raise RuntimeError("the CLI's results file differs in items or keys from evaluate's")
+
+    got = _cli_run("videommmu", ["videommmu", "--model_path", model, "--config",
+                                 f"{EVAL_DIR}/cut_video_mmmu.yaml", "--data_dir", bench["data_dir"]],
+                   f"{EVAL_DIR}/cli_videommmu.json", 0.0)
+    with open(bench["results"]) as f:
+        ref = json.load(f)
+    same = (sorted(got) == sorted(ref)
+            and [r["id"] for r in got["results"]] == [r["id"] for r in ref["results"]]
+            and [sorted(r) for r in got["results"]] == [sorted(r) for r in ref["results"]]
+            and got["errors"] == ref["errors"] == [])
+    log("bench", bench="cli videommmu", same_items_and_keys=same,
+        items=[r["id"] for r in got["results"]])
+    if not same:
+        raise RuntimeError("the VideoMMMU CLI's results file differs in items or keys from "
+                           "evaluate's")
 
 
 def eval_phase(params, cfg, seed: int) -> tuple[str, dict]:
     """Phase 16a on the 7B: the data, V-STAR, TVGBench, the MCQ item with
-    TTS scoring, the CLI. Returns the V-STAR results file (for 16b) and
+    TTS scoring; phase 16c (VideoMME, WorldSense, VideoMMMU); then the CLI
+    for V-STAR and VideoMMMU. Returns the V-STAR results file (for 16b) and
     V-STAR's launch counts."""
     data = eval_data(seed)
     model, results_file, launches = vstar_phase(params, cfg, data)
@@ -2284,7 +2571,8 @@ def eval_phase(params, cfg, seed: int) -> tuple[str, dict]:
     mcq_phase(params, cfg, data)
     gc.collect()
     torch.cuda.empty_cache()
-    eval_cli_phase(params, cfg, results_file)
+    bench = benchmarks_phase(params, cfg, seed)
+    eval_cli_phase(params, cfg, results_file, bench)
     return results_file, launches
 
 

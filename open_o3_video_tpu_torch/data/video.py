@@ -9,10 +9,11 @@ imports PIL).
 - ``trim_window``: ``video_start``/``video_end`` as an inclusive pts range;
 - ``fetch_video``: decode a file with the selected reader, then the
   PIL-parity bicubic resize of ``ops/resize.py`` instead of PIL;
-- ``read_image`` / ``fetch_image``: an image file (a keyframe, a GQA image)
-  read as PIL's ``convert("RGB")`` gives it, or an HWC uint8 frame already
-  in memory, resized the same way (PIL's ``Image.resize`` default for RGB
-  is bicubic);
+- ``read_image`` / ``decode_image`` / ``fetch_image``: an image file (a
+  keyframe, a GQA image) or encoded bytes in memory (VideoMMMU's query
+  image) read as PIL's ``convert("RGB")`` gives it, or an HWC uint8 frame
+  already in memory, resized the same way (PIL's ``Image.resize`` default
+  for RGB is bicubic);
 - ``process_vision_info``: the images and videos of chat messages, as the
   eval harnesses pass them.
 
@@ -300,8 +301,33 @@ def read_image(path: str) -> np.ndarray:
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if img is None:
         raise IOError(f"cv2 failed to read image: {path}")
+    return _cv2_to_rgb(img, path)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """An encoded image in memory (PNG or JPEG bytes, as a parquet
+    ``image`` struct holds them) as HWC uint8 RGB, converted and read as
+    ``read_image`` reads a file: cv2, else the native decoder (through a
+    temporary file)."""
+    try:
+        import cv2
+    except ImportError:
+        import tempfile
+
+        with tempfile.NamedTemporaryFile(suffix=".img") as f:
+            f.write(data)
+            f.flush()
+            return _read_image_native(f.name)
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise ValueError(f"cv2 failed to decode an image of {len(data)} bytes")
+    return _cv2_to_rgb(img, "an image in memory")
+
+
+def _cv2_to_rgb(img: np.ndarray, where: str) -> np.ndarray:
+    """cv2's BGR, BGRA or gray uint8 image -> RGB as PIL's ``to_rgb``."""
     if img.dtype != np.uint8:
-        raise ValueError(f"{path}: only 8-bit images are read, got {img.dtype}")
+        raise ValueError(f"{where}: only 8-bit images are read, got {img.dtype}")
     if img.ndim == 2:
         return np.repeat(img[:, :, None], 3, axis=2)
     if img.shape[2] == 4:

@@ -1,4 +1,5 @@
-"""Evaluation on the port: the V-STAR and TVGBench harnesses, the N-path MCQ
+"""Evaluation on the port: the V-STAR, TVGBench, VideoMME, WorldSense and
+VideoMMMU harnesses (the last three over ``dataloaders/``), the N-path MCQ
 core with test-time-scaling votes, the engine-backed model wrapper, the LLM
 judge and V-STAR scoring, behind ``python -m open_o3_video_tpu_torch.eval.cli``."""
 

@@ -3,12 +3,12 @@ with its flags and defaults):
 
   python -m open_o3_video_tpu_torch.eval.cli vstar --model_path ... --anno ... --video_folder ...
   python -m open_o3_video_tpu_torch.eval.cli vstar-judge --result_file ... --model_path <judge>
+  python -m open_o3_video_tpu_torch.eval.cli videomme|worldsense|videommmu --model_path ... --data_dir ...
   python -m open_o3_video_tpu_torch.eval.cli tvgbench --model_path ... --anno ... --video_folder ...
 
 ``--device`` (default ``cuda``) picks the card; the CPU runs only when asked
-for (``--device cpu``). ``videomme``, ``worldsense`` and ``videommmu`` are
-accepted and refused: their dataloaders are not ported yet (ROADMAP M7,
-second half). ``--mesh_tensor``/``--mesh_data`` above 1 are refused (M8).
+for (``--device cpu``). ``--mesh_tensor``/``--mesh_data`` above 1 are
+refused (M8).
 ``--config`` is read as the flat ``key: scalar`` form that every
 ``configs/eval/*.yaml`` holds (``read_flat_yaml``, no PyYAML), which
 refuses anything else.
@@ -30,7 +30,6 @@ DEFAULT_CONFIGS = {
     "worldsense": {"temperature": 0.0, "max_tokens": 8192, "video_max_pixels": 262144, "video_max_frames": 64},
     "videommmu": {"temperature": 0.0, "max_tokens": 8192, "video_max_pixels": 262144, "video_max_frames": 64},
 }
-NOT_PORTED = ("videomme", "worldsense", "videommmu")
 
 # The scalars a flat config may hold, each read as yaml.safe_load reads it;
 # any other value (YAML 1.1's yes/no/on/off, .inf, 1_000, flow or block
@@ -101,8 +100,6 @@ def build_model(args, bench: str):
 
 def check_args(args) -> None:
     """Refuse what the port does not serve, before anything loads."""
-    if args.benchmark in NOT_PORTED:
-        raise SystemExit(f"{args.benchmark}: not ported yet (ROADMAP M7, second half)")
     if args.mesh_tensor > 1 or args.mesh_data > 1:
         raise SystemExit("--mesh_tensor/--mesh_data above 1: a device mesh is not ported yet "
                          "(ROADMAP M8)")
@@ -166,6 +163,26 @@ def main(argv=None):
         judge = EngineJudge(args.model_path, load_in_int8=args.load_in_int8,
                             load_in_int4=args.load_in_int4, device=args.device)
         evaluate_json(args.result_file, judge)
+    elif args.benchmark == "videomme":
+        from . import videomme
+
+        model = build_model(args, "videomme")
+        videomme.evaluate(
+            model, args.data_dir, args.output or "videomme_results.json",
+            N=args.N, vote=args.vote, think_mode=args.think_mode,
+            add_asr=bool(args.add_asr), asr_dir=args.asr_dir, limit=args.limit,
+            item_batch=args.item_batch,
+        )
+    elif args.benchmark == "worldsense":
+        from . import worldsense
+
+        model = build_model(args, "worldsense")
+        worldsense.evaluate(
+            model, args.data_dir, args.output or "worldsense",
+            asr_dir=args.asr_dir, add_asr=args.add_asr if args.add_asr is not None else True,
+            N=args.N, vote=args.vote, think_mode=args.think_mode, limit=args.limit,
+            item_batch=args.item_batch,
+        )
     elif args.benchmark == "tvgbench":
         from . import tvgbench
 
@@ -174,6 +191,15 @@ def main(argv=None):
             args.anno, args.video_folder, model,
             args.output or "tvgbench_results.json",
             think_mode=args.think_mode, limit=args.limit,
+            item_batch=args.item_batch,
+        )
+    elif args.benchmark == "videommmu":
+        from . import videommmu
+
+        model = build_model(args, "videommmu")
+        videommmu.evaluate(
+            model, args.data_dir, args.output or "videommmu_results.json",
+            N=args.N, vote=args.vote, think_mode=args.think_mode, limit=args.limit,
             item_batch=args.item_batch,
         )
 

@@ -1,5 +1,6 @@
-"""Per-stage wall clock (counterpart of ``open_o3_video_tpu/utils/profiling.py``,
-whose trace annotations are ``jax.profiler``'s).
+"""Per-stage wall clock and profiler traces (counterpart of
+``open_o3_video_tpu/utils/profiling.py``, whose annotations and traces are
+``jax.profiler``'s).
 
 ``StageTimer`` has the JAX one's API and its exclusive accounting (a parent
 stage's total leaves out the time of the stages opened inside it). A stage
@@ -7,16 +8,69 @@ is wall time bounded by ``torch.cuda.synchronize`` on both ends when a CUDA
 device is given, so it covers the stage's device work, and it is a
 ``torch.profiler.record_function`` range (``stage.<name>``) in a trace, as
 the engine's ``_stage`` is.
+
+``trace_annotation(name)`` is a ``record_function`` range; ``start_trace``
+and ``stop_trace`` run one ``torch.profiler.profile`` over the CPU and, when
+there is one, the CUDA device, and write its Chrome trace (Perfetto opens
+it) into the log directory. One trace runs at a time: a second
+``start_trace`` raises, as ``jax.profiler.start_trace`` does.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import socket
+import threading
 import time
 from collections import defaultdict
 from typing import Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    """Name a region in a profiler trace (a ``record_function`` range;
+    next to no cost when no trace runs)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+_trace_lock = threading.Lock()
+_trace: dict = {}  # the running trace: its profiler and log directory
+
+
+def start_trace(log_dir: str) -> None:
+    """Start a profiler trace over the CPU and the CUDA device, if any,
+    written into ``log_dir`` by ``stop_trace``. Raises RuntimeError while
+    another trace runs."""
+    with _trace_lock:
+        if _trace:
+            raise RuntimeError(f"a trace into {_trace['log_dir']} is already running; "
+                               "stop_trace() it first")
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        _trace.update(prof=prof, log_dir=log_dir)
+
+
+def stop_trace() -> str:
+    """Stop the running trace and write it into its log directory as
+    ``<host>.<pid>.<ms>.pt.trace.json``; returns the file's path. Raises
+    RuntimeError when no trace runs."""
+    with _trace_lock:
+        if not _trace:
+            raise RuntimeError("no trace is running; start_trace() first")
+        prof, log_dir = _trace.pop("prof"), _trace.pop("log_dir")
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir, f"{socket.gethostname()}.{os.getpid()}."
+                                     f"{int(time.time() * 1e3)}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        return path
 
 
 class StageTimer:

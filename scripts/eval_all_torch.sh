@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # The evaluation suite on the PyTorch port, on one NVIDIA GPU (sibling of
 # scripts/eval_all.sh; the reference's eval/scripts/eval_all.sh contract):
-# V-STAR inference, then the Qwen2.5-72B judge. The judge's decoder is
+# V-STAR inference, then the Qwen2.5-72B judge (TVGBench, VideoMME,
+# WorldSense and VideoMMMU below, commented out). The judge's decoder is
 # group-128 int4 (~40 GB), so it runs on the same single card.
 set -euo pipefail
 
@@ -27,21 +28,24 @@ python -m open_o3_video_tpu_torch.eval.cli vstar-judge \
     --load_in_int4 \
     --device "${DEVICE}"
 
-# ---- Other benchmarks --------------------------------------------------------
+# ---- Other benchmarks (as scripts/eval_all.sh lists them) -------------------
 # python -m open_o3_video_tpu_torch.eval.cli tvgbench \
 #     --model_path "${MODEL_PATH}" --anno "${DATA_DIR}/tvgbench/annotations.json" \
-#     --video_folder "${DATA_DIR}/tvgbench/videos" --output "${OUT_DIR}/tvgbench_results.json"
+#     --video_folder "${DATA_DIR}/tvgbench/videos" --output "${OUT_DIR}/tvgbench_results.json" \
+#     --device "${DEVICE}"
 #
-# Not ported yet (their dataloaders: ROADMAP M7, second half); the CLI refuses them:
 # python -m open_o3_video_tpu_torch.eval.cli videomme \
 #     --model_path "${MODEL_PATH}" --data_dir "${DATA_DIR}/videomme" \
-#     --N 1 --vote majority_voting --output "${OUT_DIR}/videomme_results.json"
+#     --N 1 --vote majority_voting --output "${OUT_DIR}/videomme_results.json" \
+#     --device "${DEVICE}"
 #
 # python -m open_o3_video_tpu_torch.eval.cli worldsense \
 #     --model_path "${MODEL_PATH}" --data_dir "${DATA_DIR}/worldsense" \
 #     --asr_dir "${DATA_DIR}/worldsense/asr" \
-#     --N 1 --vote majority_voting --output "${OUT_DIR}/worldsense"
+#     --N 1 --vote majority_voting --output "${OUT_DIR}/worldsense" \
+#     --device "${DEVICE}"
 #
 # python -m open_o3_video_tpu_torch.eval.cli videommmu \
 #     --model_path "${MODEL_PATH}" --data_dir "${DATA_DIR}/videommmu" \
-#     --N 1 --vote majority_voting --output "${OUT_DIR}/videommmu_results.json"
+#     --N 1 --vote majority_voting --output "${OUT_DIR}/videommmu_results.json" \
+#     --device "${DEVICE}"

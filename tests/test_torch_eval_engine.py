@@ -4,28 +4,39 @@
 harnesses: ``inference_wo_process_batch``, ``vstar.evaluate`` over raw AVIs
 (56x84 frames: no resize runs, so both packages see the same pixels) with a
 missing video, ``generate_paths_batch`` with N = 2, ``run_images_scorer_batch``,
-``tvgbench.evaluate`` and ``evaluate_mcq_items_batched`` under both votes.
-Tolerance: equal texts, scores and parsed fields. The tiny model writes no
+``tvgbench.evaluate``, ``evaluate_mcq_items_batched`` under both votes, and
+``videomme``/``worldsense``/``videommmu.evaluate`` over synthetic datasets in
+each benchmark's layout (``_torch_bench_data``: pandas tables, 280x364 AVIs
+under ``.mp4`` names, one truncated, VideoMMMU's query image of 56x84, a size
+that needs no resize). Tolerance: equal texts, scores, parsed fields and
+results, rating and errors files. The tiny model writes no
 ``<answer>``, so the voting arithmetic is held with a scripted model, as
 ``tests/test_eval_e2e.py`` does. Then the port alone: waves of ``max_slots``
 (the texts of one engine call, each item's video encoded once per wave), a
 device error planted in ``engine.generate`` propagating out of every
-harness, the refused knobs, and the CLI's refusals. The JAX runs happen once,
+harness, the refused knobs, the CLI's refusals and a CLI run of each MCQ
+benchmark. A resized query image is held within one level of PIL's (the
+envelope of ``ops/resize.py``), and a missing video stops VideoMME and
+VideoMMMU before any model call in both packages. The JAX runs happen once,
 in a module-scoped fixture."""
 
+import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import model_pair, rng
+import _torch_bench_data as BD
+from _torch_parity import model_pair, rng, tiny_configs
 
 from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
 from open_o3_video_tpu_torch.data.raw_media import write_raw_avi
 from open_o3_video_tpu_torch.engine import engine as engine_module
-from open_o3_video_tpu_torch.eval import cli, mcq_harness, tts, tvgbench, vstar
+from open_o3_video_tpu_torch.eval import (cli, mcq_harness, tts, tvgbench, videomme,
+                                          videommmu, vstar, worldsense)
 from open_o3_video_tpu_torch.eval.model_engine import QwenVLEngine
 
 MODEL_KW = dict(temperature=0.0, max_tokens=8, video_max_frames=2, cache_dtype="f32")
@@ -71,7 +82,33 @@ def media(tmp_path_factory):
               "doc": {"question": "Which?", "options": ["A. ball", "B. cup", "C. dog", "D. none"]}},
              {"video_path": wide, "text_input": "What first? A. x B. y", "image": None,
               "doc": {"question": "What first?", "options": ["A. x", "B. y"]}, "choices": ("A", "B")}]
-    return {"dir": str(d), "small": small, "wide": wide, "raw": raw, "crops": crops, "specs": specs}
+    BD.write_videomme(str(d / "mme"), r, (4, 280, 364, 3), 2.0)
+    BD.write_worldsense(str(d / "ws"), r, (4, 280, 364, 3), 2.0)
+    query = r.integers(0, 256, (56, 84, 3), dtype=np.uint8)
+    BD.write_videommmu(str(d / "mmmu"), r, (4, 280, 364, 3), 2.0, query)
+    return {"dir": str(d), "small": small, "wide": wide, "raw": raw, "crops": crops, "specs": specs,
+            "query": query}
+
+
+def _run_benchmarks(model, mme, ws, mmmu, d: str, out: str) -> dict:
+    """videomme (ASR prepended, item_batch 2), worldsense (a truncated video
+    recorded as an error; the score xlsx read back) and videommmu (an MCQ
+    and an open-ended item a chunk, then the Adaptation item with its
+    image) through one package's harness modules: what each wrote."""
+    from open_o3_video_tpu_torch.utils.xlsx import read_xlsx
+
+    got = {}
+    mme.evaluate(model, f"{d}/mme", f"{out}_mme.json", add_asr=True, asr_dir=f"{d}/mme/asr",
+                 item_batch=2)
+    ws.evaluate(model, f"{d}/ws", f"{out}_ws", asr_dir=f"{d}/ws/asr", item_batch=2)
+    mmmu.evaluate(model, f"{d}/mmmu", f"{out}_mmmu.json", item_batch=2)
+    for key, name in (("videomme", "mme.json"), ("worldsense_score", "ws_score.json"),
+                      ("worldsense_rating", "ws_rating.json"),
+                      ("worldsense_errors", "ws_errors.json"), ("videommmu", "mmmu.json")):
+        with open(f"{out}_{name}") as f:
+            got[key] = json.load(f)
+    got["worldsense_xlsx"] = read_xlsx(f"{out}_ws_score.xlsx")
+    return got
 
 
 def _port_model(**kw):
@@ -81,7 +118,7 @@ def _port_model(**kw):
                         **{**MODEL_KW, **kw})
 
 
-def _run_all(model, vs, tg, media, out: str) -> dict:
+def _run_all(model, vs, tg, benchmarks, media, out: str) -> dict:
     """Every harness call the tests compare, through one package's model
     and harness modules."""
     d = media["dir"]
@@ -98,6 +135,7 @@ def _run_all(model, vs, tg, media, out: str) -> dict:
     got["tvg"] = tg.evaluate(f"{d}/tvg.json", d, model, f"{out}_tvg.json", item_batch=2)
     with open(f"{out}_tvg.json") as f:
         got["tvg_file"] = json.load(f)
+    got.update(_run_benchmarks(model, *benchmarks, d, out))
     return got
 
 
@@ -109,14 +147,18 @@ def jax_runs(media, tmp_path_factory):
     from open_o3_video_tpu.data.processor import O3VideoProcessor as JaxProcessor
     from open_o3_video_tpu.eval import mcq_harness as JH
     from open_o3_video_tpu.eval import tvgbench as JG
+    from open_o3_video_tpu.eval import videomme as JME
+    from open_o3_video_tpu.eval import videommmu as JMMMU
     from open_o3_video_tpu.eval import vstar as JV
+    from open_o3_video_tpu.eval import worldsense as JWS
     from open_o3_video_tpu.eval.model_engine import QwenVLEngine as JaxEngine
 
     jcfg, jparams, _, _ = model_pair(0)
     model = JaxEngine(jparams, rt_shape=True, cfg=jcfg,
                       processor=JaxProcessor(tokenizer=JaxTokenizer.for_config(jcfg)),
                       prompt_buckets=(2048,), **MODEL_KW)
-    got = _run_all(model, JV, JG, media, str(tmp_path_factory.mktemp("jax") / "out"))
+    got = _run_all(model, JV, JG, (JME, JWS, JMMMU), media,
+                   str(tmp_path_factory.mktemp("jax") / "out"))
     for vote in ("majority_voting", "confidence_voting"):
         got[vote] = JH.evaluate_mcq_items_batched(model, media["specs"], N=2, vote=vote)
     return got
@@ -125,20 +167,25 @@ def jax_runs(media, tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_runs(media, tmp_path_factory):
     model = _port_model()
-    got = _run_all(model, vstar, tvgbench, media, str(tmp_path_factory.mktemp("port") / "out"))
+    got = _run_all(model, vstar, tvgbench, (videomme, worldsense, videommmu), media,
+                   str(tmp_path_factory.mktemp("port") / "out"))
     for vote in ("majority_voting", "confidence_voting"):
         got[vote] = mcq_harness.evaluate_mcq_items_batched(model, media["specs"], N=2, vote=vote)
     return got
 
 
 @pytest.mark.parametrize("key", ["raw", "vstar", "vstar_errors", "paths", "scores", "tvg", "tvg_file",
-                                 "majority_voting", "confidence_voting"])
+                                 "majority_voting", "confidence_voting", "videomme",
+                                 "worldsense_score", "worldsense_rating", "worldsense_errors",
+                                 "worldsense_xlsx", "videommmu"])
 def test_eval_path_matches_jax(jax_runs, port_runs, key):
     """inference_wo_process_batch texts; vstar.evaluate's results (raw
     texts and parsed fields, annotation order) and its errors file (the
     missing video recorded); generate_paths_batch's N = 2 texts and frame
     shapes (w, h); run_images_scorer_batch's ratings; tvgbench.evaluate's
-    scores and file; evaluate_mcq_items_batched under both votes."""
+    scores and file; evaluate_mcq_items_batched under both votes; the
+    VideoMME results file, WorldSense's score (json and xlsx), rating and
+    errors files, and the VideoMMMU results file."""
     ours, theirs = port_runs[key], jax_runs[key]
     if key in ("paths",):
         theirs = [(list(o), tuple(int(x) for x in s)) for o, s in theirs]
@@ -156,6 +203,19 @@ def test_eval_path_matches_jax(jax_runs, port_runs, key):
         assert all(s in (-1, 0, 1, 2) for s in ours)
     if key == "tvg":
         assert ours["num_items"] == 2
+    if key == "videomme":
+        assert [r["question_id"] for r in ours["results"]] == ["001-1", "002-1", "003-2"]
+        assert ours["errors"] == [] and all(r["response"] for r in ours["results"])
+    if key == "worldsense_errors":
+        assert [(e["index"], e["video"]) for e in ours] == [(1, "ws_b")]
+        assert ours[0]["error"].startswith("OSError(")
+    if key == "worldsense_xlsx":
+        assert [r["video"] for r in ours] == ["ws_a", "ws_c"]
+    if key == "videommmu":
+        assert [(r["id"], r["category"]) for r in ours["results"]] == [
+            ("test_Computer_Science_1", "Perception"), ("test_Math_2", "Comprehension"),
+            ("test_Physics_3", "Adaptation")]
+        assert isinstance(ours["results"][1]["parsed_pred"], (list, str)) and ours["errors"] == []
 
 
 def test_process_items_batched_matches_the_evaluate_run(jax_runs, media):
@@ -261,8 +321,9 @@ def _planted(model, monkeypatch):
 def test_a_device_error_propagates_out_of_every_harness(media, monkeypatch, tmp_path):
     """A RuntimeError raised by engine.generate (as a failed kernel launch
     or an out-of-memory error raises) is not recorded as a failed item: it
-    propagates out of vstar.evaluate, tvgbench.evaluate (no per-item retry)
-    and iter_mcq_item_batches."""
+    propagates out of vstar.evaluate, tvgbench.evaluate (no per-item retry),
+    iter_mcq_item_batches, and videomme, worldsense and videommmu.evaluate,
+    which write no results file."""
     model = _port_model()
     _planted(model, monkeypatch)
     d = media["dir"]
@@ -272,7 +333,66 @@ def test_a_device_error_propagates_out_of_every_harness(media, monkeypatch, tmp_
         tvgbench.evaluate(f"{d}/tvg.json", d, model, str(tmp_path / "t.json"), item_batch=2)
     with pytest.raises(RuntimeError, match="illegal memory access"):
         list(mcq_harness.iter_mcq_item_batches(model, media["specs"], 1, N=2))
-    assert not (tmp_path / "v.json").exists() and not (tmp_path / "t.json").exists()
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        videomme.evaluate(model, f"{d}/mme", str(tmp_path / "mme.json"), item_batch=2)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        worldsense.evaluate(model, f"{d}/ws", str(tmp_path / "ws"), item_batch=2)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        videommmu.evaluate(model, f"{d}/mmmu", str(tmp_path / "mmmu.json"), item_batch=2)
+    assert sorted(os.listdir(tmp_path)) == []
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+@pytest.mark.parametrize("bench", ["videomme", "videommmu"])
+def test_a_missing_video_stops_the_run_before_any_model_call(media, tmp_path, package, bench):
+    """A video missing from the data directory ends the run with sys.exit
+    while the data loads, in both packages, before the model is called
+    (``object()`` has no method to call)."""
+    import importlib
+
+    data = tmp_path / bench
+    shutil.copytree(os.path.join(media["dir"], "mme" if bench == "videomme" else "mmmu"), data)
+    gone = data / "data" / "vid_b.mp4" if bench == "videomme" else data / "Science" / "test_Math_2.mp4"
+    gone.unlink()
+    root = "open_o3_video_tpu_torch" if package == "port" else "open_o3_video_tpu"
+    harness = importlib.import_module(f"{root}.eval.{bench}")
+    with pytest.raises(SystemExit, match="does not exist, please check"):
+        harness.evaluate(object(), str(data), str(tmp_path / "out.json"))
+    assert not (tmp_path / "out.json").exists()
+
+
+def test_the_query_image_rides_with_the_frames(media):
+    """VideoMMMU's Adaptation request carries its query image: one more
+    grid_thw entry than the frames alone, the image's 56x84 pixels (2x3
+    merged tokens of 28)."""
+    from open_o3_video_tpu_torch.eval.dataloaders import videommmu as D
+
+    model = _port_model()
+    vp, img, txt, docs = D.VideoMMMUBench(os.path.join(media["dir"], "mmmu")).get_data()
+    prepared = model.prepare_paths_batch(list(zip(vp, txt, img)))
+    grids = [np.asarray(req.grid_thw).tolist() for req, _, _, _ in prepared]
+    assert img[2] is not None and img[0] is None and img[1] is None
+    assert len(grids[2]) == len(grids[0]) + 1 and grids[2][:-1] == grids[0]
+    assert grids[2][-1] == [1, 4, 6]
+
+
+def test_a_resized_query_image_is_within_one_level_of_pil(media, tmp_path):
+    """A query image of 60x90 is resized to 56x84 on both sides: the port's
+    decode_image + fetch_image within one level of the JAX package's PIL
+    image through its fetch_image (ops/resize.py's envelope)."""
+    import io
+
+    from open_o3_video_tpu.data import video as JVID
+    from PIL import Image
+
+    from open_o3_video_tpu_torch.data import video as TVID
+
+    data = BD.png_bytes(rng(3).integers(0, 256, (60, 90, 3), dtype=np.uint8), str(tmp_path))
+    ours = TVID.fetch_image({"image": TVID.decode_image(data)}).astype(int)
+    theirs = np.asarray(JVID.fetch_image({"image": Image.open(io.BytesIO(data))}))
+    theirs = theirs.transpose(2, 0, 1).astype(int)
+    assert ours.shape == theirs.shape == (3, 56, 84)
+    assert np.abs(ours - theirs).max() <= 1
 
 
 def test_a_missing_video_is_a_data_error_in_the_mcq_iterator(media):
@@ -307,13 +427,61 @@ def test_served_knobs_pass_through():
     (["vstar", "--model_path", "m"], "--device cpu"),
     (["tvgbench", "--model_path", "m"], "--device cpu"),
     (["vstar-judge", "--model_path", "m", "--result_file", "r.json"], "--device cpu"),
-    (["videomme", "--model_path", "m", "--device", "cpu"], "M7"),
+    (["videomme", "--model_path", "m"], "--device cpu"),
     (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_tensor", "8"], "M8"),
     (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_data", "2"], "M8")])
 def test_cli_refusals(monkeypatch, argv, message):
     """The CLI refuses the CPU unless --device cpu is given (no card: as
-    here), the benchmarks not ported yet, and a mesh, before loading."""
+    here) and a mesh, before loading."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(cli, "build_model", lambda *a: pytest.fail("a model was built"))
     with pytest.raises(SystemExit, match=message):
         cli.main(argv)
+
+
+QWEN_IDS = dict(eos_token_id=151645, pad_token_id=151643, bos_token_id=151643,
+                vision_start_token_id=151652, vision_end_token_id=151653,
+                image_token_id=151655, video_token_id=151656)
+
+
+@pytest.fixture(scope="module")
+def cli_model(tmp_path_factory):
+    """A checkpoint directory of the tiny config with the Qwen vocabulary
+    (no tokenizer files: the ByteTokenizer) and a config cutting the MCQ
+    benchmarks' yaml to 4 new tokens and 2 frames."""
+    from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+    from open_o3_video_tpu_torch.train import checkpoint as CK
+
+    root = tmp_path_factory.mktemp("cli_model")
+    _, cfg = tiny_configs()
+    cfg = dataclasses.replace(cfg, **QWEN_IDS, text=dataclasses.replace(cfg.text, vocab_size=152064))
+    CK.export_safetensors(TP.init(cfg, 0, torch.device("cpu")), cfg, str(root / "model"))
+    (root / "cut.yaml").write_text("temperature: 0.0\nmax_tokens: 4\nvideo_max_pixels: 262144\n"
+                                   "video_max_frames: 2\n")
+    return root
+
+
+@pytest.mark.parametrize("bench,output,ids", [
+    ("videomme", "out.json", ["001-1", "002-1", "003-2"]),
+    ("worldsense", "out", [0, 2]),
+    ("videommmu", "out.json", ["test_Computer_Science_1", "test_Math_2", "test_Physics_3"])])
+def test_cli_runs_each_mcq_benchmark_on_the_cpu(media, cli_model, tmp_path, bench, output, ids):
+    """``cli.main([bench, ..., "--device", "cpu"])`` on the tiny checkpoint
+    over the synthetic dataset: every item in the results file (WorldSense's
+    truncated video in its errors file)."""
+    data = os.path.join(media["dir"], {"videomme": "mme", "worldsense": "ws",
+                                       "videommmu": "mmmu"}[bench])
+    out = str(tmp_path / output)
+    cli.main([bench, "--model_path", str(cli_model / "model"), "--config",
+              str(cli_model / "cut.yaml"), "--data_dir", data, "--asr_dir", f"{data}/asr",
+              "--output", out, "--item_batch", "2", "--device", "cpu"])
+    if bench == "worldsense":
+        with open(f"{out}_score.json") as f:
+            assert [r["index"] for r in json.load(f)] == ids
+        with open(f"{out}_errors.json") as f:
+            assert [e["video"] for e in json.load(f)] == ["ws_b"]
+        return
+    with open(out) as f:
+        got = json.load(f)
+    key = "question_id" if bench == "videomme" else "id"
+    assert [r[key] for r in got["results"]] == ids and got["errors"] == []

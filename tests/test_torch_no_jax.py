@@ -1,5 +1,5 @@
-"""Import guard: the port runs where neither JAX nor PIL is installed (the
-GPU machine has neither, nor rouge_score or nltk). A subprocess blocks those
+"""Import guard: the port runs where neither JAX nor PIL is installed, nor
+rouge_score or nltk, and imports none of them. A subprocess blocks those
 imports, imports every module of the port, runs a tiny generate on the CPU
 (with a bf16 cache, and with an fp8 cache through the long-context path),
 one tiny SFT train step, a generate with an int4 decoder (K7's plain
@@ -7,7 +7,9 @@ version), a judge call, one tiny PEFT GSPO step on a free-form example (its
 ROUGE reward scored), and the SFT app's data path (a raw AVI and a PNG
 keyframe read by the port's reader, ``collate_sft_batch``) with one PEFT SFT
 step, V-STAR over a raw AVI through the port's ``QwenVLEngine`` and the
-judge's ``evaluate_json`` on its results, and checks that nothing of the JAX
+judge's ``evaluate_json`` on its results, VideoMMMU's ``evaluate`` over its
+three parquet splits (an MCQ, an open-ended item and an MCQ with a PNG query
+image: pandas reads them), a trace, and checks that nothing of the JAX
 package was imported along the way."""
 
 import os
@@ -82,6 +84,14 @@ MODULES = [
     "open_o3_video_tpu_torch.eval.vstar",
     "open_o3_video_tpu_torch.eval.tvgbench",
     "open_o3_video_tpu_torch.eval.cli",
+    "open_o3_video_tpu_torch.eval.dataloaders",
+    "open_o3_video_tpu_torch.eval.dataloaders.videomme",
+    "open_o3_video_tpu_torch.eval.dataloaders.worldsense",
+    "open_o3_video_tpu_torch.eval.dataloaders.videommmu",
+    "open_o3_video_tpu_torch.eval.videomme",
+    "open_o3_video_tpu_torch.eval.worldsense",
+    "open_o3_video_tpu_torch.eval.videommmu",
+    "open_o3_video_tpu_torch.utils.xlsx",
 ]
 for m in MODULES:
     importlib.import_module(m)
@@ -204,6 +214,22 @@ with tempfile.TemporaryDirectory() as root:
     assert len(results) == 1 and "answer_spatial_pre_2" in results[0], results
     stats = evaluate_json(out, judge, log=lambda s: None)
     assert "mAM" in stats["overall"] and len(stats["scored_items"]) == 1, stats
+# VideoMMMU: the three splits written with pandas, the Adaptation item's PNG
+# decoded without PIL, under a trace
+import _torch_bench_data as BD
+from open_o3_video_tpu_torch.eval import videommmu
+from open_o3_video_tpu_torch.utils import start_trace, stop_trace, trace_annotation
+with tempfile.TemporaryDirectory() as root:
+    BD.write_videommmu(root, np.random.default_rng(2), (2, 28, 56, 3), 1.0, rgb[0, :, :, :])
+    start_trace(os.path.join(root, "trace"))
+    with trace_annotation("videommmu"):
+        acc = videommmu.evaluate(model, root, os.path.join(root, "mmmu.json"), item_batch=2)
+    trace = stop_trace()
+    with open(os.path.join(root, "mmmu.json")) as f:
+        written = json.load(f)
+    assert [r["category"] for r in written["results"]] == ["Perception", "Comprehension",
+                                                           "Adaptation"], written
+    assert written["errors"] == [] and 0 <= acc <= 1 and "videommmu" in open(trace).read()
 assert sys.modules["jax"] is None and sys.modules["PIL"] is None
 assert sys.modules["rouge_score"] is None and sys.modules["nltk"] is None
 assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
@@ -212,7 +238,7 @@ print("NO_JAX_OK")
 
 
 def test_port_imports_and_generates_without_jax_or_pil():
-    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO_ROOT, os.path.join(REPO_ROOT, "tests")]))
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=REPO_ROOT, env=env,
         capture_output=True, text=True, timeout=120,
