@@ -21,8 +21,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      sampling (temperature 0.7, top_p 0.001, repetition penalty 1.05) for 64
      new tokens; stage times, peak memory, and each kernel's launch count,
      which must be > 0. Every phase decodes graphed, the engine's default:
-     one decode step captured as a CUDA graph per generate call and
-     replayed, the tokens read back once at the end;
+     one decode step captured as a CUDA graph per group of a generate call
+     and replayed, the tokens read back once a decode segment;
   5. the slice's numerics on the engine's prefill layout (the requests as
      one left-padded batch, a cache of L + 64 slots): vision embeddings and
      last-position prefill logits of the kernel path and of the plain bf16
@@ -140,10 +140,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      port's QwenVLEngine (configs/eval/vstar.yaml, max_tokens cut to 64) on
      3 items in V-STAR's layout, item_batch 2, one naming a missing video,
      which must land in *_errors.json: 16 frames an item as images resized
-     to 336x588 (K2 at W = 1008), waves of at most 8 requests (seconds,
-     tower passes, stage seconds, peak GiB; K1, K2 and K3 launched);
-     evaluate again decoding eagerly and item 0's wave again graphed: each
-     wave's token ids equal, every row 64 tokens or ended by EOS (a
+     to 336x588 (K2 at W = 1008), one engine call an item batch through
+     the scheduler's 8 slots (its record: seconds, tower passes,
+     admissions, prefix blocks, stage seconds; peak GiB; K1, K2 and K3
+     launched); evaluate again decoding eagerly and item 0's call again
+     graphed: each call's token ids equal, every row 64 tokens or ended by EOS (a
      [decode] line); tvgbench.evaluate on 3 queries, one a chunk (duration
      probed by the port's reader), graphed then eagerly: each chunk's
      token ids equal;
@@ -160,13 +161,38 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      their layouts, 64-frame 640x360 AVIs named <id>.mp4, each harness
      through a QwenVLEngine at its own yaml (max_tokens cut to 64),
      item_batch 2: every item in its results file, K1, K2 and K3 launches
-     per wave (28 and 4 per tower pass, 28 per prefill), the Adaptation
-     request one grid entry longer than the frames alone; VideoMMMU again
-     eagerly: each wave's token ids equal; then the CLI step runs
+     per engine call (28 and 4 per tower pass, 28 per prefill forward of
+     the call's record), the Adaptation request one grid entry longer than
+     the frames alone; VideoMMMU again eagerly: each call's token ids
+     equal; then the CLI step runs
      `videommmu --device cuda` too: the same items and keys. 16b: the
      72B int4 judge of phase 13 scores the V-STAR results through
      evaluate_json (empty answers filled with a canned one, counted): the
      overall block (acc, mAM, mLGM) and K7's launches on both routes.
+ 17. the serving scheduler (after phase 16a, before phase 11, on the
+     phase-4 weights): K4 at query position T on a wrapped ring (two rows
+     over 32768 + 48 columns, valid columns on both sides of the write
+     head) against its plain version, and a planted read that stops at the
+     write head must fail the bound; K3 at a suffix admission's layout
+     (17a's prefix group: 5 suffix rows at cache offset P over a mask with
+     a hole before the block and the suffixes' left pad) against its plain
+     version, with three planted layout faults that must fail the bound;
+     17a one InferenceEngine.generate of 14 requests (2 synthetic 16-frame
+     252x336 videos with 5 queries each, question tails of 20-300 tokens,
+     and 4 text-only prompts of 500-3000 tokens) with max_slots 8,
+     decode_segment 16, 48 greedy tokens, repetition penalty 1.05:
+     admissions, segments, ring wraps (>= 1), prefix blocks (2), tower
+     passes (2), stage seconds, capture ms, peak GiB, K1/K2/K3 launches
+     (> 0), then the same call eagerly: equal token ids; 17b the call with
+     prefix_cache_min=0: prefill seconds of both and the share of equal
+     rows; every prefix-cached row's first-token log-probability within
+     SCHED_LOGP_BOUND of a plain prefill's log-probability of that token,
+     and past it with the two videos' blocks swapped and with the blocks
+     zeroed; 17c max_slots 2, prefill_chunk 2048: an 8000-token request
+     admitted in chunks while a 1000-token one decodes (>= 3 decode
+     segments between chunks), graphed and eagerly equal; 17d max_kv_gb set
+     to admit 3 of 8 slots of 17a's 11-request group: the slots used, every
+     arena within the budget.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -205,7 +231,8 @@ from open_o3_video_tpu_torch.data.sft_dataset import (
     prepare_sft_example,
 )
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
-from open_o3_video_tpu_torch.engine.engine import DONE_LAG, chunked_prefill, left_padded_rows
+from open_o3_video_tpu_torch.engine import engine as engine_module
+from open_o3_video_tpu_torch.engine.engine import DONE_LAG, left_padded_rows
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
 from open_o3_video_tpu_torch.models.qwen25vl.model import (
@@ -944,34 +971,41 @@ def decode_run(engine, call):
     just before. Returns its result and the decode's numbers: ms per token
     (the whole decode stage, the capture included, over the steps that
     emitted a token), capture ms (a part of it), steps, wasted steps
-    (enqueued after every row finished), and the hand-written kernels'
-    launches made inside the decode loops (``kernels.LAUNCHES``, which
+    (enqueued after every row finished), the hand-written kernels'
+    launches made inside the decode segments (``kernels.LAUNCHES``, which
     counts a replayed graph's kernels once per replay) in all and per step
-    that ran."""
+    that ran, the prefill and vision seconds, and the scheduler's counters
+    in the run (admissions, prefix blocks, segments, ring wraps, ...)."""
     engine.stage_seconds.clear()
     engine.decode_steps = engine.decode_steps_wasted = 0
+    counters = collections.Counter(engine.counters)
     decode_launches: collections.Counter = collections.Counter()
-    real = engine._decode
+    real = engine_module._GroupRun.segment
 
-    def counted(*args, **kw):
+    def counted(run, *args, **kw):
+        if run.engine is not engine:
+            return real(run, *args, **kw)
         before = collections.Counter(kernels.LAUNCHES)
-        out = real(*args, **kw)
+        out = real(run, *args, **kw)
         decode_launches.update(collections.Counter(kernels.LAUNCHES) - before)
         return out
 
-    engine._decode = counted
+    engine_module._GroupRun.segment = counted
     torch.cuda.synchronize()
     kernels.reset_launches()
     try:
         out = call()
     finally:
-        del engine._decode
+        engine_module._GroupRun.segment = real
     st, ran = engine.stage_seconds, engine.decode_steps + engine.decode_steps_wasted
+    counters = collections.Counter(engine.counters) - counters  # a missing key reads 0
     return out, {"ms_per_token": round(1e3 * st["decode"] / max(engine.decode_steps, 1), 3),
                  "capture_ms": round(1e3 * st["decode_capture"], 3),
                  "steps": engine.decode_steps, "wasted": engine.decode_steps_wasted,
                  "launches": dict(decode_launches),
-                 "launches_per_step": round(sum(decode_launches.values()) / max(ran, 1), 3)}
+                 "launches_per_step": round(sum(decode_launches.values()) / max(ran, 1), 3),
+                 "prefill_s": round(st["prefill"], 4), "vision_s": round(st["vision"], 4),
+                 "scheduler": counters}
 
 
 def decode_pair(path: str, graph: dict, eager: dict, graph_tokens, eager_tokens) -> None:
@@ -1087,7 +1121,14 @@ def long_run(engine, n, sampling) -> tuple[list[int], dict, dict]:
         prefill_tok_per_s=round(n / st["prefill"], 1),
         decode_ms_per_token=decode["ms_per_token"], decode_capture_ms=decode["capture_ms"],
         e2e_s=round(e2e, 3), peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
-    log("longctx", launches=launches)
+    (group,) = engine.groups
+    log("longctx", launches=launches, slots=group["slots"],
+        arena_gib=round(group["arena_bytes"] / 2**30, 3),
+        prefills=decode["scheduler"]["prefills"])
+    chunks = -(-n // engine.long_prefill_chunk) if n >= engine.long_prefill_threshold else 1
+    if group["slots"] != 1 or decode["scheduler"]["prefills"] != chunks:
+        raise RuntimeError(f"the long request did not prefill its chunks into a one-slot arena: "
+                           f"{group}, {decode['scheduler']}")
     vocab = engine.cfg.text.vocab_size
     if not 1 <= len(out["token_ids"]) <= sampling.max_tokens:
         raise RuntimeError(f"bad output length {len(out['token_ids'])}")
@@ -1203,9 +1244,11 @@ def long_numerics_phase(params, cfg) -> None:
     attn_valid[:, :n + 1] = True
     with torch.inference_mode():
         cache = init_kv_cache(cfg.text, 1, T, dtype=dtype, device=dev)
-        hidden = chunked_prefill(params["text"], cfg.text, embed_tokens(params, ids),
-                                 torch.from_numpy(position_ids).to(dev), attn_valid, cache,
-                                 LONG_CHUNK)
+        embeds, position_ids = embed_tokens(params, ids), torch.from_numpy(position_ids).to(dev)
+        for c0 in range(0, n, LONG_CHUNK):  # the prefill in chunks, as the engine runs it
+            hidden, _ = text_forward(params["text"], cfg.text, embeds[:, c0:c0 + LONG_CHUNK],
+                                     position_ids[:, :, c0:c0 + LONG_CHUNK],
+                                     attn_valid=attn_valid, cache=cache, cache_offset=c0)
         token = logits_from_hidden(params["text"], hidden[:, -1]).argmax(-1)
         logits = {}
         for name, weights, impl in (("kernel", params, "auto"), ("plain", params, "torch"),
@@ -1617,7 +1660,10 @@ def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
         use_vision=last["use_vision"], degraded=last["n_degraded"],
         rollout_decode_ms_per_token=decode["ms_per_token"], decode_capture_ms=decode["capture_ms"],
-        decode_steps=decode["steps"], wasted_steps=decode["wasted"])
+        decode_steps=decode["steps"], wasted_steps=decode["wasted"],
+        rollout_prefill_s=decode["prefill_s"], rollout_vision_s=decode["vision_s"],
+        rollout_prefix_blocks=decode["scheduler"]["prefix_blocks"],
+        rollout_admissions=decode["scheduler"]["admissions"])
     log("gspo", run=tag, step=step + 1, loss=m["loss"], kl=m["kl"], reward=m["reward"],
         advantages=last["advantages"].tolist(),
         rewards={k.split("/")[1]: v for k, v in m.items() if k.startswith("rewards/")})
@@ -2104,13 +2150,18 @@ def eval_config(name: str) -> dict:
     return {**kwargs, "max_tokens": EVAL_MAX_TOKENS}
 
 
-def _waves_line(model, since: int) -> dict:
-    waves = model.waves[since:]
-    return {"waves": len(waves), "requests_per_wave": [w["requests"] for w in waves],
-            "tower_passes_per_wave": [w["tower_passes"] for w in waves],
-            "seconds_per_wave": [round(w["seconds"], 3) for w in waves],
-            "stage_seconds_per_wave": [{k: round(v, 3) for k, v in w["stage_seconds"].items()}
-                                       for w in waves]}
+def _calls_line(model, since: int) -> dict:
+    """The records of ``model``'s engine calls from ``since`` on, for a log
+    line: requests, tower passes, admissions, prefix blocks, seconds and
+    stage seconds of each call."""
+    calls = model.calls[since:]
+    return {"calls": len(calls), "requests_per_call": [c["requests"] for c in calls],
+            "tower_passes_per_call": [c["tower_passes"] for c in calls],
+            "admissions_per_call": [c["admissions"] for c in calls],
+            "prefix_blocks_per_call": [c["prefix_blocks"] for c in calls],
+            "seconds_per_call": [round(c["seconds"], 3) for c in calls],
+            "stage_seconds_per_call": [{k: round(v, 3) for k, v in c["stage_seconds"].items()}
+                                       for c in calls]}
 
 
 @contextlib.contextmanager
@@ -2179,7 +2230,7 @@ def vstar_phase(params, cfg, data) -> tuple[object, str, list]:
     with open(f"{EVAL_DIR}/vstar_results_errors.json") as f:
         errors = json.load(f)
     log("eval", bench="vstar", items=len(data["anno"]), item_batch=EVAL_ITEM_BATCH,
-        results=len(results), errors=errors, seconds=round(seconds, 3), **_waves_line(model, 0),
+        results=len(results), errors=errors, seconds=round(seconds, 3), **_calls_line(model, 0),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), launches=launches)
     inputs, size = vstar.prepare_item_inputs(data["anno"][0], data["avi"], model)
     log("eval", bench="vstar", frame_size=size, prompt_tokens={
@@ -2192,8 +2243,6 @@ def vstar_phase(params, cfg, data) -> tuple[object, str, list]:
                            f"{[r['vid'] for r in results]} and {errors}")
     if not all(launches.values()):
         raise RuntimeError(f"V-STAR: a kernel of the path never launched: {launches}")
-    if any(w["requests"] > model.max_slots for w in model.waves):
-        raise RuntimeError(f"a wave exceeded {model.max_slots} requests: {model.waves}")
     rows = check_rows("vstar evaluate", graph_tokens, EVAL_MAX_TOKENS, cfg.eos_token_id)
 
     engine.decode_graph = False  # evaluate again, decoding eagerly: the reference
@@ -2234,7 +2283,7 @@ def tvgbench_phase(model) -> None:
     runs = {}
     for graphed in (True, False):
         model.engine.decode_graph = graphed
-        since = len(model.waves)
+        since = len(model.calls)
         out = f"{EVAL_DIR}/tvgbench_{'graph' if graphed else 'eager'}.json"
         t0 = time.perf_counter()
         with recording(model.engine) as calls:
@@ -2244,7 +2293,7 @@ def tvgbench_phase(model) -> None:
             written = json.load(f)
         runs[graphed] = calls, decode, [r["prediction_raw"] for r in written["results"]]
         log("eval", bench="tvgbench", decode="graph" if graphed else "eager", chunks=len(calls),
-            seconds=round(time.perf_counter() - t0, 3), scores=scores, **_waves_line(model, since))
+            seconds=round(time.perf_counter() - t0, 3), scores=scores, **_calls_line(model, since))
         if written["errors"] or len(written["results"]) != len(TVG_QUERIES):
             raise RuntimeError(f"TVGBench: {len(written['results'])} results, errors "
                                f"{written['errors']}")
@@ -2284,7 +2333,7 @@ def mcq_phase(params, cfg, data) -> None:
     log("eval", bench="mcq", frames=list(frames.shape), sample_fps=fps, frame_shape=shape,
         prompt_tokens=len(prepared[0][0].input_ids), prepare_s=round(prep_s, 3),
         seconds=round(seconds, 3), pred=out["pred"], choice_score=out["choice_score"],
-        path_chars=[len(p) for p in out["paths"]], **_waves_line(model, 0))
+        path_chars=[len(p) for p in out["paths"]], **_calls_line(model, 0))
     crops = tts.extract_and_crop(frames, fps, parse_evidence_patterns(TTS_TRACE))
     msgs = tts.build_image_scorer_msgs(crops, MCQ_QUESTION)
     t0 = time.perf_counter()
@@ -2373,21 +2422,22 @@ def bench_data(seed: int) -> dict:
 
 
 def _check_waves(bench: str, model, waves: list, cfg) -> list[dict]:
-    """Each wave's launches (set to 0 just before it, read just after): K1
-    once per window block and K2 once per global block of each tower pass,
-    K3 once per decoder layer of its one prefill."""
+    """Each engine call's launches (set to 0 just before it, read just
+    after): K1 once per window block and K2 once per global block of each
+    tower pass, K3 once per decoder layer of each of its prefill forwards
+    (admissions and prefix blocks, from the call's record)."""
     vis, layers = cfg.vision, cfg.text.num_hidden_layers
     glob = len(vis.fullatt_block_indexes)
     per_wave = []
-    for record, wave in zip(model.waves, waves, strict=True):
+    for record, wave in zip(model.calls, waves, strict=True):
         p = record["tower_passes"]
         want = {"fused_window_attention": (vis.depth - glob) * p, "window_attention": glob * p,
-                "flash_attention_gqa": layers}
+                "flash_attention_gqa": layers * record["prefills"]}
         per_wave.append({"requests": record["requests"], "tower_passes": p,
-                         "launches": wave["launches"]})
+                         "prefills": record["prefills"], "launches": wave["launches"]})
         if wave["launches"] != want:
-            raise RuntimeError(f"{bench}: a wave of {p} tower passes launched {wave['launches']}, "
-                               f"expected {want}")
+            raise RuntimeError(f"{bench}: a call of {p} tower passes and {record['prefills']} "
+                               f"prefills launched {wave['launches']}, expected {want}")
     return per_wave
 
 
@@ -2413,7 +2463,7 @@ def benchmarks_phase(params, cfg, seed: int) -> dict:
     (an MCQ and an open-ended item in one chunk, then the Adaptation item
     with its image), each through a QwenVLEngine at its own yaml
     (max_tokens cut to EVAL_MAX_TOKENS), item_batch EVAL_ITEM_BATCH: every
-    item in the results, K1/K2/K3 per wave as _check_waves says; VideoMMMU
+    item in the results, K1/K2/K3 per engine call as _check_waves says; VideoMMMU
     again decoding eagerly: each wave's token ids equal, every row
     EVAL_MAX_TOKENS long or ended by EOS. Returns VideoMMMU's data
     directory and results file, for the CLI step."""
@@ -2466,7 +2516,7 @@ def benchmarks_phase(params, cfg, seed: int) -> dict:
         log("bench", bench=bench, config=config, items=items, item_batch=EVAL_ITEM_BATCH,
             seconds=round(seconds, 3), rows=rows, per_wave=per_wave,
             grid_entries_per_wave=[w["grid_entries"] for w in waves], **extra,
-            **_waves_line(model, 0), decode_ms_per_token=graph["ms_per_token"],
+            **_calls_line(model, 0), decode_ms_per_token=graph["ms_per_token"],
             peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
         if not ok:
             raise RuntimeError(f"{bench}: the results hold {items} with errors {errors}")
@@ -2727,20 +2777,17 @@ def probe_phase(dev, gen, results) -> dict:
     return launches
 
 
-def forward_steps(engine) -> int:
-    """Forwards of the decoder in the engine's last generate: the prefill
-    (one forward below the long-prompt threshold) and each decode step that
-    ran, wasted ones included (a replayed step counts its kernels)."""
-    return 1 + engine.decode_steps + engine.decode_steps_wasted
-
-
-def k7_expected(engine, layers: int) -> dict:
-    """K7's launches by route in the engine's last generate: the prefill
-    forward's 7 * layers decoder matmuls on the wgmma route and its lm_head
-    at the last positions (M = batch) on the mma.sync one, then 7 * layers
-    + 1 per decode step that ran on the mma.sync route."""
-    return {"int4_matmul": 1 + (7 * layers + 1) * (forward_steps(engine) - 1),
-            "int4_matmul_wgmma": 7 * layers}
+def k7_expected(engine, layers: int, sched: dict) -> dict:
+    """K7's launches by route in the engine's last generate, from its
+    scheduler counters (``decode_run``): each prefill forward (a prompt, a
+    chunk, a prefix block or a suffix admission, each over more than 64
+    rows) runs the 7 * layers decoder matmuls on the wgmma route; each
+    admission its lm_head at the last positions (M = its rows) on the
+    mma.sync one; then 7 * layers + 1 per decode step that ran on the
+    mma.sync route (a replayed step counts its kernels)."""
+    steps = engine.decode_steps + engine.decode_steps_wasted
+    return {"int4_matmul": sched["admissions"] + (7 * layers + 1) * steps,
+            "int4_matmul_wgmma": 7 * layers * sched["prefills"]}
 
 
 def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
@@ -2749,10 +2796,10 @@ def int4_slice_phase(qparams, cfg, reqs, sampling, bf16_logits) -> dict:
     log("int4", weights_gib=round(quant.param_bytes(qparams) / 2**30, 3), params=P.count(qparams))
     engine = InferenceEngine(qparams, cfg)
     outs, launches, decode = slice_phase(engine, reqs, sampling, INT4_SLICE_KERNELS)
-    expected = k7_expected(engine, cfg.text.num_hidden_layers)
+    expected = k7_expected(engine, cfg.text.num_hidden_layers, decode["scheduler"])
     got = {name: launches[name] for name in K7_ROUTES}
     log("int4", first_token_ids=[o["token_ids"][:8] for o in outs], k7_launches=got,
-        expected=expected, forwards=forward_steps(engine))
+        expected=expected, scheduler=dict(decode["scheduler"]))
     if got != expected:
         raise RuntimeError(f"K7 launched {got} times by route, expected {expected}: "
                            "a decoder matmul did not take its route")
@@ -2802,14 +2849,15 @@ def judge_phase(dev, seed, results_file: str) -> dict:
     e2e = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in K7_ROUTES}
     k3_launches = kernels.LAUNCHES["flash_attention_gqa"]
-    expected = k7_expected(engine, cfg.text.num_hidden_layers)
+    expected = k7_expected(engine, cfg.text.num_hidden_layers, decode["scheduler"])
     st = engine.stage_seconds
     log("judge", jobs=len(JUDGE_JOBS), prompt_tokens=[len(judge._request(*j).input_ids) for j in JUDGE_JOBS],
         prefill_ms=round(1e3 * st["prefill"], 3),
         decode_ms_per_token=decode["ms_per_token"], decode_capture_ms=decode["capture_ms"],
         decode_steps=engine.decode_steps, e2e_s=round(e2e, 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3), scores=scores,
-        k7_launches=launches, expected=expected, k3_launches=k3_launches)
+        k7_launches=launches, expected=expected, k3_launches=k3_launches,
+        scheduler=dict(decode["scheduler"]))
     if launches != expected:
         raise RuntimeError(f"K7 launched {launches} times by route in the judge call, "
                            f"expected {expected}")
@@ -2825,6 +2873,343 @@ def judge_phase(dev, seed, results_file: str) -> dict:
     del judge, engine, params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# Phase 17, the serving scheduler. V-STAR's shape: 2 videos of 16 frames, 5
+# queries each, question tails of these many bytes (the ByteTokenizer's
+# tokens). Beside them 4 text-only prompts of these lengths. The 10 video
+# rows' prefixes and the 3000-token text share one prompt bucket (4096), so
+# they form one group of 11 requests for 8 slots: it refills, and its
+# 48-column ring wraps; the 300-byte tail makes the suffix region ~313
+# columns wide, so the other suffixes are left-padded.
+SCHED_TAILS = ((20, 27, 34, 41, 300), (23, 30, 37, 44, 48))
+SCHED_TEXT = (500, 1200, 2000, 3000)
+SCHED_SLOTS, SCHED_SEGMENT, SCHED_TOKENS = 8, 16, 48
+# 17b: each prefix-cached row's first token's log-probability against the
+# log-probability of the same token under a plain prefill of its whole
+# prompt (no prefix block, one batch): they may differ by bf16 rounding
+# only, since the block and the whole prompt's prefill compute the same K/V
+# in matmuls of other shapes. Planted faults (the other video's block, a
+# zeroed block) must exceed the bound.
+SCHED_LOGP_BOUND = 0.15
+# K3's suffix-admission case: the family's prefix block is this many columns
+# shorter than the group's prefix region, so the rows hold a hole
+# [0, SCHED_HOLE) before the block, as a prefix group of families with
+# prefixes of other lengths lays them out.
+SCHED_HOLE = 40
+# 17c: two 1000-token requests and an 8000-token one in one group (one
+# prompt bucket), 2 slots, chunks of 2048 tokens, segments of 8 steps; the
+# first request stops at its EOS (the token an eager run emits at step 5),
+# so the long one is admitted while the second decodes.
+SCHED_CHUNK_LENS = (1000, 1000, 8000)
+SCHED_CHUNK, SCHED_CHUNK_SEGMENT = 2048, 8
+# 17d: the KV budget admits this many slots of the 11-request group.
+SCHED_KV_SLOTS = 3
+
+
+def scheduler_requests(proc, cfg, seed: int) -> list[Request]:
+    """17a's 14 requests: per video one patch array shared by its 5 queries
+    (the same system prompt and frames, then a tail), then the text-only
+    prompts."""
+    rng = np.random.default_rng(seed + 17)
+    reqs = []
+    for v, tails in enumerate(SCHED_TAILS):
+        frames = rng.integers(0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
+        vis = proc.process_images(list(frames))
+        frame_prompt = "".join(
+            f"Frame {j + 1} at {round(j / FPS, 1)} second: "
+            "<|vision_start|><|image_pad|><|vision_end|>\n" for j in range(N_FRAMES))
+        for q, n in enumerate(tails):
+            tail = f"Q{v}{q}: " + "".join(chr(97 + int(c)) for c in rng.integers(0, 26, n - 5))
+            prompt = proc.apply_chat_template([
+                {"role": "system", "content": [{"type": "text", "text": SYSTEM_PROMPT}]},
+                {"role": "user", "content": [{"type": "text", "text": frame_prompt},
+                                             {"type": "text", "text": tail}]},
+            ], add_generation_prompt=True)
+            x = proc(prompt, images=list(frames), precomputed_vision=vis)
+            reqs.append(Request(input_ids=x.input_ids, pixel_patches=vis.pixel_patches,
+                                grid_thw=vis.grid_thw, vision_token_id=cfg.image_token_id))
+    for n in SCHED_TEXT:
+        reqs.append(Request(input_ids=rng.integers(32, 127, size=n).tolist()))
+    return reqs
+
+
+def scheduler_run(engine, reqs, sampling, tag: str) -> tuple[list[dict], dict]:
+    """One generate of ``reqs`` through ``engine`` (``decode_run``), with the
+    peak memory and the launches of the slice's kernels; logs the call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs, run = decode_run(engine, lambda: engine.generate(reqs, sampling, return_logprobs=True))
+    run["seconds"] = round(time.perf_counter() - t0, 3)
+    run["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    run["kernel_launches"] = {n: kernels.LAUNCHES[n] for n in SLICE_KERNELS + LONG_KERNELS}
+    run["groups"] = list(engine.groups)
+    st = engine.stage_seconds
+    log("sched", run=tag, decode_graph=engine.decode_graph, requests=len(reqs),
+        seconds=run["seconds"], stage_seconds={k: round(v, 4) for k, v in st.items()},
+        capture_ms=run["capture_ms"], decode_ms_per_token=run["ms_per_token"],
+        decode_steps=run["steps"], wasted_steps=run["wasted"], peak_mem_gib=run["peak_mem_gib"],
+        **run["scheduler"])
+    log("sched", run=tag, groups=run["groups"], launches=run["kernel_launches"])
+    vocab = engine.cfg.text.vocab_size
+    for o in outs:
+        if not 1 <= len(o["token_ids"]) <= sampling.max_tokens or not all(
+                0 <= t < vocab for t in o["token_ids"]):
+            raise RuntimeError(f"{tag}: a bad output row {o['token_ids'][:8]}...")
+        if not all(np.isfinite(o["logprobs"])):
+            raise RuntimeError(f"{tag}: a non-finite log-probability")
+    return outs, run
+
+
+def k4_ring_case(dev, cfg, gen) -> None:
+    """K4 at query position T on a wrapped ring, as the ring step calls it:
+    two rows over T = 32768 + 48 columns, the write head at ring column 10,
+    row 0's valid ring columns on both sides of it (it wrapped), row 1
+    left-padded and past the head only. K4 against its plain version at
+    the kernels' bounds; the plain version with the columns past the head
+    dropped (what a mask of the written columns would read) must fail
+    them."""
+    t = cfg.text
+    L, ring, head = 32768, 48, 10
+    T = L + ring
+    k, v = _layer_views(dev, gen, cfg, 2, T, T, torch.bfloat16)
+    q = torch.randn((2, 1, t.num_attention_heads, t.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.full((2, 1), T, dtype=torch.int32, device=dev)
+    valid = torch.zeros((2, T), dtype=torch.int32, device=dev)
+    valid[0, :L] = 1
+    valid[0, L:L + head + 1] = 1
+    valid[0, L + head + 20:] = 1
+    valid[1, 3000:L] = 1
+    valid[1, L + head:L + head + 1] = 1
+    valid[1, L + 30:] = 1
+    results: dict = {}
+    ref = compare("decode_attention_gqa", lambda: da.decode_attention_gqa(q, k, v, pos, valid),
+                  lambda: da.decode_attention_gqa_torch(q, k, v, pos, valid), None, results,
+                  flops=4 * int(valid.sum()) * t.num_attention_heads * t.head_dim,
+                  moved=nbytes(q, k, v, pos, valid, q), case="ring wrapped, q at T")
+    written = valid.clone()
+    written[:, L + head + 1:] = 0
+    a = agreement(da.decode_attention_gqa_torch(q, k, v, pos, written), ref, None)
+    log("kernels", name="decode_attention_gqa", planted_fault="columns past the write head "
+        "dropped", max_abs_err=a["max_abs_err"], bound=a["bound"], rel_l2=a["rel_l2"],
+        rejected=not a["ok"])
+    if a["ok"]:
+        raise RuntimeError("K4's bound does not reject a read that stops at the write head")
+    del k, v
+    torch.cuda.empty_cache()
+
+
+def k3_suffix_case(dev, cfg, gen, engine, reqs) -> None:
+    """K3 at a suffix admission's layout, laid out by the engine's own
+    ``_suffix_rows`` for 17a's prefix group: video 1's 5 queries, their
+    suffixes left-padded into S columns at [P, P + S), their prefix block
+    SCHED_HOLE columns short of P (a hole [0, P - pl) before it), queries
+    at columns P.. (cache offset P), the mask that validity ANDed with the
+    written columns (< P + S) over a cache of T = P + S + SCHED_TOKENS
+    columns. K3 against its plain version at the kernels' bounds, on the
+    real suffix rows; then planted faults, each the plain version with the
+    layout wrong, must fail them: the queries at their suffix index (the
+    offset P dropped), the suffix's left pad read as valid, the block's
+    mask one column to the left (a hole column read, the block's last
+    column dropped)."""
+    t = cfg.text
+    pls = engine._detect_prefixes(reqs)
+    group = [i for i, pl in enumerate(pls) if pl]
+    P = max(pls[i] for i in group)
+    S = max(len(reqs[i].input_ids) - pls[i] for i in group)
+    T = P + S + SCHED_TOKENS
+    fam = [reqs[i] for i in group if reqs[i].pixel_patches is reqs[group[-1]].pixel_patches]
+    pl = P - SCHED_HOLE
+    if max(len(r.input_ids) for r in fam) - pl > S:
+        raise RuntimeError(f"K3 suffix case: a suffix of the family does not fit {S} columns")
+    attn_rows = engine._suffix_rows(fam, pl, P, S, T)[3]
+    n = len(fam)
+    valid = torch.from_numpy(attn_rows).to(dev).int()
+    valid[:, P + S:] = 0  # what the layer masks: columns past the write head
+    # every column finite: K3 reads whole key tiles (a masked column's
+    # weight is 0), and the engine's caches hold zeros or older tokens there
+    k, v = _layer_views(dev, gen, cfg, n, T, T, torch.bfloat16)
+    q = torch.randn((n, S, t.num_attention_heads, t.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = (P + torch.arange(S, dtype=torch.int32, device=dev)).expand(n, S).contiguous()
+    keep = valid[:, P:P + S] != 0
+    mask = causal_mask(pos, valid)
+    results: dict = {}
+    ref = compare("flash_attention_gqa", lambda: fa.flash_attention_gqa(q, k, v, pos, valid),
+                  lambda: fa.flash_attention_gqa_torch(q, k, v, pos, valid), keep, results,
+                  flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+                  moved=nbytes(q, k, v, pos, valid, q),
+                  library_fn=lambda: sdpa_masked(q, k, v, mask),
+                  case=f"suffix admission: {n} rows, S={S} at offset P={P}, block of {pl}, T={T}")
+    padded, shifted = valid.clone(), valid.clone()
+    padded[:, P:P + S] = 1
+    shifted[:, P - pl - 1:P - 1] = 1
+    shifted[:, P - 1] = 0
+    for fault, fpos, fvalid in (("queries at their suffix index (offset P dropped)", pos - P, valid),
+                                ("the suffix's left pad read as valid", pos, padded),
+                                ("the block's mask one column left", pos, shifted)):
+        planted("flash_attention_gqa", fault,
+                fa.flash_attention_gqa_torch(q, k, v, fpos, fvalid), ref, keep)
+    del k, v, q, mask
+    torch.cuda.empty_cache()
+
+
+def first_token_gap(outs, ref_logp) -> float:
+    """The largest gap, over rows, between a row's first token's
+    log-probability and the reference's log-probability of that token."""
+    return max(abs(o["logprobs"][0] - float(ref_logp[j, o["token_ids"][0]]))
+               for j, o in enumerate(outs))
+
+
+@torch.inference_mode()  # the blocks are inference tensors
+def prefix_faults(engine, reqs, ref_logp, sampling) -> dict:
+    """17b's planted faults in 17a's cached prefix blocks (2 of equal shape,
+    one per video): one generate of the cached rows' first token through
+    the same engine with the blocks as they are (every block a hit), then
+    with the two videos' blocks swapped, with each block's columns moved
+    one to the right (its last column lost, the first twice), and with the
+    blocks zeroed. Returns each run's first_token_gap; the caller holds the
+    sound one within SCHED_LOGP_BOUND and the swapped and zeroed ones past
+    it."""
+    first = SamplingParams(**{**vars(sampling), "max_tokens": 1})
+    blocks = engine._prefix_kv
+    a, b = list(blocks)
+    if blocks[a]["k"].shape != blocks[b]["k"].shape:
+        raise RuntimeError("17b: the two videos' prefix blocks differ in shape")
+
+    def gap() -> float:
+        built = engine.counters["prefix_blocks"]
+        outs = engine.generate(reqs, first, return_logprobs=True)
+        if engine.counters["prefix_blocks"] != built:
+            raise RuntimeError("17b: a planted block was rebuilt, not served")
+        return first_token_gap(outs, ref_logp)
+
+    gaps = {"sound": gap()}
+    blocks[a], blocks[b] = blocks[b], blocks[a]
+    gaps["the other video's block"] = gap()
+    blocks[a], blocks[b] = blocks[b], blocks[a]
+    for blk in blocks.values():
+        for x in blk.values():
+            x[:, :, 1:] = x[:, :, :-1].clone()
+    gaps["block one column right"] = gap()
+    for blk in blocks.values():
+        for x in blk.values():
+            x.zero_()
+    gaps["zeroed block"] = gap()
+    return gaps
+
+
+def scheduler_phase(params, cfg, proc, seed: int) -> dict:
+    """Phase 17: K4 on a wrapped ring and K3 at a suffix admission's layout;
+    17a one generate of 14 requests through 8 slots, graphed and eagerly
+    (equal token ids); 17b the same with the prefix cache off (prefill
+    seconds of both, the share of equal rows), and the prefix-cached rows'
+    first-token log-probabilities against a plain prefill's, sound and
+    with planted block faults; 17c a long admission in chunks while a slot
+    decodes, graphed and eagerly; 17d the KV budget. Returns 17a's launch
+    counts."""
+    t_phase = time.perf_counter()
+    dev = params["text"]["embed_tokens"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    k4_ring_case(dev, cfg, gen)
+    reqs = scheduler_requests(proc, cfg, seed)
+    sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=SCHED_TOKENS)
+    knobs = dict(max_slots=SCHED_SLOTS, decode_segment=SCHED_SEGMENT)
+    log("sched", requests=len(reqs), prompt_tokens=[len(r.input_ids) for r in reqs],
+        max_slots=SCHED_SLOTS, decode_segment=SCHED_SEGMENT, new_tokens=SCHED_TOKENS)
+    engine = InferenceEngine(params, cfg, **knobs)
+    k3_suffix_case(dev, cfg, gen, engine, reqs)
+
+    # 17a
+    outs, graph = scheduler_run(engine, reqs, sampling, "17a")
+    sched, launches = graph["scheduler"], graph["kernel_launches"]
+    want = {"prefix_blocks": 2, "tower_passes": 2}
+    if any(sched[k] != n for k, n in want.items()) or sched["ring_wraps"] < 1 or sched[
+            "admissions"] < 2:
+        raise RuntimeError(f"17a: expected {want}, a ring wrap and admissions > 1: {sched}")
+    if not all(launches[n] for n in SLICE_KERNELS):
+        raise RuntimeError(f"17a: a kernel of the path never launched: {launches}")
+    eager_engine = InferenceEngine(params, cfg, decode_graph=False, **knobs)
+    eager_outs, eager = scheduler_run(eager_engine, reqs, sampling, "17a eager")
+    decode_pair("scheduler 17a", graph, eager, [o["token_ids"] for o in outs],
+                [o["token_ids"] for o in eager_outs])
+    del eager_engine
+
+    # 17b
+    plain_engine = InferenceEngine(params, cfg, prefix_cache_min=0, **knobs)
+    plain_outs, plain = scheduler_run(plain_engine, reqs, sampling, "17b prefix cache off")
+    del plain_engine
+    same_rows = sum(a["token_ids"] == b["token_ids"] for a, b in zip(outs, plain_outs))
+    first_same = sum(a["token_ids"][0] == b["token_ids"][0] for a, b in zip(outs, plain_outs))
+    cached = [i for i, pl in enumerate(engine._detect_prefixes(reqs)) if pl]
+    cached_reqs = [reqs[i] for i in cached]
+    ref_logp = torch.log_softmax(_vision_and_logits(params, cfg, cached_reqs, "auto")[1],
+                                 dim=-1).cpu()
+    gaps = {"17a": first_token_gap([outs[i] for i in cached], ref_logp),
+            "prefix cache off": first_token_gap([plain_outs[i] for i in cached], ref_logp),
+            **prefix_faults(engine, cached_reqs, ref_logp, sampling)}
+    del engine
+    log("sched", run="17b", prefill_s={"prefix cache": graph["prefill_s"], "off": plain["prefill_s"]},
+        vision_s={"prefix cache": graph["vision_s"], "off": plain["vision_s"]},
+        prefill_ratio=round(graph["prefill_s"] / max(plain["prefill_s"], 1e-9), 3),
+        identical_rows=f"{same_rows}/{len(reqs)}", first_token_equal=f"{first_same}/{len(reqs)}",
+        prefix_cached_rows=len(cached), first_logprob_gap_to_plain_prefill=gaps,
+        bound=SCHED_LOGP_BOUND)
+    sound = ("17a", "prefix cache off", "sound")
+    if len(cached) != 10 or any(gaps[k] > SCHED_LOGP_BOUND for k in sound) or any(
+            gaps[k] <= SCHED_LOGP_BOUND for k in ("the other video's block", "zeroed block")):
+        raise RuntimeError(f"17b: {len(cached)} prefix-cached rows, first-token log-probability "
+                           f"gaps {gaps} against the bound {SCHED_LOGP_BOUND} (the sound runs "
+                           f"within it, the planted faults past it)")
+
+    # 17c
+    rng = np.random.default_rng(seed + 171)
+    long_reqs = [Request(input_ids=rng.integers(32, 127, size=n).tolist())
+                 for n in SCHED_CHUNK_LENS]
+    bucket = dict(prompt_buckets=(8192,))
+    probe = InferenceEngine(params, cfg, decode_graph=False, **bucket).generate(
+        long_reqs[:1], sampling)[0]["token_ids"]
+    stop_cfg = dataclasses.replace(cfg, eos_token_id=probe[EARLY_STOP_STEP])
+    chunk_knobs = dict(max_slots=2, decode_segment=SCHED_CHUNK_SEGMENT,
+                       prefill_chunk=SCHED_CHUNK, **bucket)
+    runs = {}
+    for graphed in (True, False):
+        engine = InferenceEngine(params, stop_cfg, decode_graph=graphed, **chunk_knobs)
+        runs[graphed] = scheduler_run(engine, long_reqs, sampling,
+                                      "17c graph" if graphed else "17c eager")
+        del engine
+    (c_outs, c_graph), (ce_outs, c_eager) = runs[True], runs[False]
+    decode_pair("scheduler 17c", c_graph, c_eager, [o["token_ids"] for o in c_outs],
+                [o["token_ids"] for o in ce_outs])
+    between = c_graph["scheduler"]["interleaved_segments"]
+    log("sched", run="17c", eos=stop_cfg.eos_token_id, lengths=[len(o["token_ids"]) for o in c_outs],
+        segments_between_chunks=between, prefill_s=c_graph["prefill_s"])
+    if between < 3 or c_outs[0]["token_ids"][-1] != stop_cfg.eos_token_id:
+        raise RuntimeError(f"17c: {between} segments between chunks (expected >= 3), first row "
+                           f"{c_outs[0]['token_ids']}")
+
+    # 17d
+    t = cfg.text
+    big = max(graph["groups"], key=lambda g: g["requests"])
+    per_col = 2 * t.num_hidden_layers * t.num_key_value_heads * t.head_dim * 2  # bf16
+    budget_gb = (SCHED_KV_SLOTS + 0.5) * per_col * big["columns"] / 1e9
+    engine = InferenceEngine(params, cfg, max_kv_gb=budget_gb, **knobs)
+    kv_outs, kv = scheduler_run(engine, reqs, sampling, f"17d max_kv_gb={budget_gb:.4f}")
+    del engine
+    capped = [g for g in kv["groups"] if g["columns"] == big["columns"]
+              and g["requests"] == big["requests"]]
+    over = [g for g in kv["groups"] if g["arena_bytes"] > budget_gb * 1e9]
+    same_rows = sum(a["token_ids"] == b["token_ids"] for a, b in zip(outs, kv_outs))
+    log("sched", run="17d", budget_gb=budget_gb, slots=[g["slots"] for g in kv["groups"]],
+        arena_gib=[round(g["arena_bytes"] / 2**30, 4) for g in kv["groups"]],
+        identical_rows_to_17a=f"{same_rows}/{len(reqs)}")
+    if [g["slots"] for g in capped] != [SCHED_KV_SLOTS] or over:
+        raise RuntimeError(f"17d: the budget's group ran {capped}, groups over budget {over}")
+    log("sched", phase_seconds=round(time.perf_counter() - t_phase, 3))
     return launches
 
 
@@ -2926,6 +3311,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log("eval", phases_seconds=round(time.perf_counter() - t0, 3), launches=eval_launches)
+
+    # the serving scheduler: slots, the ring, chunked prefill, the prefix cache, max_kv_gb
+    sched_launches = scheduler_phase(params, cfg, proc, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("sched", launches=sched_launches)
 
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()

@@ -140,7 +140,7 @@ def main(argv=None):
     parser.add_argument(
         "--item_batch", type=int, default=4,
         help="items evaluated together through the engine (each engine call is "
-        "item_batch x N requests, in waves of 8)",
+        "item_batch x N requests, through the engine's 8 decode slots)",
     )
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu, which runs only when asked for")

@@ -26,7 +26,6 @@ from ..engine import InferenceEngine, Request, SamplingParams
 from ..grounding.tags import refined_timestamps
 from ..models.qwen25vl import params as P
 from .metrics_vstar import duration_bucket, spatial_metrics, spatial_random_baseline, temporal_iou
-from .waves import generate_in_waves
 
 JUDGE_SYSTEM_PROMPT = """
 As an AI assistant, your task is to evaluate a candidate answer in comparison to a given correct answer.
@@ -73,8 +72,9 @@ QWEN25_72B_INSTRUCT_CONFIG = {
 
 class EngineJudge:
     """Text-only judge backed by the inference engine (greedy, 512 tokens).
-    ``batch`` runs its jobs in waves of ``waves.MAX_SLOTS``, the JAX engine's
-    decode slots, so a whole results file does not become one batch."""
+    ``batch`` makes one engine call, which streams its jobs through the
+    engine's decode slots (8), so a whole results file does not become one
+    batch."""
 
     def __init__(self, model_dir_or_params, mesh=None, max_new_tokens: int = 512, *, cfg=None,
                  processor=None, load_in_int8: bool = False, load_in_int4: bool = False,
@@ -122,9 +122,8 @@ class EngineJudge:
         return self._parse(self.processor.decode(out["token_ids"], skip_special_tokens=True))
 
     def batch(self, jobs: list[tuple[str, str, str]]) -> list[int]:
-        """Rate many (question, gt, candidate) triplets, one wave of
-        ``waves.MAX_SLOTS`` per engine call."""
-        outs = generate_in_waves(self.engine, [self._request(*job) for job in jobs], self.sampling)
+        """Rate many (question, gt, candidate) triplets in one engine call."""
+        outs = self.engine.generate([self._request(*job) for job in jobs], self.sampling)
         return [
             self._parse(self.processor.decode(o["token_ids"], skip_special_tokens=True))
             for o in outs

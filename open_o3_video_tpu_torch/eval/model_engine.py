@@ -14,19 +14,24 @@ plus the batched forms the harnesses use (``generate_paths_batch``,
 ``inference_wo_process_batch``). Sampling uses the reference defaults
 (temperature from the config, repetition penalty 1.05).
 
-Every request list runs in waves of at most ``max_slots`` (JAX's default,
-8; ``waves.generate_in_waves``); ``waves`` records each wave's requests,
-tower passes, seconds and engine stages.
+Every request list goes down in one ``engine.generate`` call, which streams
+it through the engine's ``max_slots`` decode slots (JAX's default, 8) with
+continuous admission and the automatic prefix cache, as the JAX wrapper's
+does; ``calls`` records each call's requests, tower passes, seconds, engine
+stages, admissions, prefills and prefix blocks built, and each call prints
+that record as an ``[eval]`` line.
 
 Engine knobs: ``cache_dtype`` (a torch dtype or "fp8"/"float8_e4m3fn",
-"bf16"/"bfloat16", "f32"/"float32"), ``long_prefill_threshold`` and
-``long_prefill_chunk`` pass through; every other knob the JAX wrapper passes
-through raises (ROADMAP M6), and so do ``mesh`` and ``batch_axis`` (M8).
+"bf16"/"bfloat16", "f32"/"float32") and the scheduler's knobs in
+ENGINE_KNOBS pass through; the other knobs the JAX wrapper passes through
+raise (ROADMAP M6), and so do ``mesh`` and ``batch_axis`` (M8).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -37,7 +42,6 @@ from ..data.video import process_vision_info
 from ..engine import InferenceEngine, Request, SamplingParams
 from ..models.qwen25vl import Qwen25VLConfig
 from ..models.qwen25vl import params as P
-from .waves import MAX_SLOTS, generate_in_waves
 
 CACHE_DTYPES = {
     "fp8": torch.float8_e4m3fn, "float8_e4m3fn": torch.float8_e4m3fn,
@@ -46,10 +50,11 @@ CACHE_DTYPES = {
 }
 # The engine knobs the port's engine serves, and those the JAX wrapper also
 # passes through that it does not serve yet.
-ENGINE_KNOBS = ("cache_dtype", "long_prefill_threshold", "long_prefill_chunk")
-UNSERVED_KNOBS = ("prompt_buckets", "decode_segment", "prefill_chunk", "prefix_cache_min",
-                  "suffix_buckets", "prefix_cache_entries", "decode_attn_impl", "max_kv_gb",
-                  "a8_prefill", "spec_decode", "spec_draft", "quantize_vision")
+ENGINE_KNOBS = ("cache_dtype", "long_prefill_threshold", "long_prefill_chunk",
+                "prompt_buckets", "decode_segment", "prefill_chunk", "prefix_cache_min",
+                "suffix_buckets", "prefix_cache_entries", "max_kv_gb")
+UNSERVED_KNOBS = ("decode_attn_impl", "a8_prefill", "spec_decode", "spec_draft",
+                  "quantize_vision")
 
 
 class QwenVLEngine:
@@ -85,7 +90,6 @@ class QwenVLEngine:
         self.video_max_pixels = llm_args.pop("video_max_pixels", 360 * 420)
         self.video_max_frames = llm_args.pop("video_max_frames", 16)
         self.max_num_seqs = llm_args.pop("max_num_seqs", 5)
-        self.max_slots = max_slots or MAX_SLOTS
 
         load_in_int8 = llm_args.pop("load_in_int8", False)
         load_in_int4 = llm_args.pop("load_in_int4", False)
@@ -104,20 +108,40 @@ class QwenVLEngine:
         self.cfg = cfg
         self.processor = processor
         engine_kw = {k: llm_args.pop(k) for k in ENGINE_KNOBS if k in llm_args}
+        if max_slots is not None:
+            engine_kw["max_slots"] = max_slots
         if isinstance(engine_kw.get("cache_dtype"), str):
             engine_kw["cache_dtype"] = CACHE_DTYPES[engine_kw["cache_dtype"]]
         self.engine = InferenceEngine(params, cfg, **engine_kw)
         self.sampling = SamplingParams(
             temperature=temperature, repetition_penalty=1.05, max_tokens=max_tokens
         )
-        self.waves: list[dict[str, Any]] = []  # per wave: requests, tower passes, seconds, stages
+        self.calls: list[dict[str, Any]] = []  # one record per engine call
         print(f"Initialize model successfully with args {llm_args}")
 
     # ------------------------------------------------------------- internals
 
     def _generate(self, requests: Sequence[Request]) -> list[dict]:
-        """The engine's outputs for ``requests``, in order, wave by wave."""
-        return generate_in_waves(self.engine, requests, self.sampling, self.max_slots, self.waves)
+        """The engine's outputs for ``requests``, in order, from one call,
+        whose record is appended to ``calls`` and printed."""
+        engine = self.engine
+        stages, counts = collections.Counter(engine.stage_seconds), collections.Counter(
+            engine.counters)
+        t0 = time.perf_counter()
+        outs = engine.generate(list(requests), self.sampling)
+        seconds = time.perf_counter() - t0
+        stages = collections.Counter(engine.stage_seconds) - stages
+        counts = collections.Counter(engine.counters) - counts
+        record = {"requests": len(requests), "seconds": seconds,
+                  "stage_seconds": dict(stages),
+                  **{k: counts[k] for k in ("tower_passes", "admissions", "prefills",
+                                            "prefix_blocks")}}
+        self.calls.append(record)
+        print(f"[eval] call of {len(requests)} requests: {record['tower_passes']} tower passes, "
+              f"{record['admissions']} admissions, {record['prefix_blocks']} prefix blocks, "
+              f"{seconds:.3f} s, stages "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in record["stage_seconds"].items()))
+        return outs
 
     def _requests_from_messages(self, messages_batch: Sequence[list]) -> list[Request]:
         video_block = f"{VISION_START}{VIDEO_PAD}{VISION_END}"
@@ -197,7 +221,7 @@ class QwenVLEngine:
     def generate_paths(self, video_path, text_input, image, n_paths: int):
         """N sampled reasoning paths for ONE item: the video is decoded and
         processed once and the N requests share its patch array (one tower
-        pass per wave). Returns (outputs, frames, fps, frame_shape)."""
+        pass). Returns (outputs, frames, fps, frame_shape)."""
         messages, video_inputs, fps = self.get_batch_messages(
             [video_path], [text_input], [image]
         )
@@ -210,8 +234,8 @@ class QwenVLEngine:
     def generate_paths_batch(self, items: Sequence[tuple], n_paths: int):
         """K items x N paths, ``items`` = [(video_path, text_input, image),
         ...]: host preparation in a thread pool, then the K*N requests
-        through the engine wave by wave, each item's N requests sharing its
-        patch array. Returns one (outputs, frames, fps, frame_shape) tuple
+        through one engine call, each item's N requests sharing its patch
+        array. Returns one (outputs, frames, fps, frame_shape) tuple
         per item."""
         return self.generate_paths_prepared(self.prepare_paths_batch(items), n_paths)
 
@@ -317,7 +341,7 @@ class QwenVLEngine:
         return self._generate_texts([self._request_from_raw(inputs[0])])[0]
 
     def inference_wo_process_batch(self, inputs: Sequence[dict]) -> list[str]:
-        """All raw inputs through the engine, wave by wave, in order."""
+        """All raw inputs through one engine call, in order."""
         vis_memo: dict = {}
         reqs = [self._request_from_raw(item, vis_memo) for item in inputs]
         return self._generate_texts(reqs)

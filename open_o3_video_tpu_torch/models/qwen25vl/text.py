@@ -79,7 +79,7 @@ def write_cache_at(layer: torch.Tensor, x: torch.Tensor, col: torch.Tensor) -> N
 
 
 def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
-                     cache, layer: int, cache_offset, impl: str):
+                     cache, layer: int, cache_offset, impl: str, validity_only: bool):
     B, S, _ = x.shape
     q = (dense(x, p["q_w"], impl) + p["q_b"]).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
     k = (dense(x, p["k_w"], impl) + p["k_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
@@ -93,9 +93,11 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
         else:
             write_cache(ck[:, cache_offset:cache_offset + S], k)
             write_cache(cv[:, cache_offset:cache_offset + S], v)
-        T = ck.shape[1]
-        written = torch.arange(T, device=x.device)[None, :] < cache_offset + S
-        mask = written if kv_mask is None else kv_mask & written
+        if validity_only:
+            mask = kv_mask
+        else:  # buffer column == position: the columns past the write head are invalid
+            written = torch.arange(ck.shape[1], device=x.device)[None, :] < cache_offset + S
+            mask = written if kv_mask is None else kv_mask & written
         out = causal_attention(q, ck, cv, q_positions=seq_positions, kv_mask=mask, impl=impl)
     else:
         out = causal_attention(q, k, v, q_positions=seq_positions, kv_mask=kv_mask, impl=impl)
@@ -114,6 +116,7 @@ def text_forward(
     cache_offset: int | torch.Tensor = 0,
     attn_impl: str = "auto",
     remat: bool = False,
+    validity_only: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (hidden states (B, S, D) after the final norm, the cache,
     updated in place).
@@ -126,6 +129,14 @@ def text_forward(
     ``attn_impl`` picks, for every kernel of the decoder (attention, and K7
     where a matmul weight is int4), the kernel ("auto", on CUDA tensors) or
     its plain version ("torch").
+
+    ``validity_only=True`` (with a cache) masks the cache by ``attn_valid``
+    alone, as the JAX package does when given explicit (zero)
+    ``kv_positions``: the ring-buffer decode step, whose valid columns are
+    every one of a row's earlier tokens wherever the ring put them (also
+    past the write head, once it wrapped). Its caller passes
+    ``seq_positions`` = T, so that the causal test ``column <= position``
+    of every attention path (K4 included) passes for every column.
 
     ``remat=True`` recomputes each decoder layer in the backward pass
     (``jax.checkpoint`` per layer in the JAX package; the reference's
@@ -142,7 +153,7 @@ def text_forward(
     def layer_fn(x, layer, i):
         h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
         x = x + _attention_layer(layer, cfg, h, cos, sin, seq_positions, attn_valid,
-                                 cache, i, cache_offset, attn_impl)
+                                 cache, i, cache_offset, attn_impl, validity_only)
         h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
         act = F.silu(dense(h, layer["gate_w"], attn_impl)) * dense(h, layer["up_w"], attn_impl)
         return x + dense(act, layer["down_w"], attn_impl)

@@ -1,7 +1,7 @@
 """Where the time goes in the PyTorch port's serving slice, on one GPU.
 
     python3 scripts/profile_slice_torch.py [--max-tokens N] [--trace PATH]
-                                           [--long a|b | --int4 | --judge | --gspo]
+                                           [--long a|b | --int4 | --judge | --gspo | --sched]
 
 Runs chip_smoke.py's full-width requests (Qwen2.5-VL-7B, random bf16
 weights, 16 frames each) through InferenceEngine.generate once to warm up,
@@ -15,7 +15,10 @@ in int4, EngineJudge's 4 jobs, 16 new tokens. ``--gspo`` profiles one step
 of chip_smoke.py's GSPO phase (PEFT on the 7B, its sample and canned
 traces; rollouts of --max-tokens, default 128, tokens a row, after a
 warm-up step of the same size), its trainer stages (rollout, reward,
-ref_logps, update) beside the engine's. Per engine stage (vision, prefill, decode)
+ref_logps, update) beside the engine's. ``--sched`` profiles chip_smoke.py's
+phase 17a call: 14 requests (2 videos x 5 queries sharing a prefix, 4 long
+texts) through 8 slots in 3 groups, 48 greedy tokens (--max-tokens
+overrides), after a warm-up of the same call. Per engine stage (vision, prefill, decode)
 it prints the wall time, the device busy time (sum of kernel durations
 inside the stage's range, one stream), the idle share, and the top kernels
 by device time, and the device time of K1, K2, K3, K4 and K7 (each
@@ -79,6 +82,8 @@ def main() -> None:
                     help="profile chip_smoke.py's 72B int4 judge call instead")
     ap.add_argument("--gspo", action="store_true",
                     help="profile one GSPO step (PEFT, chip_smoke.py's sample) instead")
+    ap.add_argument("--sched", action="store_true",
+                    help="profile chip_smoke.py's phase-17a scheduler call instead")
     ap.add_argument("--eager", action="store_true",
                     help="decode eagerly (the engine's decode_graph=False)")
     args = ap.parse_args()
@@ -113,6 +118,14 @@ def main() -> None:
         sampling = dataclasses.replace(judge.sampling,
                                        max_tokens=args.max_tokens or cs.JUDGE_NEW_TOKENS)
         engine.generate(reqs, dataclasses.replace(sampling, max_tokens=2))  # warm-up
+    elif args.sched:
+        reqs = cs.scheduler_requests(O3VideoProcessor(), cfg, 0)
+        engine = InferenceEngine(P.init(cfg, 0, dev), cfg, max_slots=cs.SCHED_SLOTS,
+                                 decode_segment=cs.SCHED_SEGMENT, decode_graph=not args.eager)
+        sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05,
+                                  max_tokens=args.max_tokens or cs.SCHED_TOKENS)
+        engine.generate(reqs, sampling)  # warm-up
+        engine.clear_prefix_cache()  # the profiled call builds its blocks again
     elif args.long:
         _, n, cache_dtype = next(run for run in cs.LONG_RUNS if run[0] == args.long)
         reqs = [cs.long_request(n)]

@@ -11,8 +11,10 @@ under ``.mp4`` names, one truncated, VideoMMMU's query image of 56x84, a size
 that needs no resize). Tolerance: equal texts, scores, parsed fields and
 results, rating and errors files. The tiny model writes no
 ``<answer>``, so the voting arithmetic is held with a scripted model, as
-``tests/test_eval_e2e.py`` does. Then the port alone: waves of ``max_slots``
-(the texts of one engine call, each item's video encoded once per wave), a
+``tests/test_eval_e2e.py`` does. Then the port alone: one engine call per
+request list through ``max_slots`` slots (its per-call record: requests,
+tower passes, admissions, prefix blocks), the scheduler's knobs from a
+flat yaml reaching the engine, a
 device error planted in ``engine.generate`` propagating out of every
 harness, the refused knobs, the CLI's refusals and a CLI run of each MCQ
 benchmark. A resized query image is held within one level of PIL's (the
@@ -39,7 +41,8 @@ from open_o3_video_tpu_torch.eval import (cli, mcq_harness, tts, tvgbench, video
                                           videommmu, vstar, worldsense)
 from open_o3_video_tpu_torch.eval.model_engine import QwenVLEngine
 
-MODEL_KW = dict(temperature=0.0, max_tokens=8, video_max_frames=2, cache_dtype="f32")
+MODEL_KW = dict(temperature=0.0, max_tokens=8, video_max_frames=2, cache_dtype="f32",
+                prompt_buckets=(2048,))
 QUESTION_BLOCK = "<|vision_start|><|image_pad|><|vision_end|>"
 
 
@@ -156,7 +159,7 @@ def jax_runs(media, tmp_path_factory):
     jcfg, jparams, _, _ = model_pair(0)
     model = JaxEngine(jparams, rt_shape=True, cfg=jcfg,
                       processor=JaxProcessor(tokenizer=JaxTokenizer.for_config(jcfg)),
-                      prompt_buckets=(2048,), **MODEL_KW)
+                      **MODEL_KW)
     got = _run_all(model, JV, JG, (JME, JWS, JMMMU), media,
                    str(tmp_path_factory.mktemp("jax") / "out"))
     for vote in ("majority_voting", "confidence_voting"):
@@ -266,9 +269,11 @@ def test_mcq_voting_matches_jax_with_a_scripted_model(vote, answers, ratings):
 
 
 def test_waves_give_the_texts_of_one_call(media, monkeypatch):
-    """With max_slots = 4, the 10 queries of two V-STAR items run in waves
-    of 4, 4 and 2 and give the texts of one engine call of all 10; each wave
-    encodes each item's video once."""
+    """With max_slots = 4, the 10 queries of two V-STAR items go down in one
+    engine call, which streams them through 4 slots: the texts equal those
+    of a direct engine call, and the call's record counts its 10 requests,
+    2 tower passes (each item's video encoded once) and more than one
+    admission."""
     model = _port_model(max_slots=4)
     items = json.loads(open(os.path.join(media["dir"], "vstar.json")).read())
     inputs = []
@@ -288,27 +293,10 @@ def test_waves_give_the_texts_of_one_call(media, monkeypatch):
 
     monkeypatch.setattr(engine_module, "encode_vision", counted)
     assert model.inference_wo_process_batch(inputs) == one_call
-    assert [w["requests"] for w in model.waves] == [4, 4, 2]
-    assert [w["tower_passes"] for w in model.waves] == [1, 2, 1]
-    assert len(passes) == 4
-
-
-@pytest.mark.parametrize("sizes,slots,expected", [
-    ([5, 5], 8, [8, 2]), ([5, 5], 4, [4, 4, 2]), ([2, 2, 2, 2, 2], 8, [8, 2]), ([3, 3, 3], 8, [8, 1]),
-    ([1] * 9, 8, [8, 1]), ([3, 6], 8, [8, 1]), ([9], 8, [8, 1])])
-def test_split_waves(sizes, slots, expected):
-    """Waves are full, in order: requests sharing one patch array (an
-    item's queries) are split where a wave fills."""
-    from open_o3_video_tpu_torch.engine import Request
-    from open_o3_video_tpu_torch.eval.waves import split_waves
-
-    reqs = []
-    for n in sizes:
-        patches = np.zeros((4, 8))
-        reqs += [Request([1], patches, np.array([[1, 2, 2]])) for _ in range(n)]
-    waves = split_waves(reqs, slots)
-    assert [len(w) for w in waves] == expected
-    assert [r for w in waves for r in w] == reqs
+    (record,) = model.calls
+    assert record["requests"] == 10 and record["tower_passes"] == 2 == len(passes)
+    assert record["admissions"] > 1 and max(g["slots"] for g in model.engine.groups) <= 4
+    assert set(record) >= {"seconds", "stage_seconds", "prefills", "prefix_blocks"}
 
 
 def _planted(model, monkeypatch):
@@ -406,9 +394,9 @@ def test_a_missing_video_is_a_data_error_in_the_mcq_iterator(media):
     assert isinstance(got[1][1], list) and len(got[1][1]) == 1
 
 
-@pytest.mark.parametrize("knob", [{"prefix_cache_min": 256}, {"spec_decode": True},
-                                  {"decode_segment": 64}, {"a8_prefill": True}, {"max_kv_gb": 4.0},
-                                  {"prompt_buckets": (512,)}, {"quantize_vision": True},
+@pytest.mark.parametrize("knob", [{"spec_decode": True}, {"spec_draft": 7},
+                                  {"decode_attn_impl": "xla"}, {"a8_prefill": True},
+                                  {"quantize_vision": True},
                                   {"mesh": object()}, {"batch_axis": "data"}])
 def test_unserved_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="M8" if set(knob) & {"mesh", "batch_axis"} else "M6"):
@@ -420,7 +408,33 @@ def test_served_knobs_pass_through():
                         quantize_vision=False)
     assert model.engine.cache_dtype == torch.bfloat16
     assert (model.engine.long_prefill_threshold, model.engine.long_prefill_chunk) == (64, 32)
-    assert model.max_slots == 8 and model.sampling.repetition_penalty == 1.05
+    assert model.engine.max_slots == 8 and model.sampling.repetition_penalty == 1.05
+
+
+SCHEDULER_KNOBS = {"prompt_buckets": (64, 4096), "decode_segment": 16, "prefill_chunk": 512,
+                   "prefix_cache_min": 64, "suffix_buckets": (32, 64), "prefix_cache_entries": 2,
+                   "max_kv_gb": 4.0, "max_slots": 3}
+
+
+@pytest.mark.parametrize("knob", sorted(SCHEDULER_KNOBS))
+def test_scheduler_knobs_reach_the_engine(knob):
+    model = _port_model(**{knob: SCHEDULER_KNOBS[knob]})
+    assert getattr(model.engine, knob) == SCHEDULER_KNOBS[knob]
+
+
+def test_a_yaml_knob_reaches_the_engine(tmp_path):
+    """A benchmark yaml's scheduler knobs (read by the CLI's
+    read_flat_yaml) reach the engine, and its unserved ones still raise."""
+    path = tmp_path / "bench.yaml"
+    path.write_text("temperature: 0.0\nmax_tokens: 8\nprefix_cache_min: 64\n"
+                    "decode_segment: 16\nmax_kv_gb: 2.5\n")
+    kwargs = cli.read_flat_yaml(str(path))
+    model = _port_model(**kwargs)
+    assert (model.engine.prefix_cache_min, model.engine.decode_segment,
+            model.engine.max_kv_gb) == (64, 16, 2.5)
+    path.write_text("a8_prefill: true\n")
+    with pytest.raises(NotImplementedError, match="a8_prefill"):
+        _port_model(**cli.read_flat_yaml(str(path)))
 
 
 @pytest.mark.parametrize("argv,message", [

@@ -329,3 +329,45 @@ def test_constructor_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="speculative"):
         TG.GSPOTrainer(params, None, tcfg, TG.GSPOConfig(spec_rollout=True), detokenize=str,
                        lora=LoraConfig())
+
+
+def test_rollout_after_a_full_fine_tune_step_rebuilds_its_prefix_block():
+    """Full fine-tune: the optimizer updates the params in place and the
+    trainer hands the engine the same dict before each rollout. The G = 4
+    copies of the prompt share a prefix block (the engine's
+    prefix_cache_min lowered to the tiny prompt); the second step's rollout
+    builds a new block instead of serving the one prefilled under the
+    first step's weights, and its tokens equal those of a fresh engine on
+    the updated weights."""
+    from open_o3_video_tpu_torch.engine import InferenceEngine
+    from open_o3_video_tpu_torch.grounding.rewards import REWARD_REGISTRY
+
+    _, tcfg = _configs()
+    params = TP.from_jax_params(_weights(), tcfg, CPU)
+    ref = TP.from_jax_params(_weights(), tcfg, CPU)
+    trainer = TG.GSPOTrainer(params, ref, tcfg, _gspo_cfg(TG.GSPOConfig, peft=False),
+                             detokenize=Canned(), reward_funcs=list(REWARD_REGISTRY.values()))
+    trainer.engine.prefix_cache_min = 8
+    rollouts, counters = [], []
+    generate = trainer.engine.generate
+
+    def recorded(reqs, sampling):
+        before = dict(trainer.engine.counters)
+        outs = generate(reqs, sampling)
+        counters.append({k: trainer.engine.counters[k] - before.get(k, 0)
+                         for k in ("prefix_blocks", "prefix_hits")})
+        # a fresh engine on the weights as they are now, before this step's update
+        fresh = InferenceEngine(trainer.params, tcfg, prefix_cache_min=8)
+        rollouts.append((reqs, [o["token_ids"] for o in outs],
+                         [o["token_ids"] for o in fresh.generate(reqs, sampling)]))
+        return outs
+
+    trainer.engine.generate = recorded
+    first = [x.detach().clone() for x in trainer.trained_leaves()]
+    for step in range(2):
+        trainer.step(_sample(), global_step=step, max_steps=4)
+    assert any(not torch.equal(a, b) for a, b in zip(first, trainer.trained_leaves()))
+    assert counters == [{"prefix_blocks": 1, "prefix_hits": 0}] * 2
+    reqs, tokens, fresh_tokens = rollouts[1]
+    assert len(reqs) == 4 and len({id(r) for r in reqs}) == 1
+    assert tokens == fresh_tokens and tokens != rollouts[0][1]

@@ -88,8 +88,9 @@ def test_batch_scores_and_tokens_match_jax_judge():
 
 
 def test_batch_runs_in_waves_of_the_jax_engines_slots():
-    """batch over 9 jobs makes two engine calls, of 8 and 1 jobs, and gives
-    the scores of one call per job."""
+    """batch over 9 jobs makes one engine call, which streams them through
+    the engine's 8 slots (a refill), and gives the scores of one call per
+    job."""
     from _torch_parity import model_pair
 
     from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
@@ -107,7 +108,8 @@ def test_batch_runs_in_waves_of_the_jax_engines_slots():
 
     judge.engine.generate = recorded
     scores = judge.batch(jobs)
-    assert calls == [8, 1]
+    assert calls == [9]
+    assert judge.engine.max_slots == 8 and judge.engine.counters["admissions"] >= 2
     assert scores == [judge(*job) for job in jobs]
 
 

@@ -80,7 +80,6 @@ MODULES = [
     "open_o3_video_tpu_torch.eval.tts",
     "open_o3_video_tpu_torch.eval.mcq_harness",
     "open_o3_video_tpu_torch.eval.model_engine",
-    "open_o3_video_tpu_torch.eval.waves",
     "open_o3_video_tpu_torch.eval.vstar",
     "open_o3_video_tpu_torch.eval.tvgbench",
     "open_o3_video_tpu_torch.eval.cli",
