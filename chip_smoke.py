@@ -188,11 +188,35 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      rows; every prefix-cached row's first-token log-probability within
      SCHED_LOGP_BOUND of a plain prefill's log-probability of that token,
      and past it with the two videos' blocks swapped and with the blocks
-     zeroed; 17c max_slots 2, prefill_chunk 2048: an 8000-token request
+     zeroed; a second reading, each block's K/V against a plain prefill's
+     K/V of the same columns, within SCHED_KV_REL_BOUND and past it with
+     the blocks moved one column right (which the first reading passes);
+     17c max_slots 2, prefill_chunk 2048: an 8000-token request
      admitted in chunks while a 1000-token one decodes (>= 3 decode
      segments between chunks), graphed and eagerly equal; 17d max_kv_gb set
      to admit 3 of 8 slots of 17a's 11-request group: the slots used, every
      arena within the budget.
+ 18. speculative decoding (after phase 17, before phase 11, on the phase-4
+     weights): K4 at S = K1 = 8 query rows (1 x 40000 fp8, whose block keys
+     carry much of the attention, and 4 x 33000 bf16 with holes) and K3 at
+     S = 8 over a sampled arena of GSPO's geometry (decode_attn_impl
+     "pallas"), each against its plain version with its bound and SDPA, and
+     a planted K4 whose block rows each see the key after their own, which
+     must fail the bound; 18a the slice's first request (2939 tokens)
+     greedy, repetition penalty 1.0, 64 tokens with spec_decode
+     (spec_draft 7) and plain, each after a warm-up call: the first index
+     where the tokens differ and, there, the plain step's top-2 logit gap
+     (at most SPEC_TIE_GAP), verify steps and their graph captures, tokens
+     per verify, decode ms/token of both; 18b a PEFT GSPOTrainer with
+     spec_rollout (G = 4, 768 tokens, phase 14's example): one step
+     sampling at random init ("worst": the probe must revert the group),
+     one step replaying a grounded trace (reasoning_trace_tokens, the JAX
+     bench's trace generator; warmup and probe off: every stream must equal its
+     trace), each step's rollout seconds against a plain rollout of the same
+     requests, tokens per verify, compactions, peak GiB; 18c run (a)'s
+     prompt (32736 tokens, bf16 cache) greedy with spec_decode, 32 tokens:
+     K4 must launch in the verify blocks, the tokens against run (a)'s as
+     in 18a.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -2893,6 +2917,14 @@ SCHED_SLOTS, SCHED_SEGMENT, SCHED_TOKENS = 8, 16, 48
 # in matmuls of other shapes. Planted faults (the other video's block, a
 # zeroed block) must exceed the bound.
 SCHED_LOGP_BOUND = 0.15
+# 17b's second reading: each prefix block's K/V against a plain prefill's
+# K/V of the same columns (its family's first request alone, the whole
+# prompt), relative L2 error over every layer of k and v. The sound block is
+# the same function in matmuls of other shapes, so bf16 rounding only
+# (expected <= 0.03); a block moved one column right holds each column's
+# neighbour (expected >= 0.3), which the first reading passes (0.094 under
+# 0.15). Stated before this reading's first run.
+SCHED_KV_REL_BOUND = 0.1
 # K3's suffix-admission case: the family's prefix block is this many columns
 # shorter than the group's prefix region, so the rows hold a hole
 # [0, SCHED_HOLE) before the block, as a prefix group of families with
@@ -2986,10 +3018,12 @@ def k4_ring_case(dev, cfg, gen) -> None:
     valid[1, L + head:L + head + 1] = 1
     valid[1, L + 30:] = 1
     results: dict = {}
+    mask = causal_mask(pos, valid)
     ref = compare("decode_attention_gqa", lambda: da.decode_attention_gqa(q, k, v, pos, valid),
                   lambda: da.decode_attention_gqa_torch(q, k, v, pos, valid), None, results,
                   flops=4 * int(valid.sum()) * t.num_attention_heads * t.head_dim,
-                  moved=nbytes(q, k, v, pos, valid, q), case="ring wrapped, q at T")
+                  moved=nbytes(q, k, v, pos, valid, q), case="ring wrapped, q at T",
+                  library_fn=lambda: sdpa_masked(q, k, v, mask))
     written = valid.clone()
     written[:, L + head + 1:] = 0
     a = agreement(da.decode_attention_gqa_torch(q, k, v, pos, written), ref, None)
@@ -2998,7 +3032,7 @@ def k4_ring_case(dev, cfg, gen) -> None:
         rejected=not a["ok"])
     if a["ok"]:
         raise RuntimeError("K4's bound does not reject a read that stops at the write head")
-    del k, v
+    del k, v, mask
     torch.cuda.empty_cache()
 
 
@@ -3064,16 +3098,50 @@ def first_token_gap(outs, ref_logp) -> float:
                for j, o in enumerate(outs))
 
 
+@torch.inference_mode()
+def _prefill_cache(params, cfg, req) -> dict:
+    """The KV cache of ``req``'s whole prompt, prefilled alone (no prefix
+    block, no padding) as the engine prefills a plain row."""
+    dev = params["text"]["embed_tokens"].device
+    L = len(req.input_ids)
+    ids, mask, position_ids, _ = left_padded_rows(cfg, [req], L)
+    vis = encode_vision(params, cfg, torch.as_tensor(req.pixel_patches, device=dev),
+                        np.asarray(req.grid_thw))
+    embeds = merge_vision_embeddings_by_index(
+        embed_tokens(params, torch.from_numpy(ids).to(dev)), vis,
+        torch.from_numpy(build_vision_row_index(ids, cfg.image_token_id, [0])).to(dev))
+    cache = init_kv_cache(cfg.text, 1, L, dtype=cfg.dtype, device=dev)
+    text_forward(params["text"], cfg.text, embeds, torch.from_numpy(position_ids).to(dev),
+                 attn_valid=torch.from_numpy(mask).to(dev), cache=cache)
+    return cache
+
+
+def prefix_kv_gap(blocks, refs) -> float:
+    """17b's second reading: the largest relative L2 error, over the
+    blocks, of a block's k and v (all layers) against ``refs``, the same
+    columns of a plain prefill."""
+    gaps = []
+    for key, block in blocks.items():
+        pl = block["k"].shape[2]
+        num = sum(((block[n].float() - refs[key][n][:, :, :pl].float()) ** 2).sum()
+                  for n in ("k", "v"))
+        den = sum((refs[key][n][:, :, :pl].float() ** 2).sum() for n in ("k", "v"))
+        gaps.append((num / den).sqrt().item())
+    return max(gaps)
+
+
 @torch.inference_mode()  # the blocks are inference tensors
-def prefix_faults(engine, reqs, ref_logp, sampling) -> dict:
+def prefix_faults(engine, reqs, ref_logp, sampling, kv_refs) -> tuple[dict, dict]:
     """17b's planted faults in 17a's cached prefix blocks (2 of equal shape,
     one per video): one generate of the cached rows' first token through
     the same engine with the blocks as they are (every block a hit), then
     with the two videos' blocks swapped, with each block's columns moved
     one to the right (its last column lost, the first twice), and with the
-    blocks zeroed. Returns each run's first_token_gap; the caller holds the
+    blocks zeroed. Returns each run's first_token_gap (the caller holds the
     sound one within SCHED_LOGP_BOUND and the swapped and zeroed ones past
-    it."""
+    it) and the second reading, prefix_kv_gap against ``kv_refs``, of the
+    sound and the shifted blocks (the caller holds the sound one within
+    SCHED_KV_REL_BOUND and the shifted one past it)."""
     first = SamplingParams(**{**vars(sampling), "max_tokens": 1})
     blocks = engine._prefix_kv
     a, b = list(blocks)
@@ -3088,6 +3156,7 @@ def prefix_faults(engine, reqs, ref_logp, sampling) -> dict:
         return first_token_gap(outs, ref_logp)
 
     gaps = {"sound": gap()}
+    kv = {"sound": prefix_kv_gap(blocks, kv_refs)}
     blocks[a], blocks[b] = blocks[b], blocks[a]
     gaps["the other video's block"] = gap()
     blocks[a], blocks[b] = blocks[b], blocks[a]
@@ -3095,11 +3164,12 @@ def prefix_faults(engine, reqs, ref_logp, sampling) -> dict:
         for x in blk.values():
             x[:, :, 1:] = x[:, :, :-1].clone()
     gaps["block one column right"] = gap()
+    kv["block one column right"] = prefix_kv_gap(blocks, kv_refs)
     for blk in blocks.values():
         for x in blk.values():
             x.zero_()
     gaps["zeroed block"] = gap()
-    return gaps
+    return gaps, kv
 
 
 def scheduler_phase(params, cfg, proc, seed: int) -> dict:
@@ -3149,22 +3219,37 @@ def scheduler_phase(params, cfg, proc, seed: int) -> dict:
     cached_reqs = [reqs[i] for i in cached]
     ref_logp = torch.log_softmax(_vision_and_logits(params, cfg, cached_reqs, "auto")[1],
                                  dim=-1).cpu()
+    kv_refs = {}
+    for r in cached_reqs:
+        key = engine._prefix_key(r, engine._detect_prefixes(reqs)[reqs.index(r)])
+        if key in engine._prefix_kv and key not in kv_refs:
+            kv_refs[key] = _prefill_cache(params, cfg, r)
+    n_blocks = len(kv_refs)
+    if n_blocks != len(engine._prefix_kv):
+        raise RuntimeError(f"17b: {n_blocks} plain prefills for {len(engine._prefix_kv)} blocks")
+    faults, kv_gaps = prefix_faults(engine, cached_reqs, ref_logp, sampling, kv_refs)
     gaps = {"17a": first_token_gap([outs[i] for i in cached], ref_logp),
             "prefix cache off": first_token_gap([plain_outs[i] for i in cached], ref_logp),
-            **prefix_faults(engine, cached_reqs, ref_logp, sampling)}
-    del engine
+            **faults}
+    del engine, kv_refs
     log("sched", run="17b", prefill_s={"prefix cache": graph["prefill_s"], "off": plain["prefill_s"]},
         vision_s={"prefix cache": graph["vision_s"], "off": plain["vision_s"]},
         prefill_ratio=round(graph["prefill_s"] / max(plain["prefill_s"], 1e-9), 3),
         identical_rows=f"{same_rows}/{len(reqs)}", first_token_equal=f"{first_same}/{len(reqs)}",
         prefix_cached_rows=len(cached), first_logprob_gap_to_plain_prefill=gaps,
         bound=SCHED_LOGP_BOUND)
+    log("sched", run="17b", prefix_kv_rel_l2_to_plain_prefill=kv_gaps, bound=SCHED_KV_REL_BOUND,
+        blocks=n_blocks)
     sound = ("17a", "prefix cache off", "sound")
     if len(cached) != 10 or any(gaps[k] > SCHED_LOGP_BOUND for k in sound) or any(
             gaps[k] <= SCHED_LOGP_BOUND for k in ("the other video's block", "zeroed block")):
         raise RuntimeError(f"17b: {len(cached)} prefix-cached rows, first-token log-probability "
                            f"gaps {gaps} against the bound {SCHED_LOGP_BOUND} (the sound runs "
                            f"within it, the planted faults past it)")
+    if not kv_gaps["sound"] <= SCHED_KV_REL_BOUND < kv_gaps["block one column right"]:
+        raise RuntimeError(f"17b: prefix blocks' K/V against a plain prefill {kv_gaps}, bound "
+                           f"{SCHED_KV_REL_BOUND} (the sound block within it, the shifted one "
+                           "past it)")
 
     # 17c
     rng = np.random.default_rng(seed + 171)
@@ -3211,6 +3296,298 @@ def scheduler_phase(params, cfg, proc, seed: int) -> dict:
         raise RuntimeError(f"17d: the budget's group ran {capped}, groups over budget {over}")
     log("sched", phase_seconds=round(time.perf_counter() - t_phase, 3))
     return launches
+
+
+# Phase 18: speculative decoding. 18a greedy on the slice's first video
+# request; 18b GSPO's rollouts through the sampled path (worst: random-init
+# sampling, which the probe must revert; replay: a cycling grounded trace);
+# 18c greedy at run (a)'s length, whose verify blocks run K4 at S = K1.
+SPEC_DRAFT = 7
+SPEC_K1 = SPEC_DRAFT + 1
+SPEC_TOKENS = 64
+# Where the spec tokens first differ from the plain path's, the plain
+# step's top-2 logit gap must be at most this: the bf16 verify block sums in
+# other shapes than a one-token step, so it may resolve a near-tie the other
+# way (the JAX engine documents the same), but not a clear winner. Logits of
+# the random-init 7B have std ~1.2 over 152064 entries, so their top-2 gap
+# is ~0.25 on average; the block-vs-step difference in a logit is ~0.05.
+# Stated before phase 18's first run.
+SPEC_TIE_GAP = 0.25
+# 18b replays this many trace tokens a row (the bench's max_completion_length
+# + 16).
+SPEC_TRACE_EXTRA = 16
+# The kernel cases at the verify blocks' shapes: K4 (B, S = K1, T, stored
+# dtype) and K3 over a sampled-spec arena of GSPO's geometry: 4 rows of the
+# 3032-token prompt, 768 tokens, spec_surplus 1024, K1, and K1 scratch
+# columns; the block at decode column SPEC_K3_CURSOR, holes in half the
+# decode columns before it.
+SPEC_K4_CASES = ((1, 40000, torch.float8_e4m3fn), (4, 33000, torch.bfloat16))
+# The fp8 case's block keys score this much with the block's queries (the
+# background keys ~N(0, 1)): 8 of them outweigh its 40000 other keys.
+SPEC_BLOCK_SCORE = 10.0
+SPEC_GSPO_PROMPT, SPEC_K3_CURSOR = 3032, 800
+
+
+def reasoning_trace_tokens(n, row, vocab, eos):
+    """A synthetic grounded-reasoning trace as a token stream: a copy of the
+    JAX bench's ``bench.py:_reasoning_trace_tokens`` (the port imports
+    nothing of that package): prose and ``<obj>..</obj><box>[..]</box>at<t>
+    ..</t>s`` citations in ``<think>``/``<answer>`` framing, split at word
+    and punctuation, each piece hashed to a stable id; rows differ in
+    objects, times and boxes, not in skeleton."""
+    import zlib
+
+    rng = np.random.default_rng(1234 + row)
+    objs = ["person", "red ball", "dog", "table", "car", "woman", "cup",
+            "child", "door", "bicycle"]
+    verbs = ["is visible", "appears", "moves left", "picks it up",
+             "walks past", "is occluded", "enters the frame", "stops"]
+    parts = ["<think>", "Let me examine the video step by step.\n"]
+    while sum(len(p.split()) for p in parts) < 2 * n:  # overfill, trim below
+        o = objs[rng.integers(len(objs))]
+        v = verbs[rng.integers(len(verbs))]
+        a, b = rng.integers(0, 400, 2)
+        w, h = rng.integers(40, 300, 2)
+        t = rng.integers(0, 300) / 10
+        parts.append(f"The <obj>{o}</obj><box>[{a},{b},{a + w},{b + h}]</box>"
+                     f"at<t>{t}</t>s {v}, so ")
+    parts.append("</think><answer>a red ball</answer>")
+    pieces = [p for p in re.split(r"(\d+|\W)", "".join(parts)) if p and p != " "]
+    toks = [1000 + (zlib.crc32(p.encode()) % (vocab - 2000)) for p in pieces]
+    toks = [t if t != eos else t + 1 for t in toks]
+    return np.asarray(toks[:n], np.int32)
+
+
+def _block_keys(q, k, s) -> None:
+    """Keys at the block columns [s, s + K1), one per kv head along its
+    queries' mean direction, scaled so that a block row's mean score with
+    them is SPEC_BLOCK_SCORE: the block's own keys then carry much of its
+    attention, as recent tokens do, and a row that sees one block key too
+    many moves far."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, S, Hkv, Hq // Hkv, D)
+    u = qg.sum((1, 3))
+    u = u / u.norm(dim=-1, keepdim=True)
+    unit_score = torch.einsum("bshgd,bhd->bshg", qg, u).mean() / D ** 0.5
+    k[:, s:s + S] = (SPEC_BLOCK_SCORE / unit_score * u)[:, None].expand(B, S, Hkv, D).to(k.dtype)
+
+
+def spec_kernel_cases(dev, cfg, gen, results) -> None:
+    """K4 at S = K1 (the verify blocks of 18c and of every long-context
+    speculative group), K3 at S = K1 (``decode_attn_impl="pallas"`` over a
+    sampled arena of GSPO's geometry), each against its plain version with
+    its bound and SDPA; a K4 whose block rows each see the key after their
+    own must fail the bound."""
+    t = cfg.text
+    for B, T, dtype in SPEC_K4_CASES:
+        s = T - 2 * SPEC_K1 - 100  # a block in the middle of a long row, columns past it unwritten
+        w = s + SPEC_K1
+        k, v = _layer_views(dev, gen, cfg, B, T, w, dtype)
+        q = torch.randn((B, SPEC_K1, t.num_attention_heads, t.head_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        pos = (s + torch.arange(SPEC_K1, dtype=torch.int32, device=dev)).repeat(B, 1)
+        valid = torch.zeros((B, T), dtype=torch.int32, device=dev)
+        valid[:, :w] = 1
+        if B > 1:  # a sampled arena: holes where rejected drafts were
+            holes = torch.rand((B, 4000), generator=gen, device=dev) < 0.3
+            valid[:, s - 4000:s][holes] = 0
+        else:
+            _block_keys(q, k, s)
+        kb, vb = k[:, :w].to(torch.bfloat16), v[:, :w].to(torch.bfloat16)
+        mask = causal_mask(pos, valid[:, :w])
+        ref = compare("decode_attention_gqa",
+                      lambda: da.decode_attention_gqa(q, k, v, pos, valid),
+                      lambda: da.decode_attention_gqa_torch(q, k[:, :w], v[:, :w], pos,
+                                                            valid[:, :w]),
+                      pos >= 0, results, case=f"S = {SPEC_K1}, B = {B}, T = {T}, {dtype}",
+                      flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+                      moved=nbytes(q, k[:, :w], v[:, :w], pos, valid) + nbytes(q),
+                      library_fn=lambda: sdpa_masked(q, kb, vb, mask))
+        if B == 1:  # planted: each block row sees the key after its own
+            out = da.decode_attention_gqa_torch(q, k[:, :w], v[:, :w], pos + 1, valid[:, :w])
+            planted("decode_attention_gqa", "block row sees the next key", out, ref, pos >= 0)
+        del k, v, kb, vb, mask, ref
+    # K3 at S = K1 under decode_attn_impl="pallas": the sampled arena
+    B = 4
+    L = SPEC_GSPO_PROMPT
+    T = L + 768 + 1024 + 2 * SPEC_K1
+    s = L + SPEC_K3_CURSOR
+    k, v = _layer_views(dev, gen, cfg, B, T, s + SPEC_K1, torch.bfloat16)
+    q = torch.randn((B, SPEC_K1, t.num_attention_heads, t.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = (s + torch.arange(SPEC_K1, dtype=torch.int32, device=dev)).repeat(B, 1)
+    valid = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    valid[:, :s + SPEC_K1] = 1
+    valid[:, L:s][torch.rand((B, s - L), generator=gen, device=dev) < 0.5] = 0
+    w = s + SPEC_K1
+    mask = causal_mask(pos, valid[:, :w])
+    compare("flash_attention_gqa",
+            lambda: fa.flash_attention_gqa(q, k, v, pos, valid),
+            lambda: fa.flash_attention_gqa_torch(q, k[:, :w], v[:, :w], pos, valid[:, :w]),
+            pos >= 0, results, case=f"S = {SPEC_K1} verify, 4 x {T} (decode_attn_impl pallas)",
+            flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+            moved=nbytes(q, k[:, :w], v[:, :w], pos, valid) + nbytes(q),
+            library_fn=lambda: sdpa_masked(q, k[:, :w], v[:, :w], mask))
+    del k, v, mask
+    torch.cuda.empty_cache()
+
+
+def first_divergence(params, cfg, req, plain, spec) -> tuple:
+    """The first index where the spec tokens differ from the plain path's
+    (None: nowhere) and, there, the plain step's top-2 logit gap (the
+    prefill logits of the prompt and the plain tokens before it)."""
+    k = next((i for i, (a, b) in enumerate(zip(plain, spec)) if a != b), None)
+    if k is None:
+        return None, None
+    forced = dataclasses.replace(req, input_ids=list(req.input_ids) + list(plain[:k]))
+    if forced.pixel_patches is None:
+        dev = params["text"]["embed_tokens"].device
+        with torch.inference_mode():
+            ids = torch.tensor([forced.input_ids], device=dev)
+            hidden, _ = text_forward(params["text"], cfg.text, embed_tokens(params, ids),
+                                     torch.arange(ids.shape[1], device=dev)[None, None].expand(
+                                         3, 1, -1))
+            logits = logits_from_hidden(params["text"], hidden[:, -1]).float()
+    else:
+        logits = _vision_and_logits(params, cfg, [forced], "auto")[1]
+    top = logits[0].topk(2).values
+    return k, float(top[0] - top[1])
+
+
+def spec_pair(tag, params, cfg, req, sampling, engine_kw, plain_tokens=None) -> dict:
+    """One request through a spec_decode engine, after a warm-up call, and
+    (without ``plain_tokens``) through a plain one the same way: tokens,
+    the first divergence and its top-2 gap (at most SPEC_TIE_GAP), verify
+    steps, tokens per verify, decode ms/token of both (the decode stage,
+    captures included, over the tokens decode emitted), captures."""
+    runs = {}
+    for name, spec in (("spec", True), ("plain", False)):
+        if not spec and plain_tokens is not None:
+            continue
+        engine = InferenceEngine(params, cfg, spec_decode=spec, spec_draft=SPEC_DRAFT, **engine_kw)
+        engine.generate([req], dataclasses.replace(sampling, max_tokens=2))
+        stats0 = dict(engine.spec_stats)
+        out, run = decode_run(engine, lambda: engine.generate([req], sampling)[0])
+        run["tokens"] = out["token_ids"]
+        run["decode_ms_per_token"] = round(1e3 * engine.stage_seconds["decode"]
+                                           / max(len(out["token_ids"]) - 1, 1), 3)
+        run["stats"] = {k: engine.spec_stats[k] - stats0[k] for k in stats0}
+        runs[name] = run
+        del engine
+    plain = plain_tokens if plain_tokens is not None else runs["plain"]["tokens"]
+    spec = runs["spec"]
+    k, gap = first_divergence(params, cfg, req, plain, spec["tokens"])
+    st = spec["stats"]
+    log("spec", run=tag, prompt_tokens=len(req.input_ids), new_tokens=len(spec["tokens"]),
+        identical_tokens=spec["tokens"] == plain, first_divergence=k, plain_top2_gap=gap,
+        bound=SPEC_TIE_GAP, verify_steps=st["verify_steps"],
+        tokens_per_verify=round(st["emitted"] / max(st["verify_steps"], 1), 3),
+        spec_decode_ms_per_token=spec["decode_ms_per_token"],
+        plain_decode_ms_per_token=runs["plain"]["decode_ms_per_token"] if "plain" in runs else None,
+        spec_capture_ms=spec["capture_ms"],
+        verify_captures=spec["scheduler"]["verify_captures"],
+        captures=spec["scheduler"]["captures"], decode_kernel_launches=spec["launches"])
+    graphed = params["text"]["embed_tokens"].device.type == "cuda"
+    if st["verify_steps"] < 1 or (graphed and spec["scheduler"]["verify_captures"] < 1):
+        raise RuntimeError(f"{tag}: no graphed verify step ran: {st}, {spec['scheduler']}")
+    if k is not None and gap > SPEC_TIE_GAP:
+        raise RuntimeError(f"{tag}: the spec tokens leave the plain path's at step {k}, where "
+                           f"its top-2 logit gap {gap} exceeds {SPEC_TIE_GAP}")
+    return spec
+
+
+def spec_gspo(trainer, sample, step, tag) -> dict:
+    """One GSPO step of the spec_rollout trainer (``gspo_step``): the
+    rollout's seconds, spec_stats, compactions and peak GiB."""
+    stats0 = dict(trainer.engine.spec_stats)
+    comp0 = trainer.engine.counters["compactions"]
+    got = gspo_step(trainer, sample, step, tag, GSPO_KERNELS)
+    st = {k: trainer.engine.spec_stats[k] - stats0[k] for k in stats0}
+    got["rollout_s"] = trainer.timer.report()["rollout"]["total_s"]
+    got["stats"] = st
+    got["compactions"] = trainer.engine.counters["compactions"] - comp0
+    got["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    return got
+
+
+def spec_phase(params, cfg, reqs, proc, long_tokens_a, seed, results) -> dict:
+    """Phase 18: the verify blocks' kernel cases; 18a greedy speculation on
+    the slice's first request against the plain path; 18b GSPO with
+    spec_rollout under PEFT, worst (the probe reverts) and replay (the
+    streams equal the trace), against a plain rollout; 18c greedy
+    speculation at run (a)'s length (K4 at S = K1 in the engine). Returns
+    18c's decode launches."""
+    t_phase = time.perf_counter()
+    dev = params["text"]["embed_tokens"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 18)
+    spec_kernel_cases(dev, cfg, gen, results)
+
+    # 18a
+    greedy = SamplingParams(temperature=0.0, repetition_penalty=1.0, max_tokens=SPEC_TOKENS)
+    spec_pair("18a", params, cfg, reqs[0], greedy, {})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18b
+    for x in P.leaves(params):
+        x.requires_grad_(False)
+    sample = gspo_sample(proc, seed)
+    gcfg = GSPOConfig(spec_rollout=True)
+    trainer = GSPOTrainer(params, None, cfg, gcfg, detokenize=CannedTraces(proc),
+                          lora=LoraConfig(seed=seed), seed=seed)
+    worst = spec_gspo(trainer, sample, 0, "18b worst")
+    req = Request(input_ids=list(sample["input_ids"]), pixel_patches=sample["pixel_patches"],
+                  grid_thw=sample["grid_thw"], vision_token_id=sample.get("vision_token_id"))
+    sampling = SamplingParams(temperature=gcfg.temperature, top_p=gcfg.top_p,
+                              repetition_penalty=1.0, max_tokens=gcfg.max_completion_length,
+                              seed=seed)
+    plain_engine = InferenceEngine(trainer.policy_params(), cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_outs = plain_engine.generate([req] * gcfg.num_generations, sampling)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del plain_engine
+    trainer.engine.spec_warmup, trainer.engine.spec_min_rate = 0, 0.0
+    trace = np.stack([reasoning_trace_tokens(gcfg.max_completion_length + SPEC_TRACE_EXTRA, r,
+                                             cfg.text.vocab_size, cfg.eos_token_id)
+                      for r in range(gcfg.num_generations)])
+    trainer.replay_tokens = trace
+    replay = spec_gspo(trainer, sample, 1, "18b replay")
+    n = gcfg.max_completion_length
+    equal = [list(ids)[1:] == trace[r, 1:n].tolist() for r, ids in enumerate(replay["tokens"])]
+    for tag, got in (("worst", worst), ("replay", replay)):
+        st = got["stats"]
+        log("spec", run=f"18b {tag}", rollout_s=got["rollout_s"], plain_rollout_s=round(plain_s, 4),
+            rollout_vs_plain=round(got["rollout_s"] / plain_s, 3),
+            completion_lengths=[len(t) for t in got["tokens"]], verify_steps=st["verify_steps"],
+            tokens_per_verify=round(st["emitted"] / max(st["verify_steps"], 1), 3),
+            probe_disabled=st["probe_disabled"], compactions=got["compactions"],
+            peak_mem_gib=got["peak_gib"], loss=got["metrics"]["loss"])
+    log("spec", run="18b replay", streams_equal_to_trace=equal,
+        plain_completion_lengths=[len(o["token_ids"]) for o in plain_outs])
+    if worst["stats"]["probe_disabled"] < 1:
+        raise RuntimeError(f"18b worst: the probe did not revert random-init sampling: "
+                           f"{worst['stats']}")
+    if not all(equal) or replay["stats"]["verify_steps"] < 1:
+        raise RuntimeError(f"18b replay: streams equal to the trace {equal}, {replay['stats']}")
+    trainer.engine.release_memory()
+    del trainer, plain_outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18c
+    long_kw = dict(cache_dtype=torch.bfloat16, long_prefill_chunk=LONG_CHUNK)
+    long_spec = spec_pair("18c", params, cfg, long_request(LONG_RUNS[0][1]),
+                          long_sampling(seed), long_kw, plain_tokens=long_tokens_a)
+    if dev.type == "cuda" and not long_spec["launches"].get("decode_attention_gqa"):
+        raise RuntimeError(f"18c: K4 did not launch in the verify blocks: {long_spec['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("spec", phase_seconds=round(time.perf_counter() - t_phase, 3))
+    return long_spec["launches"]
 
 
 def main() -> None:
@@ -3317,6 +3694,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log("sched", launches=sched_launches)
+
+    # speculative decoding: greedy, GSPO's sampled rollouts, long context
+    spec_launches = spec_phase(params, cfg, reqs, proc, long_tokens["a"], args.seed, results)
+    log("spec", launches=spec_launches)
 
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()

@@ -67,9 +67,43 @@ are wasted (``decode_steps_wasted``); its tokens, log-probabilities,
 emitted counts and done flags are then read back in one fetch. On the CPU
 the same step runs eagerly, with the same stops.
 
-Not ported yet (later work): speculative decoding, GSPO's B x G rollout
-mode, ``Request.frames`` / ``resize_hw`` / ``vision_embeds``, w8a8
-prefill, ``decode_attn_impl``.
+**Speculative decoding** (JAX's ``_segment_spec_impl`` and
+``_segment_spec_sample_impl``): prompt-lookup drafts of ``spec_draft``
+tokens, each verified by one cached forward of a (B, K1 = spec_draft + 1)
+block at columns [s, s + K1), masked by ``column <= position`` and slot
+validity (the sampled path's ``kv_pos`` row of JAX is that same rule,
+since its columns never wrap while a block runs).
+
+- ``spec_decode``: single-row greedy groups. A bigram draft, periodically
+  extrapolated; the acceptance scan replays the sequential sampler
+  (penalty, seen set, EOS, budget), so in exact arithmetic the tokens and
+  log-probabilities are the plain path's. Columns are consumed
+  monotonically; the arena gets K1 columns more; the drafting history
+  ``hist`` (fed tokens by column) is rebuilt at each admission.
+- ``spec_sample``: multi-row groups at any temperature, sample-and-match
+  acceptance with K1 draws per verify from the group's generator
+  (distributionally exact; another random stream than the plain path's).
+  Every verify consumes K1 shared columns and marks each row's rejected
+  ones invalid; ``spec_surplus`` + K1 columns more hold the holes. Between
+  segments, when the surplus runs out, hole compaction gathers each row's
+  valid decode columns to the front, in place. The first ``spec_warmup``
+  tokens of a group run the plain ring; then a probe segment of at most
+  ``spec_probe`` tokens reverts the group to plain below ``spec_min_rate``
+  tokens per verify per row. ``replay_tokens`` (benchmarks only) forces
+  each row's stream through this path.
+
+A verify step keeps all its state on the device and is captured as a CUDA
+graph once per group, like the plain step. The JAX loop's condition is a
+device flag: once it is false a replay changes nothing (the sampled path's
+block then lands in K1 scratch columns past the arena's last, never valid),
+and the host stops through the lagged flags as above. ``spec_stats`` counts
+verify steps, the tokens they emitted and the groups the probe reverted.
+
+``decode_attn_impl`` ("auto", "pallas", "xla") picks the attention of the
+decode step and the verify blocks only (``ops/attention.py``).
+
+Not ported yet (later work): GSPO's B x G rollout mode, ``Request.frames``
+/ ``resize_hw`` / ``vision_embeds``, w8a8 prefill.
 """
 
 from __future__ import annotations
@@ -96,6 +130,7 @@ from ..models.qwen25vl.model import (
 )
 from ..models.qwen25vl.text import init_kv_cache, logits_from_hidden, text_forward
 from ..ops import kernels
+from ..ops.attention import DECODE_IMPLS
 from ..ops.sampling import sample_token
 
 # The JAX engine's prompt buckets; the last is the reference's max_model_len,
@@ -195,7 +230,28 @@ class DecodeState:
     cache: dict  # the arena {"k", "v"} (layers, B, T, Hkv, D)
     gen: torch.Generator
     L: int
-    ring: int
+    ring: int  # the plain ring's columns [L, L + ring)
+    spec: Optional["SpecState"] = None
+
+
+@dataclasses.dataclass
+class SpecState:
+    """A speculative group's verify state, on the device and written in
+    place like ``DecodeState``. ``kind`` "greedy" (JAX's
+    ``_segment_spec_impl``, one row; ``DecodeState.cursor`` counts the
+    tokens fed since the admission) or "sampled" (``_segment_spec_sample_impl``;
+    ``cursor`` is the shared column cursor of the verify blocks and the
+    plain ring)."""
+
+    kind: str
+    blk: torch.Tensor  # (K1,) arange
+    hist: torch.Tensor  # greedy (1, T) fed tokens by column; sampled (B, Hc) compact history
+    hcount: Optional[torch.Tensor]  # sampled (B,): tokens in hist, the pending one included
+    forced: Optional[torch.Tensor]  # sampled replay streams (B, Hc), hist-column aligned
+    cap: torch.Tensor  # () the segment's cap on emitted tokens a row
+    n_verify: torch.Tensor  # () verify forwards in the segment
+    stop: torch.Tensor  # () bool: the loop's condition is false (read by the host, lagged)
+    scratch: int  # sampled: first of the K1 scratch columns a no-op block writes
 
 
 def _token_logp(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
@@ -258,7 +314,9 @@ class InferenceEngine:
     params lie on a CUDA device and their plain versions on the CPU.
 
     ``decode_graph=False`` runs every decode step eagerly on the card too:
-    a reference for tests of the graph, never a fallback."""
+    a reference for tests of the graph, never a fallback. Speculative
+    groups also count ``compactions`` and ``verify_captures`` (graphs of
+    the verify step, a part of ``captures``)."""
 
     def __init__(self, params: dict, cfg: Qwen25VLConfig, *,
                  prompt_buckets: Sequence[int] = PROMPT_BUCKETS, cache_dtype=torch.bfloat16,
@@ -267,7 +325,9 @@ class InferenceEngine:
                  suffix_buckets: Sequence[int] = (64, 128, 256, 512, 1024),
                  prefix_cache_entries: int = 4, long_prefill_threshold: int = 32768,
                  long_prefill_chunk: int = 8192, max_kv_gb: Optional[float] = None,
-                 decode_graph: bool = True):
+                 decode_graph: bool = True, decode_attn_impl: Optional[str] = "auto",
+                 spec_decode: bool = False, spec_draft: int = 7, spec_sample: bool = False,
+                 spec_surplus: int = 1024):
         self.cfg = cfg
         self.device = params["text"]["embed_tokens"].device  # where the model lives
         self.prompt_buckets = tuple(prompt_buckets)
@@ -294,6 +354,23 @@ class InferenceEngine:
         self._vis_obj_counter = 0
         self.params = params
         self.decode_graph = decode_graph
+        self.decode_attn_impl = decode_attn_impl or "auto"
+        if self.decode_attn_impl not in DECODE_IMPLS:
+            raise ValueError(f"decode_attn_impl {decode_attn_impl!r} is not one of {DECODE_IMPLS}")
+        # Speculative decoding (the module docstring); the JAX engine's
+        # defaults, without its O3V_SPEC* environment overrides.
+        self.spec_decode = bool(spec_decode)
+        self.spec_draft = int(spec_draft)
+        self.spec_sample = bool(spec_sample)
+        self.spec_surplus = int(spec_surplus)
+        # The sampled path's probe, its rate and the plain warmup before it;
+        # tests and benchmarks set them after construction.
+        self.spec_probe = 48
+        self.spec_min_rate = 1.35
+        self.spec_warmup = 48
+        # Across calls: verify forwards, tokens they emitted (emitted /
+        # verify_steps = tokens per verify), groups the probe reverted.
+        self.spec_stats = {"verify_steps": 0, "emitted": 0, "probe_disabled": 0}
         self.stage_seconds: collections.Counter = collections.Counter()
         self.counters: collections.Counter = collections.Counter()
         self.groups: list[dict] = []
@@ -349,16 +426,28 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def generate(self, requests: Sequence[Request], sampling: Optional[SamplingParams] = None,
-                 return_logprobs: bool = False) -> list[dict[str, Any]]:
+                 return_logprobs: bool = False,
+                 replay_tokens: Optional[np.ndarray] = None) -> list[dict[str, Any]]:
         """One dict per request, in input order: {"token_ids": list[int],
         "num_prompt_tokens": int, and with ``return_logprobs`` "logprobs":
         each emitted token's log-probability under the raw logits}, cut
-        after the first EOS as the JAX engine's ``finalize`` cuts them."""
+        after the first EOS as the JAX engine's ``finalize`` cuts them.
+
+        ``replay_tokens`` (benchmarks only, never a serving or training
+        mode): (len(requests), W) token streams that the sampled speculative
+        path emits instead of its samples, from each row's second token on;
+        everything else (verify forwards, acceptance, cache writes) is real.
+        It measures speculation conditional on a trace's repetition, which
+        random weights cannot produce. Ignored where that path is not
+        active (the warmup, after the probe reverted a group)."""
         sampling = sampling or SamplingParams()
         for r in requests:
             for name in _UNSUPPORTED:
                 if getattr(r, name) is not None:
                     raise NotImplementedError(f"Request.{name} is not served by this engine yet")
+            # Every prompt, also one that shares a prefix with a sibling,
+            # fits the largest bucket, as it must when it runs alone.
+            _bucket(len(r.input_ids), self.prompt_buckets)
         results: list = [None] * len(requests)
         prefix_lens = self._detect_prefixes(requests)
         groups: dict[int, list[int]] = {}  # bucket -> the group's requests in input order
@@ -371,7 +460,8 @@ class InferenceEngine:
             id(r.pixel_patches) for r in requests if r.pixel_patches is not None)}
         self.groups = []
         for idxs in groups.values():
-            self._run_group(idxs, requests, sampling, return_logprobs, results, prefix_lens, vis)
+            self._run_group(idxs, requests, sampling, return_logprobs, results, prefix_lens, vis,
+                            replay_tokens)
         return results
 
     def prestage_patches(self, patches_list: Sequence) -> list:
@@ -415,7 +505,15 @@ class InferenceEngine:
         return digest
 
     def _vis_key(self, r: Request) -> tuple:
-        return (self._vis_digest(r.pixel_patches),)
+        """The vision part of the prefix cache's keys: the patches' digest,
+        and the grid and frame spacing, on which the M-RoPE positions of
+        the prefix depend (``_rope_kwargs``). The JAX engine keys on the
+        digest alone, so it serves a block prefilled at a sibling's
+        positions."""
+        grid = None if r.grid_thw is None else tuple(map(tuple, np.asarray(r.grid_thw).tolist()))
+        spacing = (None if r.second_per_grid_ts is None
+                   else tuple(float(x) for x in r.second_per_grid_ts))
+        return (self._vis_digest(r.pixel_patches), grid, spacing)
 
     def _prefix_key(self, r: Request, pl: int) -> tuple:
         """The prefix cache's key of ``r``'s first ``pl`` tokens."""
@@ -580,6 +678,7 @@ class InferenceEngine:
             if vis["pending"][key] <= 0:
                 vis["tables"].pop(key, None)
 
+
     # ------------------------------------------------------------------- group
 
     def _slots_for(self, B: int, T: int) -> int:
@@ -594,42 +693,96 @@ class InferenceEngine:
         return max(1, min(B, int(self.max_kv_gb * 1e9 / per_slot)))
 
     def _run_group(self, idxs, requests, sampling: SamplingParams, return_logprobs: bool,
-                   results: list, prefix_lens: Sequence[int], vis: dict) -> None:
-        """One group through its slots, as the JAX engine's ``_run_group``
-        (its plain, non-speculative path). Plain rows fill the prompt region
-        [0, L) left-padded; a prefix row's block ends at column P, the
-        group's longest prefix, and its suffix fills [P, L) left-padded."""
+                   results: list, prefix_lens: Sequence[int], vis: dict,
+                   replay_tokens: Optional[np.ndarray] = None) -> None:
+        """One group through its slots, as the JAX engine's ``_run_group``.
+        Plain rows fill the prompt region [0, L) left-padded; a prefix row's
+        block ends at column P, the group's longest prefix, and its suffix
+        fills [P, L) left-padded. A speculative group's arena holds the
+        spec columns (and, sampled, K1 scratch columns past them)."""
         cfg, dev = self.cfg, self.device
         eos, max_tokens = cfg.eos_token_id, sampling.max_tokens
         P = max(prefix_lens[i] for i in idxs)
         L = max(P + len(requests[i].input_ids) - prefix_lens[i] if prefix_lens[i]
                 else len(requests[i].input_ids) for i in idxs)
-        T = L + max_tokens
-        B = self._slots_for(min(self.max_slots, len(idxs)), T)
+        K1 = self.spec_draft + 1
+
+        def spec_ok(b: int) -> bool:  # greedy single-row groups
+            return (self.spec_decode and b == 1 and sampling.temperature == 0.0
+                    and max_tokens > 1)
+
+        def spec_sample_ok(b: int) -> bool:  # the greedy path wins where it applies
+            return self.spec_sample and not spec_ok(b) and max_tokens > 1
+
+        B = min(self.max_slots, len(idxs))
+        sample_fits = True
+        if self.max_kv_gb:
+            # The surplus columns count against the budget only if the
+            # capped slot count still runs the sampled path (JAX: every row
+            # bound in one wave); otherwise the group runs plain, with the
+            # plain arena's slots. (JAX's comment says so, but its gate
+            # then runs the sampled path anyway, on an arena over the
+            # budget.) A cap to one slot may enable the greedy path, whose
+            # draft columns count then.
+            b_ss = self._slots_for(B, L + max_tokens + self.spec_surplus + 2 * K1)
+            if spec_sample_ok(b_ss) and b_ss >= len(idxs):
+                B = b_ss
+            else:
+                sample_fits = False
+                b = self._slots_for(B, L + max_tokens)
+                B = self._slots_for(B, L + max_tokens + K1) if spec_ok(b) else b
+        spec_active, sample_active = spec_ok(B), sample_fits and spec_sample_ok(B)
+        T = (L + max_tokens + (K1 if spec_active else 0)
+             + (self.spec_surplus + K1 if sample_active else 0))
+        ring = T - L
+        T_arena = T + (K1 if sample_active else 0)  # the sampled path's scratch columns
+        out_w = max_tokens + (2 * K1 if spec_active or sample_active else 0)
         st = DecodeState(
             token=torch.zeros(B, dtype=torch.long, device=dev),
             cursor=torch.zeros((), dtype=torch.long, device=dev),
             step=torch.zeros((), dtype=torch.long, device=dev),
             mrope_cur=torch.zeros(B, dtype=torch.long, device=dev),
-            attn_valid=torch.zeros((B, T), dtype=torch.bool, device=dev),
+            attn_valid=torch.zeros((B, T_arena), dtype=torch.bool, device=dev),
             seen=torch.zeros((B, cfg.text.vocab_size), dtype=torch.bool, device=dev),
             done=torch.ones(B, dtype=torch.bool, device=dev),
             remaining=torch.zeros(B, dtype=torch.long, device=dev),
-            toks=torch.full((B, max_tokens), cfg.pad_token_id, dtype=torch.long, device=dev),
-            lps=torch.zeros((B, max_tokens), dtype=torch.float32, device=dev),
+            toks=torch.full((B, out_w), cfg.pad_token_id, dtype=torch.long, device=dev),
+            lps=torch.zeros((B, out_w), dtype=torch.float32, device=dev),
             emitted=torch.zeros(B, dtype=torch.long, device=dev),
-            q_pos=torch.full((B, 1), T, dtype=torch.long, device=dev),
-            cache=init_kv_cache(cfg.text, B, T, dtype=self.cache_dtype, device=dev),
-            gen=torch.Generator(device=dev), L=L, ring=max_tokens,
+            q_pos=torch.full((B, 1), T_arena, dtype=torch.long, device=dev),
+            cache=init_kv_cache(cfg.text, B, T_arena, dtype=self.cache_dtype, device=dev),
+            gen=torch.Generator(device=dev), L=L, ring=ring,
         )
         st.gen.manual_seed(sampling.seed)
-        self.groups.append({"requests": len(idxs), "slots": B, "columns": T, "arena_bytes": sum(
-            t.numel() * t.element_size() for t in st.cache.values())})
+        Hc = L + max_tokens + K1 + 1  # the sampled path's compact history (JAX's Hc)
+        if spec_active or sample_active:
+            greedy = spec_active
+            hist_shape = (1, T_arena) if greedy else (B, Hc)
+            st.spec = SpecState(
+                kind="greedy" if greedy else "sampled",
+                blk=torch.arange(K1, device=dev),
+                hist=torch.full(hist_shape, cfg.pad_token_id, dtype=torch.long, device=dev),
+                hcount=None if greedy else torch.full((B,), 2, dtype=torch.long, device=dev),
+                forced=(torch.zeros((B, Hc), dtype=torch.long, device=dev)
+                        if replay_tokens is not None and not greedy else None),
+                cap=torch.zeros((), dtype=torch.long, device=dev),
+                n_verify=torch.zeros((), dtype=torch.long, device=dev),
+                stop=torch.zeros((), dtype=torch.bool, device=dev),
+                scratch=T,
+            )
+        self.groups.append({"requests": len(idxs), "slots": B, "columns": T_arena,
+                            "arena_bytes": sum(t.numel() * t.element_size()
+                                               for t in st.cache.values())})
+        if st.spec is not None:  # a speculative group says which path it runs
+            self.groups[-1]["spec"] = st.spec.kind
         run = _GroupRun(self, st, sampling)
         slot_rid: list = [None] * B
         emitted: dict = {}
         lp_acc: dict = {}
         qpos = 0
+        # The sampled path's host flags (JAX's run_segment nonlocals).
+        flags = {"active": sample_active, "hist_stale": True, "just_compacted": False,
+                 "probe_pending": True}
 
         def finalize(s):
             rid = slot_rid[s]
@@ -643,15 +796,59 @@ class InferenceEngine:
             if return_logprobs:
                 results[rid]["logprobs"] = lps
 
+        def rebuild_history(active):
+            """The sampled path's compact histories (prompt + emitted) and,
+            replaying, each row's remaining stream aligned to its history
+            columns, written in place after the slots changed."""
+            rows = np.full((B, Hc), cfg.pad_token_id, dtype=np.int64)
+            counts = np.full(B, 2, dtype=np.int64)  # a free slot's floor
+            forced = np.zeros((B, Hc), dtype=np.int64)
+            for s in active:
+                rid = slot_rid[s]
+                ids0 = list(requests[rid].input_ids) + emitted[rid]
+                rows[s, :len(ids0)] = ids0
+                counts[s] = len(ids0)
+                if replay_tokens is not None:
+                    tr = np.asarray(replay_tokens[rid], dtype=np.int64)
+                    done_n = len(emitted[rid])
+                    g = min(len(tr) - done_n, Hc - len(ids0))
+                    if g > 0:
+                        forced[s, len(ids0):len(ids0) + g] = tr[done_n:done_n + g]
+            st.spec.hist.copy_(torch.from_numpy(rows))
+            st.spec.hcount.copy_(torch.from_numpy(counts))
+            if st.spec.forced is not None:
+                st.spec.forced.copy_(torch.from_numpy(forced))
+            flags["hist_stale"] = False
+
         def run_segment(n_steps, interleaved=False):
             """One decode segment over the slots in flight, then the
-            harvest: each row's tokens appended, finished rows finalized."""
+            harvest: each row's tokens appended, finished rows finalized.
+            A sampled group runs its warmup and probe here, and compacts
+            its holes when the surplus runs out (JAX's run_segment)."""
             active = [s for s in range(B) if slot_rid[s] is not None]
             if not active:
                 return
-            # No row can emit past its budget: cap the steps there.
-            n_steps = min(n_steps, max(max_tokens - len(emitted[slot_rid[s]]) for s in active))
-            toks_h, lps_h, emitted_h, done_h = run.segment(n_steps)
+            candidate = flags["active"] and not interleaved and qpos >= len(idxs)
+            warmup_rem = 0
+            if candidate and flags["probe_pending"]:
+                min_emitted = min(len(emitted[slot_rid[s]]) for s in active)
+                warmup_rem = max(0, self.spec_warmup - min_emitted)
+            sample_now = candidate and warmup_rem == 0
+            if spec_active:
+                kind, cap = "greedy", n_steps
+            elif sample_now:
+                kind = "sampled"
+                cap = max(1, min(self.spec_probe, n_steps)) if flags["probe_pending"] else n_steps
+                if flags["hist_stale"]:
+                    rebuild_history(active)
+            else:
+                kind = "plain"
+                if warmup_rem:
+                    n_steps = min(warmup_rem, n_steps)
+                # No row can emit past its budget: cap the steps there.
+                cap = n_steps = min(n_steps,
+                                    max(max_tokens - len(emitted[slot_rid[s]]) for s in active))
+            toks_h, lps_h, emitted_h, done_h, nv = run.segment(cap, kind)
             self.counters["interleaved_segments" if interleaved else "segments"] += 1
             for s in active:
                 rid, n = slot_rid[s], int(emitted_h[s])
@@ -659,6 +856,37 @@ class InferenceEngine:
                 lp_acc[rid].extend(float(x) for x in lps_h[s, :n])
                 if done_h[s]:
                     finalize(s)
+            if kind == "plain":
+                return
+            self.spec_stats["verify_steps"] += nv
+            self.spec_stats["emitted"] += int(emitted_h.sum())
+            if kind != "sampled":
+                return
+            if flags["probe_pending"]:
+                # The probe's verdict, once per group: below spec_min_rate
+                # tokens per verify per row the verify forwards cost more
+                # than the drafts save; 8 verifies at least for a stable
+                # estimate.
+                flags["probe_pending"] = False
+                rate = int(emitted_h.sum()) / max(nv, 1) / len(active)
+                if nv >= 8 and rate < self.spec_min_rate:
+                    flags["active"] = False
+                    self.spec_stats["probe_disabled"] += 1
+            if flags["active"] and not done_h.all() and int(emitted_h.max()) < cap:
+                # The surplus ran out with rows still live: compact and
+                # re-enter; if a segment right after a compaction emitted
+                # nothing, no room can be made, and the plain ring finishes
+                # the group from the cursor (the loop's invariant keeps the
+                # rest of every budget within the ring).
+                if flags["just_compacted"] and int(emitted_h.sum()) == 0:
+                    flags["active"] = False
+                else:
+                    with self._stage("decode"), self._decode_stream():
+                        self._spec_compact(st)
+                    self.counters["compactions"] += 1
+                    flags["just_compacted"] = True
+            else:
+                flags["just_compacted"] = False
 
         def bind(slots, rids, logits, seen_rows, attn_rows, next_pos):
             """Sample the new rows' first tokens and write them into their
@@ -677,6 +905,15 @@ class InferenceEngine:
             st.attn_valid.index_copy_(0, slots_t, torch.from_numpy(attn_rows).to(dev))
             st.seen.index_copy_(0, slots_t, seen_t)
             self.counters["admissions"] += 1
+            if spec_active:
+                # The fresh row's drafting history: its prompt tokens at
+                # their valid prompt columns, in order (left padding and the
+                # prefix + suffix layout alike); the fed-token count restarts.
+                row = np.full((1, T_arena), cfg.pad_token_id, dtype=np.int64)
+                row[0, np.nonzero(attn_rows[0, :L])[0]] = requests[rids[0]].input_ids
+                st.spec.hist.copy_(torch.from_numpy(row))
+                st.cursor.zero_()
+            flags["hist_stale"] = True
             for j, (s, rid) in enumerate(zip(slots, rids)):
                 slot_rid[s] = rid
                 emitted[rid] = [int(first_h[j])]
@@ -689,7 +926,7 @@ class InferenceEngine:
             every slot, else a rows cache of its own."""
             if len(slots) == B:
                 return st.cache
-            return init_kv_cache(cfg.text, len(slots), T, dtype=self.cache_dtype, device=dev)
+            return init_kv_cache(cfg.text, len(slots), T_arena, dtype=self.cache_dtype, device=dev)
 
         def scatter(rows, slots):
             if rows is st.cache:
@@ -701,7 +938,7 @@ class InferenceEngine:
         def admit_plain(slots, rids):
             reqs = [requests[r] for r in rids]
             ids, mask, pos, next_pos = left_padded_rows(cfg, reqs, L)
-            attn_rows = np.zeros((len(reqs), T), dtype=bool)
+            attn_rows = np.zeros((len(reqs), T_arena), dtype=bool)
             attn_rows[:, :L] = mask
             seen_rows = np.zeros((len(reqs), cfg.text.vocab_size), dtype=bool)
             for i in range(len(reqs)):
@@ -737,7 +974,7 @@ class InferenceEngine:
                 pl = prefix_lens[sub_rids[0]]
                 block = self._ensure_prefix(reqs[0], pl, vis)
                 ids, pos, next_pos, attn_rows, seen_rows = self._suffix_rows(
-                    reqs, pl, P, L - P, T)
+                    reqs, pl, P, L - P, T_arena)
                 with self._stage("prefill"):
                     rows = rows_cache(sub_slots)
                     for name in ("k", "v"):
@@ -826,6 +1063,7 @@ class InferenceEngine:
             self.params["text"], cfg.text, embed_tokens(self.params, st.token[:, None]),
             st.mrope_cur[None, :, None].expand(3, B, 1), seq_positions=st.q_pos,
             attn_valid=st.attn_valid, cache=st.cache, cache_offset=col, validity_only=True,
+            decode_attn_impl=self.decode_attn_impl,
         )
         logits = logits_from_hidden(self.params["text"], hidden[:, 0])
         nxt = self._sample(st.gen, logits, st.seen, sampling)
@@ -843,61 +1081,246 @@ class InferenceEngine:
         st.cursor.add_(1)
         st.step.add_(1)
 
+    # ---------------------------------------------------------- speculative
+
+    def _spec_go(self, st: DecodeState) -> torch.Tensor:
+        """The verify loop's condition (JAX's ``cond``), a 0-d bool on the
+        device: some row live and under the segment's cap, and, sampled,
+        room for one more block with the rest of every live budget on the
+        plain ring after it (``fits``)."""
+        sp = st.spec
+        go = ~st.done.all() & (st.emitted.max() < sp.cap)
+        if sp.kind == "sampled":
+            live_rem = torch.where(st.done, 0, st.remaining).max()
+            K1 = sp.blk.shape[0]
+            go = go & (st.cursor + K1 + torch.clamp(live_rem - 1, min=0) <= st.ring)
+        return go
+
+    def _verify_forward(self, st: DecodeState, fed: torch.Tensor, s_col: torch.Tensor):
+        """One cached forward of the (B, K1) block ``fed`` at columns
+        [s_col, s_col + K1): query positions are the block's columns, so a
+        block row sees the earlier valid columns and the block's rows up to
+        its own. Returns the logits (B, K1, V)."""
+        B, K1 = fed.shape
+        blk = st.spec.blk
+        hidden, _ = text_forward(
+            self.params["text"], self.cfg.text, embed_tokens(self.params, fed),
+            (st.mrope_cur[:, None] + blk[None])[None].expand(3, B, K1),
+            seq_positions=(s_col + blk)[None].expand(B, K1), attn_valid=st.attn_valid,
+            cache=st.cache, cache_offset=s_col, decode_attn_impl=self.decode_attn_impl,
+        )
+        return logits_from_hidden(self.params["text"], hidden)
+
+    def _accept(self, st: DecodeState, logits, draft, go, sampling: SamplingParams):
+        """The acceptance scan over the block, the sequential sampler's
+        order: position i samples under the seen set of the positions
+        before it, and emits while every earlier draft matched, the row is
+        not done and its budget lasts. Replaying, the forced stream replaces
+        the sample. Updates ``seen``; returns the block's tokens and
+        log-probabilities (pad and 0 where not emitted), emitted counts and
+        done flags (B,)."""
+        cfg, sp = self.cfg, st.spec
+        B, K1 = draft.shape[0], draft.shape[1] + 1
+        ok = go.expand(B)
+        blk_done, rem = st.done.clone(), st.remaining.clone()
+        n_emit = torch.zeros(B, dtype=torch.long, device=draft.device)
+        outs, out_lps = [], []
+        for i in range(K1):
+            li = logits[:, i]
+            nxt = self._sample(st.gen, li, st.seen, sampling)
+            if sp.forced is not None:
+                at = torch.clamp(sp.hcount + n_emit, max=sp.forced.shape[1] - 1)
+                nxt = sp.forced.gather(1, at[:, None])[:, 0]
+            emit = ok & ~blk_done & (rem > 0)
+            outs.append(torch.where(emit, nxt, cfg.pad_token_id))
+            out_lps.append(torch.where(emit, _token_logp(li, nxt), 0.0))
+            was = st.seen.gather(1, nxt[:, None])
+            st.seen.scatter_(1, nxt[:, None], was | emit[:, None])
+            n_emit = n_emit + emit.long()
+            rem = rem - emit.long()
+            blk_done = blk_done | (emit & (nxt == cfg.eos_token_id)) | (rem <= 0)
+            if i < K1 - 1:
+                ok = ok & emit & (draft[:, i] == nxt)
+        return torch.stack(outs, 1), torch.stack(out_lps, 1), n_emit, blk_done
+
+    def _write_block(self, st: DecodeState, outs, out_lps, n_emit, blk_done, go) -> None:
+        """The block's emissions appended per row, and the state advanced
+        by them; a no-op where ``go`` is false."""
+        sp = st.spec
+        at = st.emitted[:, None] + sp.blk[None]
+        st.toks.scatter_(1, at, outs)
+        st.lps.scatter_(1, at, out_lps)
+        last = outs.gather(1, torch.clamp(n_emit - 1, min=0)[:, None])[:, 0]
+        st.token.copy_(torch.where(go & (n_emit > 0) if sp.kind == "sampled" else go,
+                                   last, st.token))
+        st.done.copy_(torch.where(go, blk_done | (n_emit == 0), st.done))
+        st.emitted.add_(n_emit)
+        st.mrope_cur.add_(n_emit)
+        st.remaining.sub_(n_emit)
+        sp.n_verify.add_(go.long())
+
+    def _verify_greedy(self, st: DecodeState, sampling: SamplingParams) -> None:
+        """One iteration of JAX's ``_segment_spec_impl`` (one row, greedy):
+        the bigram draft, extrapolated periodically; one verify forward at
+        the fed-token column p = L + cursor; the acceptance scan; the cursor
+        advanced by the emitted count, so a rejected draft's columns lie in
+        the next block's window and are rewritten before any read."""
+        sp = st.spec
+        pad = self.cfg.pad_token_id
+        go = self._spec_go(st)
+        p = st.L + st.cursor
+        hist = sp.hist
+        hist.index_copy_(1, p.reshape(1), st.token[:, None])
+        h = hist[0]
+        cols = torch.arange(h.shape[0], device=h.device)
+        # The most recent earlier (hist[p - 1], token) bigram; the draft
+        # cycles through the d columns after it (d, the match's distance,
+        # the period): a distant match copies its continuation, a looping
+        # stream predicts whole periods.
+        u = h.gather(0, (p - 1).reshape(1))
+        match = (h == u) & (torch.roll(h, -1) == st.token) & (cols < p - 1)
+        j = torch.where(match, cols, -1).max()
+        d = torch.clamp(p - 1 - j, min=1)
+        off = sp.blk[:-1]
+        off = off - (off // d) * d
+        draft = torch.where(j >= 0, h.gather(0, p + 1 - d + off), pad)[None]
+        fed = torch.cat([st.token[:, None], draft], 1)
+        hist.index_copy_(1, p + sp.blk, fed)
+        st.attn_valid.index_fill_(1, p + sp.blk, True)
+        logits = self._verify_forward(st, fed, p)
+        outs, out_lps, n_emit, blk_done = self._accept(st, logits, draft, go, sampling)
+        self._write_block(st, outs, out_lps, n_emit, blk_done, go)
+        st.cursor.add_(n_emit[0])
+        sp.stop.copy_(~self._spec_go(st))
+
+    def _verify_sampled(self, st: DecodeState, sampling: SamplingParams) -> None:
+        """One iteration of JAX's ``_segment_spec_sample_impl``: each row's
+        draft from the longest of a 3-, 2- and 1-token context before its
+        pending token in its compact history (most recent match, periodic);
+        one (B, K1) verify forward at the shared columns [L + cursor, + K1);
+        sample-and-match acceptance; each row's rejected columns become
+        invalid and the cursor moves by K1. A no-op block lands in the
+        scratch columns."""
+        sp = st.spec
+        pad = self.cfg.pad_token_id
+        go = self._spec_go(st)
+        hist, e = sp.hist, sp.hcount
+        hcols = torch.arange(hist.shape[1], device=hist.device)[None]
+        t1, t2, t3 = (hist.gather(1, torch.clamp(e - k, min=0)[:, None])
+                      for k in (2, 3, 4))
+        m1 = ((hist == t1) & (torch.roll(hist, -1, 1) == st.token[:, None])
+              & (hcols < (e - 2)[:, None]))
+        m2 = m1 & (torch.roll(hist, 1, 1) == t2) & (hcols >= 1) & (e >= 3)[:, None]
+        m3 = m2 & (torch.roll(hist, 2, 1) == t3) & (hcols >= 2) & (e >= 4)[:, None]
+        j1, j2, j3 = (torch.where(m, hcols, -1).amax(1) for m in (m1, m2, m3))
+        j = torch.where(j3 >= 0, j3, torch.where(j2 >= 0, j2, j1))
+        d = torch.clamp(e - 2 - j, min=1)[:, None]
+        off = sp.blk[None, :-1]
+        off = off - (off // d) * d
+        draft = torch.where((j >= 0)[:, None], hist.gather(1, e[:, None] - d + off), pad)
+        fed = torch.cat([st.token[:, None], draft], 1)
+        s_col = torch.where(go, st.L + st.cursor, sp.scratch)
+        cols = s_col + sp.blk
+        st.attn_valid.index_copy_(1, cols, go.expand(fed.shape))
+        logits = self._verify_forward(st, fed, s_col)
+        outs, out_lps, n_emit, blk_done = self._accept(st, logits, draft, go, sampling)
+        # Commit the emitted tokens to the compact history (what lies past
+        # a row's count is rewritten before any read).
+        hist.scatter_(1, e[:, None] + sp.blk[None], outs)
+        sp.hcount.add_(n_emit)
+        st.attn_valid.index_copy_(1, cols, sp.blk[None] < n_emit[:, None])
+        self._write_block(st, outs, out_lps, n_emit, blk_done, go)
+        st.cursor.add_(go.long() * sp.blk.shape[0])
+        sp.stop.copy_(~self._spec_go(st))
+
+    def _spec_compact(self, st: DecodeState) -> None:
+        """JAX's ``_spec_compact_impl``, in place (the captured graphs read
+        these very tensors): each row's valid columns of the decode region
+        [L, L + ring) gathered to its front in order, validity rewritten to
+        match, and the cursor set to the longest row's count. Column order
+        is kept, so every moved column stays left of later blocks."""
+        L, ring = st.L, st.ring
+        valid = st.attn_valid[:, L:L + ring]
+        n_valid = valid.sum(1)
+        order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+        for name in ("k", "v"):
+            dec = _bytes(st.cache[name])[:, :, L:L + ring]
+            idx = order[None, :, :, None, None].expand(dec.shape)
+            dec.copy_(dec.gather(2, idx))
+        valid.copy_(torch.arange(ring, device=valid.device)[None] < n_valid[:, None])
+        st.cursor.copy_(n_valid.max())
+
 
 class _GroupRun:
-    """A group's decode segments: the done flags, and on the card the
-    decode step's graph, captured in the group's first segment that runs a
-    second step and replayed in every later one; ``close`` drops it with
-    its memory pool when the group ends. ``steps`` counts the steps
-    enqueued (the ring's write head on the host)."""
+    """A group's decode segments: the done flags, and on the card one
+    graph per step kind ("plain", or a speculative group's "greedy" or
+    "sampled" verify step), captured in the group's first segment of that
+    kind that runs a second step and replayed in every later one; ``close``
+    drops them with their memory pools when the group ends. ``steps``
+    counts the plain steps enqueued (the ring's write head on the host)."""
 
     def __init__(self, engine: InferenceEngine, st: DecodeState, sampling: SamplingParams):
         self.engine, self.st, self.sampling = engine, st, sampling
         self.graphed = engine.device.type == "cuda" and engine.decode_graph
-        self.graph = self.captured = None
+        self.graphs: dict = {}  # kind -> (graph, the step's launch counts)
         self.flags = _DoneFlags(engine.device)
         self.steps = 0
 
-    def segment(self, n_steps: int):
-        """Up to ``n_steps`` steps, ended early once the lagged done flags
-        show every row done; then one readback of the segment's tokens,
-        log-probabilities, emitted counts and done flags."""
+    def segment(self, n_steps: int, kind: str = "plain"):
+        """Up to ``n_steps`` steps of ``kind``, ended early once the lagged
+        flags show every row done (a verify loop: its condition false,
+        ``n_steps`` its cap on any row's emitted tokens); then one readback
+        of the segment's tokens, log-probabilities, emitted counts, done
+        flags and verify forwards (0 for a plain segment)."""
         eng, st = self.engine, self.st
+        fn = {"plain": eng._decode_step, "greedy": eng._verify_greedy,
+              "sampled": eng._verify_sampled}[kind]
+        spec = kind != "plain"
         with eng._stage("decode"), eng._decode_stream():
             st.step.zero_()
             st.emitted.zero_()
+            if spec:
+                st.spec.n_verify.zero_()
+                st.spec.cap.fill_(n_steps)
+                st.spec.stop.copy_(~eng._spec_go(st))
+            flag = st.spec.stop if spec else st.done
             step = 0
-            stop = self.flags.after(step, st.done)
+            stop = self.flags.after(step, flag)
             while not stop and step < n_steps:
-                if self.graph is not None:
-                    self.graph.replay()
-                    kernels.LAUNCHES.update(self.captured)
+                if kind in self.graphs:
+                    graph, launches = self.graphs[kind]
+                    graph.replay()
+                    kernels.LAUNCHES.update(launches)
                 else:
-                    eng._decode_step(st, self.sampling)
+                    fn(st, self.sampling)
                 step += 1
-                stop = self.flags.after(step, st.done)
-                if self.graphed and self.graph is None and not stop and step < n_steps:
+                stop = self.flags.after(step, flag)
+                if self.graphed and kind not in self.graphs and not stop and step < n_steps:
                     t0 = time.perf_counter()
-                    self._capture()
+                    self._capture(kind, fn)
                     eng.stage_seconds["decode_capture"] += time.perf_counter() - t0
-            out = eng._fetch(st.toks[:, :step], st.lps[:, :step], st.emitted, st.done)
-        useful = int(out[2].max(initial=0))
+            if spec:
+                *out, nv = eng._fetch(st.toks, st.lps, st.emitted, st.done, st.spec.n_verify)
+                useful = int(nv)
+            else:
+                out = eng._fetch(st.toks[:, :step], st.lps[:, :step], st.emitted, st.done)
+                useful = int(out[2].max(initial=0))
+                self.steps += step
         eng.decode_steps += useful
         eng.decode_steps_wasted += step - useful
-        self.steps += step
-        return out
+        return (*out, useful if spec else 0)
 
-    def _capture(self) -> None:
-        """Capture one decode step as a CUDA graph on the decode stream,
-        after an eager step made every lazy initialisation (the kernel
-        library, K7's counters and plans, cuBLAS's handle and workspace).
-        The sampler's generator is registered with the graph, so each replay
-        advances its offset as an eager step does. ``capture_begin`` is
-        called directly: ``torch.cuda.graph`` would first sync the device
-        and empty the allocator's cache. A capture records the step's
-        kernels without running them: their launch counts are taken back
-        out of ``kernels.LAUNCHES`` and kept, for the caller to add once
-        per replay. A failed capture raises."""
+    def _capture(self, kind: str, fn) -> None:
+        """Capture one step of ``kind`` as a CUDA graph on the decode
+        stream, after an eager step made every lazy initialisation (the
+        kernel library, K7's counters and plans, cuBLAS's handle and
+        workspace). The sampler's generator is registered with the graph, so
+        each replay advances its offset as an eager step does.
+        ``capture_begin`` is called directly: ``torch.cuda.graph`` would
+        first sync the device and empty the allocator's cache. A capture
+        records the step's kernels without running them: their launch
+        counts are taken back out of ``kernels.LAUNCHES`` and kept, for the
+        caller to add once per replay. A failed capture raises."""
         eng = self.engine
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.st.gen)
@@ -905,13 +1328,15 @@ class _GroupRun:
         with torch.profiler.record_function("engine.decode_capture"), eng._capture_lock:
             graph.capture_begin()
             try:
-                eng._decode_step(self.st, self.sampling)
+                fn(self.st, self.sampling)
             finally:
                 graph.capture_end()
-        self.captured = kernels.LAUNCHES - before
-        kernels.LAUNCHES.subtract(self.captured)
-        self.graph = graph
+        captured = kernels.LAUNCHES - before
+        kernels.LAUNCHES.subtract(captured)
+        self.graphs[kind] = (graph, captured)
         eng.counters["captures"] += 1
+        if kind != "plain":
+            eng.counters["verify_captures"] += 1
 
     def close(self) -> None:
-        self.graph = None
+        self.graphs.clear()

@@ -52,9 +52,9 @@ CACHE_DTYPES = {
 # passes through that it does not serve yet.
 ENGINE_KNOBS = ("cache_dtype", "long_prefill_threshold", "long_prefill_chunk",
                 "prompt_buckets", "decode_segment", "prefill_chunk", "prefix_cache_min",
-                "suffix_buckets", "prefix_cache_entries", "max_kv_gb")
-UNSERVED_KNOBS = ("decode_attn_impl", "a8_prefill", "spec_decode", "spec_draft",
-                  "quantize_vision")
+                "suffix_buckets", "prefix_cache_entries", "max_kv_gb", "decode_attn_impl",
+                "spec_decode", "spec_draft")
+UNSERVED_KNOBS = ("a8_prefill", "quantize_vision")
 
 
 class QwenVLEngine:

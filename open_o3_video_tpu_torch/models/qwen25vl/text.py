@@ -65,21 +65,24 @@ def write_cache(dst: torch.Tensor, x: torch.Tensor) -> None:
 
 
 def write_cache_at(layer: torch.Tensor, x: torch.Tensor, col: torch.Tensor) -> None:
-    """``write_cache`` of one token's keys or values ``x`` (B, 1, Hkv, D)
-    into the layer view ``layer`` (B, T, Hkv, D) at the token column held on
-    the device in ``col`` (a 0-d or (1,) int64 tensor): an ``index_copy_``,
-    so no value is read back to the host and a CUDA graph can replay the
-    write at a column that moves. The stored bytes equal the slice write's.
+    """``write_cache`` of S tokens' keys or values ``x`` (B, S, Hkv, D) into
+    the layer view ``layer`` (B, T, Hkv, D) at columns [col, col + S), the
+    first held on the device in ``col`` (a 0-d or (1,) int64 tensor): an
+    ``index_copy_``, so no value is read back to the host and a CUDA graph
+    can replay the write at a column that moves (a decode step's token, or a
+    speculative verify block). The stored bytes equal the slice write's.
     ``index_copy_`` has no float8 kernel, so an fp8 cache is written through
     uint8 views of both sides after the same clamp and cast."""
+    cols = col.reshape(1) + torch.arange(x.shape[1], device=col.device)
     if layer.dtype == torch.float8_e4m3fn:
         x = x.clamp(-E4M3_MAX, E4M3_MAX).to(layer.dtype)
         layer, x = layer.view(torch.uint8), x.view(torch.uint8)
-    layer.index_copy_(1, col.reshape(1), x.to(layer.dtype))
+    layer.index_copy_(1, cols, x.to(layer.dtype))
 
 
 def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
-                     cache, layer: int, cache_offset, impl: str, validity_only: bool):
+                     cache, layer: int, cache_offset, impl: str, validity_only: bool,
+                     decode_impl: str):
     B, S, _ = x.shape
     q = (dense(x, p["q_w"], impl) + p["q_b"]).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
     k = (dense(x, p["k_w"], impl) + p["k_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
@@ -87,7 +90,7 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
     q, k = apply_mrope(q, k, cos, sin)
     if cache is not None:
         ck, cv = cache["k"][layer], cache["v"][layer]  # (B, T, Hkv, D) views
-        if isinstance(cache_offset, torch.Tensor):  # decode at a column on the device
+        if isinstance(cache_offset, torch.Tensor):  # decode or verify at a column on the device
             write_cache_at(ck, k, cache_offset)
             write_cache_at(cv, v, cache_offset)
         else:
@@ -98,7 +101,8 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
         else:  # buffer column == position: the columns past the write head are invalid
             written = torch.arange(ck.shape[1], device=x.device)[None, :] < cache_offset + S
             mask = written if kv_mask is None else kv_mask & written
-        out = causal_attention(q, ck, cv, q_positions=seq_positions, kv_mask=mask, impl=impl)
+        out = causal_attention(q, ck, cv, q_positions=seq_positions, kv_mask=mask, impl=impl,
+                               decode_impl=decode_impl)
     else:
         out = causal_attention(q, k, v, q_positions=seq_positions, kv_mask=kv_mask, impl=impl)
     return dense(out.reshape(B, S, -1), p["o_w"], impl)
@@ -117,18 +121,21 @@ def text_forward(
     attn_impl: str = "auto",
     remat: bool = False,
     validity_only: bool = False,
+    decode_attn_impl: str = "auto",
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (hidden states (B, S, D) after the final norm, the cache,
     updated in place).
 
     ``cache_offset`` is the buffer column of the first new token: a Python
-    int, or, for a decode step (S = 1, ``seq_positions`` given), a 0-d or
-    (1,) int64 tensor on the device, so the step reads nothing back to the
-    host and a CUDA graph can replay it.
+    int, or, for a decode step or a speculative verify block (S <= 8,
+    ``seq_positions`` given), a 0-d or (1,) int64 tensor on the device, so
+    the step reads nothing back to the host and a CUDA graph can replay it.
 
     ``attn_impl`` picks, for every kernel of the decoder (attention, and K7
     where a matmul weight is int4), the kernel ("auto", on CUDA tensors) or
-    its plain version ("torch").
+    its plain version ("torch"). ``decode_attn_impl`` (the engine's knob of
+    that name: "auto", "pallas" or "xla") reaches the attention of query
+    blocks of at most 8 rows only, never a matmul (``ops/attention.py``).
 
     ``validity_only=True`` (with a cache) masks the cache by ``attn_valid``
     alone, as the JAX package does when given explicit (zero)
@@ -153,7 +160,8 @@ def text_forward(
     def layer_fn(x, layer, i):
         h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
         x = x + _attention_layer(layer, cfg, h, cos, sin, seq_positions, attn_valid,
-                                 cache, i, cache_offset, attn_impl, validity_only)
+                                 cache, i, cache_offset, attn_impl, validity_only,
+                                 decode_attn_impl)
         h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
         act = F.silu(dense(h, layer["gate_w"], attn_impl)) * dense(h, layer["up_w"], attn_impl)
         return x + dense(act, layer["down_w"], attn_impl)

@@ -17,6 +17,13 @@ inference calls keep the fixed-m forwards.
 
 ``impl="auto"`` launches the kernels for CUDA tensors and runs their plain
 versions for CPU tensors; ``impl="torch"`` runs the plain versions anywhere.
+
+``decode_impl`` is the engine's ``decode_attn_impl``, given only by the
+decode step and the speculative verify blocks (S <= 8), as the JAX
+package's ``attn_impl`` reaches them: "auto" is the dispatch above;
+"pallas" takes the hand-written kernel for every short query block, K4 at
+long T and K3 below it (JAX's ``S > 8 or impl == "pallas"``); "xla" takes
+the plain versions. It never reaches a matmul.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from .window_attention import window_attention
 # Decode against a buffer at least this long runs K4 on the stored-dtype
 # cache, as the JAX package does (its ops/attention.py LONG_DECODE_T).
 LONG_DECODE_T = 32768
+# The values of the engine's decode_attn_impl (the JAX package's attn_impl).
+DECODE_IMPLS = ("auto", "pallas", "xla")
 
 
 def _grouped_decode(q, k, v, mask):
@@ -58,9 +67,14 @@ def causal_attention(
     q_positions: Optional[torch.Tensor] = None,  # (B, S) buffer positions
     kv_mask: Optional[torch.Tensor] = None,  # (B, T) validity of cache slots
     impl: str = "auto",
+    decode_impl: str = "auto",
 ) -> torch.Tensor:
     """Causal GQA attention: the query at position p sees valid keys t <= p.
     Query rows with no visible key return 0 (they are never read)."""
+    if decode_impl not in DECODE_IMPLS:
+        raise ValueError(f"decode_impl {decode_impl!r} is not one of {DECODE_IMPLS}")
+    if decode_impl == "xla":
+        impl = "torch"
     B, S, Hq, D = q.shape
     T = k.shape[1]
     if q_positions is None:
@@ -73,7 +87,7 @@ def causal_attention(
         return decode_attention_gqa(q, k, v, q_positions, kv_mask, impl=impl)
     if k.dtype != q.dtype:  # the cache may store another dtype than compute
         k, v = k.to(q.dtype), v.to(q.dtype)
-    if S > 8:
+    if S > 8 or decode_impl == "pallas":
         return flash_attention_gqa(q, k, v, q_positions, kv_mask, impl=impl)
     t = torch.arange(T, device=q.device)
     mask = (t[None, None, :] <= q_positions[:, :, None]) & kv_mask[:, None, :].bool()

@@ -28,9 +28,12 @@ rollout and the reference logps take the kernels' inference (fixed-m)
 modes, the update's policy forward their exact modes, as the JAX package's
 primal and VJP do, so the KL at step 1 is near 0 but not exactly 0.
 
-Not ported: the mesh and multi-host branches (ROADMAP M8), Aria (M9),
-speculative rollouts and replayed rollouts (M6); the constructor raises on
-a mesh or ``spec_rollout``.
+``spec_rollout`` turns on the engine's sampled speculative decoding
+(``spec_sample``) for the rollouts, and ``replay_tokens`` (benchmarks only)
+replays token streams through it, as in the JAX trainer.
+
+Not ported: the mesh and multi-host branches (ROADMAP M8) and Aria (M9);
+the constructor raises on a mesh.
 """
 
 from __future__ import annotations
@@ -84,7 +87,8 @@ class GSPOConfig:
     logp_chunk: Optional[int] = 256
     # return the rollout's freed blocks to the device before the update
     release_engine_memory: bool = True
-    # speculative rollouts are not ported (ROADMAP M6); True raises
+    # rollouts through the engine's sampled speculative decoding
+    # (spec_sample): distributionally exact, so still on-policy
     spec_rollout: bool = False
 
 
@@ -235,8 +239,6 @@ class GSPOTrainer:
         if mesh is not None:
             raise NotImplementedError("GSPO on a mesh is not ported yet (ROADMAP M8): "
                                       "the port trains on one device")
-        if cfg.spec_rollout:
-            raise NotImplementedError("speculative rollouts are not ported yet (ROADMAP M6)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.detokenize = detokenize
@@ -259,7 +261,11 @@ class GSPOTrainer:
                 x.requires_grad_(False)
             self.ref_params = ref_params
             trained = [x for x in P.leaves(P.trainable(params)) if x.requires_grad]
-        self.engine = InferenceEngine(params, model_cfg)
+        self.engine = InferenceEngine(params, model_cfg, spec_sample=cfg.spec_rollout)
+        # Benchmarks only, never a training mode: (R, W) token streams the
+        # rollouts replay through the sampled speculative path
+        # (``InferenceEngine.generate(replay_tokens=...)``).
+        self.replay_tokens = None
         self.timer = StageTimer(self.device)
         self.optimizer = ClipAdamW(SFTConfig(
             learning_rate=cfg.learning_rate, max_grad_norm=cfg.max_grad_norm,
@@ -343,7 +349,8 @@ class GSPOTrainer:
         with self.timer.stage("rollout"):
             outs = self.engine.generate(reqs, SamplingParams(
                 temperature=cfg.temperature, top_p=cfg.top_p, repetition_penalty=1.0,
-                max_tokens=cfg.max_completion_length, seed=self.seed + global_step))
+                max_tokens=cfg.max_completion_length, seed=self.seed + global_step),
+                replay_tokens=self.replay_tokens)
         self.engine.params = self.params  # keep no graft beyond the rollout
         if cfg.release_engine_memory:
             self.engine.release_memory()

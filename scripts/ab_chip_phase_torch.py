@@ -1,6 +1,6 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched DIR [DIR ...]
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
 (``git archive``) into a directory that ``.gitignore`` lists and pass it
@@ -12,7 +12,9 @@ one phase:
 - ``vstar``: phase 16a's V-STAR step (``vstar_phase``: 3 items, 2 engine
   calls of 5 queries, graphed, then eagerly), whose ``[eval]`` line gives
   the seconds and stage seconds of each engine call;
-- ``sched``: phase 17 (``scheduler_phase``), in checkouts that have it.
+- ``sched``: phase 17 (``scheduler_phase``), in checkouts that have it;
+- ``spec``: phase 18 (``spec_phase``), in checkouts that have it, with 18c
+  held to a plain run of its own instead of run (a)'s tokens.
 
 Each process's output goes to this one's standard output after a line
 ``tree DIR``; the exit code is the first nonzero one of the processes.
@@ -28,6 +30,8 @@ import sys
 PHASE = {
     "vstar": "c.vstar_phase(params, cfg, c.eval_data(seed))",
     "sched": "c.scheduler_phase(params, cfg, c.O3VideoProcessor(), seed)",
+    "spec": ("c.spec_phase(params, cfg, c.make_requests(c.O3VideoProcessor(), cfg, seed), "
+             "c.O3VideoProcessor(), None, seed, {})"),
 }
 
 CHILD = """

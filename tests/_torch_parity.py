@@ -126,6 +126,53 @@ def model_pair(seed: int = 0):
     return jcfg, jparams, tcfg, tparams
 
 
+@functools.cache
+def hf_tiny():
+    """The tiny HF Qwen2.5-VL of tests/test_model_parity.py (f32, weights
+    from torch seed 0) and the port's config and params loaded from its
+    state dict: (HF model, port config, port params). Skips where
+    transformers is missing."""
+    import dataclasses
+
+    transformers = pytest.importorskip("transformers")
+    from transformers.models.qwen2_5_vl import Qwen2_5_VLConfig
+
+    from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+    from open_o3_video_tpu_torch.models.qwen25vl.config import Qwen25VLConfig
+
+    cfg = Qwen25VLConfig.tiny()
+    v, t = cfg.vision, cfg.text
+    hf_cfg = Qwen2_5_VLConfig(
+        vision_config=dict(
+            depth=v.depth, hidden_size=v.hidden_size, intermediate_size=v.intermediate_size,
+            num_heads=v.num_heads, patch_size=v.patch_size,
+            spatial_merge_size=v.spatial_merge_size, temporal_patch_size=v.temporal_patch_size,
+            window_size=v.window_size, fullatt_block_indexes=list(v.fullatt_block_indexes),
+            out_hidden_size=v.out_hidden_size, tokens_per_second=v.tokens_per_second),
+        text_config=dict(
+            vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+            intermediate_size=t.intermediate_size, num_hidden_layers=t.num_hidden_layers,
+            num_attention_heads=t.num_attention_heads,
+            num_key_value_heads=t.num_key_value_heads, rms_norm_eps=t.rms_norm_eps,
+            rope_theta=t.rope_theta,
+            rope_scaling={"type": "mrope", "mrope_section": list(t.mrope_section)},
+            tie_word_embeddings=False, max_position_embeddings=t.max_position_embeddings),
+        image_token_id=cfg.image_token_id % t.vocab_size,
+        video_token_id=cfg.video_token_id % t.vocab_size,
+        vision_start_token_id=cfg.vision_start_token_id % t.vocab_size,
+        vision_end_token_id=cfg.vision_end_token_id % t.vocab_size,
+        tie_word_embeddings=False,
+    )
+    torch.manual_seed(0)
+    hf = transformers.Qwen2_5_VLForConditionalGeneration(hf_cfg).eval().float()
+    cfg = dataclasses.replace(
+        cfg, image_token_id=hf_cfg.image_token_id, video_token_id=hf_cfg.video_token_id,
+        vision_start_token_id=hf_cfg.vision_start_token_id,
+        vision_end_token_id=hf_cfg.vision_end_token_id)
+    params = TP.from_hf_state_dict(hf.state_dict().items(), cfg, torch.device("cpu"))
+    return hf, cfg, params
+
+
 def frames(r: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:
     """n synthetic uint8 CHW frames."""
     return r.integers(0, 256, size=(n, 3, h, w), dtype=np.uint8)

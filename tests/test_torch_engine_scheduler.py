@@ -514,3 +514,45 @@ def test_scheduler_graph_matches_eager_on_the_card(monkeypatch, case):
             assert launches[True]["decode_attention_gqa"] >= 2 * counters[True][0]
         if case == "prefix":
             assert engine.counters["prefix_blocks"] == 2
+
+
+def test_prefix_key_carries_the_grid_and_the_frame_spacing():
+    """One 4-frame video (grid (2, 2, 4)) in two requests sharing a
+    20-token prefix, with second_per_grid_ts 0.5 and 4.0: M-RoPE positions
+    differ, so no block is shared, and the second request's outputs equal
+    its run with the prefix cache off (f32, within 1e-5). JAX keys the
+    block on the patches alone and serves the second request the first's
+    block (-5.79308 against -5.79281 alone), so this is held to the plain
+    path, not to JAX."""
+    _, _, tcfg, _ = model_pair(0)
+    patches, grid = patchify(rng(3).integers(0, 256, size=(4, 3, 28, 56), dtype=np.uint8))
+    n_tok = patches.shape[0] // tcfg.vision.merge_unit
+    shared = [7, 8, tcfg.vision_start_token_id] + [tcfg.video_token_id] * n_tok + [
+        tcfg.vision_end_token_id] + list(range(20, 32))
+    assert len(shared) == 20
+    reqs = [Request(shared + tail, pixel_patches=patches, grid_thw=np.asarray([grid]),
+                    vision_token_id=tcfg.video_token_id, second_per_grid_ts=[spacing])
+            for tail, spacing in (([50, 51], 0.5), ([60, 61, 62], 4.0))]
+    knobs = _knobs(prompt_buckets=(64,), prefix_cache_min=8, suffix_buckets=(16,))
+    engine = _port(knobs)
+    on = engine.generate(reqs, greedy(6), return_logprobs=True)
+    off = _port(_knobs(prompt_buckets=(64,), prefix_cache_min=0)).generate(
+        reqs[1:], greedy(6), return_logprobs=True)
+    assert engine._detect_prefixes(reqs) == [0, 0] and engine.counters["prefix_blocks"] == 0
+    assert on[1]["token_ids"] == off[0]["token_ids"]
+    np.testing.assert_allclose(on[1]["logprobs"], off[0]["logprobs"], atol=1e-5, rtol=0)
+    same = [dataclasses.replace(r, second_per_grid_ts=[0.5]) for r in reqs]
+    assert engine._detect_prefixes(same) == [20, 20]
+
+
+def test_a_prompt_over_the_largest_bucket_raises_beside_a_sibling_too():
+    """prompt_buckets (64,): a 70-token prompt raises the same ValueError
+    alone and beside a sibling that shares its first 60 tokens (JAX serves
+    the pair: it buckets a prefix row by its prefix)."""
+    r = rng(4)
+    shared = r.integers(5, 90, size=60).tolist()
+    pair = [Request(shared + r.integers(5, 90, size=10).tolist()) for _ in range(2)]
+    engine = _port(_knobs(prompt_buckets=(64,), prefix_cache_min=8, suffix_buckets=(16,)))
+    for reqs in (pair[:1], pair):
+        with pytest.raises(ValueError, match="prompt length 70 exceeds largest bucket 64"):
+            engine.generate(reqs, greedy(4))

@@ -394,13 +394,19 @@ def test_a_missing_video_is_a_data_error_in_the_mcq_iterator(media):
     assert isinstance(got[1][1], list) and len(got[1][1]) == 1
 
 
-@pytest.mark.parametrize("knob", [{"spec_decode": True}, {"spec_draft": 7},
-                                  {"decode_attn_impl": "xla"}, {"a8_prefill": True},
-                                  {"quantize_vision": True},
+@pytest.mark.parametrize("knob", [{"a8_prefill": True}, {"quantize_vision": True},
                                   {"mesh": object()}, {"batch_axis": "data"}])
 def test_unserved_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="M8" if set(knob) & {"mesh", "batch_axis"} else "M6"):
         _port_model(**knob)
+
+
+@pytest.mark.parametrize("knob", [{"spec_decode": True}, {"spec_draft": 5},
+                                  {"decode_attn_impl": "xla"}, {"decode_attn_impl": "pallas"}])
+def test_spec_and_decode_attention_knobs_reach_the_engine(knob):
+    """The knobs JAX's QwenVLEngine passes through and the port now serves."""
+    ((name, value),) = knob.items()
+    assert getattr(_port_model(**knob).engine, name) == value
 
 
 def test_served_knobs_pass_through():

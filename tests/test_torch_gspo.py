@@ -321,14 +321,17 @@ def test_only_vision_errors_are_retried_without_vision(monkeypatch, capsys):
 
 
 def test_constructor_refuses_what_is_not_ported():
+    """A mesh raises; ``spec_rollout`` is served (the engine's sampled
+    speculative path, as the JAX trainer maps it), with no replay."""
     _, tcfg = _configs()
     params = TP.from_jax_params(_weights(), tcfg, CPU)
     with pytest.raises(NotImplementedError, match="mesh"):
         TG.GSPOTrainer(params, None, tcfg, TG.GSPOConfig(), detokenize=str, mesh=object(),
                        lora=LoraConfig())
-    with pytest.raises(NotImplementedError, match="speculative"):
-        TG.GSPOTrainer(params, None, tcfg, TG.GSPOConfig(spec_rollout=True), detokenize=str,
-                       lora=LoraConfig())
+    trainer = TG.GSPOTrainer(params, None, tcfg, TG.GSPOConfig(spec_rollout=True),
+                             detokenize=str, lora=LoraConfig())
+    assert trainer.engine.spec_sample and not trainer.engine.spec_decode
+    assert trainer.replay_tokens is None
 
 
 def test_rollout_after_a_full_fine_tune_step_rebuilds_its_prefix_block():
@@ -351,9 +354,9 @@ def test_rollout_after_a_full_fine_tune_step_rebuilds_its_prefix_block():
     rollouts, counters = [], []
     generate = trainer.engine.generate
 
-    def recorded(reqs, sampling):
+    def recorded(reqs, sampling, **kw):
         before = dict(trainer.engine.counters)
-        outs = generate(reqs, sampling)
+        outs = generate(reqs, sampling, **kw)
         counters.append({k: trainer.engine.counters[k] - before.get(k, 0)
                          for k in ("prefix_blocks", "prefix_hits")})
         # a fresh engine on the weights as they are now, before this step's update

@@ -2,6 +2,7 @@
 rouge_score or nltk, and imports none of them. A subprocess blocks those
 imports, imports every module of the port, runs a tiny generate on the CPU
 (with a bf16 cache, and with an fp8 cache through the long-context path),
+greedy and sampled speculative generates (the latter replaying streams),
 one tiny SFT train step, a generate with an int4 decoder (K7's plain
 version), a judge call, one tiny PEFT GSPO step on a free-form example (its
 ROUGE reward scored), and the SFT app's data path (a raw AVI and a PNG
@@ -115,6 +116,19 @@ engine = InferenceEngine(weights, cfg, cache_dtype=torch.float8_e4m3fn,
                          long_prefill_threshold=8, long_prefill_chunk=5)
 out = engine.generate([req], SamplingParams(max_tokens=4))
 assert 1 <= len(out[0]["token_ids"]) <= 4 and len(req.input_ids) >= 16, out
+attention.LONG_DECODE_T = 32768
+# speculative decoding: the greedy path on the vision request, the sampled
+# path on two rows replaying period-3 streams
+greedy = SamplingParams(temperature=0.0, repetition_penalty=1.0, max_tokens=12)
+spec = InferenceEngine(weights, cfg, spec_decode=True, spec_draft=4)
+assert spec.generate([req], greedy) == InferenceEngine(weights, cfg).generate([req], greedy)
+assert spec.spec_stats["verify_steps"] > 0, spec.spec_stats
+spec = InferenceEngine(weights, cfg, spec_sample=True, spec_draft=4, spec_surplus=16)
+spec.spec_warmup = 0
+streams = np.tile([10, 20, 30], (2, 6))
+out = spec.generate([Request([5, 6, 7]), Request([8, 9])], SamplingParams(max_tokens=12),
+                    replay_tokens=streams)
+assert [o["token_ids"][1:] for o in out] == streams[:, 1:12].tolist(), out
 # one SFT step of the full fine-tune: vision and decoder backward, AdamW
 from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
 from open_o3_video_tpu_torch.train import SFTConfig, make_optimizer, make_train_step
