@@ -217,6 +217,26 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      prompt (32736 tokens, bf16 cache) greedy with spec_decode, 32 tokens:
      K4 must launch in the verify blocks, the tokens against run (a)'s as
      in 18a.
+ 19. the uint8 frame path and w8a8 serving (after phase 18, before phase
+     11, on the phase-4 weights): 19a the slice's two requests greedy (64
+     tokens, penalty 1.05) as host patches, as Request.frames and through
+     prestage_frames on a prefetch thread (during the frames call): each
+     way's tower input against the host path's (max abs difference 0),
+     equal tokens, bytes uploaded, vis_upload/vision/prefill ms; then phase
+     16's 640x360 AVI read by fetch_video_raw (16 frames, the eval's pixel
+     budget): the device resize against the host resize (pixels that
+     differ, their share, the largest difference, at most 1 LSB, with TF32
+     off and on around it: equal), and the frames + resize_hw request's
+     tokens against the host-resized patches' (equal unless a pixel
+     differs; else the first difference and plain's top-2 gap); 19b the
+     JAX bench's quality leg on the first request's frames, 64 greedy
+     tokens at penalty 1.0: bf16, w8 (quantize_text) and w8a8
+     (quantize_text + quantize_vision + a8_prefill), per mode the
+     teacher-forced and free-run agreement with bf16, vision, prefill and
+     decode ms, weight and peak GiB, torch._int_mm calls per tower pass
+     (5 x 32), prefill forward (7 x 28), lm_head (1) and decode (0); 19c
+     run (b)'s prompt with int8 text weights without and with a8_prefill
+     (the JAX bench's 81920:fp8:a8): prefill s, the first 8 tokens.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -239,6 +259,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -263,8 +284,10 @@ from open_o3_video_tpu_torch.models.qwen25vl.model import (
     build_vision_row_index,
     embed_tokens,
     encode_vision,
+    get_rope_index,
     merge_vision_embeddings_by_index,
 )
+from open_o3_video_tpu_torch.models.qwen25vl.model import forward as model_forward
 from open_o3_video_tpu_torch.models.qwen25vl.text import (
     init_kv_cache,
     logits_from_hidden,
@@ -277,6 +300,7 @@ from open_o3_video_tpu_torch.ops import flash_attention as fa
 from open_o3_video_tpu_torch.ops import int4 as i4
 from open_o3_video_tpu_torch.ops import quant
 from open_o3_video_tpu_torch.ops import window_attention as wa
+from open_o3_video_tpu_torch.ops.resize import resize_frames_device
 from open_o3_video_tpu_torch.data.rl_dataset import rl_sample_from_frames
 from open_o3_video_tpu_torch.grounding.prompts import SFT_SYSTEM_PROMPT
 from open_o3_video_tpu_torch.grounding.rewards import REWARD_REGISTRY, sum_rewards
@@ -967,26 +991,36 @@ def long_chunk_case(dev, cfg, gen, results) -> None:
     torch.cuda.empty_cache()
 
 
+def slice_frames(seed: int) -> list[np.ndarray]:
+    """The slice's synthetic frames: 16 uint8 frames (T, C, H, W) per
+    question, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
+            for _ in QUESTIONS]
+
+
+def frames_request(proc, cfg, frames, question: str) -> Request:
+    """A grounded-QA request over ``frames`` (T, C, H, W), each an image:
+    the processor's host patches (its ``pixel_patches`` path)."""
+    frame_prompt = "".join(
+        f"Frame {j + 1} at {round(j / FPS, 1)} second: "
+        "<|vision_start|><|image_pad|><|vision_end|>\n" for j in range(len(frames))
+    )
+    prompt = proc.apply_chat_template([
+        {"role": "system", "content": [{"type": "text", "text": SYSTEM_PROMPT}]},
+        {"role": "user", "content": [{"type": "text", "text": frame_prompt},
+                                     {"type": "text", "text": question}]},
+    ], add_generation_prompt=True)
+    x = proc(prompt, images=list(frames))
+    return Request(input_ids=x.input_ids, pixel_patches=x.pixel_patches,
+                   grid_thw=x.grid_thw, vision_token_id=cfg.image_token_id)
+
+
 def make_requests(proc, cfg, seed: int) -> list[Request]:
     """One grounded-QA request per question, each over its own 16
     synthetic frames."""
-    rng = np.random.default_rng(seed)
-    reqs = []
-    for question in QUESTIONS:
-        frames = rng.integers(0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
-        frame_prompt = "".join(
-            f"Frame {j + 1} at {round(j / FPS, 1)} second: "
-            "<|vision_start|><|image_pad|><|vision_end|>\n" for j in range(N_FRAMES)
-        )
-        prompt = proc.apply_chat_template([
-            {"role": "system", "content": [{"type": "text", "text": SYSTEM_PROMPT}]},
-            {"role": "user", "content": [{"type": "text", "text": frame_prompt},
-                                         {"type": "text", "text": question}]},
-        ], add_generation_prompt=True)
-        x = proc(prompt, images=list(frames))
-        reqs.append(Request(input_ids=x.input_ids, pixel_patches=x.pixel_patches,
-                            grid_thw=x.grid_thw, vision_token_id=cfg.image_token_id))
-    return reqs
+    return [frames_request(proc, cfg, frames, question)
+            for frames, question in zip(slice_frames(seed), QUESTIONS)]
 
 
 def decode_run(engine, call):
@@ -3590,6 +3624,318 @@ def spec_phase(params, cfg, reqs, proc, long_tokens_a, seed, results) -> dict:
     return long_spec["launches"]
 
 
+# Phase 19: the uint8 frame path and w8a8 serving. 19a serves the slice's
+# requests as host patches, as Request.frames and through prestage_frames on
+# a prefetch thread, then a 640x360 AVI (phase 16's, from the same seed)
+# read by fetch_video_raw and resized on the card; 19b the quality leg of
+# the JAX bench (bf16, w8, w8a8 on the first request's frames, 64 greedy
+# tokens, penalty 1.0); 19c run (b)'s prompt with int8 text weights, with
+# and without a8_prefill (the JAX bench's 81920:fp8:a8).
+FRAMES_DIR = "checkpoints/chip_smoke_frames"  # in the checkout (gitignored), removed after
+FRAMES_AVI_PIXELS = 360 * 420  # the eval wrapper's video_max_pixels
+A8_TOKENS = 64
+A8_LONG_TOKENS = 8
+A8_MODES = {  # mode -> (quantized leaves, a8_prefill)
+    "bf16": ((), False),
+    "w8": (quant.DEFAULT_QUANT_PATTERNS, False),
+    "w8a8": (quant.DEFAULT_QUANT_PATTERNS + quant.VISION_QUANT_PATTERNS, True),
+}
+
+
+def _served(engine, reqs, sampling) -> tuple[list[dict], dict]:
+    """One generate call: its outputs, and its stage ms, the bytes its
+    admissions uploaded, its tower passes and K1-K3 launches."""
+    stages, counts = collections.Counter(engine.stage_seconds), collections.Counter(
+        engine.counters)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = engine.generate(reqs, sampling)
+    stages = collections.Counter(engine.stage_seconds) - stages
+    counts = collections.Counter(engine.counters) - counts
+    return outs, {"vis_upload_ms": round(1e3 * stages["vis_upload"], 3),
+                  "vision_ms": round(1e3 * stages["vision"], 3),
+                  "prefill_ms": round(1e3 * stages["prefill"], 3),
+                  "upload_bytes": counts["upload_bytes"], "tower_passes": counts["tower_passes"],
+                  "launches": {name: kernels.LAUNCHES[name] for name in SLICE_KERNELS}}
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def frames_slice_check(engine, proc, cfg, seed: int, sampling) -> None:
+    """19a.1: the slice's two requests three ways, one call each: host
+    patches; Request.frames; prestage_frames on a prefetch thread (while
+    the frames call runs, so its uploads meet that call's decode capture
+    under the engine's lock). The tower input of each way against the host
+    path's (must be 0) and the greedy tokens (must be equal)."""
+    dev = engine.device
+    reqs, frames = make_requests(proc, cfg, seed), slice_frames(seed)
+    ref_rows = [torch.from_numpy(r.pixel_patches).to(dev).to(cfg.dtype) for r in reqs]
+    engine.generate(reqs, dataclasses.replace(sampling, max_tokens=2))  # warm-up
+    host, host_run = _served(engine, reqs, sampling)
+    staged = {}
+
+    def prefetch():
+        t0 = time.perf_counter()
+        staged["rows"] = engine.prestage_frames(frames)
+        torch.cuda.synchronize()
+        staged["ms"] = round(1e3 * (time.perf_counter() - t0), 3)
+
+    framed = [dataclasses.replace(r, pixel_patches=None, frames=f) for r, f in zip(reqs, frames)]
+    thread = threading.Thread(target=prefetch)
+    thread.start()
+    framed_outs, framed_run = _served(engine, framed, sampling)
+    thread.join()
+    if "rows" not in staged:
+        raise RuntimeError("19a: prestage_frames failed on the prefetch thread")
+    prestaged = [dataclasses.replace(r, pixel_patches=p) for r, p in zip(reqs, staged["rows"])]
+    pre_outs, pre_run = _served(engine, prestaged, sampling)
+    with torch.inference_mode():
+        engine_rows = [engine._frames_to_patches([f], None)[0][0] for f in frames]
+    ways = {"pixel_patches": (ref_rows, host, host_run),
+            "frames": (engine_rows, framed_outs, framed_run),
+            "prestage_frames": (staged["rows"], pre_outs, {**pre_run,
+                                                           "prestage_ms": staged["ms"]})}
+    for way, (rows, outs, run) in ways.items():
+        diff = max(_max_diff(a, b) for a, b in zip(rows, ref_rows))
+        same = [o["token_ids"] for o in outs] == [o["token_ids"] for o in host]
+        log("frames", way=way, tower_input_max_abs_diff=diff, identical_tokens=same, **run)
+        if diff != 0.0 or not same:
+            raise RuntimeError(f"19a {way}: tower input differs by {diff} or the tokens differ")
+    log("frames", first_token_ids=[o["token_ids"][:8] for o in host],
+        patch_bytes=sum(r.pixel_patches.nbytes for r in reqs),
+        frame_bytes=sum(f.nbytes for f in frames))
+
+
+def frames_avi_check(params, engine, proc, cfg, seed: int, sampling) -> None:
+    """19a.2: phase 16's 640x360 AVI (from the same seed) through
+    fetch_video_raw; the device resize to its smart_resize target against
+    the host resize of fetch_video (torch on the CPU), with TF32 off and on
+    around it (count, share and largest difference of the pixels, at most 1
+    LSB; TF32 must change nothing); then the frames + resize_hw request
+    against the host-resized pixel_patches request, greedy: equal tokens
+    where no pixel differs, else the first difference and the plain step's
+    top-2 gap there."""
+    dev = engine.device
+    os.makedirs(FRAMES_DIR, exist_ok=True)
+    avi = f"{FRAMES_DIR}/clip.avi"
+    n = int(EVAL_SECONDS * EVAL_FPS)
+    write_raw_avi(avi, np.random.default_rng(seed + 16).integers(
+        0, 256, size=(n, EVAL_H, EVAL_W, 3), dtype=np.uint8), EVAL_FPS)
+    t0 = time.perf_counter()
+    raw, (h, w), fps = TV.fetch_video_raw({"video": avi, "nframes": N_FRAMES,
+                                           "max_pixels": FRAMES_AVI_PIXELS})
+    read_ms = round(1e3 * (time.perf_counter() - t0), 3)
+    host = TV.resize_frames(torch.from_numpy(raw), h, w)
+    wh, ww = engine._resize_weights(tuple(raw.shape[2:]), (h, w))
+    x = torch.from_numpy(raw).to(dev)
+    outs = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            outs[tf32] = resize_frames_device(x, wh, ww).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        d = (outs[tf32] - host).abs()
+        n_diff = int((d > 0).sum())
+        log("frames", resize=f"{raw.shape[2]}x{raw.shape[3]} -> {h}x{w}", frames=raw.shape[0],
+            tf32=tf32, reader=TV.get_video_reader_backend(), read_ms=read_ms, fps=fps,
+            pixels_differ=n_diff, share=n_diff / d.numel(), max_diff=d.max().item())
+        if d.max().item() > 1.0:
+            raise RuntimeError(f"19a: the device resize is {d.max().item()} LSB off the host's")
+    if not torch.equal(outs[True], outs[False]):
+        raise RuntimeError("19a: TF32 switched on around the device resize changed it")
+    question = QUESTIONS[0]
+    plain = frames_request(proc, cfg, host.numpy(), question)
+    framed = dataclasses.replace(plain, pixel_patches=None, frames=raw, resize_hw=(h, w))
+    plain_outs, plain_run = _served(engine, [plain], sampling)
+    framed_outs, framed_run = _served(engine, [framed], sampling)
+    a, b = plain_outs[0]["token_ids"], framed_outs[0]["token_ids"]
+    k, gap = first_divergence(params, cfg, plain, a, b)
+    log("frames", way="pixel_patches (host resize)", prompt_tokens=len(plain.input_ids),
+        **plain_run)
+    log("frames", way="frames + resize_hw", identical_tokens=a == b, first_divergence=k,
+        plain_top2_gap=gap, **framed_run)
+    if a != b and int((outs[False] - host).abs().gt(0).sum()) == 0:
+        raise RuntimeError("19a: equal tower inputs, other tokens")
+
+
+def frames_phase(params, cfg, proc, seed: int) -> None:
+    """Phase 19a (``frames_slice_check``, ``frames_avi_check``), greedy,
+    repetition penalty 1.05, MAX_TOKENS new tokens."""
+    t_phase = time.perf_counter()
+    sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=MAX_TOKENS)
+    engine = InferenceEngine(params, cfg)
+    try:
+        frames_slice_check(engine, proc, cfg, seed, sampling)
+        frames_avi_check(params, engine, proc, cfg, seed, sampling)
+    finally:
+        shutil.rmtree(FRAMES_DIR, ignore_errors=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("frames", phase_seconds=round(time.perf_counter() - t_phase, 3))
+
+
+@contextlib.contextmanager
+def int_mm_calls(out: dict):
+    """The w8a8 products (``quant.A8_MATMULS["int_mm"]``) made inside each
+    call of the engine's tower (``tower``), prefill forwards (``prefill``)
+    and lm_heads (``lm_head``) outside decode segments, and in all inside
+    them (``decode``), appended to ``out``'s lists."""
+    names = {"tower": "encode_vision", "prefill": "text_forward", "lm_head": "logits_from_hidden"}
+    real = {key: getattr(engine_module, name) for key, name in names.items()}
+    real_segment = engine_module._GroupRun.segment
+    state = {"decode": False}
+
+    def counted(key):
+        def call(*args, **kw):
+            before = quant.A8_MATMULS["int_mm"]
+            got = real[key](*args, **kw)
+            out.setdefault("decode" if state["decode"] else key, []).append(
+                quant.A8_MATMULS["int_mm"] - before)
+            return got
+        return call
+
+    def segment(run, *args, **kw):
+        state["decode"] = True
+        try:
+            return real_segment(run, *args, **kw)
+        finally:
+            state["decode"] = False
+
+    for key, name in names.items():
+        setattr(engine_module, name, counted(key))
+    engine_module._GroupRun.segment = segment
+    try:
+        yield out
+    finally:
+        for key, name in names.items():
+            setattr(engine_module, name, real[key])
+        engine_module._GroupRun.segment = real_segment
+
+
+def teacher_forced(params, cfg, req, tokens, a8: bool) -> list[int]:
+    """The JAX bench's teacher-forced argmax: one forward over the prompt and
+    ``tokens`` (under a8_acts when ``a8``), the argmax at each completion
+    position."""
+    dev = params["text"]["embed_tokens"].device
+    ids = np.asarray([list(req.input_ids) + list(tokens)])
+    pos, _ = get_rope_index(cfg, ids, image_grid_thw=req.grid_thw)
+    n = len(req.input_ids)
+    with torch.inference_mode(), quant.a8_acts(a8):
+        hidden, _ = model_forward(params, cfg, torch.from_numpy(ids).to(dev),
+                                  torch.from_numpy(pos).to(dev),
+                                  pixel_patches=torch.from_numpy(req.pixel_patches).to(dev),
+                                  grid_thw=req.grid_thw, vision_token_id=cfg.image_token_id,
+                                  return_hidden=True)
+        logits = logits_from_hidden(params["text"], hidden[:, n - 1:-1])
+    return logits.argmax(-1)[0].tolist()
+
+
+def quant_phase(params, cfg, proc, seed: int) -> None:
+    """19b: the JAX bench's quality leg on the card: the first request's
+    frames (Request.frames), the same random weights as bf16, w8
+    (quantize_text) and w8a8 (quantize_text + quantize_vision +
+    a8_prefill), A8_TOKENS greedy tokens at repetition penalty 1.0; per
+    mode the teacher-forced and free-run agreement with bf16, vision,
+    prefill and decode ms, weight and peak GiB, and the w8a8 products
+    (torch._int_mm) per tower pass, prefill forward, lm_head and decode
+    step. Each mode's weights are freed before the next."""
+    req = make_requests(proc, cfg, seed)[0]
+    framed = dataclasses.replace(req, pixel_patches=None, frames=slice_frames(seed)[0])
+    sampling = SamplingParams(temperature=0.0, repetition_penalty=1.0, max_tokens=A8_TOKENS)
+    streams, forced = {}, {}
+    v, t = cfg.vision, cfg.text
+    for mode, (patterns, a8) in A8_MODES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mparams = quant.quantize_params(params, patterns) if patterns else params
+        engine = InferenceEngine(mparams, cfg, a8_prefill=a8)
+        engine.generate([framed], dataclasses.replace(sampling, max_tokens=2))  # warm-up
+        calls: dict = {}
+        with int_mm_calls(calls):
+            out, run = decode_run(engine, lambda: engine.generate([framed], sampling)[0])
+        streams[mode] = out["token_ids"]
+        forced[mode] = teacher_forced(mparams, cfg, req, streams["bf16"], a8)
+        want = ({"tower": [5 * v.depth], "prefill": [7 * t.num_hidden_layers], "lm_head": [1]}
+                if a8 else {"tower": [0], "prefill": [0], "lm_head": [0]})
+        got = {k: calls.get(k, []) for k in want}
+        decode_int_mm = sum(calls.get("decode", []))
+        m = min(len(streams["bf16"]), len(out["token_ids"]))
+        free = [x == y for x, y in zip(streams["bf16"][:m], out["token_ids"][:m])]
+        log("quant", mode=mode, new_tokens=len(out["token_ids"]),
+            teacher_forced_agreement=round(float(np.mean(
+                [x == y for x, y in zip(forced["bf16"], forced[mode])])), 4),
+            freerun_agreement=round(float(np.mean(free)), 4) if m else 0.0,
+            freerun_first_divergence=free.index(False) if False in free else None,
+            vision_ms=round(1e3 * run["vision_s"], 3), prefill_ms=round(1e3 * run["prefill_s"], 3),
+            decode_ms_per_token=run["ms_per_token"],
+            weight_gib=round(quant.param_bytes(mparams) / 2**30, 3),
+            peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+            int_mm_calls={**got, "decode": decode_int_mm}, launches=run["launches"])
+        if got != want or decode_int_mm:
+            raise RuntimeError(f"19b {mode}: w8a8 products {got}, decode {decode_int_mm}; "
+                               f"expected {want} and none in decode")
+        if not 1 <= len(out["token_ids"]) <= A8_TOKENS:
+            raise RuntimeError(f"19b {mode}: bad output length {len(out['token_ids'])}")
+        del engine, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def quant_long_phase(params, cfg, seed: int) -> None:
+    """19c: run (b)'s prompt (81888 tokens, fp8 cache, 8192-token chunks)
+    with int8 text weights, without and with a8_prefill: prefill s, the
+    first A8_LONG_TOKENS tokens of each, the w8a8 products per prefill
+    chunk."""
+    qparams = quant.quantize_params(params, quant.DEFAULT_QUANT_PATTERNS)
+    sampling = dataclasses.replace(long_sampling(seed), max_tokens=A8_LONG_TOKENS)
+    n = LONG_RUNS[1][1]
+    tokens = {}
+    for a8 in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine(qparams, cfg, cache_dtype=torch.float8_e4m3fn,
+                                 long_prefill_chunk=LONG_CHUNK, a8_prefill=a8)
+        calls: dict = {}
+        with int_mm_calls(calls):
+            out, run = decode_run(engine, lambda: engine.generate([long_request(n)], sampling)[0])
+        tokens[a8] = out["token_ids"]
+        log("quant", run="81920:fp8" + (":a8" if a8 else ""), prompt_tokens=n,
+            prefill_s=run["prefill_s"], prefill_tok_per_s=round(n / run["prefill_s"], 1),
+            prefills=run["scheduler"]["prefills"], first_token_ids=out["token_ids"][:8],
+            int_mm_per_prefill=sorted(set(calls.get("prefill", []))),
+            decode_ms_per_token=run["ms_per_token"],
+            peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+        if a8 and set(calls.get("prefill", [])) != {7 * cfg.text.num_hidden_layers}:
+            raise RuntimeError(f"19c: w8a8 products per prefill chunk {calls.get('prefill')}")
+        if not 1 <= len(out["token_ids"]) <= A8_LONG_TOKENS:
+            raise RuntimeError(f"19c: bad output length {len(out['token_ids'])}")
+        del engine
+    log("quant", run="19c", identical_first_tokens=tokens[False] == tokens[True])
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serving_modes_phase(params, cfg, proc, seed: int) -> None:
+    """Phase 19: 19a the frame path, 19b the quantized modes, 19c w8a8 at
+    run (b)'s length."""
+    t_phase = time.perf_counter()
+    frames_phase(params, cfg, proc, seed)
+    t0 = time.perf_counter()
+    quant_phase(params, cfg, proc, seed)
+    t1 = time.perf_counter()
+    quant_long_phase(params, cfg, seed)
+    log("quant", phase_seconds={"19b": round(t1 - t0, 3),
+                                "19c": round(time.perf_counter() - t1, 3),
+                                "19": round(time.perf_counter() - t_phase, 3)})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3698,6 +4044,9 @@ def main() -> None:
     # speculative decoding: greedy, GSPO's sampled rollouts, long context
     spec_launches = spec_phase(params, cfg, reqs, proc, long_tokens["a"], args.seed, results)
     log("spec", launches=spec_launches)
+
+    # the uint8 frame path and w8a8 serving
+    serving_modes_phase(params, cfg, proc, args.seed)
 
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()

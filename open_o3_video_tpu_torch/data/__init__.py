@@ -1,4 +1,7 @@
-"""Host-side data plane of the port: chat template, tokenizer, patchify."""
+"""Host-side data plane of the port: chat template, tokenizer, patchify,
+video reading."""
+
+from .video import fetch_video, fetch_video_fast, fetch_video_raw, smart_resize
 
 # The errors that mean "this example's data is bad" (a missing or unreadable
 # file, a bad field): the SFT loop skips such a batch and the eval harnesses

@@ -9,6 +9,11 @@ imports PIL).
 - ``trim_window``: ``video_start``/``video_end`` as an inclusive pts range;
 - ``fetch_video``: decode a file with the selected reader, then the
   PIL-parity bicubic resize of ``ops/resize.py`` instead of PIL;
+- ``fetch_video_raw``: the same decode, the frames kept at their decoded
+  size (uint8) with the model size beside them, for the engine's device
+  resize (``Request.resize_hw``);
+- ``fetch_video_fast``: decode and swscale's bicubic resize in one pass of
+  the native decoder (an approximation of PIL's; libav only);
 - ``read_image`` / ``decode_image`` / ``fetch_image``: an image file (a
   keyframe, a GQA image) or encoded bytes in memory (VideoMMMU's query
   image) read as PIL's ``convert("RGB")`` gives it, or an HWC uint8 frame
@@ -248,30 +253,83 @@ def get_video_reader_backend() -> str:
     return backend
 
 
-def fetch_video(ele: dict, image_factor: int = IMAGE_FACTOR) -> tuple[np.ndarray, float]:
-    """Decode, sample and resize one video file: (float32 TCHW frames at the
-    model's resolution, sample fps). A native read that fails on the file
-    (OSError, ValueError) is retried with cv2 when cv2 can be imported."""
+def _read_video(ele: dict) -> tuple[np.ndarray, float]:
+    """The selected reader's (TCHW uint8 RGB frames, sample fps); a native
+    read that fails on the file (OSError, ValueError) is retried with cv2
+    when cv2 can be imported."""
     backend = get_video_reader_backend()
     try:
-        video, sample_fps = VIDEO_READER_BACKENDS[backend](ele)
+        return VIDEO_READER_BACKENDS[backend](ele)
     except (OSError, ValueError) as e:
         if backend == "cv2" or not _has_cv2():
             raise
         logger.warning(f"video reader backend {backend} error, falling back to cv2, msg: {e}")
-        video, sample_fps = VIDEO_READER_BACKENDS["cv2"](ele)
-    nframes, _, height, width = video.shape
+        return VIDEO_READER_BACKENDS["cv2"](ele)
+
+
+def _pixel_budget(ele: dict, nframes: int) -> tuple[int, int]:
+    """(min_pixels, max_pixels) of one frame of an ``nframes`` video."""
     min_pixels = ele.get("min_pixels", VIDEO_MIN_PIXELS)
     total_pixels = ele.get("total_pixels", VIDEO_TOTAL_PIXELS)
     max_pixels = max(min(VIDEO_MAX_PIXELS, total_pixels / nframes * FRAME_FACTOR),
                      int(min_pixels * 1.05))
-    max_pixels = min(ele.get("max_pixels", max_pixels), max_pixels)
+    return min_pixels, min(ele.get("max_pixels", max_pixels), max_pixels)
+
+
+def fetch_video(ele: dict, image_factor: int = IMAGE_FACTOR) -> tuple[np.ndarray, float]:
+    """Decode, sample and resize one video file: (float32 TCHW frames at the
+    model's resolution, sample fps)."""
+    video, sample_fps = _read_video(ele)
+    nframes, _, height, width = video.shape
+    min_pixels, max_pixels = _pixel_budget(ele, nframes)
     if "resized_height" in ele and "resized_width" in ele:
         h, w = smart_resize(ele["resized_height"], ele["resized_width"], factor=image_factor)
     else:
         h, w = smart_resize(height, width, factor=image_factor, min_pixels=min_pixels,
                             max_pixels=max_pixels)
     return resize_frames(torch.from_numpy(video), h, w).numpy(), sample_fps
+
+
+def fetch_video_raw(ele: dict) -> tuple[np.ndarray, tuple[int, int], float]:
+    """Decode and sample only, for the engine's device resize: (uint8 TCHW
+    frames at the decoded size, (resized_h, resized_w), sample fps), the
+    size ``smart_resize`` picks as ``fetch_video_fast`` does. Pass the
+    size as ``Request.resize_hw``: the engine resizes on the device with
+    PIL's semantics (``ops/resize.py``), so the host never runs a resample.
+    Reads with the selected reader (JAX's reads with its native decoder
+    only)."""
+    video, sample_fps = _read_video(ele)
+    nframes, _, height, width = video.shape
+    min_pixels, max_pixels = _pixel_budget(ele, nframes)
+    size = smart_resize(height, width, factor=IMAGE_FACTOR, min_pixels=min_pixels,
+                        max_pixels=max_pixels)
+    return video, size, sample_fps
+
+
+def fetch_video_fast(ele: dict) -> tuple[np.ndarray, float]:
+    """Decode and resize in one pass of the native decoder (swscale's
+    bicubic, which approximates PIL's; ``fetch_video`` keeps PIL parity):
+    (uint8 TCHW frames at the model's resolution, sample fps), with
+    ``fetch_video``'s sampling and size. Needs libav: raises ImportError
+    where the native decoder cannot be built."""
+    from ..native import video_decoder
+
+    if video_decoder.missing():
+        raise ImportError("fetch_video_fast needs the native decoder (libav's swscale), "
+                          f"which lacks {video_decoder.missing()}")
+    video_path = ele["video"]
+    if video_path.startswith("file://"):
+        video_path = video_path[7:]
+    meta = video_decoder.probe(video_path)
+    start_idx, window = trim_window(ele, meta.num_frames, meta.fps)
+    nframes = smart_nframes(ele, total_frames=window, video_fps=meta.fps)
+    idx = sample_indices(window, nframes) + start_idx
+    min_pixels, max_pixels = _pixel_budget(ele, nframes)
+    h, w = smart_resize(meta.height, meta.width, factor=IMAGE_FACTOR, min_pixels=min_pixels,
+                        max_pixels=max_pixels)
+    frames_hwc = video_decoder.decode_frames_scaled(video_path, idx, w, h, bicubic=True)
+    video = np.ascontiguousarray(frames_hwc.transpose(0, 3, 1, 2))
+    return video, nframes / max(window, 1e-6) * meta.fps
 
 
 def _read_image_native(path: str) -> np.ndarray:

@@ -102,8 +102,27 @@ verify steps, the tokens they emitted and the groups the probe reverted.
 ``decode_attn_impl`` ("auto", "pallas", "xla") picks the attention of the
 decode step and the verify blocks only (``ops/attention.py``).
 
-Not ported yet (later work): GSPO's B x G rollout mode, ``Request.frames``
-/ ``resize_hw`` / ``vision_embeds``, w8a8 prefill.
+**The uint8 frame path** (JAX's ``Request.frames``): a request may carry
+raw uint8 frames (T, C, H, W) instead of patch rows. An admission uploads
+its new frame arrays from pinned memory, one stacked upload per (shape,
+``resize_hw``), resizes them on the device to ``resize_hw`` where it is set
+(``ops/resize.resize_frames_device``, PIL parity; frames then come at
+their decoded size, as ``data.fetch_video_raw`` returns them) and
+patchifies them there (``ops/preprocess.patchify_device``, each frame
+repeated over the temporal patch axis), in the tower's dtype: the tower's
+input equals the host ``pixel_patches`` path's bit for bit.
+``prestage_frames`` does the same ahead of ``generate``, from a prefetch
+thread.
+
+**w8a8 prefill** (``a8_prefill``; off unless the environment sets
+``O3V_A8=1``, JAX's default): the admissions, prefix blocks, suffixes, prefill
+chunks (each with its lm_head) and the vision tower run their int8 weights'
+products with int8 activations (``ops/quant.a8_acts``, a scope of the
+thread that runs them); the decode step, the verify blocks and every CUDA
+graph stay w8-bf16. It changes nothing for weights that are not int8.
+
+Not ported yet (later work): ``Request.vision_embeds`` (the Aria path), and
+the sharding of rollout rows over several cards.
 """
 
 from __future__ import annotations
@@ -112,6 +131,7 @@ import collections
 import contextlib
 import dataclasses
 import hashlib
+import os
 import threading
 import time
 import weakref
@@ -131,6 +151,9 @@ from ..models.qwen25vl.model import (
 from ..models.qwen25vl.text import init_kv_cache, logits_from_hidden, text_forward
 from ..ops import kernels
 from ..ops.attention import DECODE_IMPLS
+from ..ops.preprocess import patchify_device
+from ..ops.quant import a8_acts
+from ..ops.resize import pil_resize_weights, resize_frames_device
 from ..ops.sampling import sample_token
 
 # The JAX engine's prompt buckets; the last is the reference's max_model_len,
@@ -156,14 +179,36 @@ class Request:
     grid_thw: Optional[np.ndarray] = None  # (num, 3)
     vision_token_id: Optional[int] = None
     second_per_grid_ts: Optional[Sequence[float]] = None
-    # Fields of the JAX engine's Request that this engine does not serve
-    # yet; setting one raises NotImplementedError.
+    # Instead of pixel_patches: raw uint8 frames (T, C, H, W), each an image
+    # of grid_t 1; normalized and patchified on the device.
     frames: Optional[np.ndarray] = None
+    # With frames: resize them on the device to (h, w) first (PIL parity);
+    # grid_thw describes the (h, w) geometry.
     resize_hw: Optional[tuple] = None
+    # A field of the JAX engine's Request that this engine does not serve
+    # yet; setting it raises NotImplementedError.
     vision_embeds: Optional[Any] = None
 
 
-_UNSUPPORTED = ("frames", "resize_hw", "vision_embeds")
+_UNSUPPORTED = ("vision_embeds",)
+
+
+def _grid_key(r: Request) -> Optional[tuple]:
+    return None if r.grid_thw is None else tuple(map(tuple, np.asarray(r.grid_thw).tolist()))
+
+
+def _resize_key(r: Request) -> Optional[tuple]:
+    return tuple(int(x) for x in r.resize_hw) if r.resize_hw else None
+
+
+def _table_key(r: Request) -> Optional[tuple]:
+    """The key of a request's vision table within a call (None: no
+    vision): the identities of its patches and frames, the frames' resize
+    target and the grid. Requests passing the same arrays share one tower
+    pass."""
+    if r.pixel_patches is None and r.frames is None:
+        return None
+    return (id(r.pixel_patches), id(r.frames), _resize_key(r), _grid_key(r))
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -299,15 +344,18 @@ class _DoneFlags:
 class InferenceEngine:
     """Serves requests on the device that holds ``params``.
 
-    ``stage_seconds`` accumulates wall time per stage (vision, prefill,
-    decode, and decode_capture, the part of decode spent capturing the
+    ``stage_seconds`` accumulates wall time per stage (vis_upload: the
+    vision inputs' upload, resize and patchify; vision, prefill, decode,
+    and decode_capture, the part of decode spent capturing the
     graph) across calls, each ended by a device sync; ``decode_steps``
     counts the decode steps that emitted a token for some row and
     ``decode_steps_wasted`` those enqueued after every row had finished.
     ``counters`` counts, across calls: admissions (prefills of new rows
     into slots), prefills (prefill forwards: whole prompts, chunks, prefix
     blocks, suffixes), prefix_blocks (prefix KV blocks built), prefix_hits
-    (admissions served by a cached block), tower_passes, segments,
+    (admissions served by a cached block), tower_passes, upload_bytes
+    (frames and patches an admission uploaded; prestage_upload_bytes, those
+    of ``prestage_*``), segments,
     interleaved_segments (segments run between the chunks of an
     admission), ring_wraps (times a group's write head went round its
     ring), captures and groups. Attention runs the CUDA kernels when the
@@ -327,7 +375,7 @@ class InferenceEngine:
                  long_prefill_chunk: int = 8192, max_kv_gb: Optional[float] = None,
                  decode_graph: bool = True, decode_attn_impl: Optional[str] = "auto",
                  spec_decode: bool = False, spec_draft: int = 7, spec_sample: bool = False,
-                 spec_surplus: int = 1024):
+                 spec_surplus: int = 1024, a8_prefill: Optional[bool] = None):
         self.cfg = cfg
         self.device = params["text"]["embed_tokens"].device  # where the model lives
         self.prompt_buckets = tuple(prompt_buckets)
@@ -353,6 +401,12 @@ class InferenceEngine:
         self._vis_digests: "collections.OrderedDict[int, tuple]" = collections.OrderedDict()
         self._vis_obj_counter = 0
         self.params = params
+        # w8a8 prefill and vision (the module docstring); JAX's O3V_A8 default.
+        if a8_prefill is None:
+            a8_prefill = os.environ.get("O3V_A8", "0") == "1"
+        self.a8_prefill = bool(a8_prefill)
+        # (in_hw, out_hw) -> the resize weights (wh, ww) on the device
+        self._resize_w: dict = {}
         self.decode_graph = decode_graph
         self.decode_attn_impl = decode_attn_impl or "auto"
         if self.decode_attn_impl not in DECODE_IMPLS:
@@ -422,6 +476,12 @@ class InferenceEngine:
                 torch.cuda.synchronize(self.device)
         self.stage_seconds[name] += time.perf_counter() - t0
 
+    def _a8(self):
+        """The w8a8 scope of the prefill-side programs: on with
+        ``a8_prefill``, and explicitly off without it, so an enclosing scope
+        of another engine never leaks in."""
+        return a8_acts(self.a8_prefill)
+
     # ----------------------------------------------------------------- public
 
     @torch.inference_mode()
@@ -445,6 +505,9 @@ class InferenceEngine:
             for name in _UNSUPPORTED:
                 if getattr(r, name) is not None:
                     raise NotImplementedError(f"Request.{name} is not served by this engine yet")
+            if r.frames is not None and (np.ndim(r.frames) != 4 or r.grid_thw is None):
+                raise ValueError(f"Request.frames must be (T, C, H, W) with a grid_thw, got "
+                                 f"shape {np.shape(r.frames)}")
             # Every prompt, also one that shares a prefix with a sibling,
             # fits the largest bucket, as it must when it runs alone.
             _bucket(len(r.input_ids), self.prompt_buckets)
@@ -454,10 +517,10 @@ class InferenceEngine:
         for i, r in enumerate(requests):
             groups.setdefault(_bucket(prefix_lens[i] or len(r.input_ids), self.prompt_buckets),
                               []).append(i)
-        # Vision tables of this call, id(patches) -> table, each dropped once
-        # no request left in the queue needs it.
+        # Vision tables of this call by _table_key, each dropped once no
+        # request left in the queue needs it.
         vis = {"tables": {}, "pending": collections.Counter(
-            id(r.pixel_patches) for r in requests if r.pixel_patches is not None)}
+            key for key in map(_table_key, requests) if key is not None)}
         self.groups = []
         for idxs in groups.values():
             self._run_group(idxs, requests, sampling, return_logprobs, results, prefix_lens, vis,
@@ -470,8 +533,28 @@ class InferenceEngine:
         runs); ``None`` and tensors pass through. The uploads wait for a
         decode capture in progress, and a capture waits for them."""
         with self._capture_lock:
-            return [None if p is None else torch.as_tensor(p, device=self.device)
-                    for p in patches_list]
+            out = [None if p is None else torch.as_tensor(p, device=self.device)
+                   for p in patches_list]
+            self.counters["prestage_upload_bytes"] += sum(
+                p.nbytes for p in patches_list if isinstance(p, np.ndarray))
+            return out
+
+    def prestage_frames(self, frames_list: Sequence[np.ndarray],
+                        resize_hws: Optional[Sequence] = None) -> list:
+        """Upload, resize and patchify uint8 frame arrays ahead of
+        ``generate`` (JAX's ``prestage_frames``), from a prefetch thread:
+        pass each returned device tensor as ``Request.pixel_patches``.
+        Same-shape entries with the same target share one stacked upload.
+        ``resize_hws`` (one (h, w) or None per array) asks for the device
+        resize of ``Request.resize_hw``. Holds the capture lock, as
+        ``prestage_patches`` does."""
+        targets = [tuple(int(x) for x in resize_hws[i]) if resize_hws and resize_hws[i] else None
+                   for i in range(len(frames_list))]
+        with self._capture_lock:
+            rows, nbytes = self._upload_frames(
+                {i: (f, rhw) for i, (f, rhw) in enumerate(zip(frames_list, targets))})
+            self.counters["prestage_upload_bytes"] += nbytes
+        return [rows[i] for i in range(len(frames_list))]
 
     # ----------------------------------------------------------- prefix cache
 
@@ -505,15 +588,15 @@ class InferenceEngine:
         return digest
 
     def _vis_key(self, r: Request) -> tuple:
-        """The vision part of the prefix cache's keys: the patches' digest,
-        and the grid and frame spacing, on which the M-RoPE positions of
-        the prefix depend (``_rope_kwargs``). The JAX engine keys on the
-        digest alone, so it serves a block prefilled at a sibling's
-        positions."""
-        grid = None if r.grid_thw is None else tuple(map(tuple, np.asarray(r.grid_thw).tolist()))
+        """The vision part of the prefix cache's keys: the digests of the
+        patches and of the frames, the frames' resize target, and the grid
+        and frame spacing, on which the M-RoPE positions of the prefix
+        depend (``_rope_kwargs``). The JAX engine keys on the digests alone,
+        so it serves a block prefilled at a sibling's positions."""
         spacing = (None if r.second_per_grid_ts is None
                    else tuple(float(x) for x in r.second_per_grid_ts))
-        return (self._vis_digest(r.pixel_patches), grid, spacing)
+        return (self._vis_digest(r.pixel_patches), self._vis_digest(r.frames),
+                _resize_key(r), _grid_key(r), spacing)
 
     def _prefix_key(self, r: Request, pl: int) -> tuple:
         """The prefix cache's key of ``r``'s first ``pl`` tokens."""
@@ -619,10 +702,11 @@ class InferenceEngine:
         tokens (the last may be shorter), each at ``cache_offset`` = its
         first column, attending to the chunks before it through the cache;
         ``between()`` runs after every chunk but the last (outside the
-        prefill stage). Returns the last chunk's final hidden states."""
+        prefill stage and the w8a8 scope). Returns the last chunk's final
+        hidden states."""
         L = embeds.shape[1]
         for c0 in range(0, L, chunk):
-            with self._stage("prefill"):
+            with self._stage("prefill"), self._a8():
                 hidden, _ = text_forward(
                     self.params["text"], self.cfg.text, embeds[:, c0:c0 + chunk],
                     position_ids[:, :, c0:c0 + chunk], attn_valid=attn_valid, cache=cache,
@@ -637,23 +721,32 @@ class InferenceEngine:
     def _embed_rows(self, reqs: Sequence[Request], ids: np.ndarray, vis: dict) -> torch.Tensor:
         """Token embeddings (n, L, D) of ``ids`` with each row's vision
         embeddings scattered into its placeholders. One tower pass per
-        distinct pixel array in the call (requests passing the same array,
-        or the same tensor from ``prestage_patches``, share its encoding);
-        a table is dropped once no queued request of the call needs it."""
+        distinct vision input in the call (``_table_key``: requests passing
+        the same arrays, or the same tensor from ``prestage_*``, share its
+        encoding), after the admission's new inputs are uploaded
+        (``_vision_inputs``); a table is dropped once no queued request of
+        the call needs it."""
+        fresh: dict = {}  # table key -> its first request, for the inputs not encoded yet
+        for r in reqs:
+            key = _table_key(r)
+            if key is not None and key not in vis["tables"]:
+                fresh.setdefault(key, r)
+        if fresh:
+            with self._stage("vis_upload"):
+                inputs = self._vision_inputs(fresh)
+            with self._stage("vision"), self._a8():
+                for key, r in fresh.items():
+                    vis["tables"][key] = encode_vision(self.params, self.cfg, inputs[key],
+                                                       np.asarray(r.grid_thw))
+                    self.counters["tower_passes"] += 1
         tables, offsets, tokens, at = [], [], [], {}
         total = 0
         for r in reqs:
-            if r.pixel_patches is None:
+            key = _table_key(r)
+            if key is None:
                 offsets.append(None)
                 tokens.append(None)
                 continue
-            key = id(r.pixel_patches)
-            if key not in vis["tables"]:
-                with self._stage("vision"):
-                    patches = torch.as_tensor(r.pixel_patches, device=self.device)
-                    vis["tables"][key] = encode_vision(self.params, self.cfg, patches,
-                                                       np.asarray(r.grid_thw))
-                self.counters["tower_passes"] += 1
             if key not in at:
                 at[key] = total
                 tables.append(vis["tables"][key])
@@ -668,12 +761,78 @@ class InferenceEngine:
                 embeds, torch.cat(tables), torch.from_numpy(row_index).to(self.device))
         return embeds
 
+    def _vision_inputs(self, fresh: dict) -> dict:
+        """The tower inputs of ``fresh`` (table key -> request) on the
+        device: patch arrays uploaded as they are (tensors pass through),
+        frame arrays through ``_upload_frames``."""
+        out, nbytes = self._upload_frames({key: (r.frames, _resize_key(r))
+                                           for key, r in fresh.items() if r.frames is not None})
+        self.counters["upload_bytes"] += nbytes
+        for key, r in fresh.items():
+            if r.frames is None:
+                if isinstance(r.pixel_patches, np.ndarray):
+                    self.counters["upload_bytes"] += r.pixel_patches.nbytes
+                out[key] = torch.as_tensor(r.pixel_patches, device=self.device)
+        return out
+
+    def _upload_frames(self, frames: dict) -> tuple[dict, int]:
+        """``frames``: key -> (uint8 array (T, C, H, W), resize target or
+        None). Each array's patch rows on the device, by key, and the bytes
+        uploaded; same-shape arrays with the same target share one upload
+        (JAX's grouping)."""
+        groups: dict = {}
+        for key, (f, rhw) in frames.items():
+            groups.setdefault((tuple(np.shape(f)), rhw), []).append(key)
+        out, nbytes = {}, 0
+        for (_, rhw), keys in groups.items():
+            parts, n = self._frames_to_patches([frames[k][0] for k in keys], rhw)
+            out.update(zip(keys, parts))
+            nbytes += n
+        return out, nbytes
+
+    def _frames_to_patches(self, frames_list: Sequence, resize_hw: Optional[tuple]):
+        """Same-shape uint8 frame arrays (T, C, H, W) -> (each one's patch
+        rows on the device in the tower's dtype, bytes uploaded): one
+        upload of them stacked, from pinned memory on the card; the resize
+        to ``resize_hw`` where it differs from (H, W); each frame repeated
+        over the temporal patch axis and all patchified as one video of
+        grid_t = frames, which lays out each frame's image rows in order
+        (JAX's ``_patchify_impl``)."""
+        v = self.cfg.vision
+        host = [np.asarray(f) for f in frames_list]
+        x = torch.from_numpy(np.ascontiguousarray(host[0] if len(host) == 1 else np.stack(host)))
+        nbytes = x.numel() * x.element_size()
+        if self.device.type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        else:
+            x = x.to(self.device)
+        T, C, H, W = host[0].shape
+        x = x.reshape(len(host) * T, C, H, W)
+        if resize_hw is not None and tuple(resize_hw) != (H, W):
+            wh, ww = self._resize_weights((H, W), tuple(resize_hw))
+            x = resize_frames_device(x, wh, ww)
+        rows = patchify_device(
+            x.repeat_interleave(v.temporal_patch_size, dim=0), v.patch_size,
+            v.temporal_patch_size, v.spatial_merge_size,
+            out_dtype=self.params["visual"]["patch_embed"].dtype)
+        return list(rows.chunk(len(host))), nbytes
+
+    def _resize_weights(self, in_hw: tuple, out_hw: tuple) -> tuple:
+        """The resize weights (wh, ww) of ``in_hw`` -> ``out_hw`` on the
+        device, made once per pair."""
+        key = (in_hw, out_hw)
+        if key not in self._resize_w:
+            self._resize_w[key] = tuple(
+                torch.from_numpy(pil_resize_weights(i, o)).to(self.device)
+                for i, o in zip(in_hw, out_hw))
+        return self._resize_w[key]
+
     def _admitted(self, reqs: Sequence[Request], vis: dict) -> None:
         """Drop the vision tables that no queued request needs any more."""
         for r in reqs:
-            if r.pixel_patches is None:
+            key = _table_key(r)
+            if key is None:
                 continue
-            key = id(r.pixel_patches)
             vis["pending"][key] -= 1
             if vis["pending"][key] <= 0:
                 vis["tables"].pop(key, None)
@@ -956,7 +1115,8 @@ class InferenceEngine:
                 chunk if chunked else L,
                 lambda: run_segment(min(self.decode_segment, max_tokens), interleaved=True))
             with self._stage("prefill"):
-                logits = logits_from_hidden(self.params["text"], hidden[:, -1])
+                with self._a8():
+                    logits = logits_from_hidden(self.params["text"], hidden[:, -1])
                 scatter(rows, slots)
                 bind(slots, rids, logits, seen_rows, attn_rows, next_pos)
 
@@ -979,14 +1139,15 @@ class InferenceEngine:
                     rows = rows_cache(sub_slots)
                     for name in ("k", "v"):
                         _bytes(rows[name])[:, :, P - pl:P] = _bytes(block[name])
-                    hidden, _ = text_forward(
-                        self.params["text"], cfg.text,
-                        embed_tokens(self.params, torch.from_numpy(ids).to(dev)),
-                        torch.from_numpy(pos).to(dev),
-                        attn_valid=torch.from_numpy(attn_rows).to(dev), cache=rows,
-                        cache_offset=P)
+                    with self._a8():
+                        hidden, _ = text_forward(
+                            self.params["text"], cfg.text,
+                            embed_tokens(self.params, torch.from_numpy(ids).to(dev)),
+                            torch.from_numpy(pos).to(dev),
+                            attn_valid=torch.from_numpy(attn_rows).to(dev), cache=rows,
+                            cache_offset=P)
+                        logits = logits_from_hidden(self.params["text"], hidden[:, -1])
                     self.counters["prefills"] += 1
-                    logits = logits_from_hidden(self.params["text"], hidden[:, -1])
                     scatter(rows, sub_slots)
                     bind(sub_slots, sub_rids, logits, seen_rows, attn_rows, next_pos)
 
@@ -1276,7 +1437,9 @@ class _GroupRun:
         fn = {"plain": eng._decode_step, "greedy": eng._verify_greedy,
               "sampled": eng._verify_sampled}[kind]
         spec = kind != "plain"
-        with eng._stage("decode"), eng._decode_stream():
+        # Never w8a8: a decode step or verify block (and so every graph
+        # captured here) keeps bf16 activations, whatever scope encloses it.
+        with eng._stage("decode"), eng._decode_stream(), a8_acts(False):
             st.step.zero_()
             st.emitted.zero_()
             if spec:

@@ -22,9 +22,12 @@ stages, admissions, prefills and prefix blocks built, and each call prints
 that record as an ``[eval]`` line.
 
 Engine knobs: ``cache_dtype`` (a torch dtype or "fp8"/"float8_e4m3fn",
-"bf16"/"bfloat16", "f32"/"float32") and the scheduler's knobs in
-ENGINE_KNOBS pass through; the other knobs the JAX wrapper passes through
-raise (ROADMAP M6), and so do ``mesh`` and ``batch_axis`` (M8).
+"bf16"/"bfloat16", "f32"/"float32") and the other knobs in ENGINE_KNOBS
+(the scheduler's, ``a8_prefill``) pass through; ``quantize_vision`` (with
+``load_in_int8``/``load_in_int4``, as JAX's) quantizes the ViT blocks of a
+model directory as it loads, the pair of ``a8_prefill``'s int8 tower; a
+param dict is served as it is. ``mesh`` and ``batch_axis`` raise (ROADMAP
+M8).
 """
 
 from __future__ import annotations
@@ -48,13 +51,11 @@ CACHE_DTYPES = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
     "f32": torch.float32, "float32": torch.float32,
 }
-# The engine knobs the port's engine serves, and those the JAX wrapper also
-# passes through that it does not serve yet.
+# The engine knobs that pass through to the engine (the JAX wrapper's).
 ENGINE_KNOBS = ("cache_dtype", "long_prefill_threshold", "long_prefill_chunk",
                 "prompt_buckets", "decode_segment", "prefill_chunk", "prefix_cache_min",
                 "suffix_buckets", "prefix_cache_entries", "max_kv_gb", "decode_attn_impl",
-                "spec_decode", "spec_draft")
-UNSERVED_KNOBS = ("a8_prefill", "quantize_vision")
+                "spec_decode", "spec_draft", "a8_prefill")
 
 
 class QwenVLEngine:
@@ -73,17 +74,12 @@ class QwenVLEngine:
     ):
         """A model directory loads with its tokenizer onto ``device``
         (default ``cuda``), its decoder quantized as it streams in with
-        ``load_in_int4`` (group-128 int4) or ``load_in_int8``; a param dict
-        needs its ``cfg`` and is served where it lies."""
+        ``load_in_int4`` (group-128 int4) or ``load_in_int8``, its ViT
+        blocks with ``quantize_vision``; a param dict needs its ``cfg`` and
+        is served where it lies."""
         if mesh is not None or batch_axis is not None:
             raise NotImplementedError("a device mesh and its batch axis are not ported yet "
                                       "(ROADMAP M8)")
-        unserved = [k for k in UNSERVED_KNOBS if llm_args.get(k) not in (None, False)]
-        if unserved:
-            raise NotImplementedError(f"engine knobs {unserved} are not served by the port's "
-                                      "engine yet (ROADMAP M6)")
-        for k in UNSERVED_KNOBS:
-            llm_args.pop(k, None)
         temperature = llm_args.pop("temperature", 0.0)
         max_tokens = llm_args.pop("max_tokens", 512)
         self.rt_shape = rt_shape
@@ -93,11 +89,13 @@ class QwenVLEngine:
 
         load_in_int8 = llm_args.pop("load_in_int8", False)
         load_in_int4 = llm_args.pop("load_in_int4", False)
+        quantize_vision = llm_args.pop("quantize_vision", False)
         if isinstance(llm_name_or_params, str):
             print("Start initialize the model.")
             params, cfg = P.load_pretrained(
                 llm_name_or_params, torch.device(device or "cuda"), cfg,
                 quantize_text="int4" if load_in_int4 else load_in_int8,
+                quantize_vision=quantize_vision,
             )
             processor = processor or O3VideoProcessor.from_pretrained(llm_name_or_params)
         else:

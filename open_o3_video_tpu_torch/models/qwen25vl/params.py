@@ -18,8 +18,10 @@ text:
 With ``quantize_text`` the decoder's matmul weights and the lm_head are
 ``ops.quant.QuantizedLinear`` (int8) or ``ops.int4.Int4Linear`` leaves,
 quantized one leaf at a time as they are drawn or read, so the model never
-exists in bf16 on the device. A text-only checkpoint (the Qwen2.5-72B
-judge) loads with ``visual`` None.
+exists in bf16 on the device; ``quantize_vision`` does the same for the ViT
+blocks' matmul weights (the w8a8 tower's), never the patch embed or the
+merger. A text-only checkpoint (the Qwen2.5-72B judge) loads with
+``visual`` None.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ from .config import Qwen25VLConfig
 
 # The decoder leaves quantize_text quantizes (JAX's _QUANT_TEXT_LEAVES).
 QUANT_TEXT_LEAVES = frozenset({"q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w", "lm_head"})
+# The ViT block leaves quantize_vision quantizes (JAX's _QUANT_VISION_LEAVES).
+QUANT_VISION_LEAVES = frozenset({"qkv_w", "proj_w", "fc1_w", "fc2_w", "gate_w", "up_w", "down_w"})
 
 
 def quantize_leaf(leaf: torch.Tensor, mode):
@@ -57,24 +61,29 @@ def quantize_leaf(leaf: torch.Tensor, mode):
     return quantize_weight(leaf)
 
 
-def from_jax_params(tree, cfg: Qwen25VLConfig, device) -> dict:
+def from_jax_params(tree, cfg: Qwen25VLConfig, device, quantize_vision=False) -> dict:
     """The JAX package's param tree, leaves as numpy arrays in JAX's
     (in, out) orientation, as the port's param dict in ``cfg.dtype``. JAX's
     quantized leaves, recognised by their fields (``w_p``/``scale``/``group``
     for int4, ``w_q``/``scale`` for int8), keep their int8 bytes and float32
     scales; its ``LoraLinear`` leaves (``base``/``a``/``b``/``scale``) become
-    the port's, their adapters in ``cfg.dtype``."""
+    the port's, their adapters in ``cfg.dtype``. ``quantize_vision``
+    quantizes the ViT blocks' plain matmul weights as they are carried
+    (``quantize_leaf``)."""
 
     def tensor(x, dtype):
         return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
 
-    def conv(x):
+    def conv(x, path=()):
         if x is None:
             return None
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, path + (k,)) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
+            return [conv(v, path + (i,)) for i, v in enumerate(x)]
+        if (quantize_vision and path[:2] == ("visual", "blocks")
+                and path[-1] in QUANT_VISION_LEAVES and not hasattr(x, "scale")):
+            return quantize_leaf(tensor(x, np.float32).to(cfg.dtype), quantize_vision)
         if hasattr(x, "w_p"):
             return Int4Linear(tensor(x.w_p, np.int8), tensor(x.scale, np.float32), x.group)
         if hasattr(x, "w_q"):
@@ -134,7 +143,8 @@ def trainable(tree) -> dict:
     return tree
 
 
-def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False) -> dict:
+def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False,
+         quantize_vision=False) -> dict:
     """Random normal(0.02) weights (the HF initializer scale), unit norms and
     zero biases, drawn on ``device`` from a seeded ``torch.Generator`` in
     ``cfg.dtype``. It does not reproduce the JAX package's random bits.
@@ -142,7 +152,9 @@ def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False) -> dict:
     ``quantize_text`` (False, True or "int8", "int4") quantizes each decoder
     matmul weight and the lm_head as it is drawn (``quantize_leaf``), so the
     bf16 draw of one leaf at a time is all that exists: a 72B decoder never
-    exists in bf16. The random draws are the same as without it."""
+    exists in bf16. ``quantize_vision`` (the same values) quantizes the ViT
+    blocks' matmul weights so. The random draws are the same as without
+    either."""
     v, t = cfg.vision, cfg.text
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -153,6 +165,9 @@ def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False) -> dict:
     def tw(*shape):
         return quantize_leaf(w(*shape), quantize_text) if quantize_text else w(*shape)
 
+    def vw(*shape):
+        return quantize_leaf(w(*shape), quantize_vision) if quantize_vision else w(*shape)
+
     def zeros(n):
         return torch.zeros(n, dtype=cfg.dtype, device=device)
 
@@ -162,16 +177,16 @@ def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False) -> dict:
     def block():
         return {
             "norm1": ones(v.hidden_size),
-            "qkv_w": w(v.hidden_size, 3 * v.hidden_size),
+            "qkv_w": vw(v.hidden_size, 3 * v.hidden_size),
             "qkv_b": zeros(3 * v.hidden_size),
-            "proj_w": w(v.hidden_size, v.hidden_size),
+            "proj_w": vw(v.hidden_size, v.hidden_size),
             "proj_b": zeros(v.hidden_size),
             "norm2": ones(v.hidden_size),
-            "gate_w": w(v.hidden_size, v.intermediate_size),
+            "gate_w": vw(v.hidden_size, v.intermediate_size),
             "gate_b": zeros(v.intermediate_size),
-            "up_w": w(v.hidden_size, v.intermediate_size),
+            "up_w": vw(v.hidden_size, v.intermediate_size),
             "up_b": zeros(v.intermediate_size),
-            "down_w": w(v.intermediate_size, v.hidden_size),
+            "down_w": vw(v.intermediate_size, v.hidden_size),
             "down_b": zeros(v.hidden_size),
         }
 
@@ -252,22 +267,24 @@ _MERGER = {
 }
 
 
-def from_hf_state_dict(named, cfg: Qwen25VLConfig, device, quantize_text=False) -> dict:
+def from_hf_state_dict(named, cfg: Qwen25VLConfig, device, quantize_text=False,
+                       quantize_vision=False) -> dict:
     """Param dict from (HF name, tensor) pairs of a Qwen2.5-VL checkpoint
     (``model.`` / ``model.language_model.`` / ``model.visual.`` prefixes
     alike), or of a text-only Qwen2 one (``visual`` is then None); a
     missing ``lm_head`` ties to the embedding. ``quantize_text`` quantizes
     each decoder matmul weight and the lm_head as it streams in (JAX's
-    ``from_named_arrays``), so only one leaf at a time exists in bf16."""
+    ``from_named_arrays``), so only one leaf at a time exists in bf16;
+    ``quantize_vision`` quantizes the ViT blocks' matmul weights so."""
     v, t = cfg.vision, cfg.text
     visual = {"blocks": [{} for _ in range(v.depth)], "merger": {}}
     text = {"layers": [{} for _ in range(t.num_hidden_layers)]}
     seen_visual = False
 
-    def leaf(x, transpose=False, name=None):
+    def leaf(x, transpose=False, mode=None):
         x = x.T if transpose else x
         x = x.to(device=device, dtype=cfg.dtype).contiguous()
-        return quantize_leaf(x, quantize_text) if quantize_text and name in QUANT_TEXT_LEAVES else x
+        return quantize_leaf(x, mode) if mode else x
 
     for key, x in named:
         for old, new in (("model.language_model.", "language_model."),
@@ -282,20 +299,22 @@ def from_hf_state_dict(named, cfg: Qwen25VLConfig, device, quantize_text=False) 
         elif key == "language_model.norm.weight":
             text["final_norm"] = leaf(x)
         elif key == "lm_head.weight":
-            text["lm_head"] = leaf(x, True, "lm_head")
+            text["lm_head"] = leaf(x, True, mode=quantize_text)
         elif key.startswith("language_model.layers.") and ".".join(parts[3:]) in _TEXT_LAYER:
             name, tr = _TEXT_LAYER[".".join(parts[3:])]
-            text["layers"][int(parts[2])][name] = leaf(x, tr, name)
+            text["layers"][int(parts[2])][name] = leaf(
+                x, tr, mode=quantize_text if name in QUANT_TEXT_LEAVES else None)
         elif key == "visual.patch_embed.proj.weight":  # Conv3d at full stride == linear
             visual["patch_embed"] = leaf(x.reshape(x.shape[0], -1), True)
         elif key.startswith("visual.blocks.") and ".".join(parts[3:]) in _VISION_BLOCK:
             name, tr = _VISION_BLOCK[".".join(parts[3:])]
-            visual["blocks"][int(parts[2])][name] = leaf(x, tr)
+            visual["blocks"][int(parts[2])][name] = leaf(
+                x, tr, mode=quantize_vision if name in QUANT_VISION_LEAVES else None)
         elif key.startswith("visual.merger.") and ".".join(parts[2:]) in _MERGER:
             name, tr = _MERGER[".".join(parts[2:])]
             visual["merger"][name] = leaf(x, tr)
     if "lm_head" not in text and "embed_tokens" in text:
-        text["lm_head"] = leaf(text["embed_tokens"], True, "lm_head")
+        text["lm_head"] = leaf(text["embed_tokens"], True, mode=quantize_text)
     missing = [f"text.{k}" for k in ("embed_tokens", "final_norm", "lm_head") if k not in text]
     tables = [("text.layers", text["layers"], _TEXT_LAYER)]
     if seen_visual:
@@ -311,7 +330,7 @@ def from_hf_state_dict(named, cfg: Qwen25VLConfig, device, quantize_text=False) 
 
 
 def load_pretrained(model_dir: str, device, cfg: Qwen25VLConfig | None = None,
-                    quantize_text=False) -> tuple[dict, Qwen25VLConfig]:
+                    quantize_text=False, quantize_vision=False) -> tuple[dict, Qwen25VLConfig]:
     """(params, cfg) from an HF model directory of safetensors shards (in
     the index file's order when there is one), read with safetensors' torch
     loader and quantized as they stream in (see ``from_hf_state_dict``)."""
@@ -332,7 +351,8 @@ def load_pretrained(model_dir: str, device, cfg: Qwen25VLConfig | None = None,
                 for key in f.keys():
                     yield key, f.get_tensor(key)
 
-    return from_hf_state_dict(named(), cfg, device, quantize_text=quantize_text), cfg
+    return from_hf_state_dict(named(), cfg, device, quantize_text=quantize_text,
+                              quantize_vision=quantize_vision), cfg
 
 
 def hf_named_tensors(params: dict, cfg: Qwen25VLConfig):

@@ -12,7 +12,11 @@ per row on ragged grids.
 Device half: ``vision_forward`` runs the tower in that layout on CPU and
 CUDA alike: the 28 windowed blocks through K1 (fused rope + window
 attention), the 4 global blocks through K2 over whole frames (rope applied
-before it). Linear layers are plain ``torch.matmul`` in the param dtype.
+before it). A block's linear layers go through ``ops.quant.dense``, as
+JAX's do: a plain weight is ``x @ w`` in the param dtype; a quantized one
+(``init(quantize_vision=...)``) is its int8 or int4 product, w8a8 inside
+the engine's ``a8_acts`` scope. The patch embed and the merger are plain
+matmuls.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import segment_attention
+from ...ops.quant import dense
 from ...ops.rope import apply_rope_vision, vision_pos_freqs
 from ...ops.window_attention import fused_window_attention
 from .config import VisionConfig
@@ -250,7 +255,7 @@ def _block(p: dict, x: torch.Tensor, freqs: torch.Tensor,
            seg: Union[FusedSeg, tuple, SegmentSpec], cfg: VisionConfig, impl: str):
     S = x.shape[0]
     h = rms_norm(x, p["norm1"])
-    qkv = h @ p["qkv_w"] + p["qkv_b"]
+    qkv = dense(h, p["qkv_w"], impl) + p["qkv_b"]
     if isinstance(seg, FusedSeg):
         attn = fused_window_attention(
             qkv.reshape(S // seg.w, seg.w, -1), seg.cos, seg.sin, seg.valid,
@@ -261,11 +266,11 @@ def _block(p: dict, x: torch.Tensor, freqs: torch.Tensor,
         q, k = apply_rope_vision(qkv[:, 0], qkv[:, 1], freqs)
         v = qkv[:, 2].contiguous()
         attn = _segmented_attention(q, k, v, seg, impl).reshape(S, cfg.hidden_size)
-    x = x + (attn @ p["proj_w"] + p["proj_b"])
+    x = x + (dense(attn, p["proj_w"], impl) + p["proj_b"])
     h = rms_norm(x, p["norm2"])
-    gate = F.silu(h @ p["gate_w"] + p["gate_b"])
-    up = h @ p["up_w"] + p["up_b"]
-    return x + ((gate * up) @ p["down_w"] + p["down_b"])
+    gate = F.silu(dense(h, p["gate_w"], impl) + p["gate_b"])
+    up = dense(h, p["up_w"], impl) + p["up_b"]
+    return x + (dense(gate * up, p["down_w"], impl) + p["down_b"])
 
 
 def _merger(m: dict, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:

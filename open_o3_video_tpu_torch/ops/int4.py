@@ -72,6 +72,15 @@ class Int4Linear:
         return f"Int4Linear(shape={self.shape}, group={self.group})"
 
 
+@functools.cache
+def divisor(value: float, device) -> torch.Tensor:
+    """``value`` as a float32 tensor on ``device``, to divide by: PyTorch
+    divides a CUDA tensor by a Python scalar as a product with its
+    reciprocal, which can be an ulp off the quotient that JAX and the CPU
+    compute, and so flip a rounding."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def quantize_weight_int4(w: torch.Tensor, group: int = 128) -> Int4Linear:
     """Symmetric group-wise int4 quantization of an (in, out) matrix, byte for
     byte as JAX's ``quantize_weight_int4``: absmax / 7 per (group, column),
@@ -84,7 +93,8 @@ def quantize_weight_int4(w: torch.Tensor, group: int = 128) -> Int4Linear:
     with torch.no_grad():
         w32 = w.to(torch.float32, copy=True).reshape(K // group, group, N)
         absmax = torch.maximum(w32.amax(dim=1, keepdim=True), w32.amin(dim=1, keepdim=True).neg())
-        scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+        scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                            absmax / divisor(7.0, w32.device))
         q = w32.div_(scale).round_().clamp_(-7, 7).reshape(K, N).to(torch.int8)
         del w32
         lo, hi = q[0::2].to(torch.int32), q[1::2].to(torch.int32)

@@ -11,11 +11,14 @@ with ``pil_resize_weights`` reproducing Pillow's ``precompute_coeffs``
 (quantized to its 2^-22 fixed-point grid) and ``round8`` its per-pass
 uint8 rounding (round half up, clamp to [0, 255]). The result is within one
 LSB of PIL's on real frames. This replaces PIL, which the card's machine
-does not have.
+does not have. ``resize_frames_device`` is the engine's on-device resize of
+``Request.resize_hw`` (frames uploaded at their decoded size);
+``resize_frames_host`` is its numpy twin.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -64,12 +67,52 @@ def _round8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
 
 
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """float32 matmuls in full float32 inside, whatever the caller set:
+    under TF32 the coefficients would lose their 2^-22 grid, and with it the
+    PIL-parity rounding."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def resize_frames_device(frames: torch.Tensor, wh: torch.Tensor, ww: torch.Tensor,
+                         quantize: bool = True) -> torch.Tensor:
+    """(T, C, H, W) uint8 or float -> (T, C, H', W') float32 in [0, 255] on
+    the tensor's device. ``wh``/``ww`` are the :func:`pil_resize_weights`
+    matrices of the H and W axes, as float32 tensors on that device (the
+    caller may cache them per shape). The horizontal pass, then the
+    vertical one (PIL's order), each rounded to uint8 values when
+    ``quantize`` (the PIL-parity mode; off for resampling data that is
+    already continuous)."""
+    x = frames.to(torch.float32)
+    with _full_f32_matmul():
+        x = torch.einsum("tchw,ow->tcho", x, ww)
+        if quantize:
+            x = _round8(x)
+        x = torch.einsum("tchw,oh->tcow", x, wh)
+    return _round8(x) if quantize else x
+
+
 def resize_frames(frames: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(T, C, H, W) uint8 or float -> (T, C, out_h, out_w) float32 in
-    [0, 255]: the horizontal pass, then the vertical one (PIL's order), each
-    rounded to uint8 values, in float32 on the tensor's device."""
-    x = frames.to(torch.float32)
-    ww = torch.from_numpy(pil_resize_weights(x.shape[3], out_w)).to(x.device)
-    wh = torch.from_numpy(pil_resize_weights(x.shape[2], out_h)).to(x.device)
-    x = _round8(torch.einsum("tchw,ow->tcho", x, ww))
-    return _round8(torch.einsum("tchw,oh->tcow", x, wh))
+    [0, 255]: :func:`resize_frames_device` with the weights of these
+    sizes."""
+    dev = frames.device
+    ww = torch.from_numpy(pil_resize_weights(frames.shape[3], out_w)).to(dev)
+    wh = torch.from_numpy(pil_resize_weights(frames.shape[2], out_h)).to(dev)
+    return resize_frames_device(frames, wh, ww)
+
+
+def resize_frames_host(frames: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """The numpy twin of :func:`resize_frames_device` (PIL-parity mode)."""
+    wh = pil_resize_weights(frames.shape[2], out_h)
+    ww = pil_resize_weights(frames.shape[3], out_w)
+    x = frames.astype(np.float32)
+    x = np.clip(np.floor(np.einsum("tchw,ow->tcho", x, ww) + 0.5), 0, 255)
+    x = np.clip(np.floor(np.einsum("tchw,oh->tcow", x, wh) + 0.5), 0, 255)
+    return x

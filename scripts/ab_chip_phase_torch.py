@@ -1,6 +1,6 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec DIR [DIR ...]
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8 DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
 (``git archive``) into a directory that ``.gitignore`` lists and pass it
@@ -14,7 +14,10 @@ one phase:
   the seconds and stage seconds of each engine call;
 - ``sched``: phase 17 (``scheduler_phase``), in checkouts that have it;
 - ``spec``: phase 18 (``spec_phase``), in checkouts that have it, with 18c
-  held to a plain run of its own instead of run (a)'s tokens.
+  held to a plain run of its own instead of run (a)'s tokens;
+- ``frames``: phase 19a (``frames_phase``), the uint8 frame path;
+- ``a8``: phases 19b and 19c (``quant_phase``, ``quant_long_phase``), the
+  quantized modes and w8a8 at run (b)'s length.
 
 Each process's output goes to this one's standard output after a line
 ``tree DIR``; the exit code is the first nonzero one of the processes.
@@ -32,6 +35,9 @@ PHASE = {
     "sched": "c.scheduler_phase(params, cfg, c.O3VideoProcessor(), seed)",
     "spec": ("c.spec_phase(params, cfg, c.make_requests(c.O3VideoProcessor(), cfg, seed), "
              "c.O3VideoProcessor(), None, seed, {})"),
+    "frames": "c.frames_phase(params, cfg, c.O3VideoProcessor(), seed)",
+    "a8": ("c.quant_phase(params, cfg, c.O3VideoProcessor(), seed); "
+           "c.quant_long_phase(params, cfg, seed)"),
 }
 
 CHILD = """
@@ -48,7 +54,8 @@ params = c.P.init(cfg, seed, torch.device("cuda"))
 try:
     {call}
 finally:
-    shutil.rmtree(c.EVAL_DIR, ignore_errors=True)
+    for d in (c.EVAL_DIR, getattr(c, "FRAMES_DIR", c.EVAL_DIR)):
+        shutil.rmtree(d, ignore_errors=True)
 """
 
 

@@ -397,8 +397,17 @@ def test_a_missing_video_is_a_data_error_in_the_mcq_iterator(media):
 @pytest.mark.parametrize("knob", [{"a8_prefill": True}, {"quantize_vision": True},
                                   {"mesh": object()}, {"batch_axis": "data"}])
 def test_unserved_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="M8" if set(knob) & {"mesh", "batch_axis"} else "M6"):
-        _port_model(**knob)
+    """A device mesh and its batch axis raise (M8). a8_prefill and
+    quantize_vision, which raised until the port served w8a8, are served as
+    JAX's wrapper serves them: a8_prefill reaches the engine, and
+    quantize_vision applies to a model directory (a param dict is served as
+    it is)."""
+    if set(knob) & {"mesh", "batch_axis"}:
+        with pytest.raises(NotImplementedError, match="M8"):
+            _port_model(**knob)
+        return
+    engine = _port_model(**knob).engine
+    assert engine.a8_prefill == bool(knob.get("a8_prefill"))
 
 
 @pytest.mark.parametrize("knob", [{"spec_decode": True}, {"spec_draft": 5},
@@ -429,8 +438,9 @@ def test_scheduler_knobs_reach_the_engine(knob):
 
 
 def test_a_yaml_knob_reaches_the_engine(tmp_path):
-    """A benchmark yaml's scheduler knobs (read by the CLI's
-    read_flat_yaml) reach the engine, and its unserved ones still raise."""
+    """A benchmark yaml's engine knobs (read by the CLI's read_flat_yaml)
+    reach the engine, a8_prefill among them since the port serves w8a8, and
+    its unserved ones (a batch axis) still raise."""
     path = tmp_path / "bench.yaml"
     path.write_text("temperature: 0.0\nmax_tokens: 8\nprefix_cache_min: 64\n"
                     "decode_segment: 16\nmax_kv_gb: 2.5\n")
@@ -439,7 +449,9 @@ def test_a_yaml_knob_reaches_the_engine(tmp_path):
     assert (model.engine.prefix_cache_min, model.engine.decode_segment,
             model.engine.max_kv_gb) == (64, 16, 2.5)
     path.write_text("a8_prefill: true\n")
-    with pytest.raises(NotImplementedError, match="a8_prefill"):
+    assert _port_model(**cli.read_flat_yaml(str(path))).engine.a8_prefill is True
+    path.write_text("batch_axis: data\n")
+    with pytest.raises(NotImplementedError, match="batch_axis|M8"):
         _port_model(**cli.read_flat_yaml(str(path)))
 
 

@@ -1,7 +1,8 @@
 """Import guard: the port runs where neither JAX nor PIL is installed, nor
 rouge_score or nltk, and imports none of them. A subprocess blocks those
 imports, imports every module of the port, runs a tiny generate on the CPU
-(with a bf16 cache, and with an fp8 cache through the long-context path),
+(with a bf16 cache, and with an fp8 cache through the long-context path), a
+generate over raw frames with ``resize_hw``, a w8a8 generate,
 greedy and sampled speculative generates (the latter replaying streams),
 one tiny SFT train step, a generate with an int4 decoder (K7's plain
 version), a judge call, one tiny PEFT GSPO step on a free-form example (its
@@ -108,6 +109,17 @@ weights = params.init(cfg, 0, torch.device("cpu"))
 req = Request(x.input_ids, x.pixel_patches, x.grid_thw, cfg.image_token_id)
 out = InferenceEngine(weights, cfg).generate([req], SamplingParams(max_tokens=4))
 assert 1 <= len(out[0]["token_ids"]) <= 4, out
+# the uint8 frame path: raw frames resized on the device to the processor's
+# size, then w8a8 (int8 decoder and ViT blocks, a8_prefill) on the same request
+raw = np.random.default_rng(3).integers(0, 256, (2, 3, 70, 100), dtype=np.uint8)
+framed = Request(x.input_ids, frames=raw, resize_hw=(56, 84), grid_thw=x.grid_thw,
+                 vision_token_id=cfg.image_token_id)
+out = InferenceEngine(weights, cfg).generate([framed], SamplingParams(max_tokens=4))
+assert 1 <= len(out[0]["token_ids"]) <= 4, out
+from open_o3_video_tpu_torch.ops import quant
+w8a8 = params.init(cfg, 0, torch.device("cpu"), quantize_text=True, quantize_vision=True)
+out = InferenceEngine(w8a8, cfg, a8_prefill=True).generate([req], SamplingParams(max_tokens=4))
+assert 1 <= len(out[0]["token_ids"]) <= 4 and quant.A8_MATMULS["exact"] > 0, out
 # the long-context path at a tiny size: fp8 cache, chunked prefill, and
 # decode through K4's route (its plain version on the CPU)
 from open_o3_video_tpu_torch.ops import attention
