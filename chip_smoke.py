@@ -237,6 +237,27 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      (5 x 32), prefill forward (7 x 28), lm_head (1) and decode (0); 19c
      run (b)'s prompt with int8 text weights without and with a8_prefill
      (the JAX bench's 81920:fp8:a8): prefill s, the first 8 tokens.
+ 20. Qwen3-VL-8B and Qwen2-VL-7B (after phase 19, before phase 11; the
+     7B stays resident): 20a K2 at head_dim 72 (16 heads, Qwen3-VL's tower)
+     against its plain version at whole frames of W = 352 (resident) and
+     784 (streamed), and at head_dim 80 over Qwen2-VL's W = 432, each with
+     its bound and SDPA; the neighbour head's columns: the even heads'
+     outputs bit-equal with the odd heads scaled by 64, and scores over 8
+     columns of the next head must fail the bound; K3 at Qwen3-VL's
+     prefill (32/8 heads); 20b Qwen3-VL-8B from its published config
+     (random bf16 weights from --seed): the slice's 2 questions over 16
+     frames of 256x352 as images (the processor at patch 16), greedy, 64
+     tokens: vision, prefill and decode ms, peak GiB, K2 launches 27 a
+     tower pass, K1 none, K3 36 a prefill forward, graphed tokens equal to
+     eager, the tower (and its 3 deepstack taps) of the kernel path against
+     float32 as phase 5, the teacher-forced argmax agreement of the kernel
+     path with impl="torch", and zeroing the taps must move the logits;
+     then one video request (Request.frames, 8 frames resized on the card
+     to 448x448, grid (8, 28, 28), a timestamp and a vision block per
+     frame): K2 streamed, 27 launches; 20c Qwen2-VL-7B from its published
+     config on phase 4's requests: K2 on all 32 blocks (W = 432), graphed
+     = eager, the tower against float32. Each model is freed before the
+     next is drawn.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -280,6 +301,10 @@ from open_o3_video_tpu_torch.engine import engine as engine_module
 from open_o3_video_tpu_torch.engine.engine import DONE_LAG, left_padded_rows
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
+from open_o3_video_tpu_torch.models.qwen25vl.config import (
+    QWEN2_VL_7B_INSTRUCT_CONFIG,
+    QWEN3_VL_8B_INSTRUCT_CONFIG,
+)
 from open_o3_video_tpu_torch.models.qwen25vl.model import (
     build_vision_row_index,
     embed_tokens,
@@ -408,6 +433,15 @@ TPU_KERNELS = {
                            "scripts/profile_int4_kernel_parts.py:61"),
     "int4_matmul_convert": ("open_o3_video_tpu_torch/csrc/int4_matmul.cu",
                             "scripts/profile_int4_kernel_parts.py:84"),
+}
+# Phase 20's cases of K2 and K3, each with its row: K2 at head_dim 72 on
+# Qwen3-VL-8B's images and video, K2 at 80 on every block of Qwen2-VL-7B,
+# K3 at Qwen3-VL-8B's prefill.
+FAMILY_CASES = {
+    "window_attention_d72_w352": TPU_KERNELS["window_attention"],
+    "window_attention_d72_w784": TPU_KERNELS["window_attention"],
+    "window_attention_qwen2vl": TPU_KERNELS["window_attention"],
+    "flash_attention_gqa_qwen3": TPU_KERNELS["flash_attention_gqa"],
 }
 # The kernels each main path must launch.
 SLICE_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa")
@@ -788,10 +822,6 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
     v = cfg.vision
     results: dict = {}
-
-    def bf16(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-
     for grid_hw in WINDOW_ROW_GRIDS:
         ids, cos, sin, qkv = window_row_inputs(dev, gen, v, grid_hw)
         out_bytes = qkv.numel() // 3 * 2
@@ -821,27 +851,7 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
                 library_fn=lambda: sdpa_masked(q, k, vv, fseg))
         del q, k, vv, fseg
 
-    t = cfg.text
-    B, S = len(batch_rows), max(batch_rows)
-    q = bf16(B, S, t.num_attention_heads, t.head_dim)
-    cache = torch.zeros((2, t.num_hidden_layers, B, t_total, t.num_key_value_heads, t.head_dim),
-                        dtype=torch.bfloat16, device=dev)
-    k, vv = cache[0, 3], cache[1, 3]  # layer views of the stacked cache
-    k.copy_(bf16(*k.shape))
-    vv.copy_(bf16(*vv.shape))
-    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
-    valid = torch.zeros((B, t_total), dtype=torch.int32, device=dev)
-    for b, n in enumerate(batch_rows):  # left padding, as the engine lays rows out
-        valid[b, S - n:S] = 1
-    mask = causal_mask(pos, valid)
-    compare("flash_attention_gqa",
-            lambda: fa.flash_attention_gqa(q, k, vv, pos, valid),
-            lambda: fa.flash_attention_gqa_torch(q, k, vv, pos, valid),
-            valid[:, :S] != 0, results,
-            flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
-            moved=nbytes(q, k, vv, pos, valid) + nbytes(q),
-            library_fn=lambda: sdpa_masked(q, k, vv, mask))
-    del cache
+    k3_prefill_case(dev, gen, cfg.text, batch_rows, t_total, "flash_attention_gqa", results)
     judge_prefill_case(dev, gen, results)
     decode_cases(dev, cfg, gen, results)
     long_chunk_case(dev, cfg, gen, results)
@@ -3936,6 +3946,290 @@ def serving_modes_phase(params, cfg, proc, seed: int) -> None:
                                 "19": round(time.perf_counter() - t_phase, 3)})
 
 
+# Phase 20: Qwen3-VL-8B and Qwen2-VL-7B from their published configs.
+# Qwen3-VL: 16 frames of 256x352 per question (16x22 patches of 16: K2 at
+# W = 352, resident), and one video of 8 frames resized on the card to
+# 448x448 (28x28 patches: W = 784, streamed), each frame a block
+# <t seconds><|vision_start|><|video_pad|> x 196<|vision_end|>.
+Q3_FRAME_H, Q3_FRAME_W = 256, 352
+Q3_VIDEO_FRAMES, Q3_VIDEO_HW, Q3_VIDEO_RAW_HW = 8, (448, 448), (360, 640)
+Q3_QUESTION = "What happens to the bowling ball?"
+# K2's phase-20 cases, 16 heads: (row, frames, W, head_dim): at Qwen3-VL's
+# 72 (1152 / 16) over its image frames and its video's, and at Qwen2-VL's
+# 80 over phase 4's frames of 18x24 patches (its 432 tokens, all valid).
+K2_FAMILY_CASES = (("window_attention_d72_w352", N_FRAMES, 352, 72),
+                   ("window_attention_d72_w784", Q3_VIDEO_FRAMES, 784, 72),
+                   ("window_attention_qwen2vl", N_FRAMES, 432, 80))
+# Zeroing the deepstack taps must move the last-position logits by at least
+# this share of their norm (a tap that never reached the decoder moves them
+# by 0).
+DEEPSTACK_MIN_REL = 1e-3
+FAMILY_KERNELS = ("window_attention", "flash_attention_gqa")
+
+
+def k2_family_cases(dev, gen, results) -> None:
+    """20a: K2 against its plain version at whole frames of the two
+    families (K2_FAMILY_CASES): at head_dim 72, W = 352 (resident) and 784
+    (streamed); at 80, W = 432. Then the planted fault at 72: the neighbour
+    head's columns. K2's tile at 72 holds the head's own 72 columns, so the
+    even heads' outputs must stay bit-equal when the odd heads' q, k, v are
+    scaled by 64; and what a kernel reading 8 columns of the next head into
+    its scores (a fifth 16-wide step) would give must fail the bound."""
+    heads = 16
+    for name, n, w, d in K2_FAMILY_CASES:
+        ids = torch.ones((n, w), dtype=torch.int32, device=dev)
+        q, k, v = (torch.randn((n, w, heads, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        seg = segment_mask(ids)
+        ref = compare(name, lambda: wa.window_attention(q, k, v, ids),
+                      lambda: wa.window_attention_torch(q, k, v, ids), None, results,
+                      flops=4 * segment_pairs(ids) * heads * d, moved=nbytes(q, k, v, ids, q),
+                      library_fn=lambda: sdpa_masked(q, k, v, seg), case=f"head_dim {d}, W = {w}")
+        if name != K2_FAMILY_CASES[0][0]:
+            continue
+        out = wa.window_attention(q, k, v, ids)
+        loud = [x.clone() for x in (q, k, v)]
+        for x in loud:
+            x[:, :, 1::2] *= 64
+        out_loud = wa.window_attention(*loud, ids)
+        torch.cuda.synchronize()
+        same = torch.equal(out[:, :, 0::2], out_loud[:, :, 0::2])
+        log("kernels", name=name, check="odd heads x64, even heads' outputs bit-equal",
+            equal=same)
+        if not same:
+            raise RuntimeError(f"{name}: a head's output depends on its neighbour's columns")
+        # the leak: scores over 80 columns, the next head's first 8 included
+        # (the last head's neighbour is the zero fill past the row)
+        nxt = [torch.cat([x[:, :, 1:, :8], torch.zeros_like(x[:, :, :1, :8])], 2)
+               for x in loud]
+        q80, k80, v80 = (torch.cat([x, y], -1) for x, y in zip(loud, nxt))
+        leak = wa.window_attention_torch(q80 * (80 / 72) ** 0.5, k80, v80, ids)[..., :d]
+        planted(name, "scores over 8 columns of the next head",
+                leak, wa.window_attention_torch(*loud, ids), None)
+        del out, out_loud, loud, nxt, q80, k80, v80, leak
+    del q, k, v, seg, ref
+
+
+def k3_prefill_case(dev, gen, t, batch_rows, t_total, name, results, case=None) -> None:
+    """K3 at a prefill (the 7B slice's in phase 3, Qwen3-VL-8B's in phase
+    20): ``batch_rows`` prompts left-padded into one batch (as the engine
+    lays rows out) against layer views of a stacked cache of ``t_total``
+    slots, the text config ``t``'s heads."""
+    B, S = len(batch_rows), max(batch_rows)
+    q = torch.randn((B, S, t.num_attention_heads, t.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    cache = torch.zeros((2, 4, B, t_total, t.num_key_value_heads, t.head_dim),
+                        dtype=torch.bfloat16, device=dev)
+    k, vv = cache[0, 3], cache[1, 3]  # layer views of the stacked cache
+    k.copy_(torch.randn(k.shape, generator=gen, device=dev).to(torch.bfloat16))
+    vv.copy_(torch.randn(vv.shape, generator=gen, device=dev).to(torch.bfloat16))
+    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S).contiguous()
+    valid = torch.zeros((B, t_total), dtype=torch.int32, device=dev)
+    for b, n in enumerate(batch_rows):
+        valid[b, S - n:S] = 1
+    mask = causal_mask(pos, valid)
+    compare(name, lambda: fa.flash_attention_gqa(q, k, vv, pos, valid),
+            lambda: fa.flash_attention_gqa_torch(q, k, vv, pos, valid),
+            valid[:, :S] != 0, results,
+            flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+            moved=nbytes(q, k, vv, pos, valid) + nbytes(q),
+            library_fn=lambda: sdpa_masked(q, k, vv, mask), case=case)
+
+
+def qwen3_requests(proc, cfg, seed: int) -> list[Request]:
+    """The slice's 2 questions for Qwen3-VL, each over 16 synthetic uint8
+    frames of Q3_FRAME_H x Q3_FRAME_W as images (the processor at patch 16)."""
+    rng = np.random.default_rng(seed)
+    return [frames_request(proc, cfg, rng.integers(0, 256, size=(N_FRAMES, 3, Q3_FRAME_H,
+                                                                 Q3_FRAME_W), dtype=np.uint8), q)
+            for q in QUESTIONS]
+
+
+def qwen3_video_request(proc, cfg, seed: int) -> Request:
+    """A video of Q3_VIDEO_FRAMES uint8 frames resized on the card to
+    Q3_VIDEO_HW (Request.frames, grid (8, 28, 28)), its prompt laid out as
+    HF's Qwen3-VL processor lays one out: a timestamp and a vision block
+    per frame."""
+    rng = np.random.default_rng(seed + 1)
+    frames = rng.integers(0, 256, size=(Q3_VIDEO_FRAMES, 3, *Q3_VIDEO_RAW_HW), dtype=np.uint8)
+    gh, gw = (x // cfg.vision.patch_size for x in Q3_VIDEO_HW)
+    per_frame = gh * gw // cfg.vision.merge_unit
+    blocks = "".join(f"<{j / FPS:.1f} seconds><|vision_start|>{'<|video_pad|>' * per_frame}"
+                     "<|vision_end|>" for j in range(Q3_VIDEO_FRAMES))
+    prompt = proc.apply_chat_template([
+        {"role": "system", "content": [{"type": "text", "text": SYSTEM_PROMPT}]},
+        {"role": "user", "content": [{"type": "text", "text": blocks},
+                                     {"type": "text", "text": Q3_QUESTION}]},
+    ], add_generation_prompt=True)
+    return Request(input_ids=proc(prompt).input_ids, frames=frames, resize_hw=Q3_VIDEO_HW,
+                   grid_thw=np.array([[Q3_VIDEO_FRAMES, gh, gw]]),
+                   vision_token_id=cfg.video_token_id)
+
+
+def family_launches(tag, cfg, run, per_pass, passes) -> dict:
+    """The launch counts of one phase-20 run, held to what the path makes:
+    K2 in every tower block of every tower pass (K1 never: no windows), K3
+    in every decoder layer of every prefill forward."""
+    got = {name: kernels.LAUNCHES[name] for name in FAMILY_KERNELS + ("fused_window_attention",)}
+    want = {"window_attention": per_pass * passes, "fused_window_attention": 0,
+            "flash_attention_gqa": cfg.text.num_hidden_layers * run["scheduler"]["prefills"]}
+    log("families", run=tag, launches=got, expected=want, tower_passes=passes,
+        prefills=run["scheduler"]["prefills"], decode_steps=run["steps"],
+        graph_captures=run["scheduler"]["captures"])
+    if got != want:
+        raise RuntimeError(f"20 {tag}: launches {got}, expected {want}")
+    return got
+
+
+def forced_agreement(params, cfg, req, tokens) -> float:
+    """Teacher-forced agreement of the kernel path (impl "auto") with the
+    plain bf16 path (impl "torch"): one forward over the prompt and
+    ``tokens`` each way, the share of completion positions whose argmax is
+    the same."""
+    dev = params["text"]["embed_tokens"].device
+    ids = np.asarray([list(req.input_ids) + list(tokens)])
+    pos, _ = get_rope_index(cfg, ids, image_grid_thw=req.grid_thw)
+    n = len(req.input_ids)
+    argmax = []
+    for impl in ("auto", "torch"):
+        with torch.inference_mode():
+            hidden, _ = model_forward(params, cfg, torch.from_numpy(ids).to(dev),
+                                      torch.from_numpy(pos).to(dev),
+                                      pixel_patches=torch.from_numpy(req.pixel_patches).to(dev),
+                                      grid_thw=req.grid_thw, vision_token_id=cfg.image_token_id,
+                                      attn_impl=impl, return_hidden=True)
+            argmax.append(logits_from_hidden(params["text"], hidden[:, n - 1:-1], impl)
+                          .argmax(-1)[0])
+    return (argmax[0] == argmax[1]).float().mean().item()
+
+
+def deepstack_check(params, cfg, req) -> float:
+    """The last-position logits of ``req`` with its deepstack taps and with
+    them zeroed (every deepstack merger's weights 0, so each tap is 0):
+    their relative difference, which must be at least DEEPSTACK_MIN_REL."""
+    dev = params["text"]["embed_tokens"].device
+    ids = np.asarray([req.input_ids])
+    pos, _ = get_rope_index(cfg, ids, image_grid_thw=req.grid_thw)
+    zeroed = dict(params, visual=dict(params["visual"], deepstack=[
+        {k: torch.zeros_like(x) for k, x in m.items()} for m in params["visual"]["deepstack"]]))
+    logits = []
+    for p in (params, zeroed):
+        with torch.inference_mode():
+            out, _ = model_forward(p, cfg, torch.from_numpy(ids).to(dev),
+                                   torch.from_numpy(pos).to(dev),
+                                   pixel_patches=torch.from_numpy(req.pixel_patches).to(dev),
+                                   grid_thw=req.grid_thw, vision_token_id=cfg.image_token_id,
+                                   return_hidden=True)
+            logits.append(logits_from_hidden(p["text"], out[:, -1]).float())
+    rel = ((logits[0] - logits[1]).norm() / logits[0].norm()).item()
+    if not (torch.isfinite(logits[0]).all() and rel >= DEEPSTACK_MIN_REL):
+        raise RuntimeError(f"20b: zeroing the deepstack taps moved the logits by {rel}")
+    return rel
+
+
+def tower_numerics(params, cfg, req) -> None:
+    """The tower's embeddings and taps of the kernel path and of the plain
+    bf16 path, each against the same weights' tower in float32 (plain): the
+    kernel path at most SLICE_REL_RATIO further from it."""
+    dev = params["text"]["embed_tokens"].device
+    pix = torch.from_numpy(req.pixel_patches).to(dev)
+    with torch.inference_mode():
+        got = {impl: encode_vision(params, cfg, pix, req.grid_thw, impl=impl)
+               for impl in ("auto", "torch")}
+        ref = encode_vision({"visual": _cast(params["visual"], torch.float32)},
+                            dataclasses.replace(cfg, dtype=torch.float32), pix.float(),
+                            req.grid_thw, impl="torch")
+    flat = {k: [v[0], *v[1]] if isinstance(v, tuple) else [v] for k, v in
+            {**got, "f32": ref}.items()}
+    for i, r in enumerate(flat["f32"]):
+        rel_k, cos_k = _agreement(flat["auto"][i].float(), r)
+        rel_p, _ = _agreement(flat["torch"][i].float(), r)
+        log("families", numerics="tower" if i == 0 else f"deepstack tap {i - 1}",
+            kernel_vs_f32_rel=rel_k, kernel_vs_f32_cos=cos_k, plain_vs_f32_rel=rel_p,
+            max_ratio=SLICE_REL_RATIO)
+        if not rel_k <= SLICE_REL_RATIO * rel_p:
+            raise RuntimeError(f"20: the tower's kernel path is further from float32 than its "
+                               f"plain bf16 path ({rel_k} vs {rel_p})")
+
+
+def family_phase(dev, tag, cfg, reqs, seed: int) -> tuple[dict, dict, dict]:
+    """One family at full width from random weights drawn from ``seed``:
+    its requests greedy (MAX_TOKENS tokens) through InferenceEngine.generate
+    graphed and then eagerly (tokens equal), launch counts, tower numerics;
+    returns (params, the graphed run's numbers, its launches)."""
+    t0 = time.perf_counter()
+    params = P.init(cfg, seed, dev)
+    torch.cuda.synchronize()
+    log("families", model=tag, params=P.count(params),
+        weight_gib=round(quant.param_bytes(params) / 2**30, 3),
+        init_s=round(time.perf_counter() - t0, 3))
+    greedy = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=MAX_TOKENS)
+    engine = InferenceEngine(params, cfg)
+    outs, _, decode = slice_phase(engine, reqs, greedy, names=FAMILY_KERNELS)
+    launches = family_launches(tag, cfg, decode, cfg.vision.depth, len(reqs))
+    eager_pair(f"{tag} slice", params, cfg, reqs, greedy, outs, decode)
+    tower_numerics(params, cfg, reqs[0])
+    agree = forced_agreement(params, cfg, reqs[0], outs[0]["token_ids"])
+    log("families", model=tag, teacher_forced_kernel_vs_plain=round(agree, 4),
+        first_token_ids=[o["token_ids"][:8] for o in outs])
+    return params, decode, launches
+
+
+def families_phase(dev, seed: int, results: dict) -> dict:
+    """Phase 20: 20a K2 at head_dim 72 and K3 at Qwen3-VL's prefill; 20b
+    Qwen3-VL-8B (the deepstack check, then one video request through
+    Request.frames: K2 streamed, the per-frame rope split); 20c
+    Qwen2-VL-7B on phase 4's requests. Each model is freed before the next
+    is drawn. Returns the launches of each new kernel row's main path."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cfg3 = Qwen25VLConfig.from_hf_dict(QWEN3_VL_8B_INSTRUCT_CONFIG)
+    proc3 = O3VideoProcessor(patch_size=cfg3.vision.patch_size)
+    reqs3 = qwen3_requests(proc3, cfg3, seed)
+    rows = [len(r.input_ids) for r in reqs3]
+    k2_family_cases(dev, gen, results)
+    k3_prefill_case(dev, gen, cfg3.text, rows, max(rows) + MAX_TOKENS, "flash_attention_gqa_qwen3",
+                    results, case=f"Qwen3-VL-8B prefill, {len(rows)} x {max(rows)}, 32/8 heads")
+    t_a = time.perf_counter()
+
+    params, _, launches3 = family_phase(dev, "Qwen3-VL-8B", cfg3, reqs3, seed)
+    rel = deepstack_check(params, cfg3, reqs3[0])
+    log("families", model="Qwen3-VL-8B", deepstack_zeroed_logits_rel=rel,
+        min_rel=DEEPSTACK_MIN_REL)
+    video = qwen3_video_request(proc3, cfg3, seed)
+    engine = InferenceEngine(params, cfg3)
+    greedy = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=MAX_TOKENS)
+    torch.cuda.reset_peak_memory_stats()
+    out, vrun = decode_run(engine, lambda: engine.generate([video], greedy)[0])
+    vlaunch = family_launches("Qwen3-VL-8B video", cfg3, vrun, cfg3.vision.depth, 1)
+    log("families", run="Qwen3-VL-8B video", prompt_tokens=out["num_prompt_tokens"],
+        grid=video.grid_thw.tolist(), new_tokens=len(out["token_ids"]),
+        vision_ms=round(1e3 * vrun["vision_s"], 3), prefill_ms=round(1e3 * vrun["prefill_s"], 3),
+        decode_ms_per_token=vrun["ms_per_token"],
+        peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    if not 1 <= len(out["token_ids"]) <= MAX_TOKENS:
+        raise RuntimeError(f"20b video: bad output length {len(out['token_ids'])}")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+
+    cfg2 = Qwen25VLConfig.from_hf_dict(QWEN2_VL_7B_INSTRUCT_CONFIG)
+    params, _, launches2 = family_phase(dev, "Qwen2-VL-7B", cfg2,
+                                        make_requests(O3VideoProcessor(), cfg2, seed), seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("families", phase_seconds={"20a": round(t_a - t_phase, 3), "20b": round(t_b - t_a, 3),
+                                   "20c": round(time.perf_counter() - t_b, 3),
+                                   "20": round(time.perf_counter() - t_phase, 3)})
+    return {"window_attention_d72_w352": launches3["window_attention"],
+            "window_attention_d72_w784": vlaunch["window_attention"],
+            "flash_attention_gqa_qwen3": launches3["flash_attention_gqa"],
+            "window_attention_qwen2vl": launches2["window_attention"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4048,6 +4342,9 @@ def main() -> None:
     # the uint8 frame path and w8a8 serving
     serving_modes_phase(params, cfg, proc, args.seed)
 
+    # Qwen3-VL-8B and Qwen2-VL-7B: K2 at head_dim 72, whole-frame towers
+    family_kernel_launches = families_phase(dev, args.seed, results)
+
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()
     int4_kernel_phase(dev, gen, len(reqs) * max(rows), results)
@@ -4073,10 +4370,11 @@ def main() -> None:
 
     log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(card_line(), flush=True)  # again, so that the output's tail holds it
+    launches.update(family_kernel_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}
-        for name, (src, tpu) in TPU_KERNELS.items()
+        for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,10 @@
 //
 // K2 window_attention replaces ops/window_attention.py _fwd_kernel (the 4
 // global blocks, over whole frames: W = 448, 432 valid, at 18x24 patches;
-// the tiles and products of window_frame.cuh).
+// and every block of the towers without windows: Qwen2-VL's 32 at D = 80,
+// Qwen3-VL's 27 at D = 72, W = 352 at 16x22 patches and 784 at 28x28; the
+// tiles and products of window_frame.cuh, built for D = 72 and 80 in the
+// inference mode, for 80 alone in the exact one).
 // Same masked attention on q/k/v (N, W, H, D) bf16, no rope. The TPU kernel
 // holds the whole W x W score tile and falls back to XLA past a size limit;
 // here every width W runs. A frame-head's K and V are read once and kept:
@@ -39,11 +42,14 @@
 // - The exact mode's first pass (max and sum) waits for the K tiles only,
 //   and its second (p / l -> bf16 -> PV) reads the same tiles: K and V leave
 //   device memory once.
-// - Tiles are rows of D + 8 = 88 bf16 (176 bytes), so the ldmatrix loads of
-//   the mma.sync fragments are conflict-free: the TMA box is 88 columns wide
-//   from the head's first column and brings 8 columns of the next head (or
-//   zeros past the last) that nothing reads. Rows past W are zero-filled by
-//   the TMA and masked by their key tags.
+// - Tiles are rows of D + 8 = 88 bf16 (176 bytes) at D = 80, so the ldmatrix
+//   loads of the mma.sync fragments are conflict-free: the TMA box is 88
+//   columns wide from the head's first column and brings 8 columns of the
+//   next head (or zeros past the last) that nothing reads. At D = 72 the
+//   rows are the head's 72 columns (144 bytes, conflict-free already), and
+//   the last 8 of them go through an m16n8k8 (scores) and one more 8-wide
+//   d-tile (PV). Rows past W are zero-filled by the TMA and masked by their
+//   key tags.
 // - With K/V resident the time is the warps' own: the products, the
 //   exponentials and their latency. So a warp takes a tile in two 32-key
 //   halves, unrolled so that one half's exponentials overlap the other's
@@ -51,7 +57,8 @@
 //   fragments by ldmatrix (x4: two n-tiles at once; V transposed), keeps
 //   scores in log2 units (one multiply before ex2.approx) and its key tags
 //   in registers.
-// - Past 10 tiles (W > 640) K and V do not fit; the same kernel then streams
+// - Past 10 tiles (W > 640) at D = 80, 12 (W > 768) at D = 72, K and V do
+//   not fit; the same kernel then streams
 //   them through a ring of 8 tile slots that the producer refills as the
 //   consumer warps free them, each CTA covering 8 strips of 16 query rows.
 //   The exact mode then reads K twice.
@@ -333,8 +340,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const uint32_t raw = async::smem_u32(smem_raw);
   const uint32_t base = (raw + frame::kAlign - 1) & ~static_cast<uint32_t>(frame::kAlign - 1);
   uint8_t* gbase = smem_raw + (base - raw);
-  Tile<D>* sk = reinterpret_cast<Tile<D>*>(gbase);
-  Tile<D>* sv = sk + ring;
+  frame::FTile<D>* sk = reinterpret_cast<frame::FTile<D>*>(gbase);
+  frame::FTile<D>* sv = sk + ring;
   int* stag = reinterpret_cast<int*>(sv + ring);
   const uint32_t bars = base + 2 * ring * frame::kTileBytes<D> + n_tiles * kKeys * 4;
   auto bar = [&](int i) { return bars + 8 * i; };
@@ -406,7 +413,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const long long off = static_cast<long long>(n) * w * row_stride + h * D;
   for (int strip = first + warp; strip < last; strip += kWWarps) {
     const int r = strip * 16 + g;
-    uint32_t qa[D / 16][4];
+    uint32_t qa[frame::kKSteps<D>][4];
     frame::a_frags<D>(qa, q + off, row_stride, r, w);
     const int row_tag[2] = {r < w ? stag[r] : (EXACT ? -2 : 0), r + 8 < w ? stag[r + 8] : (EXACT ? -2 : 0)};
     float acc[D / 8][4] = {};
@@ -536,8 +543,8 @@ cudaError_t launch_fused_rows(const void* qkv, const void* cos, const void* sin,
       scale);
 }
 
-// K2's launch: the tensor maps of k and v (dims {H*D, W, N}, 88-column
-// boxes of 64 keys), then the resident kernel where the frame-head's tiles
+// K2's launch: the tensor maps of k and v (dims {H*D, W, N}, boxes of
+// kPitch<D> columns and 64 keys), then the resident kernel where the frame-head's tiles
 // fit (one CTA per frame-head), else the streaming one.
 template <int D, bool EXACT>
 cudaError_t launch_window_tma(const void* q, const void* k, const void* v, const void* ids, void* out,
@@ -567,8 +574,8 @@ cudaError_t launch_window_tma(const void* q, const void* k, const void* v, const
 
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after the launch: 0 on success. All are built for the vision tower's
-// head_dim of 80 only. K1 takes the row kernel at W = 64 and 128, the
-// general route at other widths.
+// head_dim of 80, K2's inference mode for 72 too (Qwen3-VL's tower). K1
+// takes the row kernel at W = 64 and 128, the general route at other widths.
 extern "C" int o3v_fused_window_attention(const void* qkv, const void* cos, const void* sin,
                                           const void* ids, void* out, int n, int w, int heads,
                                           int head_dim, float scale, void* stream) {
@@ -580,13 +587,16 @@ extern "C" int o3v_fused_window_attention(const void* qkv, const void* cos, cons
 }
 
 // K2 keeps a frame-head's K and V in shared memory where they fit (W <=
-// 640); wider frames stream them.
+// 640 at head_dim 80, 768 at 72); wider frames stream them.
 extern "C" int o3v_window_attention(const void* q, const void* k, const void* v, const void* ids,
                                     void* out, int n, int w, int heads, int head_dim, float scale,
                                     void* stream) {
-  if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  return o3v::launch_window_tma<80, false>(q, k, v, ids, out, nullptr, n, w, heads, scale,
-                                           static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80)
+    return o3v::launch_window_tma<80, false>(q, k, v, ids, out, nullptr, n, w, heads, scale, s);
+  if (head_dim == 72)
+    return o3v::launch_window_tma<72, false>(q, k, v, ids, out, nullptr, n, w, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Exact modes (training). window_attention_exact also writes lse (N, H, W)

@@ -211,6 +211,11 @@ def _table_key(r: Request) -> Optional[tuple]:
     return (id(r.pixel_patches), id(r.frames), _resize_key(r), _grid_key(r))
 
 
+def _main(table):
+    """The embeddings of a vision table: Qwen3-VL's is (embeddings, taps)."""
+    return table[0] if isinstance(table, tuple) else table
+
+
 def _bucket(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:
@@ -660,11 +665,11 @@ class InferenceEngine:
             return entry
         pseudo = dataclasses.replace(req, input_ids=list(req.input_ids[:pl]))
         ids, mask, pos, _ = left_padded_rows(self.cfg, [pseudo], pl)
-        embeds = self._embed_rows([pseudo], ids, vis)
+        embeds, taps = self._embed_rows([pseudo], ids, vis)
         cache = init_kv_cache(self.cfg.text, 1, pl, dtype=self.cache_dtype, device=self.device)
         chunk = self.long_prefill_chunk if pl >= self.long_prefill_threshold else pl
         self._prefill(embeds, torch.from_numpy(pos).to(self.device),
-                      torch.from_numpy(mask).to(self.device), cache, chunk)
+                      torch.from_numpy(mask).to(self.device), cache, chunk, taps=taps)
         self.counters["prefix_blocks"] += 1
         self._prefix_kv[key] = cache
         while len(self._prefix_kv) > self.prefix_cache_entries:
@@ -697,20 +702,25 @@ class InferenceEngine:
         return ids, position_ids, next_pos, attn_rows, seen_rows
 
     def _prefill(self, embeds: torch.Tensor, position_ids: torch.Tensor,
-                 attn_valid: torch.Tensor, cache: dict, chunk: int, between=None) -> torch.Tensor:
+                 attn_valid: torch.Tensor, cache: dict, chunk: int, between=None,
+                 taps: Optional[tuple] = None) -> torch.Tensor:
         """Prefill ``embeds`` (n, L, D) into ``cache`` in chunks of ``chunk``
         tokens (the last may be shorter), each at ``cache_offset`` = its
         first column, attending to the chunks before it through the cache;
         ``between()`` runs after every chunk but the last (outside the
-        prefill stage and the w8a8 scope). Returns the last chunk's final
-        hidden states."""
+        prefill stage and the w8a8 scope). ``taps`` (Qwen3-VL, from
+        ``_embed_rows``): the deepstack tables and their (n, L) row index,
+        whose columns of each chunk go with it. Returns the last chunk's
+        final hidden states."""
         L = embeds.shape[1]
+        tables, row_index = taps if taps is not None else (None, None)
         for c0 in range(0, L, chunk):
             with self._stage("prefill"), self._a8():
                 hidden, _ = text_forward(
                     self.params["text"], self.cfg.text, embeds[:, c0:c0 + chunk],
                     position_ids[:, :, c0:c0 + chunk], attn_valid=attn_valid, cache=cache,
-                    cache_offset=c0)
+                    cache_offset=c0, deepstack_embeds=tables,
+                    deepstack_row_index=None if tables is None else row_index[:, c0:c0 + chunk])
             self.counters["prefills"] += 1
             if between is not None and c0 + chunk < L:
                 between()
@@ -718,14 +728,17 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------ vision
 
-    def _embed_rows(self, reqs: Sequence[Request], ids: np.ndarray, vis: dict) -> torch.Tensor:
+    def _embed_rows(self, reqs: Sequence[Request], ids: np.ndarray, vis: dict):
         """Token embeddings (n, L, D) of ``ids`` with each row's vision
-        embeddings scattered into its placeholders. One tower pass per
-        distinct vision input in the call (``_table_key``: requests passing
-        the same arrays, or the same tensor from ``prestage_*``, share its
-        encoding), after the admission's new inputs are uploaded
-        (``_vision_inputs``); a table is dropped once no queued request of
-        the call needs it."""
+        embeddings scattered into its placeholders, and the deepstack taps
+        of a Qwen3-VL tower (each tap's tables concatenated in the order of
+        the main ones, and the (n, L) row index on the device that
+        addresses both), else None. One tower pass per distinct vision
+        input in the call (``_table_key``: requests passing the same arrays,
+        or the same tensor from ``prestage_*``, share its encoding), after
+        the admission's new inputs are uploaded (``_vision_inputs``); a
+        table (with its taps) is dropped once no queued request of the call
+        needs it."""
         fresh: dict = {}  # table key -> its first request, for the inputs not encoded yet
         for r in reqs:
             key = _table_key(r)
@@ -750,16 +763,20 @@ class InferenceEngine:
             if key not in at:
                 at[key] = total
                 tables.append(vis["tables"][key])
-                total += tables[-1].shape[0]
+                total += _main(tables[-1]).shape[0]
             offsets.append(at[key])
             tokens.append(r.vision_token_id or self.cfg.image_token_id)
         ids_t = torch.from_numpy(ids).to(self.device)
         embeds = embed_tokens(self.params, ids_t)
-        if tables:
-            row_index = build_vision_row_index(ids, tokens, offsets)
-            embeds = merge_vision_embeddings_by_index(
-                embeds, torch.cat(tables), torch.from_numpy(row_index).to(self.device))
-        return embeds
+        if not tables:
+            return embeds, None
+        row_index = torch.from_numpy(build_vision_row_index(ids, tokens, offsets)).to(self.device)
+        embeds = merge_vision_embeddings_by_index(
+            embeds, torch.cat([_main(x) for x in tables]), row_index)
+        if not isinstance(tables[0], tuple):
+            return embeds, None
+        taps = [torch.cat([x[1][j] for x in tables]) for j in range(len(tables[0][1]))]
+        return embeds, (taps, row_index)
 
     def _vision_inputs(self, fresh: dict) -> dict:
         """The tower inputs of ``fresh`` (table key -> request) on the
@@ -1102,7 +1119,7 @@ class InferenceEngine:
             seen_rows = np.zeros((len(reqs), cfg.text.vocab_size), dtype=bool)
             for i in range(len(reqs)):
                 seen_rows[i, ids[i][mask[i]]] = True
-            embeds = self._embed_rows(reqs, ids, vis)
+            embeds, taps = self._embed_rows(reqs, ids, vis)
             chunk = self.prefill_chunk
             long_admission = L >= self.long_prefill_threshold and self.long_prefill_chunk
             if chunk is None and long_admission:
@@ -1113,7 +1130,8 @@ class InferenceEngine:
             hidden = self._prefill(
                 embeds, torch.from_numpy(pos).to(dev), torch.from_numpy(attn_rows).to(dev), rows,
                 chunk if chunked else L,
-                lambda: run_segment(min(self.decode_segment, max_tokens), interleaved=True))
+                lambda: run_segment(min(self.decode_segment, max_tokens), interleaved=True),
+                taps=taps)
             with self._stage("prefill"):
                 with self._a8():
                     logits = logits_from_hidden(self.params["text"], hidden[:, -1])
@@ -1122,7 +1140,9 @@ class InferenceEngine:
 
         def admit_with_prefix(slots, rids):
             """One cached prefix block per distinct prefix, then the
-            members' suffixes at cache offset P."""
+            members' suffixes at cache offset P. A suffix holds no vision
+            placeholder (``_detect_prefixes``), so the block carries all of
+            a Qwen3-VL request's deepstack additions and the suffix none."""
             fams: dict = {}
             for s, rid in zip(slots, rids):
                 fams.setdefault(self._prefix_key(requests[rid], prefix_lens[rid]),

@@ -58,6 +58,17 @@ ENGINE_KNOBS = ("cache_dtype", "long_prefill_threshold", "long_prefill_chunk",
                 "spec_decode", "spec_draft", "a8_prefill")
 
 
+def _check_family(cfg: Qwen25VLConfig) -> None:
+    """The harnesses size frames for a patch of 14 (Qwen2.5-VL, Qwen2-VL:
+    ``data/video.py`` resizes to multiples of 28); a Qwen3-VL checkpoint
+    (patch 16) raises instead of patchifying frames its grid cannot cut."""
+    if cfg.model_type == "qwen3_vl":
+        raise NotImplementedError(
+            "qwen3_vl: the eval harnesses size frames for patch 14 (multiples of 28) and "
+            "Qwen3-VL's patch is 16; serve it through InferenceEngine with frames or patches "
+            "made at patch 16 (ROADMAP Queue 1)")
+
+
 class QwenVLEngine:
     def __init__(
         self,
@@ -97,11 +108,13 @@ class QwenVLEngine:
                 quantize_text="int4" if load_in_int4 else load_in_int8,
                 quantize_vision=quantize_vision,
             )
+            _check_family(cfg)
             processor = processor or O3VideoProcessor.from_pretrained(llm_name_or_params)
         else:
             params = llm_name_or_params
             if cfg is None:
                 raise ValueError("cfg is required when passing a param dict")
+            _check_family(cfg)
             processor = processor or O3VideoProcessor()
         self.cfg = cfg
         self.processor = processor

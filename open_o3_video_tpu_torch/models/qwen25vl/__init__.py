@@ -1,5 +1,6 @@
-"""Qwen2.5-VL in PyTorch: windowed ViT tower + GQA decoder with M-RoPE,
-functions over a param dict (see ``params``)."""
+"""The Qwen-VL families in PyTorch (Qwen2.5-VL, Qwen2-VL, Qwen3-VL dense):
+a ViT tower + GQA decoder with M-RoPE, functions over a param dict (see
+``params``), the family selected by the config."""
 
 from . import params
 from .config import Qwen25VLConfig, TextConfig, VisionConfig

@@ -1,12 +1,15 @@
-"""Qwen2.5-VL configuration (counterpart of
-``open_o3_video_tpu/models/qwen25vl/config.py``).
+"""Qwen-VL family configuration: Qwen2.5-VL, Qwen2-VL and Qwen3-VL (dense)
+(counterpart of ``open_o3_video_tpu/models/qwen25vl/config.py``).
 
 The same dataclasses, fields and defaults as the JAX package, with
-``dtype`` a ``torch.dtype``. The family switches (norm/act type, windows,
-deepstack, qk-norm, MoE) keep their fields so the two configs compare field
-by field, but the port implements only Qwen2.5-VL: a config that sets one
-to another family's value raises, and so does ``from_hf_dict`` for another
-vision family (a text-only ``"qwen2"`` file is read as JAX reads it).
+``dtype`` a ``torch.dtype``. ``from_hf_dict`` dispatches on ``model_type``
+as JAX's does: Qwen2-VL (LayerNorm + QuickGELU tower, whole-frame attention
+in every block, raw frame indices in M-RoPE) and Qwen3-VL (LayerNorm +
+gelu-tanh tower with an interpolated learned position embedding and
+deepstack taps; a decoder with qk-norm, no attention biases, an explicit
+head_dim and interleaved M-RoPE) beside Qwen2.5-VL (a text-only ``"qwen2"``
+file is read as JAX reads it). The mixture-of-experts branch keeps its
+fields but is refused: Qwen3-VL-MoE and Aria come with a later slice.
 """
 
 from __future__ import annotations
@@ -19,12 +22,10 @@ from typing import Any, Optional
 import torch
 
 
-def _require_qwen25(cfg, **qwen25_values) -> None:
-    for name, value in qwen25_values.items():
-        if getattr(cfg, name) != value:
-            raise NotImplementedError(
-                f"{type(cfg).__name__}.{name}={getattr(cfg, name)!r}: the port runs "
-                f"Qwen2.5-VL only ({name}={value!r})")
+def _refuse_moe(what: str) -> None:
+    raise NotImplementedError(
+        f"{what}: the routed-MoE decoder (Qwen3-VL-MoE, Aria) comes with a later slice of "
+        "the port (ROADMAP Queue 1); it serves qwen2_5_vl, qwen2_vl and qwen3_vl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,11 +48,6 @@ class VisionConfig:
     num_position_embeddings: int = 0
     deepstack_visual_indexes: tuple[int, ...] = ()
     patch_embed_bias: bool = False
-
-    def __post_init__(self):
-        _require_qwen25(self, norm_type="rmsnorm", act_type="swiglu", use_windows=True,
-                        num_position_embeddings=0, deepstack_visual_indexes=(),
-                        patch_embed_bias=False)
 
     @property
     def head_dim(self) -> int:
@@ -95,11 +91,13 @@ class TextConfig:
     moe_intermediate_size: int = 0
 
     def __post_init__(self):
-        _require_qwen25(self, explicit_head_dim=None, attention_bias=True, use_qk_norm=False,
-                        mrope_interleaved=False, moe_num_experts=0)
+        if self.moe_num_experts:
+            _refuse_moe(f"TextConfig.moe_num_experts={self.moe_num_experts}")
 
     @property
     def head_dim(self) -> int:
+        if self.explicit_head_dim is not None:
+            return self.explicit_head_dim
         return self.hidden_size // self.num_attention_heads
 
 
@@ -118,24 +116,28 @@ class Qwen25VLConfig:
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        _require_qwen25(self, model_type="qwen2_5_vl")
+        if self.model_type not in ("qwen2_5_vl", "qwen2_vl", "qwen3_vl"):
+            _refuse_moe(f"model_type {self.model_type!r}")
 
     @staticmethod
     def from_hf_dict(d: dict[str, Any], dtype=torch.bfloat16) -> "Qwen25VLConfig":
-        """An HF config.json of the Qwen2.5-VL family, or, as the JAX
-        package's default branch reads it, of a text-only Qwen2 decoder
-        (``"qwen2"``: Qwen2.5-72B-Instruct, the judge), whose missing vision
-        fields take the defaults. Qwen2-VL and Qwen3-VL files raise."""
+        """An HF config.json of the Qwen2.5-VL, Qwen2-VL or Qwen3-VL family,
+        or, as the JAX package's default branch reads it, of a text-only
+        Qwen2 decoder (``"qwen2"``: Qwen2.5-72B-Instruct, the judge), whose
+        missing vision fields take the defaults. Aria and Qwen3-VL-MoE
+        files, and Qwen3-VL files with ``num_experts``, raise
+        NotImplementedError."""
         v = d.get("vision_config", {})
         t = d.get("text_config", d)  # older files inline the text fields
         rope_scaling = t.get("rope_scaling") or d.get("rope_scaling") or {}
         model_type = d.get("model_type", "qwen2_5_vl")
-        if (
-            model_type in ("qwen2_vl", "qwen3_vl", "qwen3_vl_moe")
-            or v.get("deepstack_visual_indexes") is not None
-            or v.get("embed_dim") is not None
-        ):
-            raise NotImplementedError(f"model family {model_type!r}: the port runs qwen2_5_vl")
+        if model_type == "aria":
+            _refuse_moe("model_type 'aria'")
+        if (model_type in ("qwen3_vl", "qwen3_vl_moe")
+                or v.get("deepstack_visual_indexes") is not None):
+            return _qwen3_from_hf_dict(d, v, t, rope_scaling, dtype)
+        if model_type == "qwen2_vl" or v.get("embed_dim") is not None:
+            return _qwen2_from_hf_dict(d, v, t, rope_scaling, dtype)
         vision = VisionConfig(
             depth=v.get("depth", 32),
             hidden_size=v.get("hidden_size", 1280),
@@ -150,33 +152,8 @@ class Qwen25VLConfig:
             out_hidden_size=v.get("out_hidden_size", 3584),
             tokens_per_second=v.get("tokens_per_second", 2),
         )
-        text = TextConfig(
-            vocab_size=t.get("vocab_size", 152064),
-            hidden_size=t.get("hidden_size", 3584),
-            intermediate_size=t.get("intermediate_size", 18944),
-            num_hidden_layers=t.get("num_hidden_layers", 28),
-            num_attention_heads=t.get("num_attention_heads", 28),
-            num_key_value_heads=t.get("num_key_value_heads", 4),
-            rms_norm_eps=t.get("rms_norm_eps", 1e-6),
-            rope_theta=t.get("rope_theta", 1000000.0),
-            mrope_section=tuple(rope_scaling.get("mrope_section", (16, 24, 24))),
-            tie_word_embeddings=t.get("tie_word_embeddings", d.get("tie_word_embeddings", False)),
-            max_position_embeddings=t.get("max_position_embeddings", 128000),
-        )
-        eos = d.get("eos_token_id", 151645)
-        pad = d.get("pad_token_id")
-        return Qwen25VLConfig(
-            vision=vision,
-            text=text,
-            image_token_id=d.get("image_token_id", 151655),
-            video_token_id=d.get("video_token_id", 151656),
-            vision_start_token_id=d.get("vision_start_token_id", 151652),
-            vision_end_token_id=d.get("vision_end_token_id", 151653),
-            bos_token_id=d.get("bos_token_id", 151643),
-            eos_token_id=eos[0] if isinstance(eos, (list, tuple)) else eos,
-            pad_token_id=151643 if pad is None else pad,  # an explicit 0 stays 0
-            dtype=dtype,
-        )
+        return Qwen25VLConfig(vision=vision, text=_text_from_hf_dict(t, d, rope_scaling),
+                              **_special_ids(d), dtype=dtype)
 
     @staticmethod
     def from_pretrained(model_dir: str, dtype=torch.bfloat16) -> "Qwen25VLConfig":
@@ -185,13 +162,41 @@ class Qwen25VLConfig:
 
     def to_hf_dict(self) -> dict[str, Any]:
         """HF-convention config.json payload (inverse of ``from_hf_dict``),
-        the JAX package's ``to_hf_dict`` for Qwen2.5-VL, so an exported
+        the JAX package's ``to_hf_dict`` family by family, so an exported
         directory is self-describing."""
         v, t = self.vision, self.text
-        return {
-            "model_type": self.model_type,
-            "architectures": ["Qwen2_5_VLForConditionalGeneration"],
-            "vision_config": {
+        if self.model_type == "qwen3_vl":
+            vision_dict = {
+                "depth": v.depth,
+                "hidden_size": v.hidden_size,
+                "hidden_act": "gelu_pytorch_tanh",
+                "intermediate_size": v.intermediate_size,
+                "num_heads": v.num_heads,
+                "in_channels": v.in_channels,
+                "patch_size": v.patch_size,
+                "spatial_merge_size": v.spatial_merge_size,
+                "temporal_patch_size": v.temporal_patch_size,
+                "out_hidden_size": v.out_hidden_size,
+                "num_position_embeddings": v.num_position_embeddings,
+                "deepstack_visual_indexes": list(v.deepstack_visual_indexes),
+            }
+            arch = ["Qwen3VLForConditionalGeneration"]
+        elif self.model_type == "qwen2_vl":
+            vision_dict = {
+                "depth": v.depth,
+                "embed_dim": v.hidden_size,
+                "hidden_size": v.out_hidden_size,
+                "hidden_act": "quick_gelu",
+                "mlp_ratio": v.intermediate_size / v.hidden_size,
+                "num_heads": v.num_heads,
+                "in_channels": v.in_channels,
+                "patch_size": v.patch_size,
+                "spatial_merge_size": v.spatial_merge_size,
+                "temporal_patch_size": v.temporal_patch_size,
+            }
+            arch = ["Qwen2VLForConditionalGeneration"]
+        else:
+            vision_dict = {
                 "depth": v.depth,
                 "hidden_size": v.hidden_size,
                 "intermediate_size": v.intermediate_size,
@@ -204,20 +209,29 @@ class Qwen25VLConfig:
                 "fullatt_block_indexes": list(v.fullatt_block_indexes),
                 "out_hidden_size": v.out_hidden_size,
                 "tokens_per_second": v.tokens_per_second,
-            },
-            "text_config": {
-                "vocab_size": t.vocab_size,
-                "hidden_size": t.hidden_size,
-                "intermediate_size": t.intermediate_size,
-                "num_hidden_layers": t.num_hidden_layers,
-                "num_attention_heads": t.num_attention_heads,
-                "num_key_value_heads": t.num_key_value_heads,
-                "rms_norm_eps": t.rms_norm_eps,
-                "rope_theta": t.rope_theta,
-                "rope_scaling": {"type": "mrope", "mrope_section": list(t.mrope_section)},
-                "tie_word_embeddings": t.tie_word_embeddings,
-                "max_position_embeddings": t.max_position_embeddings,
-            },
+            }
+            arch = ["Qwen2_5_VLForConditionalGeneration"]
+        text_dict = {
+            "vocab_size": t.vocab_size,
+            "hidden_size": t.hidden_size,
+            "intermediate_size": t.intermediate_size,
+            "num_hidden_layers": t.num_hidden_layers,
+            "num_attention_heads": t.num_attention_heads,
+            "num_key_value_heads": t.num_key_value_heads,
+            "rms_norm_eps": t.rms_norm_eps,
+            "rope_theta": t.rope_theta,
+            "rope_scaling": {"type": "mrope", "mrope_section": list(t.mrope_section)},
+            "tie_word_embeddings": t.tie_word_embeddings,
+            "max_position_embeddings": t.max_position_embeddings,
+        }
+        if self.model_type == "qwen3_vl":
+            text_dict["head_dim"] = t.head_dim
+            text_dict["attention_bias"] = t.attention_bias
+        return {
+            "model_type": self.model_type,
+            "architectures": arch,
+            "vision_config": vision_dict,
+            "text_config": text_dict,
             "image_token_id": self.image_token_id,
             "video_token_id": self.video_token_id,
             "vision_start_token_id": self.vision_start_token_id,
@@ -259,3 +273,223 @@ class Qwen25VLConfig:
             pad_token_id=2,
             dtype=dtype,
         )
+
+
+# The published config.json files of the two families' served models (no
+# weights of either are in the repository: the port serves them from random
+# weights drawn from a seed, at these widths).
+QWEN3_VL_8B_INSTRUCT_CONFIG = {
+    "architectures": ["Qwen3VLForConditionalGeneration"],
+    "model_type": "qwen3_vl",
+    "image_token_id": 151655,
+    "video_token_id": 151656,
+    "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653,
+    "tie_word_embeddings": False,
+    "text_config": {
+        "model_type": "qwen3_vl_text",
+        "attention_bias": False,
+        "bos_token_id": 151643,
+        "eos_token_id": 151645,
+        "head_dim": 128,
+        "hidden_act": "silu",
+        "hidden_size": 4096,
+        "intermediate_size": 12288,
+        "max_position_embeddings": 262144,
+        "num_attention_heads": 32,
+        "num_hidden_layers": 36,
+        "num_key_value_heads": 8,
+        "rms_norm_eps": 1e-06,
+        "rope_scaling": {"mrope_interleaved": True, "mrope_section": [24, 20, 20],
+                         "rope_type": "default"},
+        "rope_theta": 5000000,
+        "tie_word_embeddings": False,
+        "vocab_size": 151936,
+    },
+    "vision_config": {
+        "model_type": "qwen3_vl",
+        "deepstack_visual_indexes": [8, 16, 24],
+        "depth": 27,
+        "hidden_act": "gelu_pytorch_tanh",
+        "hidden_size": 1152,
+        "in_channels": 3,
+        "intermediate_size": 4304,
+        "num_heads": 16,
+        "num_position_embeddings": 2304,
+        "out_hidden_size": 4096,
+        "patch_size": 16,
+        "spatial_merge_size": 2,
+        "temporal_patch_size": 2,
+    },
+}
+QWEN2_VL_7B_INSTRUCT_CONFIG = {
+    "architectures": ["Qwen2VLForConditionalGeneration"],
+    "model_type": "qwen2_vl",
+    "bos_token_id": 151643,
+    "eos_token_id": 151645,
+    "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653,
+    "vision_token_id": 151654,
+    "image_token_id": 151655,
+    "video_token_id": 151656,
+    "hidden_act": "silu",
+    "hidden_size": 3584,
+    "intermediate_size": 18944,
+    "max_position_embeddings": 32768,
+    "max_window_layers": 28,
+    "num_attention_heads": 28,
+    "num_hidden_layers": 28,
+    "num_key_value_heads": 4,
+    "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0,
+    "sliding_window": 32768,
+    "tie_word_embeddings": False,
+    "use_sliding_window": False,
+    "vocab_size": 152064,
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vision_config": {
+        "depth": 32,
+        "embed_dim": 1280,
+        "mlp_ratio": 4,
+        "num_heads": 16,
+        "in_chans": 3,
+        "hidden_size": 3584,
+        "patch_size": 14,
+        "spatial_merge_size": 2,
+        "temporal_patch_size": 2,
+    },
+}
+
+
+def _special_ids(d: dict[str, Any]) -> dict:
+    eos = d.get("eos_token_id", 151645)
+    pad = d.get("pad_token_id")
+    return dict(
+        image_token_id=d.get("image_token_id", 151655),
+        video_token_id=d.get("video_token_id", 151656),
+        vision_start_token_id=d.get("vision_start_token_id", 151652),
+        vision_end_token_id=d.get("vision_end_token_id", 151653),
+        bos_token_id=d.get("bos_token_id", 151643),
+        eos_token_id=eos[0] if isinstance(eos, (list, tuple)) else eos,
+        pad_token_id=151643 if pad is None else pad,  # an explicit 0 stays 0
+    )
+
+
+def _text_from_hf_dict(t: dict[str, Any], d: dict[str, Any], rope_scaling: dict) -> TextConfig:
+    return TextConfig(
+        vocab_size=t.get("vocab_size", 152064),
+        hidden_size=t.get("hidden_size", 3584),
+        intermediate_size=t.get("intermediate_size", 18944),
+        num_hidden_layers=t.get("num_hidden_layers", 28),
+        num_attention_heads=t.get("num_attention_heads", 28),
+        num_key_value_heads=t.get("num_key_value_heads", 4),
+        rms_norm_eps=t.get("rms_norm_eps", 1e-6),
+        rope_theta=t.get("rope_theta", 1000000.0),
+        mrope_section=tuple(rope_scaling.get("mrope_section", (16, 24, 24))),
+        tie_word_embeddings=t.get("tie_word_embeddings", d.get("tie_word_embeddings", False)),
+        max_position_embeddings=t.get("max_position_embeddings", 128000),
+    )
+
+
+def _qwen3_from_hf_dict(d, v, t, rope_scaling, dtype) -> Qwen25VLConfig:
+    """Qwen3-VL: a tower of LayerNorm + gelu-tanh blocks over whole frames,
+    with an interpolated learned position embedding and deepstack taps; a
+    Qwen3 decoder (qk-norm, no attention bias, interleaved M-RoPE). A
+    mixture-of-experts file raises."""
+    if d.get("model_type") == "qwen3_vl_moe" or t.get("num_experts") is not None:
+        _refuse_moe(f"model_type {d.get('model_type')!r} with num_experts "
+                    f"{t.get('num_experts')!r}")
+    vision = VisionConfig(
+        depth=v.get("depth", 27),
+        hidden_size=v.get("hidden_size", 1152),
+        intermediate_size=v.get("intermediate_size", 4304),
+        num_heads=v.get("num_heads", 16),
+        in_channels=v.get("in_channels", 3),
+        patch_size=v.get("patch_size", 16),
+        spatial_merge_size=v.get("spatial_merge_size", 2),
+        temporal_patch_size=v.get("temporal_patch_size", 2),
+        fullatt_block_indexes=(),
+        out_hidden_size=v.get("out_hidden_size", 3584),
+        norm_type="layernorm",
+        act_type="gelu_tanh",
+        use_windows=False,
+        num_position_embeddings=v.get("num_position_embeddings", 2304),
+        deepstack_visual_indexes=tuple(v.get("deepstack_visual_indexes", (8, 16, 24))),
+        patch_embed_bias=True,
+    )
+    text = dataclasses.replace(
+        _text_from_hf_dict(t, d, rope_scaling),
+        vocab_size=t.get("vocab_size", 151936),
+        rope_theta=t.get("rope_theta", 5000000.0),
+        mrope_section=tuple(rope_scaling.get("mrope_section", (24, 20, 20))),
+        explicit_head_dim=t.get("head_dim", 128),
+        attention_bias=t.get("attention_bias", False),
+        use_qk_norm=True,
+        mrope_interleaved=True,
+    )
+    return Qwen25VLConfig(vision=vision, text=text, model_type="qwen3_vl", **_special_ids(d),
+                          dtype=dtype)
+
+
+def _qwen2_from_hf_dict(d, v, t, rope_scaling, dtype) -> Qwen25VLConfig:
+    """Qwen2-VL: the vision fields are named embed_dim / hidden_size (the
+    merger's output) / mlp_ratio; the decoder is Qwen2.5-VL's."""
+    embed_dim = v.get("embed_dim", 1280)
+    vision = VisionConfig(
+        depth=v.get("depth", 32),
+        hidden_size=embed_dim,
+        intermediate_size=int(embed_dim * v.get("mlp_ratio", 4)),
+        num_heads=v.get("num_heads", 16),
+        in_channels=v.get("in_channels", v.get("in_chans", 3)),
+        patch_size=v.get("patch_size", 14),
+        spatial_merge_size=v.get("spatial_merge_size", 2),
+        temporal_patch_size=v.get("temporal_patch_size", 2),
+        fullatt_block_indexes=(),
+        out_hidden_size=v.get("hidden_size", 3584),
+        norm_type="layernorm",
+        act_type="quickgelu",
+        use_windows=False,
+    )
+    return Qwen25VLConfig(vision=vision, text=_text_from_hf_dict(t, d, rope_scaling),
+                          model_type="qwen2_vl", **_special_ids(d), dtype=dtype)
+
+
+def tiny_qwen3(dtype=torch.float32) -> Qwen25VLConfig:
+    """Small random-init Qwen3-VL config (JAX's ``tiny_qwen3``)."""
+    base = Qwen25VLConfig.tiny(dtype=dtype)
+    vision = dataclasses.replace(
+        base.vision,
+        fullatt_block_indexes=(),
+        norm_type="layernorm",
+        act_type="gelu_tanh",
+        use_windows=False,
+        intermediate_size=2 * base.vision.hidden_size,
+        num_position_embeddings=16,  # a 4x4 learned grid, interpolated
+        deepstack_visual_indexes=(0, 1),
+        patch_embed_bias=True,
+        patch_size=14,
+    )
+    text = dataclasses.replace(
+        base.text,
+        explicit_head_dim=16,
+        attention_bias=False,
+        use_qk_norm=True,
+        mrope_section=(4, 2, 2),  # the interleaved layout sums to head_dim // 2
+        mrope_interleaved=True,
+        rope_theta=5000000.0,
+    )
+    return dataclasses.replace(base, vision=vision, text=text, model_type="qwen3_vl")
+
+
+def tiny_qwen2(dtype=torch.float32) -> Qwen25VLConfig:
+    """Small random-init Qwen2-VL config (JAX's ``tiny_qwen2``)."""
+    base = Qwen25VLConfig.tiny(dtype=dtype)
+    vision = dataclasses.replace(
+        base.vision,
+        fullatt_block_indexes=(),
+        norm_type="layernorm",
+        act_type="quickgelu",
+        intermediate_size=4 * base.vision.hidden_size,
+        use_windows=False,
+    )
+    return dataclasses.replace(base, vision=vision, model_type="qwen2_vl")

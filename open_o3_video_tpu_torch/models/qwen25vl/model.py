@@ -1,9 +1,12 @@
-"""Qwen2.5-VL full model: vision features scattered into the token stream
+"""Qwen-VL full model: vision features scattered into the token stream
 (counterpart of ``open_o3_video_tpu/models/qwen25vl/model.py``).
 
 ``get_rope_index`` and ``build_vision_row_index`` are host-side numpy,
-copied from the JAX package (its module imports JAX), restricted to the
-Qwen2.5-VL family.
+copied from the JAX package (its module imports JAX), with its family
+branches: Qwen2-VL and Qwen3-VL index time by raw frame, and Qwen3-VL
+splits each video grid into per-frame grids (its prompts separate frames
+by timestamp text). A Qwen3-VL tower returns deepstack taps beside its
+embeddings; ``forward`` routes them to the decoder's first layers.
 """
 
 from __future__ import annotations
@@ -34,6 +37,12 @@ def get_rope_index(
     """
     merge = cfg.vision.spatial_merge_size
     B, S = input_ids.shape
+    if cfg.model_type == "qwen3_vl" and video_grid_thw is not None:
+        # <t><vision_start><frame><vision_end> per frame: each video grid
+        # splits into per-frame grids of t = 1.
+        video_grid_thw = np.repeat(np.asarray(video_grid_thw),
+                                   np.asarray(video_grid_thw)[:, 0], axis=0).copy()
+        video_grid_thw[:, 0] = 1
     if image_grid_thw is None and video_grid_thw is None:
         if attention_mask is not None:
             pos = np.cumsum(attention_mask, axis=-1) - 1
@@ -76,8 +85,12 @@ def get_rope_index(
                 ed = ed_image
             else:
                 t, h, w = video_grid_thw[video_index]
+                # Qwen2-VL and Qwen3-VL index time by frame; the spacing is
+                # read only where it is used (Qwen3-VL's per-frame grids
+                # outnumber the spacings given, one per video).
                 second_per_grid = (
-                    float(second_per_grid_ts[video_index]) if second_per_grid_ts is not None else 1.0
+                    float(second_per_grid_ts[video_index])
+                    if second_per_grid_ts is not None and cfg.model_type == "qwen2_5_vl" else 1.0
                 )
                 video_index += 1
                 remain_videos -= 1
@@ -86,14 +99,17 @@ def get_rope_index(
             text_len = ed - st
             st_idx = int(pos_list[-1].max()) + 1 if pos_list else 0
             pos_list.append(np.broadcast_to(np.arange(text_len)[None], (3, text_len)) + st_idx)
-            # HF quirk kept: second_per_grid is truncated to an integer
-            # before the multiply (0.5 -> 0).
-            t_index = (
-                (np.arange(lt)[:, None] * int(second_per_grid) * cfg.vision.tokens_per_second)
-                .astype(np.int64)
-                .repeat(lh * lw, axis=1)
-                .flatten()
-            )
+            if cfg.model_type in ("qwen2_vl", "qwen3_vl"):  # the raw frame index
+                t_index = np.arange(lt)[:, None].repeat(lh * lw, axis=1).flatten()
+            else:
+                # HF quirk kept: second_per_grid is truncated to an integer
+                # before the multiply (0.5 -> 0).
+                t_index = (
+                    (np.arange(lt)[:, None] * int(second_per_grid) * cfg.vision.tokens_per_second)
+                    .astype(np.int64)
+                    .repeat(lh * lw, axis=1)
+                    .flatten()
+                )
             h_index = np.tile(np.arange(lh)[None, :, None], (lt, 1, lw)).flatten()
             w_index = np.tile(np.arange(lw)[None, None, :], (lt, lh, 1)).flatten()
             pos_list.append(np.stack([t_index, h_index, w_index]) + text_len + st_idx)
@@ -147,8 +163,9 @@ def check_vision_inputs(cfg: Qwen25VLConfig, n_patches: int, grid_thw) -> None:
 
 
 def encode_vision(params: dict, cfg: Qwen25VLConfig, pixel_patches: torch.Tensor,
-                  grid_thw: np.ndarray, impl: str = "auto", remat: bool = False) -> torch.Tensor:
-    """Vision tower -> merged embeddings (S_patches / merge_unit, hidden)."""
+                  grid_thw: np.ndarray, impl: str = "auto", remat: bool = False):
+    """Vision tower -> merged embeddings (S_patches / merge_unit, hidden);
+    for Qwen3-VL (embeddings, [its deepstack taps, each of that shape])."""
     spec = compute_vision_spec([tuple(int(v) for v in g) for g in np.asarray(grid_thw)],
                                cfg.vision)
     return vision_forward(params["visual"], pixel_patches, spec, cfg.vision, impl=impl,
@@ -209,18 +226,27 @@ def forward(
     instead of logits, for callers that project only some positions.
     Patches that disagree with ``grid_thw`` raise VisionInputError."""
     embeds = embed_tokens(params, input_ids)
+    taps = row_index = None
     if pixel_patches is not None:
         check_vision_inputs(cfg, pixel_patches.shape[0], grid_thw)
         vis = encode_vision(params, cfg, pixel_patches, grid_thw, impl=attn_impl, remat=remat)
+        if isinstance(vis, tuple):  # Qwen3-VL: (embeddings, deepstack taps)
+            vis, taps = vis
         if vision_row_index is not None:
             embeds = merge_vision_embeddings_by_index(embeds, vis, vision_row_index)
+            row_index = vision_row_index
         else:
             tok = vision_token_id if vision_token_id is not None else cfg.image_token_id
             embeds = merge_vision_embeddings(cfg, input_ids, embeds, vis, tok)
+            if taps is not None:  # n-th placeholder <- n-th table row
+                mask = input_ids == tok
+                row_index = torch.where(
+                    mask, torch.cumsum(mask.reshape(-1).long(), 0).reshape(mask.shape) - 1, -1)
     hidden, cache = text_forward(
         params["text"], cfg.text, embeds, position_ids,
         seq_positions=seq_positions, attn_valid=attn_valid, cache=cache,
         cache_offset=cache_offset, attn_impl=attn_impl, remat=remat,
+        deepstack_embeds=taps, deepstack_row_index=row_index,
     )
     if return_hidden:
         return hidden, cache

@@ -5,14 +5,17 @@ param tree, and import of an HF Qwen2.5-VL state dict (counterpart of
 Same tree as the JAX package, linear weights input-major (``x @ W``):
 
 visual:
-  patch_embed (patch_dim, D)
+  patch_embed (patch_dim, D), patch_embed_b and pos_embed (Qwen3-VL)
   blocks[i]: norm1, qkv_w, qkv_b, proj_w, proj_b, norm2,
-             gate_w/b, up_w/b, down_w/b
-  merger: ln_q, fc1_w/b, fc2_w/b
+             gate_w/b, up_w/b, down_w/b (Qwen2.5-VL) or fc1_w/b, fc2_w/b
+             (Qwen2-VL, Qwen3-VL), norm1_b, norm2_b (LayerNorm families)
+  merger: ln_q (ln_q_b), fc1_w/b, fc2_w/b
+  deepstack[j] (Qwen3-VL): a merger normed after the concat
 text:
   embed_tokens (vocab, D)
-  layers[i]: input_norm, q_w/b, k_w/b, v_w/b, o_w, post_norm,
-             gate_w, up_w, down_w
+  layers[i]: input_norm, q_w, k_w, v_w, o_w (q_b, k_b, v_b where the
+             config has attention biases; q_norm, k_norm for Qwen3-VL),
+             post_norm, gate_w, up_w, down_w
   final_norm, lm_head (D, vocab)
 
 With ``quantize_text`` the decoder's matmul weights and the lm_head are
@@ -175,37 +178,55 @@ def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False,
         return torch.ones(n, dtype=cfg.dtype, device=device)
 
     def block():
-        return {
+        b = {
             "norm1": ones(v.hidden_size),
             "qkv_w": vw(v.hidden_size, 3 * v.hidden_size),
             "qkv_b": zeros(3 * v.hidden_size),
             "proj_w": vw(v.hidden_size, v.hidden_size),
             "proj_b": zeros(v.hidden_size),
             "norm2": ones(v.hidden_size),
-            "gate_w": vw(v.hidden_size, v.intermediate_size),
-            "gate_b": zeros(v.intermediate_size),
-            "up_w": vw(v.hidden_size, v.intermediate_size),
-            "up_b": zeros(v.intermediate_size),
-            "down_w": vw(v.intermediate_size, v.hidden_size),
-            "down_b": zeros(v.hidden_size),
         }
+        if v.act_type == "swiglu":
+            b.update(gate_w=vw(v.hidden_size, v.intermediate_size),
+                     gate_b=zeros(v.intermediate_size),
+                     up_w=vw(v.hidden_size, v.intermediate_size),
+                     up_b=zeros(v.intermediate_size),
+                     down_w=vw(v.intermediate_size, v.hidden_size),
+                     down_b=zeros(v.hidden_size))
+        else:
+            b.update(fc1_w=vw(v.hidden_size, v.intermediate_size),
+                     fc1_b=zeros(v.intermediate_size),
+                     fc2_w=vw(v.intermediate_size, v.hidden_size),
+                     fc2_b=zeros(v.hidden_size))
+        if v.norm_type == "layernorm":
+            b.update(norm1_b=zeros(v.hidden_size), norm2_b=zeros(v.hidden_size))
+        return b
 
     merged = v.hidden_size * v.merge_unit
+
+    def merger(postshuffle=False):
+        norm = merged if postshuffle else v.hidden_size
+        m = {"ln_q": ones(norm), "fc1_w": w(merged, merged), "fc1_b": zeros(merged),
+             "fc2_w": w(merged, v.out_hidden_size), "fc2_b": zeros(v.out_hidden_size)}
+        if v.norm_type == "layernorm":
+            m["ln_q_b"] = zeros(norm)
+        return m
+
     visual = {
         "patch_embed": w(v.patch_dim, v.hidden_size),
         "blocks": [block() for _ in range(v.depth)],
-        "merger": {
-            "ln_q": ones(v.hidden_size),
-            "fc1_w": w(merged, merged),
-            "fc1_b": zeros(merged),
-            "fc2_w": w(merged, v.out_hidden_size),
-            "fc2_b": zeros(v.out_hidden_size),
-        },
+        "merger": merger(),
     }
+    if v.patch_embed_bias:
+        visual["patch_embed_b"] = zeros(v.hidden_size)
+    if v.num_position_embeddings:
+        visual["pos_embed"] = w(v.num_position_embeddings, v.hidden_size)
+    if v.deepstack_visual_indexes:
+        visual["deepstack"] = [merger(postshuffle=True) for _ in v.deepstack_visual_indexes]
     q_dim = t.num_attention_heads * t.head_dim
     kv_dim = t.num_key_value_heads * t.head_dim
-    layers = [
-        {
+    def layer():
+        lay = {
             "input_norm": ones(t.hidden_size),
             "q_w": tw(t.hidden_size, q_dim),
             "q_b": zeros(q_dim),
@@ -219,8 +240,13 @@ def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False,
             "up_w": tw(t.hidden_size, t.intermediate_size),
             "down_w": tw(t.intermediate_size, t.hidden_size),
         }
-        for _ in range(t.num_hidden_layers)
-    ]
+        if not t.attention_bias:  # Qwen3-VL
+            lay = {k: x for k, x in lay.items() if k not in ("q_b", "k_b", "v_b")}
+        if t.use_qk_norm:
+            lay.update(q_norm=ones(t.head_dim), k_norm=ones(t.head_dim))
+        return lay
+
+    layers = [layer() for _ in range(t.num_hidden_layers)]
     text = {
         "embed_tokens": w(t.vocab_size, t.hidden_size),
         "layers": layers,
@@ -239,45 +265,96 @@ _TEXT_LAYER = {  # HF suffix -> (leaf, transpose to input-major)
     "self_attn.k_proj.bias": ("k_b", False),
     "self_attn.v_proj.weight": ("v_w", True),
     "self_attn.v_proj.bias": ("v_b", False),
+    "self_attn.q_norm.weight": ("q_norm", False),  # Qwen3: per-head q/k RMSNorm
+    "self_attn.k_norm.weight": ("k_norm", False),
     "self_attn.o_proj.weight": ("o_w", True),
     "mlp.gate_proj.weight": ("gate_w", True),
     "mlp.up_proj.weight": ("up_w", True),
     "mlp.down_proj.weight": ("down_w", True),
 }
-_VISION_BLOCK = {
+_VISION_ATTN = {
     "norm1.weight": ("norm1", False),
     "norm2.weight": ("norm2", False),
+    "norm1.bias": ("norm1_b", False),  # LayerNorm families
+    "norm2.bias": ("norm2_b", False),
     "attn.qkv.weight": ("qkv_w", True),
     "attn.qkv.bias": ("qkv_b", False),
     "attn.proj.weight": ("proj_w", True),
     "attn.proj.bias": ("proj_b", False),
-    "mlp.gate_proj.weight": ("gate_w", True),
-    "mlp.gate_proj.bias": ("gate_b", False),
-    "mlp.up_proj.weight": ("up_w", True),
-    "mlp.up_proj.bias": ("up_b", False),
-    "mlp.down_proj.weight": ("down_w", True),
-    "mlp.down_proj.bias": ("down_b", False),
+}
+_VISION_MLP = {  # act_type -> HF suffix -> leaf
+    "swiglu": {
+        "mlp.gate_proj.weight": ("gate_w", True),
+        "mlp.gate_proj.bias": ("gate_b", False),
+        "mlp.up_proj.weight": ("up_w", True),
+        "mlp.up_proj.bias": ("up_b", False),
+        "mlp.down_proj.weight": ("down_w", True),
+        "mlp.down_proj.bias": ("down_b", False),
+    },
+    "quickgelu": {  # Qwen2-VL's VisionMlp
+        "mlp.fc1.weight": ("fc1_w", True),
+        "mlp.fc1.bias": ("fc1_b", False),
+        "mlp.fc2.weight": ("fc2_w", True),
+        "mlp.fc2.bias": ("fc2_b", False),
+    },
+    "gelu_tanh": {  # Qwen3-VL's VisionMLP
+        "mlp.linear_fc1.weight": ("fc1_w", True),
+        "mlp.linear_fc1.bias": ("fc1_b", False),
+        "mlp.linear_fc2.weight": ("fc2_w", True),
+        "mlp.linear_fc2.bias": ("fc2_b", False),
+    },
 }
 _MERGER = {
     "ln_q.weight": ("ln_q", False),
+    "ln_q.bias": ("ln_q_b", False),  # Qwen2-VL's LayerNorm
     "mlp.0.weight": ("fc1_w", True),
     "mlp.0.bias": ("fc1_b", False),
     "mlp.2.weight": ("fc2_w", True),
     "mlp.2.bias": ("fc2_b", False),
 }
+_MERGER_QWEN3 = {  # the main merger and each deepstack merger
+    "norm.weight": ("ln_q", False),
+    "norm.bias": ("ln_q_b", False),
+    "linear_fc1.weight": ("fc1_w", True),
+    "linear_fc1.bias": ("fc1_b", False),
+    "linear_fc2.weight": ("fc2_w", True),
+    "linear_fc2.bias": ("fc2_b", False),
+}
+
+
+def _names(cfg: Qwen25VLConfig) -> tuple[dict, dict, dict]:
+    """The HF suffix -> leaf maps of this family's decoder layer, vision
+    block and merger, holding exactly the leaves ``init`` makes."""
+    v, t = cfg.vision, cfg.text
+    drop = set()
+    if not t.attention_bias:
+        drop |= {"q_b", "k_b", "v_b"}
+    if not t.use_qk_norm:
+        drop |= {"q_norm", "k_norm"}
+    if v.norm_type != "layernorm":
+        drop |= {"norm1_b", "norm2_b", "ln_q_b"}
+    layer = {k: x for k, x in _TEXT_LAYER.items() if x[0] not in drop}
+    block = {k: x for k, x in {**_VISION_ATTN, **_VISION_MLP[v.act_type]}.items()
+             if x[0] not in drop}
+    merger = _MERGER_QWEN3 if v.deepstack_visual_indexes else _MERGER
+    return layer, block, {k: x for k, x in merger.items() if x[0] not in drop}
 
 
 def from_hf_state_dict(named, cfg: Qwen25VLConfig, device, quantize_text=False,
                        quantize_vision=False) -> dict:
-    """Param dict from (HF name, tensor) pairs of a Qwen2.5-VL checkpoint
-    (``model.`` / ``model.language_model.`` / ``model.visual.`` prefixes
-    alike), or of a text-only Qwen2 one (``visual`` is then None); a
-    missing ``lm_head`` ties to the embedding. ``quantize_text`` quantizes
-    each decoder matmul weight and the lm_head as it streams in (JAX's
-    ``from_named_arrays``), so only one leaf at a time exists in bf16;
-    ``quantize_vision`` quantizes the ViT blocks' matmul weights so."""
+    """Param dict from (HF name, tensor) pairs of a checkpoint of the
+    config's family (``model.`` / ``model.language_model.`` /
+    ``model.visual.`` prefixes alike), or of a text-only Qwen2 one
+    (``visual`` is then None); a missing ``lm_head`` ties to the embedding.
+    ``quantize_text`` quantizes each decoder matmul weight and the lm_head
+    as it streams in (JAX's ``from_named_arrays``), so only one leaf at a
+    time exists in bf16; ``quantize_vision`` quantizes the ViT blocks'
+    matmul weights so."""
     v, t = cfg.vision, cfg.text
+    text_names, block_names, merger_names = _names(cfg)
     visual = {"blocks": [{} for _ in range(v.depth)], "merger": {}}
+    if v.deepstack_visual_indexes:
+        visual["deepstack"] = [{} for _ in v.deepstack_visual_indexes]
     text = {"layers": [{} for _ in range(t.num_hidden_layers)]}
     seen_visual = False
 
@@ -300,27 +377,38 @@ def from_hf_state_dict(named, cfg: Qwen25VLConfig, device, quantize_text=False,
             text["final_norm"] = leaf(x)
         elif key == "lm_head.weight":
             text["lm_head"] = leaf(x, True, mode=quantize_text)
-        elif key.startswith("language_model.layers.") and ".".join(parts[3:]) in _TEXT_LAYER:
-            name, tr = _TEXT_LAYER[".".join(parts[3:])]
+        elif key.startswith("language_model.layers.") and ".".join(parts[3:]) in text_names:
+            name, tr = text_names[".".join(parts[3:])]
             text["layers"][int(parts[2])][name] = leaf(
                 x, tr, mode=quantize_text if name in QUANT_TEXT_LEAVES else None)
         elif key == "visual.patch_embed.proj.weight":  # Conv3d at full stride == linear
             visual["patch_embed"] = leaf(x.reshape(x.shape[0], -1), True)
-        elif key.startswith("visual.blocks.") and ".".join(parts[3:]) in _VISION_BLOCK:
-            name, tr = _VISION_BLOCK[".".join(parts[3:])]
+        elif key == "visual.patch_embed.proj.bias" and v.patch_embed_bias:
+            visual["patch_embed_b"] = leaf(x)
+        elif key == "visual.pos_embed.weight" and v.num_position_embeddings:
+            visual["pos_embed"] = leaf(x)
+        elif key.startswith("visual.blocks.") and ".".join(parts[3:]) in block_names:
+            name, tr = block_names[".".join(parts[3:])]
             visual["blocks"][int(parts[2])][name] = leaf(
                 x, tr, mode=quantize_vision if name in QUANT_VISION_LEAVES else None)
-        elif key.startswith("visual.merger.") and ".".join(parts[2:]) in _MERGER:
-            name, tr = _MERGER[".".join(parts[2:])]
+        elif key.startswith("visual.merger.") and ".".join(parts[2:]) in merger_names:
+            name, tr = merger_names[".".join(parts[2:])]
             visual["merger"][name] = leaf(x, tr)
+        elif (key.startswith("visual.deepstack_merger_list.") and "deepstack" in visual
+              and ".".join(parts[3:]) in _MERGER_QWEN3):
+            name, tr = _MERGER_QWEN3[".".join(parts[3:])]
+            visual["deepstack"][int(parts[2])][name] = leaf(x, tr)
     if "lm_head" not in text and "embed_tokens" in text:
         text["lm_head"] = leaf(text["embed_tokens"], True, mode=quantize_text)
     missing = [f"text.{k}" for k in ("embed_tokens", "final_norm", "lm_head") if k not in text]
-    tables = [("text.layers", text["layers"], _TEXT_LAYER)]
+    tables = [("text.layers", text["layers"], text_names)]
     if seen_visual:
-        missing += [k for k in ("patch_embed",) if k not in visual]
-        tables += [("visual.blocks", visual["blocks"], _VISION_BLOCK),
-                   ("visual.merger", [visual["merger"]], _MERGER)]
+        tops = ["patch_embed"] + ["patch_embed_b"] * v.patch_embed_bias + (
+            ["pos_embed"] if v.num_position_embeddings else [])
+        missing += [f"visual.{k}" for k in tops if k not in visual]
+        tables += [("visual.blocks", visual["blocks"], block_names),
+                   ("visual.merger", [visual["merger"]], merger_names),
+                   ("visual.deepstack", visual.get("deepstack", []), _MERGER_QWEN3)]
     for where, rows, names in tables:
         for i, got in enumerate(rows):
             missing += [f"{where}[{i}].{n}" for n, _ in names.values() if n not in got]
@@ -356,16 +444,18 @@ def load_pretrained(model_dir: str, device, cfg: Qwen25VLConfig | None = None,
 
 
 def hf_named_tensors(params: dict, cfg: Qwen25VLConfig):
-    """(HF name, tensor) pairs of a plain param dict, in the HF layout
-    (output-major matmul weights, the patch embedding as its Conv3d), the
-    names and order of the JAX package's ``save_safetensors``. The inverse
-    of ``from_hf_state_dict``; tensors are views, copied by the caller."""
+    """(HF name, tensor) pairs of a plain param dict, in the HF layout of
+    the config's family (output-major matmul weights, the patch embedding
+    as its Conv3d), the names of the JAX package's ``save_safetensors``.
+    The inverse of ``from_hf_state_dict``; tensors are views, copied by the
+    caller."""
+    text_names, block_names, merger_names = _names(cfg)
     t = params["text"]
     yield "model.embed_tokens.weight", t["embed_tokens"]
     yield "model.norm.weight", t["final_norm"]
     yield "lm_head.weight", t["lm_head"].T
     for i, layer in enumerate(t["layers"]):
-        for suffix, (name, tr) in _TEXT_LAYER.items():
+        for suffix, (name, tr) in text_names.items():
             yield f"model.layers.{i}.{suffix}", layer[name].T if tr else layer[name]
     vis = params.get("visual")
     if vis is None:
@@ -373,11 +463,19 @@ def hf_named_tensors(params: dict, cfg: Qwen25VLConfig):
     v = cfg.vision
     yield "visual.patch_embed.proj.weight", vis["patch_embed"].T.reshape(
         v.hidden_size, v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size)
+    if v.patch_embed_bias:
+        yield "visual.patch_embed.proj.bias", vis["patch_embed_b"]
+    if v.num_position_embeddings:
+        yield "visual.pos_embed.weight", vis["pos_embed"]
     for i, block in enumerate(vis["blocks"]):
-        for suffix, (name, tr) in _VISION_BLOCK.items():
+        for suffix, (name, tr) in block_names.items():
             yield f"visual.blocks.{i}.{suffix}", block[name].T if tr else block[name]
-    for suffix, (name, tr) in _MERGER.items():
-        yield f"visual.merger.{suffix}", vis["merger"][name].T if tr else vis["merger"][name]
+    mergers = [("visual.merger.", vis["merger"], merger_names)] + [
+        (f"visual.deepstack_merger_list.{j}.", m, _MERGER_QWEN3)
+        for j, m in enumerate(vis.get("deepstack", []))]
+    for prefix, m, names in mergers:
+        for suffix, (name, tr) in names.items():
+            yield prefix + suffix, m[name].T if tr else m[name]
 
 
 _SAFETENSORS_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}

@@ -1,5 +1,10 @@
-"""Qwen2.5-VL text decoder: GQA + M-RoPE, prefill and cached decode
-(counterpart of ``open_o3_video_tpu/models/qwen25vl/text.py``).
+"""Qwen-VL text decoder: GQA + M-RoPE, prefill and cached decode
+(counterpart of ``open_o3_video_tpu/models/qwen25vl/text.py``). Qwen2.5-VL
+and Qwen2-VL add q/k/v biases; Qwen3-VL has none, normalizes q and k per
+head (RMSNorm over head_dim) before the rope, takes its head_dim from the
+config, interleaves its M-RoPE sections, and adds its tower's deepstack
+taps to the hidden states at vision positions after the first decoder
+layers.
 
 Functions over a param dict. The KV cache is one stacked (L, B, T, Hkv, D)
 pair of tensors updated in place: ``cache["k"][layer]`` is already a
@@ -28,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import causal_attention
 from ...ops.quant import dense
-from ...ops.rope import apply_mrope, mrope_cos_sin
+from ...ops.rope import apply_mrope, mrope_cos_sin, mrope_cos_sin_interleaved
 from .config import TextConfig
 from .vision import rms_norm
 
@@ -84,9 +89,15 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
                      cache, layer: int, cache_offset, impl: str, validity_only: bool,
                      decode_impl: str):
     B, S, _ = x.shape
-    q = (dense(x, p["q_w"], impl) + p["q_b"]).reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
-    k = (dense(x, p["k_w"], impl) + p["k_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
-    v = (dense(x, p["v_w"], impl) + p["v_b"]).reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    q, k, v = dense(x, p["q_w"], impl), dense(x, p["k_w"], impl), dense(x, p["v_w"], impl)
+    if cfg.attention_bias:
+        q, k, v = q + p["q_b"], k + p["k_b"], v + p["v_b"]
+    q = q.reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    if cfg.use_qk_norm:  # Qwen3: per-head RMSNorm on q and k before the rope
+        q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
     q, k = apply_mrope(q, k, cos, sin)
     if cache is not None:
         ck, cv = cache["k"][layer], cache["v"][layer]  # (B, T, Hkv, D) views
@@ -122,6 +133,8 @@ def text_forward(
     remat: bool = False,
     validity_only: bool = False,
     decode_attn_impl: str = "auto",
+    deepstack_embeds: Optional[list] = None,
+    deepstack_row_index: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (hidden states (B, S, D) after the final norm, the cache,
     updated in place).
@@ -149,11 +162,19 @@ def text_forward(
     (``jax.checkpoint`` per layer in the JAX package; the reference's
     gradient checkpointing). The checkpoint is non-reentrant, so its first
     forward runs under autograd like the recompute, and attention picks its
-    exact training mode in both."""
+    exact training mode in both.
+
+    ``deepstack_embeds`` (Qwen3-VL): a list of (n_vis, D) tables, the i-th
+    added into the hidden states after decoder layer i at the positions
+    that ``deepstack_row_index`` (B, S) maps to a table row (-1: none), as
+    HF's ``Qwen3VLTextModel._deepstack_process``. The addition is
+    positionwise, so a chunk of a prefill takes the index's columns of that
+    chunk; decode steps and verify blocks carry no taps."""
     B, S, _ = inputs_embeds.shape
     if seq_positions is None:
         seq_positions = torch.arange(S, device=inputs_embeds.device).expand(B, S) + cache_offset
-    cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
+    rope = mrope_cos_sin_interleaved if cfg.mrope_interleaved else mrope_cos_sin
+    cos, sin = rope(position_ids, cfg.head_dim, cfg.mrope_section, cfg.rope_theta)
     cos = cos.to(inputs_embeds.dtype)
     sin = sin.to(inputs_embeds.dtype)
 
@@ -172,6 +193,11 @@ def text_forward(
             x = checkpoint(layer_fn, x, layer, i, use_reentrant=False)
         else:
             x = layer_fn(x, layer, i)
+        if deepstack_embeds is not None and i < len(deepstack_embeds):
+            tbl = deepstack_embeds[i]
+            flat_idx = deepstack_row_index.reshape(-1).long()
+            add = tbl[flat_idx.clamp(0, tbl.shape[0] - 1)].to(x.dtype)
+            x = x + torch.where((flat_idx >= 0)[:, None], add, 0).reshape(x.shape)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
 
 

@@ -84,6 +84,30 @@ def mrope_cos_sin(position_ids: torch.Tensor, head_dim: int, mrope_section: Sequ
     return torch.cat(cos_parts, dim=-1), torch.cat(sin_parts, dim=-1)
 
 
+def mrope_cos_sin_interleaved(position_ids: torch.Tensor, head_dim: int,
+                              mrope_section: Sequence[int],
+                              theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen3-VL's interleaved M-RoPE: frequency f takes the temporal axis,
+    except f = 1, 4, 7, ... below 3 * section[1], which take height, and f =
+    2, 5, 8, ... below 3 * section[2], which take width (HF
+    ``Qwen3VLTextRotaryEmbedding.apply_interleaved_mrope``). cos/sin (B, S,
+    head_dim) float32 from (3, B, S) positions. Where the three axes carry
+    one position (text, and every decode step) it equals plain rope."""
+    dev = position_ids.device
+    inv_freq = 1.0 / (
+        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim)
+    )
+    freqs = position_ids.float()[..., None] * inv_freq  # (3, B, S, D/2)
+    # the axis of each frequency, made on the device (a decode step is
+    # captured in a CUDA graph, which no host-to-device copy may enter)
+    idx = torch.arange(head_dim // 2, device=dev)
+    axis = torch.where((idx % 3 == 1) & (idx < 3 * int(mrope_section[1])), 1,
+                       torch.where((idx % 3 == 2) & (idx < 3 * int(mrope_section[2])), 2, 0))
+    merged = torch.gather(freqs, 0, axis.expand(freqs.shape[1:])[None])[0]  # (B, S, D/2)
+    emb = torch.cat([merged, merged], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
 def apply_mrope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """Rotate q/k (B, S, H, D) by cos/sin (B, S, D), in the inputs' dtype."""
     cos = cos[:, :, None, :]

@@ -87,11 +87,14 @@ def main(argv=None):
     from ..data.rl_dataset import load_rl_dataset, prepare_rl_sample
     from ..grounding.rewards import REWARD_REGISTRY
     from ..models.qwen25vl import params as P
+    from ..models.qwen25vl.config import Qwen25VLConfig
     from ..utils.metrics import MetricsBus
     from . import checkpoint as CKPT
     from .gspo import GSPOConfig, GSPOTrainer
+    from .sft import require_trainable
     from .lora import LoraConfig, merge_adapters
 
+    require_trainable(Qwen25VLConfig.from_pretrained(args.model_name_or_path))
     params, model_cfg = P.load_pretrained(args.model_name_or_path, device)
     # PEFT: the reference model is the base with adapters disabled, so the
     # checkpoint is read once; a full fine-tune keeps a second, frozen copy.

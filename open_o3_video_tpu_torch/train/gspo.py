@@ -58,7 +58,7 @@ from ..models.qwen25vl.text import per_token_logps_from_hidden
 from ..utils.metrics import MetricsBus
 from ..utils.profiling import StageTimer
 from .lora import LoraConfig, adapter_leaves, apply_adapters, init_adapters
-from .sft import ClipAdamW, SFTConfig, global_norm
+from .sft import ClipAdamW, SFTConfig, global_norm, require_trainable
 
 # optax.adamw's default weight decay (GSPO's optimizer leaves it unset).
 OPTAX_ADAMW_WEIGHT_DECAY = 1e-4
@@ -239,6 +239,7 @@ class GSPOTrainer:
         if mesh is not None:
             raise NotImplementedError("GSPO on a mesh is not ported yet (ROADMAP M8): "
                                       "the port trains on one device")
+        require_trainable(model_cfg)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.detokenize = detokenize

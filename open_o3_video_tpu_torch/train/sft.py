@@ -31,6 +31,16 @@ from ..models.qwen25vl.text import per_token_logps_from_hidden
 IGNORE_INDEX = -100
 
 
+def require_trainable(cfg: Qwen25VLConfig) -> None:
+    """Raise NotImplementedError for a family the port serves but does not
+    train yet: SFT and GSPO of Qwen2-VL and Qwen3-VL come with their
+    training slice (K1, K2's exact mode and K6 at Qwen3-VL's head_dim 72)."""
+    if cfg.model_type != "qwen2_5_vl":
+        raise NotImplementedError(
+            f"{cfg.model_type}: training (SFT, GSPO) comes with the training slice of "
+            "Qwen2-VL and Qwen3-VL (ROADMAP Queue 1); the port serves it")
+
+
 @dataclasses.dataclass
 class SFTConfig:
     """Defaults mirror the reference's run_sft_video.sh (as the JAX
@@ -175,6 +185,7 @@ def make_train_step(model_cfg: Qwen25VLConfig, train_cfg: SFTConfig, optimizer: 
     """(params, opt_state, batch) -> (params, opt_state, metrics), params and
     state updated in place; metrics {loss, num_target_tokens, grad_norm}
     (the norm before the clip), as the JAX package's step returns them."""
+    require_trainable(model_cfg)
 
     def train_step(params, opt_state, batch):
         metrics = loss_and_grads(params, model_cfg, train_cfg, batch, attn_impl)
@@ -196,6 +207,8 @@ def make_lora_train_step(model_cfg: Qwen25VLConfig, train_cfg: SFTConfig,
     ``opt_state`` is ``optimizer.init(lora.adapter_leaves(adapters))``.
     Adapters and state are updated in place."""
     from .lora import adapter_leaves, apply_adapters
+
+    require_trainable(model_cfg)
 
     def train_step(adapters, opt_state, batch, base_params):
         for x in P.leaves(base_params):

@@ -108,12 +108,14 @@ def main(argv=None):
     from ..utils.metrics import MetricsBus
     from . import checkpoint as CKPT
     from .lora import LoraConfig, adapter_leaves, init_adapters, merge_adapters
-    from .sft import SFTConfig, make_lora_train_step, make_optimizer, make_train_step
+    from .sft import (SFTConfig, make_lora_train_step, make_optimizer, make_train_step,
+                      require_trainable)
 
     # The loader casts every floating leaf to the config's dtype: bf16 as the
     # reference trains (run_sft_video.sh:28), or the stored dtype.
     dtype = torch.bfloat16 if args.bf16 else stored_dtype(args.model_name_or_path)
     model_cfg = Qwen25VLConfig.from_pretrained(args.model_name_or_path, dtype=dtype)
+    require_trainable(model_cfg)
     params, _ = P.load_pretrained(args.model_name_or_path, device, cfg=model_cfg)
     processor = O3VideoProcessor.from_pretrained(args.model_name_or_path)
 

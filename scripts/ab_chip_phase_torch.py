@@ -1,6 +1,6 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8 DIR [DIR ...]
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
 (``git archive``) into a directory that ``.gitignore`` lists and pass it
@@ -17,7 +17,10 @@ one phase:
   held to a plain run of its own instead of run (a)'s tokens;
 - ``frames``: phase 19a (``frames_phase``), the uint8 frame path;
 - ``a8``: phases 19b and 19c (``quant_phase``, ``quant_long_phase``), the
-  quantized modes and w8a8 at run (b)'s length.
+  quantized modes and w8a8 at run (b)'s length;
+- ``families``: phase 20 (``families_phase``), K2 at head_dim 72, then
+  Qwen3-VL-8B and Qwen2-VL-7B served from their published configs (the 7B
+  drawn first stays resident, as in the whole script).
 
 Each process's output goes to this one's standard output after a line
 ``tree DIR``; the exit code is the first nonzero one of the processes.
@@ -38,6 +41,7 @@ PHASE = {
     "frames": "c.frames_phase(params, cfg, c.O3VideoProcessor(), seed)",
     "a8": ("c.quant_phase(params, cfg, c.O3VideoProcessor(), seed); "
            "c.quant_long_phase(params, cfg, seed)"),
+    "families": "c.families_phase(torch.device('cuda'), seed, {})",
 }
 
 CHILD = """

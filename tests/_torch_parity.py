@@ -127,6 +127,24 @@ def model_pair(seed: int = 0):
 
 
 @functools.cache
+def family_pair(name: str, seed: int = 0):
+    """``model_pair`` for another tiny family config of both packages
+    (``"tiny_qwen3"``, ``"tiny_qwen2"``): JAX's random init carried across
+    by ``from_jax_params``: (jax cfg, jax params, port cfg, port params)."""
+    import jax
+    import jax.numpy as jnp
+
+    from open_o3_video_tpu.models.qwen25vl import config as JC
+    from open_o3_video_tpu_torch.models.qwen25vl import config as TC
+    from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+
+    jcfg, tcfg = getattr(JC, name)(), getattr(TC, name)()
+    tree = jax_params_numpy(jcfg, seed)
+    return (jcfg, jax.tree.map(jnp.asarray, tree), tcfg,
+            TP.from_jax_params(tree, tcfg, torch.device("cpu")))
+
+
+@functools.cache
 def hf_tiny():
     """The tiny HF Qwen2.5-VL of tests/test_model_parity.py (f32, weights
     from torch seed 0) and the port's config and params loaded from its
@@ -171,6 +189,44 @@ def hf_tiny():
         vision_end_token_id=hf_cfg.vision_end_token_id)
     params = TP.from_hf_state_dict(hf.state_dict().items(), cfg, torch.device("cpu"))
     return hf, cfg, params
+
+
+@functools.cache
+def hf_tiny_qwen3():
+    """HF's tiny Qwen3-VL (f32, weights from torch seed 0) at the port's
+    ``tiny_qwen3`` widths, its state dict loaded by the port's HF loader."""
+    transformers = pytest.importorskip("transformers")
+    from transformers.models.qwen3_vl import Qwen3VLConfig
+
+    from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+    from open_o3_video_tpu_torch.models.qwen25vl.config import tiny_qwen3
+
+    cfg = tiny_qwen3()
+    v, t = cfg.vision, cfg.text
+    hf_cfg = Qwen3VLConfig(
+        vision_config=dict(
+            depth=v.depth, hidden_size=v.hidden_size, hidden_act="gelu_pytorch_tanh",
+            intermediate_size=v.intermediate_size, num_heads=v.num_heads,
+            patch_size=v.patch_size, spatial_merge_size=v.spatial_merge_size,
+            temporal_patch_size=v.temporal_patch_size, out_hidden_size=v.out_hidden_size,
+            num_position_embeddings=v.num_position_embeddings,
+            deepstack_visual_indexes=list(v.deepstack_visual_indexes)),
+        text_config=dict(
+            vocab_size=t.vocab_size, hidden_size=t.hidden_size,
+            intermediate_size=t.intermediate_size, num_hidden_layers=t.num_hidden_layers,
+            num_attention_heads=t.num_attention_heads,
+            num_key_value_heads=t.num_key_value_heads, head_dim=t.head_dim,
+            rms_norm_eps=t.rms_norm_eps, rope_theta=t.rope_theta,
+            rope_scaling={"rope_type": "default", "mrope_section": list(t.mrope_section),
+                          "mrope_interleaved": True},
+            attention_bias=False, tie_word_embeddings=False,
+            max_position_embeddings=t.max_position_embeddings),
+        image_token_id=cfg.image_token_id, video_token_id=cfg.video_token_id,
+        vision_start_token_id=cfg.vision_start_token_id,
+        vision_end_token_id=cfg.vision_end_token_id, tie_word_embeddings=False)
+    torch.manual_seed(0)
+    hf = transformers.Qwen3VLForConditionalGeneration(hf_cfg).eval().float()
+    return hf, cfg, TP.from_hf_state_dict(hf.state_dict().items(), cfg, torch.device("cpu"))
 
 
 def frames(r: np.random.Generator, n: int, h: int, w: int) -> np.ndarray:

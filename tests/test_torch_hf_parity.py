@@ -5,13 +5,15 @@ text-only batch and on an image request at three grids, within the
 tolerances the JAX package's parity tests hold (f32: 2e-4 absolute and
 2e-3 relative for text, 5e-4 and 5e-3 with vision, whose tower adds its
 own sums); the engine's greedy tokens, plain and speculative, equal HF's
-``generate`` (greedy, no repetition penalty)."""
+``generate`` (greedy, no repetition penalty); the same for HF's tiny
+Qwen3-VL (``_torch_parity.hf_tiny_qwen3``: deepstack, qk-norm, interleaved
+M-RoPE) on an image request."""
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import hf_tiny, rng
+from _torch_parity import hf_tiny, hf_tiny_qwen3, rng
 
 from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
 from open_o3_video_tpu_torch.models.qwen25vl.model import forward, get_rope_index
@@ -79,3 +81,33 @@ def test_greedy_engine_tokens_match_hf_generate(vision, spec):
                                                 max_tokens=10))[0]["token_ids"]
     assert got == want
     assert (engine.spec_stats["verify_steps"] > 0) == spec
+
+
+def test_qwen3vl_forward_and_greedy_tokens_match_hf():
+    """An image request: ``forward``'s logits within the tolerance of JAX's
+    HF parity test (5e-4, 5e-3 relative), and 8 greedy engine tokens equal
+    to HF ``generate``'s (no repetition penalty)."""
+    from test_torch_qwen3vl import _image_prompt, _patches
+
+    hf, cfg, params = hf_tiny_qwen3()
+    r = rng(6)
+    grid = np.array([[1, 4, 8]])
+    ids = _image_prompt(cfg, r, grid)
+    pix = _patches(cfg, r, grid)
+    with torch.no_grad():
+        want = hf(input_ids=torch.tensor([ids]), pixel_values=torch.from_numpy(pix),
+                  image_grid_thw=torch.from_numpy(grid)).logits.numpy()
+        pos, _ = get_rope_index(cfg, np.array([ids]), image_grid_thw=grid)
+        got, _ = forward(params, cfg, torch.tensor([ids]), torch.from_numpy(pos),
+                         pixel_patches=torch.from_numpy(pix), grid_thw=grid,
+                         vision_token_id=cfg.image_token_id)
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=5e-3)
+        tokens = hf.generate(input_ids=torch.tensor([ids]), pixel_values=torch.from_numpy(pix),
+                             image_grid_thw=torch.from_numpy(grid), max_new_tokens=8,
+                             do_sample=False, repetition_penalty=1.0,
+                             attention_mask=torch.ones(1, len(ids), dtype=torch.long))
+    engine = InferenceEngine(params, cfg, cache_dtype=torch.float32, prompt_buckets=(64,))
+    out = engine.generate([Request(ids, pixel_patches=pix, grid_thw=grid,
+                                   vision_token_id=cfg.image_token_id)],
+                          SamplingParams(temperature=0.0, repetition_penalty=1.0, max_tokens=8))
+    assert out[0]["token_ids"] == tokens[0, len(ids):].tolist()

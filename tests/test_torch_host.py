@@ -130,11 +130,11 @@ def test_config_defaults_and_tiny_match_jax():
     assert tconfig.Qwen25VLConfig().text.head_dim == 128
     hf = JaxConfig().to_hf_dict()
     assert _fields(tconfig.Qwen25VLConfig.from_hf_dict(hf)) == _fields(JaxConfig.from_hf_dict(hf))
-    with pytest.raises(NotImplementedError):
-        tconfig.Qwen25VLConfig.from_hf_dict({"model_type": "qwen2_vl"})
-    # the other families' switches keep their fields but are refused
-    for make in (lambda: tconfig.VisionConfig(norm_type="layernorm"),
-                 lambda: tconfig.TextConfig(use_qk_norm=True),
-                 lambda: tconfig.Qwen25VLConfig(model_type="qwen3_vl")):
-        with pytest.raises(NotImplementedError, match="Qwen2.5-VL only"):
+    for model_type in ("qwen3_vl_moe", "aria"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tconfig.Qwen25VLConfig.from_hf_dict({"model_type": model_type})
+    # the MoE branch keeps its fields but is refused
+    for make in (lambda: tconfig.TextConfig(moe_num_experts=4),
+                 lambda: tconfig.Qwen25VLConfig(model_type="qwen3_vl_moe")):
+        with pytest.raises(NotImplementedError, match="routed-MoE"):
             make()

@@ -2,7 +2,7 @@
 rouge_score or nltk, and imports none of them. A subprocess blocks those
 imports, imports every module of the port, runs a tiny generate on the CPU
 (with a bf16 cache, and with an fp8 cache through the long-context path), a
-generate over raw frames with ``resize_hw``, a w8a8 generate,
+tiny Qwen3-VL generate through its deepstack taps, a generate over raw frames with ``resize_hw``, a w8a8 generate,
 greedy and sampled speculative generates (the latter replaying streams),
 one tiny SFT train step, a generate with an int4 decoder (K7's plain
 version), a judge call, one tiny PEFT GSPO step on a free-form example (its
@@ -109,6 +109,13 @@ weights = params.init(cfg, 0, torch.device("cpu"))
 req = Request(x.input_ids, x.pixel_patches, x.grid_thw, cfg.image_token_id)
 out = InferenceEngine(weights, cfg).generate([req], SamplingParams(max_tokens=4))
 assert 1 <= len(out[0]["token_ids"]) <= 4, out
+# Qwen3-VL: the same images through a tiny Qwen3-VL tower with deepstack taps
+from open_o3_video_tpu_torch.models.qwen25vl.config import tiny_qwen3
+q3cfg = tiny_qwen3()
+q3 = params.init(q3cfg, 0, torch.device("cpu"))
+q3req = Request(x.input_ids, x.pixel_patches, x.grid_thw, q3cfg.image_token_id)
+out = InferenceEngine(q3, q3cfg).generate([q3req], SamplingParams(max_tokens=4))
+assert 1 <= len(out[0]["token_ids"]) <= 4 and len(q3["visual"]["deepstack"]) == 2, out
 # the uint8 frame path: raw frames resized on the device to the processor's
 # size, then w8a8 (int8 decoder and ViT blocks, a8_prefill) on the same request
 raw = np.random.default_rng(3).integers(0, 256, (2, 3, 70, 100), dtype=np.uint8)

@@ -127,12 +127,18 @@ FUSED_CUDA_CASES = CUDA_CASES + [
 ]
 
 
+# K2 alone at Qwen3-VL's head_dim 72 (16 heads of 1152): whole frames of
+# 16x22 patches (256x352 px at patch 16), resident, and of 28x28 patches
+# (448x448 px), streamed. K1 is not built for 72.
+K2_CASES = CUDA_CASES + [(16, 352, 16, 72, 1), (8, 784, 16, 72, 1)]
+
+
 def _bf16(x, dev):
     return torch.from_numpy(x).to(dev, torch.bfloat16)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,w,h,d,maxw", CUDA_CASES)
+@pytest.mark.parametrize("n,w,h,d,maxw", K2_CASES)
 def test_window_attention_kernel_matches_plain(n, w, h, d, maxw):
     dev = cuda_device()
     r = rng(n + w + d)
