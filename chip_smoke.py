@@ -75,7 +75,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      convert) and K7 at the TPU scripts' shape, 3584->18944 at M=16, chained
      over 8 weights as scripts/profile_int4_kernel_parts.py chains them;
  12. the 7B video slice with its decoder in int4 (quantize_params_int4 of
-     the phase-4 param dict, after phase 9's steps): phase 4's requests and
+     the phase-4 weights, drawn again from --seed after phase 21): phase 4's requests and
      sampling through InferenceEngine.generate, stage times, weight and
      peak GiB, K7 launches by route (the prefill's 7 * 28 decoder matmuls
      on the wgmma route, its lm_head at the last positions and 7 * 28 + 1
@@ -258,6 +258,28 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      config on phase 4's requests: K2 on all 32 blocks (W = 432), graphed
      = eager, the tower against float32. Each model is freed before the
      next is drawn.
+ 21. training Qwen3-VL-8B and Qwen2-VL-7B (after phase 20, before phase
+     11; the 7B is released first and drawn again from --seed after): 21a
+     K2's exact mode (out, lse) and K6's dq and dk/dv against their plain
+     versions at head_dim 72 over W = 352 (16 frames, resident) and 784 (8,
+     streamed) and at 80 over Qwen2-VL's W = 432, frame 0 ending in 32 pad
+     rows, each with its bound and SDPA forward (+ backward); at W = 352 the
+     even heads' five outputs bit-equal with the odd heads' inputs x8, and
+     three planted faults must fail the bound (dq over 8 columns of the
+     next head, dq from delta = 0, dk/dv with frame 0's mask ignored); 21b
+     3 full fine-tune steps of Qwen3-VL-8B (its published config, random
+     bf16 weights from --seed) through make_train_step at SFTConfig
+     defaults on phase 9's example over 16 frames of 256x352 as images:
+     seconds, loss, gradient norm and peak GiB a step, K2 exact, K6, K3
+     exact and K5 launched, K1 never; then the training numerics at 9 ViT
+     blocks (the tap after block 8 kept) and 2 decoder layers as phase 10,
+     the deepstack mergers a group of their own; 21c 2 PEFT steps (LoRA
+     rank 16 on q/v): K2 inference, no K6, the base bit for bit; 21d a PEFT
+     GSPO step of Qwen3-VL-8B at GSPOConfig defaults on phase 14's example
+     over its frames, canned rewards, then a full fine-tune GSPO step at 9
+     ViT blocks and 4 layers against the frozen originals (K6 at 72
+     launched); 21e one full fine-tune step of Qwen2-VL-7B on phase 9's
+     batch (K2 exact and K6 at W = 432).
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -442,6 +464,13 @@ FAMILY_CASES = {
     "window_attention_d72_w784": TPU_KERNELS["window_attention"],
     "window_attention_qwen2vl": TPU_KERNELS["window_attention"],
     "flash_attention_gqa_qwen3": TPU_KERNELS["flash_attention_gqa"],
+}
+# Phase 21's rows: K2's exact mode and K6's dq and dk/dv at head_dim 72
+# (Qwen3-VL-8B, W = 352) and at 80 over Qwen2-VL-7B's W = 432.
+FAMILY_TRAIN_CASES = {
+    f"{name}{suffix}": TPU_KERNELS[name]
+    for suffix in ("_d72", "_qwen2vl")
+    for name in ("window_attention_exact", "window_attention_bwd_dq", "window_attention_bwd_dkv")
 }
 # The kernels each main path must launch.
 SLICE_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa")
@@ -1348,11 +1377,12 @@ def long_numerics_phase(params, cfg) -> None:
 # ---- training ---------------------------------------------------------------
 
 
-def sft_batch(proc, cfg, seed: int) -> dict:
-    """The SFT slice's batch: one example over 16 synthetic frames through
-    the port's collate and pack (ByteTokenizer, labels masked)."""
+def sft_batch(proc, cfg, seed: int, frame_hw=(FRAME_H, FRAME_W)) -> dict:
+    """The SFT slice's batch: one example over 16 synthetic frames of
+    ``frame_hw`` through the port's collate and pack (ByteTokenizer, labels
+    masked)."""
     frames = np.random.default_rng(seed + 1).integers(
-        0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
+        0, 256, size=(N_FRAMES, 3, *frame_hw), dtype=np.uint8)
     messages = [
         {"role": "system", "content": [{"type": "text", "text": SFT_SYSTEM_PROMPT[SFT_TASK]}]},
         {"role": "user", "content": [{"type": "video", "video": "synthetic"},
@@ -1603,14 +1633,17 @@ def sft_phase(params, cfg, batch) -> dict:
 
 
 def _grad_groups(weights) -> dict:
-    """The trainable leaves by group: the ViT, the decoder layers (and the
-    final norm), the embedding and the lm_head."""
+    """The trainable leaves by group: the ViT (its merger included), the
+    deepstack mergers (Qwen3-VL), the decoder layers (and the final norm),
+    the embedding and the lm_head."""
     text = weights["text"]
-    return {
-        "vit": P.leaves(weights["visual"]),
-        "decoder": P.leaves(text["layers"]) + [text["final_norm"]],
-        "embed_lm_head": [text["embed_tokens"], text["lm_head"]],
-    }
+    visual = {k: v for k, v in weights["visual"].items() if k != "deepstack"}
+    groups = {"vit": P.leaves(visual)}
+    if weights["visual"].get("deepstack"):
+        groups["deepstack"] = P.leaves(weights["visual"]["deepstack"])
+    return {**groups,
+            "decoder": P.leaves(text["layers"]) + [text["final_norm"]],
+            "embed_lm_head": [text["embed_tokens"], text["lm_head"]]}
 
 
 def _loss_and_grad_copies(weights, cfg, batch, impl) -> tuple[float, dict]:
@@ -1639,30 +1672,29 @@ def _agreement_sums(grads, ref, chunk: int = 1 << 26) -> tuple[float, float]:
     return float(np.sqrt(diff / ref_sq)), dot / float(np.sqrt(ref_sq * own_sq))
 
 
-def train_numerics_phase(params, cfg, batch) -> None:
-    """Training numerics at full width, depth cut to NUMERICS_VIT_DEPTH ViT
-    blocks and NUMERICS_TEXT_LAYERS decoder layers: the loss and gradients
-    of the kernel path and of the plain bf16 path (impl="torch"), each
-    against a float32 plain reference on the same weights. Per group, the
-    kernel path may be at most SLICE_REL_RATIO further from float32 than the
-    plain path."""
-    small_cfg = dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, depth=NUMERICS_VIT_DEPTH),
-        text=dataclasses.replace(cfg.text, num_hidden_layers=NUMERICS_TEXT_LAYERS))
-    small = {"visual": {**params["visual"], "blocks": params["visual"]["blocks"][:NUMERICS_VIT_DEPTH]},
-             "text": {**params["text"], "layers": params["text"]["layers"][:NUMERICS_TEXT_LAYERS]}}
+def train_numerics_phase(params, cfg, batch, vit_depth=NUMERICS_VIT_DEPTH,
+                         text_layers=NUMERICS_TEXT_LAYERS, tag="train_numerics") -> None:
+    """Training numerics at full width, depth cut to vit_depth ViT blocks
+    (the deepstack taps among them) and text_layers decoder layers: the
+    loss and gradients of the kernel path and of the plain bf16 path
+    (impl="torch"), each against a float32 plain reference on the same
+    weights. Per group, the kernel path may be at most SLICE_REL_RATIO
+    further from float32 than the plain path."""
+    small_cfg = _cut_cfg(cfg, vit_depth, text_layers)
+    small = _sub(params, vit_depth, text_layers, cfg.vision)
     loss_k, grads_k = _loss_and_grad_copies(small, small_cfg, batch, "auto")
     loss_p, grads_p = _loss_and_grad_copies(small, small_cfg, batch, "torch")
     ref = P.trainable(_cast(small, torch.float32))
     cfg32 = dataclasses.replace(small_cfg, dtype=torch.float32)
     m = loss_and_grads(ref, cfg32, SFTConfig(), batch, attn_impl="torch")
     loss_r, grads_r = float(m["loss"]), {g: [x.grad for x in xs] for g, xs in _grad_groups(ref).items()}
-    log("train_numerics", vit_blocks=NUMERICS_VIT_DEPTH, decoder_layers=NUMERICS_TEXT_LAYERS,
+    log(tag, vit_blocks=vit_depth, decoder_layers=text_layers,
+        taps=list(small_cfg.vision.deepstack_visual_indexes),
         loss_kernel=loss_k, loss_plain=loss_p, loss_f32=loss_r)
     for group in grads_r:
         rel_k, cos_k = _agreement_sums(grads_k[group], grads_r[group])
         rel_p, cos_p = _agreement_sums(grads_p[group], grads_r[group])
-        log("train_numerics", group=group, kernel_vs_f32_rel=rel_k, kernel_vs_f32_cos=cos_k,
+        log(tag, group=group, kernel_vs_f32_rel=rel_k, kernel_vs_f32_cos=cos_k,
             plain_vs_f32_rel=rel_p, plain_vs_f32_cos=cos_p, max_ratio=SLICE_REL_RATIO)
         if not rel_k <= SLICE_REL_RATIO * rel_p:
             raise RuntimeError(f"{group} gradients: the kernel path is further from float32 than "
@@ -1674,12 +1706,13 @@ def train_numerics_phase(params, cfg, batch) -> None:
 # ---- GSPO ---------------------------------------------------------------------
 
 
-def gspo_sample(proc, seed: int) -> dict:
-    """GSPO_EXAMPLE through rl_sample_from_frames: 16 synthetic 252x336
-    frames at 2 fps and one synthetic keyframe, interleaved by its time."""
+def gspo_sample(proc, seed: int, frame_hw=(FRAME_H, FRAME_W)) -> dict:
+    """GSPO_EXAMPLE through rl_sample_from_frames: 16 synthetic frames of
+    ``frame_hw`` (252x336) at 2 fps and one synthetic keyframe, interleaved
+    by its time."""
     rng = np.random.default_rng(seed + 2)
-    frames = rng.integers(0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
-    keyframe = rng.integers(0, 256, size=(3, FRAME_H, FRAME_W), dtype=np.uint8)
+    frames = rng.integers(0, 256, size=(N_FRAMES, 3, *frame_hw), dtype=np.uint8)
+    keyframe = rng.integers(0, 256, size=(3, *frame_hw), dtype=np.uint8)
     return rl_sample_from_frames(GSPO_EXAMPLE, proc, list(frames), FPS, [keyframe])
 
 
@@ -1697,14 +1730,27 @@ class CannedTraces:
         return text
 
 
-def _sub(tree, vit_depth, text_layers):
-    return {"visual": {**tree["visual"], "blocks": tree["visual"]["blocks"][:vit_depth]},
+def _taps_kept(vision, vit_depth) -> int:
+    """The deepstack taps (Qwen3-VL) of the first vit_depth blocks."""
+    return sum(i < vit_depth for i in vision.deepstack_visual_indexes)
+
+
+def _sub(tree, vit_depth, text_layers, vision=None):
+    """The params of the first vit_depth ViT blocks (and the deepstack
+    mergers of their taps, given the config's ``vision``) and text_layers
+    decoder layers; the tensors shared."""
+    visual = {**tree["visual"], "blocks": tree["visual"]["blocks"][:vit_depth]}
+    if "deepstack" in visual:
+        visual["deepstack"] = visual["deepstack"][:_taps_kept(vision, vit_depth)]
+    return {"visual": visual,
             "text": {**tree["text"], "layers": tree["text"]["layers"][:text_layers]}}
 
 
 def _cut_cfg(cfg, vit_depth, text_layers):
+    taps = cfg.vision.deepstack_visual_indexes[:_taps_kept(cfg.vision, vit_depth)]
     return dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, depth=vit_depth),
+        cfg, vision=dataclasses.replace(cfg.vision, depth=vit_depth,
+                                        deepstack_visual_indexes=taps),
         text=dataclasses.replace(cfg.text, num_hidden_layers=text_layers))
 
 
@@ -1834,21 +1880,24 @@ def _has_safetensors() -> bool:
     return True
 
 
-def gspo_full_phase(params, cfg, proc, sample, seed: int) -> dict:
-    """The full fine-tune branch at full width and FT_VIT_DEPTH ViT blocks /
-    FT_TEXT_LAYERS decoder layers: a trained copy of those weights against
+def gspo_full_phase(params, cfg, proc, sample, seed: int, vit_depth=FT_VIT_DEPTH,
+                    text_layers=FT_TEXT_LAYERS, required=FT_KERNELS,
+                    tag="full fine-tune") -> dict:
+    """The full fine-tune branch at full width and vit_depth ViT blocks /
+    text_layers decoder layers: a trained copy of those weights against
     the frozen originals as ``ref_params``, one GSPOTrainer step. Every
-    training kernel, K6 among them, must launch."""
-    small_cfg = _cut_cfg(cfg, FT_VIT_DEPTH, FT_TEXT_LAYERS)
-    ref = _sub(params, FT_VIT_DEPTH, FT_TEXT_LAYERS)
+    training kernel of the path (``required``), K6 among them, must
+    launch."""
+    small_cfg = _cut_cfg(cfg, vit_depth, text_layers)
+    ref = _sub(params, vit_depth, text_layers, cfg.vision)
     trained = _clone(ref)
     trainer = GSPOTrainer(trained, ref, small_cfg, GSPOConfig(), detokenize=CannedTraces(proc),
                           seed=seed)
-    log("gspo", mode="full fine-tune", vit_blocks=FT_VIT_DEPTH, decoder_layers=FT_TEXT_LAYERS,
+    log("gspo", mode=tag, vit_blocks=vit_depth, decoder_layers=text_layers,
         trained_params=sum(x.numel() for x in trainer.trained_leaves()))
-    out = gspo_step(trainer, sample, 0, "full fine-tune", FT_KERNELS)
+    out = gspo_step(trainer, sample, 0, tag, required)
     moved = sum(int(not torch.equal(a, b)) for a, b in zip(P.leaves(trained), P.leaves(ref)))
-    log("gspo", run="full fine-tune", leaves_moved=moved, leaves=len(P.leaves(trained)))
+    log("gspo", run=tag, leaves_moved=moved, leaves=len(P.leaves(trained)))
     if not moved:
         raise RuntimeError("the full fine-tune step moved no weight")
     del trainer, trained
@@ -2012,13 +2061,15 @@ def sft_app_data(seed: int, media: dict) -> str:
     return data
 
 
-def sft_peft_phase(params, cfg, batch, seed: int, source: str) -> dict:
-    """15c: SFT_APP_STEPS PEFT steps of make_lora_train_step on the frozen 7B
+def sft_peft_phase(params, cfg, batch, seed: int, source: str, steps=SFT_APP_STEPS,
+                   required=SFT_PEFT_KERNELS, absent=SFT_PEFT_ABSENT, tag="sft_app") -> dict:
+    """15c: `steps` PEFT steps of make_lora_train_step on the frozen 7B
     (sft_main's default adapters from --seed; SFTConfig defaults; the last
     step under the profiler: device time by kernel class, busy share), the
-    launch counts set to 0 just before and read just after: K1 and K2 in
-    their inference modes, K3 exact and K5 launched, K6 not. The adapters'
-    B must move off 0 and the base stay bit for bit."""
+    launch counts set to 0 just before and read just after: the kernels of
+    ``required`` launched (K1 and K2 in their inference modes, K3 exact and
+    K5), those of ``absent`` not (K6). The adapters' B must move off 0 and
+    the base stay bit for bit."""
     for x in P.leaves(params):
         x.requires_grad_(False)
     # A copy of the base on the card (~10 ms, where a host copy and its
@@ -2036,7 +2087,7 @@ def sft_peft_phase(params, cfg, batch, seed: int, source: str) -> dict:
     opt = make_optimizer(train_cfg)
     state = opt.init(adapter_leaves(adapters))
     step = make_lora_train_step(cfg, train_cfg, opt, lora.scale)
-    log("sft_app", mode="PEFT", input=source, lora_rank=lora.rank, lora_alpha=lora.alpha,
+    log(tag, mode="PEFT", input=source, lora_rank=lora.rank, lora_alpha=lora.alpha,
         targets=list(lora.target_modules),
         adapter_params=sum(x.numel() for x in adapter_leaves(adapters)),
         tokens=int(batch["attn_valid"].sum()), images=len(batch["grid_thw"]),
@@ -2044,8 +2095,8 @@ def sft_peft_phase(params, cfg, batch, seed: int, source: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    for i in range(SFT_APP_STEPS):
-        last = i == SFT_APP_STEPS - 1  # the last step runs under the profiler
+    for i in range(steps):
+        last = i == steps - 1  # the last step runs under the profiler
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         prof = torch.profiler.profile(activities=activities) if last else contextlib.nullcontext()
         t0 = time.perf_counter()
@@ -2054,24 +2105,24 @@ def sft_peft_phase(params, cfg, batch, seed: int, source: str) -> dict:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if last:
-            log("sft_app", profiled=f"step {i + 1}", **device_breakdown(prof, wall))
-        log("sft_app", step=i + 1, seconds=round(wall, 3),
+            log(tag, profiled=f"step {i + 1}", **device_breakdown(prof, wall))
+        log(tag, step=i + 1, seconds=round(wall, 3),
             loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
             num_target_tokens=int(m["num_target_tokens"]),
             peak_mem_gib=round((torch.cuda.max_memory_allocated() - copy_bytes) / 2**30, 3))
         if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
             raise RuntimeError(f"PEFT SFT step {i + 1}: non-finite loss or gradient norm")
     launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
-    log("sft_app", launches_per_step={k: n / SFT_APP_STEPS for k, n in launches.items() if n})
-    missing = [name for name in SFT_PEFT_KERNELS if not launches[name]]
-    extra = [name for name in SFT_PEFT_ABSENT if launches[name]]
+    log(tag, launches_per_step={k: n / steps for k, n in launches.items() if n})
+    missing = [name for name in required if not launches[name]]
+    extra = [name for name in absent if launches[name]]
     if missing or extra:
         raise RuntimeError(f"PEFT SFT launches: never launched {missing}, launched {extra}")
     b_max = max(ab["b"].abs().max().item() for layer in adapters["layers"]
                 for ab in layer.values())
     t0 = time.perf_counter()
     unchanged = all(torch.equal(x, y) for x, y in zip(P.leaves(params), base))
-    log("sft_app", adapters_b_max_abs=b_max, base_bit_for_bit_unchanged=unchanged,
+    log(tag, adapters_b_max_abs=b_max, base_bit_for_bit_unchanged=unchanged,
         base_copy_gib=round(copy_bytes / 2**30, 3), base_copy_s=round(copy_s, 3),
         base_check_s=round(time.perf_counter() - t0, 3))
     del base, adapters, state
@@ -4230,6 +4281,225 @@ def families_phase(dev, seed: int, results: dict) -> dict:
             "window_attention_qwen2vl": launches2["window_attention"]}
 
 
+# Phase 21: training Qwen3-VL-8B and Qwen2-VL-7B. K2's exact mode and K6's
+# whole-frame dq and dk/dv, 16 heads: (row suffix, frames, W, head_dim,
+# padded rows at the end of frame 0): at Qwen3-VL's 72 over its image
+# frames (16x22 patches, resident) and its video's (28x28, streamed), and
+# at Qwen2-VL's 80 over phase 4's frames of 18x24 patches. Frame 0 ends in
+# 32 pad rows, as a smaller frame padded to its row's width in a mixed
+# grid, so the segment mask has something to hide. The first case of each
+# suffix gives its rows.
+K6_FAMILY_CASES = (("_d72", N_FRAMES, 352, 72, 32), ("_d72", Q3_VIDEO_FRAMES, 784, 72, 32),
+                   ("_qwen2vl", N_FRAMES, 432, 80, 32))
+TRAIN_FAMILY_ROWS = ("window_attention_exact", "window_attention_bwd_dq",
+                     "window_attention_bwd_dkv")
+# 21b: the full fine-tune steps of Qwen3-VL-8B at full width and depth on
+# phase 9's example over 16 frames of 256x352 (as images, patch 16); then
+# the numerics at 9 ViT blocks (the tap after block 8 kept) and 2 decoder
+# layers. 21c: PEFT steps. 21d: the full-FT GSPO step at 9 blocks and 4
+# layers. 21e: one full fine-tune step of Qwen2-VL-7B on phase 9's batch.
+Q3_SFT_STEPS, Q3_PEFT_STEPS, Q2_SFT_STEPS = 3, 2, 1
+Q3_CUT_VIT, Q3_CUT_TEXT, Q3_FT_TEXT = 9, 2, 4
+# What each path launches: every whole-frame block's K2 (exact under
+# autograd) and K6, the decoder's K3 exact and K5; no window row kernel.
+WINDOW_ROW_KERNELS = ("fused_window_attention", "fused_window_attention_exact",
+                      "fused_window_attention_bwd")
+DECODER_TRAIN_KERNELS = ("flash_attention_gqa_exact", "flash_attention_gqa_bwd_dq",
+                         "flash_attention_gqa_bwd_dkv")
+FAMILY_FT_KERNELS = TRAIN_FAMILY_ROWS + DECODER_TRAIN_KERNELS
+FAMILY_PEFT_KERNELS = ("window_attention",) + DECODER_TRAIN_KERNELS
+FAMILY_GSPO_KERNELS = ("window_attention", "flash_attention_gqa") + DECODER_TRAIN_KERNELS
+
+
+def window_dq_delta0(q, k, v, ids, dout):
+    """dq of the plain window backward with delta = rowsum(dp * p) taken
+    as 0 (a planted fault): scale * (p * dp) @ k."""
+    qt, kt, vt, dot = (x.transpose(1, 2).float() for x in (q, k, v, dout))
+    p, _, _ = wa._exact_probs(qt, kt, wa._segment_mask(ids))
+    dq = (p * (dot @ vt.transpose(-1, -2))) @ kt * q.shape[-1] ** -0.5
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def neighbour_leak_dq(q, k, v, ids, dout):
+    """dq of a kernel whose products over D read 8 columns of the next head
+    (a 16-wide step past D = 72; the last head's neighbour is the zero fill
+    past the row), the scores kept at D^-1/2 (a planted fault)."""
+    d = q.shape[-1]
+    ext = [torch.cat([x, torch.cat([x[:, :, 1:, :8], torch.zeros_like(x[:, :, :1, :8])], 2)], -1)
+           for x in (q, k, v, dout)]
+    c = ((d + 8) / d) ** 0.5
+    dq = wa.window_attention_bwd_torch(ext[0] * c, *ext[1:3], ids, ext[3])[0]
+    return (dq[..., :d].float() * c).to(q.dtype)
+
+
+def k6_family_cases(dev, gen, results) -> None:
+    """21a: K2's exact mode (out, lse) and K6's dq and dk/dv against their
+    plain versions at K6_FAMILY_CASES, each with its bound and SDPA's
+    forward (+ backward) as the library time. At the first case (head_dim
+    72, W = 352): with the odd heads' q, k, v, dout scaled by 8, the even
+    heads' out, lse, dq, dk, dv stay bit-equal; and three planted faults
+    must fail the bound: dq over 8 columns of the next head, dq from delta
+    = 0, dk/dv with frame 0's segment mask ignored."""
+    heads = 16
+    for i, (suffix, n, w, d, pad) in enumerate(K6_FAMILY_CASES):
+        ids = torch.ones((n, w), dtype=torch.int32, device=dev)
+        ids[0, w - pad:] = 0
+        q, k, vv, do = (torch.randn((n, w, heads, d), generator=gen, device=dev)
+                        for _ in range(4))
+        q, k, vv = (x.to(torch.bfloat16) for x in (q, k, vv))
+        do = (DOUT_SCALE * do).to(torch.bfloat16)
+        do[ids == 0] = 0  # the tower never reads a pad row
+        seg = segment_mask(ids)
+        pairs = segment_pairs(ids) * heads * d
+        rows = (ids != 0, (ids != 0)[:, None, :].expand(-1, heads, -1))
+        case = f"head_dim {d}, W = {w}" + (", streamed" if w > 768 else "")
+        compare("window_attention_exact" + suffix,
+                lambda: wa.window_attention_exact(q, k, vv, ids),
+                lambda: wa.window_attention_exact_torch(q, k, vv, ids), rows, results,
+                flops=4 * pairs, moved=nbytes(q, k, vv, ids, q) + 4 * q.numel() // d,
+                library_fn=lambda: sdpa_masked(q, k, vv, seg), case=case)
+        out, lse = wa.window_attention_exact(q, k, vv, ids)
+        ops = wa.bwd_operands(q, k, vv, ids, out, lse, do)
+        ins = nbytes(*ops)
+        ref_dq = compare("window_attention_bwd_dq" + suffix, lambda: wa.window_attention_bwd_dq(ops),
+                         lambda: wa.window_attention_bwd_torch(q, k, vv, ids, do)[0], None,
+                         results, flops=6 * pairs, moved=ins + nbytes(q), case=case,
+                         library_fn=lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=seg))
+        ref_dkv = compare("window_attention_bwd_dkv" + suffix,
+                          lambda: wa.window_attention_bwd_dkv(ops),
+                          lambda: wa.window_attention_bwd_torch(q, k, vv, ids, do)[1:], None,
+                          results, flops=8 * pairs, moved=ins + 2 * nbytes(q), case=case,
+                          library_fn=lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=seg))
+        if i == 0:
+            name = "window_attention_bwd_dq" + suffix
+            planted(name, "8 columns of the next head in the products over D",
+                    neighbour_leak_dq(q, k, vv, ids, do), ref_dq, None)
+            planted(name, "delta = 0", window_dq_delta0(q, k, vv, ids, do), ref_dq, None)
+            ignored = ids.clone()
+            ignored[0] = 1
+            planted("window_attention_bwd_dkv" + suffix, "frame 0's segment mask ignored",
+                    wa.window_attention_bwd_torch(q, k, vv, ignored, do)[1:], ref_dkv, None)
+            base = (out, lse, wa.window_attention_bwd_dq(ops), *wa.window_attention_bwd_dkv(ops))
+            loud = [x.clone() for x in (q, k, vv, do)]
+            for x in loud:
+                x[:, :, 1::2] *= 8
+            lout, llse = wa.window_attention_exact(*loud[:3], ids)
+            lops = wa.bwd_operands(*loud[:3], ids, lout, llse, loud[3])
+            again = (lout, llse, wa.window_attention_bwd_dq(lops), *wa.window_attention_bwd_dkv(lops))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a[:, 0::2], b[:, 0::2]) if a.dim() == 3 else
+                       torch.equal(a[:, :, 0::2], b[:, :, 0::2]) for a, b in zip(base, again))
+            log("kernels", name="window_attention_exact" + suffix,
+                check="odd heads x8, even heads' out, lse, dq, dk, dv bit-equal", equal=same)
+            if not same:
+                raise RuntimeError("21a: a head's outputs depend on its neighbour's columns")
+            del base, loud, lops, again, ignored
+        del q, k, vv, do, out, lse, ops, ref_dq, ref_dkv, seg
+    torch.cuda.empty_cache()
+
+
+def family_sft_steps(tag, params, cfg, batch, steps, required) -> dict:
+    """`steps` full fine-tune steps through make_train_step (SFTConfig
+    defaults: AdamW at lr 1e-6, remat on), the launch counts set to 0 just
+    before and read just after: each of ``required`` launched, K1 and K6's
+    fused backward never. Per step the seconds, loss, gradient norm and
+    peak GiB. Frees the optimizer state; returns the launches."""
+    train_cfg = SFTConfig()
+    opt = make_optimizer(train_cfg)
+    P.trainable(params)
+    state = opt.init(params)
+    step = make_train_step(cfg, train_cfg, opt)
+    log("train_families", model=tag, tokens=int(batch["attn_valid"].sum()),
+        target_tokens=int((batch["labels"][:, 1:] != -100).sum()), images=len(batch["grid_thw"]),
+        patches=batch["pixel_patches"].shape[0], params=P.count(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    metrics = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        m = {k: float(x) for k, x in m.items()}
+        metrics.append(m)
+        log("train_families", model=tag, step=i + 1, seconds=round(time.perf_counter() - t0, 3),
+            loss=m["loss"], grad_norm=m["grad_norm"],
+            peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
+    log("train_families", model=tag, launches_per_step={k: n / steps for k, n in launches.items()
+                                                        if n})
+    del state, opt, step
+    for x in P.leaves(params):
+        x.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        raise RuntimeError(f"21 {tag}: non-finite loss or gradient norm: {metrics}")
+    missing = [name for name in required if not launches[name]]
+    extra = [name for name in WINDOW_ROW_KERNELS if launches[name]]
+    if missing or extra:
+        raise RuntimeError(f"21 {tag}: never launched {missing}, launched {extra}")
+    return launches
+
+
+def training_families_phase(dev, seed: int, results: dict) -> dict:
+    """Phase 21: 21a K2's exact mode and K6 at head_dim 72 and at Qwen2-VL's
+    80; 21b Qwen3-VL-8B full fine-tune steps at full width and depth, then
+    the training numerics at a cut; 21c its PEFT steps; 21d a PEFT GSPO
+    step of it, then a full fine-tune GSPO step at a cut; 21e a full
+    fine-tune step of Qwen2-VL-7B. Each model is freed before the next is
+    drawn. Returns the launches of each new kernel row's main path (21b's
+    steps for the rows at 72, 21e's for Qwen2-VL's)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k6_family_cases(dev, gen, results)
+    t_a = time.perf_counter()
+
+    cfg3 = Qwen25VLConfig.from_hf_dict(QWEN3_VL_8B_INSTRUCT_CONFIG)
+    proc3 = O3VideoProcessor(patch_size=cfg3.vision.patch_size)
+    batch = sft_batch(proc3, cfg3, seed, (Q3_FRAME_H, Q3_FRAME_W))
+    params = P.init(cfg3, seed, dev)
+    launches3 = family_sft_steps("Qwen3-VL-8B", params, cfg3, batch, Q3_SFT_STEPS,
+                                 FAMILY_FT_KERNELS)
+    train_numerics_phase(params, cfg3, batch, Q3_CUT_VIT, Q3_CUT_TEXT, tag="train_families")
+    t_b = time.perf_counter()
+    sft_peft_phase(params, cfg3, batch, seed, "16 frames of 256x352", steps=Q3_PEFT_STEPS,
+                   required=FAMILY_PEFT_KERNELS,
+                   absent=TRAIN_FAMILY_ROWS + WINDOW_ROW_KERNELS, tag="train_families")
+    t_c = time.perf_counter()
+    sample = gspo_sample(proc3, seed, (Q3_FRAME_H, Q3_FRAME_W))
+    trainer = GSPOTrainer(params, None, cfg3, GSPOConfig(), detokenize=CannedTraces(proc3),
+                          lora=LoraConfig(seed=seed), seed=seed)
+    peft = gspo_step(trainer, sample, 0, "Qwen3-VL-8B PEFT", FAMILY_GSPO_KERNELS)
+    if any(peft["launches"][name] for name in TRAIN_FAMILY_ROWS):
+        raise RuntimeError("21d: the frozen tower ran K2's exact mode or K6 under PEFT")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    gspo_full_phase(params, cfg3, proc3, sample, seed, Q3_CUT_VIT, Q3_FT_TEXT,
+                    FAMILY_GSPO_KERNELS + TRAIN_FAMILY_ROWS, tag="Qwen3-VL-8B full fine-tune")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_d = time.perf_counter()
+
+    cfg2 = Qwen25VLConfig.from_hf_dict(QWEN2_VL_7B_INSTRUCT_CONFIG)
+    params = P.init(cfg2, seed, dev)
+    launches2 = family_sft_steps("Qwen2-VL-7B", params, cfg2, sft_batch(O3VideoProcessor(), cfg2,
+                                                                       seed),
+                                 Q2_SFT_STEPS, FAMILY_FT_KERNELS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train_families", phase_seconds={
+        "21a": round(t_a - t_phase, 3), "21b": round(t_b - t_a, 3), "21c": round(t_c - t_b, 3),
+        "21d": round(t_d - t_c, 3), "21e": round(time.perf_counter() - t_d, 3),
+        "21": round(time.perf_counter() - t_phase, 3)})
+    return {**{name + "_d72": launches3[name] for name in TRAIN_FAMILY_ROWS},
+            **{name + "_qwen2vl": launches2[name] for name in TRAIN_FAMILY_ROWS}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4345,6 +4615,16 @@ def main() -> None:
     # Qwen3-VL-8B and Qwen2-VL-7B: K2 at head_dim 72, whole-frame towers
     family_kernel_launches = families_phase(dev, args.seed, results)
 
+    # their training: the 7B is released for the 8B's AdamW state, then drawn
+    # again from --seed for the int4 phases (their bf16 reference is
+    # whatever weights they quantize, so phase 9's 3 updates play no part)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train_families", released_7b_allocated_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
+    family_kernel_launches.update(training_families_phase(dev, args.seed, results))
+    params = P.init(cfg, args.seed, dev)
+
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
     t0 = time.perf_counter()
     int4_kernel_phase(dev, gen, len(reqs) * max(rows), results)
@@ -4374,7 +4654,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}
-        for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES}.items()
+        for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,8 @@
 // global blocks, over whole frames: W = 448, 432 valid, at 18x24 patches;
 // and every block of the towers without windows: Qwen2-VL's 32 at D = 80,
 // Qwen3-VL's 27 at D = 72, W = 352 at 16x22 patches and 784 at 28x28; the
-// tiles and products of window_frame.cuh, built for D = 72 and 80 in the
-// inference mode, for 80 alone in the exact one).
+// tiles and products of window_frame.cuh, built for D = 72 and 80 in both
+// modes).
 // Same masked attention on q/k/v (N, W, H, D) bf16, no rope. The TPU kernel
 // holds the whole W x W score tile and falls back to XLA past a size limit;
 // here every width W runs. A frame-head's K and V are read once and kept:
@@ -574,8 +574,8 @@ cudaError_t launch_window_tma(const void* q, const void* k, const void* v, const
 
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after the launch: 0 on success. All are built for the vision tower's
-// head_dim of 80, K2's inference mode for 72 too (Qwen3-VL's tower). K1
-// takes the row kernel at W = 64 and 128, the general route at other widths.
+// head_dim of 80, K2 (both modes) for 72 too (Qwen3-VL's tower). K1 takes
+// the row kernel at W = 64 and 128, the general route at other widths.
 extern "C" int o3v_fused_window_attention(const void* qkv, const void* cos, const void* sin,
                                           const void* ids, void* out, int n, int w, int heads,
                                           int head_dim, float scale, void* stream) {
@@ -615,7 +615,8 @@ extern "C" int o3v_fused_window_attention_exact(const void* qkv, const void* cos
 extern "C" int o3v_window_attention_exact(const void* q, const void* k, const void* v,
                                           const void* ids, void* out, void* lse, int n, int w,
                                           int heads, int head_dim, float scale, void* stream) {
-  if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
-  return o3v::launch_window_tma<80, true>(q, k, v, ids, out, lse, n, w, heads, scale,
-                                          static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80) return o3v::launch_window_tma<80, true>(q, k, v, ids, out, lse, n, w, heads, scale, s);
+  if (head_dim == 72) return o3v::launch_window_tma<72, true>(q, k, v, ids, out, lse, n, w, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,8 +29,10 @@
 //   through L1: no f32 staging, no table reads per element.
 //
 // window_attention_bwd_{dq,dkv} replace _bwd_kernel (the 4 global blocks,
-// whole frames: W = 448, 432 valid, at 18x24 patches; 16 heads of 80),
-// which returns dq, dk and dv from one pallas_call; here two kernels. They
+// whole frames: W = 448, 432 valid, at 18x24 patches; 16 heads of 80; and
+// every block of the towers without windows: Qwen2-VL's at 80, Qwen3-VL's
+// 27 at 72, W = 352 at 16x22 patches and 784 at 28x28), which returns dq,
+// dk and dv from one pallas_call; here two kernels. They
 // take the keys in 64-row tiles, so rowsum(dp * p) comes as delta =
 // rowsum(dout * out) (the caller's) with p = exp(s - lse) from the
 // forward's lse (FlashAttention-2 form), in log2 units by ex2.approx:
@@ -58,8 +60,13 @@
 //   delta; each warp takes 16 key rows (k and v A fragments) and forms the
 //   transposed blocks s^T = k q^T and dp^T = v dout^T, then dv += p^T @
 //   dout and dk += ds^T @ q.
+// At D = 72 the tiles are window_frame.cuh's rows of the head's own 72
+// columns: the products over D (s, dp, and their transposes) take its last
+// 8 columns by an m16n8k8, those that write D columns (dq, dk, dv) nine
+// 8-wide d-tiles, so no product reads the next head's columns.
 // A frame past the resident limit (dq: W > 640; dk/dv, whose per-row words
-// are three: W > 576) streams the same way through a ring. mma.sync stays:
+// are three: W > 576; W > 768 for both at D = 72) streams the same way
+// through a ring. mma.sync stays:
 // the work is bytes-bound, and an 80-column row does not fit the 128-byte
 // swizzle of wgmma's operands. Up to four accumulators of 16 x 80 and two
 // operand fragments a thread keep a CTA to 7 (dk/dv) or 8 (dq) consumer
@@ -257,8 +264,8 @@ __global__ void __launch_bounds__(frame_threads(DKV), 1)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = async::smem_u32(smem_raw);
   const uint32_t base = (raw + frame::kAlign - 1) & ~static_cast<uint32_t>(frame::kAlign - 1);
-  Tile<D>* sa = reinterpret_cast<Tile<D>*>(smem_raw + (base - raw));  // K, or q
-  Tile<D>* sb = sa + f.ring;                                           // V, or dout
+  frame::FTile<D>* sa = reinterpret_cast<frame::FTile<D>*>(smem_raw + (base - raw));  // K, or q
+  frame::FTile<D>* sb = sa + f.ring;                                                   // V, or dout
   const int rows = f.n_tiles * kKeys;
   int* stag = reinterpret_cast<int*>(sb + f.ring);
   float* slse = reinterpret_cast<float*>(stag + rows);  // dk/dv only
@@ -325,7 +332,8 @@ __global__ void __launch_bounds__(frame_threads(DKV), 1)
   float s[frame::kHalfN][4], dp[frame::kHalfN][4];
   for (int strip = first + warp; strip < last; strip += kWarps) {
     const int r = strip * 16 + g;  // this thread's rows r and r + 8
-    uint32_t xa[D / 16][4], ya[D / 16][4];  // q and dout (dq), or k and v (dk/dv)
+    // q and dout (dq), or k and v (dk/dv); at D = 72 the last step is 8 wide
+    uint32_t xa[frame::kKSteps<D>][4], ya[frame::kKSteps<D>][4];
     frame::a_frags<D>(xa, (DKV ? f.k : f.q) + off, row_stride, r, f.w);
     frame::a_frags<D>(ya, (DKV ? f.v : f.dout) + off, row_stride, r, f.w);
     if constexpr (!DKV) {
@@ -401,9 +409,9 @@ __global__ void __launch_bounds__(frame_threads(DKV), 1)
   }
 }
 
-// The tensor maps of the two slices a CTA keeps (dims {H*D, W, N}, 88-column
-// boxes of 64 rows), then the resident kernel where they fit (one CTA per
-// frame-head), else the streaming one.
+// The tensor maps of the two slices a CTA keeps (dims {H*D, W, N}, boxes of
+// kPitch<D> columns and 64 rows), then the resident kernel where they fit
+// (one CTA per frame-head), else the streaming one.
 template <int D, bool DKV>
 cudaError_t launch_frame_bwd(const FrameBwd& args, int n, cudaStream_t stream) {
   if (args.w < 1 || n < 1 || args.heads < 1) return cudaErrorInvalidValue;
@@ -448,8 +456,9 @@ FrameBwd frame_args(const void* q, const void* k, const void* v, const void* dou
 }  // namespace o3v
 
 // Plain C interface (loaded with ctypes); each returns cudaGetLastError()
-// after its launch. Built for the vision head_dim of 80 only; the fused
-// kernel for row widths 64 and 128.
+// after its launch. The fused kernel is built for the vision head_dim of 80
+// at row widths 64 and 128; the whole-frame dq and dk/dv for 72 (Qwen3-VL)
+// and 80.
 extern "C" int o3v_fused_window_attention_bwd(const void* qkv, const void* cos, const void* sin,
                                               const void* ids, const void* dout, void* dqkv,
                                               int n, int w, int heads, int head_dim, float scale,
@@ -467,19 +476,23 @@ extern "C" int o3v_window_attention_bwd_dq(const void* q, const void* k, const v
                                            const void* dout, const void* lse, const void* delta,
                                            const void* ids, void* dq, int n, int w, int heads,
                                            int head_dim, float scale, void* stream) {
-  if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
   o3v::FrameBwd f = o3v::frame_args(q, k, v, dout, lse, delta, ids, w, heads, scale);
   f.dq = static_cast<o3v::bf16*>(dq);
-  return o3v::launch_frame_bwd<80, false>(f, n, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80) return o3v::launch_frame_bwd<80, false>(f, n, s);
+  if (head_dim == 72) return o3v::launch_frame_bwd<72, false>(f, n, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int o3v_window_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* delta,
                                             const void* ids, void* dk, void* dv, int n, int w,
                                             int heads, int head_dim, float scale, void* stream) {
-  if (head_dim != 80) return static_cast<int>(cudaErrorInvalidValue);
   o3v::FrameBwd f = o3v::frame_args(q, k, v, dout, lse, delta, ids, w, heads, scale);
   f.dk = static_cast<o3v::bf16*>(dk);
   f.dv = static_cast<o3v::bf16*>(dv);
-  return o3v::launch_frame_bwd<80, true>(f, n, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 80) return o3v::launch_frame_bwd<80, true>(f, n, s);
+  if (head_dim == 72) return o3v::launch_frame_bwd<72, true>(f, n, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

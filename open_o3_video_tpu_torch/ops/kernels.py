@@ -186,9 +186,10 @@ def check_kv(name: str, x: torch.Tensor, shape: tuple, dtypes: tuple) -> None:
         raise ValueError(f"{name}: misaligned or overlapping token rows")
 
 
-# The head_dims the kernels are built for: 80 for the vision tower's K1, K6
-# and K2's exact mode (Qwen2.5-VL, Qwen2-VL), 80 and 72 for K2's inference
-# mode (Qwen3-VL's 1152 / 16 heads), 128 for the decoder's K3 and K4.
+# The head_dims the kernels are built for: 80 for the vision tower's K1 and
+# K6's fused backward (Qwen2.5-VL's windowed blocks), 80 and 72 for K2 (both
+# modes) and K6's whole-frame dq and dk/dv (Qwen3-VL's 1152 / 16 heads), 128
+# for the decoder's K3 and K4.
 VISION_HEAD_DIM = 80
 WINDOW_HEAD_DIMS = (72, 80)
 TEXT_HEAD_DIM = 128
@@ -196,14 +197,14 @@ TEXT_HEAD_DIM = 128
 
 def check_head_dim(name: str, d: int, built) -> None:
     """Raise ValueError unless ``d`` is ``built`` (an int) or one of them (a
-    tuple). At 72, a served family's head_dim, the message names the slice
-    that brings the training modes."""
+    tuple). At 72, Qwen3-VL's head_dim, the message says that only the
+    windowed blocks' kernels lack it: Qwen3-VL's tower has none."""
     dims = built if isinstance(built, tuple) else (built,)
     if d not in dims:
-        later = (" (K1, K6 and K2's exact mode at head_dim 72 come with the training slice "
-                 "of Qwen3-VL, ROADMAP Queue 1)" if d == 72 else "")
+        why = (" (K1 and K6's fused backward serve windowed blocks, which no tower of "
+               "head_dim 72 has)" if d == 72 else "")
         raise ValueError(f"{name}: head_dim {d} not built; this kernel is built for "
-                         f"{'/'.join(map(str, dims))}{later}")
+                         f"{'/'.join(map(str, dims))}{why}")
 
 
 def launch(name: str, *args) -> None:

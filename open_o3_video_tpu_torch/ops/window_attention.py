@@ -9,9 +9,10 @@ Segments are batched as (N, W, ...) rows with int32 segment ids (0 = pad);
 tokens attend iff their ids match and are nonzero, so several small edge
 windows can share one row.
 
-K2's inference mode is built for head_dim 72 (Qwen3-VL's tower, where every
-block attends over whole frames) and 80; K1, K2's exact mode and K6 for 80
-alone, and raise ValueError at 72 (Qwen3-VL training waits for its slice).
+K2 (both modes) and K6's whole-frame dq and dk/dv are built for head_dim
+72 (Qwen3-VL's tower, where every block attends over whole frames) and 80;
+K1 and K6's fused backward, the windowed blocks' kernels, for 80 alone, and
+raise ValueError at 72.
 
 Two forward modes, picked as the JAX package's ``custom_vjp`` picks them:
 
@@ -173,9 +174,9 @@ def fused_window_attention_bwd_torch(qkv, cos, sin, valid, heads: int, dout):
     return torch.stack([dq, dk, dv], dim=2).reshape(n, w, three_hd).to(qkv.dtype)
 
 
-def _check_window(name, q, k, v, valid, head_dims=kernels.VISION_HEAD_DIM):
+def _check_window(name, q, k, v, valid):
     n, w, h, d = q.shape
-    kernels.check_head_dim(name, d, head_dims)
+    kernels.check_head_dim(name, d, kernels.WINDOW_HEAD_DIMS)
     ids = valid.to(torch.int32).contiguous()
     for arg, x in (("q", q), ("k", k), ("v", v)):
         kernels.check_tensor(arg, x, torch.bfloat16, (n, w, h, d))
@@ -324,7 +325,7 @@ def window_attention(q, k, v, valid, impl: str = "auto"):
     if not kernels.use_kernel(q, impl):
         return window_attention_torch(q, k, v, valid)
     n, w, h, d = q.shape
-    ids = _check_window("window_attention", q, k, v, valid, kernels.WINDOW_HEAD_DIMS)
+    ids = _check_window("window_attention", q, k, v, valid)
     out = torch.empty_like(q)
     kernels.launch(
         "window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),

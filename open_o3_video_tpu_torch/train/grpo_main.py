@@ -24,7 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from .launch import check_one_device, train_device
+from .launch import check_app_patch, check_one_device, train_device
 
 
 def parse_args(argv=None):
@@ -94,7 +94,9 @@ def main(argv=None):
     from .sft import require_trainable
     from .lora import LoraConfig, merge_adapters
 
-    require_trainable(Qwen25VLConfig.from_pretrained(args.model_name_or_path))
+    model_cfg = Qwen25VLConfig.from_pretrained(args.model_name_or_path)
+    require_trainable(model_cfg)
+    check_app_patch(model_cfg, "grpo_main")
     params, model_cfg = P.load_pretrained(args.model_name_or_path, device)
     # PEFT: the reference model is the base with adapters disabled, so the
     # checkpoint is read once; a full fine-tune keeps a second, frozen copy.

@@ -24,21 +24,25 @@ import numpy as np
 import torch
 
 from ..models.qwen25vl import params as P
-from ..models.qwen25vl.config import Qwen25VLConfig
+from ..models.qwen25vl.config import Qwen25VLConfig, _refuse_moe
 from ..models.qwen25vl.model import forward
 from ..models.qwen25vl.text import per_token_logps_from_hidden
 
 IGNORE_INDEX = -100
 
 
-def require_trainable(cfg: Qwen25VLConfig) -> None:
-    """Raise NotImplementedError for a family the port serves but does not
-    train yet: SFT and GSPO of Qwen2-VL and Qwen3-VL come with their
-    training slice (K1, K2's exact mode and K6 at Qwen3-VL's head_dim 72)."""
-    if cfg.model_type != "qwen2_5_vl":
-        raise NotImplementedError(
-            f"{cfg.model_type}: training (SFT, GSPO) comes with the training slice of "
-            "Qwen2-VL and Qwen3-VL (ROADMAP Queue 1); the port serves it")
+TRAINED_FAMILIES = ("qwen2_5_vl", "qwen2_vl", "qwen3_vl")
+
+
+def require_trainable(cfg) -> None:
+    """Raise NotImplementedError on what the port does not serve: the
+    routed-MoE families (Qwen3-VL-MoE, Aria), as the config itself refuses
+    them. Qwen2.5-VL, Qwen2-VL and Qwen3-VL (dense) train."""
+    moe = getattr(getattr(cfg, "text", None), "moe_num_experts", 0)
+    model_type = getattr(cfg, "model_type", None)
+    if model_type not in TRAINED_FAMILIES or moe:
+        _refuse_moe(f"training model_type {model_type!r}"
+                    + (f" with {moe} experts" if moe else ""))
 
 
 @dataclasses.dataclass

@@ -33,7 +33,7 @@ import argparse
 import os
 
 from ..data import DATA_ERRORS
-from .launch import check_one_device, train_device
+from .launch import check_app_patch, check_one_device, train_device
 
 # safetensors dtype names -> torch dtype names
 _STORED_DTYPES = {"F32": "float32", "BF16": "bfloat16", "F16": "float16", "F64": "float64"}
@@ -116,6 +116,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.bf16 else stored_dtype(args.model_name_or_path)
     model_cfg = Qwen25VLConfig.from_pretrained(args.model_name_or_path, dtype=dtype)
     require_trainable(model_cfg)
+    check_app_patch(model_cfg, "sft_main")
     params, _ = P.load_pretrained(args.model_name_or_path, device, cfg=model_cfg)
     processor = O3VideoProcessor.from_pretrained(args.model_name_or_path)
 

@@ -1,6 +1,6 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families DIR [DIR ...]
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
 (``git archive``) into a directory that ``.gitignore`` lists and pass it
@@ -20,7 +20,11 @@ one phase:
   quantized modes and w8a8 at run (b)'s length;
 - ``families``: phase 20 (``families_phase``), K2 at head_dim 72, then
   Qwen3-VL-8B and Qwen2-VL-7B served from their published configs (the 7B
-  drawn first stays resident, as in the whole script).
+  drawn first stays resident, as in the whole script);
+- ``train_families``: phase 21 (``training_families_phase``), K2's exact
+  mode and K6 at head_dim 72, then the training of Qwen3-VL-8B (full
+  fine-tune, PEFT, GSPO) and Qwen2-VL-7B (the 7B released first, as in the
+  whole script).
 
 Each process's output goes to this one's standard output after a line
 ``tree DIR``; the exit code is the first nonzero one of the processes.
@@ -42,6 +46,8 @@ PHASE = {
     "a8": ("c.quant_phase(params, cfg, c.O3VideoProcessor(), seed); "
            "c.quant_long_phase(params, cfg, seed)"),
     "families": "c.families_phase(torch.device('cuda'), seed, {})",
+    "train_families": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
+                       "c.training_families_phase(torch.device('cuda'), seed, {})"),
 }
 
 CHILD = """

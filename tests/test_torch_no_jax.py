@@ -4,7 +4,8 @@ imports, imports every module of the port, runs a tiny generate on the CPU
 (with a bf16 cache, and with an fp8 cache through the long-context path), a
 tiny Qwen3-VL generate through its deepstack taps, a generate over raw frames with ``resize_hw``, a w8a8 generate,
 greedy and sampled speculative generates (the latter replaying streams),
-one tiny SFT train step, a generate with an int4 decoder (K7's plain
+one tiny SFT train step (and one each of the tiny Qwen3-VL, full
+fine-tune, and Qwen2-VL, PEFT), a generate with an int4 decoder (K7's plain
 version), a judge call, one tiny PEFT GSPO step on a free-form example (its
 ROUGE reward scored), and the SFT app's data path (a raw AVI and a PNG
 keyframe read by the port's reader, ``collate_sft_batch``) with one PEFT SFT
@@ -161,6 +162,22 @@ train_cfg = SFTConfig(learning_rate=1e-3)
 opt = make_optimizer(train_cfg)
 _, state, m = make_train_step(cfg, train_cfg, opt)(weights, opt.init(weights), batch)
 assert state["count"] == 1 and float(m["num_target_tokens"]) > 0, m
+assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
+# the other families: a full fine-tune step of the tiny Qwen3-VL (its
+# deepstack mergers get gradients) and a PEFT step of the tiny Qwen2-VL
+from open_o3_video_tpu_torch.models.qwen25vl.config import tiny_qwen2
+from open_o3_video_tpu_torch.train import make_lora_train_step
+from open_o3_video_tpu_torch.train import lora as tlora
+q3w = params.trainable(params.init(q3cfg, 0, torch.device("cpu")))
+q3batch = pack_sft_batch([collate_sft_frames(messages, imgs, 2.0, proc, q3cfg)], q3cfg)
+m = make_train_step(q3cfg, train_cfg, opt)(q3w, opt.init(q3w), q3batch)[2]
+assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
+q2cfg = tiny_qwen2()
+q2w = params.init(q2cfg, 0, torch.device("cpu"))
+ad = tlora.init_adapters(q2w, tlora.LoraConfig(rank=2), dtype=torch.float32)
+q2batch = pack_sft_batch([collate_sft_frames(messages, imgs, 2.0, proc, q2cfg)], q2cfg)
+m = make_lora_train_step(q2cfg, train_cfg, opt, 2.0)(
+    ad, opt.init(tlora.adapter_leaves(ad)), q2batch, q2w)[2]
 assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
 # int4 serving: a decoder of K7's shapes (hidden 256, heads of 128) drawn
 # into int4, a text-only generate, and the judge on the same weights

@@ -54,6 +54,44 @@ def test_window_backward_matches_jax_kernel_vjp(n, w, h, d, maxw):
     assert torch.isfinite(lse).all()
 
 
+# Whole frames at the towers' head_dims: 72 (Qwen3-VL) and 80 (Qwen2-VL,
+# Qwen2.5-VL's global blocks); (N, W, H, D, padded tail of frame 0).
+FRAME_CASES = [(3, 80, 2, 72, 9), (2, 100, 2, 72, 0), (3, 80, 2, 80, 9)]
+
+
+@pytest.mark.parametrize("n,w,h,d,tail", FRAME_CASES)
+def test_exact_frames_match_jax_segment_attention_and_vjp(n, w, h, d, tail):
+    """K2's exact mode (out and lse) and K6 (dq, dk, dv) at whole frames:
+    out and the gradients against JAX's Pallas kernel (interpret mode)
+    through ``jax.vjp``, lse against the log-sum-exp of JAX's masked
+    scores; to ATOL_OP (float32 sums in another order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from open_o3_video_tpu.ops.window_attention import window_attention
+
+    r = rng(n * w + d + 7)
+    q, k, v, dout = (normal(r, n, w, h, d) for _ in range(4))
+    ids = np.ones((n, w), np.int32)
+    ids[0, w - tail:] = 0
+    jq, jk, jv, jids = map(jnp.asarray, (q, k, v, ids))
+    jout, vjp = jax.vjp(lambda a, b, c: window_attention(a, b, c, jids, True), jq, jk, jv)
+    s = jnp.einsum("nqhd,nkhd->nhqk", jq, jk) * d ** -0.5
+    seen = (jids[:, None, :, None] == jids[:, None, None, :]) & (jids[:, None, None, :] != 0)
+    # a pad row sees no key: its lse is that of all W keys at score 0
+    jlse = jnp.where(jids[:, None, :] != 0,
+                     jax.nn.logsumexp(jnp.where(seen, s, -jnp.inf), axis=-1), np.log(w))
+    theirs = [np.asarray(jout), *map(np.asarray, vjp(jnp.asarray(dout)))]
+    leaves = [torch.from_numpy(x.copy()).requires_grad_() for x in (q, k, v)]
+    out = twa.window_attention(*leaves, torch.from_numpy(ids))
+    ours = [out.detach().numpy(), *(g.numpy() for g in torch.autograd.grad(
+        out, leaves, torch.from_numpy(dout)))]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), ours, theirs):
+        np.testing.assert_allclose(a, b, atol=ATOL_OP, err_msg=name)
+    _, lse = twa.window_attention_exact_torch(*map(torch.from_numpy, (q, k, v, ids)))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=ATOL_OP)
+
+
 @pytest.mark.parametrize("n,w,h,d,maxw", CASES)
 def test_fused_backward_matches_jax_kernel_vjp(n, w, h, d, maxw):
     import jax
@@ -145,27 +183,56 @@ def test_fused_kernels_match_plain(n, w, h, kind):
         assert_kernel_close(got[..., cols], want[..., cols])
 
 
-@pytest.mark.cuda
-# 448: the slice's frames; 576 and 640: the largest frames that K6's dk/dv
-# and dq (and K2) keep resident; 704 and 1024 stream; 100: one ragged tile.
-@pytest.mark.parametrize("w", [448, 100, 1024, 576, 640, 704])
-def test_window_kernels_match_plain(w):
+def _frame_kernel_case(w, d, n=6, h=16, scale_odd=1.0):
+    """K2's exact mode and K6's dq and dk/dv at whole frames of width w
+    (frame 0 with a padded tail), head_dim d: against their plain versions,
+    or, with the odd heads' q, k, v, dout scaled by ``scale_odd`` != 1 (whose
+    outputs leave the bound's unit scale), run only. Returns the kernels'
+    (out, lse, dq, dk, dv)."""
     dev = cuda_device()
-    r = rng(w + 1)
-    n, h = 6, 16
-    q, k, v = (torch.from_numpy(normal(r, n, w, h, 80)).to(dev, torch.bfloat16) for _ in range(3))
-    do = torch.from_numpy(normal(r, n, w, h, 80, scale=0.1)).to(dev, torch.bfloat16)
+    r = rng(w + d)
+    q, k, v = (torch.from_numpy(normal(r, n, w, h, d)).to(dev, torch.bfloat16) for _ in range(3))
+    do = torch.from_numpy(normal(r, n, w, h, d, scale=0.1)).to(dev, torch.bfloat16)
+    for x in (q, k, v, do):
+        x[:, :, 1::2] *= scale_odd
     ids = torch.ones((n, w), dtype=torch.int32, device=dev)
     ids[0, w - 30:] = 0  # a frame's padded tail
     do[ids == 0] = 0
     keep = ids != 0
     out, lse = twa.window_attention_exact(q, k, v, ids)
-    ref, ref_lse = twa.window_attention_exact_torch(q, k, v, ids)
     got = twa.window_attention_bwd(q, k, v, ids, out, lse, do)
-    want = twa.window_attention_bwd_torch(q, k, v, ids, do)
     torch.cuda.synchronize()
-    assert_kernel_close(out[keep], ref[keep])
-    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
-    for a, b in zip(got, want):
+    for a in (out, *got):
         assert torch.isfinite(a.float()).all()
-        assert_kernel_close(a, b)
+    if scale_odd == 1.0:
+        ref, ref_lse = twa.window_attention_exact_torch(q, k, v, ids)
+        assert_kernel_close(out[keep], ref[keep])
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+        for a, b in zip(got, twa.window_attention_bwd_torch(q, k, v, ids, do)):
+            assert_kernel_close(a, b)
+    return (out, lse, *got)
+
+
+@pytest.mark.cuda
+# 448: the slice's frames; 576 and 640: the largest frames that K6's dk/dv
+# and dq (and K2) keep resident; 704 and 1024 stream; 100: one ragged tile.
+@pytest.mark.parametrize("w", [448, 100, 1024, 576, 640, 704])
+def test_window_kernels_match_plain(w):
+    _frame_kernel_case(w, 80)
+
+
+@pytest.mark.cuda
+# Qwen3-VL-8B's frames at head_dim 72: W = 352 (16x22 patches) resident, 784
+# (28x28) streamed; 768 the widest that K2 and K6 keep resident; 100 one
+# ragged tile.
+@pytest.mark.parametrize("w", [352, 784, 768, 100])
+def test_window_kernels_match_plain_at_72(w):
+    """At 72 a tile holds the head's own 72 columns: with the odd heads'
+    inputs scaled by 8, every output of the even heads (out, lse, dq, dk,
+    dv) stays bit-equal."""
+    base = _frame_kernel_case(w, 72)
+    loud = _frame_kernel_case(w, 72, scale_odd=8.0)
+    for a, b in zip(base, loud):
+        even = slice(0, None, 2)
+        a, b = (x[:, even] if x.dim() == 3 else x[:, :, even] for x in (a, b))
+        assert torch.equal(a, b)
