@@ -280,6 +280,30 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      ViT blocks and 4 layers against the frozen originals (K6 at 72
      launched); 21e one full fine-tune step of Qwen2-VL-7B on phase 9's
      batch (K2 exact and K6 at W = 432).
+ 22. Qwen3-VL-30B-A3B and Aria, served (after phase 21, before phase 11;
+     the 7B is drawn again after it): 22a K2 at head_dim 72 under the 30B's
+     tower (W = 352) and K3 at its prefill (32/4 heads) against their plain
+     versions, each with its bound and SDPA; Qwen3-VL-30B-A3B-Instruct from
+     its published config (random bf16 weights from --seed; the parameter
+     count must equal HF's model's, 31.07B): phase 20's two image requests
+     and its video request greedy, 64 tokens, graphed and eagerly (tokens
+     equal): vision, prefill and decode ms, peak GiB, K2 27 a tower pass, K3
+     48 a prefill forward, the decode step's weight bytes (routed at most,
+     and the dense form's); the MLP numerics at 2 decoder layers: the
+     routed experts in bf16 and the dense combine in bf16, each against the
+     dense combine in float32 on the same experts, the routed at most
+     SLICE_REL_RATIO further; the renormalisation skipped, a softmax of the
+     probabilities and the inverse permutation left out must exceed that
+     bound (Aria's routing, the same function, must not); 22b Aria from its
+     published config (25.3B within 5%, and HF's count): one 980x980 image
+     through get_image_features (4900 patches, 256 queries; tower and
+     projector ms), then a text request and two requests over the features
+     as Request.vision_embeds sharing a prefix, greedy, 64 tokens, graphed
+     and eagerly (tokens equal): prefill and decode ms, peak GiB, K3 28 a
+     prefill forward, one prefix block, no tower pass, no upload; the
+     prefix-served request against itself served plain (equal, or a first
+     divergence at a top-2 gap of at most SPEC_TIE_GAP); 22c K3 at Aria's
+     prefill (20/20 heads, a GQA group of 1) against its plain version.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -322,10 +346,13 @@ from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingPar
 from open_o3_video_tpu_torch.engine import engine as engine_module
 from open_o3_video_tpu_torch.engine.engine import DONE_LAG, left_padded_rows
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
+from open_o3_video_tpu_torch.models import aria
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
+from open_o3_video_tpu_torch.models.qwen25vl import text as TT
 from open_o3_video_tpu_torch.models.qwen25vl.config import (
     QWEN2_VL_7B_INSTRUCT_CONFIG,
     QWEN3_VL_8B_INSTRUCT_CONFIG,
+    QWEN3_VL_30B_A3B_INSTRUCT_CONFIG,
 )
 from open_o3_video_tpu_torch.models.qwen25vl.model import (
     build_vision_row_index,
@@ -471,6 +498,14 @@ FAMILY_TRAIN_CASES = {
     f"{name}{suffix}": TPU_KERNELS[name]
     for suffix in ("_d72", "_qwen2vl")
     for name in ("window_attention_exact", "window_attention_bwd_dq", "window_attention_bwd_dkv")
+}
+# Phase 22's rows: K2 at head_dim 72 under Qwen3-VL-30B-A3B's tower, K3 at
+# its prefill (32 q heads over 4 KV heads) and at Aria's (20 over 20: a
+# GQA group of 1).
+MOE_FAMILY_CASES = {
+    "window_attention_d72_qwen3_moe": TPU_KERNELS["window_attention"],
+    "flash_attention_gqa_qwen3_moe": TPU_KERNELS["flash_attention_gqa"],
+    "flash_attention_gqa_aria": TPU_KERNELS["flash_attention_gqa"],
 }
 # The kernels each main path must launch.
 SLICE_KERNELS = ("fused_window_attention", "window_attention", "flash_attention_gqa")
@@ -4117,18 +4152,18 @@ def qwen3_video_request(proc, cfg, seed: int) -> Request:
                    vision_token_id=cfg.video_token_id)
 
 
-def family_launches(tag, cfg, run, per_pass, passes) -> dict:
-    """The launch counts of one phase-20 run, held to what the path makes:
-    K2 in every tower block of every tower pass (K1 never: no windows), K3
-    in every decoder layer of every prefill forward."""
+def family_launches(tag, cfg, run, per_pass, passes, phase="families") -> dict:
+    """The launch counts of one phase-20 (or 22) run, held to what the path
+    makes: K2 in every tower block of every tower pass (K1 never: no
+    windows), K3 in every decoder layer of every prefill forward."""
     got = {name: kernels.LAUNCHES[name] for name in FAMILY_KERNELS + ("fused_window_attention",)}
     want = {"window_attention": per_pass * passes, "fused_window_attention": 0,
             "flash_attention_gqa": cfg.text.num_hidden_layers * run["scheduler"]["prefills"]}
-    log("families", run=tag, launches=got, expected=want, tower_passes=passes,
+    log(phase, run=tag, launches=got, expected=want, tower_passes=passes,
         prefills=run["scheduler"]["prefills"], decode_steps=run["steps"],
         graph_captures=run["scheduler"]["captures"])
     if got != want:
-        raise RuntimeError(f"20 {tag}: launches {got}, expected {want}")
+        raise RuntimeError(f"{tag}: launches {got}, expected {want}")
     return got
 
 
@@ -4500,6 +4535,345 @@ def training_families_phase(dev, seed: int, results: dict) -> dict:
             **{name + "_qwen2vl": launches2[name] for name in TRAIN_FAMILY_ROWS}}
 
 
+# Phase 22: Qwen3-VL-30B-A3B and Aria served from their published configs
+# (random bf16 weights from --seed). 22a serves the 30B on phase 20's
+# requests (K2 at 72 in its tower, K3 at 32/4 heads, the routed experts);
+# 22b serves Aria: one 980x980 image through its tower and projector, the
+# features entering the engine as Request.vision_embeds beside a text-only
+# request and a second image request sharing a prefix with the first.
+# Their parameter counts as HF's models at these configs have them, counted
+# on the meta device (Aria's less the tower's post-layernorm, 2 x 1152,
+# which the features never pass and the port does not hold); Aria's model
+# card says 25.3B, the phase allows 5% off it.
+QWEN3_MOE_HF_PARAMS = 31_070_754_032
+ARIA_HF_PARAMS = 25_307_311_216 - 2 * 1152
+ARIA_CARD_PARAMS, ARIA_CARD_SLACK = 25.3e9, 0.05
+# 22a's numerics: the routed MLP of the first MOE_NUMERICS_LAYERS decoder
+# layers over a request of MOE_NUMERICS_FRAMES frames of phase 20's size
+# (1244 tokens).
+MOE_NUMERICS_FRAMES, MOE_NUMERICS_LAYERS = 4, 2
+# Aria's prompts: random ids from --seed in [ARIA_FIRST_ID, vocab), past its
+# special ids (the image token is 9): ARIA_TEXT text tokens, then the
+# image's 256 query rows, then ARIA_QUESTION tokens; the second image
+# request shares all but its last ARIA_TAIL tokens with the first; the text
+# request has ARIA_TEXT_ONLY tokens. The suffixes are longer than 8 tokens,
+# so that their admission runs K3 (8 rows or fewer take the decode path).
+ARIA_FIRST_ID, ARIA_TEXT, ARIA_QUESTION, ARIA_TAIL, ARIA_TEXT_ONLY = 10, 48, 32, 12, 300
+ARIA_KERNELS = ("flash_attention_gqa",)
+
+
+def moe_fault_route(p, t, flat, fault):
+    """A wrong routing of 22a's planted faults: ``"no_renorm"`` the top-k of
+    the softmax over all experts, not renormalised; ``"softmax_of_probs"``
+    Aria's softmax over the top k taken of those probabilities instead of
+    the logits. (Aria's routing proper, a softmax over the top-k logits, is
+    the same function as Qwen3-VL-MoE's in exact arithmetic.)"""
+    logits = quant.dense(flat, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top, idx = top[:, :t.moe_topk], idx[:, :t.moe_topk]
+    if fault == "no_renorm":
+        return idx, top
+    if fault == "softmax_of_probs":
+        return idx, torch.softmax(top, dim=-1)
+    a_top, a_idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return a_idx[:, :t.moe_topk], torch.softmax(a_top[:, :t.moe_topk], dim=-1)
+
+
+def moe_unsorted(p, t, x, route):
+    """The routed MLP with its last step left out: the experts' outputs,
+    sorted by expert, weighted and summed as if in token order (the
+    inverse permutation missing)."""
+    idx, w = route
+    flat = x.reshape(-1, x.shape[-1])
+    order, offs = TT.expert_groups(idx, t.moe_num_experts)
+    out = TT._experts(flat[order // idx.shape[1]], p["moe_fc1"], p["moe_fc2"], offs)
+    y = (out.reshape(*idx.shape, -1).float() * w.to(x.dtype).float()[..., None]).sum(1)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def moe_numerics(params, cfg, proc, seed: int) -> None:
+    """22a's numerics at MOE_NUMERICS_LAYERS decoder layers: each layer's MLP
+    input over a request of MOE_NUMERICS_FRAMES frames (its tower's
+    embeddings merged, recorded in a forward of the cut model), then the
+    routed MLP in bf16 (the served form) and JAX's dense form in bf16 (the
+    plain one), each against the dense form in float32 on the same weights
+    and the bf16 router's experts (so that a near-tie resolved the other
+    way in float32 is not counted as error). The routed form may be at most
+    SLICE_REL_RATIO further from float32 than the plain one; three planted
+    faults must exceed that bound: the renormalisation skipped, Aria's
+    softmax taken of the probabilities, the inverse permutation left out.
+    Aria's routing in place of Qwen's is logged: the same function in exact
+    arithmetic, it must stay within the bound."""
+    dev = params["text"]["embed_tokens"].device
+    t = cfg.text
+    rng = np.random.default_rng(seed + 4)
+    req = frames_request(proc, cfg, rng.integers(0, 256, size=(MOE_NUMERICS_FRAMES, 3, Q3_FRAME_H,
+                                                               Q3_FRAME_W), dtype=np.uint8),
+                         QUESTIONS[0])
+    cut = _cut_cfg(cfg, cfg.vision.depth, MOE_NUMERICS_LAYERS)
+    ids = np.asarray([req.input_ids])
+    pos, _ = get_rope_index(cut, ids, image_grid_thw=req.grid_thw)
+    inputs = []
+    real = TT._mlp
+
+    def record(p, c, x, impl):
+        inputs.append(x.detach().reshape(-1, x.shape[-1]))
+        return real(p, c, x, impl)
+
+    TT._mlp = record
+    try:
+        with torch.inference_mode():
+            model_forward(_sub(params, cfg.vision.depth, MOE_NUMERICS_LAYERS, cfg.vision), cut,
+                          torch.from_numpy(ids).to(dev), torch.from_numpy(pos).to(dev),
+                          pixel_patches=torch.from_numpy(req.pixel_patches).to(dev),
+                          grid_thw=req.grid_thw, vision_token_id=cfg.image_token_id,
+                          return_hidden=True)
+    finally:
+        TT._mlp = real
+    for li, x in enumerate(inputs):
+        p = params["text"]["layers"][li]
+        with torch.inference_mode():
+            route = TT.moe_route(p, t, x)
+            ref = TT.moe_mlp_dense(_cast(p, torch.float32), t, x.float(), route=route)
+
+            def rel(y):
+                return _agreement(y.float(), ref)[0]
+
+            routed, plain = rel(TT.moe_mlp(p, t, x)), rel(TT.moe_mlp_dense(p, t, x))
+            bound = SLICE_REL_RATIO * plain
+            faults = {f: rel(TT.moe_mlp(p, t, x, route=moe_fault_route(p, t, x, f)))
+                      for f in ("no_renorm", "softmax_of_probs", "aria_routing")}
+            faults["unsorted"] = rel(moe_unsorted(p, t, x, route))
+        log("moe_families", numerics=f"layer {li} MLP", tokens=x.shape[0],
+            experts_used=int(torch.unique(route[0]).numel()), routed_vs_f32_rel=routed,
+            plain_vs_f32_rel=plain, bound=bound, faults_vs_f32_rel=faults)
+        if not (routed <= bound and torch.isfinite(ref).all()):
+            raise RuntimeError(f"22a layer {li}: the routed MLP is further from float32 than "
+                               f"the dense bf16 form ({routed} vs {plain})")
+        for f, r in faults.items():
+            if (f == "aria_routing") != (r <= bound):
+                raise RuntimeError(f"22a layer {li}: planted {f} gave {r} against bound {bound}")
+        del ref
+    torch.cuda.empty_cache()
+
+
+def moe_decode_bytes(cfg, rows: int) -> dict:
+    """The weight bytes a decode step of ``rows`` rows reads at most in the
+    routed form (each row's top-k experts distinct, every layer) and in the
+    dense form (every expert), plus the rest of the decoder (attention,
+    norms, the lm_head), in bf16."""
+    t = cfg.text
+    expert = 3 * t.hidden_size * t.moe_intermediate_size * 2
+    attn = 2 * t.hidden_size * (t.num_attention_heads + t.num_key_value_heads) * t.head_dim * 2
+    rest = t.num_hidden_layers * (attn + t.hidden_size * t.moe_num_experts * 2)
+    rest += t.hidden_size * t.vocab_size * 2
+    return {"routed_max": rest + t.num_hidden_layers * min(rows * t.moe_topk,
+                                                           t.moe_num_experts) * expert,
+            "dense": rest + t.num_hidden_layers * t.moe_num_experts * expert}
+
+
+def qwen3_moe_phase(dev, seed: int, results: dict) -> dict:
+    """22a: Qwen3-VL-30B-A3B-Instruct at its published config: K2 and K3 at
+    its shapes against their plain versions, then phase 20's two image
+    requests greedy (64 tokens) graphed and eagerly (tokens equal), phase
+    20's video request the same way, the launches (K2 27 a tower pass, K3
+    48 a prefill forward), and the MLP numerics. Returns the rows'
+    launches."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cfg = Qwen25VLConfig.from_hf_dict(QWEN3_VL_30B_A3B_INSTRUCT_CONFIG)
+    proc = O3VideoProcessor(patch_size=cfg.vision.patch_size)
+    reqs = qwen3_requests(proc, cfg, seed)
+    rows = [len(r.input_ids) for r in reqs]
+    heads = cfg.vision.num_heads
+    ids = torch.ones((N_FRAMES, 352), dtype=torch.int32, device=dev)
+    q, k, v = (torch.randn((N_FRAMES, 352, heads, 72), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    seg = segment_mask(ids)
+    compare("window_attention_d72_qwen3_moe", lambda: wa.window_attention(q, k, v, ids),
+            lambda: wa.window_attention_torch(q, k, v, ids), None, results,
+            flops=4 * segment_pairs(ids) * heads * 72, moved=nbytes(q, k, v, ids, q),
+            library_fn=lambda: sdpa_masked(q, k, v, seg),
+            case="Qwen3-VL-30B-A3B's tower, 16 frames of 16x22 patches, 16 heads of 72")
+    del q, k, v, seg
+    k3_prefill_case(dev, gen, cfg.text, rows, max(rows) + MAX_TOKENS,
+                    "flash_attention_gqa_qwen3_moe", results,
+                    case=f"Qwen3-VL-30B-A3B prefill, {len(rows)} x {max(rows)}, 32/4 heads")
+    t0 = time.perf_counter()
+    params = P.init(cfg, seed, dev)
+    torch.cuda.synchronize()
+    count = P.count(params)
+    log("moe_families", model="Qwen3-VL-30B-A3B", params=count, hf_params=QWEN3_MOE_HF_PARAMS,
+        weight_gib=round(quant.param_bytes(params) / 2**30, 3),
+        init_s=round(time.perf_counter() - t0, 3))
+    if count != QWEN3_MOE_HF_PARAMS:
+        raise RuntimeError(f"22a: {count} parameters, HF's model has {QWEN3_MOE_HF_PARAMS}")
+    greedy = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=MAX_TOKENS)
+    engine = InferenceEngine(params, cfg)
+    outs, _, decode = slice_phase(engine, reqs, greedy, names=FAMILY_KERNELS)
+    launches = family_launches("Qwen3-VL-30B-A3B", cfg, decode, cfg.vision.depth, len(reqs),
+                               phase="moe_families")
+    eager_pair("Qwen3-VL-30B-A3B slice", params, cfg, reqs, greedy, outs, decode)
+    video = qwen3_video_request(proc, cfg, seed)
+    torch.cuda.reset_peak_memory_stats()
+    out, vrun = decode_run(engine, lambda: engine.generate([video], greedy))
+    family_launches("Qwen3-VL-30B-A3B video", cfg, vrun, cfg.vision.depth, 1,
+                    phase="moe_families")
+    log("moe_families", run="Qwen3-VL-30B-A3B video", prompt_tokens=out[0]["num_prompt_tokens"],
+        grid=video.grid_thw.tolist(), new_tokens=len(out[0]["token_ids"]),
+        vision_ms=round(1e3 * vrun["vision_s"], 3), prefill_ms=round(1e3 * vrun["prefill_s"], 3),
+        decode_ms_per_token=vrun["ms_per_token"],
+        peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    eager_pair("Qwen3-VL-30B-A3B video", params, cfg, [video], greedy, out, vrun)
+    log("moe_families", model="Qwen3-VL-30B-A3B",
+        decode_weight_bytes=moe_decode_bytes(cfg, len(reqs)),
+        first_token_ids=[o["token_ids"][:8] for o in outs])
+    moe_numerics(params, cfg, proc, seed)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"window_attention_d72_qwen3_moe": launches["window_attention"],
+            "flash_attention_gqa_qwen3_moe": launches["flash_attention_gqa"]}
+
+
+def aria_image(cfg, seed: int) -> torch.Tensor:
+    """One synthetic uint8 image of cfg.vision.image_size squared, as Aria's
+    processor normalises it ((x / 255 - 0.5) / 0.5), (1, 3, S, S) float32."""
+    s = cfg.vision.image_size
+    img = np.random.default_rng(seed + 2).integers(0, 256, size=(1, 3, s, s), dtype=np.uint8)
+    return torch.from_numpy(img).float() / 127.5 - 1.0
+
+
+def aria_requests(cfg, feats, seed: int) -> list[Request]:
+    """22b's requests: a text-only one, and two over the same image
+    features (``vision_embeds``) that share all but their last ARIA_TAIL
+    tokens, so that the engine serves them through one prefix block."""
+    rng = np.random.default_rng(seed + 3)
+    vocab = cfg.text.vocab_size
+
+    def text(n):
+        return rng.integers(ARIA_FIRST_ID, vocab, size=n).tolist()
+
+    head = text(ARIA_TEXT) + [cfg.image_token_id] * feats.shape[0] + text(ARIA_QUESTION)
+    return [Request(text(ARIA_TEXT_ONLY))] + [
+        Request(head + text(ARIA_TAIL), vision_embeds=feats, vision_token_id=cfg.image_token_id)
+        for _ in range(2)]
+
+
+def aria_last_logits(params, cfg, req, tokens) -> torch.Tensor:
+    """The last-position logits of ``req``'s prompt followed by ``tokens``
+    (its features merged), one plain forward."""
+    dev = params["text"]["embed_tokens"].device
+    ids = np.asarray([list(req.input_ids) + list(tokens)])
+    embeds = embed_tokens(params, torch.from_numpy(ids).to(dev))
+    if req.vision_embeds is not None:
+        row = build_vision_row_index(ids, cfg.image_token_id, [0])
+        embeds = merge_vision_embeddings_by_index(embeds, req.vision_embeds,
+                                                  torch.from_numpy(row).to(dev))
+    pos = torch.from_numpy(aria.get_rope_index(cfg, ids)).to(dev)
+    with torch.inference_mode():
+        hidden, _ = text_forward(params["text"], cfg.text, embeds, pos)
+        return logits_from_hidden(params["text"], hidden[:, -1]).float()
+
+
+def aria_phase(dev, seed: int) -> dict:
+    """22b: Aria at its published config: one image through the tower and
+    projector (get_image_features), then three requests greedy (64 tokens)
+    through InferenceEngine.generate, the two image requests by
+    vision_embeds over one prefix block: graphed and eagerly (tokens
+    equal), K3 28 a prefill forward, and the prefix-served request against
+    the same request served plain (equal tokens, or a first divergence
+    where the plain path's top-2 logit gap is at most SPEC_TIE_GAP).
+    Returns K3's launches."""
+    cfg = aria.AriaConfig.from_hf_dict(aria.ARIA_CONFIG)
+    t0 = time.perf_counter()
+    params = aria.params.init(cfg, seed, dev)
+    torch.cuda.synchronize()
+    count = P.count(params)
+    log("moe_families", model="Aria", params=count, hf_params=ARIA_HF_PARAMS,
+        card_params=ARIA_CARD_PARAMS, weight_gib=round(quant.param_bytes(params) / 2**30, 3),
+        init_s=round(time.perf_counter() - t0, 3))
+    if count != ARIA_HF_PARAMS or abs(count / ARIA_CARD_PARAMS - 1) > ARIA_CARD_SLACK:
+        raise RuntimeError(f"22b: {count} parameters, HF's model {ARIA_HF_PARAMS}, the card "
+                           f"{ARIA_CARD_PARAMS}")
+    pix = aria_image(cfg, seed).to(dev)
+    with torch.inference_mode():
+        feats = aria.get_image_features(params, cfg, pix)  # compiled paths warm
+        tower = time_ms(lambda: aria.get_image_features(params, cfg, pix), reps=3, warmup=1)
+    if feats.shape != (cfg.query_num(cfg.vision.num_patches_per_side ** 2), cfg.text.hidden_size) \
+            or not torch.isfinite(feats).all():
+        raise RuntimeError(f"22b: image features {tuple(feats.shape)}, finite "
+                           f"{bool(torch.isfinite(feats).all())}")
+    reqs = aria_requests(cfg, feats, seed)
+    greedy = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=MAX_TOKENS)
+    engine = InferenceEngine(params, cfg)
+    outs, _, decode = slice_phase(engine, reqs, greedy, names=ARIA_KERNELS)
+    sched = decode["scheduler"]
+    want = cfg.text.num_hidden_layers * sched["prefills"]
+    got = kernels.LAUNCHES["flash_attention_gqa"]
+    log("moe_families", model="Aria", tower_projector_ms=round(statistics.median(tower), 3),
+        patches=cfg.vision.num_patches_per_side ** 2, queries=feats.shape[0],
+        prompt_tokens=[o["num_prompt_tokens"] for o in outs],
+        prefill_ms=round(1e3 * decode["prefill_s"], 3), vision_ms=round(1e3 * decode["vision_s"], 3),
+        decode_ms_per_token=decode["ms_per_token"], peak_gib=round(
+            torch.cuda.max_memory_allocated() / 2**30, 3),
+        k3_launches=got, expected=want, prefills=sched["prefills"],
+        prefix_blocks=sched["prefix_blocks"], prefix_hits=sched["prefix_hits"],
+        tower_passes=sched["tower_passes"], upload_bytes=sched["upload_bytes"])
+    if (got != want or sched["tower_passes"] or sched["upload_bytes"]
+            or sched["prefix_blocks"] + sched["prefix_hits"] != 1):
+        raise RuntimeError(f"22b: K3 {got} (expected {want}), scheduler {dict(sched)}")
+    eager_pair("Aria", params, cfg, reqs, greedy, outs, decode)
+    plain = InferenceEngine(params, cfg, prefix_cache_min=0)
+    alone = plain.generate([reqs[2]], greedy)[0]["token_ids"]
+    served = outs[2]["token_ids"]
+    k = next((i for i, (a, b) in enumerate(zip(alone, served)) if a != b), None)
+    gap = None
+    if k is not None:
+        top = aria_last_logits(params, cfg, reqs[2], alone[:k])[0].topk(2).values
+        gap = float(top[0] - top[1])
+    log("moe_families", run="Aria prefix-served vs plain", identical_tokens=served == alone,
+        first_divergence=k, plain_top2_gap=gap, bound=SPEC_TIE_GAP,
+        first_token_ids=[o["token_ids"][:8] for o in outs])
+    if k is not None and gap > SPEC_TIE_GAP:
+        raise RuntimeError(f"22b: the prefix-served tokens leave the plain ones at step {k}, "
+                           f"where the plain top-2 gap {gap} exceeds {SPEC_TIE_GAP}")
+    del engine, plain, params, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def aria_k3_case(dev, seed: int, results: dict) -> None:
+    """22c: K3 at Aria's prefill, 20 q heads over 20 KV heads of 128 (a GQA
+    group of 1), the three requests' rows left-padded as the engine lays
+    them out, against its plain version, with its bound and SDPA."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cfg = aria.AriaConfig.from_hf_dict(aria.ARIA_CONFIG)
+    feats = torch.zeros((cfg.max_query_num, cfg.text.hidden_size))
+    rows = [len(r.input_ids) for r in aria_requests(cfg, feats, seed)]
+    k3_prefill_case(dev, gen, cfg.text, rows, max(rows) + MAX_TOKENS, "flash_attention_gqa_aria",
+                    results, case=f"Aria prefill, {len(rows)} x {max(rows)}, 20/20 heads")
+
+
+def moe_families_phase(dev, seed: int, results: dict) -> dict:
+    """Phase 22: 22a Qwen3-VL-30B-A3B, 22b Aria, 22c K3 at Aria's group of
+    1. Each model is freed before the next is drawn. Returns the launches
+    of the phase's kernel rows on their main paths."""
+    t_phase = time.perf_counter()
+    launches = qwen3_moe_phase(dev, seed, results)
+    t_a = time.perf_counter()
+    launches["flash_attention_gqa_aria"] = aria_phase(dev, seed)
+    t_b = time.perf_counter()
+    aria_k3_case(dev, seed, results)
+    log("moe_families", phase_seconds={"22a": round(t_a - t_phase, 3), "22b": round(t_b - t_a, 3),
+                                       "22c": round(time.perf_counter() - t_b, 3),
+                                       "22": round(time.perf_counter() - t_phase, 3)})
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4623,6 +4997,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     log("train_families", released_7b_allocated_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
     family_kernel_launches.update(training_families_phase(dev, args.seed, results))
+    # Qwen3-VL-30B-A3B and Aria: the routed experts, Aria's tower and
+    # projector, Request.vision_embeds
+    family_kernel_launches.update(moe_families_phase(dev, args.seed, results))
     params = P.init(cfg, args.seed, dev)
 
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
@@ -4654,7 +5031,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}
-        for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES}.items()
+        for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES,
+                                 **MOE_FAMILY_CASES}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

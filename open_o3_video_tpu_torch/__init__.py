@@ -11,8 +11,11 @@ step and GSPO of ``open_o3_video_tpu`` ported beside it.
 - ``native``: the libav video decoder (C++, built with g++ at first use).
 - ``grounding``: the prompt templates, the tag grammar, coordinates, IoU,
   ROUGE (its own, equal to rouge_score's) and the seven GSPO rewards.
-- ``models.qwen25vl``: Qwen2.5-VL vision tower and decoder on a param dict.
-- ``engine``: a minimal batched inference engine (prefill + cached decode).
+- ``models``: the families on param dicts: ``qwen25vl`` (Qwen2.5-VL,
+  Qwen2-VL, Qwen3-VL, Qwen3-VL-MoE) and ``aria``; ``load_model``
+  dispatches a checkpoint on its ``model_type``.
+- ``engine``: the batched inference engine (scheduler, prefix cache,
+  graphed decode, speculative decoding).
 - ``train``: the SFT steps (full fine-tune: loss, remat, clip + AdamW; or
   PEFT) and ``sft_main``; LoRA, GSPO (PEFT or full fine-tune), checkpoints
   and ``grpo_main``.

@@ -121,8 +121,19 @@ products with int8 activations (``ops/quant.a8_acts``, a scope of the
 thread that runs them); the decode step, the verify blocks and every CUDA
 graph stay w8-bf16. It changes nothing for weights that are not int8.
 
-Not ported yet (later work): ``Request.vision_embeds`` (the Aria path), and
-the sharding of rollout rows over several cards.
+**Precomputed vision rows** (JAX's ``Request.vision_embeds``, Aria's path:
+its tower and projector run as their own program, ``models/aria``): a
+request may carry (n, D) rows in the decoder's space, a numpy array or a
+tensor on the device, which enter the merge table directly at the
+request's ``vision_token_id`` (default the config's ``image_token_id``) with
+no tower pass. A device tensor is never copied back to the host: it shares
+a table, and a prefix block, by identity, a numpy array by its digest. On
+a Qwen3-VL model such rows add nothing at the deepstack layers.
+
+The engine serves any family of ``models``: the Qwen families and Aria
+(whose config has no video or vision-start ids, so its positions are 1-D).
+Not ported yet (later work): the sharding of rollout rows over several
+cards.
 """
 
 from __future__ import annotations
@@ -185,12 +196,9 @@ class Request:
     # With frames: resize them on the device to (h, w) first (PIL parity);
     # grid_thw describes the (h, w) geometry.
     resize_hw: Optional[tuple] = None
-    # A field of the JAX engine's Request that this engine does not serve
-    # yet; setting it raises NotImplementedError.
+    # Instead of patches or frames: precomputed (n, D) rows in the decoder's
+    # space (Aria's image features), a numpy array or a device tensor.
     vision_embeds: Optional[Any] = None
-
-
-_UNSUPPORTED = ("vision_embeds",)
 
 
 def _grid_key(r: Request) -> Optional[tuple]:
@@ -204,8 +212,10 @@ def _resize_key(r: Request) -> Optional[tuple]:
 def _table_key(r: Request) -> Optional[tuple]:
     """The key of a request's vision table within a call (None: no
     vision): the identities of its patches and frames, the frames' resize
-    target and the grid. Requests passing the same arrays share one tower
-    pass."""
+    target and the grid, or of its precomputed rows. Requests passing the
+    same arrays share one tower pass (or one upload of their rows)."""
+    if r.vision_embeds is not None:
+        return ("embeds", id(r.vision_embeds))
     if r.pixel_patches is None and r.frames is None:
         return None
     return (id(r.pixel_patches), id(r.frames), _resize_key(r), _grid_key(r))
@@ -507,9 +517,11 @@ class InferenceEngine:
         active (the warmup, after the probe reverted a group)."""
         sampling = sampling or SamplingParams()
         for r in requests:
-            for name in _UNSUPPORTED:
-                if getattr(r, name) is not None:
-                    raise NotImplementedError(f"Request.{name} is not served by this engine yet")
+            if r.vision_embeds is not None and (
+                    len(r.vision_embeds.shape) != 2
+                    or r.vision_embeds.shape[1] != self.cfg.text.hidden_size):
+                raise ValueError(f"Request.vision_embeds must be (n, {self.cfg.text.hidden_size}), "
+                                 f"got shape {tuple(r.vision_embeds.shape)}")
             if r.frames is not None and (np.ndim(r.frames) != 4 or r.grid_thw is None):
                 raise ValueError(f"Request.frames must be (T, C, H, W) with a grid_thw, got "
                                  f"shape {np.shape(r.frames)}")
@@ -569,8 +581,9 @@ class InferenceEngine:
         a prefix block. Memoized by id() under a weak reference only (a
         strong one would pin up to 64 frame arrays for the engine's life); a
         dead referent means the id may be reused, so the entry is re-made.
-        A tensor (on the device, from ``prestage_patches``) is not hashed: it
-        gets a token of its own, so it clusters by identity."""
+        A tensor (on the device, from ``prestage_patches``, or precomputed
+        ``vision_embeds``) is not hashed, which would read it back to the
+        host: it gets a token of its own, so it clusters by identity."""
         if arr is None:
             return None
         memo = self._vis_digests
@@ -594,14 +607,15 @@ class InferenceEngine:
 
     def _vis_key(self, r: Request) -> tuple:
         """The vision part of the prefix cache's keys: the digests of the
-        patches and of the frames, the frames' resize target, and the grid
-        and frame spacing, on which the M-RoPE positions of the prefix
-        depend (``_rope_kwargs``). The JAX engine keys on the digests alone,
-        so it serves a block prefilled at a sibling's positions."""
+        patches, of the frames and of precomputed rows, the frames' resize
+        target, and the grid and frame spacing, on which the M-RoPE
+        positions of the prefix depend (``_rope_kwargs``). The JAX engine
+        keys on the digests alone, so it serves a block prefilled at a
+        sibling's positions."""
         spacing = (None if r.second_per_grid_ts is None
                    else tuple(float(x) for x in r.second_per_grid_ts))
         return (self._vis_digest(r.pixel_patches), self._vis_digest(r.frames),
-                _resize_key(r), _grid_key(r), spacing)
+                self._vis_digest(r.vision_embeds), _resize_key(r), _grid_key(r), spacing)
 
     def _prefix_key(self, r: Request, pl: int) -> tuple:
         """The prefix cache's key of ``r``'s first ``pl`` tokens."""
@@ -736,14 +750,21 @@ class InferenceEngine:
         addresses both), else None. One tower pass per distinct vision
         input in the call (``_table_key``: requests passing the same arrays,
         or the same tensor from ``prestage_*``, share its encoding), after
-        the admission's new inputs are uploaded (``_vision_inputs``); a
-        table (with its taps) is dropped once no queued request of the call
-        needs it."""
+        the admission's new inputs are uploaded (``_vision_inputs``);
+        precomputed rows (``vision_embeds``) are a table as they are, with
+        zeros for taps where the tower has them (JAX's admission). A table
+        (with its taps) is dropped once no queued request of the call needs
+        it."""
         fresh: dict = {}  # table key -> its first request, for the inputs not encoded yet
         for r in reqs:
             key = _table_key(r)
             if key is not None and key not in vis["tables"]:
                 fresh.setdefault(key, r)
+        for key in [k for k, r in fresh.items() if r.vision_embeds is not None]:
+            rows = fresh.pop(key).vision_embeds
+            if isinstance(rows, np.ndarray):
+                self.counters["upload_bytes"] += rows.nbytes
+            vis["tables"][key] = torch.as_tensor(rows, device=self.device)
         if fresh:
             with self._stage("vis_upload"):
                 inputs = self._vision_inputs(fresh)
@@ -772,10 +793,14 @@ class InferenceEngine:
             return embeds, None
         row_index = torch.from_numpy(build_vision_row_index(ids, tokens, offsets)).to(self.device)
         embeds = merge_vision_embeddings_by_index(
-            embeds, torch.cat([_main(x) for x in tables]), row_index)
-        if not isinstance(tables[0], tuple):
+            embeds, torch.cat([_main(x).to(embeds.dtype) for x in tables]), row_index)
+        tapped = [x for x in tables if isinstance(x, tuple)]
+        if not tapped:
             return embeds, None
-        taps = [torch.cat([x[1][j] for x in tables]) for j in range(len(tables[0][1]))]
+        taps = []
+        for j, ref in enumerate(tapped[0][1]):
+            taps.append(torch.cat([x[1][j] if isinstance(x, tuple) else
+                                   ref.new_zeros(x.shape[0], ref.shape[1]) for x in tables]))
         return embeds, (taps, row_index)
 
     def _vision_inputs(self, fresh: dict) -> dict:

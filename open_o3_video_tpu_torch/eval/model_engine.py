@@ -61,10 +61,11 @@ ENGINE_KNOBS = ("cache_dtype", "long_prefill_threshold", "long_prefill_chunk",
 def _check_family(cfg: Qwen25VLConfig) -> None:
     """The harnesses size frames for a patch of 14 (Qwen2.5-VL, Qwen2-VL:
     ``data/video.py`` resizes to multiples of 28); a Qwen3-VL checkpoint
-    (patch 16) raises instead of patchifying frames its grid cannot cut."""
-    if cfg.model_type == "qwen3_vl":
+    or Qwen3-VL-MoE checkpoint (patch 16) raises instead of patchifying
+    frames its grid cannot cut."""
+    if cfg.model_type in ("qwen3_vl", "qwen3_vl_moe"):
         raise NotImplementedError(
-            "qwen3_vl: the eval harnesses size frames for patch 14 (multiples of 28) and "
+            f"{cfg.model_type}: the eval harnesses size frames for patch 14 (multiples of 28) and "
             "Qwen3-VL's patch is 16; serve it through InferenceEngine with frames or patches "
             "made at patch 16 (ROADMAP Queue 1)")
 

@@ -1,5 +1,6 @@
-"""The Qwen-VL families in PyTorch (Qwen2.5-VL, Qwen2-VL, Qwen3-VL dense):
-a ViT tower + GQA decoder with M-RoPE, functions over a param dict (see
+"""The Qwen-VL families in PyTorch (Qwen2.5-VL, Qwen2-VL, Qwen3-VL and
+Qwen3-VL-MoE): a ViT tower + GQA decoder with M-RoPE (its MLPs routed
+mixtures of experts for Qwen3-VL-MoE), functions over a param dict (see
 ``params``), the family selected by the config."""
 
 from . import params

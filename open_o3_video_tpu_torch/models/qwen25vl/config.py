@@ -1,5 +1,5 @@
-"""Qwen-VL family configuration: Qwen2.5-VL, Qwen2-VL and Qwen3-VL (dense)
-(counterpart of ``open_o3_video_tpu/models/qwen25vl/config.py``).
+"""Qwen-VL family configuration: Qwen2.5-VL, Qwen2-VL, Qwen3-VL and
+Qwen3-VL-MoE (counterpart of ``open_o3_video_tpu/models/qwen25vl/config.py``).
 
 The same dataclasses, fields and defaults as the JAX package, with
 ``dtype`` a ``torch.dtype``. ``from_hf_dict`` dispatches on ``model_type``
@@ -8,8 +8,9 @@ in every block, raw frame indices in M-RoPE) and Qwen3-VL (LayerNorm +
 gelu-tanh tower with an interpolated learned position embedding and
 deepstack taps; a decoder with qk-norm, no attention biases, an explicit
 head_dim and interleaved M-RoPE) beside Qwen2.5-VL (a text-only ``"qwen2"``
-file is read as JAX reads it). The mixture-of-experts branch keeps its
-fields but is refused: Qwen3-VL-MoE and Aria come with a later slice.
+file is read as JAX reads it). Qwen3-VL-MoE is Qwen3-VL with a routed
+mixture of experts in every decoder layer (the ``moe_*`` fields; Aria's
+decoder sets them too, ``models/aria/config.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,7 @@ from typing import Any, Optional
 import torch
 
 
-def _refuse_moe(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: the routed-MoE decoder (Qwen3-VL-MoE, Aria) comes with a later slice of "
-        "the port (ROADMAP Queue 1); it serves qwen2_5_vl, qwen2_vl and qwen3_vl")
+MODEL_TYPES = ("qwen2_5_vl", "qwen2_vl", "qwen3_vl", "qwen3_vl_moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,15 +82,16 @@ class TextConfig:
     attention_bias: bool = True
     use_qk_norm: bool = False
     mrope_interleaved: bool = False
+    # A routed mixture of experts in every layer where moe_num_experts > 0:
+    # Aria (HF AriaTextMoELayer) takes the top-k logits and a softmax over
+    # them ("topk_softmax"), plus always-on shared experts; Qwen3-VL-MoE
+    # (HF Qwen3VLMoeTextSparseMoeBlock) a softmax over all experts, the
+    # top-k, renormalised ("softmax_topk_norm"), no shared experts.
     moe_num_experts: int = 0
     moe_topk: int = 0
     moe_num_shared_experts: int = 0
     moe_routing: str = "topk_softmax"
-    moe_intermediate_size: int = 0
-
-    def __post_init__(self):
-        if self.moe_num_experts:
-            _refuse_moe(f"TextConfig.moe_num_experts={self.moe_num_experts}")
+    moe_intermediate_size: int = 0  # 0: intermediate_size
 
     @property
     def head_dim(self) -> int:
@@ -116,23 +115,24 @@ class Qwen25VLConfig:
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        if self.model_type not in ("qwen2_5_vl", "qwen2_vl", "qwen3_vl"):
-            _refuse_moe(f"model_type {self.model_type!r}")
+        if self.model_type not in MODEL_TYPES:
+            raise ValueError(f"model_type {self.model_type!r} is not one of {MODEL_TYPES}; an "
+                             "Aria checkpoint loads through models.load_model")
 
     @staticmethod
     def from_hf_dict(d: dict[str, Any], dtype=torch.bfloat16) -> "Qwen25VLConfig":
-        """An HF config.json of the Qwen2.5-VL, Qwen2-VL or Qwen3-VL family,
-        or, as the JAX package's default branch reads it, of a text-only
-        Qwen2 decoder (``"qwen2"``: Qwen2.5-72B-Instruct, the judge), whose
-        missing vision fields take the defaults. Aria and Qwen3-VL-MoE
-        files, and Qwen3-VL files with ``num_experts``, raise
-        NotImplementedError."""
+        """An HF config.json of the Qwen2.5-VL, Qwen2-VL, Qwen3-VL or
+        Qwen3-VL-MoE family, or, as the JAX package's default branch reads
+        it, of a text-only Qwen2 decoder (``"qwen2"``: Qwen2.5-72B-Instruct,
+        the judge), whose missing vision fields take the defaults. An Aria
+        file raises ValueError (``models.load_model`` reads it)."""
         v = d.get("vision_config", {})
         t = d.get("text_config", d)  # older files inline the text fields
         rope_scaling = t.get("rope_scaling") or d.get("rope_scaling") or {}
         model_type = d.get("model_type", "qwen2_5_vl")
         if model_type == "aria":
-            _refuse_moe("model_type 'aria'")
+            raise ValueError("model_type 'aria': read it with models.aria.AriaConfig "
+                             "(models.load_model dispatches on model_type)")
         if (model_type in ("qwen3_vl", "qwen3_vl_moe")
                 or v.get("deepstack_visual_indexes") is not None):
             return _qwen3_from_hf_dict(d, v, t, rope_scaling, dtype)
@@ -165,7 +165,7 @@ class Qwen25VLConfig:
         the JAX package's ``to_hf_dict`` family by family, so an exported
         directory is self-describing."""
         v, t = self.vision, self.text
-        if self.model_type == "qwen3_vl":
+        if self.model_type in ("qwen3_vl", "qwen3_vl_moe"):
             vision_dict = {
                 "depth": v.depth,
                 "hidden_size": v.hidden_size,
@@ -180,7 +180,8 @@ class Qwen25VLConfig:
                 "num_position_embeddings": v.num_position_embeddings,
                 "deepstack_visual_indexes": list(v.deepstack_visual_indexes),
             }
-            arch = ["Qwen3VLForConditionalGeneration"]
+            arch = (["Qwen3VLMoeForConditionalGeneration"] if self.model_type == "qwen3_vl_moe"
+                    else ["Qwen3VLForConditionalGeneration"])
         elif self.model_type == "qwen2_vl":
             vision_dict = {
                 "depth": v.depth,
@@ -224,9 +225,13 @@ class Qwen25VLConfig:
             "tie_word_embeddings": t.tie_word_embeddings,
             "max_position_embeddings": t.max_position_embeddings,
         }
-        if self.model_type == "qwen3_vl":
+        if self.model_type in ("qwen3_vl", "qwen3_vl_moe"):
             text_dict["head_dim"] = t.head_dim
             text_dict["attention_bias"] = t.attention_bias
+        if self.model_type == "qwen3_vl_moe":
+            text_dict["num_experts"] = t.moe_num_experts
+            text_dict["num_experts_per_tok"] = t.moe_topk
+            text_dict["moe_intermediate_size"] = t.moe_intermediate_size
         return {
             "model_type": self.model_type,
             "architectures": arch,
@@ -275,8 +280,8 @@ class Qwen25VLConfig:
         )
 
 
-# The published config.json files of the two families' served models (no
-# weights of either are in the repository: the port serves them from random
+# The published config.json files of the families' served models (no
+# weights of any are in the repository: the port serves them from random
 # weights drawn from a seed, at these widths).
 QWEN3_VL_8B_INSTRUCT_CONFIG = {
     "architectures": ["Qwen3VLForConditionalGeneration"],
@@ -317,6 +322,55 @@ QWEN3_VL_8B_INSTRUCT_CONFIG = {
         "num_heads": 16,
         "num_position_embeddings": 2304,
         "out_hidden_size": 4096,
+        "patch_size": 16,
+        "spatial_merge_size": 2,
+        "temporal_patch_size": 2,
+    },
+}
+QWEN3_VL_30B_A3B_INSTRUCT_CONFIG = {
+    "architectures": ["Qwen3VLMoeForConditionalGeneration"],
+    "model_type": "qwen3_vl_moe",
+    "image_token_id": 151655,
+    "video_token_id": 151656,
+    "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653,
+    "tie_word_embeddings": False,
+    "text_config": {
+        "model_type": "qwen3_vl_moe_text",
+        "attention_bias": False,
+        "bos_token_id": 151643,
+        "decoder_sparse_step": 1,
+        "eos_token_id": 151645,
+        "head_dim": 128,
+        "hidden_act": "silu",
+        "hidden_size": 2048,
+        "intermediate_size": 6144,
+        "max_position_embeddings": 262144,
+        "mlp_only_layers": [],
+        "moe_intermediate_size": 768,
+        "norm_topk_prob": True,
+        "num_attention_heads": 32,
+        "num_experts": 128,
+        "num_experts_per_tok": 8,
+        "num_hidden_layers": 48,
+        "num_key_value_heads": 4,
+        "rms_norm_eps": 1e-06,
+        "rope_scaling": {"mrope_interleaved": True, "mrope_section": [24, 20, 20],
+                         "rope_type": "default"},
+        "rope_theta": 5000000,
+        "vocab_size": 151936,
+    },
+    "vision_config": {
+        "model_type": "qwen3_vl_moe",
+        "deepstack_visual_indexes": [8, 16, 24],
+        "depth": 27,
+        "hidden_act": "gelu_pytorch_tanh",
+        "hidden_size": 1152,
+        "in_channels": 3,
+        "intermediate_size": 4304,
+        "num_heads": 16,
+        "num_position_embeddings": 2304,
+        "out_hidden_size": 2048,
         "patch_size": 16,
         "spatial_merge_size": 2,
         "temporal_patch_size": 2,
@@ -394,11 +448,15 @@ def _text_from_hf_dict(t: dict[str, Any], d: dict[str, Any], rope_scaling: dict)
 def _qwen3_from_hf_dict(d, v, t, rope_scaling, dtype) -> Qwen25VLConfig:
     """Qwen3-VL: a tower of LayerNorm + gelu-tanh blocks over whole frames,
     with an interpolated learned position embedding and deepstack taps; a
-    Qwen3 decoder (qk-norm, no attention bias, interleaved M-RoPE). A
-    mixture-of-experts file raises."""
-    if d.get("model_type") == "qwen3_vl_moe" or t.get("num_experts") is not None:
-        _refuse_moe(f"model_type {d.get('model_type')!r} with num_experts "
-                    f"{t.get('num_experts')!r}")
+    Qwen3 decoder (qk-norm, no attention bias, interleaved M-RoPE).
+    Qwen3-VL-MoE (``model_type`` "qwen3_vl_moe", or ``num_experts`` in the
+    text config): every layer's MLP a routed mixture, softmax -> top-k ->
+    renormalised, no shared experts; ``mlp_only_layers`` and a
+    ``decoder_sparse_step`` other than 1 raise NotImplementedError, as in
+    JAX (no released Qwen3-VL checkpoint sets them)."""
+    moe = d.get("model_type") == "qwen3_vl_moe" or t.get("num_experts") is not None
+    if moe and (t.get("mlp_only_layers") or t.get("decoder_sparse_step", 1) != 1):
+        raise NotImplementedError("qwen3_vl_moe with mlp_only_layers / decoder_sparse_step != 1")
     vision = VisionConfig(
         depth=v.get("depth", 27),
         hidden_size=v.get("hidden_size", 1152),
@@ -426,9 +484,13 @@ def _qwen3_from_hf_dict(d, v, t, rope_scaling, dtype) -> Qwen25VLConfig:
         attention_bias=t.get("attention_bias", False),
         use_qk_norm=True,
         mrope_interleaved=True,
+        moe_num_experts=t.get("num_experts", 0) if moe else 0,
+        moe_topk=t.get("num_experts_per_tok", 0) if moe else 0,
+        moe_routing="softmax_topk_norm" if moe else "topk_softmax",
+        moe_intermediate_size=t.get("moe_intermediate_size", 0) if moe else 0,
     )
-    return Qwen25VLConfig(vision=vision, text=text, model_type="qwen3_vl", **_special_ids(d),
-                          dtype=dtype)
+    return Qwen25VLConfig(vision=vision, text=text, model_type="qwen3_vl_moe" if moe else "qwen3_vl",
+                          **_special_ids(d), dtype=dtype)
 
 
 def _qwen2_from_hf_dict(d, v, t, rope_scaling, dtype) -> Qwen25VLConfig:
@@ -479,6 +541,14 @@ def tiny_qwen3(dtype=torch.float32) -> Qwen25VLConfig:
         rope_theta=5000000.0,
     )
     return dataclasses.replace(base, vision=vision, text=text, model_type="qwen3_vl")
+
+
+def tiny_qwen3_moe(dtype=torch.float32) -> Qwen25VLConfig:
+    """Small random-init Qwen3-VL-MoE config (JAX's ``tiny_qwen3_moe``)."""
+    base = tiny_qwen3(dtype=dtype)
+    text = dataclasses.replace(base.text, moe_num_experts=4, moe_topk=2,
+                               moe_routing="softmax_topk_norm", moe_intermediate_size=32)
+    return dataclasses.replace(base, text=text, model_type="qwen3_vl_moe")
 
 
 def tiny_qwen2(dtype=torch.float32) -> Qwen25VLConfig:

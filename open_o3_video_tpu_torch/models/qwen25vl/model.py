@@ -3,8 +3,8 @@
 
 ``get_rope_index`` and ``build_vision_row_index`` are host-side numpy,
 copied from the JAX package (its module imports JAX), with its family
-branches: Qwen2-VL and Qwen3-VL index time by raw frame, and Qwen3-VL
-splits each video grid into per-frame grids (its prompts separate frames
+branches: Qwen2-VL and Qwen3-VL (and -MoE) index time by raw frame, and
+Qwen3-VL splits each video grid into per-frame grids (its prompts separate frames
 by timestamp text). A Qwen3-VL tower returns deepstack taps beside its
 embeddings; ``forward`` routes them to the decoder's first layers.
 """
@@ -37,7 +37,7 @@ def get_rope_index(
     """
     merge = cfg.vision.spatial_merge_size
     B, S = input_ids.shape
-    if cfg.model_type == "qwen3_vl" and video_grid_thw is not None:
+    if cfg.model_type in ("qwen3_vl", "qwen3_vl_moe") and video_grid_thw is not None:
         # <t><vision_start><frame><vision_end> per frame: each video grid
         # splits into per-frame grids of t = 1.
         video_grid_thw = np.repeat(np.asarray(video_grid_thw),
@@ -99,7 +99,7 @@ def get_rope_index(
             text_len = ed - st
             st_idx = int(pos_list[-1].max()) + 1 if pos_list else 0
             pos_list.append(np.broadcast_to(np.arange(text_len)[None], (3, text_len)) + st_idx)
-            if cfg.model_type in ("qwen2_vl", "qwen3_vl"):  # the raw frame index
+            if cfg.model_type in ("qwen2_vl", "qwen3_vl", "qwen3_vl_moe"):  # the raw frame index
                 t_index = np.arange(lt)[:, None].repeat(lh * lw, axis=1).flatten()
             else:
                 # HF quirk kept: second_per_grid is truncated to an integer

@@ -15,7 +15,8 @@ text:
   embed_tokens (vocab, D)
   layers[i]: input_norm, q_w, k_w, v_w, o_w (q_b, k_b, v_b where the
              config has attention biases; q_norm, k_norm for Qwen3-VL),
-             post_norm, gate_w, up_w, down_w
+             post_norm, gate_w, up_w, down_w, or for Qwen3-VL-MoE router
+             (D, E), moe_fc1 (E, D, 2F), moe_fc2 (E, F, D)
   final_norm, lm_head (D, vocab)
 
 With ``quantize_text`` the decoder's matmul weights and the lm_head are
@@ -23,7 +24,8 @@ With ``quantize_text`` the decoder's matmul weights and the lm_head are
 quantized one leaf at a time as they are drawn or read, so the model never
 exists in bf16 on the device; ``quantize_vision`` does the same for the ViT
 blocks' matmul weights (the w8a8 tower's), never the patch embed or the
-merger. A text-only checkpoint (the Qwen2.5-72B judge) loads with
+merger. The router and the expert stacks stay in ``cfg.dtype``, as in the
+JAX package. A text-only checkpoint (the Qwen2.5-72B judge) loads with
 ``visual`` None.
 """
 
@@ -225,6 +227,8 @@ def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False,
         visual["deepstack"] = [merger(postshuffle=True) for _ in v.deepstack_visual_indexes]
     q_dim = t.num_attention_heads * t.head_dim
     kv_dim = t.num_key_value_heads * t.head_dim
+    moe_f = t.moe_intermediate_size or t.intermediate_size
+
     def layer():
         lay = {
             "input_norm": ones(t.hidden_size),
@@ -236,10 +240,15 @@ def init(cfg: Qwen25VLConfig, seed: int, device, quantize_text=False,
             "v_b": zeros(kv_dim),
             "o_w": tw(q_dim, t.hidden_size),
             "post_norm": ones(t.hidden_size),
-            "gate_w": tw(t.hidden_size, t.intermediate_size),
-            "up_w": tw(t.hidden_size, t.intermediate_size),
-            "down_w": tw(t.intermediate_size, t.hidden_size),
         }
+        if t.moe_num_experts:  # Qwen3-VL-MoE: routed experts only
+            lay.update(router=w(t.hidden_size, t.moe_num_experts),
+                       moe_fc1=w(t.moe_num_experts, t.hidden_size, 2 * moe_f),
+                       moe_fc2=w(t.moe_num_experts, moe_f, t.hidden_size))
+        else:
+            lay.update(gate_w=tw(t.hidden_size, t.intermediate_size),
+                       up_w=tw(t.hidden_size, t.intermediate_size),
+                       down_w=tw(t.intermediate_size, t.hidden_size))
         if not t.attention_bias:  # Qwen3-VL
             lay = {k: x for k, x in lay.items() if k not in ("q_b", "k_b", "v_b")}
         if t.use_qk_norm:
@@ -271,6 +280,11 @@ _TEXT_LAYER = {  # HF suffix -> (leaf, transpose to input-major)
     "mlp.gate_proj.weight": ("gate_w", True),
     "mlp.up_proj.weight": ("up_w", True),
     "mlp.down_proj.weight": ("down_w", True),
+    # Qwen3-VL-MoE's sparse block: the expert stacks are bare parameters,
+    # (E, D, 2F) and (E, F, D), already input-major
+    "mlp.gate.weight": ("router", True),
+    "mlp.experts.gate_up_proj": ("moe_fc1", False),
+    "mlp.experts.down_proj": ("moe_fc2", False),
 }
 _VISION_ATTN = {
     "norm1.weight": ("norm1", False),
@@ -331,6 +345,8 @@ def _names(cfg: Qwen25VLConfig) -> tuple[dict, dict, dict]:
         drop |= {"q_b", "k_b", "v_b"}
     if not t.use_qk_norm:
         drop |= {"q_norm", "k_norm"}
+    drop |= ({"gate_w", "up_w", "down_w"} if t.moe_num_experts
+             else {"router", "moe_fc1", "moe_fc2"})
     if v.norm_type != "layernorm":
         drop |= {"norm1_b", "norm2_b", "ln_q_b"}
     layer = {k: x for k, x in _TEXT_LAYER.items() if x[0] not in drop}
@@ -482,14 +498,18 @@ _SAFETENSORS_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float
 
 
 def save_safetensors(params: dict, cfg: Qwen25VLConfig, out_path: str, dtype=None) -> None:
-    """Write a plain param dict as one HF-convention safetensors file, in
-    the format itself (no ``safetensors`` package): an 8-byte little-endian
-    header length, the JSON header (name -> dtype, shape, byte offsets),
-    padded with spaces to 8 bytes, then each tensor's raw little-endian
-    bytes. Each tensor keeps its dtype unless ``dtype`` is given (the JAX
-    package's export writes float32). One tensor at a time is copied to the
-    host."""
-    tensors = list(hf_named_tensors(params, cfg))
+    """Write a plain param dict as one HF-convention safetensors file
+    (``write_safetensors``). Each tensor keeps its dtype unless ``dtype`` is
+    given (the JAX package's export writes float32)."""
+    write_safetensors(list(hf_named_tensors(params, cfg)), out_path, dtype)
+
+
+def write_safetensors(tensors: list, out_path: str, dtype=None) -> None:
+    """Write (name, tensor) pairs as one safetensors file, in the format
+    itself (no ``safetensors`` package): an 8-byte little-endian header
+    length, the JSON header (name -> dtype, shape, byte offsets), padded
+    with spaces to 8 bytes, then each tensor's raw little-endian bytes, in
+    ``dtype`` where given. One tensor at a time is copied to the host."""
     header, offset = {}, 0
     for name, x in tensors:
         if not isinstance(x, torch.Tensor):

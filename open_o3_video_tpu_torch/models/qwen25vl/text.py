@@ -119,6 +119,112 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
     return dense(out.reshape(B, S, -1), p["o_w"], impl)
 
 
+def _mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str) -> torch.Tensor:
+    if "router" in p:
+        return moe_mlp(p, cfg, x, impl)
+    return dense(F.silu(dense(x, p["gate_w"], impl)) * dense(x, p["up_w"], impl), p["down_w"],
+                 impl)
+
+
+def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest scores of each row and their indices, ties to the lower
+    index, as JAX's ``lax.top_k`` takes them: a stable descending sort keeps
+    equal scores in index order, so it orders by (-score, index)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(p: dict, cfg: TextConfig, flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The router of a mixture layer: (N, k) expert indices and their (N, k)
+    float32 weights for the tokens ``flat`` (N, D). ``softmax_topk_norm``
+    (Qwen3-VL-MoE): a softmax over all experts, the top k, renormalised;
+    ``topk_softmax`` (Aria): the top k logits, a softmax over those."""
+    logits = dense(flat, p["router"]).float()
+    if cfg.moe_routing == "softmax_topk_norm":
+        w, idx = _top_k(torch.softmax(logits, dim=-1), cfg.moe_topk)
+        return idx, w / w.sum(dim=-1, keepdim=True)
+    top, idx = _top_k(logits, cfg.moe_topk)
+    return idx, torch.softmax(top, dim=-1)
+
+
+def expert_groups(idx: torch.Tensor, n_experts: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (token, slot) pairs of ``idx`` (N, k) sorted by expert: the
+    order (a stable sort, so a token's pairs keep their slot order; pair i
+    is token i // k) and each expert's end in it (int32, on the device).
+    The ends come from a search over the sorted ids, not a count read back
+    to the host (``torch.bincount`` reads its length back), so a CUDA graph
+    can capture them."""
+    ids, order = torch.sort(idx.reshape(-1), stable=True)
+    ends = torch.searchsorted(ids, torch.arange(n_experts, device=idx.device), right=True)
+    return order, ends.to(torch.int32)
+
+
+def _experts(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
+             offs: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over rows ``x`` (M, D) sorted by expert, expert e
+    taking the rows up to ``offs[e]`` (int32, on the device): one grouped
+    product per weight stack (fc1 (E, D, 2F): silu of the first F columns
+    times the last F; fc2 (E, F, D)). ``torch._grouped_mm`` reads each
+    expert's weights only where the expert has rows, and takes the group
+    sizes from the device, so no count is read back to the host and a CUDA
+    graph can replay it."""
+    h = torch._grouped_mm(x, fc1, offs=offs)
+    proj, gate = h.chunk(2, dim=-1)
+    return torch._grouped_mm(F.silu(proj) * gate, fc2, offs=offs)
+
+
+def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
+            route: Optional[tuple] = None) -> torch.Tensor:
+    """A mixture-of-experts MLP over ``x`` (..., D): the routed experts'
+    outputs weighted by the router (``moe_route``), plus Aria's shared
+    experts (``gate_w``/``up_w``/``down_w``) where the layer has them.
+
+    The JAX package computes every expert on every token and a dense (N, E)
+    combine whose unselected entries are 0 (``_moe_mlp``); this is the same
+    function computed routed, summed over each token's k experts instead
+    (``moe_mlp_dense`` is JAX's form). The N * k (token, expert) pairs are
+    sorted by expert (a stable sort: a token's pairs stay in slot order),
+    the rows gathered, the experts run by ``_experts``, and the results put
+    back by the inverse permutation and summed over k in float32 with the
+    weights cast to the activations' dtype first, as JAX's combine is. No
+    shape depends on the routing, so a decode step stays capturable.
+    ``route`` replaces the router's decision, as in ``moe_mlp_dense``."""
+    shape, D = x.shape, x.shape[-1]
+    flat = x.reshape(-1, D)
+    idx, w = moe_route(p, cfg, flat) if route is None else route
+    n, k = idx.shape
+    order, offs = expert_groups(idx, cfg.moe_num_experts)
+    out = _experts(flat[order // k], p["moe_fc1"], p["moe_fc2"], offs)
+    routed = torch.empty_like(out).index_copy_(0, order, out).reshape(n, k, D)
+    y = (routed.float() * w.to(x.dtype).float()[..., None]).sum(1).to(x.dtype)
+    if "gate_w" in p:  # Aria's always-on shared experts
+        y = y + dense(F.silu(dense(flat, p["gate_w"], impl)) * dense(flat, p["up_w"], impl),
+                      p["down_w"], impl)
+    return y.reshape(shape)
+
+
+def moe_mlp_dense(p: dict, cfg: TextConfig, x: torch.Tensor,
+                  route: Optional[tuple] = None) -> torch.Tensor:
+    """JAX's form of ``moe_mlp`` (``text.py:_moe_mlp``): every expert over
+    every token and a dense (N, E) combine, the unselected entries 0. The
+    plain reference the routed form is held to; it reads every expert's
+    weights and makes an (E, N, 2F) intermediate, so it is not served.
+    ``route`` (``moe_route``'s output) replaces the router's own decision,
+    so that a float32 reference can take a bf16 path's experts."""
+    shape, D = x.shape, x.shape[-1]
+    flat = x.reshape(-1, D)
+    idx, w = moe_route(p, cfg, flat) if route is None else route
+    combine = torch.zeros(flat.shape[0], cfg.moe_num_experts, dtype=flat.dtype,
+                          device=flat.device).scatter_(1, idx, w.to(flat.dtype))
+    h = torch.einsum("nd,edf->enf", flat, p["moe_fc1"])
+    proj, gate = h.chunk(2, dim=-1)
+    h = torch.einsum("enf,efd->end", F.silu(proj) * gate, p["moe_fc2"])
+    y = torch.einsum("ne,end->nd", combine, h)
+    if "gate_w" in p:
+        y = y + dense(F.silu(dense(flat, p["gate_w"])) * dense(flat, p["up_w"]), p["down_w"])
+    return y.reshape(shape)
+
+
 def text_forward(
     params: dict,
     cfg: TextConfig,
@@ -184,8 +290,7 @@ def text_forward(
                                  cache, i, cache_offset, attn_impl, validity_only,
                                  decode_attn_impl)
         h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
-        act = F.silu(dense(h, layer["gate_w"], attn_impl)) * dense(h, layer["up_w"], attn_impl)
-        return x + dense(act, layer["down_w"], attn_impl)
+        return x + _mlp(layer, cfg, h, attn_impl)
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):

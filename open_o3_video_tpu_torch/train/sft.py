@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..models.qwen25vl import params as P
-from ..models.qwen25vl.config import Qwen25VLConfig, _refuse_moe
+from ..models.qwen25vl.config import Qwen25VLConfig
 from ..models.qwen25vl.model import forward
 from ..models.qwen25vl.text import per_token_logps_from_hidden
 
@@ -35,14 +35,17 @@ TRAINED_FAMILIES = ("qwen2_5_vl", "qwen2_vl", "qwen3_vl")
 
 
 def require_trainable(cfg) -> None:
-    """Raise NotImplementedError on what the port does not serve: the
-    routed-MoE families (Qwen3-VL-MoE, Aria), as the config itself refuses
-    them. Qwen2.5-VL, Qwen2-VL and Qwen3-VL (dense) train."""
+    """Raise NotImplementedError on the families the port serves but does
+    not train yet: the routed-MoE ones (Qwen3-VL-MoE, Aria). Qwen2.5-VL,
+    Qwen2-VL and Qwen3-VL (dense) train."""
     moe = getattr(getattr(cfg, "text", None), "moe_num_experts", 0)
     model_type = getattr(cfg, "model_type", None)
     if model_type not in TRAINED_FAMILIES or moe:
-        _refuse_moe(f"training model_type {model_type!r}"
-                    + (f" with {moe} experts" if moe else ""))
+        raise NotImplementedError(
+            f"training model_type {model_type!r}" + (f" with {moe} experts" if moe else "")
+            + ": the routed-MoE families (Qwen3-VL-MoE, Aria) are served, and their training "
+            "is the next slice of the port (ROADMAP Queue 1); it trains "
+            + ", ".join(TRAINED_FAMILIES))
 
 
 @dataclasses.dataclass

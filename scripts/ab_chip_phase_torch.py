@@ -1,6 +1,7 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families DIR [DIR ...]
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families|moe_families \
+        DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
 (``git archive``) into a directory that ``.gitignore`` lists and pass it
@@ -24,7 +25,10 @@ one phase:
 - ``train_families``: phase 21 (``training_families_phase``), K2's exact
   mode and K6 at head_dim 72, then the training of Qwen3-VL-8B (full
   fine-tune, PEFT, GSPO) and Qwen2-VL-7B (the 7B released first, as in the
-  whole script).
+  whole script);
+- ``moe_families``: phase 22 (``moe_families_phase``), Qwen3-VL-30B-A3B and
+  Aria served from their published configs (the 7B released first, as in
+  the whole script).
 
 Each process's output goes to this one's standard output after a line
 ``tree DIR``; the exit code is the first nonzero one of the processes.
@@ -48,6 +52,8 @@ PHASE = {
     "families": "c.families_phase(torch.device('cuda'), seed, {})",
     "train_families": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
                        "c.training_families_phase(torch.device('cuda'), seed, {})"),
+    "moe_families": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
+                     "c.moe_families_phase(torch.device('cuda'), seed, {})"),
 }
 
 CHILD = """

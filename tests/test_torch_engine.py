@@ -222,13 +222,14 @@ def test_prompt_over_the_context_limit_raises():
 
 
 def test_unsupported_request_fields_raise():
-    """``second_per_grid_ts``, ``frames`` and ``resize_hw`` are served (held
-    against JAX in test_torch_engine_scheduler.py and test_torch_frames.py);
-    ``vision_embeds`` still raises, and frames that are not (T, C, H, W)
-    with a grid are refused."""
+    """``second_per_grid_ts``, ``frames``, ``resize_hw`` and ``vision_embeds``
+    are served (held against JAX in test_torch_engine_scheduler.py,
+    test_torch_frames.py and test_torch_aria.py); ``vision_embeds`` that are
+    not (n, hidden) rows, and frames that are not (T, C, H, W) with a grid,
+    are refused."""
     _, _, tcfg, tparams = model_pair(0)
     engine = InferenceEngine(tparams, tcfg)
-    with pytest.raises(NotImplementedError, match="vision_embeds"):
+    with pytest.raises(ValueError, match="vision_embeds"):
         engine.generate([Request([5, 6], vision_embeds=np.zeros(2))])
     with pytest.raises(ValueError, match="frames"):
         engine.generate([Request([5, 6], frames=np.zeros(2))])

@@ -2,7 +2,9 @@
 rouge_score or nltk, and imports none of them. A subprocess blocks those
 imports, imports every module of the port, runs a tiny generate on the CPU
 (with a bf16 cache, and with an fp8 cache through the long-context path), a
-tiny Qwen3-VL generate through its deepstack taps, a generate over raw frames with ``resize_hw``, a w8a8 generate,
+tiny Qwen3-VL generate through its deepstack taps, a tiny Qwen3-VL-MoE
+generate, a tiny Aria generate from ``Request.vision_embeds``, a generate
+over raw frames with ``resize_hw``, a w8a8 generate,
 greedy and sampled speculative generates (the latter replaying streams),
 one tiny SFT train step (and one each of the tiny Qwen3-VL, full
 fine-tune, and Qwen2-VL, PEFT), a generate with an int4 decoder (K7's plain
@@ -48,6 +50,12 @@ MODULES = [
     "open_o3_video_tpu_torch.models.qwen25vl.text",
     "open_o3_video_tpu_torch.models.qwen25vl.model",
     "open_o3_video_tpu_torch.models.qwen25vl.params",
+    "open_o3_video_tpu_torch.models",
+    "open_o3_video_tpu_torch.models.aria",
+    "open_o3_video_tpu_torch.models.aria.config",
+    "open_o3_video_tpu_torch.models.aria.vision",
+    "open_o3_video_tpu_torch.models.aria.params",
+    "open_o3_video_tpu_torch.models.aria.model",
     "open_o3_video_tpu_torch.engine",
     "open_o3_video_tpu_torch.grounding.prompts",
     "open_o3_video_tpu_torch.data.sft_dataset",
@@ -117,6 +125,23 @@ q3 = params.init(q3cfg, 0, torch.device("cpu"))
 q3req = Request(x.input_ids, x.pixel_patches, x.grid_thw, q3cfg.image_token_id)
 out = InferenceEngine(q3, q3cfg).generate([q3req], SamplingParams(max_tokens=4))
 assert 1 <= len(out[0]["token_ids"]) <= 4 and len(q3["visual"]["deepstack"]) == 2, out
+# Qwen3-VL-MoE: the same request through the routed experts
+from open_o3_video_tpu_torch.models.qwen25vl.config import tiny_qwen3_moe
+moecfg = tiny_qwen3_moe()
+out = InferenceEngine(params.init(moecfg, 0, torch.device("cpu")), moecfg).generate(
+    [q3req], SamplingParams(max_tokens=4))
+assert 1 <= len(out[0]["token_ids"]) <= 4, out
+# Aria: an image's features through the tower and projector, into the
+# engine as Request.vision_embeds
+from open_o3_video_tpu_torch.models import aria
+acfg = aria.tiny_aria()
+aw = aria.params.init(acfg, 0, torch.device("cpu"))
+feats = aria.get_image_features(aw, acfg, torch.randn(1, 3, 28, 28))
+aids = [5, 6] + [acfg.image_token_id] * feats.shape[0] + [7, 8]
+out = InferenceEngine(aw, acfg).generate(
+    [Request(aids, vision_embeds=feats, vision_token_id=acfg.image_token_id)],
+    SamplingParams(max_tokens=4))
+assert 1 <= len(out[0]["token_ids"]) <= 4, out
 # the uint8 frame path: raw frames resized on the device to the processor's
 # size, then w8a8 (int8 decoder and ViT blocks, a8_prefill) on the same request
 raw = np.random.default_rng(3).integers(0, 256, (2, 3, 70, 100), dtype=np.uint8)

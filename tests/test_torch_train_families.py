@@ -441,9 +441,9 @@ def test_require_trainable_passes_the_dense_families_and_refuses_moe():
                                       text=types.SimpleNamespace(moe_num_experts=8))):
         with pytest.raises(NotImplementedError, match="MoE"):
             tsft.require_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):  # the config refuses them first
-        TC.Qwen25VLConfig.from_hf_dict({**TC.QWEN3_VL_8B_INSTRUCT_CONFIG,
-                                        "model_type": "qwen3_vl_moe"})
+    with pytest.raises(NotImplementedError, match="MoE"):  # served, not trained yet
+        tsft.require_trainable(TC.Qwen25VLConfig.from_hf_dict(
+            TC.QWEN3_VL_30B_A3B_INSTRUCT_CONFIG))
 
 
 @pytest.fixture(scope="module")
