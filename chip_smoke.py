@@ -304,6 +304,31 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      prefix-served request against itself served plain (equal, or a first
      divergence at a top-2 gap of at most SPEC_TIE_GAP); 22c K3 at Aria's
      prefill (20/20 heads, a GQA group of 1) against its plain version.
+ 23. training Qwen3-VL-30B-A3B and Aria (after phase 22, before phase 11;
+     random bf16 weights from --seed, each model freed before the next is
+     drawn): 23a the 30B at full width and depth, 2 PEFT SFT steps (LoRA
+     rank 16, alpha 32 on q/v) on phase 21's batch (16 frames of 256x352,
+     2762 tokens): seconds, loss, gradient norm, peak GiB, K2 27 a step in
+     the frozen tower, K3 exact 96 and K5 48 + 48 a step (remat), no K2
+     exact or K6, the base unchanged (its fingerprint: a copy does not fit
+     beside 57.9 GiB), B moved; a PEFT GSPO step at GSPOConfig's defaults
+     on phase 21's sample with canned traces; then at 9 ViT blocks and 4
+     decoder layers (all 128 experts each) 3 full fine-tune SFT steps (K2
+     exact and K6 at 72), the training numerics as phase 10, the routed
+     MLP's backward against the dense form's at 2 layers over 1244 tokens
+     (router, expert stacks and input in bf16, each at most
+     SLICE_REL_RATIO further from float32 than the dense bf16 form's;
+     experts that got no token exactly 0; the routing weights detached, a
+     zero router gradient, must exceed the bound), and a full fine-tune
+     GSPO step against the frozen originals; 23b Aria the same way on one
+     980x980 image inside 300 text tokens (556 tokens; no tower kernel: the
+     tower is plain attention), its GSPO rollouts through vision_embeds
+     with one tower pass for the G rows, its full fine-tune at 4 tower
+     blocks and 2 layers (the tower's held GiB a block logged); 23c K3's
+     exact mode and K5 at the 30B's SFT shape (1 x 2762, 32/4 heads) and
+     Aria's (1 x 556, 20/20), each with its bound, plain time and SDPA,
+     and K4 at Aria's group of 1 (32768 bf16 slots; logged, off every
+     main path).
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -346,7 +371,7 @@ from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingPar
 from open_o3_video_tpu_torch.engine import engine as engine_module
 from open_o3_video_tpu_torch.engine.engine import DONE_LAG, left_padded_rows
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
-from open_o3_video_tpu_torch.models import aria
+from open_o3_video_tpu_torch.models import aria, family_forward, is_aria
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
 from open_o3_video_tpu_torch.models.qwen25vl import text as TT
 from open_o3_video_tpu_torch.models.qwen25vl.config import (
@@ -1669,13 +1694,15 @@ def sft_phase(params, cfg, batch) -> dict:
 
 def _grad_groups(weights) -> dict:
     """The trainable leaves by group: the ViT (its merger included), the
-    deepstack mergers (Qwen3-VL), the decoder layers (and the final norm),
-    the embedding and the lm_head."""
+    deepstack mergers (Qwen3-VL) or Aria's projector, the decoder layers
+    (and the final norm), the embedding and the lm_head."""
     text = weights["text"]
     visual = {k: v for k, v in weights["visual"].items() if k != "deepstack"}
     groups = {"vit": P.leaves(visual)}
     if weights["visual"].get("deepstack"):
         groups["deepstack"] = P.leaves(weights["visual"]["deepstack"])
+    if "projector" in weights:
+        groups["projector"] = P.leaves(weights["projector"])
     return {**groups,
             "decoder": P.leaves(text["layers"]) + [text["final_norm"]],
             "embed_lm_head": [text["embed_tokens"], text["lm_head"]]}
@@ -1724,7 +1751,7 @@ def train_numerics_phase(params, cfg, batch, vit_depth=NUMERICS_VIT_DEPTH,
     m = loss_and_grads(ref, cfg32, SFTConfig(), batch, attn_impl="torch")
     loss_r, grads_r = float(m["loss"]), {g: [x.grad for x in xs] for g, xs in _grad_groups(ref).items()}
     log(tag, vit_blocks=vit_depth, decoder_layers=text_layers,
-        taps=list(small_cfg.vision.deepstack_visual_indexes),
+        taps=list(getattr(small_cfg.vision, "deepstack_visual_indexes", ())),
         loss_kernel=loss_k, loss_plain=loss_p, loss_f32=loss_r)
     for group in grads_r:
         rel_k, cos_k = _agreement_sums(grads_k[group], grads_r[group])
@@ -1767,26 +1794,29 @@ class CannedTraces:
 
 def _taps_kept(vision, vit_depth) -> int:
     """The deepstack taps (Qwen3-VL) of the first vit_depth blocks."""
-    return sum(i < vit_depth for i in vision.deepstack_visual_indexes)
+    return sum(i < vit_depth for i in getattr(vision, "deepstack_visual_indexes", ()))
 
 
 def _sub(tree, vit_depth, text_layers, vision=None):
     """The params of the first vit_depth ViT blocks (and the deepstack
     mergers of their taps, given the config's ``vision``) and text_layers
-    decoder layers; the tensors shared."""
+    decoder layers, Aria's projector kept; the tensors shared."""
     visual = {**tree["visual"], "blocks": tree["visual"]["blocks"][:vit_depth]}
     if "deepstack" in visual:
         visual["deepstack"] = visual["deepstack"][:_taps_kept(vision, vit_depth)]
-    return {"visual": visual,
+    return {**tree, "visual": visual,
             "text": {**tree["text"], "layers": tree["text"]["layers"][:text_layers]}}
 
 
 def _cut_cfg(cfg, vit_depth, text_layers):
+    text = dataclasses.replace(cfg.text, num_hidden_layers=text_layers)
+    if is_aria(cfg):
+        return dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=vit_depth), text=text)
     taps = cfg.vision.deepstack_visual_indexes[:_taps_kept(cfg.vision, vit_depth)]
     return dataclasses.replace(
         cfg, vision=dataclasses.replace(cfg.vision, depth=vit_depth,
-                                        deepstack_visual_indexes=taps),
-        text=dataclasses.replace(cfg.text, num_hidden_layers=text_layers))
+                                        deepstack_visual_indexes=taps), text=text)
 
 
 def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
@@ -1794,11 +1824,21 @@ def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
     stage seconds, completion lengths, loss, kl, rewards, peak GiB and each
     kernel's launches (those of ``required`` must be > 0)."""
     trainer.timer.reset()
+    norms, update = [], trainer.optimizer.update
+
+    def record(state, norm):  # the gradient norm the update clips by
+        norms.append(norm)
+        update(state, norm)
+
+    trainer.optimizer.update = record
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    m, decode = decode_run(trainer.engine, lambda: trainer.step(sample, global_step=step,
-                                                                max_steps=GSPO_MAX_STEPS))
+    try:
+        m, decode = decode_run(trainer.engine, lambda: trainer.step(sample, global_step=step,
+                                                                    max_steps=GSPO_MAX_STEPS))
+    finally:
+        del trainer.optimizer.update
     seconds = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
     last = trainer.last_step
@@ -1814,7 +1854,7 @@ def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
         rollout_prefix_blocks=decode["scheduler"]["prefix_blocks"],
         rollout_admissions=decode["scheduler"]["admissions"])
     log("gspo", run=tag, step=step + 1, loss=m["loss"], kl=m["kl"], reward=m["reward"],
-        advantages=last["advantages"].tolist(),
+        grad_norm=float(norms[0]), advantages=last["advantages"].tolist(),
         rewards={k.split("/")[1]: v for k, v in m.items() if k.startswith("rewards/")})
     log("gspo", run=tag, step=step + 1, launches=launches)
     if not (np.isfinite(m["loss"]) and np.isfinite(m["kl"])):
@@ -2096,15 +2136,44 @@ def sft_app_data(seed: int, media: dict) -> str:
     return data
 
 
+def fingerprint(params) -> torch.Tensor:
+    """Per leaf, the sum and the sum of squares of its bits read as int16,
+    in int64 (chunks of 2^26 values): a base too large to copy beside
+    itself is checked unchanged by this, where any in-place update (a
+    decay, a step) moves both sums."""
+    out = []
+    for x in P.leaves(params):
+        bits = x.detach().reshape(-1).view(torch.int16)
+        acc = torch.zeros(2, dtype=torch.int64, device=x.device)
+        for i in range(0, bits.numel(), 1 << 26):
+            b = bits[i:i + (1 << 26)].long()
+            acc += torch.stack([b.sum(), (b * b).sum()])
+        out.append(acc)
+    return torch.stack(out)
+
+
+def batch_vision(batch) -> dict:
+    """A batch's tokens (its valid ones) and vision, for the log: images
+    and patches (the Qwen families), or images of Aria's square crops."""
+    tokens = int(batch["attn_valid"].sum()) if "attn_valid" in batch else batch["input_ids"].size
+    if "pixel_values" in batch:
+        return {"tokens": tokens, "images": int(batch["pixel_values"].shape[0]),
+                "image_hw": list(batch["pixel_values"].shape[2:])}
+    return {"tokens": tokens, "images": len(batch["grid_thw"]),
+            "patches": batch["pixel_patches"].shape[0]}
+
+
 def sft_peft_phase(params, cfg, batch, seed: int, source: str, steps=SFT_APP_STEPS,
-                   required=SFT_PEFT_KERNELS, absent=SFT_PEFT_ABSENT, tag="sft_app") -> dict:
+                   required=SFT_PEFT_KERNELS, absent=SFT_PEFT_ABSENT, tag="sft_app",
+                   copy_base=True) -> dict:
     """15c: `steps` PEFT steps of make_lora_train_step on the frozen 7B
     (sft_main's default adapters from --seed; SFTConfig defaults; the last
     step under the profiler: device time by kernel class, busy share), the
     launch counts set to 0 just before and read just after: the kernels of
     ``required`` launched (K1 and K2 in their inference modes, K3 exact and
     K5), those of ``absent`` not (K6). The adapters' B must move off 0 and
-    the base stay bit for bit."""
+    the base stay bit for bit (``copy_base=False``: its fingerprint, for a
+    base that a copy does not fit beside). Returns the launches."""
     for x in P.leaves(params):
         x.requires_grad_(False)
     # A copy of the base on the card (~10 ms, where a host copy and its
@@ -2112,7 +2181,7 @@ def sft_peft_phase(params, cfg, batch, seed: int, source: str, steps=SFT_APP_STE
     # allocated bytes add, so the steps' peak is the peak less the copy.
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated()
-    base = [x.clone() for x in P.leaves(params)]
+    base = [x.clone() for x in P.leaves(params)] if copy_base else fingerprint(params)
     torch.cuda.synchronize()
     copy_bytes = torch.cuda.memory_allocated() - held
     copy_s = time.perf_counter() - t0
@@ -2124,9 +2193,7 @@ def sft_peft_phase(params, cfg, batch, seed: int, source: str, steps=SFT_APP_STE
     step = make_lora_train_step(cfg, train_cfg, opt, lora.scale)
     log(tag, mode="PEFT", input=source, lora_rank=lora.rank, lora_alpha=lora.alpha,
         targets=list(lora.target_modules),
-        adapter_params=sum(x.numel() for x in adapter_leaves(adapters)),
-        tokens=int(batch["attn_valid"].sum()), images=len(batch["grid_thw"]),
-        patches=batch["pixel_patches"].shape[0])
+        adapter_params=sum(x.numel() for x in adapter_leaves(adapters)), **batch_vision(batch))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -2156,7 +2223,8 @@ def sft_peft_phase(params, cfg, batch, seed: int, source: str, steps=SFT_APP_STE
     b_max = max(ab["b"].abs().max().item() for layer in adapters["layers"]
                 for ab in layer.values())
     t0 = time.perf_counter()
-    unchanged = all(torch.equal(x, y) for x, y in zip(P.leaves(params), base))
+    unchanged = (all(torch.equal(x, y) for x, y in zip(P.leaves(params), base)) if copy_base
+                 else torch.equal(fingerprint(params), base))
     log(tag, adapters_b_max_abs=b_max, base_bit_for_bit_unchanged=unchanged,
         base_copy_gib=round(copy_bytes / 2**30, 3), base_copy_s=round(copy_s, 3),
         base_check_s=round(time.perf_counter() - t0, 3))
@@ -4433,20 +4501,21 @@ def k6_family_cases(dev, gen, results) -> None:
     torch.cuda.empty_cache()
 
 
-def family_sft_steps(tag, params, cfg, batch, steps, required) -> dict:
+def family_sft_steps(tag, params, cfg, batch, steps, required, absent=WINDOW_ROW_KERNELS,
+                     phase="train_families") -> dict:
     """`steps` full fine-tune steps through make_train_step (SFTConfig
     defaults: AdamW at lr 1e-6, remat on), the launch counts set to 0 just
-    before and read just after: each of ``required`` launched, K1 and K6's
-    fused backward never. Per step the seconds, loss, gradient norm and
-    peak GiB. Frees the optimizer state; returns the launches."""
+    before and read just after: each of ``required`` launched, those of
+    ``absent`` (K1 and K6's fused backward) never. Per step the seconds,
+    loss, gradient norm and peak GiB. Frees the optimizer state; returns
+    the launches."""
     train_cfg = SFTConfig()
     opt = make_optimizer(train_cfg)
     P.trainable(params)
     state = opt.init(params)
     step = make_train_step(cfg, train_cfg, opt)
-    log("train_families", model=tag, tokens=int(batch["attn_valid"].sum()),
-        target_tokens=int((batch["labels"][:, 1:] != -100).sum()), images=len(batch["grid_thw"]),
-        patches=batch["pixel_patches"].shape[0], params=P.count(params))
+    log(phase, model=tag, target_tokens=int((batch["labels"][:, 1:] != -100).sum()),
+        **batch_vision(batch), params=P.count(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -4457,23 +4526,22 @@ def family_sft_steps(tag, params, cfg, batch, steps, required) -> dict:
         torch.cuda.synchronize()
         m = {k: float(x) for k, x in m.items()}
         metrics.append(m)
-        log("train_families", model=tag, step=i + 1, seconds=round(time.perf_counter() - t0, 3),
+        log(phase, model=tag, step=i + 1, seconds=round(time.perf_counter() - t0, 3),
             loss=m["loss"], grad_norm=m["grad_norm"],
             peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     launches = {name: kernels.LAUNCHES[name] for name in TPU_KERNELS}
-    log("train_families", model=tag, launches_per_step={k: n / steps for k, n in launches.items()
-                                                        if n})
+    log(phase, model=tag, launches_per_step={k: n / steps for k, n in launches.items() if n})
     del state, opt, step
     for x in P.leaves(params):
         x.grad = None
     gc.collect()
     torch.cuda.empty_cache()
     if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
-        raise RuntimeError(f"21 {tag}: non-finite loss or gradient norm: {metrics}")
+        raise RuntimeError(f"{phase} {tag}: non-finite loss or gradient norm: {metrics}")
     missing = [name for name in required if not launches[name]]
-    extra = [name for name in WINDOW_ROW_KERNELS if launches[name]]
+    extra = [name for name in absent if launches[name]]
     if missing or extra:
-        raise RuntimeError(f"21 {tag}: never launched {missing}, launched {extra}")
+        raise RuntimeError(f"{phase} {tag}: never launched {missing}, launched {extra}")
     return launches
 
 
@@ -4874,6 +4942,381 @@ def moe_families_phase(dev, seed: int, results: dict) -> dict:
     return launches
 
 
+# Phase 23: training Qwen3-VL-30B-A3B and Aria from their published configs
+# (random bf16 weights from --seed). Their full weights take 57.874 and
+# 47.139 GiB, so PEFT trains at full width and depth and a full fine-tune at
+# a cut depth with every expert of each kept layer. 23a: the 30B, 2 PEFT
+# SFT steps on phase 21's batch (16 frames of 256x352, 2762 tokens), a PEFT
+# GSPO step at GSPOConfig's defaults on phase 21's sample, then at the 8B's
+# tower cut and MOE_FT_TEXT decoder layers 3 full fine-tune SFT steps, the
+# training numerics, the routed MLP's gradients and a full fine-tune GSPO
+# step. 23b: Aria the same way on one 980x980 image inside ~300 text tokens
+# (ARIA_SFT_PROMPT before its 256 query rows, ARIA_SFT_ANSWER supervised
+# after), its GSPO prompt ARIA_GSPO_QUESTION tokens more. Aria's tower keeps
+# every block's float32 softmax for the backward (no per-block remat, as in
+# JAX): 2.478 GiB held a block at 980x980 on an H100 (aria_train_phase
+# logs it), 66.9 GiB for the 27; its full fine-tune cut
+# is ARIA_FT_VIT blocks and ARIA_FT_TEXT layers, so that the float32
+# numerics (a float32 copy, its gradients and the tower's float32 scores)
+# fit beside the bf16 weights. 23c: K3's exact mode and K5 at the two
+# models' training shapes, and K4 at Aria's group of 1.
+MOE_PEFT_STEPS, MOE_FT_STEPS, MOE_FT_TEXT = 2, 3, 4
+ARIA_FT_VIT, ARIA_FT_TEXT = 4, 2
+ARIA_SFT_PROMPT, ARIA_SFT_ANSWER, ARIA_GSPO_QUESTION = 150, 150, 32
+# The routed MLP's gradients are held to the dense form's over the first
+# MOE_NUMERICS_LAYERS layers' inputs of a MOE_GRAD_TOKENS-token request
+# (phase 22a's 4 frames for the 30B; Aria's image inside text).
+MOE_GRAD_TOKENS = 1244
+MOE_GRAD_LEAVES = ("router", "moe_fc1", "moe_fc2", "gate_w", "up_w", "down_w")
+# K3's exact mode and K5 at each model's SFT shape, each with its row; the
+# rows' launches are those of the PEFT SFT steps.
+MOE_TRAIN_CASES = {f"{name}_{model}": TPU_KERNELS[name]
+                   for model in ("qwen3_moe", "aria") for name in DECODER_TRAIN_KERNELS}
+# Under PEFT the 30B's frozen tower runs K2's inference mode alone; no
+# tower kernel runs for Aria (plain attention, as in JAX).
+FROZEN_TOWER_ABSENT = WINDOW_ROW_KERNELS + TRAIN_FAMILY_ROWS
+TOWER_KERNELS = FROZEN_TOWER_ABSENT + ("window_attention",)
+ARIA_GSPO_KERNELS = ("flash_attention_gqa",) + DECODER_TRAIN_KERNELS
+
+
+def moe_train_case(dev, gen, t, batch, model, results, case) -> None:
+    """23c: K3's exact mode (out, lse) and K5 (dq; dk, dv) against their
+    plain versions at a training batch's length and heads (right-padded
+    keys as the batch has them), each with its bound and SDPA's forward
+    (+ backward)."""
+    L = batch["input_ids"].shape[1]
+    valid = torch.ones((1, L), dtype=torch.int32, device=dev)
+    if "attn_valid" in batch:
+        valid = torch.from_numpy(batch["attn_valid"].astype(np.int32)).to(dev)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None].contiguous()
+    Hq, Hkv, D = t.num_attention_heads, t.num_key_value_heads, t.head_dim
+
+    def bf16(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    q, k, vv = bf16(1, L, Hq, D), bf16(1, L, Hkv, D), bf16(1, L, Hkv, D)
+    do = bf16(1, L, Hq, D, scale=DOUT_SCALE)
+    cpairs = causal_pairs(pos, valid) * Hq * D
+    mask = causal_mask(pos, valid)
+    rows = valid != 0
+    case = f"{case}, 1 x {L}, {Hq}/{Hkv} heads"
+    compare(f"flash_attention_gqa_exact_{model}",
+            lambda: fa.flash_attention_gqa_exact(q, k, vv, pos, valid),
+            lambda: fa.flash_attention_gqa_exact_torch(q, k, vv, pos, valid),
+            (rows, rows[:, None, :].expand(-1, Hq, -1)), results, flops=4 * cpairs,
+            moved=nbytes(q, k, vv, pos, valid, q) + 4 * q.numel() // D,
+            library_fn=lambda: sdpa_masked(q, k, vv, mask), case=case)
+    out, lse = fa.flash_attention_gqa_exact(q, k, vv, pos, valid)
+    ops = fa.bwd_operands(q, k, vv, pos, valid, out, lse, do)
+    ins = nbytes(*ops)
+    lib = lambda: sdpa_fwd_bwd(q, k, vv, do, is_causal=True)  # noqa: E731
+    compare(f"flash_attention_gqa_bwd_dq_{model}", lambda: fa.flash_attention_gqa_bwd_dq(ops),
+            lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[0],
+            None, results, flops=6 * cpairs, moved=ins + nbytes(q), library_fn=lib, case=case)
+    compare(f"flash_attention_gqa_bwd_dkv_{model}", lambda: fa.flash_attention_gqa_bwd_dkv(ops),
+            lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[1:],
+            None, results, flops=8 * cpairs, moved=ins + nbytes(k, vv), library_fn=lib, case=case)
+    del q, k, vv, do, out, lse, ops, mask
+    torch.cuda.empty_cache()
+
+
+def aria_k4_case(dev, gen, cfg, results) -> None:
+    """23c: K4 at Aria's group of 1 (20 q heads over 20 KV heads of 128), a
+    decode step over 32768 bf16 slots, against its plain version, with its
+    bound and SDPA. Logged only: no phase reaches K4 with Aria (its paths
+    stay below 32768 slots), so the row has no main-path launches."""
+    t = cfg.text
+    T = 32768
+    k, v = _layer_views(dev, gen, cfg, 1, T, T - 32, torch.bfloat16)
+    q = torch.randn((1, 1, t.num_attention_heads, t.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.full((1, 1), T - 33, dtype=torch.int32, device=dev)
+    valid = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    valid[:, :T - 32] = 1
+    w = T - 32
+    mask = causal_mask(pos, valid[:, :w])
+    compare("decode_attention_gqa_aria", lambda: da.decode_attention_gqa(q, k, v, pos, valid),
+            lambda: da.decode_attention_gqa_torch(q, k[:, :w], v[:, :w], pos, valid[:, :w]),
+            None, results, flops=4 * causal_pairs(pos, valid) * t.num_attention_heads * t.head_dim,
+            moved=nbytes(q, k[:, :w], v[:, :w], pos, valid) + nbytes(q),
+            library_fn=lambda: sdpa_masked(q, k[:, :w], v[:, :w], mask),
+            case="Aria, 1 x 32736 of 32768 slots, bf16, 20/20 heads")
+    del k, v
+    torch.cuda.empty_cache()
+
+
+def routing_weights(p, t, x, idx) -> torch.Tensor:
+    """The router's weights of the experts ``idx`` (moe_route's function
+    with the experts given), differentiable in the router and x."""
+    logits = quant.dense(x, p["router"]).float()
+    if t.moe_routing == "softmax_topk_norm":
+        w = torch.softmax(logits, dim=-1).gather(1, idx)
+        return w / w.sum(dim=-1, keepdim=True)
+    return torch.softmax(logits.gather(1, idx), dim=-1)
+
+
+def _mlp_grads(fn, p, t, x, dy, idx, dtype, detach=False) -> dict:
+    """Gradients of ``fn`` (the routed or the dense form) in ``dtype`` on
+    the experts ``idx``: each mixture leaf and the input, the router's
+    through the routing weights (``detach``: the weights detached, a
+    planted fault that leaves the router without a gradient)."""
+    w = {n: p[n].detach().to(dtype).requires_grad_(True) for n in MOE_GRAD_LEAVES if n in p}
+    xx = x.detach().to(dtype).requires_grad_(True)
+    route = routing_weights(w, t, xx, idx)
+    y = fn(w, t, xx, route=(idx, route.detach() if detach else route))
+    (y.float() * dy.float()).sum().backward()
+    out = {n: (v.grad if v.grad is not None else torch.zeros_like(v)).float() for n, v in w.items()}
+    return {**out, "x": xx.grad.float()}
+
+
+def moe_grad_numerics(params, cfg, ids, pos, vision: dict, tag: str) -> None:
+    """The routed MLP's backward at the first MOE_NUMERICS_LAYERS layers:
+    each layer's MLP input over ``ids`` (recorded in a forward of those
+    layers), a random upstream gradient, the bf16 router's experts; the
+    gradients (router, expert stacks, shared experts, input) of the routed
+    form in bf16 and of the dense form in bf16 (the plain one), each
+    against the dense form in float32: the routed at most SLICE_REL_RATIO
+    further (phase 22a's bound); experts that got no token exactly 0 in all
+    three; the routing weights detached (a zero router gradient) must
+    exceed the bound."""
+    dev = params["text"]["embed_tokens"].device
+    t = cfg.text
+    cut = _cut_cfg(cfg, len(params["visual"]["blocks"]), MOE_NUMERICS_LAYERS)
+    inputs, real = [], TT._mlp
+
+    def record(p, c, x, impl):
+        inputs.append(x.detach().reshape(-1, x.shape[-1]))
+        return real(p, c, x, impl)
+
+    TT._mlp = record
+    try:
+        with torch.inference_mode():
+            family_forward(_sub(params, len(params["visual"]["blocks"]), MOE_NUMERICS_LAYERS,
+                                cfg.vision), cut, torch.from_numpy(ids).to(dev),
+                           torch.from_numpy(pos).to(dev), return_hidden=True, **vision)
+    finally:
+        TT._mlp = real
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for li, x in enumerate(inputs):
+        x = x.clone()
+        p = params["text"]["layers"][li]
+        idx = TT.moe_route(p, t, x)[0]
+        dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+        ref = _mlp_grads(TT.moe_mlp_dense, p, t, x, dy, idx, torch.float32)
+        routed = _mlp_grads(TT.moe_mlp, p, t, x, dy, idx, torch.bfloat16)
+        plain = _mlp_grads(TT.moe_mlp_dense, p, t, x, dy, idx, torch.bfloat16)
+        fault = _mlp_grads(TT.moe_mlp, p, t, x, dy, idx, torch.bfloat16, detach=True)
+        empty = sorted(set(range(t.moe_num_experts)) - set(idx.unique().tolist()))
+        zero = all(not g[n][empty].any() for g in (routed, plain, ref)
+                   for n in ("moe_fc1", "moe_fc2"))
+        rows = {}
+        for n in ref:
+            rows[n] = (_agreement(routed[n], ref[n])[0], _agreement(plain[n], ref[n])[0],
+                       _agreement(fault[n], ref[n])[0])
+        log("train_moe_families", model=tag, numerics=f"layer {li} MLP backward",
+            tokens=x.shape[0], empty_experts=empty, empty_grads_zero=zero,
+            routed_plain_detached_vs_f32_rel=rows, max_ratio=SLICE_REL_RATIO)
+        bad = [n for n, (r, pl, _) in rows.items() if not r <= SLICE_REL_RATIO * pl]
+        if bad or not zero or not all(torch.isfinite(g).all() for g in routed.values()):
+            raise RuntimeError(f"23 {tag} layer {li}: routed gradients {bad} further from float32 "
+                               f"than the dense bf16 form's, or an empty expert's not 0 ({zero})")
+        r, pl, f = rows["router"]
+        if f <= SLICE_REL_RATIO * pl:
+            raise RuntimeError(f"23 {tag}: detached routing weights ({f}) pass the bound")
+        del ref, routed, plain, fault
+    torch.cuda.empty_cache()
+
+
+def peft_gspo_step(params, cfg, proc, sample, seed, tag, required, absent) -> dict:
+    """A PEFT GSPOTrainer step at GSPOConfig's defaults (LoRA rank 16 on
+    q/v from --seed, canned traces): the kernels of ``required`` launched,
+    those of ``absent`` not; the base unchanged (its fingerprint), the
+    adapters' B moved off 0. Returns gspo_step's record."""
+    before = fingerprint(params)
+    trainer = GSPOTrainer(params, None, cfg, GSPOConfig(), detokenize=CannedTraces(proc),
+                          lora=LoraConfig(seed=seed), seed=seed)
+    out = gspo_step(trainer, sample, 0, tag, required)
+    b_max = max(ab["b"].abs().max().item() for layer in trainer.adapters["layers"]
+                for ab in layer.values())
+    unchanged = torch.equal(fingerprint(params), before)
+    extra = [n for n in absent if out["launches"][n]]
+    log("train_moe_families", model=tag, adapters_b_max_abs=b_max,
+        base_bit_for_bit_unchanged=unchanged, launched_absent=extra)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (b_max > 0 and unchanged) or extra:
+        raise RuntimeError(f"23 {tag}: B {b_max}, base unchanged {unchanged}, launched {extra}")
+    return out
+
+
+def peft_expected(cfg, launches, steps, tower_blocks) -> None:
+    """The PEFT SFT steps' launches against their count: with remat K3's
+    exact mode twice a decoder layer (the forward and its recompute), K5's
+    dq and dk/dv once, and K2 once a frozen tower block."""
+    n = cfg.text.num_hidden_layers
+    want = {"flash_attention_gqa_exact": 2 * n * steps, "flash_attention_gqa_bwd_dq": n * steps,
+            "flash_attention_gqa_bwd_dkv": n * steps, "window_attention": tower_blocks * steps}
+    got = {k: launches[k] for k in want}
+    log("train_moe_families", launches=got, expected=want)
+    if got != want:
+        raise RuntimeError(f"23: PEFT SFT launches {got}, expected {want}")
+
+
+def qwen3_moe_train_phase(dev, seed: int, results: dict) -> dict:
+    """23a (see the comment above MOE_PEFT_STEPS). Returns the PEFT SFT
+    steps' launches of K3's exact mode and K5."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cfg = Qwen25VLConfig.from_hf_dict(QWEN3_VL_30B_A3B_INSTRUCT_CONFIG)
+    proc = O3VideoProcessor(patch_size=cfg.vision.patch_size)
+    batch = sft_batch(proc, cfg, seed, (Q3_FRAME_H, Q3_FRAME_W))
+    moe_train_case(dev, gen, cfg.text, batch, "qwen3_moe", results, "Qwen3-VL-30B-A3B SFT")
+    params = P.init(cfg, seed, dev)
+    launches = sft_peft_phase(params, cfg, batch, seed, "16 frames of 256x352",
+                              steps=MOE_PEFT_STEPS, required=FAMILY_PEFT_KERNELS,
+                              absent=FROZEN_TOWER_ABSENT, tag="train_moe_families",
+                              copy_base=False)
+    peft_expected(cfg, launches, MOE_PEFT_STEPS, cfg.vision.depth)
+    sample = gspo_sample(proc, seed, (Q3_FRAME_H, Q3_FRAME_W))
+    peft_gspo_step(params, cfg, proc, sample, seed, "Qwen3-VL-30B-A3B PEFT",
+                   FAMILY_GSPO_KERNELS, FROZEN_TOWER_ABSENT)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = _cut_cfg(cfg, Q3_CUT_VIT, MOE_FT_TEXT)
+    params = P.init(cut, seed, dev)
+    family_sft_steps("Qwen3-VL-30B-A3B cut", params, cut, batch, MOE_FT_STEPS, FAMILY_FT_KERNELS,
+                     phase="train_moe_families")
+    train_numerics_phase(params, cut, batch, Q3_CUT_VIT, MOE_FT_TEXT, tag="train_moe_families")
+    rng = np.random.default_rng(seed + 4)
+    req = frames_request(proc, cfg, rng.integers(0, 256, size=(
+        MOE_NUMERICS_FRAMES, 3, Q3_FRAME_H, Q3_FRAME_W), dtype=np.uint8), QUESTIONS[0])
+    ids = np.asarray([req.input_ids])
+    pos, _ = get_rope_index(cut, ids, image_grid_thw=req.grid_thw)
+    dev_patches = torch.from_numpy(req.pixel_patches).to(dev)
+    moe_grad_numerics(params, cut, ids, pos, {"pixel_patches": dev_patches,
+                                              "grid_thw": req.grid_thw,
+                                              "vision_token_id": cfg.image_token_id},
+                      "Qwen3-VL-30B-A3B")
+    gspo_full_phase(params, cut, proc, sample, seed, Q3_CUT_VIT, MOE_FT_TEXT,
+                    FAMILY_GSPO_KERNELS + TRAIN_FAMILY_ROWS, tag="Qwen3-VL-30B-A3B full fine-tune")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"{name}_qwen3_moe": launches[name] for name in DECODER_TRAIN_KERNELS}
+
+
+def aria_train_batch(cfg, seed: int) -> dict:
+    """Aria's SFT batch: ARIA_SFT_PROMPT text tokens, the 980x980 image's
+    256 query rows, ARIA_SFT_ANSWER supervised text tokens (random ids from
+    --seed past the special ids)."""
+    rng = np.random.default_rng(seed + 5)
+    vocab = cfg.text.vocab_size
+    q = cfg.query_num(cfg.vision.num_patches_per_side ** 2)
+    answer = rng.integers(ARIA_FIRST_ID, vocab, size=ARIA_SFT_ANSWER)
+    ids = np.concatenate([rng.integers(ARIA_FIRST_ID, vocab, size=ARIA_SFT_PROMPT),
+                          np.full(q, cfg.image_token_id), answer])[None]
+    labels = np.full_like(ids, -100)
+    labels[0, -ARIA_SFT_ANSWER:] = answer
+    return {"input_ids": ids, "position_ids": aria.get_rope_index(cfg, ids), "labels": labels,
+            "pixel_values": aria_image(cfg, seed).numpy()}
+
+
+def aria_tower_held(params, cfg, pix) -> float:
+    """GiB that the trainable tower and projector keep for their backward
+    a block: one forward under autograd, the allocation after it less the
+    one before, over the blocks."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    feats = aria.get_image_features(params, cfg, pix)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del feats
+    torch.cuda.empty_cache()
+    return held / 2**30 / cfg.vision.num_hidden_layers
+
+
+def aria_train_phase(dev, seed: int, results: dict) -> dict:
+    """23b (see the comment above MOE_PEFT_STEPS). Returns the PEFT SFT
+    steps' launches of K3's exact mode and K5."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cfg = aria.AriaConfig.from_hf_dict(aria.ARIA_CONFIG)
+    batch = aria_train_batch(cfg, seed)
+    moe_train_case(dev, gen, cfg.text, batch, "aria", results, "Aria SFT")
+    aria_k4_case(dev, gen, cfg, results)
+    params = aria.params.init(cfg, seed, dev)
+    launches = sft_peft_phase(params, cfg, batch, seed, "one 980x980 image",
+                              steps=MOE_PEFT_STEPS, required=DECODER_TRAIN_KERNELS,
+                              absent=TOWER_KERNELS, tag="train_moe_families", copy_base=False)
+    peft_expected(cfg, launches, MOE_PEFT_STEPS, 0)
+    proc = O3VideoProcessor()
+    question = np.random.default_rng(seed + 6).integers(ARIA_FIRST_ID, cfg.text.vocab_size,
+                                                        size=ARIA_GSPO_QUESTION)
+    n_prompt = ARIA_SFT_PROMPT + cfg.query_num(cfg.vision.num_patches_per_side ** 2)
+    sample = {"input_ids": batch["input_ids"][0, :n_prompt].tolist() + question.tolist(),
+              "pixel_values": batch["pixel_values"],
+              "reward_kwargs": gspo_sample(proc, seed)["reward_kwargs"]}
+    encodes, real = [], aria.get_image_features
+
+    def counted(*args, **kw):  # the rollout's tower passes (the update's go through forward)
+        encodes.append(1)
+        return real(*args, **kw)
+
+    aria.get_image_features = counted
+    try:
+        out = peft_gspo_step(params, cfg, proc, sample, seed, "Aria PEFT", ARIA_GSPO_KERNELS,
+                             TOWER_KERNELS)
+    finally:
+        aria.get_image_features = real
+    log("train_moe_families", model="Aria PEFT", rollout_tower_passes=len(encodes),
+        rows=len(out["tokens"]))
+    if len(encodes) != 1:
+        raise RuntimeError(f"23b: {len(encodes)} tower passes for the G rows of one prompt")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = _cut_cfg(cfg, ARIA_FT_VIT, ARIA_FT_TEXT)
+    params = P.trainable(aria.params.init(cut, seed, dev))
+    held = aria_tower_held(params, cut, torch.from_numpy(batch["pixel_values"]).to(dev))
+    log("train_moe_families", model="Aria cut", tower_blocks=ARIA_FT_VIT, decoder_layers=ARIA_FT_TEXT,
+        tower_held_gib_a_block=round(held, 3),
+        tower_held_gib_27_blocks=round(held * cfg.vision.num_hidden_layers, 3))
+    family_sft_steps("Aria cut", params, cut, batch, MOE_FT_STEPS, DECODER_TRAIN_KERNELS,
+                     absent=TOWER_KERNELS, phase="train_moe_families")
+    train_numerics_phase(params, cut, batch, ARIA_FT_VIT, ARIA_FT_TEXT, tag="train_moe_families")
+    rng = np.random.default_rng(seed + 7)
+    q = cfg.query_num(cfg.vision.num_patches_per_side ** 2)
+    half = (MOE_GRAD_TOKENS - q) // 2
+    text = rng.integers(ARIA_FIRST_ID, cfg.text.vocab_size, size=MOE_GRAD_TOKENS - q)
+    ids = np.concatenate([text[:half], np.full(q, cfg.image_token_id), text[half:]])[None]
+    moe_grad_numerics(params, cut, ids, aria.get_rope_index(cut, ids),
+                      {"pixel_values": torch.from_numpy(batch["pixel_values"]).to(dev)}, "Aria")
+    gspo_full_phase(params, cut, proc, sample, seed, ARIA_FT_VIT, ARIA_FT_TEXT, ARIA_GSPO_KERNELS,
+                    tag="Aria full fine-tune")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"{name}_aria": launches[name] for name in DECODER_TRAIN_KERNELS}
+
+
+def train_moe_families_phase(dev, seed: int, results: dict) -> dict:
+    """Phase 23: 23a Qwen3-VL-30B-A3B's training, 23b Aria's, 23c (inside
+    each) K3's exact mode and K5 at their training shapes and K4 at Aria's
+    group of 1. Each model is freed before the next is drawn. Returns the
+    launches of the phase's kernel rows on their main paths."""
+    t_phase = time.perf_counter()
+    launches = qwen3_moe_train_phase(dev, seed, results)
+    t_a = time.perf_counter()
+    launches.update(aria_train_phase(dev, seed, results))
+    log("train_moe_families", phase_seconds={"23a": round(t_a - t_phase, 3),
+                                             "23b": round(time.perf_counter() - t_a, 3),
+                                             "23": round(time.perf_counter() - t_phase, 3)})
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5000,6 +5443,8 @@ def main() -> None:
     # Qwen3-VL-30B-A3B and Aria: the routed experts, Aria's tower and
     # projector, Request.vision_embeds
     family_kernel_launches.update(moe_families_phase(dev, args.seed, results))
+    # their training: PEFT at full width and depth, a full fine-tune at a cut
+    family_kernel_launches.update(train_moe_families_phase(dev, args.seed, results))
     params = P.init(cfg, args.seed, dev)
 
     # int4 serving: K7 and the probes, the 7B slice in int4, the 72B judge
@@ -5032,7 +5477,7 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}
         for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES,
-                                 **MOE_FAMILY_CASES}.items()
+                                 **MOE_FAMILY_CASES, **MOE_TRAIN_CASES}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,11 @@ text embedding space). Images are fixed-size squares, so every shape is
 static. Attention is the JAX package's plain form: a product of q and k in
 the activations' dtype, a float32 softmax, a product with v; at 4900
 patches and 16 heads the float32 scores are ~1.5 GB an image.
+
+Under a full fine-tune the tower and projector train with no per-block
+remat, as in the JAX package, so each block keeps its float32 softmax for
+the backward; under PEFT no leaf of either requires a gradient, and
+autograd records nothing of them.
 """
 
 from __future__ import annotations

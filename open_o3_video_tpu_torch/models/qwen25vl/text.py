@@ -188,7 +188,20 @@ def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
     back by the inverse permutation and summed over k in float32 with the
     weights cast to the activations' dtype first, as JAX's combine is. No
     shape depends on the routing, so a decode step stays capturable.
-    ``route`` replaces the router's decision, as in ``moe_mlp_dense``."""
+    ``route`` replaces the router's decision, as in ``moe_mlp_dense``.
+
+    Under autograd the router's gradient flows through the top-k weights
+    (the indices, from the sort, have none), as JAX's flows through its
+    combine. An expert that no token chose gets a gradient of exactly 0 in
+    ``moe_fc1`` and ``moe_fc2``, as JAX's zero combine entries give it:
+    ``torch._grouped_mm``'s backward writes the weight gradient of an empty
+    group as zeros (on the card and on the CPU; tests/test_torch_train_moe.py
+    and ``chip_smoke.py`` phase 23 hold it). The ``index_copy_`` that puts
+    the experts' rows back in token order also hands ``_grouped_mm``'s
+    backward a gradient of its own layout: called on a stride-0 upstream
+    gradient (``y.sum()``'s) that backward raises. Under remat the
+    checkpoint recomputes the routing from the same input, and the stable
+    sort picks the same experts in the same order."""
     shape, D = x.shape, x.shape[-1]
     flat = x.reshape(-1, D)
     idx, w = moe_route(p, cfg, flat) if route is None else route

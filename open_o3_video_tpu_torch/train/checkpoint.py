@@ -8,7 +8,10 @@ as its ``state_dict()``. ``async_save=True`` copies the tensors to the host
 before it returns (the trainer updates its tensors in place) and writes the
 file on a background thread; ``wait_for_saves`` waits for the writes and
 raises the first one's error. The writer is module state, as the JAX
-package's orbax checkpointer is, so the two APIs match.
+package's orbax checkpointer is, so the two APIs match. The state is any
+tree of tensors, so every family's params and AdamW state save and
+restore alike (the MoE families' expert stacks and routers, Aria's tower
+and projector).
 ``export_safetensors`` writes the format itself (``params.save_safetensors``)
 and ``config.json``, so the JAX package's ``params.load_pretrained`` reads the
 directory.

@@ -14,8 +14,9 @@ One step, for one prompt (the reference's one prompt per GPU) or a few:
 4. score the rewards on the host (``grounding/rewards.py``, with
    ``step_percent``) and normalize them within each group;
 5. pack prompt and completion, masking after the first EOS;
-6. vision: each prompt's patches once, its G rows mapped to the same
-   vision rows by index; M-RoPE positions per modality group;
+6. vision: each prompt's patches (Aria: its images) once, its G rows
+   mapped to the same vision rows by index; M-RoPE positions per modality
+   group (Aria: sequential positions);
 7. reference logps without grad (PEFT: the base with adapters disabled;
    full fine-tune: ``ref_params``), the lm_head over the completion slice
    only, ``logp_chunk`` rows at a time;
@@ -32,8 +33,14 @@ primal and VJP do, so the KL at step 1 is near 0 but not exactly 0.
 (``spec_sample``) for the rollouts, and ``replay_tokens`` (benchmarks only)
 replays token streams through it, as in the JAX trainer.
 
-Not ported: the mesh and multi-host branches (ROADMAP M8) and Aria (M9);
-the constructor raises on a mesh.
+Every family trains through ``models.family_forward``: the Qwen families
+(Qwen3-VL-MoE's routed experts among them) on ``pixel_patches`` and
+``grid_thw``, Aria on square ``pixel_values`` crops, whose rollouts encode
+each prompt's images once (``aria.get_image_features``) and serve the rows
+as ``Request.vision_embeds``.
+
+Not ported: the mesh and multi-host branches (ROADMAP M8); the constructor
+raises on a mesh.
 """
 
 from __future__ import annotations
@@ -46,14 +53,9 @@ import torch
 
 from ..engine import InferenceEngine, Request, SamplingParams
 from ..grounding.rewards import REWARD_REGISTRY
+from ..models import aria, family_forward, is_aria
 from ..models.qwen25vl import params as P
-from ..models.qwen25vl.config import Qwen25VLConfig
-from ..models.qwen25vl.model import (
-    VisionInputError,
-    build_vision_row_index,
-    forward,
-    get_rope_index,
-)
+from ..models.qwen25vl.model import VisionInputError, build_vision_row_index, get_rope_index
 from ..models.qwen25vl.text import per_token_logps_from_hidden
 from ..utils.metrics import MetricsBus
 from ..utils.profiling import StageTimer
@@ -113,7 +115,7 @@ def completion_mask_after_eos(completion_ids: np.ndarray, eos_token_id: int) -> 
 
 def completion_logps(
     params: dict,
-    model_cfg: Qwen25VLConfig,
+    model_cfg,
     input_ids: torch.Tensor,  # (R, L) prompt + completion
     position_ids: torch.Tensor,  # (3, R, L)
     attn_valid: torch.Tensor,  # (R, L)
@@ -122,6 +124,7 @@ def completion_logps(
     pixel_patches: Optional[torch.Tensor] = None,
     grid_thw=None,
     vision_token_id: Optional[int] = None,
+    pixel_values: Optional[torch.Tensor] = None,  # Aria's vision payload
     vision_row_index: Optional[torch.Tensor] = None,
     remat: bool = False,
     logp_chunk: Optional[int] = None,
@@ -131,11 +134,11 @@ def completion_logps(
     float32: the hidden states are sliced to the completion before the
     lm_head (JAX's ``make_logps_fn`` with ``prompt_length``), which runs
     ``logp_chunk`` rows at a time."""
-    hidden, _ = forward(
+    hidden, _ = family_forward(
         params, model_cfg, input_ids, position_ids,
         pixel_patches=pixel_patches, grid_thw=grid_thw, vision_token_id=vision_token_id,
-        vision_row_index=vision_row_index, attn_valid=attn_valid, attn_impl=attn_impl,
-        remat=remat, return_hidden=True,
+        pixel_values=pixel_values, vision_row_index=vision_row_index, attn_valid=attn_valid,
+        attn_impl=attn_impl, remat=remat, return_hidden=True,
     )
     return per_token_logps_from_hidden(params["text"], hidden[:, prompt_length - 1:-1],
                                        input_ids[:, prompt_length:], logp_chunk)
@@ -170,7 +173,7 @@ def gspo_objective(
 
 def gspo_loss(
     params: dict,
-    model_cfg: Qwen25VLConfig,
+    model_cfg,
     cfg: GSPOConfig,
     input_ids: torch.Tensor,
     position_ids: torch.Tensor,
@@ -183,6 +186,7 @@ def gspo_loss(
     pixel_patches: Optional[torch.Tensor] = None,
     grid_thw=None,
     vision_token_id: Optional[int] = None,
+    pixel_values: Optional[torch.Tensor] = None,
     vision_row_index: Optional[torch.Tensor] = None,
     remat: bool = False,
     logp_chunk: Optional[int] = None,
@@ -193,8 +197,8 @@ def gspo_loss(
     logps = completion_logps(
         params, model_cfg, input_ids, position_ids, attn_valid, prompt_length,
         pixel_patches=pixel_patches, grid_thw=grid_thw, vision_token_id=vision_token_id,
-        vision_row_index=vision_row_index, remat=remat, logp_chunk=logp_chunk,
-        attn_impl=attn_impl,
+        pixel_values=pixel_values, vision_row_index=vision_row_index, remat=remat,
+        logp_chunk=logp_chunk, attn_impl=attn_impl,
     )
     loss, mean_kl = gspo_objective(logps, ref_per_token_logps, completion_mask, advantages, cfg)
     return loss, {"kl": mean_kl, "policy_logps": logps}
@@ -212,6 +216,9 @@ class GSPOTrainer:
       "reward_kwargs": dataset columns (task, answer, key_frames, ...),
     }
 
+    An Aria sample carries ``"pixel_values"`` (n_images, C, H, W) instead
+    of patches and grids, its prompt ``query_num`` image tokens an image.
+
     PEFT (``lora`` given): the base params are frozen (``requires_grad``
     off) and serve as the reference model; ``adapters`` (bf16, from
     ``lora.seed``) are trained. Full fine-tune: every float leaf of
@@ -226,7 +233,7 @@ class GSPOTrainer:
         self,
         params: dict,
         ref_params: Optional[dict],
-        model_cfg: Qwen25VLConfig,
+        model_cfg,
         cfg: GSPOConfig,
         *,
         detokenize: Callable[[Sequence[int]], str],
@@ -285,9 +292,30 @@ class GSPOTrainer:
             return self.params
         return apply_adapters(self.params, self.adapters, self.lora.scale)
 
+    def _has_vision(self, sample: dict[str, Any]) -> bool:
+        key = "pixel_values" if is_aria(self.model_cfg) else "grid_thw"
+        return sample.get(key) is not None
+
     def _degrade_invalid_vision(self, sample: dict[str, Any]) -> dict[str, Any]:
-        """Strip vision from a sample whose tensors are inconsistent."""
+        """Strip vision from a sample whose tensors are inconsistent: Aria's
+        when its image tokens are not n_images x ``query_num``, the Qwen
+        families' when the patches disagree with the grids or the
+        placeholders."""
         mcfg = self.model_cfg
+        if is_aria(mcfg):
+            if sample.get("pixel_values") is None:
+                return sample
+            try:
+                pv = np.asarray(sample["pixel_values"])
+                q = mcfg.query_num(mcfg.vision.num_patches_per_side ** 2)
+                n_placeholders = sum(1 for t in sample["input_ids"] if t == mcfg.image_token_id)
+                ok = pv.ndim == 4 and n_placeholders == pv.shape[0] * q
+            except (KeyError, TypeError, ValueError, IndexError):  # a malformed sample
+                ok = False
+            if ok:
+                return sample
+            print("[warn] inconsistent vision tensors; degrading sample to text-only")
+            return {**sample, "pixel_values": None}
         if sample.get("grid_thw") is None:
             return sample
         try:
@@ -332,20 +360,35 @@ class GSPOTrainer:
 
         checked = [self._degrade_invalid_vision(_truncate(s)) for s in samples]
         n_degraded = sum(1 for a, b in zip(samples, checked)
-                         if a.get("grid_thw") is not None and b.get("grid_thw") is None)
+                         if self._has_vision(a) and not self._has_vision(b))
         samples = checked
 
         bucket = 256
         prompts = [list(s["input_ids"]) for s in samples]
         Lp = -(-max(len(p) for p in prompts) // bucket) * bucket
 
+        def put(x):
+            return None if x is None else torch.from_numpy(np.asarray(x)).to(dev)
+
         # 1. rollout: one engine call for the B * G rows; the G copies of a
-        #    request share one vision pass
+        #    request share one vision pass (Aria: one tower pass of the
+        #    current policy, its rows served as vision_embeds)
+        aria_mode = is_aria(mcfg)
         self.engine.params = self.policy_params()
         reqs = []
         for s, p in zip(samples, prompts):
-            req = Request(input_ids=p, pixel_patches=s.get("pixel_patches"),
-                          grid_thw=s.get("grid_thw"), vision_token_id=s.get("vision_token_id"))
+            if aria_mode and s.get("pixel_values") is not None:
+                with torch.no_grad():
+                    feats = aria.get_image_features(self.engine.params, mcfg,
+                                                    put(s["pixel_values"]))
+                req = Request(input_ids=p, vision_embeds=feats,
+                              vision_token_id=mcfg.image_token_id)
+            elif aria_mode:
+                req = Request(input_ids=p)
+            else:
+                req = Request(input_ids=p, pixel_patches=s.get("pixel_patches"),
+                              grid_thw=s.get("grid_thw"),
+                              vision_token_id=s.get("vision_token_id"))
             reqs.extend([req] * G)
         with self.timer.stage("rollout"):
             outs = self.engine.generate(reqs, SamplingParams(
@@ -396,49 +439,68 @@ class GSPOTrainer:
         #    mapped to its vision rows; positions per modality group
         amask = attn_valid.astype(np.int64)
         patches = grid = vision_row_index = None
-        vis_samples = [s for s in samples if s.get("grid_thw") is not None]
-        vis_tok = vis_samples[0].get("vision_token_id") if vis_samples else None
-        if vis_samples:
-            patch_list, grid_list, offsets = [], [], []
-            n_merged = 0
-            for s in samples:
-                if s.get("grid_thw") is not None:
-                    offsets.append(n_merged)
-                    patch_list.append(np.asarray(s["pixel_patches"]))
-                    grid_list.append(np.asarray(s["grid_thw"]))
-                    n_merged += patch_list[-1].shape[0] // mcfg.vision.merge_unit
+        vis_samples = [s for s in samples if self._has_vision(s)]
+        if aria_mode:
+            # each image gives query_num feature rows, so offsets count rows;
+            # every row takes sequential positions
+            vis_tok = mcfg.image_token_id
+            if vis_samples:
+                q = mcfg.query_num(mcfg.vision.num_patches_per_side ** 2)
+                images, offsets, n_rows = [], [], 0
+                for s in samples:
+                    if s.get("pixel_values") is not None:
+                        offsets.append(n_rows)
+                        images.append(np.asarray(s["pixel_values"]))
+                        n_rows += images[-1].shape[0] * q
+                    else:
+                        offsets.append(None)  # text-only or degraded
+                patches = np.concatenate(images, axis=0)
+                vision_row_index = build_vision_row_index(ids, vis_tok,
+                                                          [offsets[r // G] for r in range(R)])
+            position_ids = aria.get_rope_index(mcfg, ids, attention_mask=amask)
+        else:
+            vis_tok = vis_samples[0].get("vision_token_id") if vis_samples else None
+            if vis_samples:
+                patch_list, grid_list, offsets = [], [], []
+                n_merged = 0
+                for s in samples:
+                    if s.get("grid_thw") is not None:
+                        offsets.append(n_merged)
+                        patch_list.append(np.asarray(s["pixel_patches"]))
+                        grid_list.append(np.asarray(s["grid_thw"]))
+                        n_merged += patch_list[-1].shape[0] // mcfg.vision.merge_unit
+                    else:
+                        offsets.append(None)  # text-only or degraded
+                patches = np.concatenate(patch_list, axis=0)
+                grid = np.concatenate(grid_list, axis=0)
+                row_toks = [samples[r // G].get("vision_token_id") for r in range(R)]
+                vision_row_index = build_vision_row_index(ids, row_toks,
+                                                          [offsets[r // G] for r in range(R)])
+            position_ids = np.ones((3, R, total), dtype=np.int64)
+            row_groups: dict = {}
+            for r in range(R):
+                s = samples[r // G]
+                if s.get("grid_thw") is None:
+                    key = None
+                elif s.get("vision_token_id") == mcfg.video_token_id:
+                    key = "video_grid_thw"
                 else:
-                    offsets.append(None)  # text-only or degraded
-            patches = np.concatenate(patch_list, axis=0)
-            grid = np.concatenate(grid_list, axis=0)
-            row_toks = [samples[r // G].get("vision_token_id") for r in range(R)]
-            vision_row_index = build_vision_row_index(ids, row_toks,
-                                                      [offsets[r // G] for r in range(R)])
-        position_ids = np.ones((3, R, total), dtype=np.int64)
-        row_groups: dict = {}
-        for r in range(R):
-            s = samples[r // G]
-            if s.get("grid_thw") is None:
-                key = None
-            elif s.get("vision_token_id") == mcfg.video_token_id:
-                key = "video_grid_thw"
-            else:
-                key = "image_grid_thw"
-            row_groups.setdefault(key, []).append(r)
-        for key, rows_ in row_groups.items():
-            kw = {}
-            if key is not None:
-                kw[key] = np.concatenate([np.asarray(samples[r // G]["grid_thw"]) for r in rows_])
-            pos_, _ = get_rope_index(mcfg, ids[rows_], attention_mask=amask[rows_], **kw)
-            position_ids[:, rows_] = pos_
-
-        def put(x):
-            return None if x is None else torch.from_numpy(np.asarray(x)).to(dev)
+                    key = "image_grid_thw"
+                row_groups.setdefault(key, []).append(r)
+            for key, rows_ in row_groups.items():
+                kw = {}
+                if key is not None:
+                    kw[key] = np.concatenate([np.asarray(samples[r // G]["grid_thw"])
+                                              for r in rows_])
+                pos_, _ = get_rope_index(mcfg, ids[rows_], attention_mask=amask[rows_], **kw)
+                position_ids[:, rows_] = pos_
 
         ids_d, pos_d, valid_d = put(ids), put(position_ids), put(attn_valid)
         cmask_d, adv_d = put(completion_mask), put(advantages)
         vision = {}
-        if patches is not None:
+        if patches is not None and aria_mode:
+            vision = {"pixel_values": put(patches), "vision_row_index": put(vision_row_index)}
+        elif patches is not None:
             vision = {"pixel_patches": put(patches), "grid_thw": grid,
                       "vision_token_id": vis_tok, "vision_row_index": put(vision_row_index)}
 
@@ -453,7 +515,8 @@ class GSPOTrainer:
         except VisionInputError as e:
             print(f"logps with vision failed ({e}); retrying without vision")
             use_vision, vision = False, {}
-            pos_d = put(get_rope_index(mcfg, ids, attention_mask=amask)[0])
+            if not aria_mode:  # Aria's positions are sequential either way
+                pos_d = put(get_rope_index(mcfg, ids, attention_mask=amask)[0])
             with torch.no_grad():
                 ref_logps = completion_logps(self.ref_params, mcfg, ids_d, pos_d, valid_d, Lp,
                                              logp_chunk=cfg.logp_chunk)

@@ -5,7 +5,11 @@ Adapters live in their own small dict ``{"layers": [{name: {"a", "b"}}]}``
 over the decoder layers; ``apply_adapters`` grafts them onto the frozen base
 as ``ops.quant.LoraLinear`` leaves (no copy: the base tensors are shared), so
 an update differentiates the adapters only, and "adapters disabled" is the
-base dict itself. The base may be int8 (QLoRA).
+base dict itself. The base may be int8 (QLoRA). Both families' param dicts
+take them: the targets are decoder-layer leaves, so the Qwen families' and
+Aria's mixture layers take adapters on ``q_w``/``v_w`` (PEFT's default),
+and a target a layer lacks raises KeyError (a routed layer has no
+``gate_w``; Aria's shared experts do).
 
 ``init_adapters`` draws A from a seeded ``torch.Generator`` with JAX's
 distribution (N(0, 1) / sqrt(rank), B = 0); it cannot reproduce JAX's random

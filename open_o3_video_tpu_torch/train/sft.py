@@ -4,7 +4,9 @@
 A full fine-tune of every weight with the reference recipe: AdamW at lr 1e-6
 after a global-norm clip at 1.0, bf16 weights, gradient checkpointing, one
 sample per step (``make_train_step``); or PEFT, LoRA adapters over the frozen
-base (``make_lora_train_step``). The optimizer reproduces the JAX package's
+base (``make_lora_train_step``). Every family trains through
+``models.family_forward``: Qwen2.5-VL, Qwen2-VL, Qwen3-VL and Qwen3-VL-MoE on
+``pixel_patches``, Aria on ``pixel_values``. The optimizer reproduces the JAX package's
 ``optax.chain(clip_by_global_norm, adamw)``: the clip leaves the gradients
 as they are when their global norm is below the maximum, else divides them
 by the norm and multiplies by the maximum (not ``clip_grad_norm_``'s
@@ -23,29 +25,27 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..models import family_forward
 from ..models.qwen25vl import params as P
-from ..models.qwen25vl.config import Qwen25VLConfig
-from ..models.qwen25vl.model import forward
 from ..models.qwen25vl.text import per_token_logps_from_hidden
 
 IGNORE_INDEX = -100
 
 
-TRAINED_FAMILIES = ("qwen2_5_vl", "qwen2_vl", "qwen3_vl")
+# The model types a family module reads: the Qwen families'
+# (``models/qwen25vl``, Qwen3-VL-MoE's routed experts among them) and Aria's
+# (``models/aria``). Every one of them trains.
+TRAINED_FAMILIES = ("qwen2_5_vl", "qwen2_vl", "qwen3_vl", "qwen3_vl_moe", "aria")
 
 
 def require_trainable(cfg) -> None:
-    """Raise NotImplementedError on the families the port serves but does
-    not train yet: the routed-MoE ones (Qwen3-VL-MoE, Aria). Qwen2.5-VL,
-    Qwen2-VL and Qwen3-VL (dense) train."""
-    moe = getattr(getattr(cfg, "text", None), "moe_num_experts", 0)
+    """Raise NotImplementedError on a ``model_type`` that no family module
+    reads; every family the port serves trains."""
     model_type = getattr(cfg, "model_type", None)
-    if model_type not in TRAINED_FAMILIES or moe:
+    if model_type not in TRAINED_FAMILIES:
         raise NotImplementedError(
-            f"training model_type {model_type!r}" + (f" with {moe} experts" if moe else "")
-            + ": the routed-MoE families (Qwen3-VL-MoE, Aria) are served, and their training "
-            "is the next slice of the port (ROADMAP Queue 1); it trains "
-            + ", ".join(TRAINED_FAMILIES))
+            f"training model_type {model_type!r}: no model family of the port reads it; "
+            "it trains " + ", ".join(TRAINED_FAMILIES))
 
 
 @dataclasses.dataclass
@@ -143,22 +143,25 @@ def _tensor(x, device):
 
 def sft_loss(
     params: dict,
-    model_cfg: Qwen25VLConfig,
+    model_cfg,
     batch: dict[str, Any],
     *,
     remat: bool = True,
     logp_chunk: Optional[int] = None,
     attn_impl: str = "auto",
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Next-token CE over positions whose label != IGNORE_INDEX. ``batch``
-    holds numpy arrays or tensors (``pack_sft_batch``'s keys); ``grid_thw``
-    and ``vision_token_id`` are host metadata."""
+    """Next-token CE over positions whose label != IGNORE_INDEX, through
+    ``models.family_forward``. ``batch`` holds numpy arrays or tensors
+    (``pack_sft_batch``'s keys; Aria's vision is ``pixel_values``, the Qwen
+    families' ``pixel_patches``); ``grid_thw`` and ``vision_token_id`` are
+    host metadata."""
     dev = params["text"]["embed_tokens"].device
-    hidden, _ = forward(
+    hidden, _ = family_forward(
         params, model_cfg, _tensor(batch["input_ids"], dev), _tensor(batch["position_ids"], dev),
         pixel_patches=_tensor(batch.get("pixel_patches"), dev),
         grid_thw=batch.get("grid_thw"),
         vision_token_id=batch.get("vision_token_id"),
+        pixel_values=_tensor(batch.get("pixel_values"), dev),
         vision_row_index=_tensor(batch.get("vision_row_index"), dev),
         attn_valid=_tensor(batch.get("attn_valid"), dev),
         attn_impl=attn_impl, remat=remat, return_hidden=True,
@@ -173,7 +176,7 @@ def sft_loss(
     return loss, {"loss": loss.detach(), "num_target_tokens": count}
 
 
-def loss_and_grads(params: dict, model_cfg: Qwen25VLConfig, train_cfg: SFTConfig,
+def loss_and_grads(params: dict, model_cfg, train_cfg: SFTConfig,
                    batch: dict[str, Any], attn_impl: str = "auto") -> dict[str, torch.Tensor]:
     """Forward and backward of one batch: the leaves' ``.grad`` hold the
     gradients afterwards (set, not accumulated). Returns {loss,
@@ -187,7 +190,7 @@ def loss_and_grads(params: dict, model_cfg: Qwen25VLConfig, train_cfg: SFTConfig
     return {**aux, "grad_norm": global_norm([x.grad for x in leaves])}
 
 
-def make_train_step(model_cfg: Qwen25VLConfig, train_cfg: SFTConfig, optimizer: ClipAdamW,
+def make_train_step(model_cfg, train_cfg: SFTConfig, optimizer: ClipAdamW,
                     attn_impl: str = "auto"):
     """(params, opt_state, batch) -> (params, opt_state, metrics), params and
     state updated in place; metrics {loss, num_target_tokens, grad_norm}
@@ -203,7 +206,7 @@ def make_train_step(model_cfg: Qwen25VLConfig, train_cfg: SFTConfig, optimizer: 
     return train_step
 
 
-def make_lora_train_step(model_cfg: Qwen25VLConfig, train_cfg: SFTConfig,
+def make_lora_train_step(model_cfg, train_cfg: SFTConfig,
                          optimizer: ClipAdamW, lora_scale: float, attn_impl: str = "auto"):
     """(adapters, opt_state, batch, base_params) -> (adapters, opt_state,
     metrics), the PEFT step (the reference's peft_config,

@@ -1,6 +1,6 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families|moe_families \
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families|moe_families|train_moe_families \
         DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
@@ -29,6 +29,9 @@ one phase:
 - ``moe_families``: phase 22 (``moe_families_phase``), Qwen3-VL-30B-A3B and
   Aria served from their published configs (the 7B released first, as in
   the whole script).
+- ``train_moe_families``: phase 23 (``train_moe_families_phase``), the
+  training of Qwen3-VL-30B-A3B and Aria (PEFT at full width and depth, a
+  full fine-tune at a cut; the 7B released first, as in the whole script).
 
 Each process's output goes to this one's standard output after a line
 ``tree DIR``; the exit code is the first nonzero one of the processes.
@@ -54,6 +57,8 @@ PHASE = {
                        "c.training_families_phase(torch.device('cuda'), seed, {})"),
     "moe_families": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
                      "c.moe_families_phase(torch.device('cuda'), seed, {})"),
+    "train_moe_families": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
+                           "c.train_moe_families_phase(torch.device('cuda'), seed, {})"),
 }
 
 CHILD = """

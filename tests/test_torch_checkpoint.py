@@ -12,14 +12,18 @@ entry point (``train/grpo_main.py``) of the port, on the CPU at tiny dims.
 - ``grpo_main --device cpu --use_peft`` runs on a synthesized 4-example
   dataset (one mp4, the reference's media layout) from a checkpoint the port
   exported: 3 steps (the third on "fixed data": its video is missing), a
-  checkpoint each, the merged export; resumed from step 1 it repeats step
-  2's adapters bit for bit. Without ``--device cpu`` and without a card it
+  checkpoint each, the merged export (one run, shared by the module);
+  resumed from its step-1 checkpoint it repeats steps 2 and 3's adapters
+  bit for bit. Without ``--device cpu`` and without a card it
   refuses, and a mesh or several processes are refused.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -176,32 +180,49 @@ def _grpo_args(root, out, *extra, steps=2):
             "--lora_r", "2", "--save_steps", "1", "--device", "cpu", *extra]
 
 
-def test_grpo_main_runs_peft_on_the_cpu(grpo_setup, tmp_path, capsys):
-    grpo_main.main(_grpo_args(grpo_setup, tmp_path / "run", steps=3))
-    printed = capsys.readouterr().out
+@pytest.fixture(scope="module")
+def grpo_run(grpo_setup, tmp_path_factory):
+    """``grpo_main`` for 3 steps under deterministic algorithms, a checkpoint
+    each: (its output directory, what it printed). Run once for the
+    module: the run's test and the resume test both read it."""
+    out = tmp_path_factory.mktemp("grpo_run") / "run"
+    printed = io.StringIO()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with contextlib.redirect_stdout(printed):
+            grpo_main.main(_grpo_args(grpo_setup, out, steps=3))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out, printed.getvalue()
+
+
+def test_grpo_main_runs_peft_on_the_cpu(grpo_run):
+    run, printed = grpo_run
     assert "GSPO complete: 3 steps" in printed and "using fixed data" in printed
-    assert sorted(os.listdir(tmp_path / "run")) == ["README.md", "config.json",
-                                                    "model.safetensors", "step_00000001",
-                                                    "step_00000002", "step_00000003"]
-    final, step = CK.restore_checkpoint(str(tmp_path / "run"))
+    assert sorted(os.listdir(run)) == ["README.md", "config.json", "model.safetensors",
+                                       "step_00000001", "step_00000002", "step_00000003"]
+    final, step = CK.restore_checkpoint(str(run))
     assert step == 3 and final["meta"]["step"] == 3 and final["opt_state"]["count"] == 3
     assert any(ab["b"].abs().max() > 0 for layer in final["params"]["layers"]
                for ab in layer.values())
-    merged, _ = TP.load_pretrained(str(tmp_path / "run"), CPU)
+    merged, _ = TP.load_pretrained(str(run), CPU)
     assert merged["text"]["layers"][0]["q_w"].shape == (64, 64)
 
 
-def test_grpo_main_resume_from_step_1_repeats_step_2(grpo_setup, tmp_path, capsys, deterministic):
-    grpo_main.main(_grpo_args(grpo_setup, tmp_path / "run"))
-    first, _ = CK.restore_checkpoint(str(tmp_path / "run"), 2)
-    os.makedirs(tmp_path / "from1")
-    os.rename(tmp_path / "run/step_00000001", tmp_path / "from1/step_00000001")
+def test_grpo_main_resume_from_step_1_repeats_step_2(grpo_setup, grpo_run, tmp_path, capsys,
+                                                     deterministic):
+    """A copy of the shared run's step-1 checkpoint alone, resumed to step 3:
+    steps 2 and 3 (the fixed-data step) equal the run's bit for bit."""
+    run, _ = grpo_run
+    shutil.copytree(run / "step_00000001", tmp_path / "from1/step_00000001")
     grpo_main.main(_grpo_args(grpo_setup, tmp_path / "again", "--resume_from_checkpoint",
-                              str(tmp_path / "from1")))
+                              str(tmp_path / "from1"), steps=3))
     assert "Resumed from step 1 (sampler seed 42)" in capsys.readouterr().out
-    again, _ = CK.restore_checkpoint(str(tmp_path / "again"), 2)
-    for x, y in zip(TP.leaves(first["params"]), TP.leaves(again["params"])):
-        assert torch.equal(x, y)
+    for step in (2, 3):
+        first, _ = CK.restore_checkpoint(str(run), step)
+        again, _ = CK.restore_checkpoint(str(tmp_path / "again"), step)
+        for x, y in zip(TP.leaves(first["params"]), TP.leaves(again["params"])):
+            assert torch.equal(x, y)
 
 
 def test_grpo_main_refuses_the_cpu_unless_asked(grpo_setup, tmp_path, monkeypatch):

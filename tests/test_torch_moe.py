@@ -17,7 +17,7 @@ renormalised), and the routed-expert MLP of both routings.
 - the safetensors export read by JAX's ``load_pretrained``, and
   ``quantize_text``'s int8 leaves equal to JAX's set;
 - ``QwenVLEngine`` refusing Qwen3-VL-MoE (its harnesses cut frames for
-  patch 14), and ``require_trainable`` refusing it;
+  patch 14), and ``require_trainable`` passing it;
 - on the card (``cuda``): K3 at the 30B's prefill (32/4 heads of 128 on a
   2048-wide residual) and the routed MLP in bf16 against float32.
 
@@ -257,10 +257,11 @@ def test_export_read_by_jax_and_quantized_leaves_match(tmp_path):
                    for k in ("router", "moe_fc1", "moe_fc2"))
 
 
-def test_eval_engine_and_training_refuse_the_moe_family():
+def test_eval_engine_refuses_the_moe_family_and_training_takes_it():
     """``QwenVLEngine``'s harnesses cut frames for patch 14 and
-    Qwen3-VL-MoE's patch is 16: refused as Qwen3-VL is. Its training is a
-    later slice: ``require_trainable`` refuses it."""
+    Qwen3-VL-MoE's patch is 16: refused as Qwen3-VL is. Its training is
+    ported (tests/test_torch_train_moe.py): ``require_trainable`` passes
+    the 30B and the tiny config."""
     from open_o3_video_tpu_torch.eval.model_engine import QwenVLEngine
     from open_o3_video_tpu_torch.train.sft import require_trainable
 
@@ -268,8 +269,7 @@ def test_eval_engine_and_training_refuse_the_moe_family():
     with pytest.raises(NotImplementedError, match="patch 14"):
         QwenVLEngine({}, cfg=cfg)
     for c in (cfg, TC.tiny_qwen3_moe()):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            require_trainable(c)
+        require_trainable(c)
 
 
 @pytest.mark.cuda

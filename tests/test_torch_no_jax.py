@@ -15,7 +15,11 @@ step, V-STAR over a raw AVI through the port's ``QwenVLEngine`` and the
 judge's ``evaluate_json`` on its results, VideoMMMU's ``evaluate`` over its
 three parquet splits (an MCQ, an open-ended item and an MCQ with a PNG query
 image: pandas reads them), a trace, and checks that nothing of the JAX
-package was imported along the way."""
+package was imported along the way. A second subprocess, under the same
+blocks, trains the mixture-of-experts families: a full fine-tune SFT step
+of the tiny Qwen3-VL-MoE (the routed experts' backward) and a PEFT GSPO
+step of the tiny Aria over an image (rollouts by ``vision_embeds``, the
+update over ``pixel_values``)."""
 
 import os
 import subprocess
@@ -23,12 +27,21 @@ import sys
 
 from _torch_parity import REPO_ROOT
 
-SCRIPT = r"""
+BLOCKED = r"""
 import sys
 sys.modules["jax"] = None   # any `import jax` now raises ImportError
 sys.modules["PIL"] = None
 sys.modules["rouge_score"] = None
 sys.modules["nltk"] = None
+"""
+CHECK_BLOCKED = r"""
+assert sys.modules["jax"] is None and sys.modules["PIL"] is None
+assert sys.modules["rouge_score"] is None and sys.modules["nltk"] is None
+assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
+print("NO_JAX_OK")
+"""
+
+SCRIPT = BLOCKED + r"""
 import importlib
 import numpy as np
 import torch
@@ -304,18 +317,63 @@ with tempfile.TemporaryDirectory() as root:
     assert [r["category"] for r in written["results"]] == ["Perception", "Comprehension",
                                                            "Adaptation"], written
     assert written["errors"] == [] and 0 <= acc <= 1 and "videommmu" in open(trace).read()
-assert sys.modules["jax"] is None and sys.modules["PIL"] is None
-assert sys.modules["rouge_score"] is None and sys.modules["nltk"] is None
-assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
-print("NO_JAX_OK")
-"""
+""" + CHECK_BLOCKED
+
+MOE_SCRIPT = BLOCKED + r"""
+import numpy as np
+import torch
+
+from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
+from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
+from open_o3_video_tpu_torch.models import aria
+from open_o3_video_tpu_torch.models.qwen25vl import params
+from open_o3_video_tpu_torch.models.qwen25vl.config import tiny_qwen3_moe
+from open_o3_video_tpu_torch.train import SFTConfig, make_optimizer, make_train_step
+from open_o3_video_tpu_torch.train.gspo import GSPOConfig, GSPOTrainer
+from open_o3_video_tpu_torch.train.lora import LoraConfig
+
+cfg = tiny_qwen3_moe()
+proc = O3VideoProcessor(tokenizer=ByteTokenizer.for_config(cfg), patch_size=cfg.vision.patch_size)
+imgs = list(np.random.default_rng(0).integers(0, 256, (2, 3, 56, 84), dtype=np.uint8))
+messages = [
+    {"role": "user", "content": [{"type": "video"}, {"type": "text", "text": "Why?"}]},
+    {"role": "assistant", "content": [{"type": "text", "text": "<answer>ok</answer>"}]},
+]
+batch = pack_sft_batch([collate_sft_frames(messages, imgs, 2.0, proc, cfg)], cfg)
+weights = params.trainable(params.init(cfg, 0, torch.device("cpu")))
+before = weights["text"]["layers"][0]["moe_fc1"].clone()
+train_cfg = SFTConfig(learning_rate=1e-3)
+opt = make_optimizer(train_cfg)
+_, state, m = make_train_step(cfg, train_cfg, opt)(weights, opt.init(weights), batch)
+assert state["count"] == 1 and torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
+assert not torch.equal(weights["text"]["layers"][0]["moe_fc1"], before)
+acfg = aria.tiny_aria()
+q = acfg.query_num(acfg.vision.num_patches_per_side ** 2)
+trainer = GSPOTrainer(aria.params.init(acfg, 0, torch.device("cpu")), None, acfg,
+                      GSPOConfig(max_completion_length=4),
+                      detokenize=lambda ids: "<answer>a ball</answer>", lora=LoraConfig(rank=2))
+m = trainer.step({"input_ids": [5, 6] + [acfg.image_token_id] * q + [7, 8],
+                  "pixel_values": np.zeros((1, 3, 28, 28), np.float32),
+                  "reward_kwargs": {"task": "temporal-spatial free-form QA", "answer": "a ball",
+                                    "key_frames": [], "key_items": {}}},
+                 global_step=0, max_steps=1)
+assert np.isfinite(m["loss"]) and trainer.last_step["use_vision"], m
+""" + CHECK_BLOCKED
 
 
-def test_port_imports_and_generates_without_jax_or_pil():
+def _run(script):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO_ROOT, os.path.join(REPO_ROOT, "tests")]))
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=REPO_ROOT, env=env,
+        [sys.executable, "-c", script], cwd=REPO_ROOT, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+def test_port_imports_and_generates_without_jax_or_pil():
+    _run(SCRIPT)
+
+
+def test_moe_families_train_without_jax_or_pil():
+    _run(MOE_SCRIPT)

@@ -11,8 +11,9 @@ decoder.
   JAX's loader casts to its config's bfloat16 default whatever ``--bf16``
   says (the port's keeps the stored dtype); the test loads JAX's config in
   float32 so that both train in float32.
-- Resume: 1 step, then resuming to 2, equals 2 steps straight (step 2's
-  loss, the checkpoint and the export bit for bit), full fine-tune and PEFT.
+- Resume: from the step-1 checkpoint of a run of 2 steps straight,
+  resuming to 2 equals that run (step 2's loss, the checkpoint and the
+  export bit for bit), full fine-tune and PEFT.
 - ``--use_peft`` exports the merged weights, which load, and only the
   targeted leaves differ from the base.
 - A missing file skips its batch; a missing reader raises ImportError; an
@@ -20,15 +21,19 @@ decoder.
   a card it refuses; a mesh or several processes are refused.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_reader, no_video_reader, port_reader, tiny_configs  # noqa: F401
+from _torch_parity import (_reset_video_reader, jax_reader, no_video_reader,  # noqa: F401
+                           port_reader, tiny_configs)
 from _torch_sft_data import EXAMPLES, write_sft_data
 
 from open_o3_video_tpu_torch.models.qwen25vl import params as TP
@@ -62,6 +67,32 @@ def setup(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def full_run(setup, tmp_path_factory):
+    """The port's full fine-tune of 2 steps (``--bf16 false``), saving after
+    each, under deterministic algorithms and the native reader: (its output
+    directory, its metrics records). Run once for the module: the JAX
+    comparison and the resume test both read it."""
+    from open_o3_video_tpu_torch.data import video
+    from open_o3_video_tpu_torch.native import video_decoder
+
+    if video_decoder.missing():
+        pytest.skip(f"the native decoder needs {video_decoder.missing()}")
+    out = tmp_path_factory.mktemp("full_run") / "a"
+    printed = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(printed):
+        mp.setattr(video, "FORCE_VIDEO_READER", "native")
+        _reset_video_reader()
+        torch.use_deterministic_algorithms(True)
+        try:
+            sft_main.main(_args(setup, out, "video", "--max_steps", "2", "--save_steps", "1",
+                                "--bf16", "false"))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            _reset_video_reader()
+    return out, _logged(printed.getvalue())
+
+
 def _args(root, out, dataset="video", *extra):
     return ["--model_name_or_path", str(root / "model"), "--dataset_name",
             str(root / f"{dataset}.json"), "--data_root", str(root / "data"), "--output_dir",
@@ -89,7 +120,7 @@ def deterministic():
     torch.use_deterministic_algorithms(False)
 
 
-def test_full_fine_tune_matches_jax_sft_main(setup, tmp_path, capsys, monkeypatch, port_reader,
+def test_full_fine_tune_matches_jax_sft_main(setup, full_run, tmp_path, capsys, monkeypatch,
                                              jax_reader):
     import sys
 
@@ -99,14 +130,12 @@ def test_full_fine_tune_matches_jax_sft_main(setup, tmp_path, capsys, monkeypatc
     from open_o3_video_tpu.models.qwen25vl import params as JP
     from open_o3_video_tpu.train import sft_main as jax_sft_main
 
-    port_reader("native")
     jax_reader("native")
     load = JP.load_pretrained
     monkeypatch.setattr(JP, "load_pretrained", lambda path, cfg=None, **kw: load(
         path, cfg=JaxConfig.from_pretrained(path, dtype=jnp.float32), **kw))
     steps = ["--max_steps", "2", "--save_steps", "2", "--bf16", "false"]
-    sft_main.main(_args(setup, tmp_path / "port", "video", *steps))
-    ours = _logged(capsys.readouterr().out)
+    port_dir, ours = full_run
     jax_args = [a for a in _args(setup, tmp_path / "jax", "video", *steps)
                 if a not in ("--device", "cpu")]
     monkeypatch.setattr(sys, "argv", ["sft_main", *jax_args, "--mesh_data", "1", "--mesh_fsdp",
@@ -118,25 +147,31 @@ def test_full_fine_tune_matches_jax_sft_main(setup, tmp_path, capsys, monkeypatc
         np.testing.assert_allclose(ours[step]["loss"], theirs[step]["loss"], atol=TOL, rtol=0)
         np.testing.assert_allclose(ours[step]["grad_norm"], theirs[step]["grad_norm"], atol=0,
                                    rtol=TOL)
-    a, b = _safetensors(tmp_path / "port"), _safetensors(tmp_path / "jax")
+    a, b = _safetensors(port_dir), _safetensors(tmp_path / "jax")
     assert a.keys() == b.keys()
     for key in a:
         assert a[key].dtype == b[key].dtype == np.float32, key
         np.testing.assert_allclose(a[key], b[key], atol=TOL, rtol=0, err_msg=key)
-    with open(tmp_path / "port/config.json") as f, open(tmp_path / "jax/config.json") as g:
+    with open(port_dir / "config.json") as f, open(tmp_path / "jax/config.json") as g:
         assert json.load(f)["text_config"] == json.load(g)["text_config"]
-    assert "SFT" in (tmp_path / "port/README.md").read_text()
+    assert "SFT" in (port_dir / "README.md").read_text()
 
 
 @pytest.mark.parametrize("mode", ["full", "peft"])
-def test_resume_from_step_1_repeats_step_2(setup, tmp_path, capsys, deterministic, port_reader,
-                                           mode):
+def test_resume_from_step_1_repeats_step_2(setup, request, tmp_path, capsys, deterministic,
+                                           port_reader, mode):
+    """Run a takes 2 steps straight, saving after each (the full fine-tune's
+    is ``full_run``); run b starts from a copy of a's step-1 checkpoint
+    alone and resumes to step 2."""
     port_reader("native")
     extra = ["--use_peft", "--lora_r", "2"] if mode == "peft" else ["--bf16", "false"]
-    sft_main.main(_args(setup, tmp_path / "a", "video", "--max_steps", "2", "--save_steps", "1",
-                        *extra))
-    straight = _logged(capsys.readouterr().out)
-    sft_main.main(_args(setup, tmp_path / "b", "video", "--max_steps", "1", *extra))
+    if mode == "full":
+        a, straight = request.getfixturevalue("full_run")
+    else:
+        a = tmp_path / "a"
+        sft_main.main(_args(setup, a, "video", "--max_steps", "2", "--save_steps", "1", *extra))
+        straight = _logged(capsys.readouterr().out)
+    shutil.copytree(a / "step_00000001", tmp_path / "b/step_00000001")
     sft_main.main(_args(setup, tmp_path / "b", "video", "--max_steps", "2",
                         "--resume_from_checkpoint", str(tmp_path / "b"), *extra))
     out = capsys.readouterr().out
@@ -144,12 +179,12 @@ def test_resume_from_step_1_repeats_step_2(setup, tmp_path, capsys, deterministi
     resumed = _logged(out)
     assert resumed[2]["loss"] == straight[2]["loss"]
     assert resumed[2]["grad_norm"] == straight[2]["grad_norm"]
-    a, _ = CK.restore_checkpoint(str(tmp_path / "a"), 2)
-    b, _ = CK.restore_checkpoint(str(tmp_path / "b"), 2)
-    assert a["opt_state"]["count"] == b["opt_state"]["count"] == 2
-    for x, y in zip(TP.leaves(a["params"]), TP.leaves(b["params"])):
+    first, _ = CK.restore_checkpoint(str(a), 2)
+    again, _ = CK.restore_checkpoint(str(tmp_path / "b"), 2)
+    assert first["opt_state"]["count"] == again["opt_state"]["count"] == 2
+    for x, y in zip(TP.leaves(first["params"]), TP.leaves(again["params"])):
         assert torch.equal(x, y)
-    ea, eb = _safetensors(tmp_path / "a"), _safetensors(tmp_path / "b")
+    ea, eb = _safetensors(a), _safetensors(tmp_path / "b")
     for key in ea:
         np.testing.assert_array_equal(ea[key], eb[key], err_msg=key)
 

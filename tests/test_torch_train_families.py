@@ -16,8 +16,8 @@ Every test is parametrised over both families.
 - Checkpoints: a full fine-tune restored from step 1 takes step 2 bit for
   bit (deterministic algorithms); the export of a trained Qwen3-VL reads in
   JAX's ``load_pretrained`` under the family's HF names.
-- ``require_trainable`` passes both families and refuses the MoE families
-  and Aria; ``sft_main`` and ``grpo_main`` train Qwen2-VL on the CPU when
+- ``require_trainable`` passes every family (the MoE families and Aria
+  too) and refuses only an unknown ``model_type``; ``sft_main`` and ``grpo_main`` train Qwen2-VL on the CPU when
   asked and refuse a Qwen3-VL checkpoint (patch 16), whose frames their
   patch-14 processor cannot cut.
 
@@ -432,18 +432,21 @@ def test_trained_qwen3vl_exports_under_its_hf_names(tmp_path):
     _assert_trees_close(jax.tree.map(np.asarray, loaded), TP.to_jax_layout(params), atol=0)
 
 
-def test_require_trainable_passes_the_dense_families_and_refuses_moe():
-    for cfg in (TC.tiny_qwen3(), TC.tiny_qwen2(), TC.Qwen25VLConfig.tiny()):
-        tsft.require_trainable(cfg)
-    for cfg in (types.SimpleNamespace(model_type="aria"),
-                types.SimpleNamespace(model_type="qwen3_vl_moe"),
+def test_require_trainable_passes_every_family_and_refuses_an_unknown_type():
+    """Every family a model module reads trains (the MoE families since
+    their training was ported, tests/test_torch_train_moe.py); only a
+    model_type no family reads is refused."""
+    from open_o3_video_tpu_torch.models import aria as TA
+
+    for cfg in (TC.tiny_qwen3(), TC.tiny_qwen2(), TC.Qwen25VLConfig.tiny(), TC.tiny_qwen3_moe(),
+                TC.Qwen25VLConfig.from_hf_dict(TC.QWEN3_VL_30B_A3B_INSTRUCT_CONFIG),
+                TA.tiny_aria(), TA.AriaConfig.from_hf_dict(TA.ARIA_CONFIG),
                 types.SimpleNamespace(model_type="qwen3_vl",
                                       text=types.SimpleNamespace(moe_num_experts=8))):
-        with pytest.raises(NotImplementedError, match="MoE"):
+        tsft.require_trainable(cfg)
+    for cfg in (types.SimpleNamespace(model_type="llava"), types.SimpleNamespace()):
+        with pytest.raises(NotImplementedError, match="no model family"):
             tsft.require_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):  # served, not trained yet
-        tsft.require_trainable(TC.Qwen25VLConfig.from_hf_dict(
-            TC.QWEN3_VL_30B_A3B_INSTRUCT_CONFIG))
 
 
 @pytest.fixture(scope="module")
