@@ -329,6 +329,28 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      Aria's (1 x 556, 20/20), each with its bound, plain time and SDPA,
      and K4 at Aria's group of 1 (32768 bf16 slots; logged, off every
      main path).
+ 24. serving on a mesh (last, after phase 13; the 7B drawn again from
+     --seed): 24a a one-rank NCCL mesh (MASTER_ADDR/MASTER_PORT set here,
+     parallel.make_mesh), InferenceEngine(mesh=...) on phase 4's requests,
+     bf16 and then int4 (quantize_params_int4), graphed and eagerly: tokens
+     and return_logprobs bit-equal to the mesh-less engine's (every
+     collective is an identity at one rank), ms/token of both, the
+     collectives captured in a decode graph, K1-K3 (and K7) launched; 24b
+     the kernels at the shapes a tensor group gives each rank, against
+     their plain versions with bounds and library times: K1 and K2 at 8
+     and 4 of 16 ViT heads, K3 at the 7B's 14/2 and 7/1 heads and the
+     72B judge's 8/1, K4 at 7/1 over 81920 fp8 slots, K7 on the 72B
+     down_w's N / 4 shard by both routes (its gate_w shards are not K7
+     shapes at any tensor > 1: logged); 24c two gloo ranks on the one card
+     (this script started again with --mesh-rank; NCCL refuses two ranks
+     on one device, gloo takes CUDA tensors) serving the 7B at tensor = 2,
+     full width, eager: its teacher-forced logits of the last
+     MESH_TF_ROWS prompt positions at most SLICE_REL_RATIO times the
+     one-rank bf16 forward's relative distance from float32, top-1 and
+     greedy agreement with one rank, both ranks' tokens equal, their
+     launches (the _tp2 rows'); 24d 24a's greedy answer rendered over its
+     frames as a GIF by eval/visualization.py with jax and PIL blocked:
+     frames and bytes.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -5317,10 +5339,345 @@ def train_moe_families_phase(dev, seed: int, results: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 24
+# Serving on a mesh. 24b's rows: K1 and K2 at 8 and 4 of the tower's 16
+# heads (tensor = 2, 4), K3 at the 7B's 14/2 and 7/1 heads and the 72B
+# judge's 8/1 (tensor = 8), K4 at 7/1 over 81920 fp8 slots, K7 on the 72B's
+# down_w column shard at tensor = 4 (N / 4) by both routes.
+MESH_CASES = {
+    "fused_window_attention_tp2": TPU_KERNELS["fused_window_attention"],
+    "fused_window_attention_tp4": TPU_KERNELS["fused_window_attention"],
+    "window_attention_tp2": TPU_KERNELS["window_attention"],
+    "window_attention_tp4": TPU_KERNELS["window_attention"],
+    "flash_attention_gqa_tp2": TPU_KERNELS["flash_attention_gqa"],
+    "flash_attention_gqa_tp4": TPU_KERNELS["flash_attention_gqa"],
+    "flash_attention_gqa_judge_tp8": TPU_KERNELS["flash_attention_gqa"],
+    "decode_attention_gqa_tp4": TPU_KERNELS["decode_attention_gqa"],
+    "int4_matmul_72b_down_tp4": TPU_KERNELS["int4_matmul"],
+    "int4_matmul_wgmma_72b_down_tp4": TPU_KERNELS["int4_matmul_wgmma"],
+}
+# 24c's bound: the two-rank tensor-parallel forward sums o and down as two
+# bf16 partials, so it rounds otherwise than the one-rank forward, and two
+# bf16 paths that round differently drift apart by a few percent over 60
+# random-init layers (phase 5). So, as phase 5 holds the kernel path, the
+# two-rank logits of the last MESH_TF_ROWS prompt positions are held to a
+# float32 forward of the same weights: at most SLICE_REL_RATIO times the
+# one-rank bf16 forward's relative distance from it. Top-1 and greedy
+# agreement with the one-rank forward are reported.
+MESH_TF_ROWS = 64
+MESH_GREEDY_TOKENS = 16
+
+
+def mesh_kernel_cases(dev, gen, cfg, batch_rows, t_total, results) -> None:
+    """24b: each kernel of the mesh path at the shard shapes a tensor group
+    gives it, against its plain version, with its bound and library time."""
+    v = cfg.vision
+    for t in (2, 4):
+        heads = v.num_heads // t
+        ids, cos, sin, qkv = window_row_inputs(dev, gen, v, WINDOW_ROW_GRIDS[0])
+        qkv = qkv[..., :3 * heads * v.head_dim].contiguous()  # this rank's [q|k|v] of `heads`
+        rq, rk, rv = wa._rope_qk(qkv, cos, sin, heads)
+        seg = segment_mask(ids)
+        compare(f"fused_window_attention_tp{t}",
+                lambda: wa.fused_window_attention(qkv, cos, sin, ids, heads),
+                lambda: wa.fused_window_attention_torch(qkv, cos, sin, ids, heads),
+                ids != 0, results, flops=4 * segment_pairs(ids) * heads * v.head_dim,
+                moved=nbytes(qkv, cos, sin, ids) + qkv.numel() // 3 * 2,
+                library_fn=lambda: sdpa_masked(rq, rk, rv, seg),
+                case=f"{heads} of {v.num_heads} heads, W = {ids.shape[1]}")
+        frame_ids, q, k, vv, _ = frame_inputs(dev, gen, v, K2_FRAME_GRIDS[0])
+        q, k, vv = (x[:, :, :heads].contiguous() for x in (q, k, vv))
+        fseg = segment_mask(frame_ids)
+        compare(f"window_attention_tp{t}", lambda: wa.window_attention(q, k, vv, frame_ids),
+                lambda: wa.window_attention_torch(q, k, vv, frame_ids), frame_ids != 0, results,
+                flops=4 * segment_pairs(frame_ids) * heads * v.head_dim,
+                moved=nbytes(q, k, vv, frame_ids) + nbytes(q),
+                library_fn=lambda: sdpa_masked(q, k, vv, fseg),
+                case=f"{heads} of {v.num_heads} heads, W = {frame_ids.shape[1]}")
+        del qkv, rq, rk, rv, seg, q, k, vv, fseg
+        tt = dataclasses.replace(cfg.text, num_attention_heads=cfg.text.num_attention_heads // t,
+                                 num_key_value_heads=cfg.text.num_key_value_heads // t,
+                                 explicit_head_dim=cfg.text.head_dim)
+        k3_prefill_case(dev, gen, tt, batch_rows, t_total, f"flash_attention_gqa_tp{t}", results,
+                        case=f"{tt.num_attention_heads}/{tt.num_key_value_heads} heads")
+    jt = Qwen25VLConfig.from_hf_dict(QWEN25_72B_INSTRUCT_CONFIG).text
+    jt8 = dataclasses.replace(jt, num_attention_heads=8, num_key_value_heads=1,
+                              explicit_head_dim=jt.head_dim)
+    k3_prefill_case(dev, gen, jt8, JUDGE_PROMPT_ROWS,
+                    max(JUDGE_PROMPT_ROWS) + JUDGE_NEW_TOKENS, "flash_attention_gqa_judge_tp8",
+                    results, case="72B judge prefill, 8/1 heads")
+    t4 = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_attention_heads=7, num_key_value_heads=1, explicit_head_dim=cfg.text.head_dim))
+    T, last = 81920, 81887
+    k, vv = _layer_views(dev, gen, t4, 1, T, last + 1, torch.float8_e4m3fn)
+    q = torch.randn((1, 1, 7, cfg.text.head_dim), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.full((1, 1), last, dtype=torch.int32, device=dev)
+    valid = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    valid[:, :last + 1] = 1
+    w = last + 1
+    kb, vb = k[:, :w].to(torch.bfloat16), vv[:, :w].to(torch.bfloat16)
+    mask = causal_mask(pos, valid[:, :w])
+    compare("decode_attention_gqa_tp4", lambda: da.decode_attention_gqa(q, k, vv, pos, valid),
+            lambda: da.decode_attention_gqa_torch(q, k[:, :w], vv[:, :w], pos, valid[:, :w]),
+            None, results, flops=4 * causal_pairs(pos, valid) * 7 * cfg.text.head_dim,
+            moved=nbytes(q, k[:, :w], vv[:, :w], pos, valid) + nbytes(q),
+            library_fn=lambda: sdpa_masked(q, kb, vb, mask), case="7/1 heads, 81888 of 81920 fp8")
+    del k, vv, kb, vb, mask
+    K, N = 29568, 8192 // 4  # the 72B's down_w, its output columns over tensor = 4
+    for M in (4, 3984):
+        x, wq = int4_case(dev, gen, M, K, N)
+        wd = i4.dequantize(wq, torch.bfloat16)
+        route = i4.kernel_route(M)
+        compare(f"{route}_72b_down_tp4", lambda: i4.int4_matmul(x, wq.w_p, wq.scale, wq.group),
+                lambda: i4.int4_matmul_torch(x, wq.w_p, wq.scale, wq.group), None, results,
+                flops=2 * M * K * N, moved=K * N // 2 + 4 * N * K // 128 + 2 * M * K + 2 * M * N,
+                library_fn=lambda: torch.matmul(x, wd), case=f"M={M}, K={K}, N={N} (8192 / 4)")
+        del x, wq, wd
+    # the gate_w and up_w column shards of the 72B (29568 / t columns) are
+    # not multiples of 128 at any tensor > 1: K7 takes JAX's dequantized
+    # product there, as JAX's _int4_mm_2d does on its local shapes
+    log("mesh", k7_gate_shard_columns={t: 29568 // t for t in (2, 4, 8)},
+        k7_eligible={t: i4.kernel_eligible(29568 // t, 128) for t in (2, 4, 8)})
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_serve_pair(params, cfg, reqs, sampling, mesh, tag) -> dict:
+    """24a for one set of weights: the mesh-less engine and the one-rank
+    mesh engine on the same requests (the mesh's collectives are
+    identities, so tokens and log-probabilities must be bit-equal), graphed
+    and then eagerly; ms/token of each and the collectives captured in the
+    mesh engine's decode graph."""
+    out = {}
+    for name, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        for graph in (True, False):
+            engine = InferenceEngine(params, cfg, decode_graph=graph, **kw)
+            engine.generate(reqs, SamplingParams(**{**vars(sampling), "max_tokens": 2}))
+            res, dec = decode_run(engine, lambda: engine.generate(reqs, sampling,
+                                                                  return_logprobs=True))
+            out[(name, graph)] = (res, dec, dict(kernels.LAUNCHES),
+                                  dict(getattr(engine, "last_graph_collectives", {})))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    tokens = [o["token_ids"] for o in out[("plain", True)][0]]
+    for graph in (True, False):
+        plain, on_mesh = out[("plain", graph)][0], out[("mesh", graph)][0]
+        if ([o["token_ids"] for o in on_mesh] != [o["token_ids"] for o in plain]
+                or [o["logprobs"] for o in on_mesh] != [o["logprobs"] for o in plain]
+                or [o["token_ids"] for o in plain] != tokens):
+            raise RuntimeError(f"24a {tag}: the mesh engine's tokens or log-probabilities "
+                               f"differ from the mesh-less engine's (graphed: {graph})")
+    log("mesh", case=f"24a {tag}", bit_equal=True,
+        ms_per_token={f"{n} {'graph' if g else 'eager'}": out[(n, g)][1]["ms_per_token"]
+                      for n, g in out},
+        collectives_per_decode_graph=out[("mesh", True)][3],
+        launches={k: v for k, v in out[("mesh", True)][2].items() if v})
+    return out[("mesh", True)][2]
+
+
+def mesh_rank_main(rank: int, world: int, store: str, out_path: str, seed: int) -> None:
+    """24c, one of two gloo ranks on the one card: the 7B at full width,
+    tensor = 2, eager (a gloo collective cannot be captured): the last
+    MESH_TF_ROWS positions' logits of phase 4's first request (teacher
+    forced over its prompt) and greedy tokens of both requests."""
+    import torch.distributed as dist
+
+    from open_o3_video_tpu_torch.parallel import distributed, make_mesh, shard_params
+
+    distributed.initialize(f"file://{store}", world, rank, device="cpu")  # gloo
+    dev = torch.device("cuda")
+    mesh = make_mesh(tensor=world, device_type="cuda")
+    cfg = Qwen25VLConfig()
+    params = P.init(cfg, seed, dev)
+    reqs = make_requests(O3VideoProcessor(), cfg, seed)
+    engine = InferenceEngine(params, cfg, mesh=mesh, decode_graph=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs, SamplingParams(temperature=0.0, max_tokens=MESH_GREEDY_TOKENS))
+    gen_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    logits = mesh_tf_logits(engine.params, cfg, reqs[0])
+    torch.save({"tokens": [o["token_ids"] for o in outs], "logits": logits.cpu(),
+                "launches": launches, "generate_s": gen_s,
+                "collectives": dict(mesh.collectives),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, out_path)
+    dist.destroy_process_group()
+
+
+def mesh_tf_logits(params, cfg, req, impl: str = "auto") -> torch.Tensor:
+    """The last MESH_TF_ROWS positions' logits of ``req`` (float32), the
+    prompt teacher-forced."""
+    dev = torch.device("cuda")
+    ids = torch.tensor([req.input_ids], device=dev)
+    pos, _ = get_rope_index(cfg, np.asarray([req.input_ids]), image_grid_thw=req.grid_thw)
+    patches = torch.as_tensor(req.pixel_patches, device=dev, dtype=cfg.dtype)
+    with torch.no_grad():
+        logits, _ = model_forward(params, cfg, ids, torch.from_numpy(pos).to(dev),
+                                  pixel_patches=patches, grid_thw=req.grid_thw, attn_impl=impl)
+    return logits[0, -MESH_TF_ROWS:].float()
+
+
+def mesh_two_ranks(seed: int, ref_logits, f32_logits, ref_tokens) -> dict:
+    """24c: two gloo ranks on the card (NCCL refuses two ranks on one
+    device; gloo takes CUDA tensors for every collective the path uses, as
+    a probe on the card found), each a process of this script."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                   str(r), "--seed", str(seed), "--mesh-store", store,
+                                   "--mesh-out", outs[r]]) for r in range(2)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            raise RuntimeError(f"24c: a rank exited {codes}")
+        got = [torch.load(o, weights_only=False) for o in outs]
+    ref, f32 = ref_logits.cpu(), f32_logits.cpu()
+    one_rank = _agreement(ref, f32)[0]
+    two_rank = [_agreement(g["logits"], f32)[0] for g in got]
+    top1 = [(g["logits"].argmax(-1) == ref.argmax(-1)).float().mean().item() for g in got]
+    greedy = [sum(a == b for a, b in zip(t, r)) / max(len(r), 1)
+              for t, r in zip(got[0]["tokens"], ref_tokens)]
+    log("mesh", case="24c tensor=2, two gloo ranks on one card, eager",
+        one_rank_vs_f32_rel=one_rank, two_rank_vs_f32_rel=two_rank,
+        max_ratio=SLICE_REL_RATIO, two_rank_vs_one_rank_rel=_agreement(got[0]["logits"], ref)[0],
+        tf_max_abs_diff=[(g["logits"] - ref).abs().max().item() for g in got],
+        tf_top1_agreement=top1, greedy_agreement=greedy,
+        ranks_same_tokens=got[0]["tokens"] == got[1]["tokens"],
+        generate_s=[round(g["generate_s"], 3) for g in got],
+        collectives=got[0]["collectives"], peak_gib=[round(g["peak_gib"], 3) for g in got],
+        launches={k: v for k, v in got[0]["launches"].items() if v})
+    if max(two_rank) > SLICE_REL_RATIO * one_rank or got[0]["tokens"] != got[1]["tokens"]:
+        raise RuntimeError("24c: the two-rank forward is further from float32 than the one-rank "
+                           f"forward allows ({two_rank} vs {one_rank} x {SLICE_REL_RATIO}), or "
+                           "its ranks disagree")
+    return got[0]["launches"]
+
+
+def mesh_gif(outs, reqs, proc) -> None:
+    """24d: phase 24a's first answer rendered over its frames as a GIF by
+    the visualizer, with jax and PIL blocked (the port imports neither)."""
+    import tempfile
+
+    from open_o3_video_tpu_torch.eval.visualization import VideoQAGIFGenerator
+
+    blocked = {m: sys.modules.get(m) for m in ("jax", "PIL")}
+    if any(v is not None for v in blocked.values()):
+        raise RuntimeError(f"24d: {[m for m, v in blocked.items() if v]} already imported")
+    for m in blocked:
+        sys.modules[m] = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            video = os.path.join(tmp, "q.avi")
+            write_raw_avi(video, slice_frames(0)[0].transpose(0, 2, 3, 1), FPS)
+            answer = proc.decode(outs[0]["token_ids"], skip_special_tokens=True)
+            response = (f"<think>Seen <obj>ball</obj><box>[20, 30, 120, 140]</box>at<t>1.5</t>s. "
+                        f"{answer}</think><answer>{answer[:40]}</answer>")
+            t0 = time.perf_counter()
+            gif = VideoQAGIFGenerator().create_demo_gif(video, QUESTIONS[0], response,
+                                                         os.path.join(tmp, "a.gif"))
+            data = open(gif, "rb").read()
+            frames = data.count(b"\x21\xf9\x04")  # one graphics control block a frame
+            log("mesh", case="24d GIF", frames=frames, bytes=len(data),
+                seconds=round(time.perf_counter() - t0, 3))
+            if data[:6] != b"GIF89a" or frames < 2:
+                raise RuntimeError("24d: no animated GIF written")
+    finally:
+        for m in blocked:
+            del sys.modules[m]
+
+
+def mesh_phase(dev, seed: int, results: dict) -> dict:
+    """Phase 24: 24a the 7B (bf16, then int4) on a one-rank NCCL mesh,
+    bit-equal to the mesh-less engine; 24b the kernels at shard shapes;
+    24c two gloo ranks on the card at tensor = 2; 24d a GIF. Returns the
+    launches of its rows on their main paths (24c's, at tensor = 2)."""
+    from open_o3_video_tpu_torch.parallel import distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("MASTER_ADDR", "localhost")
+    os.environ["MASTER_PORT"] = str(_free_port())
+    distributed.initialize(f"localhost:{os.environ['MASTER_PORT']}", 1, 0, device="cuda")
+    mesh = make_mesh()
+    cfg = Qwen25VLConfig()
+    proc = O3VideoProcessor()
+    reqs = make_requests(proc, cfg, seed)
+    sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
+                              max_tokens=MAX_TOKENS, seed=seed)
+    params = P.init(cfg, seed, dev)
+    path_launches = mesh_serve_pair(params, cfg, reqs, sampling, mesh, "bf16")
+    greedy = InferenceEngine(params, cfg).generate(
+        reqs, SamplingParams(temperature=0.0, max_tokens=MESH_GREEDY_TOKENS))
+    ref_tokens = [o["token_ids"] for o in greedy]
+    ref_logits = mesh_tf_logits(params, cfg, reqs[0])
+    f32_logits = mesh_tf_logits(_cast(params, torch.float32),
+                                dataclasses.replace(cfg, dtype=torch.float32), reqs[0], "torch")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        qparams = i4.quantize_params_int4(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_launches = mesh_serve_pair(qparams, cfg, reqs, sampling, mesh, "int4")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in SLICE_KERNELS:
+        if not path_launches.get(name):
+            raise RuntimeError(f"24a: {name} never launched on the mesh: {path_launches}")
+    if not all(int4_launches.get(name) for name in K7_ROUTES):
+        raise RuntimeError(f"24a int4: K7 never launched on the mesh: {int4_launches}")
+    t_a = time.perf_counter()
+    rows = [len(r.input_ids) for r in reqs]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 24)
+    mesh_kernel_cases(dev, gen, cfg, rows, max(rows) + MAX_TOKENS, results)
+    t_b = time.perf_counter()
+    tp2 = mesh_two_ranks(seed, ref_logits, f32_logits, ref_tokens)
+    t_c = time.perf_counter()
+    mesh_gif(greedy, reqs, proc)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    log("mesh", phase_seconds={"24a": round(t_a - t_phase, 3), "24b": round(t_b - t_a, 3),
+                               "24c": round(t_c - t_b, 3),
+                               "24": round(time.perf_counter() - t_phase, 3)})
+    launches = {name: 0 for name in MESH_CASES}  # tensor 4 and 8 need 4 and 8 cards
+    launches.update({f"{name}_tp2": tp2.get(name, 0) for name in SLICE_KERNELS})
+    return launches
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 24c starts this script again as each of its two ranks
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        mesh_rank_main(args.mesh_rank, 2, args.mesh_store, args.mesh_out, args.seed)
+        return
 
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5470,6 +5827,11 @@ def main() -> None:
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
     log("int4", phases_seconds=round(time.perf_counter() - t0, 3), judge_k7_launches=judge_launches)
 
+    # serving on a mesh: one NCCL rank, the shard shapes, two gloo ranks, a GIF
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_kernel_launches.update(mesh_phase(dev, args.seed, results))
+
     log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(card_line(), flush=True)  # again, so that the output's tail holds it
     launches.update(family_kernel_launches)
@@ -5477,7 +5839,7 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}
         for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES,
-                                 **MOE_FAMILY_CASES, **MOE_TRAIN_CASES}.items()
+                                 **MOE_FAMILY_CASES, **MOE_TRAIN_CASES, **MESH_CASES}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

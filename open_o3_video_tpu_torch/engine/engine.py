@@ -132,6 +132,21 @@ a Qwen3-VL model such rows add nothing at the deepstack layers.
 
 The engine serves any family of ``models``: the Qwen families and Aria
 (whose config has no video or vision-start ids, so its positions are 1-D).
+
+**On a mesh** (``mesh``, a ``parallel.Mesh``; one process per rank, every
+rank calling ``generate`` with the same requests): the params are sharded
+by ``parallel.shard_params`` (tensor parallelism over ``tensor``, experts
+over ``tensor``, ZeRO-3 over ``fsdp``), the arena holds this rank's KV
+heads, and every rank of a model replica runs the same schedule. Only the
+replica's first rank's values decide: each sampled token, and each tensor
+read back to the host, is broadcast from it first, so ranks cannot
+diverge. The decode graph is captured with its collectives inside
+(``last_graph_collectives``). With ``batch_axis`` (JAX's DP fleet): each
+rank of that axis serves the requests that JAX's wave layout puts on its
+slot rows (request i on rank (i % max_slots) // (max_slots / n)) with
+max_slots / n slots, and ``generate`` returns every request's output on
+every rank, in request order, gathered over the axis. JAX runs that fleet
+from one controller over all its chips; here each rank is a process.
 Not ported yet (later work): the sharding of rollout rows over several
 cards.
 """
@@ -166,6 +181,7 @@ from ..ops.preprocess import patchify_device
 from ..ops.quant import a8_acts
 from ..ops.resize import pil_resize_weights, resize_frames_device
 from ..ops.sampling import sample_token
+from ..parallel.mesh import Mesh, local_text_config, shard_params
 
 # The JAX engine's prompt buckets; the last is the reference's max_model_len,
 # beyond which a prompt raises.
@@ -390,8 +406,28 @@ class InferenceEngine:
                  long_prefill_chunk: int = 8192, max_kv_gb: Optional[float] = None,
                  decode_graph: bool = True, decode_attn_impl: Optional[str] = "auto",
                  spec_decode: bool = False, spec_draft: int = 7, spec_sample: bool = False,
-                 spec_surplus: int = 1024, a8_prefill: Optional[bool] = None):
+                 spec_surplus: int = 1024, a8_prefill: Optional[bool] = None,
+                 mesh=None, batch_axis: Optional[str] = None):
         self.cfg = cfg
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        self._group_slots = max_slots
+        if batch_axis is not None:
+            if mesh is None or batch_axis not in mesh.axis_names:
+                raise ValueError(f"batch_axis {batch_axis!r} needs a mesh with that axis")
+            if max_slots % mesh.shape[batch_axis]:
+                raise ValueError(f"max_slots={max_slots} must divide over "
+                                 f"{batch_axis}={mesh.shape[batch_axis]}")
+            self._group_slots = max_slots // mesh.shape[batch_axis]
+        self._cache_cfg = cfg.text
+        if mesh is not None:
+            params = shard_params(params, mesh, cfg)
+            self._cache_cfg = local_text_config(cfg.text, mesh, cfg)
+        # Collectives captured in the last decode graph, by kind.
+        self.last_graph_collectives: collections.Counter = collections.Counter()
         self.device = params["text"]["embed_tokens"].device  # where the model lives
         self.prompt_buckets = tuple(prompt_buckets)
         self.cache_dtype = cache_dtype  # bf16, f32 or torch.float8_e4m3fn
@@ -516,6 +552,30 @@ class InferenceEngine:
         random weights cannot produce. Ignored where that path is not
         active (the warmup, after the probe reverted a group)."""
         sampling = sampling or SamplingParams()
+        if self.batch_axis is not None:
+            return self._generate_fleet(requests, sampling, return_logprobs, replay_tokens)
+        return self._generate(requests, sampling, return_logprobs, replay_tokens)
+
+    def _generate_fleet(self, requests, sampling, return_logprobs, replay_tokens):
+        """The DP fleet: this rank's share of the requests (JAX's wave
+        layout of slot rows over the axis), then every rank's results
+        gathered over the axis into request order."""
+        import torch.distributed as dist
+
+        n, r = self.mesh.shape[self.batch_axis], self.mesh.rank(self.batch_axis)
+        per = self.max_slots // n
+        mine = [i for i in range(len(requests)) if (i % self.max_slots) // per == r]
+        out = self._generate([requests[i] for i in mine], sampling, return_logprobs,
+                             None if replay_tokens is None else np.asarray(replay_tokens)[mine])
+        shares: list = [None] * n
+        dist.all_gather_object(shares, (mine, out), group=self.mesh.groups[self.batch_axis])
+        results: list = [None] * len(requests)
+        for idxs, res in shares:
+            for i, x in zip(idxs, res):
+                results[i] = x
+        return results
+
+    def _generate(self, requests, sampling, return_logprobs, replay_tokens):
         for r in requests:
             if r.vision_embeds is not None and (
                     len(r.vision_embeds.shape) != 2
@@ -680,7 +740,7 @@ class InferenceEngine:
         pseudo = dataclasses.replace(req, input_ids=list(req.input_ids[:pl]))
         ids, mask, pos, _ = left_padded_rows(self.cfg, [pseudo], pl)
         embeds, taps = self._embed_rows([pseudo], ids, vis)
-        cache = init_kv_cache(self.cfg.text, 1, pl, dtype=self.cache_dtype, device=self.device)
+        cache = init_kv_cache(self._cache_cfg, 1, pl, dtype=self.cache_dtype, device=self.device)
         chunk = self.long_prefill_chunk if pl >= self.long_prefill_threshold else pl
         self._prefill(embeds, torch.from_numpy(pos).to(self.device),
                       torch.from_numpy(mask).to(self.device), cache, chunk, taps=taps)
@@ -888,7 +948,7 @@ class InferenceEngine:
         item size."""
         if not self.max_kv_gb:
             return B
-        t = self.cfg.text
+        t = self._cache_cfg
         per_slot = (2 * t.num_hidden_layers * T * t.num_key_value_heads * t.head_dim
                     * torch.empty((), dtype=self.cache_dtype).element_size())
         return max(1, min(B, int(self.max_kv_gb * 1e9 / per_slot)))
@@ -915,7 +975,7 @@ class InferenceEngine:
         def spec_sample_ok(b: int) -> bool:  # the greedy path wins where it applies
             return self.spec_sample and not spec_ok(b) and max_tokens > 1
 
-        B = min(self.max_slots, len(idxs))
+        B = min(self._group_slots, len(idxs))
         sample_fits = True
         if self.max_kv_gb:
             # The surplus columns count against the budget only if the
@@ -951,7 +1011,7 @@ class InferenceEngine:
             lps=torch.zeros((B, out_w), dtype=torch.float32, device=dev),
             emitted=torch.zeros(B, dtype=torch.long, device=dev),
             q_pos=torch.full((B, 1), T_arena, dtype=torch.long, device=dev),
-            cache=init_kv_cache(cfg.text, B, T_arena, dtype=self.cache_dtype, device=dev),
+            cache=init_kv_cache(self._cache_cfg, B, T_arena, dtype=self.cache_dtype, device=dev),
             gen=torch.Generator(device=dev), L=L, ring=ring,
         )
         st.gen.manual_seed(sampling.seed)
@@ -1127,7 +1187,8 @@ class InferenceEngine:
             every slot, else a rows cache of its own."""
             if len(slots) == B:
                 return st.cache
-            return init_kv_cache(cfg.text, len(slots), T_arena, dtype=self.cache_dtype, device=dev)
+            return init_kv_cache(self._cache_cfg, len(slots), T_arena, dtype=self.cache_dtype,
+                                 device=dev)
 
         def scatter(rows, slots):
             if rows is st.cache:
@@ -1242,7 +1303,10 @@ class InferenceEngine:
 
     def _fetch(self, *tensors) -> list[np.ndarray]:
         """One host readback of several device tensors: each copied without
-        blocking, then one sync."""
+        blocking, then one sync. On a mesh each is first broadcast from the
+        replica's first rank, whose values decide."""
+        if self.mesh is not None:
+            tensors = [self.mesh.broadcast(t.contiguous()) for t in tensors]
         if self.device.type != "cuda":
             return [t.numpy() for t in tensors]
         host = [t.to("cpu", non_blocking=True) for t in tensors]
@@ -1250,10 +1314,12 @@ class InferenceEngine:
         return [h.numpy() for h in host]
 
     def _sample(self, gen, logits, seen, sampling: SamplingParams) -> torch.Tensor:
-        return sample_token(
+        """The next tokens; on a mesh, the replica's first rank's."""
+        tok = sample_token(
             gen, logits, temperature=sampling.temperature, top_p=sampling.top_p,
             seen_mask=seen, repetition_penalty=sampling.repetition_penalty,
         )
+        return tok if self.mesh is None else self.mesh.broadcast(tok)
 
     def _decode_step(self, st: DecodeState, sampling: SamplingParams) -> None:
         """One decode step for every slot, as the body of JAX's
@@ -1533,6 +1599,7 @@ class _GroupRun:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.st.gen)
         before = collections.Counter(kernels.LAUNCHES)
+        coll_before = collections.Counter(eng.mesh.collectives) if eng.mesh else None
         with torch.profiler.record_function("engine.decode_capture"), eng._capture_lock:
             graph.capture_begin()
             try:
@@ -1541,6 +1608,8 @@ class _GroupRun:
                 graph.capture_end()
         captured = kernels.LAUNCHES - before
         kernels.LAUNCHES.subtract(captured)
+        if eng.mesh is not None:
+            eng.last_graph_collectives = eng.mesh.collectives - coll_before
         self.graphs[kind] = (graph, captured)
         eng.counters["captures"] += 1
         if kind != "plain":

@@ -7,8 +7,13 @@ with its flags and defaults):
   python -m open_o3_video_tpu_torch.eval.cli tvgbench --model_path ... --anno ... --video_folder ...
 
 ``--device`` (default ``cuda``) picks the card; the CPU runs only when asked
-for (``--device cpu``). ``--mesh_tensor``/``--mesh_data`` above 1 are
-refused (M8).
+for (``--device cpu``). On several cards, one process each:
+
+  torchrun --nproc_per_node N -m open_o3_video_tpu_torch.eval.cli ... --mesh_tensor N
+
+serves one model split over the N cards (``--mesh_data N``: N replicas,
+the DP eval fleet; the product of the two must be N). Rank 0 writes the
+results; another rank writes its copy to ``<output>.rank<r>``.
 ``--config`` is read as the flat ``key: scalar`` form that every
 ``configs/eval/*.yaml`` holds (``read_flat_yaml``, no PyYAML), which
 refuses anything else.
@@ -19,6 +24,7 @@ from __future__ import annotations
 import argparse
 import os
 import re
+from typing import Optional
 
 import torch
 
@@ -95,16 +101,56 @@ def build_model(args, bench: str):
         kwargs["load_in_int8"] = True
     if args.load_in_int4:
         kwargs["load_in_int4"] = True
-    return QwenVLEngine(args.model_path, rt_shape=True, device=args.device, **kwargs)
+    mesh = make_eval_mesh(args)
+    if args.mesh_data > 1:
+        # the DP eval fleet: each rank of `data` serves its share of the slot
+        # rows (the reference's per-GPU workers)
+        kwargs["batch_axis"] = "data"
+        kwargs["max_slots"] = args.mesh_data * args.slots_per_chip
+    return QwenVLEngine(args.model_path, rt_shape=True, device=args.device, mesh=mesh, **kwargs)
+
+
+def make_eval_mesh(args, tensor_only: bool = False, build: bool = True):
+    """The (data, tensor) mesh of ``--mesh_data`` x ``--mesh_tensor`` ranks
+    over the processes torchrun started (None for one rank). Its size must
+    be the world size; ``build=False`` only checks that."""
+    from ..parallel import distributed, make_mesh
+
+    data = 1 if tensor_only else args.mesh_data
+    if data * args.mesh_tensor == 1:
+        return None
+    distributed.initialize(device="cpu" if args.device == "cpu" else "cuda")
+    world = distributed.process_count()
+    if data * args.mesh_tensor != world:
+        raise SystemExit(f"eval: a mesh of --mesh_data {data} x --mesh_tensor "
+                         f"{args.mesh_tensor} = {data * args.mesh_tensor} ranks needs as many "
+                         f"processes; the world size is {world} (torchrun --nproc_per_node)")
+    return make_mesh(data=data, fsdp=1, tensor=args.mesh_tensor) if build else None
 
 
 def check_args(args) -> None:
-    """Refuse what the port does not serve, before anything loads."""
-    if args.mesh_tensor > 1 or args.mesh_data > 1:
-        raise SystemExit("--mesh_tensor/--mesh_data above 1: a device mesh is not ported yet "
-                         "(ROADMAP M8)")
+    """Refuse what the port does not serve, before anything loads: no card
+    without ``--device cpu``, a mesh whose size is not the world size."""
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("eval: no CUDA device; pass --device cpu to evaluate on the CPU")
+    data = 1 if args.benchmark == "vstar-judge" else args.mesh_data
+    if data * args.mesh_tensor > 1:
+        make_eval_mesh(args, tensor_only=args.benchmark == "vstar-judge", build=False)
+
+
+# Where each benchmark writes without --output.
+DEFAULT_OUTPUTS = {"vstar": "vstar_results.json", "videomme": "videomme_results.json",
+                   "worldsense": "worldsense", "tvgbench": "tvgbench_results.json",
+                   "videommmu": "videommmu_results.json"}
+
+
+def _rank_output(path: Optional[str]) -> Optional[str]:
+    """Rank 0 writes the results; another rank of a mesh its own copy beside
+    them (``<path>.rank<r>``), so no two processes write one file."""
+    from ..parallel import distributed
+
+    r = distributed.process_index()
+    return path if path is None or r == 0 else f"{path}.rank{r}"
 
 
 def main(argv=None):
@@ -135,7 +181,7 @@ def main(argv=None):
     parser.add_argument("--limit", type=int, default=None)
     parser.add_argument("--mesh_tensor", type=int, default=1)
     parser.add_argument("--mesh_data", type=int, default=1,
-                        help="data-parallel eval fleet width (refused above 1: ROADMAP M8)")
+                        help="data-parallel eval fleet width (ranks of the DP fleet)")
     parser.add_argument("--slots_per_chip", type=int, default=8)
     parser.add_argument(
         "--item_batch", type=int, default=4,
@@ -146,6 +192,8 @@ def main(argv=None):
                         help="cuda (the default) or cpu, which runs only when asked for")
     args = parser.parse_args(argv)
     check_args(args)
+    if args.mesh_tensor * args.mesh_data > 1:
+        args.output = _rank_output(args.output or DEFAULT_OUTPUTS.get(args.benchmark))
 
     if args.benchmark == "vstar":
         from . import vstar
@@ -160,8 +208,9 @@ def main(argv=None):
     elif args.benchmark == "vstar-judge":
         from .judge import EngineJudge, evaluate_json
 
-        judge = EngineJudge(args.model_path, load_in_int8=args.load_in_int8,
-                            load_in_int4=args.load_in_int4, device=args.device)
+        judge = EngineJudge(args.model_path, mesh=make_eval_mesh(args, tensor_only=True),
+                            load_in_int8=args.load_in_int8, load_in_int4=args.load_in_int4,
+                            device=args.device)
         evaluate_json(args.result_file, judge)
     elif args.benchmark == "videomme":
         from . import videomme

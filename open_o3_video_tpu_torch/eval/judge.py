@@ -82,9 +82,9 @@ class EngineJudge:
         """A model directory loads with its tokenizer onto ``device`` (default
         ``cuda``), its decoder quantized as it streams in when
         ``load_in_int4`` (group-128 int4) or ``load_in_int8`` is set; a
-        param dict needs its ``cfg`` and is served where it lies."""
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP M8)")
+        param dict needs its ``cfg`` and is served where it lies; on a
+        ``mesh`` each rank keeps its shard (the reference's 72B judge on 4
+        GPUs: ``make_mesh(tensor=4)``)."""
         if isinstance(model_dir_or_params, str):
             params, cfg = P.load_pretrained(
                 model_dir_or_params, torch.device(device or "cuda"),
@@ -98,7 +98,7 @@ class EngineJudge:
             processor = processor or O3VideoProcessor()
         self.cfg = cfg
         self.processor = processor
-        self.engine = InferenceEngine(params, cfg)
+        self.engine = InferenceEngine(params, cfg, mesh=mesh)
         self.sampling = SamplingParams(temperature=0.0, repetition_penalty=1.0,
                                        max_tokens=max_new_tokens)
 

@@ -88,10 +88,12 @@ class QwenVLEngine:
         (default ``cuda``), its decoder quantized as it streams in with
         ``load_in_int4`` (group-128 int4) or ``load_in_int8``, its ViT
         blocks with ``quantize_vision``; a param dict needs its ``cfg`` and
-        is served where it lies."""
-        if mesh is not None or batch_axis is not None:
-            raise NotImplementedError("a device mesh and its batch axis are not ported yet "
-                                      "(ROADMAP M8)")
+        is served where it lies. On a ``mesh`` (``parallel.make_mesh``, one
+        process per rank) every rank loads the whole model onto its own
+        card and keeps its shard; ``batch_axis="data"`` is the DP eval
+        fleet (the reference's per-GPU workers): each rank of the axis
+        serves its share of the requests and every rank gets every
+        output."""
         temperature = llm_args.pop("temperature", 0.0)
         max_tokens = llm_args.pop("max_tokens", 512)
         self.rt_shape = rt_shape
@@ -124,7 +126,9 @@ class QwenVLEngine:
             engine_kw["max_slots"] = max_slots
         if isinstance(engine_kw.get("cache_dtype"), str):
             engine_kw["cache_dtype"] = CACHE_DTYPES[engine_kw["cache_dtype"]]
-        self.engine = InferenceEngine(params, cfg, **engine_kw)
+        if batch_axis is not None:
+            engine_kw["batch_axis"] = batch_axis
+        self.engine = InferenceEngine(params, cfg, mesh=mesh, **engine_kw)
         self.sampling = SamplingParams(
             temperature=temperature, repetition_penalty=1.05, max_tokens=max_tokens
         )

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..qwen25vl.model import merge_vision_embeddings_by_index
+from ..qwen25vl.model import embed_tokens, merge_vision_embeddings_by_index
 from ..qwen25vl.text import logits_from_hidden, text_forward
 from .config import AriaConfig
 from .vision import projector, vision_tower
@@ -63,7 +63,7 @@ def forward(
     Without ``vision_row_index`` the n-th image token takes the n-th feature
     row; with it, several rows may share one encoding (GSPO's layout).
     ``return_hidden=True`` returns the final-norm hidden states instead."""
-    embeds = params["text"]["embed_tokens"][input_ids]
+    embeds = embed_tokens(params, input_ids)
     if pixel_values is not None:
         feats = get_image_features(params, cfg, pixel_values)
         if vision_row_index is None:

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...ops.quant import dense
+from ...ops.sharded import local
 from ..qwen25vl.vision import layer_norm
 from .config import AriaConfig, AriaVisionConfig
 
@@ -67,16 +69,16 @@ def vision_tower(params: dict, cfg: AriaVisionConfig, images: torch.Tensor) -> t
     D), before the tower's post-layernorm (HF ``vision_feature_layer=-1``)."""
     ps = cfg.patch_size
     _, _, H, W = images.shape
-    x = patchify_images(images, ps) @ params["patch_embed"] + params["patch_embed_b"]
-    x = x + params["pos_embed"][position_ids(cfg, H // ps, W // ps, images.device)]
+    x = dense(patchify_images(images, ps), params["patch_embed"]) + params["patch_embed_b"]
+    x = x + local(params["pos_embed"])[position_ids(cfg, H // ps, W // ps, images.device)]
     for blk in params["blocks"]:
         h = layer_norm(x, blk["norm1"], blk["norm1_b"], cfg.layer_norm_eps)
         attn = _attention(h @ blk["q_w"] + blk["q_b"], h @ blk["k_w"] + blk["k_b"],
                           h @ blk["v_w"] + blk["v_b"], cfg.num_attention_heads)
         x = x + (attn @ blk["out_w"] + blk["out_b"])
         h = layer_norm(x, blk["norm2"], blk["norm2_b"], cfg.layer_norm_eps)
-        h = F.gelu(h @ blk["fc1_w"] + blk["fc1_b"], approximate="tanh")
-        x = x + (h @ blk["fc2_w"] + blk["fc2_b"])
+        h = F.gelu(dense(h, blk["fc1_w"]) + blk["fc1_b"], approximate="tanh")
+        x = x + (dense(h, blk["fc2_w"]) + blk["fc2_b"])
     return x
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import Qwen25VLConfig
+from ...ops.sharded import Sharded
 from .text import logits_from_hidden, text_forward
 from .vision import compute_vision_spec, vision_forward
 
@@ -173,7 +174,12 @@ def encode_vision(params: dict, cfg: Qwen25VLConfig, pixel_patches: torch.Tensor
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["text"]["embed_tokens"][input_ids]
+    """The token embeddings; on a mesh, from the vocabulary shard's rows
+    (``ops.sharded.Sharded.embed``)."""
+    table = params["text"]["embed_tokens"]
+    if isinstance(table, Sharded):
+        return table.embed(input_ids)
+    return table[input_ids]
 
 
 def merge_vision_embeddings(cfg: Qwen25VLConfig, input_ids: torch.Tensor,

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import causal_attention
 from ...ops.quant import dense
+from ...ops.sharded import expert_range, local
 from ...ops.rope import apply_mrope, mrope_cos_sin, mrope_cos_sin_interleaved
 from .config import TextConfig
 from .vision import rms_norm
@@ -92,9 +93,10 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
     q, k, v = dense(x, p["q_w"], impl), dense(x, p["k_w"], impl), dense(x, p["v_w"], impl)
     if cfg.attention_bias:
         q, k, v = q + p["q_b"], k + p["k_b"], v + p["v_b"]
-    q = q.reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_key_value_heads, cfg.head_dim)
+    # Heads from the widths: on a mesh the projections give this rank's heads.
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     if cfg.use_qk_norm:  # Qwen3: per-head RMSNorm on q and k before the rope
         q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
@@ -190,6 +192,13 @@ def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
     shape depends on the routing, so a decode step stays capturable.
     ``route`` replaces the router's decision, as in ``moe_mlp_dense``.
 
+    On a mesh whose ``tensor`` axis splits the expert stacks (expert
+    parallelism, JAX's ``moe_fc1``/``moe_fc2`` rules), each rank sorts its
+    own experts' pairs first (the expert ids rotated by its first expert),
+    runs ``torch._grouped_mm`` over those groups only, zeroes the other
+    pairs' rows, and one all-reduce over ``tensor`` sums the combine in
+    float32. The shapes stay independent of the routing.
+
     Under autograd the router's gradient flows through the top-k weights
     (the indices, from the sort, have none), as JAX's flows through its
     combine. An expert that no token chose gets a gradient of exactly 0 in
@@ -206,10 +215,20 @@ def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
     flat = x.reshape(-1, D)
     idx, w = moe_route(p, cfg, flat) if route is None else route
     n, k = idx.shape
+    ep = expert_range(p["moe_fc1"])
+    if ep is not None:  # expert parallelism: this rank's experts' pairs sort first
+        idx = torch.remainder(idx - ep[0], cfg.moe_num_experts)
     order, offs = expert_groups(idx, cfg.moe_num_experts)
-    out = _experts(flat[order // k], p["moe_fc1"], p["moe_fc2"], offs)
+    if ep is not None:
+        offs = offs[:ep[1]]
+    out = _experts(flat[order // k], local(p["moe_fc1"]), local(p["moe_fc2"]), offs)
     routed = torch.empty_like(out).index_copy_(0, order, out).reshape(n, k, D)
-    y = (routed.float() * w.to(x.dtype).float()[..., None]).sum(1).to(x.dtype)
+    if ep is not None:  # the rows past the local experts' were not computed
+        routed = torch.where((idx < ep[1])[..., None], routed, 0)
+    y = (routed.float() * w.to(x.dtype).float()[..., None]).sum(1)
+    if ep is not None:
+        y = p["moe_fc1"].mesh.all_reduce(y, "tensor")
+    y = y.to(x.dtype)
     if "gate_w" in p:  # Aria's always-on shared experts
         y = y + dense(F.silu(dense(flat, p["gate_w"], impl)) * dense(flat, p["up_w"], impl),
                       p["down_w"], impl)

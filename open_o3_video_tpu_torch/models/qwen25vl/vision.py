@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import segment_attention
 from ...ops.quant import dense
+from ...ops.sharded import local
 from ...ops.rope import apply_rope_vision, vision_pos_freqs
 from ...ops.window_attention import fused_window_attention
 from .config import VisionConfig
@@ -337,16 +338,17 @@ def _block(p: dict, x: torch.Tensor, freqs: torch.Tensor,
     S = x.shape[0]
     h = _norm(p, "norm1", x, cfg)
     qkv = dense(h, p["qkv_w"], impl) + p["qkv_b"]
+    heads = qkv.shape[-1] // (3 * cfg.head_dim)  # on a mesh, this rank's heads
     if isinstance(seg, FusedSeg):
         attn = fused_window_attention(
             qkv.reshape(S // seg.w, seg.w, -1), seg.cos, seg.sin, seg.valid,
-            cfg.num_heads, impl=impl,
-        ).reshape(S, cfg.hidden_size)
+            heads, impl=impl,
+        ).reshape(S, -1)
     else:
-        qkv = qkv.reshape(S, 3, cfg.num_heads, cfg.head_dim)
+        qkv = qkv.reshape(S, 3, heads, cfg.head_dim)
         q, k = apply_rope_vision(qkv[:, 0], qkv[:, 1], freqs)
         v = qkv[:, 2].contiguous()
-        attn = _segmented_attention(q, k, v, seg, impl).reshape(S, cfg.hidden_size)
+        attn = _segmented_attention(q, k, v, seg, impl).reshape(S, -1)
     x = x + (dense(attn, p["proj_w"], impl) + p["proj_b"])
     h = _norm(p, "norm2", x, cfg)
     if cfg.act_type == "swiglu":
@@ -371,8 +373,8 @@ def _merger(m: dict, x: torch.Tensor, cfg: VisionConfig, postshuffle: bool = Fal
         h = layer_norm(x.reshape(merged), m["ln_q"], m["ln_q_b"])
     else:
         h = _norm(m, "ln_q", x, cfg).reshape(merged)
-    h = F.gelu(h @ m["fc1_w"] + m["fc1_b"])
-    return h @ m["fc2_w"] + m["fc2_b"]
+    h = F.gelu(dense(h, m["fc1_w"]) + m["fc1_b"])
+    return dense(h, m["fc2_w"]) + m["fc2_b"]
 
 
 def vision_forward(params: dict, patches: torch.Tensor, spec: VisionSpec,
@@ -387,11 +389,11 @@ def vision_forward(params: dict, patches: torch.Tensor, spec: VisionSpec,
     frames (reckoned from the shapes), more than is left beside a full
     fine-tune's weights, grads and AdamW state on one 80 GB card."""
     dev = patches.device
-    x = patches.to(params["patch_embed"].dtype) @ params["patch_embed"]  # (S, hidden)
+    x = dense(patches.to(params["patch_embed"].dtype), params["patch_embed"])  # (S, hidden)
     if cfg.patch_embed_bias:
         x = x + params["patch_embed_b"]
     if spec.pos_idx is not None:  # Qwen3-VL: the learned table, bilinearly interpolated
-        pe = params["pos_embed"].float()
+        pe = local(params["pos_embed"]).float()
         wgt = torch.from_numpy(spec.pos_w).to(dev)
         x = x + torch.einsum("cs,csd->sd", wgt, pe[torch.from_numpy(spec.pos_idx).to(dev).long()]
                              ).to(x.dtype)

@@ -27,7 +27,9 @@ on one device go through one stream at a time, as the port runs them).
 K7 has no backward (JAX's Pallas call has none either; LoRA dequantizes the
 base before training), so the kernel route raises under autograd rather
 than cutting the graph. The JAX package's GSPMD wrapper
-(``_sharded_int4_mm``) has no counterpart: one card holds the whole weight.
+(``_sharded_int4_mm``) has its counterpart in ``ops/sharded.py``: on a mesh
+K7 runs on each rank's local shard (N split; K split only into whole quant
+groups, the partials then summed), never on a gathered copy.
 
 ``int4_matmul_stream`` and ``int4_matmul_convert`` are K7a, the TPU
 profiling scripts' probes of K7's parts; nothing on a model path calls them.

@@ -37,6 +37,7 @@ import threading
 import torch
 
 from .int4 import Int4Linear, divisor, int4_dense
+from .sharded import Sharded
 
 
 _MM_ALIGN = 8  # torch._int_mm's K and N on the card
@@ -101,7 +102,9 @@ def stored_tensors(w) -> tuple:
     if isinstance(w, Int4Linear):
         return (w.w_p, w.scale)
     if isinstance(w, LoraLinear):
-        return stored_tensors(w.base) + (w.a, w.b)
+        return stored_tensors(w.base) + stored_tensors(w.a) + stored_tensors(w.b)
+    if isinstance(w, Sharded):
+        return tuple(w.parts.values())
     return (w,)
 
 
@@ -178,16 +181,27 @@ def _int8_product(x_q: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     return (x_q.double() @ w.w_q.double()).to(torch.int32)
 
 
+def _as_dtype(w, dtype):
+    """A LoRA adapter in ``dtype``: a tensor cast, or a sharded one's shards."""
+    if isinstance(w, Sharded):
+        return Sharded({k: v.to(dtype) for k, v in w.parts.items()}, w.specs, w.kind, w.mesh,
+                       w.shape, x_split=w.x_split, out_full=w.out_full)
+    return w.to(dtype)
+
+
 def dense(x: torch.Tensor, w, impl: str = "auto") -> torch.Tensor:
     """x @ w for a plain tensor, a QuantizedLinear, an Int4Linear (whose
     kernel route ``impl`` picks, as for the attention kernels) or a
     LoraLinear: its base's product plus the delta, with ``a`` and ``b`` cast
     to x's dtype and the scale rounded to it, as JAX's ``jnp.asarray(scale,
-    x.dtype)``."""
+    x.dtype)``. A ``Sharded`` weight (a local shard on a mesh) runs its
+    local product with the collectives its placement needs."""
     if isinstance(w, torch.Tensor):
         return x @ w
+    if isinstance(w, Sharded):
+        return w.dense(x, impl)
     if isinstance(w, LoraLinear):
-        delta = (x @ w.a.to(x.dtype)) @ w.b.to(x.dtype)
+        delta = dense(dense(x, _as_dtype(w.a, x.dtype)), _as_dtype(w.b, x.dtype))
         return dense(x, w.base, impl) + delta * rounded_scale(w.scale, x.dtype)
     if isinstance(w, Int4Linear):
         return int4_dense(x, w, impl=impl)

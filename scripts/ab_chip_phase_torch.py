@@ -1,6 +1,6 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families|moe_families|train_moe_families \
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families|moe_families|train_moe_families|mesh \
         DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
@@ -59,6 +59,8 @@ PHASE = {
                      "c.moe_families_phase(torch.device('cuda'), seed, {})"),
     "train_moe_families": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
                            "c.train_moe_families_phase(torch.device('cuda'), seed, {})"),
+    "mesh": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
+             "c.mesh_phase(torch.device('cuda'), seed, {})"),
 }
 
 CHILD = """

@@ -397,13 +397,14 @@ def test_a_missing_video_is_a_data_error_in_the_mcq_iterator(media):
 @pytest.mark.parametrize("knob", [{"a8_prefill": True}, {"quantize_vision": True},
                                   {"mesh": object()}, {"batch_axis": "data"}])
 def test_unserved_knobs_raise(knob):
-    """A device mesh and its batch axis raise (M8). a8_prefill and
+    """A mesh that is not a ``parallel.Mesh``, and a batch axis without a
+    mesh, raise (the mesh path: tests/test_torch_engine_mesh.py). a8_prefill and
     quantize_vision, which raised until the port served w8a8, are served as
     JAX's wrapper serves them: a8_prefill reaches the engine, and
     quantize_vision applies to a model directory (a param dict is served as
     it is)."""
     if set(knob) & {"mesh", "batch_axis"}:
-        with pytest.raises(NotImplementedError, match="M8"):
+        with pytest.raises((TypeError, ValueError), match="mesh"):
             _port_model(**knob)
         return
     engine = _port_model(**knob).engine
@@ -440,7 +441,7 @@ def test_scheduler_knobs_reach_the_engine(knob):
 def test_a_yaml_knob_reaches_the_engine(tmp_path):
     """A benchmark yaml's engine knobs (read by the CLI's read_flat_yaml)
     reach the engine, a8_prefill among them since the port serves w8a8, and
-    its unserved ones (a batch axis) still raise."""
+    a batch axis without a mesh raises."""
     path = tmp_path / "bench.yaml"
     path.write_text("temperature: 0.0\nmax_tokens: 8\nprefix_cache_min: 64\n"
                     "decode_segment: 16\nmax_kv_gb: 2.5\n")
@@ -451,7 +452,7 @@ def test_a_yaml_knob_reaches_the_engine(tmp_path):
     path.write_text("a8_prefill: true\n")
     assert _port_model(**cli.read_flat_yaml(str(path))).engine.a8_prefill is True
     path.write_text("batch_axis: data\n")
-    with pytest.raises(NotImplementedError, match="batch_axis|M8"):
+    with pytest.raises(ValueError, match="batch_axis.*mesh"):
         _port_model(**cli.read_flat_yaml(str(path)))
 
 
@@ -460,11 +461,13 @@ def test_a_yaml_knob_reaches_the_engine(tmp_path):
     (["tvgbench", "--model_path", "m"], "--device cpu"),
     (["vstar-judge", "--model_path", "m", "--result_file", "r.json"], "--device cpu"),
     (["videomme", "--model_path", "m"], "--device cpu"),
-    (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_tensor", "8"], "M8"),
-    (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_data", "2"], "M8")])
+    (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_tensor", "8"],
+     "--mesh_tensor 8 = 8 ranks.*world size is 1"),
+    (["vstar", "--model_path", "m", "--device", "cpu", "--mesh_data", "2"],
+     "--mesh_data 2 x --mesh_tensor 1 = 2 ranks.*world size is 1")])
 def test_cli_refusals(monkeypatch, argv, message):
     """The CLI refuses the CPU unless --device cpu is given (no card: as
-    here) and a mesh, before loading."""
+    here) and a mesh whose size is not the world size, before loading."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(cli, "build_model", lambda *a: pytest.fail("a model was built"))
     with pytest.raises(SystemExit, match=message):

@@ -121,7 +121,7 @@ def test_mesh_raises_until_ported():
     from _torch_parity import model_pair
 
     _, _, tcfg, tparams = model_pair(0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):  # the mesh path: test_torch_engine_mesh.py
         TJ.EngineJudge(tparams, cfg=tcfg, mesh=object())
     with pytest.raises(ValueError, match="cfg"):
         TJ.EngineJudge(tparams)

@@ -19,7 +19,9 @@ package was imported along the way. A second subprocess, under the same
 blocks, trains the mixture-of-experts families: a full fine-tune SFT step
 of the tiny Qwen3-VL-MoE (the routed experts' backward) and a PEFT GSPO
 step of the tiny Aria over an image (rollouts by ``vision_embeds``, the
-update over ``pixel_values``)."""
+update over ``pixel_values``), then serves a tiny generate on a world-1
+gloo mesh (tokens equal to the mesh-less engine's) and renders a GIF with
+the visualizer."""
 
 import os
 import subprocess
@@ -115,6 +117,11 @@ MODULES = [
     "open_o3_video_tpu_torch.eval.worldsense",
     "open_o3_video_tpu_torch.eval.videommmu",
     "open_o3_video_tpu_torch.utils.xlsx",
+    "open_o3_video_tpu_torch.ops.sharded",
+    "open_o3_video_tpu_torch.parallel",
+    "open_o3_video_tpu_torch.parallel.mesh",
+    "open_o3_video_tpu_torch.parallel.distributed",
+    "open_o3_video_tpu_torch.eval.visualization",
 ]
 for m in MODULES:
     importlib.import_module(m)
@@ -358,6 +365,32 @@ m = trainer.step({"input_ids": [5, 6] + [acfg.image_token_id] * q + [7, 8],
                                     "key_frames": [], "key_items": {}}},
                  global_step=0, max_steps=1)
 assert np.isfinite(m["loss"]) and trainer.last_step["use_vision"], m
+# a world-1 gloo mesh: the engine on it gives the mesh-less engine's tokens
+import os
+import tempfile
+import torch.distributed as dist
+from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
+from open_o3_video_tpu_torch.parallel import distributed, make_mesh
+with tempfile.TemporaryDirectory() as root:
+    assert not distributed.initialize("file://" + os.path.join(root, "store"), 1, 0, device="cpu")
+    mesh = make_mesh()
+    qcfg = params.Qwen25VLConfig.tiny()
+    qw = params.init(qcfg, 0, torch.device("cpu"))
+    reqs = [Request(input_ids=list(range(40, 52)))]
+    greedy = SamplingParams(temperature=0.0, max_tokens=4)
+    on_mesh = InferenceEngine(qw, qcfg, mesh=mesh, prompt_buckets=(64,)).generate(reqs, greedy)
+    plain = InferenceEngine(qw, qcfg, prompt_buckets=(64,)).generate(reqs, greedy)
+    assert on_mesh[0]["token_ids"] == plain[0]["token_ids"] and mesh.collectives["all_reduce"]
+    dist.destroy_process_group()
+    # the GIF visualizer over a raw AVI
+    from open_o3_video_tpu_torch.data.raw_media import write_raw_avi
+    from open_o3_video_tpu_torch.eval.visualization import VideoQAGIFGenerator
+    video = os.path.join(root, "v.avi")
+    write_raw_avi(video, np.zeros((4, 32, 48, 3), np.uint8), fps=2.0)
+    gif = VideoQAGIFGenerator(panel_width=96).create_demo_gif(
+        video, "Where?", "<think><obj>x</obj><box>[1, 2, 20, 20]</box>at<t>1</t>s</think>"
+        "<answer>here</answer>", os.path.join(root, "a.gif"))
+    assert open(gif, "rb").read(6) == b"GIF89a"
 """ + CHECK_BLOCKED
 
 
