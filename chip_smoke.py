@@ -840,7 +840,7 @@ def segment_pairs(ids) -> int:
 
 
 def compare(name, kernel_fn, plain_fn, keep, results, *, flops=0.0, moved=0,
-            library_fn=None, case=None):
+            library_fn=None, case=None, plain_reps=20):
     """The kernel's agreement with its plain version over the kept rows,
     then times in turns (plain, kernel, kernel, plain), the bound from the
     work (`flops`, `moved` bytes) and, where one PyTorch call computes the
@@ -853,7 +853,8 @@ def compare(name, kernel_fn, plain_fn, keep, results, *, flops=0.0, moved=0,
         raise RuntimeError(f"{name}: non-finite kernel output")
     a = agreement(out, ref, keep)
     err = a["max_abs_err"]
-    p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    p1, k1, k2, p2 = (time_ms(f, reps) for f, reps in ((plain_fn, plain_reps), (kernel_fn, 20),
+                                                       (kernel_fn, 20), (plain_fn, plain_reps)))
     ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
     lib_ms = statistics.median(time_ms(library_fn)) if library_fn is not None else None
     b_ms, b_by = bound_ms(flops, moved)
@@ -1890,7 +1891,9 @@ def gspo_step(trainer, sample, step: int, tag: str, required) -> dict:
     if missing:
         raise RuntimeError(f"GSPO {tag}: a kernel of the path never launched: {missing}")
     return {"metrics": m, "tokens": [list(t) for t in last["completion_ids"]],
-            "rewards": last["rewards_per_func"].copy(), "launches": launches}
+            "rewards": last["rewards_per_func"].copy(), "launches": launches,
+            "norm": float(norms[0]), "seconds": round(seconds, 3),
+            "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
 
 
 def gspo_phase(params, cfg, proc, seed: int) -> tuple[GSPOTrainer, dict, dict]:
@@ -5666,6 +5669,570 @@ def mesh_phase(dev, seed: int, results: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 25
+# Training on a mesh. 25b's rows: K5 at the 7B's 14/2 and 7/1 heads (tensor
+# = 2, 4) at the SFT slice's length, K6's fused backward at 8 and 4 of the
+# tower's 16 heads (D 80, W = 64), K6's whole-frame backward at 8 and 4
+# heads at D 80 (phase 8's frames) and D 72 (Qwen3-VL's, K6_FAMILY_CASES[0]).
+# 25d's rows: one step of the ring at context 2 over RING_TOKENS tokens of
+# the 7B's attention (28/4 heads): rank 1's queries meet rank 0's block
+# (the query positions shifted by the block's first key position, 0, so
+# every key is visible): K3's exact mode, then K5 with the combined output
+# and lse on that block.
+TRAIN_MESH_CASES = {
+    **{f"flash_attention_gqa_bwd_{p}_tp{t}": TPU_KERNELS[f"flash_attention_gqa_bwd_{p}"]
+       for t in (2, 4) for p in ("dq", "dkv")},
+    **{f"fused_window_attention_bwd_tp{t}": TPU_KERNELS["fused_window_attention_bwd"]
+       for t in (2, 4)},
+    **{f"window_attention_bwd_{p}{d}_tp{t}": TPU_KERNELS[f"window_attention_bwd_{p}"]
+       for d in ("", "_d72") for t in (2, 4) for p in ("dq", "dkv")},
+    "flash_attention_gqa_exact_ring": TPU_KERNELS["flash_attention_gqa_exact"],
+    "flash_attention_gqa_bwd_dq_ring": TPU_KERNELS["flash_attention_gqa_bwd_dq"],
+    "flash_attention_gqa_bwd_dkv_ring": TPU_KERNELS["flash_attention_gqa_bwd_dkv"],
+}
+# 25c and 25e run the 7B at full width with its depth cut to
+# MESH_TRAIN_DEPTH (ViT blocks, decoder layers); 25a runs it whole.
+MESH_TRAIN_DEPTH = (8, 4)
+MESH_TRAIN_LR = 1e-4  # an update that moves B off 0 (SFTConfig's 1e-6 is under bf16's reach)
+MESH_GSPO_TOKENS = 64  # the replayed rollouts' length
+RING_TOKENS = 16384
+RING_PLAIN_REPS = 3  # the plain versions at 8192 x 8192 take 60-110 ms a call
+PIPE_ROWS, PIPE_TOKENS = 4, 256  # 25e: 2 microbatches of 2 rows
+# 25c's bound on the gradient norm: the two-rank step's relative distance
+# from the float32 one-rank step, at most SLICE_REL_RATIO times the
+# one-rank bf16 step's, or bf16's relative spacing 2^-8 where that is
+# smaller (two bf16 paths that round otherwise). Its bound on the updated
+# adapters (bf16): AdamW's first update is lr * g / (|g| + eps), so an
+# element whose gradient's sign rounds the other way moves 2 lr, and bf16
+# stores each adapter to its spacing at the leaf's largest magnitude.
+MESH_NORM_FLOOR = 2.0 ** -8
+
+
+def _bf16_spacing(x: torch.Tensor) -> float:
+    return 2.0 ** (float(torch.log2(x.float().abs().max().clamp(min=1e-30)).floor()) - 7)
+
+
+def adapter_bound(adapters) -> float:
+    return 2 * MESH_TRAIN_LR + max(_bf16_spacing(x) for x in adapter_leaves(adapters))
+
+
+def adapter_gap(adapters, ref) -> float:
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(adapter_leaves(adapters), adapter_leaves(ref)))
+
+
+def train_mesh_kernel_cases(dev, gen, cfg, batch, results) -> None:
+    """25b: K5 and K6 at the shapes each rank of a tensor group gives them,
+    against their plain versions, with the bound and SDPA's forward and
+    backward as the library time."""
+    v, t = cfg.vision, cfg.text
+    L = batch["input_ids"].shape[1]
+    valid = torch.from_numpy(batch["attn_valid"].astype(np.int32)).to(dev)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None].contiguous()
+
+    def bf16(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    for n in (2, 4):
+        hq, hkv = t.num_attention_heads // n, t.num_key_value_heads // n
+        q, do = bf16(1, L, hq, t.head_dim), bf16(1, L, hq, t.head_dim, scale=DOUT_SCALE)
+        k, vv = (bf16(1, L, hkv, t.head_dim) for _ in range(2))
+        out, lse = fa.flash_attention_gqa_exact(q, k, vv, pos, valid)
+        ops = fa.bwd_operands(q, k, vv, pos, valid, out, lse, do)
+        ins, cpairs = nbytes(*ops), causal_pairs(pos, valid) * hq * t.head_dim
+        lib = lambda: sdpa_fwd_bwd(q, k, vv, do, is_causal=True)  # noqa: E731
+        case = f"{hq}/{hkv} heads, L = {L}"
+        compare(f"flash_attention_gqa_bwd_dq_tp{n}", lambda: fa.flash_attention_gqa_bwd_dq(ops),
+                lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[0],
+                None, results, flops=6 * cpairs, moved=ins + nbytes(q), library_fn=lib, case=case)
+        compare(f"flash_attention_gqa_bwd_dkv_tp{n}", lambda: fa.flash_attention_gqa_bwd_dkv(ops),
+                lambda: fa.flash_attention_gqa_bwd_torch(q, k, vv, pos, valid, out, lse, do)[1:],
+                None, results, flops=8 * cpairs, moved=ins + nbytes(k, vv), library_fn=lib,
+                case=case)
+        del q, k, vv, do, out, lse, ops
+
+        heads = v.num_heads // n
+        ids, cos, sin, qkv = window_row_inputs(dev, gen, v, WINDOW_ROW_GRIDS[0])
+        qkv = qkv[..., :3 * heads * v.head_dim].contiguous()
+        do = bf16(*qkv.shape[:2], heads * v.head_dim, scale=DOUT_SCALE)
+        do[ids == 0] = 0
+        rq, rk, rv = wa._rope_qk(qkv, cos, sin, heads)
+        seg = segment_mask(ids)
+        compare(f"fused_window_attention_bwd_tp{n}",
+                lambda: wa.fused_window_attention_bwd(qkv, cos, sin, ids, heads, do),
+                lambda: wa.fused_window_attention_bwd_torch(qkv, cos, sin, ids, heads, do), None,
+                results, flops=10 * segment_pairs(ids) * heads * v.head_dim,
+                moved=nbytes(qkv, cos, sin, ids, do, qkv),
+                library_fn=lambda: sdpa_fwd_bwd(rq, rk, rv, do.view(*rq.shape), attn_mask=seg),
+                case=f"{heads} of {v.num_heads} heads, W = {ids.shape[1]}")
+        del qkv, do, rq, rk, rv, seg
+
+        _, fn_, fw, fd, fpad = K6_FAMILY_CASES[0]
+        for suffix in ("", "_d72"):
+            if suffix:
+                ids = torch.ones((fn_, fw), dtype=torch.int32, device=dev)
+                ids[0, fw - fpad:] = 0
+                q, k, vv = (bf16(fn_, fw, heads, fd) for _ in range(3))
+                do = bf16(fn_, fw, heads, fd, scale=DOUT_SCALE)
+                do[ids == 0] = 0
+            else:
+                ids, q, k, vv, do = frame_inputs(dev, gen, v, K2_FRAME_GRIDS[0], DOUT_SCALE)
+                q, k, vv, do = (x[:, :, :heads].contiguous() for x in (q, k, vv, do))
+            d = q.shape[-1]
+            seg = segment_mask(ids)
+            pairs = segment_pairs(ids) * heads * d
+            out, lse = wa.window_attention_exact(q, k, vv, ids)
+            ops = wa.bwd_operands(q, k, vv, ids, out, lse, do)
+            ins = nbytes(*ops)
+            lib = lambda: sdpa_fwd_bwd(q, k, vv, do, attn_mask=seg)  # noqa: E731
+            case = f"{heads} of {v.num_heads} heads, head_dim {d}, W = {ids.shape[1]}"
+            compare(f"window_attention_bwd_dq{suffix}_tp{n}",
+                    lambda: wa.window_attention_bwd_dq(ops),
+                    lambda: wa.window_attention_bwd_torch(q, k, vv, ids, do)[0], None, results,
+                    flops=6 * pairs, moved=ins + nbytes(q), library_fn=lib, case=case)
+            compare(f"window_attention_bwd_dkv{suffix}_tp{n}",
+                    lambda: wa.window_attention_bwd_dkv(ops),
+                    lambda: wa.window_attention_bwd_torch(q, k, vv, ids, do)[1:], None, results,
+                    flops=8 * pairs, moved=ins + 2 * nbytes(q), library_fn=lib, case=case)
+            del ids, q, k, vv, do, out, lse, ops, seg
+    torch.cuda.empty_cache()
+
+
+def ring_inputs(dev, seed: int, cfg):
+    """25d's whole sequence: q, k, v and the output's gradient, (1,
+    RING_TOKENS) rows of the 7B's 28/4 heads, drawn from ``seed`` (every
+    rank draws the same)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 25)
+    t = cfg.text
+
+    def draw(h, scale=1.0):
+        return (scale * torch.randn((1, RING_TOKENS, h, t.head_dim), generator=gen,
+                                    device=dev)).to(torch.bfloat16)
+
+    return (draw(t.num_attention_heads), draw(t.num_key_value_heads),
+            draw(t.num_key_value_heads), draw(t.num_attention_heads, DOUT_SCALE))
+
+
+def ring_kernel_cases(dev, seed: int, cfg, results) -> None:
+    """25d's rows, in this process: the rank-1 step that meets rank 0's
+    block (the query positions shifted by the block's first key position,
+    0: every key visible): K3 exact, then K5 with the combined output and
+    lse of both blocks, each against its plain version. And the rank-0 step
+    that meets rank 1's block (shifted by -RING_TOKENS / 2): K3 exact gives
+    each row, which sees no key, out 0 and lse NEG_INF, which the combine
+    weighs by 0."""
+    q, k, v, do = ring_inputs(dev, seed, cfg)
+    h = RING_TOKENS // 2
+    pos = torch.arange(RING_TOKENS, dtype=torch.int32, device=dev)[None]
+    valid = torch.ones((1, h), dtype=torch.int32, device=dev)
+    q1, do1, pos1 = q[:, h:].contiguous(), do[:, h:].contiguous(), pos[:, h:] - 0
+    k0, v0 = k[:, :h].contiguous(), v[:, :h].contiguous()
+    hq, d = q.shape[2], q.shape[3]
+    pairs = h * h * hq * d
+    out, lse = fa.flash_attention_gqa_exact(q, k, v, pos, torch.ones_like(pos))
+    out1, lse1 = out[:, h:].contiguous(), lse[:, :, h:].contiguous()
+    compare("flash_attention_gqa_exact_ring",
+            lambda: fa.flash_attention_gqa_exact(q1, k0, v0, pos1, valid),
+            lambda: fa.flash_attention_gqa_exact_torch(q1, k0, v0, pos1, valid), None, results,
+            flops=4 * pairs, moved=nbytes(q1, k0, v0, pos1, valid, q1) + 4 * q1.numel() // d,
+            library_fn=lambda: sdpa_masked(q1, k0, v0, None), plain_reps=RING_PLAIN_REPS,
+            case=f"{hq}/{k.shape[2]} heads, {h} queries x the previous rank's {h} keys")
+    ops = fa.bwd_operands(q1, k0, v0, pos1, valid, out1, lse1, do1)
+    lib = lambda: sdpa_fwd_bwd(q1, k0, v0, do1)  # noqa: E731
+    compare("flash_attention_gqa_bwd_dq_ring", lambda: fa.flash_attention_gqa_bwd_dq(ops),
+            lambda: fa.flash_attention_gqa_bwd_torch(q1, k0, v0, pos1, valid, out1, lse1, do1)[0],
+            None, results, flops=6 * pairs, moved=nbytes(*ops) + nbytes(q1), library_fn=lib,
+            plain_reps=RING_PLAIN_REPS, case="the combined output and lse")
+    compare("flash_attention_gqa_bwd_dkv_ring", lambda: fa.flash_attention_gqa_bwd_dkv(ops),
+            lambda: fa.flash_attention_gqa_bwd_torch(q1, k0, v0, pos1, valid, out1, lse1,
+                                                     do1)[1:],
+            None, results, flops=8 * pairs, moved=nbytes(*ops) + nbytes(k0, v0), library_fn=lib,
+            plain_reps=RING_PLAIN_REPS, case="the combined output and lse")
+    o_m, lse_m = fa.flash_attention_gqa_exact(q[:, :h].contiguous(), k[:, h:].contiguous(),
+                                              v[:, h:].contiguous(), pos[:, :h] - h, valid)
+    masked_ok = bool((o_m == 0).all() and (lse_m == fa.NEG_INF).all())
+    log("train_mesh", case="25d K3 exact on a block that masks every row", out_all_zero=masked_ok,
+        lse=lse_m.flatten()[:1].item())
+    if not masked_ok:
+        raise RuntimeError("25d: K3 exact on a fully masked block gave out != 0 or lse != NEG_INF")
+    del q, k, v, do, out, lse, ops, o_m, lse_m
+    torch.cuda.empty_cache()
+
+
+def mesh_world1_phase(params, cfg, proc, batch, seed: int) -> dict:
+    """25a: the whole 7B on a one-rank NCCL mesh: a PEFT SFT step
+    (``shard_params``, ``shard_batch``, ``make_lora_train_step(mesh=...)``,
+    sft_main's mesh code) and a PEFT GSPO step (``GSPOTrainer(mesh=...)``,
+    replayed rollouts, as in 18b) against the same steps without a mesh on
+    the same batch: loss, gradient norm and updated adapters bit-equal.
+    Returns the SFT step's launches."""
+    from open_o3_video_tpu_torch.parallel import make_mesh, shard_params
+    from open_o3_video_tpu_torch.train.sft import shard_batch
+
+    mesh = make_mesh()
+    for x in P.leaves(params):
+        x.requires_grad_(False)
+    tc = SFTConfig(learning_rate=MESH_TRAIN_LR)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        base = params if m is None else shard_params(params, m, cfg)
+        adapters = init_adapters(params, LoraConfig(seed=seed), dtype=torch.bfloat16)
+        opt = make_optimizer(tc)
+        state = opt.init(adapter_leaves(adapters))
+        step = make_lora_train_step(cfg, tc, opt, LoraConfig().scale, mesh=m)
+        mesh.collectives.clear()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, met = step(adapters, state, shard_batch(batch, m), base)
+        torch.cuda.synchronize()
+        runs[name] = {"loss": met["loss"].item(), "norm": met["grad_norm"].item(),
+                      "adapters": adapters, "s": time.perf_counter() - t0,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "collectives": dict(mesh.collectives), "launches": dict(kernels.LAUNCHES)}
+    a, b = runs["plain"], runs["mesh"]
+    equal = (a["loss"] == b["loss"] and a["norm"] == b["norm"]
+             and all(torch.equal(x, y) for x, y in zip(adapter_leaves(a["adapters"]),
+                                                       adapter_leaves(b["adapters"]))))
+    log("train_mesh", case="25a PEFT SFT step, one-rank NCCL mesh vs none", bit_equal=equal,
+        loss=b["loss"], grad_norm=b["norm"], s_per_step={k: round(r["s"], 3) for k, r in runs.items()},
+        peak_gib={k: round(r["peak_gib"], 3) for k, r in runs.items()},
+        collectives_per_step=b["collectives"],
+        launches={k: v for k, v in b["launches"].items() if v})
+    if not equal:
+        raise RuntimeError("25a: the one-rank mesh's PEFT SFT step differs from the mesh-less one")
+    launches = b["launches"]
+    del runs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sample = gspo_sample(proc, seed)
+    gcfg = GSPOConfig(spec_rollout=True, max_completion_length=MESH_GSPO_TOKENS,
+                      learning_rate=MESH_TRAIN_LR)
+    trace = np.stack([reasoning_trace_tokens(MESH_GSPO_TOKENS + SPEC_TRACE_EXTRA, r,
+                                             cfg.text.vocab_size, cfg.eos_token_id)
+                      for r in range(gcfg.num_generations)])
+    got = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        trainer = GSPOTrainer(params, None, cfg, gcfg, detokenize=CannedTraces(proc),
+                              lora=LoraConfig(seed=seed), seed=seed, mesh=m)
+        trainer.engine.spec_warmup, trainer.engine.spec_min_rate = 0, 0.0
+        trainer.replay_tokens = trace
+        mesh.collectives.clear()
+        out = gspo_step(trainer, sample, 0, f"25a {name}", DECODER_TRAIN_KERNELS)
+        got[name] = (out, [x.detach().clone() for x in adapter_leaves(trainer.adapters)],
+                     dict(mesh.collectives))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    (pa, aa, _), (pb, ab, coll) = got["plain"], got["mesh"]
+    equal = (pa["metrics"]["loss"] == pb["metrics"]["loss"] and pa["norm"] == pb["norm"]
+             and pa["tokens"] == pb["tokens"] and all(torch.equal(x, y) for x, y in zip(aa, ab)))
+    log("train_mesh", case="25a PEFT GSPO step, one-rank NCCL mesh vs none, replayed",
+        bit_equal=equal, loss=pb["metrics"]["loss"], grad_norm=pb["norm"],
+        s_per_step={"plain": pa["seconds"], "mesh": pb["seconds"]},
+        peak_gib={"plain": pa["peak_gib"], "mesh": pb["peak_gib"]}, collectives_per_step=coll)
+    if not equal:
+        raise RuntimeError("25a: the one-rank mesh's PEFT GSPO step differs from the mesh-less one")
+    return launches
+
+
+def mesh_sft_batch(proc, cfg, seed: int) -> dict:
+    """25c's global batch: two examples (sft_batch's, over two draws of
+    frames), one row for each data rank at data 2."""
+    singles = []
+    for r in range(2):
+        frames = np.random.default_rng(seed + 1 + r).integers(
+            0, 256, size=(N_FRAMES, 3, FRAME_H, FRAME_W), dtype=np.uint8)
+        messages = [
+            {"role": "system", "content": [{"type": "text", "text": SFT_SYSTEM_PROMPT[SFT_TASK]}]},
+            {"role": "user", "content": [{"type": "video", "video": "synthetic"},
+                                         {"type": "text", "text": SFT_QUESTION}]},
+            {"role": "assistant", "content": [{"type": "text", "text": SFT_ANSWER}]},
+        ]
+        singles.append(collate_sft_frames(messages, list(frames), FPS, proc, cfg))
+    return pack_sft_batch(singles, cfg)
+
+
+def _mesh_train_model(cfg, seed: int, dev):
+    """25c's model: the 7B at full width, MESH_TRAIN_DEPTH deep, from --seed."""
+    small = _cut_cfg(cfg, *MESH_TRAIN_DEPTH)
+    return P.init(small, seed, dev), small
+
+
+def _peft_step(params, cfg, batch, seed: int, mesh=None, impl="auto", dtype=torch.bfloat16):
+    """One PEFT SFT step at MESH_TRAIN_LR: (loss, grad norm, adapters)."""
+    from open_o3_video_tpu_torch.train.sft import shard_batch
+
+    tc = SFTConfig(learning_rate=MESH_TRAIN_LR)
+    adapters = init_adapters(params, LoraConfig(seed=seed), dtype=torch.bfloat16)
+    if dtype != torch.bfloat16:
+        adapters = {"layers": [{n: {k: x.detach().to(dtype).requires_grad_()
+                                    for k, x in ab.items()} for n, ab in layer.items()}
+                               for layer in adapters["layers"]]}
+    opt = make_optimizer(tc)
+    state = opt.init(adapter_leaves(adapters))
+    _, _, m = make_lora_train_step(cfg, tc, opt, LoraConfig().scale, attn_impl=impl, mesh=mesh)(
+        adapters, state, shard_batch(batch, mesh), params)
+    return m["loss"].item(), m["grad_norm"].item(), adapters
+
+
+def train_mesh_rank_main(rank: int, world: int, store: str, out_path: str, seed: int) -> None:
+    """25c-25e, one of two gloo ranks on the one card: the ring at context
+    2 (25d), the pipeline (25e), then the cut 7B's PEFT SFT steps at tensor
+    2 and at data 2, a full fine-tune step at tensor 2, and a PEFT GSPO
+    step at data 2 with rows sharded (25c). Each part's launches are
+    counted from 0."""
+    import torch.distributed as dist
+
+    from open_o3_video_tpu_torch.ops.ring_attention import ring_attention
+    from open_o3_video_tpu_torch.parallel import distributed, make_mesh, shard_params
+    from open_o3_video_tpu_torch.parallel.pipeline import dryrun_pipeline_step
+
+    distributed.initialize(f"file://{store}", world, rank, device="cpu")  # gloo
+    dev = torch.device("cuda")
+    cfg = Qwen25VLConfig()
+    res = {}
+
+    def timed(fn):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"s": round(time.perf_counter() - t0, 3), "launches": dict(kernels.LAUNCHES),
+                     "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+
+    # 25d: this rank's block of the ring, then every rank's gathered
+    ring = make_mesh(data=1, fsdp=1, context=world, device_type="cuda")
+    q, k, v, do = ring_inputs(dev, seed, cfg)
+    per = RING_TOKENS // world
+    rows = slice(rank * per, (rank + 1) * per)
+    pos = torch.arange(RING_TOKENS, device=dev)[None]
+    ql, kl, vl = (x[:, rows].contiguous().requires_grad_() for x in (q, k, v))
+
+    def ring_step():
+        out = ring_attention(ql, kl, vl, pos[:, rows], pos[:, rows], None,
+                             ring.groups["context"])
+        out.backward(do[:, rows])
+        return out
+
+    out, res["ring"] = timed(ring_step)
+    got = [ring.all_gather(x.detach(), "context", dim=1) for x in (out, ql.grad, kl.grad, vl.grad)]
+    if rank == 0:
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        whole = torch.ones((1, RING_TOKENS), dtype=torch.int32, device=dev)
+        ref = fa.FlashAttentionGQA.apply(qq, kk, vv, pos, whole, "auto")
+        ref.backward(do)
+        res["ring_agreement"] = {name: agreement(a, b, None) for name, a, b in zip(
+            ("out", "dq", "dk", "dv"), got, (ref, qq.grad, kk.grad, vv.grad))}
+    del q, k, v, do, ql, kl, vl, out, got
+    torch.cuda.empty_cache()
+
+    # 25e: two stages of the 7B's decoder at full width
+    pcfg = _cut_cfg(cfg, 1, 2 * world)
+    res["pipe"], res["pipe_run"] = timed(lambda: dryrun_pipeline_step(
+        world, 2, cfg=pcfg, device="cuda", seed=seed, batch_rows=PIPE_ROWS, seq_len=PIPE_TOKENS,
+        check_sequential=True))
+    torch.cuda.empty_cache()
+
+    # 25c
+    params, small = _mesh_train_model(cfg, seed, dev)
+    batch = mesh_sft_batch(O3VideoProcessor(), cfg, seed)
+    for name, shape in (("tp2", (1, 1, world)), ("dp2", (world, 1, 1))):
+        mesh = make_mesh(*shape, device_type="cuda")
+        sharded = shard_params(params, mesh, small)
+        (loss, norm, adapters), res[f"sft_{name}"] = timed(
+            lambda: _peft_step(sharded, small, batch, seed, mesh))
+        res[f"sft_{name}"].update(loss=loss, norm=norm, collectives=dict(mesh.collectives),
+                                  adapters=[x.detach().cpu() for x in adapter_leaves(adapters)])
+        del sharded, adapters
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh = make_mesh(1, 1, world, device_type="cuda")
+    full = P.trainable(shard_params(params, mesh, small))
+    tc = SFTConfig(learning_rate=MESH_TRAIN_LR)
+    opt = make_optimizer(tc)
+    state = opt.init(full)
+    from open_o3_video_tpu_torch.train.sft import shard_batch
+
+    (_, _, m), res["full_tp2"] = timed(lambda: make_train_step(small, tc, opt, mesh=mesh)(
+        full, state, shard_batch(batch, mesh)))
+    res["full_tp2"].update(loss=m["loss"].item(), norm=m["grad_norm"].item())
+    del full, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    for x in P.leaves(params):
+        x.requires_grad_(False)
+    proc = O3VideoProcessor()
+    dp = make_mesh(world, 1, 1, device_type="cuda")
+    gcfg = GSPOConfig(spec_rollout=True, max_completion_length=MESH_GSPO_TOKENS,
+                      learning_rate=MESH_TRAIN_LR)
+    trainer = GSPOTrainer(params, None, small, gcfg, detokenize=CannedTraces(proc),
+                          lora=LoraConfig(seed=seed), seed=seed, mesh=dp)
+    trainer.engine.spec_warmup, trainer.engine.spec_min_rate = 0, 0.0
+    trainer.engine.decode_graph = False  # a gloo collective cannot be captured (24c)
+    trainer.replay_tokens = np.stack([
+        reasoning_trace_tokens(MESH_GSPO_TOKENS + SPEC_TRACE_EXTRA, r, cfg.text.vocab_size,
+                               cfg.eos_token_id) for r in range(gcfg.num_generations)])
+    met, res["gspo_dp2"] = timed(lambda: trainer.step(gspo_sample(proc, seed), global_step=0,
+                                                      max_steps=GSPO_MAX_STEPS))
+    res["gspo_dp2"].update(metrics=met, layout=trainer.engine.last_rollout_layout,
+                           stages={k: v["total_s"] for k, v in trainer.timer.report().items()})
+    torch.save(res, out_path)
+    dist.destroy_process_group()
+
+
+def train_mesh_two_ranks(cfg, seed: int, dev) -> dict:
+    """25c-25e: the references first (the cut 7B's PEFT SFT step in bf16
+    and in float32 on one rank), then two gloo ranks on the card (NCCL
+    refuses two ranks on one device), each a process of this script; their
+    results against the bounds stated above. Returns rank 0's results."""
+    import tempfile
+
+    params, small = _mesh_train_model(cfg, seed, dev)
+    batch = mesh_sft_batch(O3VideoProcessor(), cfg, seed)
+    for x in P.leaves(params):
+        x.requires_grad_(False)
+    ref = {"bf16": _peft_step(params, small, batch, seed)}
+    p32 = _cast(params, torch.float32)
+    ref["f32"] = _peft_step(p32, dataclasses.replace(small, dtype=torch.float32), batch, seed,
+                            impl="torch", dtype=torch.float32)
+    del params, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--train-mesh-rank",
+                                   str(r), "--seed", str(seed), "--mesh-store", store,
+                                   "--mesh-out", outs[r]]) for r in range(2)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            raise RuntimeError(f"25c-e: a rank exited {codes}")
+        got = [torch.load(o, weights_only=False) for o in outs]
+
+    ring = got[0]["ring_agreement"]
+    log("train_mesh", case=f"25d ring, context 2 over {RING_TOKENS} tokens, two gloo ranks",
+        agreement={k: {"max_abs_err": a["max_abs_err"], "bound": a["bound"], "rel_l2": a["rel_l2"]}
+                   for k, a in ring.items()}, max_rel_l2=KERNEL_REL_L2,
+        seconds=[g["ring"]["s"] for g in got], peak_gib=[g["ring"]["peak_gib"] for g in got],
+        launches={k: v for k, v in got[0]["ring"]["launches"].items() if v})
+    if not all(a["ok"] for a in ring.values()):
+        raise RuntimeError(f"25d: the ring is off the single-device K3 exact and K5: {ring}")
+
+    pipe = [g["pipe"] for g in got]
+    log("train_mesh", case=f"25e pipeline, 2 stages x 2 microbatches, {PIPE_ROWS} x {PIPE_TOKENS}",
+        results=pipe, seconds=[g["pipe_run"]["s"] for g in got],
+        launches={k: v for k, v in got[0]["pipe_run"]["launches"].items() if v})
+    for p in pipe:
+        if not (p["hidden_err"] <= KERNEL_ATOL * p["hidden_scale"]
+                and p["grad_err"] <= KERNEL_ATOL * max(p["grad_scale"], 1e-30)):
+            raise RuntimeError(f"25e: the pipelined step is off the sequential one: {p}")
+
+    f32_loss, f32_norm, f32_ad = ref["f32"]
+    one_rel = abs(ref["bf16"][1] - f32_norm) / f32_norm
+    norm_bound = max(SLICE_REL_RATIO * one_rel, MESH_NORM_FLOOR)
+    ad_bound = adapter_bound(ref["bf16"][2])
+    one_gap = adapter_gap(ref["bf16"][2], f32_ad)
+    for name in ("tp2", "dp2"):
+        r = got[0][f"sft_{name}"]
+        rel = abs(r["norm"] - f32_norm) / f32_norm
+        gap = max((a.float() - b.detach().float().cpu()).abs().max().item()
+                  for a, b in zip(r["adapters"], adapter_leaves(f32_ad)))
+        same = all(torch.equal(a, b) for a, b in zip(r["adapters"], got[1][f"sft_{name}"]["adapters"]))
+        log("train_mesh", case=f"25c PEFT SFT step at {name}, two gloo ranks, depth "
+            f"{MESH_TRAIN_DEPTH}", loss=r["loss"], loss_f32=f32_loss, grad_norm=r["norm"],
+            grad_norm_f32=f32_norm, norm_rel=rel, norm_bound=norm_bound, one_rank_norm_rel=one_rel,
+            adapters_max_diff=gap, adapters_bound=ad_bound, one_rank_adapters_max_diff=one_gap,
+            ranks_equal=same, s_per_step=r["s"], peak_gib=r["peak_gib"],
+            collectives=r["collectives"], launches={k: v for k, v in r["launches"].items() if v})
+        if not (rel <= norm_bound and gap <= ad_bound and same):
+            raise RuntimeError(f"25c {name}: norm {rel} (bound {norm_bound}), adapters {gap} "
+                               f"(bound {ad_bound}), ranks equal {same}")
+    full = got[0]["full_tp2"]
+    log("train_mesh", case="25c full fine-tune step at tp2", loss=full["loss"],
+        grad_norm=full["norm"], s_per_step=full["s"], peak_gib=full["peak_gib"],
+        launches={k: v for k, v in full["launches"].items() if v})
+    if not (np.isfinite(full["loss"]) and np.isfinite(full["norm"]) and full["norm"] > 0):
+        raise RuntimeError(f"25c: the full fine-tune step at tp2 gave {full}")
+    g = [x["gspo_dp2"] for x in got]
+    log("train_mesh", case="25c PEFT GSPO step at dp2, replayed", layout=g[0]["layout"],
+        loss=[x["metrics"]["loss"] for x in g], kl=[x["metrics"]["kl"] for x in g],
+        s_per_step=[x["s"] for x in g], stages=g[0]["stages"], peak_gib=[x["peak_gib"] for x in g],
+        launches={k: v for k, v in g[0]["launches"].items() if v})
+    if (g[0]["layout"] != "rows_sharded(data=2)" or g[0]["metrics"] != g[1]["metrics"]
+            or not np.isfinite(g[0]["metrics"]["loss"])):
+        raise RuntimeError(f"25c GSPO: layout {g[0]['layout']}, metrics {g[0]['metrics']} vs "
+                           f"{g[1]['metrics']}")
+    return got[0]
+
+
+def train_mesh_phase(dev, seed: int, results: dict) -> dict:
+    """Phase 25: 25a the 7B's PEFT SFT and GSPO steps on a one-rank NCCL
+    mesh, bit-equal to the mesh-less steps; 25b K5 and K6 at shard shapes;
+    the ring's block calls; 25c-e two gloo ranks on the card (training at
+    tensor 2 and data 2, the ring at context 2, the pipeline). Returns the
+    launches of its rows on their main paths (25c's at tensor 2, 25d's
+    ring; tensor 4 needs four cards)."""
+    from open_o3_video_tpu_torch.parallel import distributed
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("MASTER_ADDR", "localhost")
+    os.environ["MASTER_PORT"] = str(_free_port())
+    distributed.initialize(f"localhost:{os.environ['MASTER_PORT']}", 1, 0, device="cuda")
+    cfg = Qwen25VLConfig()
+    proc = O3VideoProcessor()
+    batch = sft_batch(proc, cfg, seed)
+    params = P.init(cfg, seed, dev)
+    world1 = mesh_world1_phase(params, cfg, proc, batch, seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    for name in DECODER_TRAIN_KERNELS:
+        if not world1.get(name):
+            raise RuntimeError(f"25a: {name} never launched on the mesh: {world1}")
+    t_a = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 25)
+    train_mesh_kernel_cases(dev, gen, cfg, batch, results)
+    ring_kernel_cases(dev, seed, cfg, results)
+    t_b = time.perf_counter()
+    got = train_mesh_two_ranks(cfg, seed, dev)
+    log("train_mesh", phase_seconds={"25a": round(t_a - t_phase, 3), "25b": round(t_b - t_a, 3),
+                                     "25c-e": round(time.perf_counter() - t_b, 3),
+                                     "25": round(time.perf_counter() - t_phase, 3)})
+    launches = {name: 0 for name in TRAIN_MESH_CASES}  # tensor 4 needs four cards
+    tp2 = {**got["sft_tp2"]["launches"]}
+    for k, v in got["full_tp2"]["launches"].items():
+        tp2[k] = tp2.get(k, 0) + v
+    launches.update({f"{name}_tp2": tp2.get(name, 0) for name in
+                     ("flash_attention_gqa_bwd_dq", "flash_attention_gqa_bwd_dkv",
+                      "fused_window_attention_bwd", "window_attention_bwd_dq",
+                      "window_attention_bwd_dkv")})
+    ring = got["ring"]["launches"]
+    launches.update({"flash_attention_gqa_exact_ring": ring.get("flash_attention_gqa_exact", 0),
+                     "flash_attention_gqa_bwd_dq_ring": ring.get("flash_attention_gqa_bwd_dq", 0),
+                     "flash_attention_gqa_bwd_dkv_ring": ring.get("flash_attention_gqa_bwd_dkv",
+                                                                  0)})
+    for name in ("flash_attention_gqa_exact_ring", "flash_attention_gqa_bwd_dq_ring",
+                 "flash_attention_gqa_bwd_dq_tp2", "fused_window_attention_bwd_tp2"):
+        if not launches[name]:
+            raise RuntimeError(f"25: {name} never launched on its mesh path: {launches}")
+    return launches
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5674,9 +6241,13 @@ def main() -> None:
     ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--train-mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mesh_rank is not None:
         mesh_rank_main(args.mesh_rank, 2, args.mesh_store, args.mesh_out, args.seed)
+        return
+    if args.train_mesh_rank is not None:  # phase 25c-e starts it as each of its two ranks
+        train_mesh_rank_main(args.train_mesh_rank, 2, args.mesh_store, args.mesh_out, args.seed)
         return
 
     t_start = time.perf_counter()
@@ -5831,6 +6402,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     family_kernel_launches.update(mesh_phase(dev, args.seed, results))
+    # training on a mesh: one NCCL rank, K5/K6 at shard shapes, two gloo ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_kernel_launches.update(train_mesh_phase(dev, args.seed, results))
 
     log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(card_line(), flush=True)  # again, so that the output's tail holds it
@@ -5839,7 +6414,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}
         for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES,
-                                 **MOE_FAMILY_CASES, **MOE_TRAIN_CASES, **MESH_CASES}.items()
+                                 **MOE_FAMILY_CASES, **MOE_TRAIN_CASES, **MESH_CASES,
+                                 **TRAIN_MESH_CASES}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -147,8 +147,17 @@ slot rows (request i on rank (i % max_slots) // (max_slots / n)) with
 max_slots / n slots, and ``generate`` returns every request's output on
 every rank, in request order, gathered over the axis. JAX runs that fleet
 from one controller over all its chips; here each rank is a process.
-Not ported yet (later work): the sharding of rollout rows over several
-cards.
+With ``rollout_shard_axis`` (JAX's rollout row sharding, exclusive with
+``batch_axis``): a call whose row count divides that axis runs each rank's
+contiguous share of the rows through the default slot scheduling, and
+every rank returns every output in request order, gathered over the axis;
+a call whose rows do not divide runs replicated. ``last_rollout_layout``
+says which ran, in JAX's words. Each rank's share samples from the
+sampling seed plus its rank times ``ROW_SHARD_SEED_STRIDE``, so two ranks'
+copies of one prompt do not draw the same stream (JAX's sharded draw is its
+replicated one; the port's streams differ from JAX's in any case).
+``params`` may arrive already sharded (a trainer's ``shard_params``
+output, whose shards the engine then shares).
 """
 
 from __future__ import annotations
@@ -181,11 +190,16 @@ from ..ops.preprocess import patchify_device
 from ..ops.quant import a8_acts
 from ..ops.resize import pil_resize_weights, resize_frames_device
 from ..ops.sampling import sample_token
+from ..ops.sharded import Sharded
 from ..parallel.mesh import Mesh, local_text_config, shard_params
 
 # The JAX engine's prompt buckets; the last is the reference's max_model_len,
 # beyond which a prompt raises.
 PROMPT_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 49152, 65536, 81920)
+
+
+# The seed offset of each rank's share of rows under rollout_shard_axis.
+ROW_SHARD_SEED_STRIDE = 1_000_003
 
 
 @dataclasses.dataclass
@@ -407,13 +421,22 @@ class InferenceEngine:
                  decode_graph: bool = True, decode_attn_impl: Optional[str] = "auto",
                  spec_decode: bool = False, spec_draft: int = 7, spec_sample: bool = False,
                  spec_surplus: int = 1024, a8_prefill: Optional[bool] = None,
-                 mesh=None, batch_axis: Optional[str] = None):
+                 mesh=None, batch_axis: Optional[str] = None,
+                 rollout_shard_axis: Optional[str] = None):
         self.cfg = cfg
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh), got "
                             f"{type(mesh).__name__}")
         self.mesh = mesh
         self.batch_axis = batch_axis
+        if rollout_shard_axis is not None:
+            if mesh is None or rollout_shard_axis not in mesh.axis_names:
+                raise ValueError(f"rollout_shard_axis {rollout_shard_axis!r} needs a mesh with "
+                                 "that axis")
+            if batch_axis is not None:
+                raise ValueError("rollout_shard_axis is exclusive with batch_axis (the DP fleet)")
+        self.rollout_shard_axis = rollout_shard_axis
+        self.last_rollout_layout: Optional[str] = None
         self._group_slots = max_slots
         if batch_axis is not None:
             if mesh is None or batch_axis not in mesh.axis_names:
@@ -424,7 +447,8 @@ class InferenceEngine:
             self._group_slots = max_slots // mesh.shape[batch_axis]
         self._cache_cfg = cfg.text
         if mesh is not None:
-            params = shard_params(params, mesh, cfg)
+            if not isinstance(params["text"]["embed_tokens"], Sharded):  # not yet placed
+                params = shard_params(params, mesh, cfg)
             self._cache_cfg = local_text_config(cfg.text, mesh, cfg)
         # Collectives captured in the last decode graph, by kind.
         self.last_graph_collectives: collections.Counter = collections.Counter()
@@ -554,7 +578,32 @@ class InferenceEngine:
         sampling = sampling or SamplingParams()
         if self.batch_axis is not None:
             return self._generate_fleet(requests, sampling, return_logprobs, replay_tokens)
+        if self.rollout_shard_axis is not None:
+            return self._generate_rows(requests, sampling, return_logprobs, replay_tokens)
         return self._generate(requests, sampling, return_logprobs, replay_tokens)
+
+    def _generate_rows(self, requests, sampling, return_logprobs, replay_tokens):
+        """Rollout row sharding: this rank's contiguous share of the rows,
+        then every rank's outputs gathered over the axis in request order;
+        rows that do not divide over the axis run replicated."""
+        import torch.distributed as dist
+
+        axis = self.rollout_shard_axis
+        n, r = self.mesh.shape[axis], self.mesh.rank(axis)
+        if not requests or len(requests) % n:
+            self.last_rollout_layout = "replicated"
+            return self._generate(requests, sampling, return_logprobs, replay_tokens)
+        self.last_rollout_layout = f"rows_sharded({axis}={n})"
+        per = len(requests) // n
+        mine = slice(r * per, (r + 1) * per)
+        out = self._generate(requests[mine],
+                             dataclasses.replace(sampling,
+                                                 seed=sampling.seed + ROW_SHARD_SEED_STRIDE * r),
+                             return_logprobs,
+                             None if replay_tokens is None else np.asarray(replay_tokens)[mine])
+        shares: list = [None] * n
+        dist.all_gather_object(shares, out, group=self.mesh.groups[axis])
+        return [x for share in shares for x in share]
 
     def _generate_fleet(self, requests, sampling, return_logprobs, replay_tokens):
         """The DP fleet: this rank's share of the requests (JAX's wave

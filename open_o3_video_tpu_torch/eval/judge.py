@@ -8,8 +8,8 @@ domain (``print_stats``).
 The reference spreads Qwen2.5-72B-Instruct over 4 GPUs. Here the judge runs
 on the port's engine on one card: with ``load_in_int4`` its decoder is
 group-128 int4 (about 40 GB at 72B) and every decoder matmul is K7.
-Greedy decoding, repetition penalty 1.0. Tensor-parallel sharding
-(``mesh``) is not ported yet (ROADMAP M8).
+Greedy decoding, repetition penalty 1.0. With ``mesh`` the judge is
+sharded over a tensor-parallel mesh of cards, as the reference's 4 GPUs.
 """
 
 from __future__ import annotations

@@ -26,8 +26,8 @@ Engine knobs: ``cache_dtype`` (a torch dtype or "fp8"/"float8_e4m3fn",
 (the scheduler's, ``a8_prefill``) pass through; ``quantize_vision`` (with
 ``load_in_int8``/``load_in_int4``, as JAX's) quantizes the ViT blocks of a
 model directory as it loads, the pair of ``a8_prefill``'s int8 tower; a
-param dict is served as it is. ``mesh`` and ``batch_axis`` raise (ROADMAP
-M8).
+param dict is served as it is. ``mesh`` and ``batch_axis`` go to the
+engine (a tensor-parallel model, or the DP fleet).
 """
 
 from __future__ import annotations

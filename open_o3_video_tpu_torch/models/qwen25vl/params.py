@@ -141,6 +141,8 @@ def trainable(tree) -> dict:
     the same dict."""
 
     def mark(_, x):
+        if getattr(x, "kind", None) == "tensor":  # a plain weight's shard on a mesh
+            x = x.parts["w"]
         if isinstance(x, torch.Tensor) and x.is_floating_point():
             x.requires_grad_(True)
 

@@ -90,7 +90,8 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
                      cache, layer: int, cache_offset, impl: str, validity_only: bool,
                      decode_impl: str):
     B, S, _ = x.shape
-    q, k, v = dense(x, p["q_w"], impl), dense(x, p["k_w"], impl), dense(x, p["v_w"], impl)
+    mm = getattr(impl, "kernels", impl)  # a ring impl names the matmuls' impl
+    q, k, v = dense(x, p["q_w"], mm), dense(x, p["k_w"], mm), dense(x, p["v_w"], mm)
     if cfg.attention_bias:
         q, k, v = q + p["q_b"], k + p["k_b"], v + p["v_b"]
     # Heads from the widths: on a mesh the projections give this rank's heads.
@@ -118,7 +119,7 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
                                decode_impl=decode_impl)
     else:
         out = causal_attention(q, k, v, q_positions=seq_positions, kv_mask=kv_mask, impl=impl)
-    return dense(out.reshape(B, S, -1), p["o_w"], impl)
+    return dense(out.reshape(B, S, -1), p["o_w"], mm)
 
 
 def _mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str) -> torch.Tensor:
@@ -197,7 +198,10 @@ def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
     own experts' pairs first (the expert ids rotated by its first expert),
     runs ``torch._grouped_mm`` over those groups only, zeroes the other
     pairs' rows, and one all-reduce over ``tensor`` sums the combine in
-    float32. The shapes stay independent of the routing.
+    float32. The shapes stay independent of the routing. Under autograd
+    that all-reduce's backward is the identity, and the rows and routing
+    weights the rank's experts read have their gradients summed over
+    ``tensor`` (``Mesh.copy_in``).
 
     Under autograd the router's gradient flows through the top-k weights
     (the indices, from the sort, have none), as JAX's flows through its
@@ -219,9 +223,14 @@ def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
     if ep is not None:  # expert parallelism: this rank's experts' pairs sort first
         idx = torch.remainder(idx - ep[0], cfg.moe_num_experts)
     order, offs = expert_groups(idx, cfg.moe_num_experts)
+    rows = flat
     if ep is not None:
         offs = offs[:ep[1]]
-    out = _experts(flat[order // k], local(p["moe_fc1"]), local(p["moe_fc2"]), offs)
+        # each rank's experts see the replicated rows and weights: under
+        # autograd their gradients' partials are summed over tensor
+        mesh = p["moe_fc1"].mesh
+        rows, w = mesh.copy_in(flat, "tensor"), mesh.copy_in(w, "tensor")
+    out = _experts(rows[order // k], local(p["moe_fc1"]), local(p["moe_fc2"]), offs)
     routed = torch.empty_like(out).index_copy_(0, order, out).reshape(n, k, D)
     if ep is not None:  # the rows past the local experts' were not computed
         routed = torch.where((idx < ep[1])[..., None], routed, 0)
@@ -284,7 +293,9 @@ def text_forward(
 
     ``attn_impl`` picks, for every kernel of the decoder (attention, and K7
     where a matmul weight is int4), the kernel ("auto", on CUDA tensors) or
-    its plain version ("torch"). ``decode_attn_impl`` (the engine's knob of
+    its plain version ("torch"); an ``ops.ring_attention.RingImpl`` runs
+    the attention of a cacheless forward as ring attention over its group
+    (``parallel.context``; ``seq_positions`` then global). ``decode_attn_impl`` (the engine's knob of
     that name: "auto", "pallas" or "xla") reaches the attention of query
     blocks of at most 8 rows only, never a matmul (``ops/attention.py``).
 
@@ -322,7 +333,7 @@ def text_forward(
                                  cache, i, cache_offset, attn_impl, validity_only,
                                  decode_attn_impl)
         h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
-        return x + _mlp(layer, cfg, h, attn_impl)
+        return x + _mlp(layer, cfg, h, getattr(attn_impl, "kernels", attn_impl))
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):

@@ -17,6 +17,9 @@ inference calls keep the fixed-m forwards.
 
 ``impl="auto"`` launches the kernels for CUDA tensors and runs their plain
 versions for CPU tensors; ``impl="torch"`` runs the plain versions anywhere.
+A ``ring_attention.RingImpl`` (JAX's ``"ring:<axis>"``) runs a cacheless
+forward's attention as ring attention over its group, the keys at the
+queries' global positions.
 
 ``decode_impl`` is the engine's ``decode_attn_impl``, given only by the
 decode step and the speculative verify blocks (S <= 8), as the JAX
@@ -35,6 +38,7 @@ import torch
 
 from .decode_attention import decode_attention_gqa
 from .flash_attention import flash_attention_gqa
+from .ring_attention import RingImpl, ring_attention
 from .window_attention import window_attention
 
 # Decode against a buffer at least this long runs K4 on the stored-dtype
@@ -71,6 +75,11 @@ def causal_attention(
 ) -> torch.Tensor:
     """Causal GQA attention: the query at position p sees valid keys t <= p.
     Query rows with no visible key return 0 (they are never read)."""
+    if isinstance(impl, RingImpl):
+        # context parallelism: q/k/v are this rank's blocks of a cacheless
+        # forward, the positions global (parallel/context.py)
+        return ring_attention(q, k, v, q_positions, q_positions, kv_mask, impl.group,
+                              impl=impl.kernels)
     if decode_impl not in DECODE_IMPLS:
         raise ValueError(f"decode_impl {decode_impl!r} is not one of {DECODE_IMPLS}")
     if decode_impl == "xla":

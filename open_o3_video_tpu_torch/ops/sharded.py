@@ -50,10 +50,14 @@ class Sharded:
     ``shape`` is the logical weight's global shape."""
 
     def __init__(self, parts: dict, specs: dict, kind: str, mesh, shape: tuple, *,
-                 group: int = 128, x_split: bool = False, out_full: bool = True):
+                 group: int = 128, x_split: bool = False, out_full: bool = True,
+                 n_cols: Optional[tuple[int, int]] = None):
         self.parts, self.specs, self.kind, self.mesh = parts, specs, kind, mesh
         self.shape, self.group = tuple(shape), group
         self.x_split, self.out_full = x_split, out_full
+        # (first, count) of the output columns this rank holds, where N is
+        # split over ``tensor`` or its KV heads (``HEADS``)
+        self.n_cols = n_cols
         self._int8 = {}  # (k_to, n_to) -> the int8 weight, where nothing is gathered
 
     @property
@@ -135,9 +139,14 @@ class Sharded:
         n_to = n_ax if n_ax in (TENSOR, HEADS) else None
         if self.x_split and k_to != TENSOR:
             x = m.all_gather(x, TENSOR, dim=-1)
-        elif k_to is not None and not (self.x_split and k_to == TENSOR):
-            n = x.shape[-1] // m.shape[k_to]
-            x = x.narrow(-1, m.rank(k_to) * n, n)
+        if not (self.x_split and k_to == TENSOR):
+            # x is replicated; under autograd, each rank's part of its
+            # gradient is summed over the axes its compute differs on
+            for axis in {k_to, TENSOR if n_to in (TENSOR, HEADS) else None} - {None}:
+                x = m.copy_in(x, axis)
+            if k_to is not None:
+                n = x.shape[-1] // m.shape[k_to]
+                x = x.narrow(-1, m.rank(k_to) * n, n)
         y = dense(x, self._leaf(k_to, n_to), impl)
         if k_to is not None:
             y = m.all_reduce(y, k_to)
@@ -161,6 +170,28 @@ class Sharded:
         rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                                device=rows.device))
         return m.all_reduce(rows, TENSOR)
+
+
+def lora_views(base: Sharded, a: torch.Tensor, b: torch.Tensor) -> tuple[Sharded, Sharded]:
+    """Whole LoRA adapters (replicated on every rank, as JAX's ``replicate``
+    places them) as the products over a sharded ``base`` read them: ``a``'s
+    rows split over ``tensor`` where the base's K is (o, down), ``b``'s
+    columns where the base's N is (q, k, v, gate, up; a KV projection's
+    heads under ``HEADS``), an ``fsdp`` split of the base read whole. The
+    slices are taken under autograd after ``copy_in``, so each adapter's
+    gradient is summed wherever the base product is split."""
+    m = base.mesh
+    k_ax, n_ax = base.spec
+    a_spec = (TENSOR if k_ax == TENSOR else None, None)
+    b_spec = (None, n_ax if n_ax in (TENSOR, HEADS) else None)
+    if a_spec[0] == TENSOR and m.shape[TENSOR] > 1:
+        per = a.shape[0] // m.shape[TENSOR]
+        a = m.copy_in(a, TENSOR).narrow(0, m.rank(TENSOR) * per, per)
+    if b_spec[1] is not None and base.n_cols is not None and base.n_cols[1] != b.shape[1]:
+        b = m.copy_in(b, TENSOR).narrow(1, *base.n_cols)
+    return (Sharded({"w": a}, {"w": a_spec}, "tensor", m, tuple(a.shape), x_split=base.x_split),
+            Sharded({"w": b}, {"w": b_spec}, "tensor", m, tuple(b.shape),
+                    out_full=base.out_full, n_cols=base.n_cols))
 
 
 def local(w) -> torch.Tensor:

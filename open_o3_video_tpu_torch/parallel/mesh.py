@@ -52,11 +52,111 @@ def _gather(x: torch.Tensor, n: int, group) -> torch.Tensor:
     return out.reshape((n,) + tuple(x.shape))
 
 
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the group, on a fresh contiguous tensor."""
+    x = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _slice(x: torch.Tensor, n: int, rank: int, dim: int) -> torch.Tensor:
+    per = x.shape[dim] // n
+    return x.narrow(dim, rank * per, per).contiguous()
+
+
+# The collectives under autograd. Within a model replica (the ranks that
+# share a ``data`` coordinate) every rank reads the same rows, so a tensor
+# is either replicated over an axis (each rank holds the same value, and
+# the gradient it holds is the whole gradient) or split over it (each rank
+# holds its slice, and the gradient of that slice). Each function's
+# backward keeps that convention (Megatron's f and g).
+
+
+class _SumOver(torch.autograd.Function):
+    """Partial sums -> their total, replicated: all-reduce forward; the
+    gradient of a replicated total passes to each partial unchanged (the
+    row-parallel output after o and down, the vocabulary rows of ``embed``,
+    the experts' combine)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh._reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """A replicated tensor entering compute that differs by rank (a
+    column-parallel product, a rank's slice): identity forward; backward,
+    each rank's partial gradient summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mesh.collectives["bwd_all_reduce"] += 1
+        return _sum(g, ctx.mesh.groups[ctx.axis]), None, None
+
+
+class _GatherOut(torch.autograd.Function):
+    """Slices -> the whole, replicated (the column gathers: ``dense``'s
+    all-gather on N, an input gathered before a product that is not split
+    on K): backward keeps this rank's slice of the replicated gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.n, ctx.rank, ctx.dim = mesh.shape[axis], mesh.rank(axis), dim
+        return torch.cat(_gather(x, ctx.n, mesh.groups[axis]).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.n, ctx.rank, ctx.dim), None, None, None
+
+
+class _GatherWeight(torch.autograd.Function):
+    """ZeRO-3: a weight's shards gathered before use; backward, the whole
+    weight's gradient reduce-scattered over the axis, so that each rank's
+    lands on its own shard. The ranks of ``fsdp`` read the same rows, so the
+    scattered sum is divided by their number: the gradient of the one loss
+    they compute together."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return torch.cat(_gather(t, mesh.shape[axis], mesh.groups[axis]).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        n, group = m.shape[axis], m.groups[axis]
+        m.collectives["bwd_reduce_scatter"] += 1
+        if dist.get_backend(group) == "nccl":
+            parts = g.movedim(dim, 0).contiguous()
+            out = torch.empty((parts.shape[0] // n,) + tuple(parts.shape[1:]), dtype=g.dtype,
+                              device=g.device)
+            dist.reduce_scatter_tensor(out, parts, group=group)
+            out = out.movedim(0, dim)
+        else:  # gloo has no reduce-scatter
+            out = _slice(_sum(g, group), n, m.rank(axis), dim)
+        return out.div_(n).contiguous(), None, None, None
+
+
+def _grad_path(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 class Mesh:
     """A mesh of processes over a ``DeviceMesh``: ``shape`` (axis -> size,
     as JAX's ``mesh.shape``), ``rank(axis)``, a process group per axis,
     and the collectives of the sharded forward, counted in
-    ``collectives`` by kind."""
+    ``collectives`` by kind (those of a backward as ``bwd_*``). Under
+    autograd each collective has the backward its placement needs (the
+    functions above); without it, the forward's collective alone runs."""
 
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
@@ -85,26 +185,44 @@ class Mesh:
     def __repr__(self):
         return f"Mesh({self.shape})"
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum over ``axis`` (float32 for half types is the caller's
-        choice), in place on a fresh tensor."""
+    def _reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         x = x.contiguous()
         dist.all_reduce(x, group=self.groups[axis])
         self.collectives["all_reduce"] += 1
         return x
 
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum over ``axis`` (float32 for half types is the caller's
+        choice), in place on a fresh tensor; under autograd its backward is
+        the identity."""
+        if _grad_path(x):
+            return _SumOver.apply(x, self, axis)
+        return self._reduce(x, axis)
+
+    def copy_in(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x``, replicated over ``axis``, as the input of compute that
+        differs by rank: nothing forward; under autograd, the gradient's
+        partials are summed over ``axis`` (nothing on a one-rank axis)."""
+        if self.shape[axis] == 1 or not _grad_path(x):
+            return x
+        return _CopyIn.apply(x, self, axis)
+
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
         """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in rank
-        order."""
-        out = _gather(x, self.shape[axis], self.groups[axis])
+        order; under autograd, backward keeps this rank's slice."""
         self.collectives["all_gather"] += 1
+        if _grad_path(x):
+            return _GatherOut.apply(x, self, axis, dim % x.ndim)
+        out = _gather(x, self.shape[axis], self.groups[axis])
         return torch.cat(out.unbind(0), dim=dim)
 
     def gather_weight(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """A weight's shards over ``axis`` joined on ``dim`` (ZeRO-3's
-        gather before use)."""
-        out = _gather(t, self.shape[axis], self.groups[axis])
+        gather before use); under autograd, a reduce-scatter backward."""
         self.collectives["weight_gather"] += 1
+        if _grad_path(t):
+            return _GatherWeight.apply(t, self, axis, dim % t.ndim)
+        out = _gather(t, self.shape[axis], self.groups[axis])
         return torch.cat(out.unbind(0), dim=dim)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +232,15 @@ class Mesh:
         if self._replica is not None:
             dist.broadcast(x, src=self._replica_src, group=self._replica)
             self.collectives["broadcast"] += 1
+        return x
+
+    def replica_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over this rank's model replica (no autograd)."""
+        if self._replica is None:
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x, group=self._replica)
+        self.collectives["all_reduce"] += 1
         return x
 
 
@@ -351,10 +478,24 @@ def _main_spec(spec):
     return spec
 
 
+def _n_cols(spec: tuple, shape: tuple, mesh: Mesh, cfg, plan: HeadPlan):
+    """(first, count) of the output columns this rank holds under ``spec``,
+    where N is split over ``tensor`` or over its KV heads."""
+    if not spec or spec[-1] not in (TENSOR, HEADS):
+        return None
+    if spec[-1] == HEADS:
+        first, count = plan.kv_heads(cfg.text, mesh.rank(TENSOR))
+        return first * cfg.text.head_dim, count * cfg.text.head_dim
+    per = shape[-1] // mesh.shape[TENSOR]
+    return mesh.rank(TENSOR) * per, per
+
+
+@torch.no_grad()
 def shard_params(params, mesh: Mesh, cfg, rules=None):
     """The param tree on the mesh: each placed weight (2-D and up) as a
     ``Sharded`` local shard, other leaves sliced to this rank, leaves placed
-    nowhere unchanged. ``cfg`` gives the heads the alignment needs."""
+    nowhere unchanged. ``cfg`` gives the heads the alignment needs. The
+    shards are new leaves: a trainer marks them trainable after."""
     specs = param_sharding_rules(params, mesh, cfg, rules)
     plan = head_plan(cfg, mesh.shape.get("tensor", 1))
 
@@ -380,7 +521,8 @@ def shard_params(params, mesh: Mesh, cfg, rules=None):
         local = {k: _place(v, specs_[k], f"{path}/{k}" if kind != "tensor" else path, mesh, cfg,
                            plan) for k, v in parts.items()}
         return Sharded(local, specs_, kind, mesh, tuple(leaf.shape), group=group,
-                       x_split=x_split, out_full=out_full)
+                       x_split=x_split, out_full=out_full,
+                       n_cols=_n_cols(_main_spec(spec), tuple(leaf.shape), mesh, cfg, plan))
 
     def node(tree, spec, path):
         if isinstance(tree, dict):
@@ -469,12 +611,131 @@ def gather_params(params, mesh: Mesh, cfg):
     return walk(params, "")
 
 
+# ------------------------------------------------------------------ training
+
+
+def placements(params) -> dict:
+    """id(tensor) -> (placement, path) of every stored tensor of a tree that
+    ``shard_params`` placed: a ``Sharded`` weight's parts by their specs, a
+    bias by its weight's output split (as ``gather_params`` reads it), any
+    other tensor replicated (``()``). A tensor the tree does not hold (whole
+    LoRA adapters) is replicated too."""
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{path}/{i}" if path else str(i))
+            return
+        if isinstance(tree, Sharded):
+            for k, v in tree.parts.items():
+                out[id(v)] = (tree.specs[k], path if tree.kind == "tensor" else f"{path}/{k}")
+            return
+        if not isinstance(tree, dict):
+            return
+        for k, v in tree.items():
+            p = f"{path}/{k}" if path else str(k)
+            w = tree.get(k[:-2] + "_w") if k.endswith("_b") else None
+            if (isinstance(v, torch.Tensor) and v.ndim == 1 and isinstance(w, Sharded)
+                    and w.spec[-1] in (TENSOR, HEADS)):
+                out[id(v)] = (w.spec[-1:], p)
+            elif isinstance(v, torch.Tensor):
+                out[id(v)] = ((), p)
+            else:
+                walk(v, p)
+
+    walk(params, "")
+    return out
+
+
+def _first_holder(mesh: Mesh, cfg) -> bool:
+    """Whether this rank is the lowest ``tensor`` rank that holds its KV
+    heads (``HEADS``)."""
+    plan = head_plan(cfg, mesh.shape[TENSOR])
+    r = mesh.rank(TENSOR)
+    return r == 0 or plan.kv_heads(cfg.text, r)[0] != plan.kv_heads(cfg.text, r - 1)[0]
+
+
+def owns(spec: tuple, mesh: Mesh, cfg) -> bool:
+    """Whether this rank counts a leaf of placement ``spec`` in a sum over
+    its model replica: once per distinct shard, a replicated leaf on the
+    axis's first rank only."""
+    for axis in (FSDP, "context", TENSOR):
+        if axis not in mesh.shape or mesh.shape[axis] == 1:
+            continue
+        if axis == TENSOR and HEADS in spec:
+            if not _first_holder(mesh, cfg):
+                return False
+        elif axis not in spec and mesh.rank(axis) != 0:
+            return False
+    return True
+
+
+def _flat_reduce(grads: list, group, scale: Optional[float] = None) -> None:
+    """Sum each gradient over ``group`` in place, one collective per dtype
+    (then times ``scale``)."""
+    by_dtype: dict = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for gs in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        dist.all_reduce(flat, group=group)
+        if scale is not None:
+            flat.mul_(scale)
+        off = 0
+        for g in gs:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+
+
+def sync_grads(leaves: list, mesh: Mesh, cfg, where: dict) -> int:
+    """After a backward on a mesh, every trained leaf's gradient made the
+    whole model's gradient of the global batch's loss, the same on each rank
+    that holds the leaf: summed over ``data`` (each data rank's loss counts
+    its rows over the global normaliser), averaged over ``fsdp`` where fsdp
+    does not split the leaf (its ZeRO-3 peers read the same rows; a split
+    leaf's reduce-scatter already averaged it), summed over the ``tensor``
+    ranks that share a KV head (``HEADS``: each holds the partial of its own
+    query heads), and averaged over ``tensor`` where tensor does not split
+    the leaf: each tensor rank holds its whole gradient, equal up to the
+    order in which its inputs' collectives summed, and the mean keeps the
+    replicas' updates identical; under context parallelism, summed over
+    ``context`` too (each rank's gradient is its positions'). ``where`` is
+    ``placements(params)``. Returns the collectives issued."""
+    grads = [(x.grad, where.get(id(x), ((), ""))[0]) for x in leaves]
+    n = 0
+    if mesh.shape.get(TENSOR, 1) > 1:
+        plan = head_plan(cfg, mesh.shape[TENSOR])
+        first, count = plan.kv_heads(cfg.text, mesh.rank(TENSOR))
+        hd, width = cfg.text.head_dim, cfg.text.num_key_value_heads * cfg.text.head_dim
+        for g, spec in grads:
+            if HEADS in spec:  # the KV heads are a leaf's last dimension
+                full = g.new_zeros(g.shape[:-1] + (width,))
+                full[..., first * hd:(first + count) * hd] = g
+                dist.all_reduce(full, group=mesh.groups[TENSOR])
+                g.copy_(full[..., first * hd:(first + count) * hd])
+                n += 1
+    for axis in (TENSOR, FSDP):
+        if mesh.shape.get(axis, 1) > 1:
+            rep = [g for g, spec in grads if axis not in spec and HEADS not in spec]
+            if rep:
+                _flat_reduce(rep, mesh.groups[axis], 1.0 / mesh.shape[axis])
+                n += 1
+    for axis in ("context", "data"):  # each rank's positions or rows: partial sums
+        if mesh.shape.get(axis, 1) > 1:
+            _flat_reduce([g for g, _ in grads], mesh.groups[axis])
+            n += 1
+    mesh.collectives["grad_sync"] += n
+    return n
+
+
 def replicate(tree, mesh: Mesh):
     """Every tensor of ``tree`` the same on each rank: rank 0's values
     broadcast (JAX places them replicated)."""
     def put(_, leaf):
         if isinstance(leaf, torch.Tensor):
-            dist.broadcast(leaf, src=0)
+            with torch.no_grad():  # trainable adapters are written in place
+                dist.broadcast(leaf, src=0)
         return leaf
 
     _walk(put, tree)
@@ -486,7 +747,8 @@ def replicate_scalars(tree, mesh: Mesh):
     unchanged (JAX commits them to the mesh, replicated)."""
     def put(_, leaf):
         if isinstance(leaf, torch.Tensor) and leaf.ndim == 0:
-            dist.broadcast(leaf, src=0)
+            with torch.no_grad():
+                dist.broadcast(leaf, src=0)
         return leaf
 
     _walk(put, tree)

@@ -15,6 +15,14 @@ and projector).
 ``export_safetensors`` writes the format itself (``params.save_safetensors``)
 and ``config.json``, so the JAX package's ``params.load_pretrained`` reads the
 directory.
+
+On a mesh (``mesh`` and the model's ``cfg`` given), a checkpoint holds the
+whole tree: ``save_checkpoint`` gathers every sharded leaf and its AdamW
+moments (``parallel.gather_params``; every rank takes part) and the first
+rank writes, so the file is the one a single device writes; a restore
+places the whole checkpoint into the live shards of whatever mesh the
+caller runs on (JAX's "topology-change-safe" restore into the live
+shardings), or into a single device's tensors.
 """
 
 from __future__ import annotations
@@ -47,16 +55,104 @@ def _to_host(state):
     return state
 
 
+def _has_shards(tree) -> bool:
+    from ..ops.sharded import Sharded
+
+    if isinstance(tree, Sharded):
+        return True
+    if isinstance(tree, dict):
+        return any(_has_shards(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_shards(v) for v in tree)
+    return False
+
+
+def _moments(optimizer, fn) -> dict:
+    """An optimizer's state dict with each parameter's moments mapped by
+    ``fn(param, moment)``."""
+    sd = optimizer.state_dict()
+    params = optimizer.param_groups[0]["params"]
+    state = {i: {k: (fn(params[i], v) if isinstance(v, torch.Tensor) and v.ndim else v)
+                 for k, v in st.items()} for i, st in sd["state"].items()}
+    return {**sd, "state": state}
+
+
+@torch.no_grad()
+def _gathered(state, mesh, cfg):
+    """The state with its sharded params and their AdamW moments whole."""
+    from ..parallel.mesh import _unplace, gather_params, head_plan, placements
+
+    params = state.get("params")
+    where = placements(params) if _has_shards(params) else {}
+    plan = head_plan(cfg, mesh.shape.get("tensor", 1))
+
+    def whole(p, t):
+        spec, path = where.get(id(p), ((), ""))
+        return _unplace(t, spec, path, mesh, cfg, plan) if any(spec) else t
+
+    def walk(x):
+        if isinstance(x, torch.optim.Optimizer):
+            return _moments(x, whole)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        return x
+
+    out = walk({k: v for k, v in state.items() if k != "params"})
+    out["params"] = gather_params(params, mesh, cfg) if where else params
+    return out
+
+
+def _placed(saved, target, mesh, cfg):
+    """A whole saved state cut to the live target's shards."""
+    from ..parallel.mesh import _place, head_plan, placements, shard_params
+
+    params = target.get("params")
+    if not _has_shards(params):
+        return saved
+    where = placements(params)
+    plan = head_plan(cfg, mesh.shape.get("tensor", 1))
+    out = dict(saved)
+    out["params"] = shard_params(saved["params"], mesh, cfg)
+
+    def cut(target_opt, sd):
+        live = target_opt.param_groups[0]["params"]
+        state = {}
+        for i, st in sd["state"].items():
+            spec, path = where.get(id(live[int(i)]), ((), ""))
+            state[i] = {k: (_place(v, spec, path, mesh, cfg, plan)
+                            if isinstance(v, torch.Tensor) and v.ndim and any(spec) else v)
+                        for k, v in st.items()}
+        return {**sd, "state": state}
+
+    def walk(t, s):
+        if isinstance(t, torch.optim.Optimizer):
+            return cut(t, s)
+        if isinstance(t, dict):
+            return {k: walk(t[k], v) if k in t else v for k, v in s.items()}
+        return s
+
+    out.update({k: walk(target[k], v) for k, v in saved.items() if k != "params" and k in target})
+    return out
+
+
 def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}")
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: dict[str, Any],
-                    async_save: bool = False) -> str:
+                    async_save: bool = False, mesh=None, cfg=None) -> str:
     """Save {params, opt_state, meta, ...} under ``step_%08d``; returns the
     directory. The file is written under a temporary name and renamed, so a
-    directory that holds ``state.pt`` holds a whole checkpoint."""
+    directory that holds ``state.pt`` holds a whole checkpoint. On a mesh
+    every rank calls it; the state is gathered whole and the first rank
+    writes."""
     path = _step_dir(ckpt_dir, step)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        state = _gathered(state, mesh, cfg)
+        if dist.get_rank() != 0:
+            return path
     host = _to_host(state)
 
     def write():
@@ -110,22 +206,31 @@ def _restore_into(target, saved):
         with torch.no_grad():
             target.copy_(saved)
         return target
+    if _has_shards(target):  # a Sharded leaf: its parts from the placed copy's
+        for k, t in target.parts.items():
+            with torch.no_grad():
+                t.copy_(saved.parts[k])
+        return target
     return saved
 
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
-                       target: Optional[dict] = None) -> tuple[dict, int]:
+                       target: Optional[dict] = None, mesh=None, cfg=None) -> tuple[dict, int]:
     """(state, step) of a checkpoint (the latest when ``step`` is None).
     With ``target`` (the live state: tensors, optimizers), every saved
     tensor is copied into the target's tensor in place and every optimizer
     loads its saved state dict, so the trainer resumes on its own devices;
-    without it the tensors come back on the host."""
+    without it the tensors come back on the host. With ``mesh`` the target's
+    params are ``shard_params``' output and the whole checkpoint is cut to
+    their shards first (and the AdamW moments to their params')."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     saved = torch.load(os.path.join(_step_dir(ckpt_dir, step), STATE_FILE), map_location="cpu",
                        weights_only=True)
+    if target is not None and mesh is not None:
+        saved = _placed(saved, target, mesh, cfg)
     return (saved if target is None else _restore_into(target, saved)), step
 
 

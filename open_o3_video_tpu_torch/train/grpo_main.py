@@ -14,9 +14,17 @@ The same flags and loop as the JAX entry point: one prompt per step, the
 last good sample ("using fixed data") when a sample fails to prepare, a
 checkpoint every ``--save_steps`` and at the end, then the export (under
 PEFT, the base with the adapters merged). ``--device`` (default ``cuda``)
-picks the card; the CPU runs only when asked for (``--device cpu``). One
-device: ``--mesh_*`` and ``--coordinator_address``/``--num_processes``/
-``--process_id`` are read and refused unless trivial (ROADMAP M8).
+picks the card; the CPU runs only when asked for (``--device cpu``).
+
+On a mesh (several processes, as ``sft_main``'s: torchrun's environment or
+``--coordinator_address``/``--num_processes``/``--process_id``; or
+``--mesh_tensor``/``--mesh_fsdp`` above 1) every process iterates the same
+dataset cursor and a step takes one prompt per ``data`` replica, as JAX's;
+``GSPOTrainer`` gets the mesh (sharded policy and reference, rollout rows
+over ``data``), checkpoints hold the whole tree, and the first process
+writes the export.
+
+  torchrun --nproc_per_node 8 -m open_o3_video_tpu_torch.train.grpo_main ... --mesh_data 8
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from .launch import check_app_patch, check_one_device, train_device
+from .launch import check_app_patch, train_device, train_mesh
 
 
 def parse_args(argv=None):
@@ -79,9 +87,16 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    check_one_device(args, "grpo_main")
     os.environ.setdefault("WANDB_MODE", "offline")
     device = train_device(args, "grpo_main")
+
+    from ..parallel import distributed as D
+
+    D.initialize(args.coordinator_address, args.num_processes, args.process_id,
+                 device=device.type)
+    mesh = train_mesh(args, "grpo_main")
+
+    import torch
 
     from ..data.processor import O3VideoProcessor
     from ..data.rl_dataset import load_rl_dataset, prepare_rl_sample
@@ -118,7 +133,7 @@ def main(argv=None):
         gspo=args.gspo,
         logging_steps=args.logging_steps,
     )
-    metrics = MetricsBus(use_wandb=args.report_to == "wandb")
+    metrics = MetricsBus(use_wandb=args.report_to == "wandb", primary=D.is_primary())
     lora_cfg = None
     if args.use_peft:
         lora_cfg = LoraConfig(
@@ -130,7 +145,7 @@ def main(argv=None):
         params, ref_params, model_cfg, cfg,
         detokenize=lambda ids: processor.decode(ids, skip_special_tokens=True),
         reward_funcs=[REWARD_REGISTRY[name] for name in args.reward_funcs],
-        metrics=metrics, seed=args.seed, lora=lora_cfg,
+        mesh=mesh, metrics=metrics, seed=args.seed, lora=lora_cfg,
     )
 
     def ckpt_state(step):
@@ -142,47 +157,71 @@ def main(argv=None):
 
     start_step = 0
     if args.resume_from_checkpoint:
+        # into the live shards (topology-change-safe)
         state, start_step = CKPT.restore_checkpoint(args.resume_from_checkpoint,
-                                                    target=ckpt_state(0))
+                                                    target=ckpt_state(0), mesh=mesh,
+                                                    cfg=model_cfg)
         trainer.opt_state = state["opt_state"]
         trainer.seed = int(state["meta"]["seed"])
         print(f"Resumed from step {start_step} (sampler seed {trainer.seed})")
 
-    # one prompt per step: epochs are passes over the dataset
-    total_steps = args.max_steps if args.max_steps > 0 else int(len(dataset) * args.num_train_epochs)
+    def save(step, async_save=False):
+        CKPT.save_checkpoint(args.output_dir, step, ckpt_state(step), async_save=async_save,
+                             mesh=mesh, cfg=model_cfg)
+
+    # one prompt per data replica per step (the reference's one prompt a
+    # GPU): epochs are passes over the dataset
+    n_prompts = mesh.shape["data"] if mesh is not None else 1
+    total_steps = (args.max_steps if args.max_steps > 0
+                   else -(-int(len(dataset) * args.num_train_epochs) // n_prompts))
     step = start_step
-    cursor = start_step
+    cursor = start_step * n_prompts
     last_good_sample = None
     while step < total_steps:
-        example = dataset[cursor % len(dataset)]
-        cursor += 1
-        try:
-            sample = prepare_rl_sample(example, processor, args.data_root, nframes=args.nframes)
-            last_good_sample = sample
-        except Exception as e:
-            # the reference's "using fixed data" (grpo_trainer.py:452-465)
-            print(f"[warn] sample prep failed at step {step} ({e!r}); using fixed data")
-            sample = last_good_sample
-            if sample is None:  # nothing good yet: the step passes without an update
-                step += 1
-                continue
-        trainer.step(sample, global_step=step, max_steps=total_steps)
+        batch_samples = []
+        for _ in range(n_prompts):
+            example = dataset[cursor % len(dataset)]
+            cursor += 1
+            try:
+                sample = prepare_rl_sample(example, processor, args.data_root,
+                                           nframes=args.nframes)
+                last_good_sample = sample
+            except Exception as e:
+                # the reference's "using fixed data" (grpo_trainer.py:452-465)
+                print(f"[warn] sample prep failed at step {step} ({e!r}); using fixed data")
+                sample = last_good_sample
+                if sample is None:
+                    continue
+            batch_samples.append(sample)
+        if not batch_samples:  # nothing good yet: the step passes without an update
+            step += 1
+            continue
+        while len(batch_samples) < n_prompts:  # keep B == the data axis
+            batch_samples.append(batch_samples[0])
+        trainer.step_batch(batch_samples, global_step=step, max_steps=total_steps)
         step += 1
         if step % cfg.logging_steps == 0:
             metrics.flush(step)
         if step % args.save_steps == 0:
-            CKPT.save_checkpoint(args.output_dir, step, ckpt_state(step), async_save=True)
+            save(step, async_save=True)
 
     CKPT.wait_for_saves()
-    CKPT.save_checkpoint(args.output_dir, step, ckpt_state(step))
-    if trainer.adapters is not None:
-        # PEFT's merge_and_unload: the base with the deltas folded in
-        merged = merge_adapters(trainer.params, trainer.adapters, lora_cfg.scale)
-        CKPT.export_safetensors(merged, model_cfg, args.output_dir)
-    else:
-        CKPT.export_safetensors(trainer.params, model_cfg, args.output_dir)
-    CKPT.write_model_card(args.output_dir, trainer_name="GSPO",
-                          base_model=args.model_name_or_path, dataset_name=args.dataset_name)
+    save(step)
+    params = trainer.params
+    if mesh is not None:  # every rank gathers; the first writes
+        from ..parallel import gather_params
+
+        with torch.no_grad():
+            params = gather_params(params, mesh, model_cfg)
+    if D.is_primary():
+        if trainer.adapters is not None:
+            # PEFT's merge_and_unload: the base with the deltas folded in
+            params = merge_adapters(params, trainer.adapters, lora_cfg.scale)
+        CKPT.export_safetensors(params, model_cfg, args.output_dir)
+        CKPT.write_model_card(args.output_dir, trainer_name="GSPO",
+                              base_model=args.model_name_or_path,
+                              dataset_name=args.dataset_name)
+    D.sync("gspo export")
     print(f"GSPO complete: {step} steps -> {args.output_dir}")
 
 

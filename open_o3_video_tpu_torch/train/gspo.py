@@ -39,8 +39,19 @@ Every family trains through ``models.family_forward``: the Qwen families
 each prompt's images once (``aria.get_image_features``) and serve the rows
 as ``Request.vision_embeds``.
 
-Not ported: the mesh and multi-host branches (ROADMAP M8); the constructor
-raises on a mesh.
+On a mesh (``mesh``, a ``parallel.Mesh``; every process calls ``step``
+with the same samples), as JAX's trainer: the policy, the reference (a full
+fine-tune's second copy; under PEFT the same frozen base) and the engine
+share ``shard_params``' shards, the adapters are whole on every rank, and
+with a ``data`` axis over 1 the engine shards the rollout rows over it
+(``rollout_shard_axis``). The B * G rows must divide over ``data``; each
+data rank scores its contiguous rows (the rewards are then gathered, so the
+advantages are the whole groups'), computes the reference logps and the
+loss of its rows, and the gradients are synchronized
+(``train.sft.MeshGrads``); the loss and KL are the means over every rank's
+rows. On several processes the batch's digest is compared first
+(``assert_in_sync``), so a process that built another batch fails loudly
+instead of hanging in a collective.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ from ..models.qwen25vl.text import per_token_logps_from_hidden
 from ..utils.metrics import MetricsBus
 from ..utils.profiling import StageTimer
 from .lora import LoraConfig, adapter_leaves, apply_adapters, init_adapters
-from .sft import ClipAdamW, SFTConfig, global_norm, require_trainable
+from .sft import ClipAdamW, MeshGrads, SFTConfig, data_total, global_norm, require_trainable
 
 # optax.adamw's default weight decay (GSPO's optimizer leaves it unset).
 OPTAX_ADAMW_WEIGHT_DECAY = 1e-4
@@ -243,10 +254,17 @@ class GSPOTrainer:
         seed: int = 0,
         lora: Optional[LoraConfig] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("GSPO on a mesh is not ported yet (ROADMAP M8): "
-                                      "the port trains on one device")
         require_trainable(model_cfg)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import Mesh, shard_params
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh), got "
+                                f"{type(mesh).__name__}")
+            params = shard_params(params, mesh, model_cfg)
+            if lora is None:
+                ref_params = shard_params(ref_params, mesh, model_cfg)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.detokenize = detokenize
@@ -263,13 +281,22 @@ class GSPOTrainer:
                 x.requires_grad_(False)
             self.ref_params = params  # the base, adapters disabled
             self.adapters = init_adapters(params, lora, dtype=torch.bfloat16)
+            if mesh is not None:  # whole on every rank, as JAX's replicate places them
+                from ..parallel.mesh import replicate
+
+                self.adapters = replicate(self.adapters, mesh)
             trained = adapter_leaves(self.adapters)
         else:
             for x in P.leaves(ref_params):
                 x.requires_grad_(False)
             self.ref_params = ref_params
             trained = [x for x in P.leaves(P.trainable(params)) if x.requires_grad]
-        self.engine = InferenceEngine(params, model_cfg, spec_sample=cfg.spec_rollout)
+        # With a data axis the rollout rows shard over it (JAX's rollout
+        # DP); a group whose rows do not divide runs replicated.
+        rollout_axis = "data" if mesh is not None and mesh.shape.get("data", 1) > 1 else None
+        self.engine = InferenceEngine(params, model_cfg, spec_sample=cfg.spec_rollout,
+                                      mesh=mesh, rollout_shard_axis=rollout_axis)
+        self._mesh_grads = MeshGrads(mesh, model_cfg, params) if mesh is not None else None
         # Benchmarks only, never a training mode: (R, W) token streams the
         # rollouts replay through the sampled speculative path
         # (``InferenceEngine.generate(replay_tokens=...)``).
@@ -349,6 +376,23 @@ class GSPOTrainer:
         G = cfg.num_generations
         B = len(samples)
         R = B * G
+        lo, hi = 0, R  # this data rank's rows
+        if self.mesh is not None:
+            dsize = self.mesh.shape.get("data", 1)
+            assert R % dsize == 0, f"B*G={R} not divisible by data axis {dsize}"
+            if dsize > 1:
+                lo = self.mesh.rank("data") * (R // dsize)
+                hi = lo + R // dsize
+        from ..parallel import distributed as D
+
+        if D.process_count() > 1:
+            # every process must have built the same batch, or the fleet
+            # would desync into a collective that never completes
+            D.assert_in_sync(np.asarray(
+                [len(samples)]
+                + [np.int64(np.sum(s2["input_ids"]) % (2 ** 31)) for s2 in samples]
+                + [int(s2.get("grid_thw") is not None or s2.get("pixel_values") is not None)
+                   for s2 in samples]), tag="gspo step batch")
 
         # Truncate before the vision check: a left-truncation that chops
         # placeholders must fail the count check and degrade to text-only.
@@ -400,20 +444,27 @@ class GSPOTrainer:
             self.engine.release_memory()
         completions_ids = [o["token_ids"] for o in outs]
 
-        # 2. rewards on the host (dataset columns repeated per generation)
+        # 2. rewards on the host (dataset columns repeated per generation),
+        #    this data rank's rows, then every rank's gathered in row order
         completions = [[{"role": "assistant", "content": self.detokenize(ids)}]
-                       for ids in completions_ids]
+                       for ids in completions_ids[lo:hi]]
         keys = set()
         for s in samples:
             keys.update(s.get("reward_kwargs", {}).keys())
-        rows = [s for s in samples for _ in range(G)]
+        rows = [s for s in samples for _ in range(G)][lo:hi]
         reward_kwargs = {key: [s.get("reward_kwargs", {}).get(key) for s in rows] for key in keys}
-        reward_kwargs["step_percent"] = [(global_step + 1) / max_steps] * R
-        rewards_per_func = np.zeros((R, len(self.reward_funcs)), dtype=np.float32)
+        reward_kwargs["step_percent"] = [(global_step + 1) / max_steps] * (hi - lo)
+        rewards_per_func = np.zeros((hi - lo, len(self.reward_funcs)), dtype=np.float32)
         with self.timer.stage("reward"):
             for i, fn in enumerate(self.reward_funcs):
                 rewards_per_func[:, i] = np.asarray(fn(completions=completions, **reward_kwargs),
                                                     dtype=np.float32)
+            if (lo, hi) != (0, R):
+                import torch.distributed as dist
+
+                parts: list = [None] * self.mesh.shape["data"]
+                dist.all_gather_object(parts, rewards_per_func, group=self.mesh.groups["data"])
+                rewards_per_func = np.concatenate(parts, axis=0)
         rewards = rewards_per_func.sum(axis=1)
         advantages = group_advantages(rewards, G)
 
@@ -495,14 +546,19 @@ class GSPOTrainer:
                 pos_, _ = get_rope_index(mcfg, ids[rows_], attention_mask=amask[rows_], **kw)
                 position_ids[:, rows_] = pos_
 
-        ids_d, pos_d, valid_d = put(ids), put(position_ids), put(attn_valid)
-        cmask_d, adv_d = put(completion_mask), put(advantages)
+        # this data rank's rows; the vision payload stays whole (ragged over
+        # the prompts), each row mapped into it by the row index
+        ids_d, pos_d = put(ids[lo:hi]), put(position_ids[:, lo:hi])
+        valid_d, cmask_d = put(attn_valid[lo:hi]), put(completion_mask[lo:hi])
+        adv_d = put(advantages[lo:hi])
         vision = {}
         if patches is not None and aria_mode:
-            vision = {"pixel_values": put(patches), "vision_row_index": put(vision_row_index)}
+            vision = {"pixel_values": put(patches),
+                      "vision_row_index": put(vision_row_index[lo:hi])}
         elif patches is not None:
             vision = {"pixel_patches": put(patches), "grid_thw": grid,
-                      "vision_token_id": vis_tok, "vision_row_index": put(vision_row_index)}
+                      "vision_token_id": vis_tok,
+                      "vision_row_index": put(vision_row_index[lo:hi])}
 
         # 5. reference logps without grad; inconsistent vision (and only
         #    that) retries text-only, as the reference's degraded recompute
@@ -516,7 +572,7 @@ class GSPOTrainer:
             print(f"logps with vision failed ({e}); retrying without vision")
             use_vision, vision = False, {}
             if not aria_mode:  # Aria's positions are sequential either way
-                pos_d = put(get_rope_index(mcfg, ids, attention_mask=amask)[0])
+                pos_d = put(get_rope_index(mcfg, ids[lo:hi], attention_mask=amask[lo:hi])[0])
             with torch.no_grad():
                 ref_logps = completion_logps(self.ref_params, mcfg, ids_d, pos_d, valid_d, Lp,
                                              logp_chunk=cfg.logp_chunk)
@@ -529,13 +585,19 @@ class GSPOTrainer:
             loss, aux = gspo_loss(
                 self.policy_params(), mcfg, cfg, ids_d, pos_d, valid_d, cmask_d, Lp, ref_logps,
                 adv_d, **vision, remat=cfg.gradient_checkpointing, logp_chunk=cfg.logp_chunk)
+            kl = aux["kl"].detach()
+            if (lo, hi) != (0, R):  # this rank's share of the mean over every row
+                loss, kl = loss * ((hi - lo) / R), kl * ((hi - lo) / R)
             loss.backward()
             with torch.no_grad():
                 for x in leaves:  # an unused leaf (the ViT, text-only) still decays, as in optax
                     if x.grad is None:
                         x.grad = torch.zeros_like(x)
-                self.optimizer.update(self.opt_state, global_norm([x.grad for x in leaves]))
-            loss, kl = float(loss.detach()), float(aux["kl"].detach())
+                norm = (global_norm([x.grad for x in leaves]) if self._mesh_grads is None
+                        else self._mesh_grads(leaves))
+                self.optimizer.update(self.opt_state, norm)
+            loss = float(data_total(loss.detach(), self.mesh))
+            kl = float(data_total(kl, self.mesh))
 
         groups = rewards.reshape(B, G)
         metrics = {

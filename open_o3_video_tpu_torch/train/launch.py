@@ -1,21 +1,38 @@
-"""What the training entry points (``sft_main``, ``grpo_main``) refuse
-before they load anything: a mesh or a multi-process launch (the port
-trains on one device; ROADMAP M8), the CPU unless asked for it, and a
-checkpoint whose patch their processor cannot cut (Qwen3-VL)."""
+"""What the training entry points (``sft_main``, ``grpo_main``) decide
+before they load anything: the device (the CPU only when asked for), the
+mesh, and a checkpoint whose patch their processor cannot cut (Qwen3-VL)."""
 
 from __future__ import annotations
 
 import torch
 
 
-def check_one_device(args, prog: str) -> None:
-    """Refuse a mesh or a multi-process launch. A fsdp of -1 (all devices)
-    is one device here."""
-    if args.mesh_data != 1 or args.mesh_tensor != 1 or args.mesh_fsdp not in (-1, 1):
-        raise SystemExit(f"{prog}: a mesh (data={args.mesh_data}, fsdp={args.mesh_fsdp}, "
-                         f"tensor={args.mesh_tensor}) is not ported yet; run on one device")
-    if args.coordinator_address or (args.num_processes or 1) > 1 or (args.process_id or 0) != 0:
-        raise SystemExit(f"{prog}: multi-process training is not ported yet; run one process")
+def train_mesh(args, prog: str):
+    """The apps' mesh, as JAX's: none for an explicit 1 x 1 x 1 (unsharded
+    even beside other processes); on several processes, or with
+    ``--mesh_tensor``/``--mesh_fsdp`` above 1, ``make_hybrid_mesh`` over the
+    initialized process group; else none. A launch whose processes did not
+    start (``--num_processes`` without a coordinator) or whose mesh does not
+    match the world size raises SystemExit."""
+    from ..parallel import distributed as D
+
+    world = D.process_count()
+    if world == 1 and ((args.num_processes or 1) > 1 or (args.coordinator_address
+                                                          and args.num_processes is None)):
+        raise SystemExit(f"{prog}: multi-process training did not start: give "
+                         "--coordinator_address with --num_processes and --process_id, or "
+                         "launch with torchrun")
+    if args.mesh_data == 1 and args.mesh_fsdp == 1 and args.mesh_tensor == 1:
+        return None
+    ranks = args.mesh_data * args.mesh_tensor * max(args.mesh_fsdp, 1)
+    if (world % ranks) if args.mesh_fsdp == -1 else ranks != world:
+        raise SystemExit(f"{prog}: a mesh of data={args.mesh_data}, fsdp={args.mesh_fsdp}, "
+                         f"tensor={args.mesh_tensor} needs {ranks} processes; the world size is "
+                         f"{world} (torchrun --nproc_per_node)")
+    if world > 1 or args.mesh_tensor > 1 or args.mesh_fsdp > 1:
+        return D.make_hybrid_mesh(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                                  tensor=args.mesh_tensor)
+    return None
 
 
 def train_device(args, prog: str) -> torch.device:

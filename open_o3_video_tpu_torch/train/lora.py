@@ -27,6 +27,7 @@ import torch
 
 from ..ops.int4 import Int4Linear, dequantize
 from ..ops.quant import QUANTIZED, LoraLinear, QuantizedLinear, map_with_path
+from ..ops.sharded import Sharded, lora_views
 
 # TRL/PEFT module names -> leaf names (PEFT's Qwen default targets are the
 # attention q/v projections).
@@ -92,12 +93,16 @@ def apply_adapters(params: dict, adapters: dict, scale: float) -> dict:
     """The param dict with each targeted decoder leaf a ``LoraLinear`` over
     the frozen base. Shares every tensor; builds new dicts only, so call it
     per use (a rollout under ``inference_mode``, then the update) and keep
-    nothing of one for the other."""
+    nothing of one for the other. Over a base on a mesh the whole adapters
+    are read through ``ops.sharded.lora_views``."""
     layers = []
     for layer, ad in zip(params["text"]["layers"], adapters["layers"]):
         new = dict(layer)
         for name, ab in ad.items():
-            new[name] = LoraLinear(layer[name], ab["a"], ab["b"], scale)
+            a, b = ab["a"], ab["b"]
+            if isinstance(layer[name], Sharded):  # a base on a mesh
+                a, b = lora_views(layer[name], a, b)
+            new[name] = LoraLinear(layer[name], a, b, scale)
         layers.append(new)
     return {**params, "text": {**params["text"], "layers": layers}}
 

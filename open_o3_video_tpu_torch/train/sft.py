@@ -82,11 +82,53 @@ def learning_rate(cfg: SFTConfig, count: int) -> float:
     return peak
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: list[torch.Tensor], mesh=None, owned=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in float32 (a 0-d
-    tensor on the gradients' device)."""
+    tensor on the gradients' device). On a mesh the gradients are this
+    rank's shards: only those it ``owned`` (``parallel.mesh.owns``: each
+    distinct shard once) are summed, then the sums over the model replica,
+    so the norm is the whole tree's, as optax's ``clip_by_global_norm``
+    takes it."""
+    device = grads[0].device
+    if owned is not None:
+        grads = [g for g, own in zip(grads, owned) if own]
     sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]
-    return torch.stack(sq).sum().sqrt()
+    # on the gradients' device also where this rank owns none: the clip
+    # divides by the norm, and a CUDA tensor divided by a host scalar is
+    # multiplied by its reciprocal instead, an ulp off the other ranks
+    total = torch.stack(sq).sum() if sq else torch.zeros((), dtype=torch.float32, device=device)
+    if mesh is not None:
+        total = mesh.replica_sum(total)
+    return total.sqrt()
+
+
+class MeshGrads:
+    """What a step on a mesh does after its backward: ``parallel.mesh.
+    sync_grads`` over the trained leaves, then their global norm. ``params``
+    is the sharded tree (``shard_params``' output)."""
+
+    def __init__(self, mesh, model_cfg, params):
+        from ..parallel.mesh import owns, placements
+
+        self.mesh, self.cfg = mesh, model_cfg
+        self.where = placements(params)
+        self._owns = owns
+
+    def __call__(self, leaves: list[torch.Tensor]) -> torch.Tensor:
+        from ..parallel.mesh import sync_grads
+
+        sync_grads(leaves, self.mesh, self.cfg, self.where)
+        owned = [self._owns(self.where.get(id(x), ((), ""))[0], self.mesh, self.cfg)
+                 for x in leaves]
+        return global_norm([x.grad for x in leaves], self.mesh, owned)
+
+
+def data_total(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the mesh's ``data`` axis (no autograd): the global
+    batch's count or metric from this rank's rows."""
+    if mesh is None or mesh.shape.get("data", 1) == 1:
+        return x
+    return mesh._reduce(x.clone(), "data")
 
 
 class ClipAdamW:
@@ -149,12 +191,19 @@ def sft_loss(
     remat: bool = True,
     logp_chunk: Optional[int] = None,
     attn_impl: str = "auto",
+    mesh=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token CE over positions whose label != IGNORE_INDEX, through
     ``models.family_forward``. ``batch`` holds numpy arrays or tensors
     (``pack_sft_batch``'s keys; Aria's vision is ``pixel_values``, the Qwen
     families' ``pixel_patches``); ``grid_thw`` and ``vision_token_id`` are
-    host metadata."""
+    host metadata.
+
+    JAX's loss is the mean over the global batch's target tokens. On a mesh
+    whose ``data`` axis splits the rows, this rank's loss is its rows' sum
+    over the global count (summed over ``data`` by ``data_total``), so the
+    gradients summed over ``data`` are the global loss's; the returned
+    ``loss`` and ``num_target_tokens`` are the global batch's."""
     dev = params["text"]["embed_tokens"].device
     hidden, _ = family_forward(
         params, model_cfg, _tensor(batch["input_ids"], dev), _tensor(batch["position_ids"], dev),
@@ -171,34 +220,46 @@ def sft_loss(
     safe_labels = torch.where(valid, shift_labels, 0)
     token_logps = per_token_logps_from_hidden(params["text"], hidden[:, :-1], safe_labels,
                                               logp_chunk)
-    count = valid.sum()
+    count = data_total(valid.sum(), mesh)
     loss = torch.where(valid, -token_logps, 0.0).sum() / count.clamp(min=1)
-    return loss, {"loss": loss.detach(), "num_target_tokens": count}
+    return loss, {"loss": data_total(loss.detach(), mesh), "num_target_tokens": count}
 
 
 def loss_and_grads(params: dict, model_cfg, train_cfg: SFTConfig,
-                   batch: dict[str, Any], attn_impl: str = "auto") -> dict[str, torch.Tensor]:
+                   batch: dict[str, Any], attn_impl: str = "auto",
+                   mesh=None) -> dict[str, torch.Tensor]:
     """Forward and backward of one batch: the leaves' ``.grad`` hold the
     gradients afterwards (set, not accumulated). Returns {loss,
-    num_target_tokens, grad_norm}."""
+    num_target_tokens, grad_norm}. On a mesh ``params`` is
+    ``shard_params``' output, ``batch`` this ``data`` rank's rows, and the
+    gradients are synchronized (``MeshGrads``)."""
     leaves = [x for x in P.leaves(params) if x.requires_grad]
     for x in leaves:
         x.grad = None
     loss, aux = sft_loss(params, model_cfg, batch, remat=train_cfg.gradient_checkpointing,
-                         logp_chunk=train_cfg.logp_chunk, attn_impl=attn_impl)
+                         logp_chunk=train_cfg.logp_chunk, attn_impl=attn_impl, mesh=mesh)
     loss.backward()
-    return {**aux, "grad_norm": global_norm([x.grad for x in leaves])}
+    with torch.no_grad():
+        for x in leaves:  # a leaf the batch does not reach (a text-only batch's tower)
+            if x.grad is None:
+                x.grad = torch.zeros_like(x)
+    if mesh is None:
+        return {**aux, "grad_norm": global_norm([x.grad for x in leaves])}
+    return {**aux, "grad_norm": MeshGrads(mesh, model_cfg, params)(leaves)}
 
 
 def make_train_step(model_cfg, train_cfg: SFTConfig, optimizer: ClipAdamW,
-                    attn_impl: str = "auto"):
+                    attn_impl: str = "auto", mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics), params and
     state updated in place; metrics {loss, num_target_tokens, grad_norm}
-    (the norm before the clip), as the JAX package's step returns them."""
+    (the norm before the clip), as the JAX package's step returns them.
+    With ``mesh`` (JAX's step under a mesh, where GSPMD inserts what this
+    writes out): ``params`` are ``shard_params``' local shards, trained in
+    place, and ``batch`` is this rank's rows (``sft_main.shard_batch``)."""
     require_trainable(model_cfg)
 
     def train_step(params, opt_state, batch):
-        metrics = loss_and_grads(params, model_cfg, train_cfg, batch, attn_impl)
+        metrics = loss_and_grads(params, model_cfg, train_cfg, batch, attn_impl, mesh)
         with torch.no_grad():
             optimizer.update(opt_state, metrics["grad_norm"])
         return params, opt_state, metrics
@@ -207,7 +268,8 @@ def make_train_step(model_cfg, train_cfg: SFTConfig, optimizer: ClipAdamW,
 
 
 def make_lora_train_step(model_cfg, train_cfg: SFTConfig,
-                         optimizer: ClipAdamW, lora_scale: float, attn_impl: str = "auto"):
+                         optimizer: ClipAdamW, lora_scale: float, attn_impl: str = "auto",
+                         mesh=None):
     """(adapters, opt_state, batch, base_params) -> (adapters, opt_state,
     metrics), the PEFT step (the reference's peft_config,
     sft_multi_task.py:479): the base is frozen (``requires_grad`` off on
@@ -215,7 +277,10 @@ def make_lora_train_step(model_cfg, train_cfg: SFTConfig,
     loss is taken through the base with the adapters grafted on
     (``lora.apply_adapters``), and ``optimizer`` updates the adapters only.
     ``opt_state`` is ``optimizer.init(lora.adapter_leaves(adapters))``.
-    Adapters and state are updated in place."""
+    Adapters and state are updated in place. With ``mesh`` the base is
+    ``shard_params``' output and the adapters whole on every rank (JAX
+    replicates them); their gradients are summed where the base product is
+    split, and over ``data``."""
     from .lora import adapter_leaves, apply_adapters
 
     require_trainable(model_cfg)
@@ -228,14 +293,40 @@ def make_lora_train_step(model_cfg, train_cfg: SFTConfig,
             x.grad = None
         loss, aux = sft_loss(apply_adapters(base_params, adapters, lora_scale), model_cfg, batch,
                              remat=train_cfg.gradient_checkpointing,
-                             logp_chunk=train_cfg.logp_chunk, attn_impl=attn_impl)
+                             logp_chunk=train_cfg.logp_chunk, attn_impl=attn_impl, mesh=mesh)
         loss.backward()
-        metrics = {**aux, "grad_norm": global_norm([x.grad for x in leaves])}
+        norm = (global_norm([x.grad for x in leaves]) if mesh is None
+                else MeshGrads(mesh, model_cfg, base_params)(leaves))
+        metrics = {**aux, "grad_norm": norm}
         with torch.no_grad():
             optimizer.update(opt_state, metrics["grad_norm"])
         return adapters, opt_state, metrics
 
     return train_step
+
+
+def shard_batch(batch: dict[str, Any], mesh) -> dict[str, Any]:
+    """This ``data`` rank's rows of a host batch (JAX ``sft_main``'s
+    ``shard_batch``, which places the global batch over ``data``): every
+    row-major array sliced to the rank's block, ``position_ids`` on its
+    second axis; ``pixel_patches``/``pixel_values`` stay whole (ragged over
+    the rows; ``vision_row_index`` maps each row into them), and the host
+    metadata (``grid_thw``, ``vision_token_id``) passes through."""
+    n = 1 if mesh is None else mesh.shape.get("data", 1)
+    if n == 1:
+        return batch
+    r = mesh.rank("data")
+    out = {}
+    for k, v in batch.items():
+        if k in ("grid_thw", "vision_token_id", "pixel_patches", "pixel_values") or v is None:
+            out[k] = v
+        elif k == "position_ids":
+            rows = v.shape[1] // n
+            out[k] = v[:, r * rows:(r + 1) * rows]
+        else:
+            rows = v.shape[0] // n
+            out[k] = v[r * rows:(r + 1) * rows]
+    return out
 
 
 def mask_labels(input_ids: np.ndarray, pad_token_id: int,

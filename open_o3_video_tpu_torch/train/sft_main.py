@@ -22,9 +22,22 @@ example: OSError, ValueError, KeyError) is skipped, and an epoch that skips
 every batch raises. Anything else propagates: a missing media reader
 (ImportError), a failed decoder build, an error on the device. ``--device``
 (default ``cuda``) picks the card; the CPU runs only when asked for
-(``--device cpu``). One device: ``--mesh_*`` and
-``--coordinator_address``/``--num_processes``/``--process_id`` are read and
-refused unless trivial (ROADMAP M8).
+(``--device cpu``).
+
+On several processes (torchrun's environment, or JAX's
+``--coordinator_address``/``--num_processes``/``--process_id``; NCCL on the
+cards, gloo with ``--device cpu``) or with ``--mesh_tensor``/``--mesh_fsdp``
+above 1, the run is on a (data, fsdp, tensor) mesh
+(``parallel.distributed.make_hybrid_mesh``), as JAX's: the params are
+sharded (``shard_params``; PEFT's adapters whole on every rank), each
+``data`` rank trains on its rows of the global batch of ``data`` x
+``--per_device_train_batch_size`` examples (``sft.shard_batch``), every
+process agrees on a skipped batch (``all_hosts_ok``), checkpoints hold the
+whole tree and restore into the live shards, and the first process writes
+the export. An explicit ``--mesh_data 1 --mesh_fsdp 1 --mesh_tensor 1``
+runs unsharded.
+
+  torchrun --nproc_per_node 8 -m open_o3_video_tpu_torch.train.sft_main ... --mesh_fsdp 8
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ import argparse
 import os
 
 from ..data import DATA_ERRORS
-from .launch import check_app_patch, check_one_device, train_device
+from .launch import check_app_patch, train_device, train_mesh
 
 # safetensors dtype names -> torch dtype names
 _STORED_DTYPES = {"F32": "float32", "BF16": "bfloat16", "F16": "float16", "F64": "float64"}
@@ -95,11 +108,16 @@ def stored_dtype(model_dir: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    check_one_device(args, "sft_main")
     os.environ.setdefault("WANDB_MODE", "offline")
     device = train_device(args, "sft_main")
 
     import torch
+
+    from ..parallel import distributed as D
+
+    D.initialize(args.coordinator_address, args.num_processes, args.process_id,
+                 device=device.type)
+    mesh = train_mesh(args, "sft_main")
 
     from ..data.processor import O3VideoProcessor
     from ..data.sft_dataset import collate_sft_batch, load_sft_dataset, prepare_sft_example
@@ -109,7 +127,7 @@ def main(argv=None):
     from . import checkpoint as CKPT
     from .lora import LoraConfig, adapter_leaves, init_adapters, merge_adapters
     from .sft import (SFTConfig, make_lora_train_step, make_optimizer, make_train_step,
-                      require_trainable)
+                      require_trainable, shard_batch)
 
     # The loader casts every floating leaf to the config's dtype: bf16 as the
     # reference trains (run_sft_video.sh:28), or the stored dtype.
@@ -123,10 +141,12 @@ def main(argv=None):
     raw = load_sft_dataset(args.dataset_name)
     prepared = [prepare_sft_example(ex, args.data_root) for ex in raw]
 
-    global_bs = args.per_device_train_batch_size
+    # the global batch: one block of rows per data replica
+    global_bs = (mesh.shape["data"] if mesh is not None else 1) * args.per_device_train_batch_size
     if len(prepared) < global_bs:
-        raise ValueError(f"dataset has {len(prepared)} usable examples but the batch is "
-                         f"{global_bs}; reduce --per_device_train_batch_size or add data")
+        raise ValueError(f"dataset has {len(prepared)} usable examples but the global batch is "
+                         f"{global_bs} (mesh data axis x per-device batch); reduce --mesh_data / "
+                         "--per_device_train_batch_size or add data")
     steps_per_epoch = max(1, len(prepared) // global_bs)
     total_steps = (args.max_steps if args.max_steps > 0
                    else int(steps_per_epoch * args.num_train_epochs))
@@ -140,6 +160,10 @@ def main(argv=None):
     )
     optimizer = make_optimizer(train_cfg)
 
+    if mesh is not None:
+        from ..parallel import replicate, shard_params
+
+        params = shard_params(params, mesh, model_cfg)
     lora_cfg = adapters = None
     if args.use_peft:
         lora_cfg = LoraConfig(
@@ -147,15 +171,18 @@ def main(argv=None):
             target_modules=LoraConfig.normalize_targets(args.lora_target_modules.split(",")),
         )
         adapters = init_adapters(params, lora_cfg, dtype=torch.bfloat16)
+        if mesh is not None:  # whole on every rank, as JAX's replicate places them
+            adapters = replicate(adapters, mesh)
         opt_state = optimizer.init(adapter_leaves(adapters))
-        lora_step = make_lora_train_step(model_cfg, train_cfg, optimizer, lora_cfg.scale)
+        lora_step = make_lora_train_step(model_cfg, train_cfg, optimizer, lora_cfg.scale,
+                                         mesh=mesh)
 
         def train_step(a, o, b):
             return lora_step(a, o, b, params)
     else:
         P.trainable(params)
         opt_state = optimizer.init(params)
-        train_step = make_train_step(model_cfg, train_cfg, optimizer)
+        train_step = make_train_step(model_cfg, train_cfg, optimizer, mesh=mesh)
 
     def ckpt_state(step):
         # under PEFT the small adapter dict is saved, not the frozen base
@@ -164,12 +191,18 @@ def main(argv=None):
 
     start_step = 0
     if args.resume_from_checkpoint:
+        # into the live shards (topology-change-safe)
         state, start_step = CKPT.restore_checkpoint(args.resume_from_checkpoint,
-                                                    target=ckpt_state(0))
+                                                    target=ckpt_state(0), mesh=mesh,
+                                                    cfg=model_cfg)
         opt_state = state["opt_state"]
         print(f"Resumed from step {start_step}")
 
-    metrics = MetricsBus(use_wandb=args.report_to == "wandb")
+    def save(step, async_save=False):
+        CKPT.save_checkpoint(args.output_dir, step, ckpt_state(step), async_save=async_save,
+                             mesh=mesh, cfg=model_cfg)
+
+    metrics = MetricsBus(use_wandb=args.report_to == "wandb", primary=D.is_primary())
     step = start_step
     n_skipped = 0
     # The sampler is sequential: a resumed run skips the batches its partial
@@ -187,9 +220,14 @@ def main(argv=None):
                 batch = collate_sft_batch(group, processor, model_cfg, args.data_root,
                                           nframes=args.nframes)
             except DATA_ERRORS as e:
+                batch = None
                 print(f"[warn] collate failed at step {step} ({e!r}); skipping batch")
+            # every process skips the batch if any failed it, so that none
+            # enters a collective the others do not
+            if not D.all_hosts_ok(batch is not None, "sft collate"):
                 n_skipped += 1
                 continue
+            batch = shard_batch(batch, mesh)
             if adapters is not None:
                 adapters, opt_state, m = train_step(adapters, opt_state, batch)
             else:
@@ -200,7 +238,7 @@ def main(argv=None):
             if step % train_cfg.logging_steps == 0:
                 metrics.flush(step, extra={"epoch": epoch, "skipped": n_skipped})
             if step % train_cfg.save_steps == 0:
-                CKPT.save_checkpoint(args.output_dir, step, ckpt_state(step), async_save=True)
+                save(step, async_save=True)
         epoch += 1
         if not made_progress and start_i == 0:
             # every batch of a whole epoch failed its collate: stop instead of
@@ -209,15 +247,23 @@ def main(argv=None):
                                f"batches skipped) — data is unusable")
 
     CKPT.wait_for_saves()
-    CKPT.save_checkpoint(args.output_dir, step, ckpt_state(step))
-    if adapters is not None:
-        # PEFT's merge_and_unload: the base with the deltas folded in
-        CKPT.export_safetensors(merge_adapters(params, adapters, lora_cfg.scale), model_cfg,
-                                args.output_dir)
-    else:
-        CKPT.export_safetensors(params, model_cfg, args.output_dir)
-    CKPT.write_model_card(args.output_dir, trainer_name="SFT",
-                          base_model=args.model_name_or_path, dataset_name=args.dataset_name)
+    save(step)
+    if mesh is not None:  # every rank gathers; the first writes
+        from ..parallel import gather_params
+
+        with torch.no_grad():
+            params = gather_params(params, mesh, model_cfg)
+    if D.is_primary():
+        if adapters is not None:
+            # PEFT's merge_and_unload: the base with the deltas folded in
+            CKPT.export_safetensors(merge_adapters(params, adapters, lora_cfg.scale), model_cfg,
+                                    args.output_dir)
+        else:
+            CKPT.export_safetensors(params, model_cfg, args.output_dir)
+        CKPT.write_model_card(args.output_dir, trainer_name="SFT",
+                              base_model=args.model_name_or_path,
+                              dataset_name=args.dataset_name)
+    D.sync("sft export")
     print(f"SFT complete: {step} steps -> {args.output_dir}")
 
 

@@ -1,6 +1,6 @@
 """One phase of chip_smoke.py in several checkouts, one after another, on one GPU.
 
-    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families|moe_families|train_moe_families|mesh \
+    python3 scripts/ab_chip_phase_torch.py --phase vstar|sched|spec|frames|a8|families|train_families|moe_families|train_moe_families|mesh|train_mesh \
         DIR [DIR ...]
 
 Compares two commits on the same card within one run: unpack the parent
@@ -61,6 +61,8 @@ PHASE = {
                            "c.train_moe_families_phase(torch.device('cuda'), seed, {})"),
     "mesh": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
              "c.mesh_phase(torch.device('cuda'), seed, {})"),
+    "train_mesh": ("del params; c.gc.collect(); torch.cuda.empty_cache(); "
+                   "c.train_mesh_phase(torch.device('cuda'), seed, {})"),
 }
 
 CHILD = """

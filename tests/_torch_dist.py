@@ -214,6 +214,257 @@ def check_engine(rank: int, workdir) -> dict:
     return out
 
 
+def _with_grads(tree):
+    """``tree`` with each tensor (and each ``Sharded`` part) replaced by its
+    ``.grad``, for ``gather_params``."""
+    from open_o3_video_tpu_torch.ops.sharded import Sharded
+
+    if isinstance(tree, dict):
+        return {k: _with_grads(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_with_grads(v) for v in tree]
+    if isinstance(tree, Sharded):
+        return Sharded({k: v.grad for k, v in tree.parts.items()}, tree.specs, tree.kind,
+                       tree.mesh, tree.shape, x_split=tree.x_split, out_full=tree.out_full,
+                       n_cols=tree.n_cols)
+    return tree.grad
+
+
+def _numpy_tree(tree):
+    from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+
+    with torch.no_grad():
+        return TP.to_jax_layout(tree)
+
+
+# The meshes of the training checks on four ranks: data x tensor, fsdp x
+# tensor, data x fsdp, and tensor 4 (each rank's query heads read a KV head
+# that a neighbour holds too: ``HEADS``).
+TRAIN_MESHES = {"dp2_tp2": (2, 1, 2), "fsdp2_tp2": (1, 2, 2), "dp2_fsdp2": (2, 2, 1),
+                "tp4": (1, 1, 4)}
+
+
+def check_train_mesh(rank: int, workdir) -> dict:
+    """Four ranks: one SFT step, full fine-tune and PEFT, on each of
+    ``TRAIN_MESHES`` (the gradients gathered, the updated params and
+    adapters, loss and norm); a checkpoint saved at tensor 2, restored at
+    tensor 1 and back; a PEFT GSPO step at data 2 x tensor 2 with canned
+    rollouts through the engine's row sharding; a planted divergence; the
+    engine's row sharding and its replicated fallback."""
+    import torch.distributed as dist
+
+    from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
+    from open_o3_video_tpu_torch.grounding.rewards import REWARD_REGISTRY
+    from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+    from open_o3_video_tpu_torch.parallel import gather_params, make_mesh, shard_params
+    from open_o3_video_tpu_torch.train import checkpoint as CK
+    from open_o3_video_tpu_torch.train import gspo as TG
+    from open_o3_video_tpu_torch.train import sft as S
+    from open_o3_video_tpu_torch.train.lora import LoraConfig, adapter_leaves
+
+    inp = _load(workdir)
+    cfg, params = inp["cfg"], inp["params"]
+    tc = S.SFTConfig(learning_rate=inp["lr"], logp_chunk=inp["logp_chunk"])
+    fresh = lambda: TP.from_jax_params(TP.to_jax_layout(params), cfg, torch.device("cpu"))  # noqa: E731
+    out: dict = {}
+    meshes = {name: make_mesh(*shape) for name, shape in TRAIN_MESHES.items()}
+    for name, mesh in meshes.items():
+        res = {}
+        local = S.shard_batch(inp["batch"], mesh)
+        p = TP.trainable(shard_params(fresh(), mesh, cfg))
+        m = S.loss_and_grads(p, cfg, tc, local, mesh=mesh)
+        res["grads"] = _numpy_tree(gather_params(_with_grads(p), mesh, cfg))
+        res["grad_loss"] = (float(m["loss"]), float(m["grad_norm"]), int(m["num_target_tokens"]))
+        p = TP.trainable(shard_params(fresh(), mesh, cfg))
+        full = S.SFTConfig(learning_rate=inp["lr_full"], logp_chunk=inp["logp_chunk"])
+        fopt = S.make_optimizer(full)
+        _, _, m = S.make_train_step(cfg, full, fopt, mesh=mesh)(p, fopt.init(p), local)
+        opt = S.make_optimizer(tc)
+        res["step"] = (float(m["loss"]), float(m["grad_norm"]))
+        with torch.no_grad():
+            res["params"] = _numpy_tree(gather_params(p, mesh, cfg))
+        base = shard_params(fresh(), mesh, cfg)
+        ad = TP.adapters_from_jax(inp["adapters"], torch.device("cpu"))
+        state = opt.init(adapter_leaves(ad))
+        _, _, m = S.make_lora_train_step(cfg, tc, opt, inp["scale"], mesh=mesh)(
+            ad, state, local, base)
+        res["peft"] = (float(m["loss"]), float(m["grad_norm"]))
+        res["adapters"] = _numpy_tree(ad)
+        res["collectives"] = dict(mesh.collectives)
+        out[name] = res
+
+    # a checkpoint of a full fine-tune step at tensor 2 (dp2_tp2), restored
+    # at tensor 1 and back
+    mesh = meshes["dp2_tp2"]
+    p = TP.trainable(shard_params(fresh(), mesh, cfg))
+    opt = S.make_optimizer(tc)
+    st = opt.init(p)
+    S.make_train_step(cfg, tc, opt, mesh=mesh)(p, st, S.shard_batch(inp["batch"], mesh))
+    ck = str(Path(workdir) / "ckpt")
+    CK.save_checkpoint(ck, 1, {"params": p, "opt_state": st, "meta": {"step": 1}}, mesh=mesh,
+                       cfg=cfg)
+    dist.barrier()
+    one = TP.trainable(fresh())
+    st1 = opt.init(one)
+    CK.restore_checkpoint(ck, 1, target={"params": one, "opt_state": st1, "meta": {"step": 0}})
+    with torch.no_grad():
+        whole = gather_params(p, mesh, cfg)
+    moments = lambda s: [x for v in s["adamw"].state.values() for k, x in sorted(v.items())  # noqa: E731
+                         if k != "step"]
+    out["ckpt_to_one"] = (all(torch.equal(a, b) for a, b in zip(TP.leaves(one),
+                                                                 TP.leaves(whole))),
+                          len(moments(st1)))
+    if rank == 0:
+        CK.save_checkpoint(ck, 2, {"params": one, "opt_state": st1, "meta": {"step": 2}})
+    dist.barrier()
+    back = TP.trainable(shard_params(fresh(), mesh, cfg))
+    st2 = opt.init(back)
+    CK.restore_checkpoint(ck, 2, target={"params": back, "opt_state": st2, "meta": {"step": 0}},
+                          mesh=mesh, cfg=cfg)
+    out["ckpt_back"] = (all(torch.equal(a, b) for a, b in zip(TP.leaves(back), TP.leaves(p))),
+                        all(torch.equal(a, b) for a, b in zip(moments(st2), moments(st))),
+                        len(moments(st2)))
+
+    # GSPO, PEFT, at data 2 x tensor 2: canned rollouts for this rank's rows
+    gcfg, gparams = inp["gspo_cfg"], inp["gspo_params"]
+    table = {tuple(ids): t for ids, t in zip(inp["canned_ids"], inp["traces"])}
+    record: dict = {}
+
+    def rec(fn):
+        def inner(**kw):
+            vals = fn(**kw)
+            record.setdefault(fn.__name__, []).extend(list(vals))
+            return vals
+        inner.__name__ = fn.__name__
+        return inner
+
+    trainer = TG.GSPOTrainer(
+        TP.from_jax_params(gparams, gcfg, torch.device("cpu")), None, gcfg,
+        TG.GSPOConfig(**inp["gspo_kw"]), detokenize=lambda ids: table[tuple(ids)],
+        reward_funcs=[rec(f) for f in REWARD_REGISTRY.values()], mesh=mesh,
+        lora=LoraConfig(rank=4, alpha=8.0))
+    trainer.adapters = TP.adapters_from_jax(inp["gspo_adapters"], torch.device("cpu"))
+    trainer.opt_state = trainer.optimizer.init(adapter_leaves(trainer.adapters))
+    lo = mesh.rank("data") * 2
+
+    def canned(requests, *_a):
+        return [{"token_ids": list(ids), "num_prompt_tokens": 0}
+                for ids in inp["canned_ids"][lo:lo + len(requests)]]
+
+    trainer.engine._generate = canned
+    m = trainer.step(inp["gspo_sample"], global_step=0, max_steps=4)
+    out["gspo"] = {"metrics": m, "adapters": _numpy_tree(trainer.adapters),
+                   "layout": trainer.engine.last_rollout_layout,
+                   "rewards": trainer.last_step["rewards_per_func"], "record": record}
+    planted = dict(inp["gspo_sample"])
+    planted["input_ids"] = list(planted["input_ids"]) + [5] * (rank == 1)
+    try:
+        trainer.step(planted, global_step=1, max_steps=4)
+        out["divergence"] = None
+    except RuntimeError as e:
+        out["divergence"] = str(e)
+
+    # the engine's row sharding: 4 rows shard over data 2, 3 run replicated
+    kw = dict(prompt_buckets=(64,), cache_dtype=torch.float32)
+    greedy = SamplingParams(temperature=0.0, max_tokens=5)
+    eng = InferenceEngine(params, cfg, mesh=mesh, rollout_shard_axis="data", **kw)
+    plain = InferenceEngine(params, cfg, **kw)
+    for n in (4, 3):
+        reqs = [Request(input_ids=list(range(40 + i, 52 + 2 * i))) for i in range(n)]
+        got = eng.generate(reqs, greedy)
+        out[f"rows_{n}"] = (eng.last_rollout_layout, [o["token_ids"] for o in got],
+                            [o["token_ids"] for o in plain.generate(reqs, greedy)])
+    return out
+
+
+def check_context(rank: int, workdir) -> dict:
+    """Four ranks: ring attention at context 2 (data 2 x context 2) and 4,
+    both versions, forward and backward, each rank's block gathered over
+    the axis; ``cp_text_forward``, ``cp_per_token_logps`` and the logps'
+    gradients (summed over ``context`` by ``sync_grads``) on the tiny
+    decoder."""
+    from open_o3_video_tpu_torch.models.qwen25vl import params as TP
+    from open_o3_video_tpu_torch.ops.ring_attention import ring_attention
+    from open_o3_video_tpu_torch.parallel import make_mesh, shard_params
+    from open_o3_video_tpu_torch.parallel.context import cp_per_token_logps, cp_text_forward
+    from open_o3_video_tpu_torch.parallel.mesh import placements, sync_grads
+
+    inp = _load(workdir)
+    out: dict = {}
+    meshes = {2: make_mesh(data=2, fsdp=1, context=2), 4: make_mesh(data=1, fsdp=1, context=4)}
+    for n, mesh in meshes.items():
+        c = mesh.rank("context")
+        group = mesh.groups["context"]
+
+        def block(x, dim=1):
+            per = x.shape[dim] // n
+            return x.narrow(dim, c * per, per)
+
+        def whole(x, dim=1):
+            return mesh.all_gather(x.detach(), "context", dim=dim)
+
+        for case, (q, k, v, valid, dout) in inp["attention"].items():
+            S = q.shape[1]
+            pos = torch.arange(S).expand(q.shape[0], S)
+            for impl in ("torch", "auto"):
+                ql, kl, vl = (block(torch.as_tensor(x)).clone().requires_grad_()
+                              for x in (q, k, v))
+                o = ring_attention(ql, kl, vl, block(pos), block(pos),
+                                   block(torch.as_tensor(valid)), group, impl=impl)
+                o.backward(block(torch.as_tensor(dout)))
+                out[(n, case, impl)] = tuple(whole(x).numpy() for x in
+                                             (o, ql.grad, kl.grad, vl.grad))
+        cfg, params = inp["cfg"], inp["params"]
+        embeds, pos3, valid, targets = (torch.as_tensor(inp[k]) for k in
+                                        ("embeds", "pos", "valid", "targets"))
+        with torch.no_grad():
+            hidden = cp_text_forward(params["text"], cfg.text, embeds, pos3, mesh,
+                                     attn_valid=valid)
+        out[(n, "hidden")] = whole(hidden).numpy()
+        sharded = TP.trainable(shard_params(params, mesh, cfg))
+        leaves = [x for x in TP.leaves(sharded["text"]) if x.requires_grad]
+        for x in leaves:  # a leaf no axis splits is the caller's, shared by both meshes
+            x.grad = None
+        logps = cp_per_token_logps(sharded["text"], cfg.text, embeds, pos3, targets, mesh,
+                                   attn_valid=valid)
+        (logps * torch.as_tensor(inp["weights"])).sum().backward()
+        for x in leaves:
+            if x.grad is None:
+                x.grad = torch.zeros_like(x)
+        sync_grads(leaves, mesh, cfg, placements(sharded))
+        out[(n, "logps")] = logps.detach().numpy()
+        # the data replicas read the same rows here: their sum counts them twice
+        out[(n, "grads")] = [x.grad.numpy() / mesh.shape["data"] for x in leaves]
+    return out
+
+
+def check_pipeline(rank: int, workdir) -> dict:
+    """Two ranks, two stages: ``pipeline_text_forward`` over 2 microbatches
+    (the hidden states, and the gradients of a weighted sum of them w.r.t.
+    this stage's layers and the inputs), and ``dryrun_pipeline_step``'s
+    own check against its sequential step."""
+    from open_o3_video_tpu_torch.parallel.pipeline import (dryrun_pipeline_step, make_pipe_mesh,
+                                                           shard_pipeline_params,
+                                                           stack_pipeline_params)
+
+    inp = _load(workdir)
+    cfg, params = inp["cfg"], inp["params"]
+    mesh = make_pipe_mesh(2)
+    stacked = shard_pipeline_params(stack_pipeline_params(params["text"]["layers"]), mesh)
+    for x in stacked.values():
+        x.requires_grad_(True)
+    embeds = torch.as_tensor(inp["embeds"]).requires_grad_()
+    from open_o3_video_tpu_torch.parallel.pipeline import pipeline_text_forward
+
+    hidden = pipeline_text_forward(stacked, cfg.text, embeds, torch.as_tensor(inp["pos"]), mesh,
+                                   n_microbatches=2, final_norm=params["text"]["final_norm"])
+    (hidden * torch.as_tensor(inp["weights"])).sum().backward()
+    return {"hidden": hidden.detach().numpy(), "stage": mesh.rank("pipe"),
+            "grads": {k: v.grad.numpy() for k, v in stacked.items()},
+            "embeds_grad": embeds.grad.numpy(),
+            "dryrun": dryrun_pipeline_step(2, 2, check_sequential=True)}
+
+
 def _trees_equal(a, b) -> bool:
     from open_o3_video_tpu_torch.ops.quant import LoraLinear, stored_tensors
 

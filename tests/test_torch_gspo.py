@@ -321,11 +321,13 @@ def test_only_vision_errors_are_retried_without_vision(monkeypatch, capsys):
 
 
 def test_constructor_refuses_what_is_not_ported():
-    """A mesh raises; ``spec_rollout`` is served (the engine's sampled
-    speculative path, as the JAX trainer maps it), with no replay."""
+    """A mesh that is not a ``parallel.Mesh`` raises (GSPO on a mesh is
+    ``test_torch_train_mesh.py``'s); ``spec_rollout`` is served (the
+    engine's sampled speculative path, as the JAX trainer maps it), with no
+    replay."""
     _, tcfg = _configs()
     params = TP.from_jax_params(_weights(), tcfg, CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TG.GSPOTrainer(params, None, tcfg, TG.GSPOConfig(), detokenize=str, mesh=object(),
                        lora=LoraConfig())
     trainer = TG.GSPOTrainer(params, None, tcfg, TG.GSPOConfig(spec_rollout=True),

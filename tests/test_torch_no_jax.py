@@ -1,52 +1,30 @@
-"""Import guard: the port runs where neither JAX nor PIL is installed, nor
-rouge_score or nltk, and imports none of them. A subprocess blocks those
-imports, imports every module of the port, runs a tiny generate on the CPU
-(with a bf16 cache, and with an fp8 cache through the long-context path), a
-tiny Qwen3-VL generate through its deepstack taps, a tiny Qwen3-VL-MoE
-generate, a tiny Aria generate from ``Request.vision_embeds``, a generate
-over raw frames with ``resize_hw``, a w8a8 generate,
-greedy and sampled speculative generates (the latter replaying streams),
-one tiny SFT train step (and one each of the tiny Qwen3-VL, full
-fine-tune, and Qwen2-VL, PEFT), a generate with an int4 decoder (K7's plain
-version), a judge call, one tiny PEFT GSPO step on a free-form example (its
-ROUGE reward scored), and the SFT app's data path (a raw AVI and a PNG
-keyframe read by the port's reader, ``collate_sft_batch``) with one PEFT SFT
-step, V-STAR over a raw AVI through the port's ``QwenVLEngine`` and the
-judge's ``evaluate_json`` on its results, VideoMMMU's ``evaluate`` over its
-three parquet splits (an MCQ, an open-ended item and an MCQ with a PNG query
-image: pandas reads them), a trace, and checks that nothing of the JAX
-package was imported along the way. A second subprocess, under the same
-blocks, trains the mixture-of-experts families: a full fine-tune SFT step
-of the tiny Qwen3-VL-MoE (the routed experts' backward) and a PEFT GSPO
-step of the tiny Aria over an image (rollouts by ``vision_embeds``, the
-update over ``pixel_values``), then serves a tiny generate on a world-1
-gloo mesh (tokens equal to the mesh-less engine's) and renders a GIF with
-the visualizer."""
+"""Import guard, imports, serving and eval: the port runs where neither JAX
+nor PIL is installed, nor rouge_score or nltk, and imports none of them.
+Each test runs its check in a subprocess of its own under those blocks
+(``_torch_no_jax.py``; the training and mesh checks are in
+``test_torch_no_jax_train.py``):
 
-import os
-import subprocess
-import sys
+- imports every module of the port, then serves tiny generates on the CPU:
+  with a bf16 cache, a tiny Qwen3-VL through its deepstack taps, a tiny
+  Qwen3-VL-MoE, a tiny Aria from ``Request.vision_embeds``, raw frames with
+  ``resize_hw``, w8a8, an fp8 cache through the long-context path, and
+  greedy and sampled speculative generates (the latter replaying streams);
+- eval: a generate with an int4 decoder (K7's plain version), a judge call,
+  V-STAR over a raw AVI through the port's ``QwenVLEngine`` and the judge's
+  ``evaluate_json`` on its results, VideoMMMU's ``evaluate`` over its three
+  parquet splits (an MCQ, an open-ended item and an MCQ with a PNG query
+  image: pandas reads them) under a trace;
+- the mixture-of-experts families' training: a full fine-tune SFT step of
+  the tiny Qwen3-VL-MoE (the routed experts' backward) and a PEFT GSPO step
+  of the tiny Aria over an image (rollouts by ``vision_embeds``, the update
+  over ``pixel_values``).
 
-from _torch_parity import REPO_ROOT
+Each ends by checking that nothing of the JAX package was imported."""
 
-BLOCKED = r"""
-import sys
-sys.modules["jax"] = None   # any `import jax` now raises ImportError
-sys.modules["PIL"] = None
-sys.modules["rouge_score"] = None
-sys.modules["nltk"] = None
-"""
-CHECK_BLOCKED = r"""
-assert sys.modules["jax"] is None and sys.modules["PIL"] is None
-assert sys.modules["rouge_score"] is None and sys.modules["nltk"] is None
-assert not [m for m in sys.modules if m.split(".")[0] == "open_o3_video_tpu"]
-print("NO_JAX_OK")
-"""
+from _torch_no_jax import SETUP, run
 
-SCRIPT = BLOCKED + r"""
+IMPORTS_AND_SERVING = r"""
 import importlib
-import numpy as np
-import torch
 
 MODULES = [
     "open_o3_video_tpu_torch",
@@ -121,21 +99,14 @@ MODULES = [
     "open_o3_video_tpu_torch.parallel",
     "open_o3_video_tpu_torch.parallel.mesh",
     "open_o3_video_tpu_torch.parallel.distributed",
+    "open_o3_video_tpu_torch.parallel.context",
+    "open_o3_video_tpu_torch.parallel.pipeline",
+    "open_o3_video_tpu_torch.ops.ring_attention",
     "open_o3_video_tpu_torch.eval.visualization",
 ]
 for m in MODULES:
     importlib.import_module(m)
-
-from open_o3_video_tpu_torch.data.processor import ByteTokenizer, O3VideoProcessor
-from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
-from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params
-
-cfg = Qwen25VLConfig.tiny()
-proc = O3VideoProcessor(tokenizer=ByteTokenizer.for_config(cfg))
-imgs = list(np.random.default_rng(0).integers(0, 256, (2, 3, 56, 84), dtype=np.uint8))
-x = proc("<|vision_start|><|image_pad|><|vision_end|>" * 2 + "Why?", images=imgs)
-weights = params.init(cfg, 0, torch.device("cpu"))
-req = Request(x.input_ids, x.pixel_patches, x.grid_thw, cfg.image_token_id)
+""" + SETUP + r"""
 out = InferenceEngine(weights, cfg).generate([req], SamplingParams(max_tokens=4))
 assert 1 <= len(out[0]["token_ids"]) <= 4, out
 # Qwen3-VL: the same images through a tiny Qwen3-VL tower with deepstack taps
@@ -194,36 +165,9 @@ streams = np.tile([10, 20, 30], (2, 6))
 out = spec.generate([Request([5, 6, 7]), Request([8, 9])], SamplingParams(max_tokens=12),
                     replay_tokens=streams)
 assert [o["token_ids"][1:] for o in out] == streams[:, 1:12].tolist(), out
-# one SFT step of the full fine-tune: vision and decoder backward, AdamW
-from open_o3_video_tpu_torch.data.sft_dataset import collate_sft_frames, pack_sft_batch
-from open_o3_video_tpu_torch.train import SFTConfig, make_optimizer, make_train_step
-messages = [
-    {"role": "user", "content": [{"type": "video"}, {"type": "text", "text": "Why?"}]},
-    {"role": "assistant", "content": [{"type": "text", "text": "<answer>ok</answer>"}]},
-]
-batch = pack_sft_batch([collate_sft_frames(messages, imgs, 2.0, proc, cfg)], cfg)
-weights = params.trainable(weights)
-train_cfg = SFTConfig(learning_rate=1e-3)
-opt = make_optimizer(train_cfg)
-_, state, m = make_train_step(cfg, train_cfg, opt)(weights, opt.init(weights), batch)
-assert state["count"] == 1 and float(m["num_target_tokens"]) > 0, m
-assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
-# the other families: a full fine-tune step of the tiny Qwen3-VL (its
-# deepstack mergers get gradients) and a PEFT step of the tiny Qwen2-VL
-from open_o3_video_tpu_torch.models.qwen25vl.config import tiny_qwen2
-from open_o3_video_tpu_torch.train import make_lora_train_step
-from open_o3_video_tpu_torch.train import lora as tlora
-q3w = params.trainable(params.init(q3cfg, 0, torch.device("cpu")))
-q3batch = pack_sft_batch([collate_sft_frames(messages, imgs, 2.0, proc, q3cfg)], q3cfg)
-m = make_train_step(q3cfg, train_cfg, opt)(q3w, opt.init(q3w), q3batch)[2]
-assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
-q2cfg = tiny_qwen2()
-q2w = params.init(q2cfg, 0, torch.device("cpu"))
-ad = tlora.init_adapters(q2w, tlora.LoraConfig(rank=2), dtype=torch.float32)
-q2batch = pack_sft_batch([collate_sft_frames(messages, imgs, 2.0, proc, q2cfg)], q2cfg)
-m = make_lora_train_step(q2cfg, train_cfg, opt, 2.0)(
-    ad, opt.init(tlora.adapter_leaves(ad)), q2batch, q2w)[2]
-assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
+"""
+
+EVAL = SETUP + r"""
 # int4 serving: a decoder of K7's shapes (hidden 256, heads of 128) drawn
 # into int4, a text-only generate, and the judge on the same weights
 import dataclasses
@@ -239,55 +183,9 @@ out = InferenceEngine(qweights, qcfg).generate([Request(proc("Why?").input_ids)]
 assert 1 <= len(out[0]["token_ids"]) <= 3, out
 judge = EngineJudge(qweights, max_new_tokens=2, cfg=qcfg, processor=proc)
 assert judge.batch([("What color?", "red", "blue")]) in ([-1], [0], [1], [2], [3])
-# one PEFT GSPO step: a free-form example through rl_sample_from_frames, the
-# seven rewards (ROUGE among them) on canned traces, the update
-from open_o3_video_tpu_torch.data.rl_dataset import rl_sample_from_frames
-from open_o3_video_tpu_torch.train.gspo import GSPOConfig, GSPOTrainer
-from open_o3_video_tpu_torch.train.lora import LoraConfig
-gcfg = dataclasses.replace(cfg, vision_start_token_id=300, vision_end_token_id=301,
-                           image_token_id=303, video_token_id=304)
-gproc = O3VideoProcessor(tokenizer=ByteTokenizer.for_config(gcfg))
-example = {"task": "temporal-spatial free-form QA", "question": "What rolls?",
-           "answer": "the red ball rolls", "key_frames": [{"time": 0.0, "idx": 0}],
-           "key_items": {"0": {"ball": [[0.1, 0.1, 0.5, 0.5]]}}}
-sample = rl_sample_from_frames(example, gproc, imgs, 2.0, [imgs[0]])
-traces = iter(["<think>a <obj>ball</obj><box>[5,5,40,30]</box>at<t>0.0</t>s</think>"
-               "<answer>the red balls rolled</answer>", "<answer>a cup</answer>", "x", "y"])
-trainer = GSPOTrainer(params.init(gcfg, 0, torch.device("cpu")), None, gcfg,
-                      GSPOConfig(max_completion_length=4), detokenize=lambda ids: next(traces),
-                      lora=LoraConfig(rank=2))
-m = trainer.step(sample, global_step=0, max_steps=1)
-assert trainer.last_step["use_vision"] and 0 < m["rewards/ans_acc_reward"] < 1, m
-# the SFT app's data path: a temporal-spatial example over a raw AVI and a PNG
-# keyframe written without an encoder, read by the port's reader, collated
-# and packed, then one PEFT SFT step
 import json, os, tempfile
-from open_o3_video_tpu_torch.data.raw_media import write_png, write_raw_avi
-from open_o3_video_tpu_torch.data.sft_dataset import (collate_sft_batch, load_sft_dataset,
-                                                      prepare_sft_example)
-from open_o3_video_tpu_torch.train import make_lora_train_step
-from open_o3_video_tpu_torch.train.lora import adapter_leaves, init_adapters
-with tempfile.TemporaryDirectory() as root:
-    for sub in ("videos/stgr/plm/videos", "videos/stgr/plm/kfs"):
-        os.makedirs(os.path.join(root, sub))
-    rgb = np.random.default_rng(1).integers(0, 256, (4, 28, 56, 3), dtype=np.uint8)
-    write_raw_avi(os.path.join(root, "videos/stgr/plm/videos/clip.avi"), rgb, 2.0)
-    write_png(os.path.join(root, "videos/stgr/plm/kfs/kf.png"), rgb[1])
-    with open(os.path.join(root, "sft.json"), "w") as f:
-        json.dump([{"task": "temporal-spatial free-form QA", "source": "STR_plm_rdcap",
-                    "video_path": "clip.avi", "question": "What rolls?",
-                    "reasoning_process": "a <obj>ball</obj><box>[0.1,0.2,0.5,0.8]</box>",
-                    "answer": "a ball", "key_frames": [{"time": 0.5, "idx": 0, "path": "kf.png"}]}],
-                  f)
-    prepared = [prepare_sft_example(ex, root) for ex in load_sft_dataset(os.path.join(root, "sft.json"))]
-    sft_batch = collate_sft_batch(prepared, proc, cfg, root, nframes=2)
-assert len(sft_batch["grid_thw"]) == 3, sft_batch["grid_thw"]  # 2 frames and the keyframe
-base = params.init(cfg, 0, torch.device("cpu"))
-adapters = init_adapters(base, LoraConfig(rank=2), dtype=torch.float32)
-opt = make_optimizer(SFTConfig(learning_rate=1e-3))
-state = opt.init(adapter_leaves(adapters))
-_, state, m = make_lora_train_step(cfg, SFTConfig(), opt, 2.0)(adapters, state, sft_batch, base)
-assert state["count"] == 1 and torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0, m
+from open_o3_video_tpu_torch.data.raw_media import write_raw_avi
+rgb = np.random.default_rng(1).integers(0, 256, (4, 28, 56, 3), dtype=np.uint8)
 # the eval path: V-STAR over a raw AVI through QwenVLEngine (frames by cv2),
 # then the judge's evaluate_json on its results file with the int4 judge
 from open_o3_video_tpu_torch.eval import QwenVLEngine, evaluate_json
@@ -324,9 +222,9 @@ with tempfile.TemporaryDirectory() as root:
     assert [r["category"] for r in written["results"]] == ["Perception", "Comprehension",
                                                            "Adaptation"], written
     assert written["errors"] == [] and 0 <= acc <= 1 and "videommmu" in open(trace).read()
-""" + CHECK_BLOCKED
+"""
 
-MOE_SCRIPT = BLOCKED + r"""
+MOE_TRAINING = r"""
 import numpy as np
 import torch
 
@@ -365,48 +263,16 @@ m = trainer.step({"input_ids": [5, 6] + [acfg.image_token_id] * q + [7, 8],
                                     "key_frames": [], "key_items": {}}},
                  global_step=0, max_steps=1)
 assert np.isfinite(m["loss"]) and trainer.last_step["use_vision"], m
-# a world-1 gloo mesh: the engine on it gives the mesh-less engine's tokens
-import os
-import tempfile
-import torch.distributed as dist
-from open_o3_video_tpu_torch.engine import InferenceEngine, Request, SamplingParams
-from open_o3_video_tpu_torch.parallel import distributed, make_mesh
-with tempfile.TemporaryDirectory() as root:
-    assert not distributed.initialize("file://" + os.path.join(root, "store"), 1, 0, device="cpu")
-    mesh = make_mesh()
-    qcfg = params.Qwen25VLConfig.tiny()
-    qw = params.init(qcfg, 0, torch.device("cpu"))
-    reqs = [Request(input_ids=list(range(40, 52)))]
-    greedy = SamplingParams(temperature=0.0, max_tokens=4)
-    on_mesh = InferenceEngine(qw, qcfg, mesh=mesh, prompt_buckets=(64,)).generate(reqs, greedy)
-    plain = InferenceEngine(qw, qcfg, prompt_buckets=(64,)).generate(reqs, greedy)
-    assert on_mesh[0]["token_ids"] == plain[0]["token_ids"] and mesh.collectives["all_reduce"]
-    dist.destroy_process_group()
-    # the GIF visualizer over a raw AVI
-    from open_o3_video_tpu_torch.data.raw_media import write_raw_avi
-    from open_o3_video_tpu_torch.eval.visualization import VideoQAGIFGenerator
-    video = os.path.join(root, "v.avi")
-    write_raw_avi(video, np.zeros((4, 32, 48, 3), np.uint8), fps=2.0)
-    gif = VideoQAGIFGenerator(panel_width=96).create_demo_gif(
-        video, "Where?", "<think><obj>x</obj><box>[1, 2, 20, 20]</box>at<t>1</t>s</think>"
-        "<answer>here</answer>", os.path.join(root, "a.gif"))
-    assert open(gif, "rb").read(6) == b"GIF89a"
-""" + CHECK_BLOCKED
-
-
-def _run(script):
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO_ROOT, os.path.join(REPO_ROOT, "tests")]))
-    proc = subprocess.run(
-        [sys.executable, "-c", script], cwd=REPO_ROOT, env=env,
-        capture_output=True, text=True, timeout=120,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "NO_JAX_OK" in proc.stdout
+"""
 
 
 def test_port_imports_and_generates_without_jax_or_pil():
-    _run(SCRIPT)
+    run(IMPORTS_AND_SERVING)
+
+
+def test_port_evaluates_without_jax_or_pil():
+    run(EVAL)
 
 
 def test_moe_families_train_without_jax_or_pil():
-    _run(MOE_SCRIPT)
+    run(MOE_TRAINING)

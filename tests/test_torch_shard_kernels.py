@@ -9,6 +9,18 @@ skip where there is no card):
 - K7 on the 72B down_w's column shard at tensor = 4 (N = 2048), at a
   decode and a prefill row count (its two routes).
 
+Training on a mesh (phase 25b and 25d):
+
+- K5 (K3's backward: dq; dk, dv) at the 7B's 14/2 and 7/1 heads;
+- K6's fused backward at 8 and 4 of the tower's 16 heads (W = 64), and its
+  whole-frame backward at 8 and 4 heads of 80 (W = 448) and of 72 (W =
+  352);
+- the ring's block calls, as ``ops/ring_attention.RingAttention`` makes
+  them over two blocks in one process (K3 exact at shifted positions, the
+  online-softmax combine, K5 with the combined output and lse), against
+  the plain recurrence over the whole sequence (K3 exact's and K5's plain
+  versions), forward and backward.
+
 The bounds are the kernel tests' own (``_torch_parity``). Run on the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_shard_kernels.py``.
 """
@@ -104,3 +116,94 @@ def test_k7_on_the_72b_down_shard(M):
     ref = ti4.int4_matmul_torch(x, w.w_p, w.scale, w.group)
     torch.cuda.synchronize()
     assert_kernel_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(14, 2), (7, 1)])
+def test_k5_on_a_ranks_heads(hq, hkv):
+    dev = cuda_device()
+    r = rng(hq + 50)
+    S = 700
+    q, do = (_bf16(normal(r, 1, S, hq, 128), dev) for _ in range(2))
+    k, v = (_bf16(normal(r, 1, S, hkv, 128), dev) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].contiguous()
+    valid = torch.ones((1, S), dtype=torch.int32, device=dev)
+    valid[:, S - 40:] = 0  # right padding, as a packed SFT batch
+    out, lse = tfa.flash_attention_gqa_exact(q, k, v, pos, valid)
+    got = tfa.flash_attention_gqa_bwd(q, k, v, pos, valid, out, lse, do)
+    want = tfa.flash_attention_gqa_bwd_torch(q, k, v, pos, valid, out, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert_kernel_close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("w,d", [(64, 80), (448, 80), (352, 72)])
+def test_k6_on_a_ranks_heads(heads, w, d):
+    """W = 64: the fused backward's window rows; else whole frames."""
+    dev = cuda_device()
+    r = rng(heads + w + d)
+    n = 16
+    ids = torch.from_numpy(packed_ids(r, n, w, 3 if w == 64 else 1)).to(dev)
+    keep = ids != 0
+    do = _bf16(normal(r, n, w, heads * d, scale=0.1), dev)
+    do[~keep] = 0
+    if w == 64:
+        qkv = _bf16(normal(r, n, w, 3 * heads * d), dev)
+        freqs = normal(r, n, w, d // 2, scale=3.0)
+        emb = np.concatenate([freqs, freqs], -1)
+        cos, sin = (torch.from_numpy(f(emb).astype(np.float32)).to(dev) for f in (np.cos, np.sin))
+        got = twa.fused_window_attention_bwd(qkv, cos, sin, ids, heads, do)
+        want = twa.fused_window_attention_bwd_torch(qkv, cos, sin, ids, heads, do)
+        torch.cuda.synchronize()
+        assert_kernel_close(got, want)
+        return
+    q, k, v = (_bf16(normal(r, n, w, heads, d), dev) for _ in range(3))
+    do = do.view(n, w, heads, d)
+    out, lse = twa.window_attention_exact(q, k, v, ids)
+    got = twa.window_attention_bwd(q, k, v, ids, out, lse, do)
+    want = twa.window_attention_bwd_torch(q, k, v, ids, do)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert_kernel_close(a, b)
+
+
+@pytest.mark.cuda
+def test_ring_block_calls_match_the_plain_recurrence():
+    """Two blocks of 640 tokens at the 7B's 28/4 heads: block j's keys at
+    positions j * 640 + t, every query meeting both blocks."""
+    from open_o3_video_tpu_torch.ops.ring_attention import _combine
+
+    dev = cuda_device()
+    r = rng(77)
+    S, n = 1280, 2
+    h = S // n
+    q, do = (_bf16(normal(r, 1, S, 28, 128), dev) for _ in range(2))
+    k, v = (_bf16(normal(r, 1, S, 4, 128), dev) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    valid = torch.ones((1, S), dtype=torch.int32, device=dev)
+    blocks = [(k[:, j * h:(j + 1) * h].contiguous(), v[:, j * h:(j + 1) * h].contiguous(),
+               j * h) for j in range(n)]
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    lse = torch.full((1, 28, S), tfa.NEG_INF, dtype=torch.float32, device=dev)
+    for kb, vb, start in blocks:
+        o, lse_j = tfa.flash_attention_gqa_exact(q, kb, vb, pos - start, valid[:, :h])
+        acc, lse = _combine(acc, lse, o, lse_j)
+    out = acc.to(q.dtype)
+    ref_out, ref_lse = tfa.flash_attention_gqa_exact_torch(q, k, v, pos, valid)
+    torch.cuda.synchronize()
+    assert_kernel_close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=0)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dkv = []
+    for kb, vb, start in blocks:
+        dq_j, dk_j, dv_j = tfa.flash_attention_gqa_bwd(q, kb, vb, pos - start, valid[:, :h], out,
+                                                       lse, do)
+        dq += dq_j.float()
+        dkv.append((dk_j, dv_j))
+    want = tfa.flash_attention_gqa_bwd_torch(q, k, v, pos, valid, ref_out, ref_lse, do)
+    torch.cuda.synchronize()
+    assert_kernel_close(dq, want[0])
+    assert_kernel_close(torch.cat([x[0] for x in dkv], 1), want[1])
+    assert_kernel_close(torch.cat([x[1] for x in dkv], 1), want[2])
