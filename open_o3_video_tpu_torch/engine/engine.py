@@ -183,7 +183,13 @@ from ..models.qwen25vl.model import (
     get_rope_index,
     merge_vision_embeddings_by_index,
 )
-from ..models.qwen25vl.text import init_kv_cache, logits_from_hidden, text_forward
+from ..models.qwen25vl.text import (
+    RouteRing,
+    init_kv_cache,
+    logits_from_hidden,
+    record_routes,
+    text_forward,
+)
 from ..ops import kernels
 from ..ops.attention import DECODE_IMPLS
 from ..ops.preprocess import patchify_device
@@ -192,6 +198,7 @@ from ..ops.resize import pil_resize_weights, resize_frames_device
 from ..ops.sampling import sample_token
 from ..ops.sharded import Sharded
 from ..parallel.mesh import Mesh, local_text_config, shard_params
+from ..utils.profiling import tracing
 
 # The JAX engine's prompt buckets; the last is the reference's max_model_len,
 # beyond which a prompt raises.
@@ -363,12 +370,15 @@ class _DoneFlags:
     readback of its own: after each step a copy of ``done.all()`` into a
     ring of host flags (pinned, and an event recorded after it, on the
     card); then the flag of the step DONE_LAG - 1 back, on the card once
-    its event has completed. Steps count from 0 in each segment."""
+    its event has completed. Steps count from 0 in each segment. The read
+    of a flag is an ``engine.decode.wait`` range, and its seconds (the
+    event's wait) go to ``seconds["decode_wait"]``."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, seconds: collections.Counter):
         self.cuda = device.type == "cuda"
         self.flags = torch.zeros(DONE_LAG, dtype=torch.bool, pin_memory=self.cuda)
         self.events = [torch.cuda.Event() for _ in range(DONE_LAG)] if self.cuda else []
+        self.seconds = seconds
 
     def after(self, step: int, done: torch.Tensor) -> bool:
         """Called once step ``step`` of a segment is enqueued (step 0: its
@@ -381,9 +391,12 @@ class _DoneFlags:
         if back < 0:
             return False
         slot = back % DONE_LAG
-        if self.cuda:
-            self.events[slot].synchronize()
-        return bool(self.flags[slot])
+        with torch.profiler.record_function("engine.decode.wait"):
+            t0 = time.perf_counter()
+            if self.cuda:
+                self.events[slot].synchronize()
+            self.seconds["decode_wait"] += time.perf_counter() - t0
+            return bool(self.flags[slot])
 
 
 class InferenceEngine:
@@ -392,19 +405,35 @@ class InferenceEngine:
     ``stage_seconds`` accumulates wall time per stage (vis_upload: the
     vision inputs' upload, resize and patchify; vision, prefill, decode,
     and decode_capture, the part of decode spent capturing the
-    graph) across calls, each ended by a device sync; ``decode_steps``
-    counts the decode steps that emitted a token for some row and
-    ``decode_steps_wasted`` those enqueued after every row had finished.
-    ``counters`` counts, across calls: admissions (prefills of new rows
-    into slots), prefills (prefill forwards: whole prompts, chunks, prefix
-    blocks, suffixes), prefix_blocks (prefix KV blocks built), prefix_hits
-    (admissions served by a cached block), tower_passes, upload_bytes
+    graph) across calls, each ended by a device sync; decode_wait is the
+    part of decode the host spent blocked on the card (the stage's closing
+    syncs, the done flags' event waits and the segments' readbacks), so
+    decode - decode_wait - decode_capture is the host's own decode time.
+    ``decode_steps`` counts the decode steps that emitted a token for some
+    row and ``decode_steps_wasted`` those enqueued after every row had
+    finished. ``counters`` counts, across calls: admissions (prefills of
+    new rows into slots), prompt_tokens (the prompt tokens of the rows
+    admitted), prefills (prefill forwards: whole prompts, chunks, prefix
+    blocks, suffixes), prefill_tokens (the tokens those forwards computed,
+    left padding not counted: prompt_tokens - prefill_tokens are the ones
+    prefix blocks served), prefix_blocks (prefix KV blocks built),
+    prefix_hits (admissions of a prefix family that found its block
+    already in the LRU instead of building it), tower_passes, upload_bytes
     (frames and patches an admission uploaded; prestage_upload_bytes, those
     of ``prestage_*``), segments,
     interleaved_segments (segments run between the chunks of an
     admission), ring_wraps (times a group's write head went round its
-    ring), captures and groups. Attention runs the CUDA kernels when the
-    params lie on a CUDA device and their plain versions on the CPU.
+    ring), captures and groups. Under a profiler trace (``tracing()``) a
+    mixture model's plain decode segments also count expert_reads (summed
+    over the steps and MoE layers, the distinct experts that the step's
+    rows routed to: the expert weights the step read, on a mesh this
+    rank's) and moe_layer_steps (those (step, layer) pairs). Host ranges
+    for a trace: ``engine.<stage>``, ``engine.decode.launch`` (a step's
+    graph replay or eager step), ``engine.decode.wait``,
+    ``engine.decode.readback``, ``engine.harvest`` (the host's bookkeeping
+    after a segment) and ``engine.admit`` (an admission's host layout).
+    Attention runs the CUDA kernels when the params lie on a CUDA device
+    and their plain versions on the CPU.
 
     ``decode_graph=False`` runs every decode step eagerly on the card too:
     a reference for tests of the graph, never a fallback. Speculative
@@ -538,9 +567,11 @@ class InferenceEngine:
             torch.cuda.empty_cache()
 
     @contextlib.contextmanager
-    def _stage(self, name: str):
+    def _stage(self, name: str, wait: Optional[str] = None):
         """Wall time of a stage, synced on both ends; also a profiler range
-        named ``engine.<name>``."""
+        named ``engine.<name>``. ``wait``: the entry of ``stage_seconds``
+        that the closing sync's seconds also go to (the opening sync lies
+        before the stage's clock starts)."""
         sync = self.device.type == "cuda"
         if sync:
             torch.cuda.synchronize(self.device)
@@ -548,7 +579,10 @@ class InferenceEngine:
         with torch.profiler.record_function(f"engine.{name}"):
             yield
             if sync:
+                t1 = time.perf_counter()
                 torch.cuda.synchronize(self.device)
+                if wait:
+                    self.stage_seconds[wait] += time.perf_counter() - t1
         self.stage_seconds[name] += time.perf_counter() - t0
 
     def _a8(self):
@@ -787,12 +821,14 @@ class InferenceEngine:
             self.counters["prefix_hits"] += 1
             return entry
         pseudo = dataclasses.replace(req, input_ids=list(req.input_ids[:pl]))
-        ids, mask, pos, _ = left_padded_rows(self.cfg, [pseudo], pl)
+        with torch.profiler.record_function("engine.admit"):
+            ids, mask, pos, _ = left_padded_rows(self.cfg, [pseudo], pl)
         embeds, taps = self._embed_rows([pseudo], ids, vis)
         cache = init_kv_cache(self._cache_cfg, 1, pl, dtype=self.cache_dtype, device=self.device)
         chunk = self.long_prefill_chunk if pl >= self.long_prefill_threshold else pl
         self._prefill(embeds, torch.from_numpy(pos).to(self.device),
-                      torch.from_numpy(mask).to(self.device), cache, chunk, taps=taps)
+                      torch.from_numpy(mask).to(self.device), cache, chunk, mask.sum(0),
+                      taps=taps)
         self.counters["prefix_blocks"] += 1
         self._prefix_kv[key] = cache
         while len(self._prefix_kv) > self.prefix_cache_entries:
@@ -825,16 +861,18 @@ class InferenceEngine:
         return ids, position_ids, next_pos, attn_rows, seen_rows
 
     def _prefill(self, embeds: torch.Tensor, position_ids: torch.Tensor,
-                 attn_valid: torch.Tensor, cache: dict, chunk: int, between=None,
-                 taps: Optional[tuple] = None) -> torch.Tensor:
+                 attn_valid: torch.Tensor, cache: dict, chunk: int, tokens: np.ndarray,
+                 between=None, taps: Optional[tuple] = None) -> torch.Tensor:
         """Prefill ``embeds`` (n, L, D) into ``cache`` in chunks of ``chunk``
         tokens (the last may be shorter), each at ``cache_offset`` = its
         first column, attending to the chunks before it through the cache;
         ``between()`` runs after every chunk but the last (outside the
         prefill stage and the w8a8 scope). ``taps`` (Qwen3-VL, from
         ``_embed_rows``): the deepstack tables and their (n, L) row index,
-        whose columns of each chunk go with it. Returns the last chunk's
-        final hidden states."""
+        whose columns of each chunk go with it. ``tokens`` (L,): the rows'
+        real tokens in each column (the host mask's column sums), which the
+        chunks add to ``prefill_tokens``. Returns the last chunk's final
+        hidden states."""
         L = embeds.shape[1]
         tables, row_index = taps if taps is not None else (None, None)
         for c0 in range(0, L, chunk):
@@ -845,6 +883,7 @@ class InferenceEngine:
                     cache_offset=c0, deepstack_embeds=tables,
                     deepstack_row_index=None if tables is None else row_index[:, c0:c0 + chunk])
             self.counters["prefills"] += 1
+            self.counters["prefill_tokens"] += int(tokens[c0:c0 + chunk].sum())
             if between is not None and c0 + chunk < L:
                 between()
         return hidden
@@ -1131,10 +1170,9 @@ class InferenceEngine:
             flags["hist_stale"] = False
 
         def run_segment(n_steps, interleaved=False):
-            """One decode segment over the slots in flight, then the
-            harvest: each row's tokens appended, finished rows finalized.
-            A sampled group runs its warmup and probe here, and compacts
-            its holes when the surplus runs out (JAX's run_segment)."""
+            """One decode segment over the slots in flight, then its
+            ``harvest``. A sampled group runs its warmup here, its probe
+            and its compaction in the harvest (JAX's run_segment)."""
             active = [s for s in range(B) if slot_rid[s] is not None]
             if not active:
                 return
@@ -1160,6 +1198,13 @@ class InferenceEngine:
                                     max(max_tokens - len(emitted[slot_rid[s]]) for s in active))
             toks_h, lps_h, emitted_h, done_h, nv = run.segment(cap, kind)
             self.counters["interleaved_segments" if interleaved else "segments"] += 1
+            with torch.profiler.record_function("engine.harvest"):
+                harvest(kind, active, cap, toks_h, lps_h, emitted_h, done_h, nv)
+
+        def harvest(kind, active, cap, toks_h, lps_h, emitted_h, done_h, nv):
+            """A segment's tokens appended to its rows, finished rows
+            finalized; a speculative group's counts, and a sampled group's
+            probe verdict and its compaction when the surplus runs out."""
             for s in active:
                 rid, n = slot_rid[s], int(emitted_h[s])
                 emitted[rid].extend(int(t) for t in toks_h[s, :n])
@@ -1191,7 +1236,7 @@ class InferenceEngine:
                 if flags["just_compacted"] and int(emitted_h.sum()) == 0:
                     flags["active"] = False
                 else:
-                    with self._stage("decode"), self._decode_stream():
+                    with self._stage("decode", wait="decode_wait"), self._decode_stream():
                         self._spec_compact(st)
                     self.counters["compactions"] += 1
                     flags["just_compacted"] = True
@@ -1215,6 +1260,7 @@ class InferenceEngine:
             st.attn_valid.index_copy_(0, slots_t, torch.from_numpy(attn_rows).to(dev))
             st.seen.index_copy_(0, slots_t, seen_t)
             self.counters["admissions"] += 1
+            self.counters["prompt_tokens"] += sum(len(requests[r].input_ids) for r in rids)
             if spec_active:
                 # The fresh row's drafting history: its prompt tokens at
                 # their valid prompt columns, in order (left padding and the
@@ -1248,12 +1294,13 @@ class InferenceEngine:
 
         def admit_plain(slots, rids):
             reqs = [requests[r] for r in rids]
-            ids, mask, pos, next_pos = left_padded_rows(cfg, reqs, L)
-            attn_rows = np.zeros((len(reqs), T_arena), dtype=bool)
-            attn_rows[:, :L] = mask
-            seen_rows = np.zeros((len(reqs), cfg.text.vocab_size), dtype=bool)
-            for i in range(len(reqs)):
-                seen_rows[i, ids[i][mask[i]]] = True
+            with torch.profiler.record_function("engine.admit"):
+                ids, mask, pos, next_pos = left_padded_rows(cfg, reqs, L)
+                attn_rows = np.zeros((len(reqs), T_arena), dtype=bool)
+                attn_rows[:, :L] = mask
+                seen_rows = np.zeros((len(reqs), cfg.text.vocab_size), dtype=bool)
+                for i in range(len(reqs)):
+                    seen_rows[i, ids[i][mask[i]]] = True
             embeds, taps = self._embed_rows(reqs, ids, vis)
             chunk = self.prefill_chunk
             long_admission = L >= self.long_prefill_threshold and self.long_prefill_chunk
@@ -1264,7 +1311,7 @@ class InferenceEngine:
             rows = rows_cache(slots)
             hidden = self._prefill(
                 embeds, torch.from_numpy(pos).to(dev), torch.from_numpy(attn_rows).to(dev), rows,
-                chunk if chunked else L,
+                chunk if chunked else L, mask.sum(0),
                 lambda: run_segment(min(self.decode_segment, max_tokens), interleaved=True),
                 taps=taps)
             with self._stage("prefill"):
@@ -1288,8 +1335,9 @@ class InferenceEngine:
                 reqs = [requests[r] for r in sub_rids]
                 pl = prefix_lens[sub_rids[0]]
                 block = self._ensure_prefix(reqs[0], pl, vis)
-                ids, pos, next_pos, attn_rows, seen_rows = self._suffix_rows(
-                    reqs, pl, P, L - P, T_arena)
+                with torch.profiler.record_function("engine.admit"):
+                    ids, pos, next_pos, attn_rows, seen_rows = self._suffix_rows(
+                        reqs, pl, P, L - P, T_arena)
                 with self._stage("prefill"):
                     rows = rows_cache(sub_slots)
                     for name in ("k", "v"):
@@ -1303,6 +1351,7 @@ class InferenceEngine:
                             cache_offset=P)
                         logits = logits_from_hidden(self.params["text"], hidden[:, -1])
                     self.counters["prefills"] += 1
+                    self.counters["prefill_tokens"] += sum(len(r.input_ids) - pl for r in reqs)
                     scatter(rows, sub_slots)
                     bind(sub_slots, sub_rids, logits, seen_rows, attn_rows, next_pos)
 
@@ -1572,34 +1621,55 @@ class InferenceEngine:
         st.cursor.copy_(n_valid.max())
 
 
+def _distinct_experts(ids: np.ndarray, local: int) -> int:
+    """The sum over (layer, step) of the distinct experts below ``local``
+    among ``ids`` (layers, steps, rows, k)."""
+    flat = np.sort(ids.reshape(ids.shape[0] * ids.shape[1], -1), axis=1)
+    new = np.ones(flat.shape, dtype=bool)
+    new[:, 1:] = flat[:, 1:] != flat[:, :-1]
+    return int((new & (flat < local)).sum())
+
+
 class _GroupRun:
     """A group's decode segments: the done flags, and on the card one
     graph per step kind ("plain", or a speculative group's "greedy" or
     "sampled" verify step), captured in the group's first segment of that
     kind that runs a second step and replayed in every later one; ``close``
     drops them with their memory pools when the group ends. ``steps``
-    counts the plain steps enqueued (the ring's write head on the host)."""
+    counts the plain steps enqueued (the ring's write head on the host).
+    A mixture model's group that starts under a profiler trace holds a
+    ``RouteRing`` (``routes``) that its plain segments record into, graph
+    included; a group that starts without one has none, and its steps run
+    as they would without this counter."""
 
     def __init__(self, engine: InferenceEngine, st: DecodeState, sampling: SamplingParams):
         self.engine, self.st, self.sampling = engine, st, sampling
         self.graphed = engine.device.type == "cuda" and engine.decode_graph
         self.graphs: dict = {}  # kind -> (graph, the step's launch counts)
-        self.flags = _DoneFlags(engine.device)
+        self.flags = _DoneFlags(engine.device, engine.stage_seconds)
         self.steps = 0
+        moe = sum("router" in layer for layer in engine.params["text"]["layers"])
+        self.routes = (RouteRing(moe, st.toks.shape[1], st.token.shape[0],
+                                 engine.cfg.text.moe_topk, st.step)
+                       if moe and tracing() else None)
 
     def segment(self, n_steps: int, kind: str = "plain"):
         """Up to ``n_steps`` steps of ``kind``, ended early once the lagged
         flags show every row done (a verify loop: its condition false,
         ``n_steps`` its cap on any row's emitted tokens); then one readback
         of the segment's tokens, log-probabilities, emitted counts, done
-        flags and verify forwards (0 for a plain segment)."""
+        flags and verify forwards (0 for a plain segment). A plain segment
+        of a group with ``routes`` records its steps' experts there and
+        counts them from the readback."""
         eng, st = self.engine, self.st
         fn = {"plain": eng._decode_step, "greedy": eng._verify_greedy,
               "sampled": eng._verify_sampled}[kind]
         spec = kind != "plain"
+        routes = None if spec else self.routes
         # Never w8a8: a decode step or verify block (and so every graph
         # captured here) keeps bf16 activations, whatever scope encloses it.
-        with eng._stage("decode"), eng._decode_stream(), a8_acts(False):
+        with (eng._stage("decode", wait="decode_wait"), eng._decode_stream(), a8_acts(False),
+              record_routes(routes)):
             st.step.zero_()
             st.emitted.zero_()
             if spec:
@@ -1610,25 +1680,34 @@ class _GroupRun:
             step = 0
             stop = self.flags.after(step, flag)
             while not stop and step < n_steps:
-                if kind in self.graphs:
-                    graph, launches = self.graphs[kind]
-                    graph.replay()
-                    kernels.LAUNCHES.update(launches)
-                else:
-                    fn(st, self.sampling)
+                with torch.profiler.record_function("engine.decode.launch"):
+                    if kind in self.graphs:
+                        graph, launches = self.graphs[kind]
+                        graph.replay()
+                        kernels.LAUNCHES.update(launches)
+                    else:
+                        fn(st, self.sampling)
                 step += 1
                 stop = self.flags.after(step, flag)
                 if self.graphed and kind not in self.graphs and not stop and step < n_steps:
                     t0 = time.perf_counter()
                     self._capture(kind, fn)
                     eng.stage_seconds["decode_capture"] += time.perf_counter() - t0
-            if spec:
-                *out, nv = eng._fetch(st.toks, st.lps, st.emitted, st.done, st.spec.n_verify)
-                useful = int(nv)
-            else:
-                out = eng._fetch(st.toks[:, :step], st.lps[:, :step], st.emitted, st.done)
-                useful = int(out[2].max(initial=0))
-                self.steps += step
+            with torch.profiler.record_function("engine.decode.readback"):
+                t0 = time.perf_counter()
+                if routes is not None:  # completed by the fetch's sync
+                    ids = routes.ids[:, :step].to("cpu", non_blocking=True)
+                if spec:
+                    *out, nv = eng._fetch(st.toks, st.lps, st.emitted, st.done, st.spec.n_verify)
+                    useful = int(nv)
+                else:
+                    out = eng._fetch(st.toks[:, :step], st.lps[:, :step], st.emitted, st.done)
+                    useful = int(out[2].max(initial=0))
+                    self.steps += step
+                eng.stage_seconds["decode_wait"] += time.perf_counter() - t0
+        if routes is not None:
+            eng.counters["expert_reads"] += _distinct_experts(ids.numpy(), routes.local)
+            eng.counters["moe_layer_steps"] += routes.ids.shape[0] * step
         eng.decode_steps += useful
         eng.decode_steps_wasted += step - useful
         return (*out, useful if spec else 0)

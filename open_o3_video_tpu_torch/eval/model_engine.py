@@ -151,10 +151,11 @@ class QwenVLEngine:
         record = {"requests": len(requests), "seconds": seconds,
                   "stage_seconds": dict(stages),
                   **{k: counts[k] for k in ("tower_passes", "admissions", "prefills",
-                                            "prefix_blocks")}}
+                                            "prefix_blocks", "prompt_tokens", "prefill_tokens")}}
         self.calls.append(record)
         print(f"[eval] call of {len(requests)} requests: {record['tower_passes']} tower passes, "
               f"{record['admissions']} admissions, {record['prefix_blocks']} prefix blocks, "
+              f"{record['prompt_tokens']} prompt tokens, {record['prefill_tokens']} prefilled, "
               f"{seconds:.3f} s, stages "
               + ", ".join(f"{k} {v:.3f} s" for k, v in record["stage_seconds"].items()))
         return outs

@@ -25,6 +25,8 @@ other paths cast the layer to the compute dtype (``ops/attention.py``).
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -162,6 +164,43 @@ def expert_groups(idx: torch.Tensor, n_experts: int) -> tuple[torch.Tensor, torc
     return order, ends.to(torch.int32)
 
 
+class RouteRing:
+    """The expert ids that a decode segment's steps route to, on the device:
+    ``ids`` (MoE layers, steps, rows, k), step ``at`` (a 0-d tensor on the
+    device, the segment's step) written by one ``index_copy_`` per MoE layer
+    and step, so a CUDA graph captured under ``record_routes`` replays the
+    writes and nothing is read back until the segment's own readback.
+    ``local``: the experts this rank computes (expert parallelism sorts them
+    first), the others' ids are not its reads."""
+
+    def __init__(self, layers: int, steps: int, rows: int, k: int, at: torch.Tensor):
+        self.ids = torch.zeros((layers, steps, rows, k), dtype=torch.long, device=at.device)
+        self.at = at.reshape(1)
+        self.layer = 0
+        self.local = 0
+
+    def add(self, idx: torch.Tensor, local: int) -> None:
+        self.ids[self.layer].index_copy_(0, self.at, idx[None])
+        self.layer = (self.layer + 1) % self.ids.shape[0]
+        self.local = local
+
+
+_ROUTES = threading.local()
+
+
+@contextlib.contextmanager
+def record_routes(ring: Optional[RouteRing]):
+    """``moe_mlp`` on this thread writes its expert ids into ``ring`` inside
+    the scope, one layer after another; ``record_routes(None)`` turns an
+    enclosing scope off. Outside a scope ``moe_mlp`` records nothing."""
+    prev = getattr(_ROUTES, "ring", None)
+    _ROUTES.ring = ring
+    try:
+        yield
+    finally:
+        _ROUTES.ring = prev
+
+
 def _experts(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor,
              offs: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU over rows ``x`` (M, D) sorted by expert, expert e
@@ -192,6 +231,8 @@ def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
     weights cast to the activations' dtype first, as JAX's combine is. No
     shape depends on the routing, so a decode step stays capturable.
     ``route`` replaces the router's decision, as in ``moe_mlp_dense``.
+    Inside ``record_routes`` the (rotated, on a mesh) expert ids are also
+    copied into the scope's ``RouteRing``.
 
     On a mesh whose ``tensor`` axis splits the expert stacks (expert
     parallelism, JAX's ``moe_fc1``/``moe_fc2`` rules), each rank sorts its
@@ -222,6 +263,9 @@ def moe_mlp(p: dict, cfg: TextConfig, x: torch.Tensor, impl: str = "auto",
     ep = expert_range(p["moe_fc1"])
     if ep is not None:  # expert parallelism: this rank's experts' pairs sort first
         idx = torch.remainder(idx - ep[0], cfg.moe_num_experts)
+    ring = getattr(_ROUTES, "ring", None)
+    if ring is not None:
+        ring.add(idx, cfg.moe_num_experts if ep is None else ep[1])
     order, offs = expert_groups(idx, cfg.moe_num_experts)
     rows = flat
     if ep is not None:

@@ -9,10 +9,13 @@ device is given, so it covers the stage's device work, and it is a
 ``torch.profiler.record_function`` range (``stage.<name>``) in a trace, as
 the engine's ``_stage`` is.
 
-``trace_annotation(name)`` is a ``record_function`` range; ``start_trace``
-and ``stop_trace`` run one ``torch.profiler.profile`` over the CPU and, when
-there is one, the CUDA device, and write its Chrome trace (Perfetto opens
-it) into the log directory. One trace runs at a time: a second
+``tracing()`` says whether a ``torch.profiler`` trace records this
+thread: what the program counts only under a trace (the engine's expert
+reads) asks it. ``trace_annotation(name)`` is a ``record_function``
+range; ``start_trace`` and ``stop_trace`` run one
+``torch.profiler.profile`` over the CPU and, when there is one, the CUDA
+device, and write its Chrome trace (Perfetto opens it) into the log
+directory. One trace runs at a time: a second
 ``start_trace`` raises, as ``jax.profiler.start_trace`` does.
 """
 
@@ -27,6 +30,12 @@ from collections import defaultdict
 from typing import Optional
 
 import torch
+
+
+def tracing() -> bool:
+    """Whether a profiler trace (``torch.profiler.profile``, or
+    ``start_trace``) records the calling thread's ranges now."""
+    return torch._C._autograd._profiler_enabled()
 
 
 @contextlib.contextmanager

@@ -241,12 +241,19 @@ def test_identical_prompts_share_all_but_the_last_token():
 
 def test_five_vision_queries_over_one_four_frame_request():
     """V-STAR's shape: 5 queries over one request of 4 frames share one
-    prefix block, whose prefill is the call's one tower pass."""
+    prefix block, whose prefill is the call's one tower pass. The prefill
+    forwards compute the block once and the five 3-token suffixes."""
     _, _, tcfg, _ = model_pair(0)
     reqs = _vision_family(tcfg, rng(0).integers(0, 256, size=(4, 3, 28, 56), dtype=np.uint8))
     ours, engine = _both(PREFIX, reqs, greedy(6))
     assert len(engine._prefix_kv) == 1
     assert engine.counters["tower_passes"] == 1 and engine.counters["prefix_blocks"] == 1
+    # 2 ids and the vision start, 4 frames of 28 x 56 (2 x 4 patches of 14, 1 x 2
+    # merged units), the vision end
+    prefix = 3 + 4 * 2 + 1
+    assert engine._detect_prefixes(reqs) == [prefix] * 5
+    assert engine.counters["prompt_tokens"] == 5 * (prefix + 3)
+    assert engine.counters["prefill_tokens"] == prefix + 5 * 3
 
 
 def test_outlier_member_runs_plain():
