@@ -966,6 +966,7 @@ def kernel_phase(dev, cfg, gen, batch_rows, t_total) -> dict:
     k3_prefill_case(dev, gen, cfg.text, batch_rows, t_total, "flash_attention_gqa", results)
     judge_prefill_case(dev, gen, results)
     decode_cases(dev, cfg, gen, results)
+    serving_decode_cases(dev, gen, results)
     long_chunk_case(dev, cfg, gen, results)
     return results
 
@@ -1043,6 +1044,62 @@ def decode_cases(dev, cfg, gen, results) -> None:
         if T == 81920:
             planted_faults(q, k[:, :w], v[:, :w], pos, valid[:, :w], T)
         del k, v
+    torch.cuda.empty_cache()
+
+
+# The serving cells' decode steps (portbench's `vstar.qwen25vl-7b` and
+# `serve.qwen3vl-30b-a3b`), which run K4 below LONG_DECODE_T: (name, B, L,
+# ring, Hq, Hkv, prompt lengths, ring columns written, holes). vstar: the
+# 7B's 5 V-STAR queries of ~4.8-5.4k tokens, rows 1 and 2 on a shared prefix
+# block with pad inside it, row 4 done early; the 30B: 8 unshared requests
+# of ~2.6k tokens at a full batch.
+SERVING_DECODE_CASES = (
+    ("vstar step", 5, 5400, 512, 28, 4, (5400, 5310, 5022, 4821, 5398), (300, 300, 300, 300, 121),
+     {1: ((3240, 3300),), 2: ((3160, 3300),)}),
+    ("30B step", 8, 2620, 512, 32, 4, (2620, 2588, 2611, 2533, 2602, 2597, 2560, 2617),
+     (200,) * 8, {}),
+)
+
+
+def serving_layout(dev, B, L, ring, written, prompts, holes):
+    """A decode step's buffer as the engine lays it out: row b's prompt
+    left-padded into [L - prompts[b], L), the ring [L, L + ring) written in
+    its first written[b] columns, the holes[b] (start, end) left invalid,
+    and every query at position T = L + ring, past every column
+    (validity-only masking). Returns q_pos (B, 1) int64 and the validity
+    (B, T) bool, the engine's dtypes."""
+    T = L + ring
+    valid = torch.zeros((B, T), dtype=torch.bool)
+    for b in range(B):
+        valid[b, L - prompts[b]:L + written[b]] = True
+        for h0, h1 in holes.get(b, ()):
+            valid[b, h0:h1] = False
+    return torch.full((B, 1), T, dtype=torch.int64, device=dev), valid.to(dev)
+
+
+def serving_decode_cases(dev, gen, results) -> None:
+    """K4 vs its plain version at the serving cells' decode steps (bf16
+    caches, NaN in every invalid slot, which K4 must never read; the plain
+    version reads a finite copy), with the bound from the valid keys' bytes
+    and SDPA on the same layer."""
+    D = 128
+    for name, B, L, ring, Hq, Hkv, prompts, written, holes in SERVING_DECODE_CASES:
+        pos, valid = serving_layout(dev, B, L, ring, written, prompts, holes)
+        T = L + ring
+        clean = torch.randn((2, B, T, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+        cache = clean.clone()
+        cache[:, ~valid] = float("nan")
+        q = torch.randn((B, 1, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        n_valid = int(valid.sum().item())
+        mask = causal_mask(pos, valid)
+        compare("decode_attention_gqa",
+                lambda: da.decode_attention_gqa(q, cache[0], cache[1], pos, valid),
+                lambda: da.decode_attention_gqa_torch(q, clean[0], clean[1], pos, valid),
+                None, results, case=f"{name} B={B} T={T} heads={Hq}/{Hkv}",
+                flops=4 * causal_pairs(pos, valid) * Hq * D,
+                moved=2 * n_valid * Hkv * D * 2 + nbytes(q, pos, valid, q),
+                library_fn=lambda: sdpa_masked(q, clean[0], clean[1], mask))
+        del cache, clean, mask
     torch.cuda.empty_cache()
 
 
@@ -3155,8 +3212,10 @@ SCHED_KV_REL_BOUND = 0.1
 SCHED_HOLE = 40
 # 17c: two 1000-token requests and an 8000-token one in one group (one
 # prompt bucket), 2 slots, chunks of 2048 tokens, segments of 8 steps; the
-# first request stops at its EOS (the token an eager run emits at step 5),
-# so the long one is admitted while the second decodes.
+# first request stops at its EOS (the token an eager run of the same group
+# emits at step 5: a row's tokens depend on the batch it decodes in, whose
+# shape sets K4's split plan), so the long one is admitted while the second
+# decodes.
 SCHED_CHUNK_LENS = (1000, 1000, 8000)
 SCHED_CHUNK, SCHED_CHUNK_SEGMENT = 2048, 8
 # 17d: the KV budget admits this many slots of the 11-request group.
@@ -3478,12 +3537,11 @@ def scheduler_phase(params, cfg, proc, seed: int) -> dict:
     rng = np.random.default_rng(seed + 171)
     long_reqs = [Request(input_ids=rng.integers(32, 127, size=n).tolist())
                  for n in SCHED_CHUNK_LENS]
-    bucket = dict(prompt_buckets=(8192,))
-    probe = InferenceEngine(params, cfg, decode_graph=False, **bucket).generate(
-        long_reqs[:1], sampling)[0]["token_ids"]
-    stop_cfg = dataclasses.replace(cfg, eos_token_id=probe[EARLY_STOP_STEP])
     chunk_knobs = dict(max_slots=2, decode_segment=SCHED_CHUNK_SEGMENT,
-                       prefill_chunk=SCHED_CHUNK, **bucket)
+                       prefill_chunk=SCHED_CHUNK, prompt_buckets=(8192,))
+    probe = InferenceEngine(params, cfg, decode_graph=False, **chunk_knobs).generate(
+        long_reqs, sampling)[0]["token_ids"]
+    stop_cfg = dataclasses.replace(cfg, eos_token_id=probe[EARLY_STOP_STEP])
     runs = {}
     for graphed in (True, False):
         engine = InferenceEngine(params, stop_cfg, decode_graph=graphed, **chunk_knobs)

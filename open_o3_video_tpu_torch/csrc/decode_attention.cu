@@ -1,12 +1,14 @@
-// Long-context GQA decode attention for Hopper (sm_90a): K4.
+// GQA decode attention for Hopper (sm_90a): K4.
 //
 // Replaces open_o3_video_tpu/ops/decode_attention.py _decode_kernel: S <= 8
 // query rows (a decode step) against a long KV buffer held in its STORED
 // dtype, bf16 or fp8 e4m3, read through the batch and token strides of a
-// layer view of the stacked (L, B, T, Hkv, D) cache. q (B, S, Hq, D) bf16
-// arrives prescaled by D^-1/2 and rounded to bf16 (the wrapper does that, as
-// for K3). A key t is visible to a query row iff t <= q_pos and
+// layer view of the stacked (L, B, T, Hkv, D) cache. q (B, S, Hq, D) bf16 is
+// prescaled by D^-1/2 and rounded to bf16 as it is loaded (the bits of K3's
+// wrapper's prescale). A key t is visible to a query row iff t <= q_pos and
 // kv_valid[b, t] != 0; rows with q_pos = -1, or with no visible key, write 0.
+// q_pos is int64 and kv_valid bool bytes, the decode step's own tensors, so
+// a step launches no conversion kernels around K4.
 // The softmax is the fixed-m one of attention_tile.cuh: p = exp(min(s, 60)),
 // bf16(p) @ v accumulated in f32, one division by l at the end.
 //
@@ -16,7 +18,8 @@
 // design:
 // - All G * S query rows of one kv head (at most 64) live in one CTA, so
 //   each K/V tile is read from HBM once for the whole GQA group. B * Hkv is
-//   4 at the serving shape, so the written key range [0, max_pos] is split
+//   4 at a long context's shape (20-32 in a serving batch), too few CTAs
+//   for the card, so the written key range [0, max_pos] is split
 //   (split-K) over gridDim.x CTAs; each CTA divides the 64-key tiles evenly
 //   among the splits itself, from its batch row's largest q_pos.
 // - A producer warp streams the split's tiles through a ring of kRing bytes
@@ -67,6 +70,7 @@ constexpr int kThreads5 = 32 * (kConsumerWarps + 1);  // and a producer warp
 constexpr int kRing = 64 * 1024;              // K and V slots
 constexpr int kBox = kTile * 128;             // one 128-byte-wide box of a tile
 constexpr int kRedBytes = kConsumerWarps * 16 * (kD + 1) * 4;  // the warps' partials
+constexpr float kQScale = 0.08838834764831845f;  // kD^-1/2, as the float PyTorch multiplies by
 static_assert(kRedBytes <= kRing, "the partials reuse the ring");
 
 template <typename KV>
@@ -99,6 +103,13 @@ __device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
       __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
   const float2 f = __half22float2(__half2(h));
   return pack_bf16x2(f.x, f.y);
+}
+
+// Two bf16 of q -> q * kD^-1/2 rounded to bf16 (round to nearest even), the
+// bits of PyTorch's bf16 product with the scalar.
+__device__ __forceinline__ uint32_t prescale_bf16x2(uint32_t two) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&two));
+  return pack_bf16x2(f.x * kQScale, f.y * kQScale);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -195,7 +206,8 @@ __global__ void __launch_bounds__(kThreads5, 2)
     decode_split_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ q,
                         const KV* __restrict__ k, const KV* __restrict__ v,
-                        const int* __restrict__ q_pos, const int* __restrict__ kv_valid,
+                        const long long* __restrict__ q_pos,
+                        const uint8_t* __restrict__ kv_valid,
                         float* __restrict__ part_acc, float* __restrict__ part_l, int s_len,
                         int t_len, int hq, int group, int n_rows, long long k_stride_b,
                         long long k_stride_t, long long v_stride_b, long long v_stride_t) {
@@ -216,10 +228,10 @@ __global__ void __launch_bounds__(kThreads5, 2)
 
   const int split = blockIdx.x, splits = gridDim.x, hk = blockIdx.y, hkv = gridDim.y;
   const int b = blockIdx.z;
-  const int* pos = q_pos + static_cast<long long>(b) * s_len;
-  const int* valid = kv_valid + static_cast<long long>(b) * t_len;
+  const long long* pos = q_pos + static_cast<long long>(b) * s_len;
+  const uint8_t* valid = kv_valid + static_cast<long long>(b) * t_len;
   int max_pos = -1;
-  for (int s = 0; s < s_len; ++s) max_pos = max(max_pos, pos[s]);
+  for (int s = 0; s < s_len; ++s) max_pos = max(max_pos, static_cast<int>(pos[s]));
   const int k_end = min(t_len, max_pos + 1);  // keys past every row's position are never read
   const int n_tiles = (k_end + kTile - 1) / kTile;
   const int tile0 = static_cast<int>(static_cast<long long>(split) * n_tiles / splits);
@@ -319,7 +331,7 @@ __global__ void __launch_bounds__(kThreads5, 2)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
-    row_pos[half] = r < n_rows ? pos[r % s_len] : -1;
+    row_pos[half] = r < n_rows ? static_cast<int>(pos[r % s_len]) : -1;
     const bf16* qrow = q + ((static_cast<long long>(b) * s_len + r % s_len) * hq + hk * group +
                             r / s_len) * kD;
 #pragma unroll
@@ -327,11 +339,13 @@ __global__ void __launch_bounds__(kThreads5, 2)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {  // a[half], a[half + 2]: the d pairs K's fragments take
         const int d = kFp8 ? 16 * kk + 4 * t + 2 * j : 16 * kk + 2 * t + 8 * j;
-        qa[kk][half + 2 * j] = r < n_rows ? __ldg(reinterpret_cast<const unsigned*>(qrow + d)) : 0u;
+        qa[kk][half + 2 * j] =
+            r < n_rows ? prescale_bf16x2(__ldg(reinterpret_cast<const unsigned*>(qrow + d))) : 0u;
       }
   }
   for (int i = 0; i < 16; ++i)  // the fast path needs every real row of the group at or past the tile
-    if (16 * rgi + i < n_rows) rows_min = min(rows_min, pos[(16 * rgi + i) % s_len]);
+    if (16 * rgi + i < n_rows)
+      rows_min = min(rows_min, static_cast<int>(pos[(16 * rgi + i) % s_len]));
 
   float acc[kD / 8][4] = {};
   float l[2] = {0.f, 0.f};
@@ -440,8 +454,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_po
   const int group = hq / hkv, n_rows = group * s_len;
   decode_split_kernel<KV><<<dim3(splits, hkv, b), kThreads5, kSmem<KV>, stream>>>(
       tm_k, tm_v, static_cast<const bf16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const int*>(q_pos),
-      static_cast<const int*>(kv_valid), static_cast<float*>(part_acc),
+      static_cast<const KV*>(v), static_cast<const long long*>(q_pos),
+      static_cast<const uint8_t*>(kv_valid), static_cast<float*>(part_acc),
       static_cast<float*>(part_l), s_len, t_len, hq, group, n_rows, k_stride_b, k_stride_t,
       v_stride_b, v_stride_t);
   const cudaError_t err = cudaGetLastError();
@@ -456,11 +470,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_po
 }  // namespace o3v
 
 // Plain C interface (loaded with ctypes); returns cudaGetLastError() after
-// the two launches. Strides are in elements of the stored dtype (bytes for
-// fp8) and must keep every token row on a 16-byte boundary (TMA). part_acc
-// (B, Hkv, splits, G*S, D) and part_l (B, Hkv, splits, G*S) are f32
-// scratch. Built for the decoder's head_dim of 128 only, and for at most 64
-// query rows (G * S) per kv head.
+// the two launches. q is bf16 as computed (not prescaled), q_pos (B, S)
+// int64, kv_valid (B, T) one byte a slot (bool). Strides are in elements of
+// the stored dtype (bytes for fp8) and must keep every token row on a
+// 16-byte boundary (TMA). part_acc (B, Hkv, splits, G*S, D) and part_l (B,
+// Hkv, splits, G*S) are f32 scratch. Built for the decoder's head_dim of
+// 128 only, and for at most 64 query rows (G * S) per kv head.
 extern "C" int o3v_decode_attention_gqa(const void* q, const void* k, const void* v,
                                         const void* q_pos, const void* kv_valid, void* out,
                                         void* part_acc, void* part_l, int b, int s_len, int t_len,

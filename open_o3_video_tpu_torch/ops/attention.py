@@ -1,13 +1,17 @@
 """Attention entry points of the model (counterpart of
 ``open_o3_video_tpu/ops/attention.py``).
 
-- ``causal_attention``: GQA decoder attention against a KV buffer, in the
-  JAX package's order. Decode (S <= 8) against a buffer of LONG_DECODE_T
-  slots or more runs K4 (``decode_attention``) on k/v in the cache's STORED
-  dtype; only then is the layer cast to the compute dtype, for prefill
-  (S > 8, K3 in ``flash_attention``) or for the plain grouped decode below
-  the long-context threshold (as the JAX package's XLA path). Keys are
-  addressed by buffer index == position.
+- ``causal_attention``: GQA decoder attention against a KV buffer. Decode
+  (S <= 8) runs K4 (``decode_attention``) on k/v in the cache's STORED dtype
+  against a buffer of LONG_DECODE_T slots or more, as the JAX package does,
+  and on the card at any length wherever K4 takes the inputs (CUDA, a bf16
+  q, a bf16 or e4m3 cache, head_dim 128, at most 64 query rows a kv head;
+  not under autograd): the dispatch comes before any cast, so a decode step
+  makes no copy of the layer. Otherwise, in the JAX package's order, the
+  layer is cast to the compute dtype, for prefill (S > 8, K3 in
+  ``flash_attention``) or for the plain grouped decode below the
+  long-context threshold (the JAX package's XLA path, which the CPU runs).
+  Keys are addressed by buffer index == position.
 - ``segment_attention``: bidirectional ViT attention over same-size segments
   (K2, ``window_attention``).
 
@@ -26,7 +30,7 @@ decode step and the speculative verify blocks (S <= 8), as the JAX
 package's ``attn_impl`` reaches them: "auto" is the dispatch above;
 "pallas" takes the hand-written kernel for every short query block, K4 at
 long T and K3 below it (JAX's ``S > 8 or impl == "pallas"``); "xla" takes
-the plain versions. It never reaches a matmul.
+the plain versions (JAX's order). It never reaches a matmul.
 """
 
 from __future__ import annotations
@@ -36,13 +40,15 @@ from typing import Optional
 
 import torch
 
-from .decode_attention import decode_attention_gqa
-from .flash_attention import flash_attention_gqa
+from . import kernels
+from .decode_attention import KV_DTYPES, MAX_ROWS, decode_attention_gqa
+from .flash_attention import flash_attention_gqa, needs_grad
 from .ring_attention import RingImpl, ring_attention
 from .window_attention import window_attention
 
-# Decode against a buffer at least this long runs K4 on the stored-dtype
-# cache, as the JAX package does (its ops/attention.py LONG_DECODE_T).
+# Decode against a buffer at least this long runs K4 (or its plain version)
+# on the stored-dtype cache, as the JAX package does (its ops/attention.py
+# LONG_DECODE_T); below it only the plain path keeps the grouped decode.
 LONG_DECODE_T = 32768
 # The values of the engine's decode_attn_impl (the JAX package's attn_impl).
 DECODE_IMPLS = ("auto", "pallas", "xla")
@@ -61,6 +67,16 @@ def _grouped_decode(q, k, v, mask):
     probs = torch.where(m.any(-1, keepdim=True), probs, 0.0)
     out = torch.einsum("bhgst,bthd->bshgd", probs.to(q.dtype).float(), v.float())
     return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def _k4_takes(q, k, v, impl) -> bool:
+    """True where K4 runs these decode inputs on the card as they are: what
+    the inputs show (device, dtypes, shape), nothing else."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    return (kernels.use_kernel(q, impl) and q.dtype == torch.bfloat16
+            and k.dtype in KV_DTYPES and v.dtype == k.dtype and D == kernels.TEXT_HEAD_DIM
+            and Hq % Hkv == 0 and S * (Hq // Hkv) <= MAX_ROWS and not needs_grad(q, k, v))
 
 
 def causal_attention(
@@ -90,7 +106,7 @@ def causal_attention(
         q_positions = torch.arange(S, device=q.device).expand(B, S)
     if kv_mask is None:
         kv_mask = torch.ones((B, T), dtype=torch.bool, device=q.device)
-    if S <= 8 and T >= LONG_DECODE_T:
+    if S <= 8 and (T >= LONG_DECODE_T or (decode_impl == "auto" and _k4_takes(q, k, v, impl))):
         # Before any cast: K4 streams the cache in its stored dtype, so a
         # decode step never makes a whole-layer copy in the compute dtype.
         return decode_attention_gqa(q, k, v, q_positions, kv_mask, impl=impl)

@@ -1,4 +1,4 @@
-"""Long-context GQA decode attention: K4.
+"""GQA decode attention on the stored-dtype KV cache: K4.
 
 Counterpart of ``open_o3_video_tpu/ops/decode_attention.py``. Layouts are
 the JAX package's: q (B, S <= 8, Hq, D) in the compute dtype; k/v (B, T,
@@ -6,9 +6,12 @@ Hkv, D) in the cache's STORED dtype (bf16 or ``torch.float8_e4m3fn``), e.g.
 strided layer views of the stacked (L, B, T, Hkv, D) cache; q_positions
 (B, S); kv_valid (B, T). Key t is visible to a query iff ``t <= q_position``
 and ``kv_valid[b, t]``; a query with no visible key (e.g. q_position -1)
-returns 0.
+returns 0. The kernel reads the decode step's own tensors as they are (q,
+int64 positions, bool validity), so a step launches nothing around it;
+other dtypes are converted first.
 
-q is prescaled by D^-1/2 and rounded to its dtype, as for K3. The softmax is
+q is prescaled by D^-1/2 and rounded to its dtype, as for K3 (the kernel
+does it as it loads q, to the same bits). The softmax is
 the fixed-m inference form: ``p = exp(min(s, 60))``, p cast to q's dtype
 before ``p @ v``, float32 accumulation, one division by l at the end.
 
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .flash_attention import _prescale, flash_attention_gqa_torch
+from .flash_attention import flash_attention_gqa_torch
 
 # The stored dtypes K4 is built for.
 KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
@@ -75,21 +78,21 @@ def decode_attention_gqa(q, k, v, q_positions, kv_valid, impl: str = "auto"):
                          f"most {MAX_ROWS} query rows per kv head")
     if k.dtype != v.dtype:
         raise TypeError(f"k and v must share a stored dtype, got {k.dtype} and {v.dtype}")
-    qs = _prescale(q).contiguous()
-    pos = q_positions.to(torch.int32).contiguous()
-    valid = kv_valid.to(torch.int32).contiguous()
-    kernels.check_tensor("q", qs, torch.bfloat16, (B, S, Hq, D))
-    kernels.check_tensor("q_positions", pos, torch.int32, (B, S))
-    kernels.check_tensor("kv_valid", valid, torch.int32, (B, T))
+    qc = q.contiguous()
+    pos = q_positions.to(torch.int64).contiguous()
+    valid = (kv_valid if kv_valid.dtype == torch.bool else kv_valid != 0).contiguous()
+    kernels.check_tensor("q", qc, torch.bfloat16, (B, S, Hq, D))
+    kernels.check_tensor("q_positions", pos, torch.int64, (B, S))
+    kernels.check_tensor("kv_valid", valid, torch.bool, (B, T))
     kernels.check_kv("k", k, (B, T, Hkv, D), KV_DTYPES)
     kernels.check_kv("v", v, (B, T, Hkv, D), KV_DTYPES)
     splits = _splits(B, Hkv, T)
     rows = S * (Hq // Hkv)
     part_acc = torch.empty((B, Hkv, splits, rows, D), dtype=torch.float32, device=q.device)
     part_l = torch.empty((B, Hkv, splits, rows), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(qs)
+    out = torch.empty_like(qc)
     kernels.launch(
-        "decode_attention_gqa", qs.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        "decode_attention_gqa", qc.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         valid.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_l.data_ptr(),
         B, S, T, Hq, Hkv, D, int(k.dtype == torch.float8_e4m3fn), splits,
         k.stride(0), k.stride(1), v.stride(0), v.stride(1),

@@ -157,7 +157,7 @@ def use_kernel(x: torch.Tensor, impl: str) -> bool:
 def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
     """Raise unless ``x`` is a contiguous CUDA tensor of this dtype and shape.
     Floating-point operands must be 16-byte aligned (the kernels load them 16
-    bytes per thread); int32 ids and positions are read one at a time."""
+    bytes per thread); ids, positions and flags are read one at a time."""
     if not x.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got device {x.device}")
     if x.dtype != dtype:
@@ -166,7 +166,7 @@ def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if x.data_ptr() % (16 if x.is_floating_point() else 4):
+    if x.data_ptr() % (16 if x.is_floating_point() else x.element_size()):
         raise ValueError(f"{name}: data pointer is misaligned")
 
 

@@ -12,7 +12,14 @@ boolean causal mask (enable_gqa).
 K4 (csrc/decode_attention.cu) at run (b)'s decode step (T = 81920, fp8),
 run (a)'s (32768, bf16) and the judge's heads (64/8, T = 40000, fp8), with
 ops/decode_attention.py's SPLIT_CTAS at several values, against SDPA on
-bf16 copies of the written slots.
+bf16 copies of the written slots. Then K4 at the serving cells' decode steps
+(chip_smoke.py's SERVING_DECODE_CASES: left padding, a prefix block's holes,
+a partly written ring, queries at T), with SPLIT_CTAS and MIN_SPLIT_KEYS
+over a grid, against SDPA and its plain version; and a whole step's
+attention as one CUDA graph of the model's layers (one cache per layer):
+K4 as the decode step calls it (int64 positions, bool validity), the int32
+conversions and q prescale that K4's wrapper launched before it read those
+itself, and the float32 grouped decode that ran below LONG_DECODE_T before.
 
 Each time is chip_smoke.py's time_ms (CUDA events, median of 20, a spin
 queued first); each output is held to its plain version with chip_smoke's
@@ -33,11 +40,15 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from open_o3_video_tpu_torch.ops import attention as attn  # noqa: E402
 from open_o3_video_tpu_torch.ops import decode_attention as da  # noqa: E402
 from open_o3_video_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 D = 128
 SPLIT_CTAS = (132, 264, 396, 528)
+MIN_SPLIT_KEYS = (128, 256, 512)
+# Decoder layers of the serving cells' models (Qwen2.5-VL-7B, Qwen3-VL-30B-A3B).
+SERVING_LAYERS = {"vstar step": 28, "30B step": 48}
 
 
 def median_ms(fn, reps=20) -> float:
@@ -130,6 +141,71 @@ def k4_cases(dev, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def graph_ms(body) -> float:
+    """Median replay time of `body` captured as one CUDA graph."""
+    body()  # warm-up: library load, shared-memory attributes
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        body()
+    ms = median_ms(g.replay)
+    del g
+    return ms
+
+
+def k4_serving_cases(dev, gen) -> None:
+    for name, B, L, ring, Hq, Hkv, prompts, written, holes in cs.SERVING_DECODE_CASES:
+        layers, T = SERVING_LAYERS[name], L + ring
+        pos, valid = cs.serving_layout(dev, B, L, ring, written, prompts, holes)
+        cache = torch.randn((layers, 2, B, T, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn((B, 1, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = cache[0, 0], cache[0, 1]
+        n_valid = int(valid.sum().item())
+        bound, by = cs.bound_ms(4 * cs.causal_pairs(pos, valid) * Hq * D,
+                                2 * n_valid * Hkv * D * 2 + cs.nbytes(q, pos, valid, q))
+        mask = cs.causal_mask(pos, valid)
+        lib = median_ms(lambda: cs.sdpa_masked(q, k, v, mask))
+        ref = da.decode_attention_gqa_torch(q, k, v, pos, valid)
+        plain = median_ms(lambda: da.decode_attention_gqa_torch(q, k, v, pos, valid))
+        head = f"[k4] {name} B={B} T={T} valid={n_valid} heads={Hq}/{Hkv}"
+        defaults = da.SPLIT_CTAS, da.MIN_SPLIT_KEYS
+        for ctas in SPLIT_CTAS:
+            for min_keys in MIN_SPLIT_KEYS:
+                da.SPLIT_CTAS, da.MIN_SPLIT_KEYS = ctas, min_keys
+                out = da.decode_attention_gqa(q, k, v, pos, valid)
+                torch.cuda.synchronize()
+                a = cs.agreement(out, ref, None)
+                ms = median_ms(lambda: da.decode_attention_gqa(q, k, v, pos, valid))
+                print(f"{head} split_ctas={ctas} min_split_keys={min_keys} "
+                      f"splits={da._splits(B, Hkv, T)} ms={ms:.4f} plain_ms={plain:.4f} "
+                      f"sdpa_ms={lib:.4f} bound_ms={bound:.4f} ({by}) "
+                      f"GB/s={2 * n_valid * Hkv * D * 2 / ms / 1e6:.0f} rel_l2={a['rel_l2']:.2e} "
+                      f"agrees={a['ok']}", flush=True)
+        da.SPLIT_CTAS, da.MIN_SPLIT_KEYS = defaults
+        grouped_mask = ((torch.arange(T, device=dev)[None, None, :] <= pos[:, :, None])
+                        & valid[:, None, :])
+
+        def k4_step():
+            for i in range(layers):
+                da.decode_attention_gqa(q, cache[i, 0], cache[i, 1], pos, valid)
+
+        def conversions():  # what K4's wrapper launched around it before
+            for _ in range(layers):
+                pos.to(torch.int32), valid.to(torch.int32), fa._prescale(q)
+
+        def grouped_step():
+            for i in range(layers):
+                attn._grouped_decode(q, cache[i, 0], cache[i, 1], grouped_mask)
+
+        steps = {f: graph_ms(fn) for f, fn in (("k4", k4_step), ("conversions", conversions),
+                                                ("grouped", grouped_step))}
+        print(f"{head} step of {layers} layers (one graph): k4_ms={steps['k4']:.4f} "
+              f"k4_bound_ms={layers * bound:.4f} conversions_ms={steps['conversions']:.4f} "
+              f"grouped_f32_ms={steps['grouped']:.4f}", flush=True)
+        del cache, ref, mask, grouped_mask
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--long", action="store_true", help="also time run (b)'s last prefill chunk")
@@ -142,6 +218,7 @@ def main() -> None:
     gen.manual_seed(0)
     k3_cases(dev, gen, args.long)
     k4_cases(dev, gen)
+    k4_serving_cases(dev, gen)
 
 
 if __name__ == "__main__":

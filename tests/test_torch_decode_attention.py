@@ -13,6 +13,7 @@ from _torch_parity import ATOL_BF16, ATOL_OP, assert_kernel_close, cuda_device, 
 from open_o3_video_tpu_torch.models.qwen25vl.text import write_cache
 from open_o3_video_tpu_torch.ops import attention as tattn
 from open_o3_video_tpu_torch.ops import decode_attention as tdec
+from open_o3_video_tpu_torch.ops import flash_attention as tflash
 
 FP8 = torch.float8_e4m3fn
 
@@ -183,6 +184,63 @@ def test_short_buffer_decode_and_prefill_cast_an_fp8_cache():
         np.testing.assert_allclose(ours, theirs, atol=ATOL_OP)
 
 
+# (S, Hq, Hkv, D, stored dtype, impl, decode_impl, q requires grad) -> the
+# route causal_attention takes with kernels.use_kernel true (a card's tensors)
+# at T = 300, far below LONG_DECODE_T.
+DISPATCH_CASES = {
+    "S=1 bf16 cache": ((1, 28, 4, 128, "bfloat16", "auto", "auto", False), "k4"),
+    "S=8 bf16 cache": ((8, 28, 4, 128, "bfloat16", "auto", "auto", False), "k4"),
+    "S=1 e4m3 cache": ((1, 32, 4, 128, "float8_e4m3fn", "auto", "auto", False), "k4"),
+    "S=8 e4m3 cache, 64 rows": ((8, 32, 4, 128, "float8_e4m3fn", "auto", "auto", False), "k4"),
+    "float32 cache": ((1, 28, 4, 128, "float32", "auto", "auto", False), "grouped"),
+    "head_dim 64": ((1, 28, 4, 64, "bfloat16", "auto", "auto", False), "grouped"),
+    "S*G = 128 rows": ((8, 64, 4, 128, "bfloat16", "auto", "auto", False), "grouped"),
+    "impl torch": ((1, 28, 4, 128, "bfloat16", "torch", "auto", False), "grouped"),
+    "decode_impl xla": ((1, 28, 4, 128, "bfloat16", "auto", "xla", False), "grouped"),
+    "under autograd": ((1, 28, 4, 128, "bfloat16", "auto", "auto", True), "grouped"),
+    "decode_impl pallas": ((1, 28, 4, 128, "bfloat16", "auto", "pallas", False), "flash"),
+}
+
+
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_short_buffer_decode_dispatch_on_the_card(monkeypatch, case):
+    """With kernels.use_kernel true (as for CUDA tensors), a decode block
+    (S <= 8) far below LONG_DECODE_T reaches K4 with k/v in the cache's
+    stored dtype whenever K4 takes the inputs (bf16 q, a bf16 or e4m3
+    cache, head_dim 128, S * Hq/Hkv <= 64, no autograd); every other case,
+    and impl "torch" and decode_impl "xla", keeps the JAX package's order
+    (the cast, then the grouped decode); "pallas" keeps K3."""
+    from open_o3_video_tpu_torch.ops import kernels
+
+    (S, Hq, Hkv, D, kv_dtype, impl, decode_impl, grad), route = DISPATCH_CASES[case]
+    B, T = 2, 300
+    r = rng(S + Hq + D)
+    kvd = getattr(torch, kv_dtype)
+    q = torch.from_numpy(normal(r, B, S, Hq, D)).to(torch.bfloat16).requires_grad_(grad)
+    k, v = (torch.from_numpy(normal(r, B, T, Hkv, D)).to(kvd) for _ in range(2))
+    pos = torch.arange(T - S - 3, T - 3).expand(B, S)
+    valid = torch.ones((B, T), dtype=torch.bool)
+    valid[1, :37] = False
+    seen = []
+
+    def spy(name, fn):
+        def wrapped(q_, k_, v_, *args, **kw):
+            seen.append((name, k_.dtype))
+            return fn(q_, k_, v_, *args)
+        return wrapped
+
+    monkeypatch.setattr(kernels, "use_kernel", lambda x, impl_: impl_ == "auto")
+    monkeypatch.setattr(tattn, "decode_attention_gqa", spy("k4", tdec.decode_attention_gqa_torch))
+    monkeypatch.setattr(tattn, "_grouped_decode", spy("grouped", tattn._grouped_decode))
+    monkeypatch.setattr(tattn, "flash_attention_gqa",
+                        spy("flash", tflash.flash_attention_gqa_torch))
+    out = tattn.causal_attention(q, k, v, q_positions=pos, kv_mask=valid, impl=impl,
+                                 decode_impl=decode_impl)
+    stored = kvd if route == "k4" else torch.bfloat16
+    assert seen == [(route, stored)]
+    assert out.shape == (B, S, Hq, D) and out.dtype == torch.bfloat16
+
+
 def _write_fp8(x_bf16: torch.Tensor) -> np.ndarray:
     dst = torch.zeros(x_bf16.shape, dtype=FP8, device=x_bf16.device)
     write_cache(dst, x_bf16)
@@ -328,6 +386,64 @@ def test_decode_kernel_matches_plain(B, S, T, Hq, Hkv, last, kv_dtype):
         assert (out[1, 0] == 0).all()
     # the same bits on a second run (fixed-order split reduction)
     assert torch.equal(out, tdec.decode_attention_gqa(q, k, v, pos, valid))
+
+
+def serving_layout(B, L, ring, written, prompts, holes):
+    """A decode step's buffer as the engine lays it out: row b's prompt
+    left-padded into [L - prompts[b], L), the ring [L, L + ring) written in
+    its first written[b] columns, holes[b] (start, end) inside the prompt
+    region left invalid (a prefix row's pad inside the shared block), and
+    every query at position T = L + ring, past every column (validity-only
+    masking). Returns q_pos (B, 1) int64 and the validity (B, T) bool."""
+    T = L + ring
+    valid = torch.zeros((B, T), dtype=torch.bool)
+    for b in range(B):
+        valid[b, L - prompts[b]:L + written[b]] = True
+        for h0, h1 in holes.get(b, ()):
+            valid[b, h0:h1] = False
+    return torch.full((B, 1), T, dtype=torch.int64), valid
+
+
+# The two cells' decode steps: (B, L, ring, Hq, Hkv, prompt lengths, ring
+# columns written, holes). vstar: the 7B's 5 V-STAR queries of ~4.8-5.4k
+# tokens, rows 1 and 2 on a shared prefix block with pad inside it, row 4
+# done early; the 30B: 8 unshared requests of ~2.6k tokens at a full batch.
+SERVING_CASES = {
+    "vstar 5 x 5912, 28/4": (5, 5400, 512, 28, 4, (5400, 5310, 5022, 4821, 5398),
+                            (300, 300, 300, 300, 121), {1: ((3240, 3300),), 2: ((3160, 3300),)}),
+    "30B 8 x 3132, 32/4": (8, 2620, 512, 32, 4, (2620, 2588, 2611, 2533, 2602, 2597, 2560, 2617),
+                          (200,) * 8, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "float8_e4m3fn"])
+@pytest.mark.parametrize("case", list(SERVING_CASES))
+def test_decode_kernel_matches_plain_at_the_serving_layouts(case, kv_dtype):
+    """K4 at the cells' own decode shapes and validity (left padding, holes
+    in a prefix block, a partly written ring; NaN in every invalid slot,
+    which K4 must never read) against its plain version, with the engine's
+    int64 positions and bool validity; int32 inputs give the same bits."""
+    dev = cuda_device()
+    B, L, ring, Hq, Hkv, prompts, written, holes = SERVING_CASES[case]
+    D = 128
+    pos, valid = serving_layout(B, L, ring, written, prompts, holes)
+    pos, valid = pos.to(dev), valid.to(dev)
+    T = L + ring
+    r = rng(T + B)
+    kvd = getattr(torch, kv_dtype)
+    cache = torch.from_numpy(normal(r, 2, B, T, Hkv, D)).to(dev, kvd)
+    clean = cache.clone()  # finite everywhere, for the plain version
+    cache.view(torch.uint8 if kv_dtype == "float8_e4m3fn" else torch.int16)[
+        :, ~valid] = 0x7F if kv_dtype == "float8_e4m3fn" else 0x7FC0  # NaN
+    q = torch.from_numpy(normal(r, B, 1, Hq, D)).to(dev, torch.bfloat16)
+    out = tdec.decode_attention_gqa(q, cache[0], cache[1], pos, valid)
+    ref = tdec.decode_attention_gqa_torch(q, clean[0], clean[1], pos, valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert_kernel_close(out, ref)
+    assert torch.equal(out, tdec.decode_attention_gqa(q, cache[0], cache[1], pos.int(),
+                                                      valid.int()))
 
 
 @pytest.mark.cuda

@@ -296,6 +296,40 @@ def _card_config():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bfloat16", "float8_e4m3fn"])
+def test_every_decode_step_runs_k4_below_the_long_context_threshold(monkeypatch, cache):
+    """On the card, with LONG_DECODE_T as shipped and buffers of ~100
+    slots: a decoder of 7 query heads over 1 kv head (the 7B's GQA group)
+    launches K4 once a layer and decode step (graph replays counted), and
+    the plain grouped decode never runs; graphed and eager give the same
+    tokens."""
+    from open_o3_video_tpu_torch.ops import attention as tattn
+    from open_o3_video_tpu_torch.ops import kernels
+
+    dev = cuda_device()
+    cfg = _card_config()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, hidden_size=7 * 128, num_attention_heads=7, num_key_value_heads=1))
+    params = TP.init(cfg, 0, dev)
+    grouped = []
+    monkeypatch.setattr(tattn, "_grouped_decode", lambda *a: grouped.append(a) or None)
+    r = rng(8)
+    reqs = [Request(r.integers(5, 400, size=n).tolist()) for n in (40, 27, 55)]
+    sampling = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=24)
+    outs = {}
+    for graph in (True, False):
+        engine = InferenceEngine(params, cfg, cache_dtype=getattr(torch, cache),
+                                 decode_graph=graph)
+        kernels.reset_launches()
+        outs[graph] = engine.generate(reqs, sampling, return_logprobs=True)
+        steps = engine.decode_steps + engine.decode_steps_wasted
+        assert steps > 0
+        assert kernels.LAUNCHES["decode_attention_gqa"] == cfg.text.num_hidden_layers * steps
+    assert not grouped
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bf16", "int4", "fp8-k4"])
 def test_decode_graph_matches_eager_on_the_card(monkeypatch, case):
     """A small model on the card, two text-only requests: the graphed
@@ -304,8 +338,8 @@ def test_decode_graph_matches_eager_on_the_card(monkeypatch, case):
     same kernel launch counts; with the EOS moved to the first
     row's greedy token at step 3, both stop there alone, at most DONE_LAG -
     1 steps late. "int4": the decoder in int4 (K7 on both routes); "fp8-k4":
-    an fp8 cache with LONG_DECODE_T lowered so that every decode step runs
-    K4."""
+    an fp8 cache with LONG_DECODE_T lowered, its K4 launches counted (every
+    case's decode steps run K4 on the card)."""
     from open_o3_video_tpu_torch.ops import attention as tattn
     from open_o3_video_tpu_torch.ops import kernels
 
