@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--only kimi]
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 flags;
@@ -351,6 +351,21 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      launches (the _tp2 rows'); 24d 24a's greedy answer rendered over its
      frames as a GIF by eval/visualization.py with jax and PIL blocked:
      frames and bytes.
+ 26. Kimi-VL-A3B (last; alone with --only kimi, after the card and the
+     build): 26a the MLA decode (8 x 18700 latent columns, the
+     longvideo.kimi-vl-a3b cell's step; 1 x 8 rows x 40000) and prefill
+     (the cell's 18262-row prefix block, 256 of its rows compared, the
+     whole block timed with its bound and causal SDPA; its 8 x 96-row
+     suffix admission) against their plain versions, three planted faults
+     that must fail the bound (rope part left out, the scale of head_dim
+     128, k_pe left out), and K2 at MoonViT's 64 frames of W = 1008,
+     head_dim 72, with its bound, plain and SDPA times; 26b Kimi-VL at full
+     width with 3 decoder layers and 4 tower blocks through
+     InferenceEngine.generate (8 frames resized on the card, three
+     questions sharing the video prefix, 16 greedy tokens): K2, MLA prefill
+     and MLA decode launches must equal blocks x tower passes, layers x
+     prefill forwards and layers x decode steps, and the eager decode must
+     give the graphed run's tokens.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -394,6 +409,7 @@ from open_o3_video_tpu_torch.engine import engine as engine_module
 from open_o3_video_tpu_torch.engine.engine import DONE_LAG, left_padded_rows
 from open_o3_video_tpu_torch.eval.judge import QWEN25_72B_INSTRUCT_CONFIG, EngineJudge
 from open_o3_video_tpu_torch.models import aria, family_forward, is_aria
+from open_o3_video_tpu_torch.models import kimi_vl
 from open_o3_video_tpu_torch.models.qwen25vl import Qwen25VLConfig, params as P
 from open_o3_video_tpu_torch.models.qwen25vl import text as TT
 from open_o3_video_tpu_torch.models.qwen25vl.config import (
@@ -419,6 +435,7 @@ from open_o3_video_tpu_torch.ops import kernels
 from open_o3_video_tpu_torch.ops import decode_attention as da
 from open_o3_video_tpu_torch.ops import flash_attention as fa
 from open_o3_video_tpu_torch.ops import int4 as i4
+from open_o3_video_tpu_torch.ops import mla
 from open_o3_video_tpu_torch.ops import quant
 from open_o3_video_tpu_torch.ops import window_attention as wa
 from open_o3_video_tpu_torch.ops.resize import resize_frames_device
@@ -6292,9 +6309,269 @@ def train_mesh_phase(dev, seed: int, results: dict) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------- phase 26
+# Kimi-VL-A3B (the longvideo.kimi-vl-a3b cell's shapes): its two MLA kernels
+# and K2 at MoonViT's frames against their plain versions, then the family
+# through InferenceEngine.generate.
+KIMI_CASES = {
+    "mla_decode": ("open_o3_video_tpu_torch/csrc/mla_attention.cu",
+                   "none: the JAX package has no latent attention"),
+    "mla_prefill": ("open_o3_video_tpu_torch/csrc/mla_attention.cu",
+                    "none: the JAX package has no latent attention"),
+    "window_attention_d72_w1008": TPU_KERNELS["window_attention"],
+}
+# The cell's decode step (8 rows over ~18.7k written latent columns), its
+# prefix block (the shared video prefix, one row) and its suffix admission
+# (8 rows of ~100 question tokens after the prefix, the shorter rows
+# left-padded inside the suffix); MoonViT's frames of 24 x 42 patches, a
+# call's 64 at once.
+KIMI_DECODE = (8, 18700)
+KIMI_PREFIX = 18262
+KIMI_SUFFIX = (8, 96)
+KIMI_FRAMES, KIMI_W = 64, 1008
+# The generate run: the cell's widths, the depth cut (a dense layer and two
+# routed; 4 tower blocks), 8 frames of 360x640 resized on the card to
+# 336x588, three questions sharing the video prefix, 16 greedy tokens.
+KIMI_RUN_LAYERS, KIMI_RUN_BLOCKS, KIMI_RUN_FRAMES, KIMI_RUN_TOKENS = 3, 4, 8, 16
+KIMI_HEADS, KIMI_SCALE = 16, 192 ** -0.5
+
+
+def _mla_decode_flops_bytes(q_lat, q_pe, cache, pos, valid, out) -> tuple[float, int]:
+    """The absorbed decode's operations (2 x (576 + 512) a visible (row,
+    head, key)) and bytes (the live latent columns once, q, positions,
+    validity and the output)."""
+    pairs = causal_pairs(pos, valid) * q_lat.shape[2]
+    cols = causal_pairs(pos.max(1, keepdim=True).values, valid)  # each batch row's, once
+    live = cols * cache.shape[-1] * cache.element_size()
+    return 2.0 * pairs * (cache.shape[-1] + q_lat.shape[-1]), int(
+        live + nbytes(q_lat, q_pe, pos, valid, out))
+
+
+def _mla_prefill_inputs(dev, gen, B, S, T, holes: bool):
+    """Random expanded inputs at the cell's widths: q (B, S, 16, 192) split
+    into its views, the expansion kv (B, T, 16, 256) split into k_nope and
+    v, k_pe a view of a (B, T, 576) latent row; queries at the last S
+    positions; with ``holes`` a left pad of each row's suffix."""
+    q = torch.randn((B, S, KIMI_HEADS, 192), generator=gen, device=dev).to(torch.bfloat16)
+    kv = torch.randn((B, T, KIMI_HEADS, 256), generator=gen, device=dev).to(torch.bfloat16)
+    lat = torch.randn((B, T, 576), generator=gen, device=dev).to(torch.bfloat16)
+    pos = (torch.arange(S, device=dev) + T - S)[None].repeat(B, 1)
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    if holes:
+        for b in range(1, B):  # row b's question is 8 b tokens shorter: its first columns are pad
+            valid[b, T - S:T - S + 8 * b] = False
+            pos[b, :8 * b] = -1
+    return (q[..., :128], q[..., 128:].contiguous(), kv[..., :128], lat[..., 512:], kv[..., 128:],
+            pos, valid)
+
+
+def _library(fn):
+    """``fn`` where one call of it runs, else None (a yardstick only: no
+    backend of PyTorch may take the shapes)."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        log("kernels", library_error=str(e)[:200])
+        return None
+
+
+def _sdpa_expanded(qn, qp, kn, kp, v):
+    """One PyTorch call for the expanded prefill's time: causal SDPA over q
+    = [q_nope | q_pe] and k = [k_nope | k_pe] expanded over the heads (the
+    library's yardstick only; its mask is the square causal one)."""
+    H = qn.shape[2]
+    q = torch.cat([qn, qp], -1).transpose(1, 2)
+    k = torch.cat([kn, kp[:, :, None].expand(-1, -1, H, -1)], -1).transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(q, k, v.transpose(1, 2), is_causal=True,
+                                                  scale=KIMI_SCALE)
+
+
+def kimi_kernel_cases(dev, gen, results) -> None:
+    """26a: the MLA decode at the cell's step (8 rows x 18700 columns, a
+    tenth invalid, row 0 at a third of the buffer) and at 1 x 8 rows x
+    40000 (eight 16-row blocks), with the planted faults "rope part left
+    out" and "scale of head_dim 128" (both must fail the bound); the MLA
+    prefill at the prefix block (1 x 18262 causal rows; 256 of them
+    compared, the plain version at all of them would need ~20 GB of
+    scores; the whole block timed beside its bound and causal SDPA) with
+    the planted fault "k_pe left out", and at the suffix admission (8 x 96
+    rows at the end of 18358 columns, left-padded); K2 at MoonViT's 64
+    frames of W = 1008, head_dim 72, with its bound and SDPA."""
+    B, T = KIMI_DECODE
+    for b_, s_, t_ in ((B, 1, T), (1, 8, 40000)):
+        cache = torch.randn((b_, t_, 576), generator=gen, device=dev).to(torch.bfloat16)
+        q_lat = torch.randn((b_, s_, KIMI_HEADS, 512), generator=gen, device=dev).to(torch.bfloat16)
+        q_pe = torch.randn((b_, s_, KIMI_HEADS, 64), generator=gen, device=dev).to(torch.bfloat16)
+        valid = torch.rand((b_, t_), generator=gen, device=dev) > 0.1
+        pos = (torch.arange(s_, device=dev) + t_ - s_)[None].repeat(b_, 1)
+        pos[0, 0] = t_ // 3
+        args = (q_lat, q_pe, cache, pos, valid, KIMI_SCALE)
+        out = mla.mla_decode(*args)
+        flops, moved = _mla_decode_flops_bytes(q_lat, q_pe, cache, pos, valid, out)
+        qs = torch.cat([q_lat, q_pe], -1).transpose(1, 2)
+        kt = cache[:, None]
+        mask = causal_mask(pos, valid)
+        ref = compare("mla_decode", lambda: mla.mla_decode(*args),
+                      lambda: mla.mla_decode_torch(*args), None, results,
+                      case=f"{b_} x {s_} rows x {t_} columns", flops=flops, moved=moved,
+                      library_fn=_library(lambda: F.scaled_dot_product_attention(
+                          qs, kt, kt[..., :512], attn_mask=mask, scale=KIMI_SCALE,
+                          enable_gqa=True)))
+        if s_ == 1:
+            planted("mla_decode", "rope part left out",
+                    mla.mla_decode(q_lat, torch.zeros_like(q_pe), cache, pos, valid, KIMI_SCALE),
+                    ref, None)
+            planted("mla_decode", "scale of head_dim 128",
+                    mla.mla_decode(q_lat, q_pe, cache, pos, valid, 128 ** -0.5), ref, None)
+        del cache, q_lat, q_pe, qs, kt, mask
+        torch.cuda.empty_cache()
+
+    qn, qp, kn, kp, v, pos, valid = _mla_prefill_inputs(dev, gen, 1, KIMI_PREFIX, KIMI_PREFIX,
+                                                        False)
+    rows = torch.cat([torch.arange(0, KIMI_PREFIX, 128, device=dev)[:128],
+                      torch.arange(KIMI_PREFIX - 128, KIMI_PREFIX, device=dev)])
+    sub = (qn[:, rows], qp[:, rows].contiguous())
+    ps = pos[:, rows].contiguous()
+    flops = 2 * (192 + 128) * causal_pairs(ps, valid) * KIMI_HEADS
+    ref = compare("mla_prefill", lambda: mla.mla_prefill_attention(*sub, kn, kp, v, ps, valid,
+                                                                   KIMI_SCALE),
+                  lambda: mla.mla_prefill_attention_torch(*sub, kn, kp, v, ps, valid, KIMI_SCALE),
+                  None, results, case=f"prefix block, {len(rows)} of its {KIMI_PREFIX} rows",
+                  flops=flops, moved=nbytes(*sub, kn, kp, v, ps, valid, sub[0]))
+    planted("mla_prefill", "k_pe left out",
+            mla.mla_prefill_attention(*sub, kn, torch.zeros_like(kp), v, ps, valid, KIMI_SCALE),
+            ref, None)
+    full = lambda: mla.mla_prefill_attention(qn, qp, kn, kp, v, pos, valid, KIMI_SCALE)
+    ms = statistics.median(time_ms(full, reps=10))
+    flops = 2 * (192 + 128) * causal_pairs(pos, valid) * KIMI_HEADS
+    b_ms, b_by = bound_ms(flops, nbytes(qn, qp, kn, kp, v, pos, valid, v))
+    lib_fn = _library(_sdpa_expanded(qn, qp, kn, kp, v))  # the port never calls it
+    lib = None if lib_fn is None else statistics.median(time_ms(lib_fn, reps=10))
+    log("kernels", name="mla_prefill", case="prefix block, all rows",
+        shape=(1, KIMI_PREFIX, KIMI_HEADS, 128), ms=round(ms, 4), bound_ms=round(b_ms, 4),
+        bound_by=b_by, library_ms=None if lib is None else round(lib, 4),
+        tflops=round(flops / ms / 1e9, 1))
+    results["mla_prefill"].update(ms=ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                                  plain_ms=None)
+    del qn, qp, kn, kp, v, sub
+    torch.cuda.empty_cache()
+
+    Bs, S = KIMI_SUFFIX
+    qn, qp, kn, kp, v, pos, valid = _mla_prefill_inputs(dev, gen, Bs, S, KIMI_PREFIX + S, True)
+    compare("mla_prefill", lambda: mla.mla_prefill_attention(qn, qp, kn, kp, v, pos, valid,
+                                                             KIMI_SCALE),
+            lambda: mla.mla_prefill_attention_torch(qn, qp, kn, kp, v, pos, valid, KIMI_SCALE),
+            pos >= 0, results, case=f"suffix admission, {Bs} x {S} after {KIMI_PREFIX}",
+            flops=2 * (192 + 128) * causal_pairs(pos, valid) * KIMI_HEADS,
+            moved=nbytes(qn, qp, kn, kp, v, pos, valid, qn))
+    del qn, qp, kn, kp, v
+    torch.cuda.empty_cache()
+
+    ids = torch.ones((KIMI_FRAMES, KIMI_W), dtype=torch.int32, device=dev)
+    q, k, v = (torch.randn((KIMI_FRAMES, KIMI_W, KIMI_HEADS, 72), generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    seg = segment_mask(ids)
+    compare("window_attention_d72_w1008", lambda: wa.window_attention(q, k, v, ids),
+            lambda: wa.window_attention_torch(q, k, v, ids), None, results,
+            flops=4 * segment_pairs(ids) * KIMI_HEADS * 72, moved=nbytes(q, k, v, ids, q),
+            library_fn=lambda: sdpa_masked(q, k, v, seg),
+            case=f"MoonViT, {KIMI_FRAMES} frames, head_dim 72, W = {KIMI_W}")
+    del q, k, v, seg
+    torch.cuda.empty_cache()
+
+
+def kimi_requests(cfg, seed: int) -> list[Request]:
+    """26b's requests: one video of KIMI_RUN_FRAMES uint8 frames (360x640,
+    resized on the card to 336x588: 24 x 42 patches, 252 placeholders a
+    frame) and three questions of different lengths after it."""
+    frames = np.random.default_rng(seed).integers(
+        0, 256, size=(KIMI_RUN_FRAMES, 3, 360, 640), dtype=np.uint8)
+    prefix = list(b"system: answer about the video. user: ")
+    prefix += [cfg.image_token_id] * (KIMI_RUN_FRAMES * 252)
+    grid = np.array([(KIMI_RUN_FRAMES, 24, 42)])
+    return [Request(input_ids=prefix + list(q.encode()) + [cfg.bos_token_id], frames=frames,
+                    resize_hw=(336, 588), grid_thw=grid, vision_token_id=cfg.image_token_id)
+            for q in (*QUESTIONS, "Where is the ball at 3 seconds?")]
+
+
+def kimi_phase(dev, seed: int, results: dict) -> dict:
+    """Phase 26: 26a the kernel cases; 26b Kimi-VL at the cell's widths,
+    cut to KIMI_RUN_LAYERS decoder layers and KIMI_RUN_BLOCKS tower blocks,
+    through InferenceEngine.generate (graphed) with the launch counts set
+    to 0 just before and read just after: one tower pass through K2
+    (blocks x passes launches), the prefix block and the suffix admission
+    through the MLA prefill (layers x forwards), every decode step through
+    the MLA decode (layers x the steps that ran, replays counted); then the
+    same requests decoded eagerly must give the same tokens (each engine
+    served a 2-token call on another video first, so neither run carries
+    first-use costs). Returns the
+    run's launches of the phase's kernel rows."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kimi_kernel_cases(dev, gen, results)
+    full = kimi_vl.KimiVLConfig()
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, depth=KIMI_RUN_BLOCKS),
+        text=dataclasses.replace(full.text, num_hidden_layers=KIMI_RUN_LAYERS))
+    params = kimi_vl.params.init(cfg, seed, dev)
+    reqs = kimi_requests(cfg, seed)
+    greedy = SamplingParams(temperature=0.0, repetition_penalty=1.05, max_tokens=KIMI_RUN_TOKENS)
+    engine = InferenceEngine(params, cfg)
+    # first-use costs, on another video (the measured call shares nothing with it)
+    engine.generate(kimi_requests(cfg, seed + 1), dataclasses.replace(greedy, max_tokens=2))
+    torch.cuda.reset_peak_memory_stats()
+    outs, run = decode_run(engine, lambda: engine.generate(reqs, greedy))
+    got = dict(kernels.LAUNCHES)
+    ran = run["steps"] + run["wasted"]
+    sched = run["scheduler"]
+    forwards = sched["prefills"]
+    want = {"mla_decode": KIMI_RUN_LAYERS * ran, "mla_prefill": KIMI_RUN_LAYERS * forwards,
+            "window_attention": KIMI_RUN_BLOCKS * sched["tower_passes"]}
+    log("kimi", run="generate", prompt_tokens=[o["num_prompt_tokens"] for o in outs],
+        new_tokens=[len(o["token_ids"]) for o in outs], launches=got, want=want,
+        steps=run["steps"], wasted=run["wasted"], prefills=forwards,
+        prefix_blocks=sched["prefix_blocks"], tower_passes=sched["tower_passes"],
+        vision_ms=round(1e3 * run["vision_s"], 3), prefill_ms=round(1e3 * run["prefill_s"], 3),
+        decode_ms_per_token=run["ms_per_token"],
+        peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    if any(got.get(k, 0) != n or n == 0 for k, n in want.items()):
+        raise RuntimeError(f"26b: launches {got}, want {want}")
+    if sched["prefix_blocks"] < 1:
+        raise RuntimeError("26b: the shared video prefix made no prefix block")
+    eager = InferenceEngine(params, cfg, decode_graph=False)
+    eager.generate(kimi_requests(cfg, seed + 1), dataclasses.replace(greedy, max_tokens=2))
+    again, eager_run = decode_run(eager, lambda: eager.generate(reqs, greedy))
+    decode_pair("Kimi-VL", run, eager_run, [o["token_ids"] for o in outs],
+                [o["token_ids"] for o in again])
+    del engine, eager, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("kimi", phases_seconds=round(time.perf_counter() - t0, 3))
+    return {"mla_decode": got["mla_decode"], "mla_prefill": got["mla_prefill"],
+            "window_attention_d72_w1008": got["window_attention"]}
+
+
+
+def kimi_report(results: dict, launches: dict) -> None:
+    """The kernels line and the ok line of ``--only kimi``."""
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": launches[name], **results[name]}
+        for name, (src, tpu) in KIMI_CASES.items()]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("kimi",), default=None,
+                    help="run the card, build and this phase alone (kimi: phase 26)")
     # phase 24c starts this script again as each of its two ranks
     ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-store", default=None, help=argparse.SUPPRESS)
@@ -6326,6 +6603,11 @@ def main() -> None:
             for line in (kernels.build_dir() / "build.log").read_text().splitlines()
             if "Used " in line]
     log("build", seconds=round(seconds, 3), dir=kernels.build_dir().name, registers=regs)
+    if args.only == "kimi":
+        results = {}
+        kimi_launches = kimi_phase(dev, args.seed, results)
+        kimi_report(results, kimi_launches)
+        return
 
     cfg = Qwen25VLConfig()  # Qwen2.5-VL-7B, bf16
     proc = O3VideoProcessor()
@@ -6464,6 +6746,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     family_kernel_launches.update(train_mesh_phase(dev, args.seed, results))
+    # Kimi-VL: the MLA kernels, K2 at MoonViT's frames, the family's generate
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_kernel_launches.update(kimi_phase(dev, args.seed, results))
 
     log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(card_line(), flush=True)  # again, so that the output's tail holds it
@@ -6473,7 +6759,7 @@ def main() -> None:
          "launches": launches[name], **results[name]}
         for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES,
                                  **MOE_FAMILY_CASES, **MOE_TRAIN_CASES, **MESH_CASES,
-                                 **TRAIN_MESH_CASES}.items()
+                                 **TRAIN_MESH_CASES, **KIMI_CASES}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

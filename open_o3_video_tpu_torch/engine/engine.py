@@ -130,8 +130,15 @@ no tower pass. A device tensor is never copied back to the host: it shares
 a table, and a prefix block, by identity, a numpy array by its digest. On
 a Qwen3-VL model such rows add nothing at the deepstack layers.
 
-The engine serves any family of ``models``: the Qwen families and Aria
-(whose config has no video or vision-start ids, so its positions are 1-D).
+The engine serves any family of ``models``: the Qwen families, Aria
+(whose config has no video or vision-start ids, so its positions are 1-D)
+and Kimi-VL (``models/kimi_vl``: 1-D positions, its own tower and decoder,
+and a latent cache, one (L, B, T, 576) tensor ``{"kv"}`` in place of the
+k/v pair, which the arena, the rows caches, the ring and the prefix blocks
+carry as they carry the pair). A family with a decoder, cache and tower
+of its own (``models.family_module``: Kimi-VL) gives the engine its
+``text_forward``, ``init_kv_cache`` and ``encode_vision`` and refuses
+through ``refuse_engine_options`` what it is not served with.
 
 **On a mesh** (``mesh``, a ``parallel.Mesh``; one process per rank, every
 rank calling ``generate`` with the same requests): the params are sharded
@@ -175,6 +182,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models import family_module
 from ..models.qwen25vl.config import Qwen25VLConfig
 from ..models.qwen25vl.model import (
     build_vision_row_index,
@@ -453,6 +461,11 @@ class InferenceEngine:
                  mesh=None, batch_axis: Optional[str] = None,
                  rollout_shard_axis: Optional[str] = None):
         self.cfg = cfg
+        self._family = family_module(cfg)
+        if self._family is not None:
+            self._family.refuse_engine_options(
+                params, cache_dtype=cache_dtype, mesh=mesh, spec_decode=spec_decode,
+                spec_sample=spec_sample, a8_prefill=a8_prefill)
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh), got "
                             f"{type(mesh).__name__}")
@@ -539,6 +552,12 @@ class InferenceEngine:
         # (global) capture mode, a copy or an allocation that another thread
         # makes while a graph is being captured is illegal.
         self._capture_lock = threading.Lock()
+
+    def _fn(self, name: str):
+        """The family's own ``name`` (``text_forward``, ``init_kv_cache``,
+        ``encode_vision``), else this module's, looked up at each use
+        (callers patch this module's names)."""
+        return getattr(self._family, name, None) or globals()[name]
 
     @property
     def params(self) -> dict:
@@ -824,7 +843,8 @@ class InferenceEngine:
         with torch.profiler.record_function("engine.admit"):
             ids, mask, pos, _ = left_padded_rows(self.cfg, [pseudo], pl)
         embeds, taps = self._embed_rows([pseudo], ids, vis)
-        cache = init_kv_cache(self._cache_cfg, 1, pl, dtype=self.cache_dtype, device=self.device)
+        cache = self._fn("init_kv_cache")(self._cache_cfg, 1, pl, dtype=self.cache_dtype,
+                                          device=self.device)
         chunk = self.long_prefill_chunk if pl >= self.long_prefill_threshold else pl
         self._prefill(embeds, torch.from_numpy(pos).to(self.device),
                       torch.from_numpy(mask).to(self.device), cache, chunk, mask.sum(0),
@@ -877,7 +897,7 @@ class InferenceEngine:
         tables, row_index = taps if taps is not None else (None, None)
         for c0 in range(0, L, chunk):
             with self._stage("prefill"), self._a8():
-                hidden, _ = text_forward(
+                hidden, _ = self._fn("text_forward")(
                     self.params["text"], self.cfg.text, embeds[:, c0:c0 + chunk],
                     position_ids[:, :, c0:c0 + chunk], attn_valid=attn_valid, cache=cache,
                     cache_offset=c0, deepstack_embeds=tables,
@@ -918,8 +938,8 @@ class InferenceEngine:
                 inputs = self._vision_inputs(fresh)
             with self._stage("vision"), self._a8():
                 for key, r in fresh.items():
-                    vis["tables"][key] = encode_vision(self.params, self.cfg, inputs[key],
-                                                       np.asarray(r.grid_thw))
+                    vis["tables"][key] = self._fn("encode_vision")(
+                        self.params, self.cfg, inputs[key], np.asarray(r.grid_thw))
                     self.counters["tower_passes"] += 1
         tables, offsets, tokens, at = [], [], [], {}
         total = 0
@@ -1004,7 +1024,8 @@ class InferenceEngine:
         rows = patchify_device(
             x.repeat_interleave(v.temporal_patch_size, dim=0), v.patch_size,
             v.temporal_patch_size, v.spatial_merge_size,
-            out_dtype=self.params["visual"]["patch_embed"].dtype)
+            out_dtype=self.params["visual"]["patch_embed"].dtype,
+            mean=getattr(v, "image_mean", None), std=getattr(v, "image_std", None))
         return list(rows.chunk(len(host))), nbytes
 
     def _resize_weights(self, in_hw: tuple, out_hw: tuple) -> tuple:
@@ -1031,14 +1052,15 @@ class InferenceEngine:
     # ------------------------------------------------------------------- group
 
     def _slots_for(self, B: int, T: int) -> int:
-        """``B`` capped by ``max_kv_gb``: the arena's bytes per slot are
-        2 (k, v) x layers x T x kv heads x head_dim x the cache dtype's
-        item size."""
+        """``B`` capped by ``max_kv_gb``: the arena's bytes per slot are T
+        times those of a one-slot, one-column cache of the family (2 (k, v)
+        x layers x kv heads x head_dim x the cache dtype's item size, or
+        Kimi-VL's latent row over the layers)."""
         if not self.max_kv_gb:
             return B
-        t = self._cache_cfg
-        per_slot = (2 * t.num_hidden_layers * T * t.num_key_value_heads * t.head_dim
-                    * torch.empty((), dtype=self.cache_dtype).element_size())
+        column = self._fn("init_kv_cache")(self._cache_cfg, 1, 1, dtype=self.cache_dtype,
+                                           device="meta")
+        per_slot = T * sum(x.numel() * x.element_size() for x in column.values())
         return max(1, min(B, int(self.max_kv_gb * 1e9 / per_slot)))
 
     def _run_group(self, idxs, requests, sampling: SamplingParams, return_logprobs: bool,
@@ -1099,7 +1121,8 @@ class InferenceEngine:
             lps=torch.zeros((B, out_w), dtype=torch.float32, device=dev),
             emitted=torch.zeros(B, dtype=torch.long, device=dev),
             q_pos=torch.full((B, 1), T_arena, dtype=torch.long, device=dev),
-            cache=init_kv_cache(self._cache_cfg, B, T_arena, dtype=self.cache_dtype, device=dev),
+            cache=self._fn("init_kv_cache")(self._cache_cfg, B, T_arena,
+                                            dtype=self.cache_dtype, device=dev),
             gen=torch.Generator(device=dev), L=L, ring=ring,
         )
         st.gen.manual_seed(sampling.seed)
@@ -1282,14 +1305,14 @@ class InferenceEngine:
             every slot, else a rows cache of its own."""
             if len(slots) == B:
                 return st.cache
-            return init_kv_cache(self._cache_cfg, len(slots), T_arena, dtype=self.cache_dtype,
-                                 device=dev)
+            return self._fn("init_kv_cache")(self._cache_cfg, len(slots), T_arena,
+                                             dtype=self.cache_dtype, device=dev)
 
         def scatter(rows, slots):
             if rows is st.cache:
                 return
             slots_t = torch.tensor(slots, dtype=torch.long, device=dev)
-            for name in ("k", "v"):
+            for name in st.cache:
                 _bytes(st.cache[name]).index_copy_(1, slots_t, _bytes(rows[name]))
 
         def admit_plain(slots, rids):
@@ -1340,10 +1363,10 @@ class InferenceEngine:
                         reqs, pl, P, L - P, T_arena)
                 with self._stage("prefill"):
                     rows = rows_cache(sub_slots)
-                    for name in ("k", "v"):
+                    for name in rows:
                         _bytes(rows[name])[:, :, P - pl:P] = _bytes(block[name])
                     with self._a8():
-                        hidden, _ = text_forward(
+                        hidden, _ = self._fn("text_forward")(
                             self.params["text"], cfg.text,
                             embed_tokens(self.params, torch.from_numpy(ids).to(dev)),
                             torch.from_numpy(pos).to(dev),
@@ -1429,7 +1452,7 @@ class InferenceEngine:
         live = ~st.done
         col = (st.L + torch.remainder(st.cursor, st.ring)).reshape(1)
         st.attn_valid.index_copy_(1, col, live[:, None])
-        hidden, _ = text_forward(
+        hidden, _ = self._fn("text_forward")(
             self.params["text"], cfg.text, embed_tokens(self.params, st.token[:, None]),
             st.mrope_cur[None, :, None].expand(3, B, 1), seq_positions=st.q_pos,
             attn_valid=st.attn_valid, cache=st.cache, cache_offset=col, validity_only=True,

@@ -5,10 +5,14 @@ by name (grpo_trainer.py:211-219) and its 2025-11 update base:
   config-selected variants over shared towers and one decoder, the family
   detected from an HF config.json by ``Qwen25VLConfig.from_hf_dict``;
 - ``aria``: Aria, an Idefics3/SigLIP tower and a cross-attention projector
-  over the shared decoder with mixture-of-experts MLPs.
+  over the shared decoder with mixture-of-experts MLPs;
+- ``kimi_vl``: Kimi-VL, a MoonViT tower and a DeepSeek-V3 decoder with
+  latent attention (served only).
 
 ``load_model`` dispatches a checkpoint directory on its config.json's
-``model_type``; ``family_forward`` is the trainer-facing forward of either.
+``model_type``; ``family_forward`` is the trainer-facing forward of either;
+``family_module`` names the family whose decoder, cache and tower are its
+own, for the serving engine.
 """
 
 from __future__ import annotations
@@ -16,18 +20,24 @@ from __future__ import annotations
 import json
 import os
 
-from . import aria, qwen25vl
+from . import aria, kimi_vl, qwen25vl
 
 
 def load_model(model_dir: str, device, dtype=None, **kwargs):
     """(params, cfg, family module) of an HF checkpoint directory, the
     family chosen by its config.json's ``model_type`` (the reference's
     by-name selection). ``kwargs`` go to the Qwen families' loader
-    (``quantize_text``, ``quantize_vision``); Aria's loader takes none, and
-    raises ValueError on any."""
+    (``quantize_text``, ``quantize_vision``); Aria's and Kimi-VL's loaders
+    take none, and raise ValueError on any."""
     with open(os.path.join(model_dir, "config.json")) as f:
         model_type = json.load(f).get("model_type", "qwen2_5_vl")
     dt = {"dtype": dtype} if dtype is not None else {}
+    if model_type == "kimi_vl":
+        if kwargs:
+            raise ValueError(f"kimi_vl checkpoints do not support loader options {sorted(kwargs)}")
+        cfg = kimi_vl.KimiVLConfig.from_pretrained(model_dir, **dt)
+        params, cfg = kimi_vl.params.load_pretrained(model_dir, device, cfg=cfg)
+        return params, cfg, kimi_vl
     if model_type == "aria":
         if kwargs:
             raise ValueError(f"aria checkpoints do not support loader options {sorted(kwargs)}")
@@ -41,6 +51,14 @@ def load_model(model_dir: str, device, dtype=None, **kwargs):
 
 def is_aria(cfg) -> bool:
     return getattr(cfg, "model_type", None) == "aria"
+
+
+def family_module(cfg):
+    """The module of a family with its own decoder, cache and tower (Kimi-VL:
+    ``text_forward``, ``init_kv_cache``, ``encode_vision``,
+    ``refuse_engine_options``), or None for the families that share
+    ``qwen25vl``'s (the Qwen families and Aria)."""
+    return kimi_vl if getattr(cfg, "model_type", None) == "kimi_vl" else None
 
 
 def family_forward(params, cfg, input_ids, position_ids, *, pixel_patches=None, grid_thw=None,
@@ -65,4 +83,5 @@ def family_forward(params, cfg, input_ids, position_ids, *, pixel_patches=None, 
                             attn_impl=attn_impl, remat=remat, return_hidden=return_hidden)
 
 
-__all__ = ["aria", "qwen25vl", "load_model", "family_forward", "is_aria"]
+__all__ = ["aria", "kimi_vl", "qwen25vl", "load_model", "family_forward", "family_module",
+           "is_aria"]

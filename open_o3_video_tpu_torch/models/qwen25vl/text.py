@@ -143,7 +143,17 @@ def moe_route(p: dict, cfg: TextConfig, flat: torch.Tensor) -> tuple[torch.Tenso
     """The router of a mixture layer: (N, k) expert indices and their (N, k)
     float32 weights for the tokens ``flat`` (N, D). ``softmax_topk_norm``
     (Qwen3-VL-MoE): a softmax over all experts, the top k, renormalised;
-    ``topk_softmax`` (Aria): the top k logits, a softmax over those."""
+    ``topk_softmax`` (Aria): the top k logits, a softmax over those;
+    ``sigmoid_bias_topk_norm`` (DeepSeek-V3's ``noaux_tc`` with one group,
+    Kimi-VL): sigmoid scores of float32 logits, the top k of the scores
+    plus the layer's ``router_bias`` (the bias chooses, it does not
+    weigh), the chosen scores normalised (+ 1e-20) and scaled by
+    ``routed_scaling_factor``."""
+    if cfg.moe_routing == "sigmoid_bias_topk_norm":
+        scores = torch.sigmoid(flat.float() @ p["router"].float())
+        _, idx = _top_k(scores + p["router_bias"].float(), cfg.moe_topk)
+        w = scores.gather(-1, idx)
+        return idx, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scaling_factor
     logits = dense(flat, p["router"]).float()
     if cfg.moe_routing == "softmax_topk_norm":
         w, idx = _top_k(torch.softmax(logits, dim=-1), cfg.moe_topk)

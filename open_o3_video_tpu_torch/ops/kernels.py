@@ -9,7 +9,8 @@ so an edited source rebuilds and an unchanged one is reused.
 
 ``LAUNCHES`` counts, per kernel entry point (the inference and the exact
 training modes of K1-K3 under their own names, K5 and K6 per kernel, K7's
-decode and prefill routes, and its two K7a probes), the launches made by its
+decode and prefill routes, its two K7a probes, and the latent attention's
+decode and prefill), the launches made by its
 wrapper; callers reset it with :func:`reset_launches`
 to show which kernels a run went through.
 """
@@ -66,6 +67,8 @@ _SIGNATURES = {
     "o3v_int4_matmul_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "o3v_int4_matmul_stream": (_P,) * 5 + (_I,) * 4 + (_P,),
     "o3v_int4_matmul_convert": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "o3v_mla_decode": (_P, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "o3v_mla_prefill": (_P,) * 8 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
 }
 
 

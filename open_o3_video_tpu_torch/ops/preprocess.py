@@ -55,7 +55,7 @@ def patchify(frames_tchw: np.ndarray, patch_size: int = 14, temporal_patch_size:
 
 def patchify_device(frames_tchw: torch.Tensor, patch_size: int = 14,
                     temporal_patch_size: int = 2, merge_size: int = 2,
-                    out_dtype=None) -> torch.Tensor:
+                    out_dtype=None, mean=None, std=None) -> torch.Tensor:
     """:func:`patchify` on the tensor's device: uint8 or float (T, C, H, W),
     T already a multiple of ``temporal_patch_size``, to patch rows in
     float32, cast to ``out_dtype`` at the end. The normalize is the host
@@ -63,11 +63,14 @@ def patchify_device(frames_tchw: torch.Tensor, patch_size: int = 14,
     the std), each a correctly rounded float32 op. Every constant is a
     tensor on the frames' device: PyTorch divides a CUDA tensor by a Python
     scalar as a product with its reciprocal, which can differ from the
-    quotient by an ulp."""
+    quotient by an ulp. ``mean`` and ``std`` (per channel) default to the
+    CLIP values of the Qwen processors."""
     dev = frames_tchw.device
     x = frames_tchw.to(torch.float32) / torch.full((), 255.0, device=dev)
-    mean = torch.from_numpy(OPENAI_CLIP_MEAN).to(dev)[:, None, None]
-    std = torch.from_numpy(OPENAI_CLIP_STD).to(dev)[:, None, None]
+    mean = torch.from_numpy(np.asarray(OPENAI_CLIP_MEAN if mean is None else mean,
+                                       dtype=np.float32)).to(dev)[:, None, None]
+    std = torch.from_numpy(np.asarray(OPENAI_CLIP_STD if std is None else std,
+                                      dtype=np.float32)).to(dev)[:, None, None]
     x = (x - mean) / std
     T, C, H, W = x.shape
     grid_t = T // temporal_patch_size

@@ -40,8 +40,11 @@ TRAINED_FAMILIES = ("qwen2_5_vl", "qwen2_vl", "qwen3_vl", "qwen3_vl_moe", "aria"
 
 def require_trainable(cfg) -> None:
     """Raise NotImplementedError on a ``model_type`` that no family module
-    reads; every family the port serves trains."""
+    reads, ValueError on Kimi-VL, which is served only; every other family
+    the port serves trains."""
     model_type = getattr(cfg, "model_type", None)
+    if model_type == "kimi_vl":
+        raise ValueError("Kimi-VL is served only: the port does not train it")
     if model_type not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"training model_type {model_type!r}: no model family of the port reads it; "
