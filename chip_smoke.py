@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--only kimi]
+    python3 chip_smoke.py [--seed 0] [--only kimi|norm]
 
 Phases (one line each; any failure raises and the exit code is non-zero):
   1. the card: name and power limit (nvidia-smi), TF32 flags;
@@ -20,7 +20,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      252x336 frames, processor -> InferenceEngine.generate with the reference
      sampling (temperature 0.7, top_p 0.001, repetition penalty 1.05) for 64
      new tokens; stage times, peak memory, and each kernel's launch count,
-     which must be > 0. Every phase decodes graphed, the engine's default:
+     which must be > 0; the RMSNorm kernel's must be 57 (2 x 28 layers and
+     the final norm) a prefill forward and a decode step, and 65 (2 x 32
+     blocks and the merger's) a tower pass, in all and in the decode
+     segments alone (norm_launches; phases 20, 22a and 26b hold their
+     families' runs so too). Every phase decodes graphed, the engine's default:
      one decode step captured as a CUDA graph per group of a generate call
      and replayed, the tokens read back once a decode segment;
   5. the slice's numerics on the engine's prefill layout (the requests as
@@ -248,7 +252,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      (random bf16 weights from --seed): the slice's 2 questions over 16
      frames of 256x352 as images (the processor at patch 16), greedy, 64
      tokens: vision, prefill and decode ms, peak GiB, K2 launches 27 a
-     tower pass, K1 none, K3 36 a prefill forward, graphed tokens equal to
+     tower pass, K1 none, K3 36 a prefill forward, the RMSNorm kernel 145
+     a forward (4 x 36 and the final norm), graphed tokens equal to
      eager, the tower (and its 3 deepstack taps) of the kernel path against
      float32 as phase 5, the teacher-forced argmax agreement of the kernel
      path with impl="torch", and zeroing the taps must move the logits;
@@ -288,7 +293,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      count must equal HF's model's, 31.07B): phase 20's two image requests
      and its video request greedy, 64 tokens, graphed and eagerly (tokens
      equal): vision, prefill and decode ms, peak GiB, K2 27 a tower pass, K3
-     48 a prefill forward, the decode step's weight bytes (routed at most,
+     48 a prefill forward, the RMSNorm kernel 193 a forward (4 x 48 and the
+     final norm; none in the LayerNorm tower), the decode step's weight bytes (routed at most,
      and the dense form's); the MLP numerics at 2 decoder layers: the
      routed experts in bf16 and the dense combine in bf16, each against the
      dense combine in float32 on the same experts, the routed at most
@@ -364,8 +370,23 @@ Phases (one line each; any failure raises and the exit code is non-zero):
      InferenceEngine.generate (8 frames resized on the card, three
      questions sharing the video prefix, 16 greedy tokens): K2, MLA prefill
      and MLA decode launches must equal blocks x tower passes, layers x
-     prefill forwards and layers x decode steps, and the eager decode must
-     give the graphed run's tokens.
+     prefill forwards and layers x decode steps, the RMSNorm kernel 3 x
+     layers + 1 a forward, and the eager decode must give the graphed run's
+     tokens.
+ 27. RMSNorm (last; alone with --only norm, after the card and the build):
+     the kernel against its plain version (every output within one bf16
+     ulp) at the cells' shapes (8 x 2048, 8 x 3584, 256 x 128, 8 x 512 rows
+     576 apart, 16384 x 1280, 317952 x 1280): one LAUNCHES count and
+     exactly one device kernel a call by the profiler (the plain chain's
+     and F.rms_norm's kernels counted beside it), F.rms_norm's ulps from
+     the chain, times in turns with the byte bound and F.rms_norm's, and at
+     the decode shapes each one's share of a replayed CUDA graph of
+     NORM_GRAPH_CALLS calls, as the decode step pays it; with --only norm
+     also 27b, a cut 7B (8 tower blocks, 4 layers, full width) through
+     generate, its RMSNorm launches held as phase 4's (the kernels line's
+     launches: phase 4's run, or 27b's alone). The whole script runs 27 as
+     a process of its own (``--only norm``): late in a long process the
+     profiler read no device kernels.
 Then one JSON line with the per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device it raises before any
 result is printed.
@@ -437,6 +458,7 @@ from open_o3_video_tpu_torch.ops import flash_attention as fa
 from open_o3_video_tpu_torch.ops import int4 as i4
 from open_o3_video_tpu_torch.ops import mla
 from open_o3_video_tpu_torch.ops import quant
+from open_o3_video_tpu_torch.ops import rms_norm as rn
 from open_o3_video_tpu_torch.ops import window_attention as wa
 from open_o3_video_tpu_torch.ops.resize import resize_frames_device
 from open_o3_video_tpu_torch.data.rl_dataset import rl_sample_from_frames
@@ -1311,6 +1333,37 @@ def slice_phase(engine, reqs, sampling, names=SLICE_KERNELS) -> tuple[list[dict]
     if dev.type == "cuda" and not all(launches.values()):
         raise RuntimeError(f"a kernel of the path never launched: {launches}")
     return outs, launches, decode
+
+
+def norm_sites(cfg) -> tuple[int, int]:
+    """RMSNorm launches (``rms_norm``) a decoder forward and a tower pass of
+    ``cfg`` make on the card: per layer 2 (input, post), 4 (Qwen3's q and k
+    norms too) or 3 (Kimi-VL's latent norm too), and the final norm; 2 a
+    block and the merger's in an RMSNorm tower (Qwen2.5-VL), none in a
+    LayerNorm one."""
+    t = cfg.text
+    per_layer = 3 if hasattr(t, "kv_lora_rank") else 2 + 2 * t.use_qk_norm
+    rms_tower = getattr(cfg.vision, "norm_type", "layernorm") == "rmsnorm"
+    return per_layer * t.num_hidden_layers + 1, 2 * cfg.vision.depth + 1 if rms_tower else 0
+
+
+def norm_launches(tag: str, cfg, run: dict, phase: str) -> int:
+    """The RMSNorm kernel's launches in a ``decode_run`` of ``cfg`` (the
+    counts set to 0 just before), held to the main path's: a forward's
+    norm sites in every prefill forward and every decode step that ran, the
+    tower's in every tower pass, and a forward's in every step of the
+    decode segments alone (replays counted). Returns the whole count."""
+    forward, tower = norm_sites(cfg)
+    sched, ran = run["scheduler"], run["steps"] + run["wasted"]
+    want = forward * (sched["prefills"] + ran) + tower * sched["tower_passes"]
+    got, decode = kernels.LAUNCHES["rms_norm"], run["launches"].get("rms_norm", 0)
+    log(phase, run=tag, rms_norm_launches=got, want=want, decode_launches=decode,
+        want_decode=forward * ran, norms_a_forward=forward, norms_a_tower_pass=tower,
+        prefills=sched["prefills"], decode_steps=ran, tower_passes=sched["tower_passes"])
+    if got != want or decode != forward * ran or ran == 0:
+        raise RuntimeError(f"{tag}: rms_norm launched {got} times ({decode} in the decode "
+                           f"segments), want {want} ({forward * ran})")
+    return got
 
 
 def eager_pair(path: str, params, cfg, reqs, sampling, graph_outs, graph: dict,
@@ -4323,7 +4376,8 @@ def qwen3_video_request(proc, cfg, seed: int) -> Request:
 def family_launches(tag, cfg, run, per_pass, passes, phase="families") -> dict:
     """The launch counts of one phase-20 (or 22) run, held to what the path
     makes: K2 in every tower block of every tower pass (K1 never: no
-    windows), K3 in every decoder layer of every prefill forward."""
+    windows), K3 in every decoder layer of every prefill forward, the
+    RMSNorm kernel at every norm site of every forward (``norm_launches``)."""
     got = {name: kernels.LAUNCHES[name] for name in FAMILY_KERNELS + ("fused_window_attention",)}
     want = {"window_attention": per_pass * passes, "fused_window_attention": 0,
             "flash_attention_gqa": cfg.text.num_hidden_layers * run["scheduler"]["prefills"]}
@@ -4332,7 +4386,7 @@ def family_launches(tag, cfg, run, per_pass, passes, phase="families") -> dict:
         graph_captures=run["scheduler"]["captures"])
     if got != want:
         raise RuntimeError(f"{tag}: launches {got}, expected {want}")
-    return got
+    return {**got, "rms_norm": norm_launches(tag, cfg, run, phase)}
 
 
 def forced_agreement(params, cfg, req, tokens) -> float:
@@ -6540,6 +6594,7 @@ def kimi_phase(dev, seed: int, results: dict) -> dict:
         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     if any(got.get(k, 0) != n or n == 0 for k, n in want.items()):
         raise RuntimeError(f"26b: launches {got}, want {want}")
+    norm_launches("Kimi-VL", cfg, run, "kimi")
     if sched["prefix_blocks"] < 1:
         raise RuntimeError("26b: the shared video prefix made no prefix block")
     eager = InferenceEngine(params, cfg, decode_graph=False)
@@ -6556,13 +6611,176 @@ def kimi_phase(dev, seed: int, results: dict) -> dict:
 
 
 
-def kimi_report(results: dict, launches: dict) -> None:
-    """The kernels line and the ok line of ``--only kimi``."""
+# ---------------------------------------------------------------- phase 27
+# RMSNorm at the cells' shapes: (case, rows, width, row stride).
+NORM_CASES = (
+    ("the 30B's and Kimi's decode step", 8, 2048, 2048),
+    ("the 7B's decode step", 8, 3584, 3584),
+    ("the 30B's q-norm at decode (8 rows x 32 heads)", 256, 128, 128),
+    ("Kimi's kv_norm at decode (ckv[..., :512])", 8, 512, 576),
+    ("a vstar tower pass (16 frames)", 16384, 1280, 1280),
+    ("the long-context tower (64 frames of 4968 patches)", 317952, 1280, 1280),
+)
+NORM_GRAPH_CALLS = 64  # calls in the graph that times a decode-shaped norm
+NORM_RUN_BLOCKS, NORM_RUN_LAYERS = 8, 4  # 27b's cut of the 7B (block 7 attends whole frames)
+NORM_KERNELS = {"rms_norm": ("open_o3_video_tpu_torch/csrc/rms_norm.cu",
+                             "none: the JAX package's rms_norm is plain jnp, fused by XLA")}
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The most bf16 ulps between a and b (ordered bit patterns)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def device_kernels(fn) -> int:
+    """Device kernels one call of ``fn`` runs, read from the profiler's raw
+    events as the benchmark's trace reads them (``portbench/lib/trace.py``):
+    the events on the device, copies and sets left out."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+def graph_call_ms(fn, calls: int = NORM_GRAPH_CALLS) -> float:
+    """A call's share of a replayed CUDA graph of ``calls`` calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = statistics.median(time_ms(graph.replay, reps=10))
+    del graph
+    return ms / calls
+
+
+def norm_phase(dev, seed: int, results: dict) -> None:
+    """Phase 27a: each NORM_CASES case under inference mode (the kernel's
+    rule), the kernel, the plain chain and F.rms_norm on the same bf16 rows
+    and weight: the kernel's every output within one bf16 ulp of the
+    chain's, one LAUNCHES count and exactly one device kernel a call (the
+    chain's and F.rms_norm's device kernels counted beside it), F.rms_norm's
+    most ulps from the chain, times in turns (plain, kernel, kernel, plain)
+    with the byte bound (the rows read once, the output written once, the
+    weight) and F.rms_norm's time, and at up to 256 rows each one's share
+    of a replayed graph of NORM_GRAPH_CALLS calls. The faults are raised
+    together after the last case."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    faults = []
+    with torch.inference_mode():
+        for case, rows, d, stride in NORM_CASES:
+            buf = torch.randn(rows, stride, device=dev, generator=gen).bfloat16()
+            x = buf[:, :d]
+            w = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).bfloat16()
+            eps = 1e-6
+
+            def kernel_fn():
+                return rn.rms_norm(x, w, eps)
+
+            def plain_fn():
+                return rn.rms_norm_torch(x, w, eps)
+
+            def library_fn():
+                return F.rms_norm(x, (d,), w, eps)
+
+            before = kernels.LAUNCHES["rms_norm"]
+            out, ref, lib = kernel_fn(), plain_fn(), library_fn()
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["rms_norm"] != before + 1:
+                faults.append(f"{case}: the kernel did not launch once a call")
+            ulps, lib_ulps = bf16_ulps(out, ref), bf16_ulps(lib, ref)
+            if ulps > 1 or bool((out.isnan() & ~ref.isnan()).any()):
+                faults.append(f"{case}: {ulps} bf16 ulps from the plain version")
+            del out, ref, lib
+            n_kernel = device_kernels(kernel_fn)
+            n_plain, n_lib = device_kernels(plain_fn), device_kernels(library_fn)
+            if n_kernel != 1:
+                faults.append(f"{case}: {n_kernel} device kernels a call (profiler)")
+            p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+            ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+            lib_ms = statistics.median(time_ms(library_fn))
+            b_ms, b_by = bound_ms(0.0, 2 * 2 * rows * d + nbytes(w))
+            graph = ({"graph_ms": round(graph_call_ms(kernel_fn), 5),
+                      "plain_graph_ms": round(graph_call_ms(plain_fn), 5),
+                      "library_graph_ms": round(graph_call_ms(library_fn), 5)}
+                     if rows <= 256 else {})
+            log("norm", case=case, shape=(rows, d), row_stride=stride, max_ulps=ulps,
+                ms=round(ms, 5), plain_ms=round(plain_ms, 5), bound_ms=round(b_ms, 5),
+                bound_by=b_by, library_ms=round(lib_ms, 5), library_max_ulps=lib_ulps,
+                device_kernels=n_kernel, plain_device_kernels=n_plain,
+                library_device_kernels=n_lib, **graph)
+            if "rms_norm" not in results:
+                results["rms_norm"] = {"max_abs_err": None, "max_ulps": ulps, "ms": ms,
+                                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                       "library_ms": lib_ms, **graph}
+            del buf, x
+            torch.cuda.empty_cache()
+    log("norm", phases_seconds=round(time.perf_counter() - t0, 3))
+    if faults:
+        raise RuntimeError("27a: " + "; ".join(faults))
+
+
+def norm_run_phase(dev, seed: int) -> int:
+    """Phase 27b (--only norm): Qwen2.5-VL-7B at full width cut to
+    NORM_RUN_BLOCKS tower blocks and NORM_RUN_LAYERS decoder layers, phase
+    4's requests and sampling through InferenceEngine.generate
+    (``slice_phase``): the RMSNorm kernel's launches held to the main
+    path's (``norm_launches``). Returns them."""
+    cfg = _cut_cfg(Qwen25VLConfig(), NORM_RUN_BLOCKS, NORM_RUN_LAYERS)
+    params = P.init(cfg, seed, dev)
+    engine = InferenceEngine(params, cfg)
+    sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
+                              max_tokens=MAX_TOKENS, seed=seed)
+    _, _, run = slice_phase(engine, make_requests(O3VideoProcessor(), cfg, seed), sampling,
+                            names=SLICE_KERNELS + ("rms_norm",))
+    got = norm_launches("Qwen2.5-VL-7B, cut", cfg, run, "norm")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def norm_process(seed: int, results: dict) -> None:
+    """Phase 27 in a process of its own (``--only norm``, 27a and 27b): a
+    profiler session late in this process read 0 device kernels a call
+    where the same session in a fresh process read the kernel's 1 and the
+    chain's 9 (an H100 with PyTorch 2.11). Its phase lines are printed
+    here (its kernels and ok lines are not: this script prints its own
+    last), and its kernel row joins ``results``."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                           "--only", "norm"], capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    print("\n".join(x for x in lines if not x.startswith(('{"kernels"', '{"ok"'))), flush=True)
+    print(proc.stderr[-4000:], end="", file=sys.stderr, flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"27: chip_smoke.py --only norm exited with {proc.returncode}")
+    line = next(x for x in lines if x.startswith('{"kernels"'))
+    row = json.loads(line)["kernels"][0]
+    results["rms_norm"] = {k: v for k, v in row.items()
+                           if k not in ("name", "route", "source", "replaces", "launches")}
+
+
+def only_report(results: dict, launches: dict, cases: dict = KIMI_CASES) -> None:
+    """The kernels line and the ok line of ``--only kimi`` or ``--only norm``."""
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], **results[name]}
-        for name, (src, tpu) in KIMI_CASES.items()]}), flush=True)
+        for name, (src, tpu) in cases.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -6570,8 +6788,8 @@ def kimi_report(results: dict, launches: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("kimi",), default=None,
-                    help="run the card, build and this phase alone (kimi: phase 26)")
+    ap.add_argument("--only", choices=("kimi", "norm"), default=None,
+                    help="run the card, build and this phase alone (kimi: phase 26; norm: 27)")
     # phase 24c starts this script again as each of its two ranks
     ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-store", default=None, help=argparse.SUPPRESS)
@@ -6606,7 +6824,12 @@ def main() -> None:
     if args.only == "kimi":
         results = {}
         kimi_launches = kimi_phase(dev, args.seed, results)
-        kimi_report(results, kimi_launches)
+        only_report(results, kimi_launches)
+        return
+    if args.only == "norm":
+        results = {}
+        norm_phase(dev, args.seed, results)
+        only_report(results, {"rms_norm": norm_run_phase(dev, args.seed)}, NORM_KERNELS)
         return
 
     cfg = Qwen25VLConfig()  # Qwen2.5-VL-7B, bf16
@@ -6625,6 +6848,7 @@ def main() -> None:
     sampling = SamplingParams(temperature=0.7, top_p=0.001, repetition_penalty=1.05,
                               max_tokens=MAX_TOKENS, seed=args.seed)
     outs, launches, decode = slice_phase(engine, reqs, sampling)
+    launches["rms_norm"] = norm_launches("video slice", cfg, decode, "slice")
     log("slice", first_token_ids=[o["token_ids"][:8] for o in outs])
 
     numerics_phase(params, cfg, reqs)
@@ -6750,6 +6974,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     family_kernel_launches.update(kimi_phase(dev, args.seed, results))
+    # RMSNorm at the cells' shapes, in a process of its own (its launches are phase 4's)
+    gc.collect()
+    torch.cuda.empty_cache()
+    norm_process(args.seed, results)
 
     log("total", seconds=round(time.perf_counter() - t_start, 3))
     print(card_line(), flush=True)  # again, so that the output's tail holds it
@@ -6759,7 +6987,7 @@ def main() -> None:
          "launches": launches[name], **results[name]}
         for name, (src, tpu) in {**TPU_KERNELS, **FAMILY_CASES, **FAMILY_TRAIN_CASES,
                                  **MOE_FAMILY_CASES, **MOE_TRAIN_CASES, **MESH_CASES,
-                                 **TRAIN_MESH_CASES, **KIMI_CASES}.items()
+                                 **TRAIN_MESH_CASES, **KIMI_CASES, **NORM_KERNELS}.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

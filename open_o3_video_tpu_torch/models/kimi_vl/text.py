@@ -35,8 +35,8 @@ import torch.nn.functional as F
 
 from ...ops.mla import mla_decode, mla_prefill_attention
 from ...ops.quant import dense
+from ...ops.rms_norm import rms_norm
 from ..qwen25vl.text import moe_mlp, write_cache, write_cache_at
-from ..qwen25vl.vision import rms_norm
 from .config import KimiTextConfig
 
 # Query blocks of at most this many rows take the absorbed path.
@@ -93,7 +93,7 @@ def _attention(p: dict, cfg: KimiTextConfig, x, cos, sin, seq_positions, kv_mask
     q_nope = q[..., :N]
     q_pe = apply_rope(q[..., N:], cos, sin, cfg.rope_interleave)
     ckv = dense(x, p["kv_a_w"], impl)
-    latent = torch.cat([rms_norm(ckv[..., :R], p["kv_norm"], cfg.kv_norm_eps),
+    latent = torch.cat([rms_norm(ckv[..., :R], p["kv_norm"], cfg.kv_norm_eps, impl),
                         apply_rope(ckv[..., R:], cos, sin, cfg.rope_interleave)], dim=-1)
     if cache is not None:
         lay = cache["kv"][layer]  # (B, T, R + P) view
@@ -158,9 +158,9 @@ def text_forward(params: dict, cfg: KimiTextConfig, inputs_embeds: torch.Tensor,
     cos, sin = rope_cos_sin(position_ids[0], cfg, inputs_embeds.dtype)
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
-        h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
+        h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps, attn_impl)
         x = x + _attention(layer, cfg, h, cos, sin, seq_positions, attn_valid, cache, i,
                            cache_offset, attn_impl, validity_only)
-        h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
+        h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps, attn_impl)
         x = x + _mlp(layer, cfg, h, attn_impl)
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps, attn_impl), cache

@@ -35,10 +35,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import causal_attention
 from ...ops.quant import dense
+from ...ops.rms_norm import rms_norm
 from ...ops.sharded import expert_range, local
 from ...ops.rope import apply_mrope, mrope_cos_sin, mrope_cos_sin_interleaved
 from .config import TextConfig
-from .vision import rms_norm
 
 
 def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -101,8 +101,8 @@ def _attention_layer(p, cfg: TextConfig, x, cos, sin, seq_positions, kv_mask,
     k = k.reshape(B, S, -1, cfg.head_dim)
     v = v.reshape(B, S, -1, cfg.head_dim)
     if cfg.use_qk_norm:  # Qwen3: per-head RMSNorm on q and k before the rope
-        q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps)
+        q = rms_norm(q, p["q_norm"], cfg.rms_norm_eps, mm)
+        k = rms_norm(k, p["k_norm"], cfg.rms_norm_eps, mm)
     q, k = apply_mrope(q, k, cos, sin)
     if cache is not None:
         ck, cv = cache["k"][layer], cache["v"][layer]  # (B, T, Hkv, D) views
@@ -381,13 +381,15 @@ def text_forward(
     cos = cos.to(inputs_embeds.dtype)
     sin = sin.to(inputs_embeds.dtype)
 
+    impl = getattr(attn_impl, "kernels", attn_impl)  # a ring impl names the other kernels'
+
     def layer_fn(x, layer, i):
-        h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
+        h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps, impl)
         x = x + _attention_layer(layer, cfg, h, cos, sin, seq_positions, attn_valid,
                                  cache, i, cache_offset, attn_impl, validity_only,
                                  decode_attn_impl)
-        h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
-        return x + _mlp(layer, cfg, h, getattr(attn_impl, "kernels", attn_impl))
+        h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps, impl)
+        return x + _mlp(layer, cfg, h, impl)
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
@@ -400,7 +402,7 @@ def text_forward(
             flat_idx = deepstack_row_index.reshape(-1).long()
             add = tbl[flat_idx.clamp(0, tbl.shape[0] - 1)].to(x.dtype)
             x = x + torch.where((flat_idx >= 0)[:, None], add, 0).reshape(x.shape)
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps, impl), cache
 
 
 def logits_from_hidden(params: dict, hidden: torch.Tensor, impl: str = "auto") -> torch.Tensor:

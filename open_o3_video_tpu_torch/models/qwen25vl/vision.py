@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import segment_attention
 from ...ops.quant import dense
+from ...ops.rms_norm import rms_norm
 from ...ops.sharded import local
 from ...ops.rope import apply_rope_vision, vision_pos_freqs
 from ...ops.window_attention import fused_window_attention
@@ -293,12 +294,6 @@ def compute_vision_spec(grid_thw: Sequence[tuple[int, int, int]], cfg: VisionCon
     )
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    xf = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
-    return (xf * weight.float()).to(x.dtype)
-
-
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm with bias in float32, cast back (Qwen2-VL's and Qwen3-VL's
@@ -309,10 +304,10 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (xf * weight.float() + bias.float()).to(x.dtype)
 
 
-def _norm(p: dict, name: str, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
+def _norm(p: dict, name: str, x: torch.Tensor, cfg: VisionConfig, impl: str) -> torch.Tensor:
     if cfg.norm_type == "layernorm":
         return layer_norm(x, p[name], p[name + "_b"])
-    return rms_norm(x, p[name])
+    return rms_norm(x, p[name], impl=impl)
 
 
 def _segmented_attention(q, k, v, spec, impl):
@@ -336,7 +331,7 @@ def _segmented_attention(q, k, v, spec, impl):
 def _block(p: dict, x: torch.Tensor, freqs: torch.Tensor,
            seg: Union[FusedSeg, tuple, SegmentSpec], cfg: VisionConfig, impl: str):
     S = x.shape[0]
-    h = _norm(p, "norm1", x, cfg)
+    h = _norm(p, "norm1", x, cfg, impl)
     qkv = dense(h, p["qkv_w"], impl) + p["qkv_b"]
     heads = qkv.shape[-1] // (3 * cfg.head_dim)  # on a mesh, this rank's heads
     if isinstance(seg, FusedSeg):
@@ -350,7 +345,7 @@ def _block(p: dict, x: torch.Tensor, freqs: torch.Tensor,
         v = qkv[:, 2].contiguous()
         attn = _segmented_attention(q, k, v, seg, impl).reshape(S, -1)
     x = x + (dense(attn, p["proj_w"], impl) + p["proj_b"])
-    h = _norm(p, "norm2", x, cfg)
+    h = _norm(p, "norm2", x, cfg, impl)
     if cfg.act_type == "swiglu":
         gate = F.silu(dense(h, p["gate_w"], impl) + p["gate_b"])
         up = dense(h, p["up_w"], impl) + p["up_b"]
@@ -363,7 +358,8 @@ def _block(p: dict, x: torch.Tensor, freqs: torch.Tensor,
     return x + (dense(a, p["fc2_w"], impl) + p["fc2_b"])
 
 
-def _merger(m: dict, x: torch.Tensor, cfg: VisionConfig, postshuffle: bool = False) -> torch.Tensor:
+def _merger(m: dict, x: torch.Tensor, cfg: VisionConfig, impl: str,
+            postshuffle: bool = False) -> torch.Tensor:
     """Patch merger: norm -> merge-unit concat -> fc1 -> GELU -> fc2. The
     deepstack mergers (``postshuffle``) norm after the concat, over
     merge_unit * hidden."""
@@ -372,7 +368,7 @@ def _merger(m: dict, x: torch.Tensor, cfg: VisionConfig, postshuffle: bool = Fal
     if postshuffle:
         h = layer_norm(x.reshape(merged), m["ln_q"], m["ln_q_b"])
     else:
-        h = _norm(m, "ln_q", x, cfg).reshape(merged)
+        h = _norm(m, "ln_q", x, cfg, impl).reshape(merged)
     h = F.gelu(dense(h, m["fc1_w"]) + m["fc1_b"])
     return dense(h, m["fc2_w"]) + m["fc2_b"]
 
@@ -434,8 +430,8 @@ def vision_forward(params: dict, patches: torch.Tensor, spec: VisionSpec,
             x = _block(params["blocks"][i], x, freqs, seg, cfg, impl)
         if i in cfg.deepstack_visual_indexes:
             j = cfg.deepstack_visual_indexes.index(i)
-            taps.append(_merger(params["deepstack"][j], x, cfg, postshuffle=True))
-    h = _merger(params["merger"], x, cfg)
+            taps.append(_merger(params["deepstack"][j], x, cfg, impl, postshuffle=True))
+    h = _merger(params["merger"], x, cfg, impl)
     if out_index is not None:
         h, taps = h[out_index], [tap[out_index] for tap in taps]
     if cfg.deepstack_visual_indexes:

@@ -43,6 +43,7 @@ import re
 import torch
 
 from . import kernels
+from .kernels import sm_count
 
 # The one group size K7 is built for (the JAX package's default, and the
 # only one its quantizers use for the 7B and 72B models).
@@ -177,11 +178,6 @@ def decode_plan(M: int, K: int, N: int, sms: int,
         if tiles * splits >= target:
             break
     return block_n, splits
-
-
-@functools.cache
-def sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 _COUNTERS: dict = {}

@@ -9,8 +9,8 @@ so an edited source rebuilds and an unchanged one is reused.
 
 ``LAUNCHES`` counts, per kernel entry point (the inference and the exact
 training modes of K1-K3 under their own names, K5 and K6 per kernel, K7's
-decode and prefill routes, its two K7a probes, and the latent attention's
-decode and prefill), the launches made by its
+decode and prefill routes, its two K7a probes, the latent attention's
+decode and prefill, and RMSNorm), the launches made by its
 wrapper; callers reset it with :func:`reset_launches`
 to show which kernels a run went through.
 """
@@ -69,6 +69,7 @@ _SIGNATURES = {
     "o3v_int4_matmul_convert": (_P,) * 5 + (_I,) * 4 + (_P,),
     "o3v_mla_decode": (_P, _P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "o3v_mla_prefill": (_P,) * 8 + (_I,) * 4 + (_LL,) * 14 + (_F, _P),
+    "o3v_rms_norm": (_P, _P, _P, _LL, _I, _LL, _I, _F, _I, _I, _I, _P),
 }
 
 
@@ -155,6 +156,12 @@ def use_kernel(x: torch.Tensor, impl: str) -> bool:
     if impl != "auto":
         raise ValueError(f"impl must be 'auto' or 'torch', got {impl!r}")
     return x.is_cuda
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """The card's streaming multiprocessors (the kernels' launch plans)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

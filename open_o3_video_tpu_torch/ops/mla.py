@@ -37,8 +37,6 @@ no visible key returns 0.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import kernels
@@ -93,11 +91,6 @@ def split_plan(batch: int, rows: int, T: int, sms: int) -> int:
     return max(1, min(sms // ctas, T // MIN_SPLIT_KEYS))
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(name, x, dtype, ndim, last):
     if x.dtype != dtype or x.dim() != ndim or x.shape[-1] != last or x.stride(-1) != 1:
         raise ValueError(f"{name}: want {dtype} of {ndim} dims, last {last} contiguous; got "
@@ -130,7 +123,7 @@ def mla_decode(q_lat, q_pe, cache, q_pos, kv_valid, scale: float, impl: str = "a
                          "and kv_valid (B, T) bool")
     q_pos, valid = q_pos.contiguous(), kv_valid.contiguous()
     rows = S * H
-    n_split = split_plan(B, rows, T, _sm_count(q_lat.device.index or 0))
+    n_split = split_plan(B, rows, T, kernels.sm_count(q_lat.device.index or 0))
     part = torch.empty((B, n_split, rows, R), dtype=torch.float32, device=q_lat.device)
     lse = torch.empty((B, n_split, rows), dtype=torch.float32, device=q_lat.device)
     out = torch.empty_like(q_lat)

@@ -33,7 +33,7 @@ import torch.distributed as dist
 
 from ..models.qwen25vl.config import TextConfig
 from ..models.qwen25vl.text import _attention_layer, _mlp
-from ..models.qwen25vl.vision import rms_norm
+from ..ops.rms_norm import rms_norm
 from ..ops.rope import mrope_cos_sin, mrope_cos_sin_interleaved
 from .mesh import Mesh
 
